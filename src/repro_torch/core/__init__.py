@@ -1,0 +1,51 @@
+"""SimFaaS core in PyTorch: the Scenario front door on the f32 block engine.
+
+>>> from repro_torch.core import Scenario, ExpSimProcess, run, sweep
+>>> scn = Scenario(arrival_process=ExpSimProcess(rate=0.9), ...)
+>>> res = run(scn, seed=0, replicas=8)                # on the GPU
+>>> grid = sweep(scn, over={"expiration_threshold": [...],
+...                         "arrival_rate": [...]}, seed=0)
+>>> grid = sweep(scn, over=..., seed=0, device="cpu")  # plain version
+"""
+
+from repro_torch.core.cost import BillingModel, CostEstimate, estimate_cost
+from repro_torch.core.execution import (
+    Execution,
+    plan_of,
+    register_backend,
+    resolve_backend,
+)
+from repro_torch.core.processes import (
+    DeterministicSimProcess,
+    ExpSimProcess,
+    GaussianSimProcess,
+    LogNormalSimProcess,
+    ParetoSimProcess,
+    SimProcess,
+    WeibullSimProcess,
+)
+from repro_torch.core.scenario import GridResult, Result, Scenario, run, sweep
+from repro_torch.core.simulator import SimulationSummary
+
+__all__ = [
+    "BillingModel",
+    "CostEstimate",
+    "estimate_cost",
+    "Execution",
+    "plan_of",
+    "register_backend",
+    "resolve_backend",
+    "SimProcess",
+    "ExpSimProcess",
+    "DeterministicSimProcess",
+    "GaussianSimProcess",
+    "WeibullSimProcess",
+    "LogNormalSimProcess",
+    "ParetoSimProcess",
+    "Scenario",
+    "Result",
+    "GridResult",
+    "SimulationSummary",
+    "run",
+    "sweep",
+]

@@ -1,0 +1,696 @@
+"""The Scenario front door of the PyTorch port: :func:`run` and :func:`sweep`
+on the f32 block engine.
+
+* :class:`Scenario` — one frozen description of a simulation: the arrival
+  and service processes, platform limits, horizon/warm-up and billing,
+  with the reference's fields and validation.
+* :func:`run` — one scenario, ``replicas`` rows, one kernel launch;
+  returns a :class:`Result` (summary plus cost).
+* :func:`sweep` — a product grid over scenario fields returning a
+  :class:`GridResult` with named axes.  Axes partition as in the
+  reference: **static** fields (``slots``, ``max_concurrency``, …) give
+  one launch each; **draw** fields (``expiration_threshold``,
+  ``arrival_rate``, the processes) give each cell its own sample draws;
+  **param** fields (``sim_time``, ``skip_time``) share the draw cells'
+  buffers.  Every non-static axis is flattened onto the row axis in the
+  order ``(draw, param, replica)``, so a threshold × rate × horizon grid is
+  ONE launch of the kernel (``LAUNCH_COUNTS`` pins it).
+
+Samples are staged on the device as f32 ``[C, K]`` buffers from per-draw-
+cell generators (``SeedSequence(seed).spawn(D)``) and never copied to the
+host: the coverage guard sums them on the device in f64, and only the
+``[C, 8]`` accumulator comes back.  ``staged=`` (see :mod:`repro_torch.
+interop`) replaces the draws with the reference's own buffers.
+
+Not ported yet, each raising ``NotImplementedError`` that names its
+ROADMAP item: reliability, faults and metric windows (Queue A item 4),
+histograms, non-newest routing and sweeps over the f64 engine's knobs
+``scan_unroll``/``hist_bins`` (the f64 engine, Queue A item 2) and
+rate profiles / timestamp processes (Queue A item 3).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import warnings
+from typing import Any, Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.cost import BillingModel, CostEstimate, estimate_cost
+from repro_torch.core.execution import Execution, plan_of
+from repro_torch.core.processes import UNPORTED, ExpSimProcess, SimProcess, unported
+from repro_torch.core.simulator import (
+    SimulationSummary,
+    cell_generators,
+    draw_workload_samples,
+)
+from repro_torch.kernels.ref import ACC_COLS, NEG
+
+
+def _later(what: str, item: str):
+    raise NotImplementedError(
+        f"{what} is not ported to repro_torch yet; see ROADMAP.md {item}"
+    )
+
+
+def _rated(process: SimProcess, rate: float) -> SimProcess:
+    """Re-rate an arrival process; fall back to exponential when the
+    family has no rate handle (the reference's behaviour)."""
+    try:
+        return process.with_rate(float(rate))
+    except NotImplementedError:
+        return ExpSimProcess(rate=float(rate))
+
+
+@dataclasses.dataclass(frozen=True)
+class Scenario:
+    """One declarative description of a serverless simulation experiment
+    (the reference's fields; see the module docstring for what this slice
+    runs)."""
+
+    arrival_process: Optional[SimProcess] = None
+    warm_service_process: Optional[SimProcess] = None
+    cold_service_process: Optional[SimProcess] = None
+    expiration_threshold: float = 600.0
+    max_concurrency: int = 1000
+    sim_time: float = 1e5
+    skip_time: float = 100.0  # warm-up transient excluded from metrics
+    slots: int = 64  # instance-pool array size (>= peak live instances)
+    routing: str = "newest"
+    scan_unroll: int = 1  # the f64 engine's unroll knob (semantics-free)
+    track_histogram: bool = False
+    hist_bins: int = 65
+    window_bounds: Optional[tuple] = None
+    rate_profile: Optional[Any] = None
+    arrival_rate: Optional[float] = None
+    concurrency_value: int = 1
+    billing: BillingModel = BillingModel()
+    reliability: Optional[Any] = None
+    faults: Optional[Any] = None
+
+    def __post_init__(self):
+        if self.slots < 1:
+            raise ValueError("slots must be >= 1")
+        if not self.sim_time > 0:
+            raise ValueError(f"sim_time must be > 0, got {self.sim_time}")
+        if self.skip_time < 0:
+            raise ValueError(f"skip_time must be >= 0, got {self.skip_time}")
+        if self.skip_time >= self.sim_time:
+            raise ValueError("skip_time must be < sim_time")
+        if not self.expiration_threshold > 0:
+            raise ValueError(
+                f"expiration_threshold must be > 0, got {self.expiration_threshold}"
+            )
+        if self.max_concurrency < 1:
+            raise ValueError("max_concurrency must be >= 1")
+        if self.hist_bins < 1:
+            raise ValueError("hist_bins must be >= 1")
+        if self.scan_unroll < 1:
+            raise ValueError("scan_unroll must be >= 1")
+        if self.arrival_rate is not None and not self.arrival_rate > 0:
+            raise ValueError(f"arrival_rate must be > 0, got {self.arrival_rate}")
+        if self.concurrency_value < 1:
+            raise ValueError("concurrency_value must be >= 1")
+        if self.reliability is not None:
+            _later("Scenario.reliability", "Queue A item 4 (reliability)")
+        if self.faults is not None:
+            _later("Scenario.faults", "Queue A item 4 (platform faults)")
+        if self.window_bounds is not None:
+            _later("Scenario.window_bounds", "Queue A item 4 (metric windows)")
+        if self.track_histogram:
+            _later("track_histogram=True", "Queue A item 2 (the f64 engine)")
+        if self.routing != "newest":
+            _later(f"routing={self.routing!r}", "Queue A item 2 (the f64 engine)")
+        if self.rate_profile is not None:
+            _later("Scenario.rate_profile", "Queue A item 3 (RateProfile and NHPP)")
+        if self.warm_service_process is None or self.cold_service_process is None:
+            raise ValueError(
+                "Scenario needs warm_service_process and cold_service_process"
+            )
+        if self.arrival_process is None:
+            raise ValueError("Scenario needs an arrival_process")
+        for name in ("arrival_process", "warm_service_process", "cold_service_process"):
+            p = getattr(self, name)
+            if not isinstance(p, SimProcess):
+                if type(p).__name__ in UNPORTED:
+                    unported(type(p).__name__)
+                raise TypeError(
+                    f"{name} must be a repro_torch SimProcess, got "
+                    f"{type(p).__name__} (convert a reference scenario with "
+                    "repro_torch.interop.scenario_from_reference)"
+                )
+        if self.arrival_rate is not None:
+            # fold the rate into the process and clear the field, as the
+            # reference does, so a later replace() cannot re-rate it back
+            object.__setattr__(
+                self, "arrival_process", _rated(self.arrival_process, self.arrival_rate)
+            )
+            object.__setattr__(self, "arrival_rate", None)
+
+    @classmethod
+    def of(cls, config, **changes) -> "Scenario":
+        """A plain Scenario copied from ``config``, with overrides applied."""
+        kw = {f.name: getattr(config, f.name) for f in dataclasses.fields(cls)}
+        kw.update(changes)
+        return Scenario(**kw)
+
+    @property
+    def prestamped(self) -> bool:
+        """True when the arrival process yields absolute timestamps (none
+        of the families this slice ports do)."""
+        return False
+
+    def steps_needed(self) -> int:
+        """Upper bound on arrivals within ``sim_time`` (mean + 6 sigma)."""
+        n = self.sim_time / self.arrival_process.mean()
+        return int(n + 6.0 * np.sqrt(max(n, 1.0)) + 16)
+
+
+@dataclasses.dataclass
+class Result:
+    """One scenario's outcome: the summary plus its cost estimate."""
+
+    scenario: Scenario
+    summary: SimulationSummary
+    cost: CostEstimate
+
+    @property
+    def cold_start_prob(self) -> float:
+        return self.summary.cold_start_prob
+
+    @property
+    def rejection_prob(self) -> float:
+        return self.summary.rejection_prob
+
+    @property
+    def avg_server_count(self) -> float:
+        return self.summary.avg_server_count
+
+    @property
+    def avg_running_count(self) -> float:
+        return self.summary.avg_running_count
+
+    @property
+    def avg_response_time(self) -> float:
+        return self.summary.avg_response_time
+
+    @property
+    def avg_wasted_ratio(self) -> float:
+        return self.summary.avg_wasted_ratio
+
+    def to_dict(self) -> dict:
+        return {
+            **self.summary.to_dict(),
+            "developer_cost": self.cost.developer_total,
+            "provider_cost": self.cost.provider_infra_cost,
+        }
+
+
+# ---------------------------------------------------------------------------
+# the shared block launch
+# ---------------------------------------------------------------------------
+
+
+def _check_staged(staged, rows: int, device) -> tuple:
+    if len(staged) != 3:
+        raise ValueError("staged must be the (dts, warms, colds) triple")
+    out = tuple(
+        torch.as_tensor(x, dtype=torch.float32).to(device).contiguous() for x in staged
+    )
+    shape = tuple(out[0].shape)
+    if len(shape) != 2 or shape[0] != rows or any(tuple(x.shape) != shape for x in out):
+        raise ValueError(
+            f"staged buffers must all be [{rows}, K] (rows in draw-cell, "
+            f"replica order); got {[tuple(x.shape) for x in out]}"
+        )
+    return out
+
+
+def _covered(dts, sim_rows, device) -> None:
+    """Coverage guard on the real draws, summed on the device in f64:
+    every row's arrivals must reach its horizon."""
+    covered = dts.sum(1, dtype=torch.float64)
+    need = torch.as_tensor(np.asarray(sim_rows, np.float64), device=device)
+    if bool((covered < need).any()):
+        raise RuntimeError(
+            "pre-drawn arrivals ended before sim_time "
+            f"(min final t {covered.min().item():.1f}); pass a larger `steps`"
+        )
+
+
+def _block_launch(scn, t_exp, t_end, skip, dts, warms, colds, bspec, device):
+    """Fresh pools, per-row f32 parameters and the staged buffers into the
+    backend's row launcher; returns the f64 ``[C, 8]`` accumulator on the
+    host after the overflow guard."""
+    C = dts.shape[0]
+    rows = lambda x: torch.tensor(
+        np.broadcast_to(np.asarray(x, np.float64), (C,)),
+        dtype=torch.float32,
+        device=device,
+    )
+    M = scn.slots
+    alive0 = torch.zeros((C, M), dtype=torch.float32, device=device)
+    frozen = torch.full((C, M), NEG, dtype=torch.float32, device=device)
+    t0 = torch.zeros((C,), dtype=torch.float32, device=device)
+    acc = bspec.launch(
+        alive0, frozen, frozen, t0, rows(t_exp), rows(t_end), rows(skip),
+        dts, warms, colds,
+        max_concurrency=scn.max_concurrency, prestamped=scn.prestamped,
+    )
+    acc = acc.double().cpu().numpy()
+    if acc[:, 7].sum() > 0:
+        raise RuntimeError("instance-pool overflow during sweep; raise Scenario.slots")
+    return acc
+
+
+def _summary(acc, measured_time: float) -> SimulationSummary:
+    zeros = np.zeros((acc.shape[0],))
+    return SimulationSummary(
+        n_cold=acc[:, 0],
+        n_warm=acc[:, 1],
+        n_reject=acc[:, 2],
+        time_running=acc[:, 3],
+        time_idle=acc[:, 4],
+        sum_cold_resp=acc[:, 5],
+        sum_warm_resp=acc[:, 6],
+        lifespan_sum=zeros,
+        lifespan_count=zeros,
+        measured_time=measured_time,
+        overflow=acc[:, 7],
+    )
+
+
+# ---------------------------------------------------------------------------
+# run(): one scenario, one launch
+# ---------------------------------------------------------------------------
+
+
+def run(
+    scenario: Scenario,
+    seed: int,
+    *,
+    replicas: int = 8,
+    backend: Optional[str] = None,
+    device=None,
+    execution: Optional[Execution] = None,
+    steps: Optional[int] = None,
+    staged=None,
+) -> Result:
+    """Run one scenario on the f32 block engine: ``replicas`` rows, one
+    launch of the backend (default: the CUDA kernel on the card).
+
+    ``seed`` seeds the draw cell's generators; ``staged`` (a
+    ``(dts, warms, colds)`` triple of ``[replicas, K]`` buffers) replaces
+    the draws, and ``steps`` sets K when drawing.
+    """
+    bspec, dev = plan_of(execution, backend, device).resolve()
+    scn = Scenario.of(scenario)
+    if staged is not None:
+        dts, warms, colds = _check_staged(staged, replicas, dev)
+    else:
+        n = int(steps or scn.steps_needed())
+        dts, warms, colds = draw_workload_samples(
+            scn, cell_generators(seed, 1, dev)[0], replicas, n, dev
+        )
+    _covered(dts, [scn.sim_time] * replicas, dev)
+    acc = _block_launch(
+        scn, scn.expiration_threshold, scn.sim_time, scn.skip_time,
+        dts, warms, colds, bspec, dev,
+    )
+    summary = _summary(acc, scn.sim_time - scn.skip_time)
+    return Result(
+        scenario=scn, summary=summary, cost=estimate_cost(summary, scn.billing)
+    )
+
+
+# ---------------------------------------------------------------------------
+# sweep(): product grids with static/draw/param partitioning
+# ---------------------------------------------------------------------------
+
+# fields that change the launched program: one launch per combination
+_STATIC_FIELDS = (
+    "slots",
+    "max_concurrency",
+    "routing",
+    "track_histogram",
+)
+# fields that change the per-cell sample draws (one draw cell each);
+# expiration_threshold stays a draw field, as in the reference, so cells
+# map one to one onto the reference's chained draws
+_DRAW_FIELDS = (
+    "expiration_threshold",
+    "arrival_rate",
+    "arrival_process",
+    "warm_service_process",
+    "cold_service_process",
+)
+# pure per-row values: cells along these axes share the draw cells' buffers
+_PARAM_FIELDS = ("sim_time", "skip_time")
+
+# the reference's other sweep axes, and the ROADMAP item that brings each
+_LATER_AXES = {
+    "window_bounds": "Queue A item 4 (metric windows)",
+    "profile": "Queue A item 3 (RateProfile and NHPP)",
+    "backoff_base": "Queue A item 4 (reliability)",
+    "backoff_mult": "Queue A item 4 (reliability)",
+    "backoff_jitter": "Queue A item 4 (reliability)",
+    "t_timeout": "Queue A item 4 (reliability)",
+    "p_fail": "Queue A item 4 (reliability)",
+    "crash_rate": "Queue A item 4 (platform faults)",
+    "capacity": "Queue A item 4 (platform faults)",
+    # knobs of the f64 engine only: the block kernel computes the same
+    # thing for every value, so a sweep over them would repeat one launch
+    "scan_unroll": "Queue A item 2 (the f64 engine)",
+    "hist_bins": "Queue A item 2 (the f64 engine)",
+}
+
+
+@dataclasses.dataclass
+class GridResult:
+    """Named-axis product-grid results (one entry per ``over`` axis).
+
+    Every metric array has shape ``tuple(len(v) for v in axes.values())``
+    in the ``over`` insertion order; ``summaries`` is an object array of
+    per-cell :class:`SimulationSummary` (replicas pooled inside each
+    cell); ``ok`` masks cells whose metrics are all finite.
+    """
+
+    axes: dict
+    replicas: int
+    backend: str
+    summaries: np.ndarray
+    cold_start_prob: np.ndarray
+    rejection_prob: np.ndarray
+    avg_server_count: np.ndarray
+    avg_running_count: np.ndarray
+    avg_idle_count: np.ndarray
+    wasted_ratio: np.ndarray
+    avg_response_time: np.ndarray
+    developer_cost: np.ndarray
+    provider_cost: np.ndarray
+    goodput: Optional[np.ndarray] = None
+    availability: Optional[np.ndarray] = None
+    ok: Optional[np.ndarray] = None
+    execution: Optional[Execution] = None
+
+    _METRIC_FIELDS = (
+        "cold_start_prob",
+        "rejection_prob",
+        "avg_server_count",
+        "avg_running_count",
+        "avg_idle_count",
+        "wasted_ratio",
+        "avg_response_time",
+        "developer_cost",
+        "provider_cost",
+        "goodput",
+        "availability",
+        "ok",
+    )
+
+    @property
+    def shape(self) -> tuple:
+        return tuple(len(v) for v in self.axes.values())
+
+    def axis(self, name: str) -> tuple:
+        if name not in self.axes:
+            raise KeyError(f"unknown axis {name!r}; axes: {list(self.axes)}")
+        return self.axes[name]
+
+    def _index_of(self, name: str, value) -> int:
+        vals = list(self.axis(name))
+        try:
+            return vals.index(value)
+        except ValueError:
+            raise KeyError(
+                f"{value!r} is not on axis {name!r}; values: {vals}"
+            ) from None
+
+    def cell(self, **coords):
+        """The per-cell summary at axis *values* (e.g. ``sim_time=500.0``)."""
+        for name in self.axes:
+            if name not in coords:
+                raise KeyError(f"missing coordinate {name!r}")
+        idx = tuple(self._index_of(n, coords[n]) for n in self.axes)
+        return self.summaries[idx]
+
+    def sel(self, **coords) -> "GridResult":
+        """Pin axes by value and drop them from the result; selecting every
+        axis leaves scalar metrics (and the bare per-cell summary)."""
+        picked = {n: self._index_of(n, v) for n, v in coords.items()}
+        indexer = tuple(picked.get(n, slice(None)) for n in self.axes)
+
+        def take(a):
+            return None if a is None else np.asarray(a)[indexer]
+
+        return dataclasses.replace(
+            self,
+            axes={n: v for n, v in self.axes.items() if n not in picked},
+            summaries=self.summaries[indexer],
+            **{f: take(getattr(self, f)) for f in self._METRIC_FIELDS},
+        )
+
+    def to_dict(self) -> dict:
+        """JSON-able export: axes (non-scalar values stringified), every
+        metric grid including ``ok``, and the resolved device."""
+        jsonable = lambda x: x if isinstance(x, (int, float, str, bool)) else repr(x)
+        out = {
+            "axes": {n: [jsonable(x) for x in v] for n, v in self.axes.items()},
+            "replicas": self.replicas,
+            "backend": self.backend,
+        }
+        if self.execution is not None:
+            out["device"] = str(self.execution.device)
+        for f in self._METRIC_FIELDS:
+            a = getattr(self, f)
+            if a is not None:
+                out[f] = np.asarray(a).tolist()
+        return out
+
+
+def _apply_axis(scn: Scenario, name: str, value) -> Scenario:
+    """One scenario-field override, with the workload conveniences."""
+    if name == "arrival_process":
+        if not isinstance(value, SimProcess):
+            raise TypeError(f"expected SimProcess, got {type(value).__name__}")
+        return Scenario.of(scn, arrival_process=value, arrival_rate=None)
+    if name == "arrival_rate":
+        return Scenario.of(scn, arrival_rate=float(value))
+    return Scenario.of(scn, **{name: value})
+
+
+@dataclasses.dataclass
+class SweepInputs:
+    """What :func:`sweep` launches for one grid: the per-row parameters
+    (host f64, rows in ``(draw, param, replica)`` order) and the staged f32
+    ``[C, K]`` buffers on the device."""
+
+    names: list
+    vals: dict
+    thr_rows: np.ndarray
+    sim_rows: np.ndarray
+    skip_rows: np.ndarray
+    samples: tuple
+
+
+def sweep_inputs(
+    base: Scenario,
+    over: Mapping[str, Sequence],
+    seed: int,
+    *,
+    replicas: int,
+    device,
+    steps: Optional[int] = None,
+    staged=None,
+) -> SweepInputs:
+    """Partition the axes, build the per-row parameters and stage the
+    samples — everything :func:`sweep` does before its launches."""
+    names = list(over.keys())
+    if not names:
+        raise ValueError("over must name at least one axis to sweep")
+    vals = {}
+    for n in names:
+        if n in _LATER_AXES:
+            _later(f"sweeping {n!r}", _LATER_AXES[n])
+        if n not in _STATIC_FIELDS + _DRAW_FIELDS + _PARAM_FIELDS:
+            raise ValueError(
+                f"unknown sweep axis {n!r}; sweepable fields: "
+                f"{_STATIC_FIELDS + _DRAW_FIELDS + _PARAM_FIELDS}"
+            )
+        vals[n] = tuple(over[n])
+        if not vals[n]:
+            raise ValueError(f"sweep axis {n!r} is empty")
+    draw_names = [n for n in names if n in _DRAW_FIELDS]
+    param_names = [n for n in names if n in _PARAM_FIELDS]
+
+    draw_cfgs = []
+    for combo in itertools.product(*[vals[n] for n in draw_names]):
+        c = base
+        for n, v in zip(draw_names, combo):
+            c = _apply_axis(c, n, v)
+        draw_cfgs.append(c)
+
+    sim_vals = vals.get("sim_time", (base.sim_time,))
+    skip_vals = vals.get("skip_time", (base.skip_time,))
+    if max(skip_vals) >= min(sim_vals):
+        raise ValueError("every skip_time must be < every sim_time on the grid")
+    max_sim = float(max(sim_vals))
+
+    R = int(replicas)
+    D = len(draw_cfgs)
+    if staged is not None:
+        dts, warms, colds = _check_staged(staged, D * R, device)
+    else:
+        n_steps = (
+            int(steps)
+            if steps is not None
+            else max(Scenario.of(c, sim_time=max_sim).steps_needed() for c in draw_cfgs)
+        )
+        dts, warms, colds = (
+            torch.empty((D * R, n_steps), dtype=torch.float32, device=device)
+            for _ in range(3)
+        )
+        for d, (c, gens) in enumerate(zip(draw_cfgs, cell_generators(seed, D, device))):
+            part = slice(d * R, (d + 1) * R)
+            draw_workload_samples(
+                c, gens, R, n_steps, device,
+                out=(dts[part], warms[part], colds[part]),
+            )
+
+    param_combos = list(itertools.product(*[vals[n] for n in param_names]))
+    Wn = len(param_combos)
+
+    def _param_col(name, default):
+        if name in param_names:
+            i = param_names.index(name)
+            col = np.asarray([pc[i] for pc in param_combos], np.float64)
+        else:
+            col = np.full((Wn,), default, np.float64)
+        return np.tile(np.repeat(col, R), D)  # [C]
+
+    def _expand(x):
+        # param cells share their draw cell's buffers: [D*R, K] -> [D*Wn*R, K]
+        if Wn == 1:
+            return x
+        k = x.shape[1]
+        return x.reshape(D, 1, R, k).expand(D, Wn, R, k).reshape(D * Wn * R, k)
+
+    return SweepInputs(
+        names=names,
+        vals=vals,
+        thr_rows=np.repeat(
+            np.asarray([c.expiration_threshold for c in draw_cfgs], np.float64),
+            Wn * R,
+        ),
+        sim_rows=_param_col("sim_time", base.sim_time),
+        skip_rows=_param_col("skip_time", base.skip_time),
+        samples=tuple(_expand(x) for x in (dts, warms, colds)),
+    )
+
+
+def sweep(
+    scenario: Scenario,
+    over: Mapping[str, Sequence],
+    seed: int,
+    *,
+    replicas: int = 4,
+    backend: Optional[str] = None,
+    device=None,
+    execution: Optional[Execution] = None,
+    steps: Optional[int] = None,
+    staged=None,
+) -> GridResult:
+    """Product-grid what-if sweep over scenario fields (module docstring
+    has the partitioning rules): one launch per static combination.
+
+    ``seed`` seeds the per-draw-cell generators; ``staged`` (a
+    ``(dts, warms, colds)`` triple of ``[D*replicas, K]`` buffers, draw
+    cells in ``over``'s product order) replaces the draws.
+    """
+    plan = plan_of(execution, backend, device)
+    bspec, dev = plan.resolve()
+    plan = dataclasses.replace(plan, backend=bspec.name, device=str(dev))
+    base = Scenario.of(scenario)
+    inp = sweep_inputs(
+        base, over, seed, replicas=replicas, device=dev, steps=steps, staged=staged
+    )
+    names, vals, R = inp.names, inp.vals, int(replicas)
+    static_names = [n for n in names if n in _STATIC_FIELDS]
+    draw_names = [n for n in names if n in _DRAW_FIELDS]
+    param_names = [n for n in names if n in _PARAM_FIELDS]
+    dts, warms, colds = inp.samples
+    _covered(dts, inp.sim_rows, dev)
+
+    all_summaries: list = []
+    for combo in itertools.product(*[vals[n] for n in static_names]):
+        scn_s = base
+        for n, v in zip(static_names, combo):
+            scn_s = _apply_axis(scn_s, n, v)
+        acc = _block_launch(
+            scn_s, inp.thr_rows, inp.sim_rows, inp.skip_rows,
+            dts, warms, colds, bspec, dev,
+        )
+        cells = acc.reshape(len(inp.thr_rows) // R, R, ACC_COLS)
+        for c in range(cells.shape[0]):
+            row = c * R
+            all_summaries.append(
+                _summary(cells[c], float(inp.sim_rows[row] - inp.skip_rows[row]))
+            )
+
+    # ---- named-axis grid (internal order: static, draw, param)
+    internal_names = static_names + draw_names + param_names
+    internal_dims = tuple(len(vals[n]) for n in internal_names)
+    perm = [internal_names.index(n) for n in names]
+    _grid = lambda values: np.transpose(np.asarray(values).reshape(internal_dims), perm)
+
+    costs = [estimate_cost(s, base.billing) for s in all_summaries]
+    metric = lambda f: _grid(np.asarray([f(s) for s in all_summaries], np.float64))
+    summaries_grid = np.empty((len(all_summaries),), dtype=object)
+    summaries_grid[:] = all_summaries
+    metrics = dict(
+        cold_start_prob=metric(lambda s: s.cold_start_prob),
+        rejection_prob=metric(lambda s: s.rejection_prob),
+        avg_server_count=metric(lambda s: s.avg_server_count),
+        avg_running_count=metric(lambda s: s.avg_running_count),
+        avg_idle_count=metric(lambda s: s.avg_idle_count),
+        wasted_ratio=metric(lambda s: s.avg_wasted_ratio),
+        avg_response_time=metric(lambda s: s.avg_response_time),
+        developer_cost=_grid(np.asarray([c.developer_total for c in costs])),
+        provider_cost=_grid(np.asarray([c.provider_infra_cost for c in costs])),
+        goodput=metric(lambda s: s.goodput),
+        availability=metric(lambda s: s.availability),
+    )
+    ok = np.ones(metrics["cold_start_prob"].shape, bool)
+    for m in metrics.values():
+        ok &= np.isfinite(m)
+    if not ok.all():
+        _warn_nonfinite(vals, ok)
+    return GridResult(
+        axes={n: vals[n] for n in names},
+        replicas=R,
+        backend=bspec.name,
+        execution=plan,
+        summaries=_grid(summaries_grid),
+        **metrics,
+        ok=ok,
+    )
+
+
+def _warn_nonfinite(axes: dict, ok: np.ndarray) -> None:
+    """Name the grid cells whose metrics came back non-finite."""
+    bad = np.argwhere(~ok)
+    names = list(axes)
+    cells = [
+        "(" + ", ".join(f"{n}={axes[n][i]!r}" for n, i in zip(names, idx)) + ")"
+        for idx in bad[:8]
+    ]
+    more = "" if len(bad) <= 8 else f" (+{len(bad) - 8} more)"
+    warnings.warn(
+        f"sweep produced non-finite metrics in {len(bad)} cell(s): "
+        + ", ".join(cells) + more + "; see GridResult.ok",
+        RuntimeWarning,
+        stacklevel=3,
+    )

@@ -1,0 +1,145 @@
+"""The port's f32 block engine against the reference: the plain PyTorch
+``faas_sweep_ref`` vs the JAX mirror ``kernels.ref.faas_sweep_ref``, the
+Pallas kernel in interpret mode and the event-driven ``simulate_pyref``
+oracle; the kernel wrapper's CPU rule, refusals and launch count.  The
+CUDA kernel itself is held against the plain version in
+``test_torch_cuda.py``."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.pyref import simulate_pyref
+from repro.kernels import ref as jref
+from repro.kernels.faas_event_step import faas_sweep_pallas
+from repro_torch.kernels import faas_event_step as fes
+from repro_torch.kernels.ref import faas_sweep_ref
+
+# acc columns that are per-row sequential sums of identically computed
+# values: equal bit for bit across frameworks
+EXACT_COLS = [0, 1, 2, 5, 6, 7]
+# columns 3-4 sum each event's run/idle time over the M slots; torch and
+# XLA associate that sum differently, so each event's sum may differ in its
+# last place and the difference accumulates over K <= 256 f32 additions
+INTEGRAL_RTOL = 1e-5
+
+CASES = [
+    (10.0, 100, False),
+    (3.0, 4, False),  # max_concurrency forces rejections
+    (50.0, 2, False),
+    (30.0, 100, True),  # absolute timestamps with an inert 1e30 tail
+]
+
+
+def _inputs(seed, R=16, M=16, K=256, t_exp=10.0, prestamped=False, rate=0.6):
+    rng = np.random.default_rng(seed)
+    dts = rng.exponential(1 / rate, (R, K))
+    horizon = K / rate
+    if prestamped:
+        dts = np.cumsum(dts, axis=1)
+        dts[:, -K // 8:] = 1e30
+    f32 = lambda x: np.asarray(x, np.float32)
+    return dict(
+        state=(
+            np.zeros((R, M), np.float32),
+            np.full((R, M), -1e30, np.float32),
+            np.full((R, M), -1e30, np.float32),
+            np.zeros((R,), np.float32),
+        ),
+        t_exp=f32(t_exp * rng.uniform(0.5, 1.5, R)),
+        samples=(
+            f32(dts),
+            f32(rng.exponential(2.0, (R, K))),
+            f32(rng.exponential(2.5, (R, K))),
+        ),
+        t_end=f32(horizon * rng.uniform(0.5, 0.9, R)),
+        skip=f32(horizon * rng.uniform(0.0, 0.1, R)),
+    )
+
+
+def _port(inp, max_c, prestamped, fn=faas_sweep_ref):
+    t = lambda x: torch.from_numpy(np.array(x))
+    out = fn(
+        *map(t, inp["state"]), t(inp["t_exp"]), *map(t, inp["samples"]),
+        t_end=t(inp["t_end"]), skip=t(inp["skip"]),
+        max_concurrency=max_c, prestamped=prestamped,
+    )
+    return [o.numpy() for o in out]
+
+
+def _assert_matches(port, ref):
+    for a, b in zip(port[:4], ref[:4]):  # final pool state and clock
+        np.testing.assert_array_equal(a, np.asarray(b))
+    acc_p, acc_r = port[4], np.asarray(ref[4])
+    np.testing.assert_array_equal(acc_p[:, EXACT_COLS], acc_r[:, EXACT_COLS])
+    np.testing.assert_allclose(acc_p[:, 3:5], acc_r[:, 3:5], rtol=INTEGRAL_RTOL)
+
+
+@pytest.mark.parametrize("t_exp,max_c,prestamped", CASES)
+def test_plain_matches_jax_mirror(t_exp, max_c, prestamped):
+    inp = _inputs(1, t_exp=t_exp, prestamped=prestamped)
+    port = _port(inp, max_c, prestamped)
+    ref = jref.faas_sweep_ref(
+        *map(jnp.asarray, inp["state"]), jnp.asarray(inp["t_exp"]),
+        *map(jnp.asarray, inp["samples"]),
+        t_end=jnp.asarray(inp["t_end"]), skip=jnp.asarray(inp["skip"]),
+        max_concurrency=max_c, prestamped=prestamped,
+    )
+    _assert_matches(port, ref)
+    if max_c <= 4:
+        assert port[4][:, 2].sum() > 0  # the case does exercise rejections
+
+
+@pytest.mark.parametrize("t_exp,max_c,prestamped", [CASES[1], CASES[3]])
+def test_plain_matches_pallas_interpret(t_exp, max_c, prestamped):
+    inp = _inputs(2, t_exp=t_exp, prestamped=prestamped)
+    port = _port(inp, max_c, prestamped)
+    ref = faas_sweep_pallas(
+        *map(jnp.asarray, inp["state"]), jnp.asarray(inp["t_exp"]),
+        *map(jnp.asarray, inp["samples"]),
+        t_end=jnp.asarray(inp["t_end"]), skip=jnp.asarray(inp["skip"]),
+        max_concurrency=max_c, prestamped=prestamped,
+        block_r=8, block_k=128, interpret=True,
+    )
+    _assert_matches(port, ref)
+
+
+def test_counters_match_event_driven_oracle():
+    inp = _inputs(7, t_exp=10.0)
+    inp["t_end"] = np.full_like(inp["t_end"], np.inf)
+    inp["skip"] = np.zeros_like(inp["skip"])
+    _, _, _, t_final, acc = _port(inp, 100, False)
+    dts, warms, colds = inp["samples"]
+    for r in range(dts.shape[0]):
+        ref = simulate_pyref(
+            dts[r], warms[r], colds[r], float(inp["t_exp"][r]), 100,
+            float(t_final[r]) + 1.0, 0.0,
+        )
+        assert (int(acc[r, 0]), int(acc[r, 1]), int(acc[r, 2])) == (
+            ref.n_cold, ref.n_warm, ref.n_reject,
+        )
+
+
+def test_wrapper_runs_plain_version_on_cpu_tensors():
+    inp = _inputs(3, t_exp=3.0)
+    before = dict(fes.LAUNCH_COUNTS)
+    via_wrapper = _port(inp, 4, False, fn=fes.faas_sweep)
+    for a, b in zip(via_wrapper, _port(inp, 4, False)):
+        np.testing.assert_array_equal(a, b)
+    assert dict(fes.LAUNCH_COUNTS) == before  # no kernel ran
+
+
+@pytest.mark.parametrize(
+    "name", ["window_bounds", "grid_times", "t_timeout", "fused_keys", "crash_u"]
+)
+def test_wrapper_refuses_later_features(name):
+    inp = _inputs(4, R=8, M=4, K=8)
+    with pytest.raises(NotImplementedError, match="Queue B item 1"):
+        _port(inp, 4, False, fn=lambda *a, **k: fes.faas_sweep(*a, **k, **{name: 1.0}))
+
+
+def test_wrapper_rejects_unknown_keyword():
+    inp = _inputs(4, R=8, M=4, K=8)
+    with pytest.raises(TypeError, match="bogus"):
+        _port(inp, 4, False, fn=lambda *a, **k: fes.faas_sweep(*a, **k, bogus=1))
