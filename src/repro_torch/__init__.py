@@ -2,10 +2,12 @@
 simulator to an NVIDIA H100.
 
 The front door is the same Scenario API: ``run``/``sweep`` on the f32
-block engine, whose hot loop is the hand-written CUDA kernel
-``kernels/csrc/faas_event_step.cu``.  Entry points run on the GPU unless
-called with ``device="cpu"``, which selects the plain PyTorch version of
-the kernel.  This package imports torch and numpy only.
+block engines, whose hot loops are the hand-written CUDA kernels
+``kernels/csrc/faas_event_step.cu`` (engines ``scan`` and ``temporal``)
+and ``kernels/csrc/par_event_step.cu`` (engine ``par``).  Entry points
+run on the GPU unless called with ``device="cpu"``, which selects the
+plain PyTorch versions of the kernels.  This package imports torch and
+numpy only.
 """
 
 from repro_torch.core import (  # noqa: F401
@@ -15,12 +17,15 @@ from repro_torch.core import (  # noqa: F401
     ExpSimProcess,
     GaussianSimProcess,
     GridResult,
+    InstanceSnapshot,
     LogNormalSimProcess,
+    ParSimulationSummary,
     ParetoSimProcess,
     Result,
     Scenario,
     SimProcess,
     SimulationSummary,
+    TemporalSummary,
     WeibullSimProcess,
     run,
     sweep,
@@ -40,6 +45,9 @@ __all__ = [
     "Result",
     "GridResult",
     "SimulationSummary",
+    "ParSimulationSummary",
+    "InstanceSnapshot",
+    "TemporalSummary",
     "run",
     "sweep",
 ]

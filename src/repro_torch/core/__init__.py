@@ -1,8 +1,11 @@
-"""SimFaaS core in PyTorch: the Scenario front door on the f32 block engine.
+"""SimFaaS core in PyTorch: the Scenario front door on the f32 block engines.
 
 >>> from repro_torch.core import Scenario, ExpSimProcess, run, sweep
 >>> scn = Scenario(arrival_process=ExpSimProcess(rate=0.9), ...)
 >>> res = run(scn, seed=0, replicas=8)                # on the GPU
+>>> res = run(scn, seed=0, engine="par")              # concurrency value
+>>> res = run(scn, seed=0, engine="temporal", grid=[...],
+...           initial_instances=[InstanceSnapshot(age=30.0, remaining=1.5)])
 >>> grid = sweep(scn, over={"expiration_threshold": [...],
 ...                         "arrival_rate": [...]}, seed=0)
 >>> grid = sweep(scn, over=..., seed=0, device="cpu")  # plain version
@@ -24,8 +27,10 @@ from repro_torch.core.processes import (
     SimProcess,
     WeibullSimProcess,
 )
+from repro_torch.core.par_simulator import ParSimulationSummary
 from repro_torch.core.scenario import GridResult, Result, Scenario, run, sweep
 from repro_torch.core.simulator import SimulationSummary
+from repro_torch.core.temporal import InstanceSnapshot, TemporalSummary
 
 __all__ = [
     "BillingModel",
@@ -46,6 +51,9 @@ __all__ = [
     "Result",
     "GridResult",
     "SimulationSummary",
+    "ParSimulationSummary",
+    "InstanceSnapshot",
+    "TemporalSummary",
     "run",
     "sweep",
 ]

@@ -1,15 +1,21 @@
 """Execution plans and the backend registry of the PyTorch port.
 
 A frozen :class:`Execution` names the engine (simulation semantics), the
-backend (the row launcher that runs the f32 block engine) and the device.
-Backends register their row launcher at import; the registry imports the
-providing module on first resolution (``_PROVIDERS``), and unknown names
-raise with the registered list.
+backend (the row launchers that run the f32 block kernels) and the device.
+Backends register one row launcher per engine at import; the registry
+imports the providing modules on first resolution (``_PROVIDERS``), and
+unknown names raise with the registered list.
 
-* ``"cuda"`` — the hand-written Hopper kernel
-  (:mod:`repro_torch.kernels.faas_event_step`); needs a CUDA device.
-* ``"ref"`` — the plain PyTorch version of the same loop
+* ``"cuda"`` — the hand-written Hopper kernels
+  (:mod:`repro_torch.kernels.faas_event_step`,
+  :mod:`repro_torch.kernels.par_event_step`); needs a CUDA device.
+* ``"ref"`` — the plain PyTorch versions of the same loops
   (:mod:`repro_torch.kernels.ref`); runs on any device.
+
+The engines are the reference's: ``"scan"`` (steady state) and
+``"temporal"`` (transient curves from a custom initial pool) share the
+pool-state launcher; ``"par"`` (concurrency value > 1) has its own
+``finish[M, c]`` launcher.
 
 Entry points run on the card unless the caller asks for the CPU:
 ``device=None`` means ``"cuda"``, and a CUDA request without a visible GPU
@@ -21,54 +27,89 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Sequence
 
 import torch
 
-# engines this slice serves; the f64 steady-state engine, temporal and par
-# engines arrive in later slices (ROADMAP Queue A)
-ENGINES = ("scan",)
+# engines this port serves on the f32 block kernels; the reference's f64
+# scan substrate arrives with the f64 engine (ROADMAP Queue A item 2)
+ENGINES = ("scan", "temporal", "par")
 
 
 @dataclasses.dataclass(frozen=True)
 class BackendSpec:
-    """A registered f32 block-engine substrate and its row launcher.
+    """A registered f32 block-engine substrate and its row launchers.
 
-    ``launch(alive0, creation0, busy0, t0, t_exp, t_end, skip, dts, warms,
-    colds, *, max_concurrency, prestamped)`` takes ``[C, ...]`` row tensors
-    on one device and returns the ``[C, ACC_COLS]`` accumulator there.
+    ``launchers`` maps an engine to its row launcher.  The pool-state
+    launcher (engines ``scan`` and ``temporal``) is ``launch(alive0,
+    creation0, busy0, t0, t_exp, t_end, skip, dts, warms, colds, *,
+    max_concurrency, prestamped, grid_times=None)`` on ``[C, ...]`` row
+    tensors and returns the ``[C, ACC_COLS + 3G]`` accumulator; the par
+    launcher is ``launch(t_exp, t_end, skip, dts, warms, colds, *,
+    max_concurrency, concurrency, slots, prestamped)`` and returns
+    ``[C, PAR_ACC_COLS]``.
     """
 
     name: str
-    launch: Callable[..., Any]
+    launchers: Any = dataclasses.field(default_factory=dict)  # engine -> fn
     description: str = ""
+
+    @property
+    def launch(self) -> Optional[Callable[..., Any]]:
+        """The steady-state (scan-engine) row launcher."""
+        return self.launchers.get("scan")
+
+    def launch_for(self, engine: str) -> Callable[..., Any]:
+        """The row launcher serving ``engine``; raises with the served
+        list when the backend has none for it."""
+        fn = self.launchers.get(engine)
+        if fn is None:
+            raise ValueError(
+                f"backend {self.name!r} has no row launcher for engine "
+                f"{engine!r}; launchers: {sorted(self.launchers)}"
+            )
+        return fn
 
 
 _BACKENDS: dict = {}
 
-# name -> module that registers it on import
+# name -> modules that register its launchers on import
 _PROVIDERS = {
-    "ref": "repro_torch.kernels.ref",
-    "cuda": "repro_torch.kernels.faas_event_step",
+    "ref": ("repro_torch.kernels.ref",),
+    "cuda": (
+        "repro_torch.kernels.faas_event_step",
+        "repro_torch.kernels.par_event_step",
+    ),
 }
 
 
-def register_backend(name: str, *, description: str = ""):
-    """Decorator: register ``fn`` as backend ``name``'s row launcher."""
+def register_backend(
+    name: str, *, description: str = "", engines: Sequence[str] = ("scan",)
+):
+    """Decorator: register ``fn`` as backend ``name``'s row launcher for
+    every engine in ``engines``.  A later registration under the same name
+    adds launchers for other engines and keeps the first description."""
+    if name not in _BACKENDS:
+        _BACKENDS[name] = BackendSpec(name=name, description=description)
 
     def deco(fn):
-        _BACKENDS[name] = BackendSpec(name=name, launch=fn, description=description)
+        spec = _BACKENDS[name]
+        _BACKENDS[name] = dataclasses.replace(
+            spec, launchers={**spec.launchers, **{e: fn for e in engines}}
+        )
         return fn
 
     return deco
 
 
 def resolve_backend(name: str) -> BackendSpec:
-    if name not in _BACKENDS and name in _PROVIDERS:
-        importlib.import_module(_PROVIDERS[name])
-    if name not in _BACKENDS:
-        for mod in _PROVIDERS.values():
+    if name in _PROVIDERS:
+        for mod in _PROVIDERS[name]:
             importlib.import_module(mod)
+    if name not in _BACKENDS:
+        for mods in _PROVIDERS.values():
+            for mod in mods:
+                importlib.import_module(mod)
         raise ValueError(
             f"unknown backend {name!r}; registered backends: {sorted(_BACKENDS)}"
         )
@@ -80,8 +121,8 @@ class Execution:
     """One frozen execution plan: engine, backend and device.
 
     ``backend=None`` and ``device=None`` resolve as the module docstring
-    says; :meth:`resolve` validates the pair and returns the backend spec
-    and the concrete :class:`torch.device`.
+    says; :meth:`resolve` validates the triple and returns the backend
+    spec and the concrete :class:`torch.device`.
     """
 
     engine: str = "scan"
@@ -101,7 +142,8 @@ class Execution:
         return dev
 
     def resolve(self) -> tuple:
-        """``(BackendSpec, torch.device)`` for this plan, validated."""
+        """``(BackendSpec, torch.device)`` for this plan, validated: the
+        engine is known and the backend has a row launcher for it."""
         if self.engine not in ENGINES:
             raise ValueError(
                 f"unknown engine {self.engine!r}; registered engines: "
@@ -112,9 +154,10 @@ class Execution:
         bspec = resolve_backend(name)
         if name == "cuda" and dev.type != "cuda":
             raise ValueError(
-                "backend 'cuda' launches the Hopper kernel and needs a CUDA "
+                "backend 'cuda' launches the Hopper kernels and needs a CUDA "
                 "device; use backend='ref' for the plain version on the CPU"
             )
+        bspec.launch_for(self.engine)
         return bspec, dev
 
 
@@ -122,15 +165,19 @@ def plan_of(
     execution: Optional[Execution],
     backend: Optional[str] = None,
     device=None,
+    *,
+    engine: Optional[str] = None,
 ) -> Execution:
-    """Merge an optional plan with the ``backend=``/``device=`` kwargs
-    (kwargs win)."""
+    """Merge an optional plan with the ``backend=``/``device=``/``engine=``
+    kwargs (kwargs win)."""
     plan = execution if execution is not None else Execution()
     if not isinstance(plan, Execution):
         raise TypeError(
             f"execution must be an Execution plan, got {type(plan).__name__}"
         )
     changes = {}
+    if engine is not None:
+        changes["engine"] = engine
     if backend is not None:
         changes["backend"] = backend
     if device is not None:

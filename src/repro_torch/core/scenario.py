@@ -1,11 +1,13 @@
 """The Scenario front door of the PyTorch port: :func:`run` and :func:`sweep`
-on the f32 block engine.
+on the f32 block engines.
 
 * :class:`Scenario` — one frozen description of a simulation: the arrival
   and service processes, platform limits, horizon/warm-up and billing,
   with the reference's fields and validation.
-* :func:`run` — one scenario, ``replicas`` rows, one kernel launch;
-  returns a :class:`Result` (summary plus cost).
+* :func:`run` — one scenario, ``replicas`` rows, one kernel launch of the
+  chosen engine (``"scan"``, ``"temporal"`` or ``"par"``); returns a
+  :class:`Result` (summary plus cost, and the transient curves for
+  ``"temporal"``).
 * :func:`sweep` — a product grid over scenario fields returning a
   :class:`GridResult` with named axes.  Axes partition as in the
   reference: **static** fields (``slots``, ``max_concurrency``, …) give
@@ -14,7 +16,8 @@ on the f32 block engine.
   **param** fields (``sim_time``, ``skip_time``) share the draw cells'
   buffers.  Every non-static axis is flattened onto the row axis in the
   order ``(draw, param, replica)``, so a threshold × rate × horizon grid is
-  ONE launch of the kernel (``LAUNCH_COUNTS`` pins it).
+  ONE launch of the kernel (``LAUNCH_COUNTS`` pins it).  Sweeps run the
+  steady-state engine only, as in the reference.
 
 Samples are staged on the device as f32 ``[C, K]`` buffers from per-draw-
 cell generators (``SeedSequence(seed).spawn(D)``) and never copied to the
@@ -42,11 +45,18 @@ import torch
 from repro_torch.core.cost import BillingModel, CostEstimate, estimate_cost
 from repro_torch.core.execution import Execution, plan_of
 from repro_torch.core.processes import UNPORTED, ExpSimProcess, SimProcess, unported
+from repro_torch.core.par_simulator import run_par
 from repro_torch.core.simulator import (
     SimulationSummary,
     cell_generators,
+    check_covered,
+    check_staged,
     draw_workload_samples,
+    host_acc,
+    run_samples,
+    summary_from_acc,
 )
+from repro_torch.core.temporal import TemporalSummary, run_temporal
 from repro_torch.kernels.ref import ACC_COLS, NEG
 
 
@@ -174,8 +184,9 @@ class Result:
     """One scenario's outcome: the summary plus its cost estimate."""
 
     scenario: Scenario
-    summary: SimulationSummary
+    summary: SimulationSummary  # ParSimulationSummary for engine="par"
     cost: CostEstimate
+    temporal: Optional[TemporalSummary] = None  # when engine="temporal"
 
     @property
     def cold_start_prob(self) -> float:
@@ -214,33 +225,6 @@ class Result:
 # ---------------------------------------------------------------------------
 
 
-def _check_staged(staged, rows: int, device) -> tuple:
-    if len(staged) != 3:
-        raise ValueError("staged must be the (dts, warms, colds) triple")
-    out = tuple(
-        torch.as_tensor(x, dtype=torch.float32).to(device).contiguous() for x in staged
-    )
-    shape = tuple(out[0].shape)
-    if len(shape) != 2 or shape[0] != rows or any(tuple(x.shape) != shape for x in out):
-        raise ValueError(
-            f"staged buffers must all be [{rows}, K] (rows in draw-cell, "
-            f"replica order); got {[tuple(x.shape) for x in out]}"
-        )
-    return out
-
-
-def _covered(dts, sim_rows, device) -> None:
-    """Coverage guard on the real draws, summed on the device in f64:
-    every row's arrivals must reach its horizon."""
-    covered = dts.sum(1, dtype=torch.float64)
-    need = torch.as_tensor(np.asarray(sim_rows, np.float64), device=device)
-    if bool((covered < need).any()):
-        raise RuntimeError(
-            "pre-drawn arrivals ended before sim_time "
-            f"(min final t {covered.min().item():.1f}); pass a larger `steps`"
-        )
-
-
 def _block_launch(scn, t_exp, t_end, skip, dts, warms, colds, bspec, device):
     """Fresh pools, per-row f32 parameters and the staged buffers into the
     backend's row launcher; returns the f64 ``[C, 8]`` accumulator on the
@@ -255,32 +239,11 @@ def _block_launch(scn, t_exp, t_end, skip, dts, warms, colds, bspec, device):
     alive0 = torch.zeros((C, M), dtype=torch.float32, device=device)
     frozen = torch.full((C, M), NEG, dtype=torch.float32, device=device)
     t0 = torch.zeros((C,), dtype=torch.float32, device=device)
-    acc = bspec.launch(
+    return host_acc(bspec.launch(
         alive0, frozen, frozen, t0, rows(t_exp), rows(t_end), rows(skip),
         dts, warms, colds,
         max_concurrency=scn.max_concurrency, prestamped=scn.prestamped,
-    )
-    acc = acc.double().cpu().numpy()
-    if acc[:, 7].sum() > 0:
-        raise RuntimeError("instance-pool overflow during sweep; raise Scenario.slots")
-    return acc
-
-
-def _summary(acc, measured_time: float) -> SimulationSummary:
-    zeros = np.zeros((acc.shape[0],))
-    return SimulationSummary(
-        n_cold=acc[:, 0],
-        n_warm=acc[:, 1],
-        n_reject=acc[:, 2],
-        time_running=acc[:, 3],
-        time_idle=acc[:, 4],
-        sum_cold_resp=acc[:, 5],
-        sum_warm_resp=acc[:, 6],
-        lifespan_sum=zeros,
-        lifespan_count=zeros,
-        measured_time=measured_time,
-        overflow=acc[:, 7],
-    )
+    ))
 
 
 # ---------------------------------------------------------------------------
@@ -293,37 +256,63 @@ def run(
     seed: int,
     *,
     replicas: int = 8,
+    engine: Optional[str] = None,
     backend: Optional[str] = None,
     device=None,
     execution: Optional[Execution] = None,
     steps: Optional[int] = None,
     staged=None,
+    grid=None,
+    initial_instances: Sequence = (),
 ) -> Result:
-    """Run one scenario on the f32 block engine: ``replicas`` rows, one
+    """Run one scenario on an f32 block engine: ``replicas`` rows, one
     launch of the backend (default: the CUDA kernel on the card).
+
+    * ``engine="scan"`` (default) — steady-state scale-per-request.
+    * ``engine="temporal"`` — transient analysis from the pool
+      ``initial_instances`` (:class:`~repro_torch.core.temporal.
+      InstanceSnapshot`), with point-in-time
+      curves on ``grid`` (default: 33 points over the horizon) in
+      ``Result.temporal``; ``skip_time`` is taken as 0.
+    * ``engine="par"`` — concurrency-value platforms
+      (``scenario.concurrency_value`` requests per instance); the summary
+      is a :class:`~repro_torch.core.par_simulator.ParSimulationSummary`.
 
     ``seed`` seeds the draw cell's generators; ``staged`` (a
     ``(dts, warms, colds)`` triple of ``[replicas, K]`` buffers) replaces
     the draws, and ``steps`` sets K when drawing.
     """
-    bspec, dev = plan_of(execution, backend, device).resolve()
+    plan = plan_of(execution, backend, device, engine=engine)
+    bspec, dev = plan.resolve()
+    if plan.engine != "temporal" and (grid is not None or len(initial_instances)):
+        raise ValueError("grid= and initial_instances= belong to engine='temporal'")
     scn = Scenario.of(scenario)
-    if staged is not None:
-        dts, warms, colds = _check_staged(staged, replicas, dev)
-    else:
-        n = int(steps or scn.steps_needed())
-        dts, warms, colds = draw_workload_samples(
-            scn, cell_generators(seed, 1, dev)[0], replicas, n, dev
+    kw = dict(replicas=replicas, steps=steps, staged=staged)
+    temporal = None
+    if plan.engine == "temporal":
+        summary, temporal = run_temporal(
+            scn, seed, bspec, dev, grid=grid, initial_instances=initial_instances, **kw
         )
-    _covered(dts, [scn.sim_time] * replicas, dev)
+    elif plan.engine == "par":
+        summary = run_par(scn, seed, bspec, dev, **kw)
+    else:
+        summary = _run_scan(scn, seed, bspec, dev, **kw)
+    return Result(
+        scenario=scn,
+        summary=summary,
+        cost=estimate_cost(summary, scn.billing),
+        temporal=temporal,
+    )
+
+
+def _run_scan(scn, seed, bspec, dev, *, replicas, steps, staged):
+    """The steady-state engine: fresh pools, one launch."""
+    dts, warms, colds = run_samples(scn, seed, replicas, steps, staged, dev)
     acc = _block_launch(
         scn, scn.expiration_threshold, scn.sim_time, scn.skip_time,
         dts, warms, colds, bspec, dev,
     )
-    summary = _summary(acc, scn.sim_time - scn.skip_time)
-    return Result(
-        scenario=scn, summary=summary, cost=estimate_cost(summary, scn.billing)
-    )
+    return summary_from_acc(acc, scn.sim_time - scn.skip_time)
 
 
 # ---------------------------------------------------------------------------
@@ -542,7 +531,7 @@ def sweep_inputs(
     R = int(replicas)
     D = len(draw_cfgs)
     if staged is not None:
-        dts, warms, colds = _check_staged(staged, D * R, device)
+        dts, warms, colds = check_staged(staged, D * R, device)
     else:
         n_steps = (
             int(steps)
@@ -611,6 +600,11 @@ def sweep(
     cells in ``over``'s product order) replaces the draws.
     """
     plan = plan_of(execution, backend, device)
+    if plan.engine != "scan":
+        raise ValueError(
+            f"engine {plan.engine!r} does not support sweep(); it runs "
+            "single scenarios only (use run(), or engine='scan' for grids)"
+        )
     bspec, dev = plan.resolve()
     plan = dataclasses.replace(plan, backend=bspec.name, device=str(dev))
     base = Scenario.of(scenario)
@@ -622,7 +616,7 @@ def sweep(
     draw_names = [n for n in names if n in _DRAW_FIELDS]
     param_names = [n for n in names if n in _PARAM_FIELDS]
     dts, warms, colds = inp.samples
-    _covered(dts, inp.sim_rows, dev)
+    check_covered(dts, inp.sim_rows, dev)
 
     all_summaries: list = []
     for combo in itertools.product(*[vals[n] for n in static_names]):
@@ -637,7 +631,7 @@ def sweep(
         for c in range(cells.shape[0]):
             row = c * R
             all_summaries.append(
-                _summary(cells[c], float(inp.sim_rows[row] - inp.skip_rows[row]))
+                summary_from_acc(cells[c], float(inp.sim_rows[row] - inp.skip_rows[row]))
             )
 
     # ---- named-axis grid (internal order: static, draw, param)

@@ -4,6 +4,11 @@
 (numpy arrays, host side) with the paper's derived metrics;
 :func:`draw_workload_samples` stages the (arrivals, warm, cold) f32
 ``[R, n]`` sample buffers on the device from three explicit generators.
+The helpers below them are what every engine does around its launch:
+stage a run's samples behind the coverage guard (:func:`run_samples`),
+bring the accumulator to the host behind the overflow guard
+(:func:`host_acc`) and read a summary off its base columns
+(:func:`summary_from_acc`).
 """
 
 from __future__ import annotations
@@ -143,3 +148,78 @@ def draw_workload_samples(scn, generators, replicas: int, n: int, device, out=No
     scn.warm_service_process.sample_into(warms, g_warm)
     scn.cold_service_process.sample_into(colds, g_cold)
     return arr, warms, colds
+
+
+def check_staged(staged, rows: int, device) -> tuple:
+    """The ``(dts, warms, colds)`` triple handed in instead of draws, as
+    contiguous f32 ``[rows, K]`` tensors on ``device``."""
+    if len(staged) != 3:
+        raise ValueError("staged must be the (dts, warms, colds) triple")
+    out = tuple(
+        torch.as_tensor(x, dtype=torch.float32).to(device).contiguous() for x in staged
+    )
+    shape = tuple(out[0].shape)
+    if len(shape) != 2 or shape[0] != rows or any(tuple(x.shape) != shape for x in out):
+        raise ValueError(
+            f"staged buffers must all be [{rows}, K] (rows in draw-cell, "
+            f"replica order); got {[tuple(x.shape) for x in out]}"
+        )
+    return out
+
+
+def check_covered(dts, sim_rows, device) -> None:
+    """Coverage guard on the real draws, summed on the device in f64:
+    every row's arrivals must reach its horizon (the arrival that steps
+    past it closes the books, and the grid curves need it)."""
+    covered = dts.sum(1, dtype=torch.float64)
+    need = torch.as_tensor(np.asarray(sim_rows, np.float64), device=device)
+    if bool((covered < need).any()):
+        raise RuntimeError(
+            "pre-drawn arrivals ended before sim_time "
+            f"(min final t {covered.min().item():.1f}); pass a larger `steps`"
+        )
+
+
+def run_samples(scn, seed: int, replicas: int, steps, staged, device) -> tuple:
+    """The ``(dts, warms, colds)`` of one run: the handed-in ``staged``
+    buffers, or ``steps`` (default ``scn.steps_needed()``) draws of one
+    draw cell seeded by ``seed``; either way behind the coverage guard."""
+    if staged is not None:
+        samples = check_staged(staged, replicas, device)
+    else:
+        n = int(steps or scn.steps_needed())
+        samples = draw_workload_samples(
+            scn, cell_generators(seed, 1, device)[0], replicas, n, device
+        )
+    check_covered(samples[0], [scn.sim_time] * replicas, device)
+    return samples
+
+
+def host_acc(acc) -> np.ndarray:
+    """A launch's f32 accumulator as f64 on the host, after the overflow
+    guard (column 7 counts arrivals that found every slot taken)."""
+    acc = acc.double().cpu().numpy()
+    if acc[:, 7].sum() > 0:
+        raise RuntimeError("instance-pool overflow; raise Scenario.slots")
+    return acc
+
+
+def summary_from_acc(acc, measured_time: float, cls=SimulationSummary, **extra):
+    """A summary from the 8 base accumulator columns (lifespans stay a
+    capability of the f64 engine: zeros here, as in the reference's block
+    backends)."""
+    zeros = np.zeros((acc.shape[0],))
+    return cls(
+        n_cold=acc[:, 0],
+        n_warm=acc[:, 1],
+        n_reject=acc[:, 2],
+        time_running=acc[:, 3],
+        time_idle=acc[:, 4],
+        sum_cold_resp=acc[:, 5],
+        sum_warm_resp=acc[:, 6],
+        lifespan_sum=zeros,
+        lifespan_count=zeros,
+        measured_time=measured_time,
+        overflow=acc[:, 7],
+        **extra,
+    )

@@ -2,8 +2,9 @@
 
 A source ``csrc/<name>.cu`` is compiled on first use by ``nvcc`` into a
 shared library under ``build/repro_torch/`` at the root of the checkout,
-named by a hash of the sources and flags so an edited source rebuilds and
-an unchanged one loads straight from the cache.
+named by a hash of the source, the shared headers and the flags, so an
+edited source rebuilds and an unchanged one loads straight from the cache.
+:func:`build_all` starts one ``nvcc`` per source at once and waits for all.
 
 Only the sources in the repository are compiled; ``nvcc`` is taken from
 ``PATH`` or ``$CUDA_HOME/bin`` (default ``/usr/local/cuda``).
@@ -55,36 +56,51 @@ def nvcc() -> str:
 def _target(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in sorted(CSRC.iterdir()):
-        if p.suffix in (".cu", ".cuh", ".h"):
+        if p.name == f"{name}.cu" or p.suffix in (".cuh", ".h"):
             h.update(p.name.encode())
             h.update(p.read_bytes())
     return build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> dict:
-    """Compile ``csrc/<name>.cu`` unless its library is already built.
+def build_all(names) -> dict:
+    """Compile each ``csrc/<name>.cu`` whose library is not built yet, one
+    ``nvcc`` per source, all started together.
 
-    Returns ``{"path", "seconds", "log"}``; ``seconds`` is 0.0 and ``log``
-    the cached one for a library already built.  Raises with the
-    compiler's output if the build fails.
+    Returns ``{name: {"path", "seconds", "log"}}``; ``seconds`` is 0.0 and
+    ``log`` the cached one for a library already built.  Raises with the
+    compiler's output if a build fails.
     """
-    target = _target(name)
-    log = target.with_suffix(".log")
-    if target.is_file():
-        return dict(path=target, seconds=0.0, log=log.read_text() if log.is_file() else "")
-    build_dir().mkdir(parents=True, exist_ok=True)
-    tmp = target.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    secs = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, target)
-    log.write_text(proc.stdout)
-    return dict(path=target, seconds=secs, log=proc.stdout)
+    out, running = {}, {}
+    for name in names:
+        target = _target(name)
+        log = target.with_suffix(".log")
+        if target.is_file():
+            out[name] = dict(
+                path=target, seconds=0.0, log=log.read_text() if log.is_file() else ""
+            )
+            continue
+        build_dir().mkdir(parents=True, exist_ok=True)
+        tmp = target.with_suffix(f".{os.getpid()}.tmp.so")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        running[name] = (proc, tmp, target, log, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, target, log, t0) in running.items():
+        text = proc.communicate()[0]
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{text}")
+            continue
+        os.replace(tmp, target)
+        log.write_text(text)
+        out[name] = dict(path=target, seconds=secs, log=text)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:
     """Load the library ``name``, built first if it is stale."""
-    return ctypes.CDLL(str(build(name)["path"]))
+    return ctypes.CDLL(str(build_all([name])[name]["path"]))

@@ -1,14 +1,25 @@
 // Hopper (sm_90a) kernel of the f32 steady-state block engine.
 //
 // Replaces the TPU kernel repro/kernels/faas_event_step.py::_faas_kernel
-// (launched by faas_sweep_pallas) for its base staged path and the
-// prestamped mode.  Each row (one replica of one what-if cell) runs K
-// arrivals against its own pool of M instance slots (alive, creation,
-// busy).  Per arrival: exact integrals of running and idle instance-time
-// over the interval clipped to [skip, t_end]; expiry of idle instances
-// past t_exp (expire-first on a tie); then the newest idle instance serves
-// (warm, lowest slot on a creation tie), else a free slot below
-// max_concurrency (cold), else the arrival is rejected.
+// (launched by faas_sweep_pallas) for its base staged path, the
+// prestamped mode and the transient grid-curve columns.  Each row (one
+// replica of one what-if cell) runs K arrivals against its own pool of M
+// instance slots (alive, creation, busy).  Per arrival: exact integrals
+// of running and idle instance-time over the interval clipped to
+// [skip, t_end]; expiry of idle instances past t_exp (expire-first on a
+// tie); then the newest idle instance serves (warm, lowest slot on a
+// creation tie), else a free slot below max_concurrency (cold), else the
+// arrival is rejected.
+//
+// Grid curves (G > 0, the temporal engine): each grid point g of the row
+// that falls in an arrival's interval (t, min(t_new, t_end)] records the
+// running (busy > g), idle (busy <= g) and no-idle counts of the
+// pre-expiry pool's live instances (busy + t_exp > g) in acc columns
+// [8, 8+G), [8+G, 8+2G), [8+2G, 8+3G).  The warp keeps the smallest grid
+// time past the clock (next_g), so an event that holds no grid point costs
+// one warp-uniform compare.  G is a runtime argument (cap MAX_GRID); the
+// grid code is a template instance of its own (GRID), so the scan path's
+// instances (G = 0) compile to the same loop as without it.
 //
 // What bounds it on this card: every event touches every slot of the row
 // (~25 f32 operations per slot in the body below) while the samples are
@@ -34,9 +45,11 @@
 // for dead slots, any_idle = best > NEG/2), and the acc columns are
 // per-row sequential sums in the same order.  Only the two M-reductions of
 // the integrals (acc columns 3 and 4) sum in a different order, so they
-// may differ from the plain version in the last places.
+// may differ from the plain version in the last places.  The grid columns
+// are integer counts (ballot popcounts) added in event order: exact.
 
 #include <climits>
+#include <cmath>
 #include <cuda_runtime.h>
 
 namespace {
@@ -45,6 +58,7 @@ constexpr float NEG = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int WARPS = 4;  // rows per block
 constexpr int ACC_COLS = 8;
+constexpr int MAX_GRID = 1024;  // grid points per row (3 acc columns each)
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -52,7 +66,25 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <int S>  // slots per lane: M <= 32 * S
+__device__ __forceinline__ float warp_min(float v) {
+#pragma unroll
+  for (int m = 16; m >= 1; m >>= 1) v = fminf(v, __shfl_xor_sync(FULL, v, m));
+  return v;
+}
+
+// the smallest grid time past the clock t (+inf if none), in every lane
+__device__ __forceinline__ float next_grid(const float* grow, int G, float t,
+                                           int lane) {
+  float m = INFINITY;
+  for (int gi = lane; gi < G; gi += 32) {
+    const float g = grow[gi];
+    if (g > t) m = fminf(m, g);
+  }
+  return warp_min(m);
+}
+
+// S: slots per lane (M <= 32 * S); GRID: accumulate the grid columns (G > 0)
+template <int S, bool GRID>
 __global__ void __launch_bounds__(WARPS * 32)
 faas_sweep_kernel(const float* __restrict__ alive_in,
                   const float* __restrict__ creation_in,
@@ -60,10 +92,11 @@ faas_sweep_kernel(const float* __restrict__ alive_in,
                   const float* __restrict__ t0, const float* __restrict__ t_exp,
                   const float* __restrict__ t_end, const float* __restrict__ skip,
                   const float* __restrict__ dts, const float* __restrict__ warms,
-                  const float* __restrict__ colds, float* __restrict__ alive_out,
+                  const float* __restrict__ colds,
+                  const float* __restrict__ grid, float* __restrict__ alive_out,
                   float* __restrict__ creation_out, float* __restrict__ busy_out,
                   float* __restrict__ t_out, float* __restrict__ acc_out, int R,
-                  int M, int K, float max_c, int prestamped) {
+                  int M, int K, int G, float max_c, int prestamped) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (row >= R) return;  // the ragged last block: the whole warp leaves
@@ -83,6 +116,15 @@ faas_sweep_kernel(const float* __restrict__ alive_in,
   const float texp = t_exp[row], tend = t_end[row], sk = skip[row];
   float a_cold = 0.f, a_warm = 0.f, a_rej = 0.f, a_run = 0.f, a_idle = 0.f;
   float a_cresp = 0.f, a_wresp = 0.f, a_over = 0.f;
+  float* arow = acc_out + (size_t)row * (ACC_COLS + 3 * G);
+  const float* grow = grid + (size_t)row * G;
+  float next_g = INFINITY;
+  if (GRID) {
+    // grid columns start at zero; lane 0 adds each hit into them
+    for (int c = lane; c < 3 * G; c += 32) arow[ACC_COLS + c] = 0.f;
+    __syncwarp();
+    next_g = next_grid(grow, G, t, lane);
+  }
 
   const size_t srow = (size_t)row * K;
   for (int base = 0; base < K; base += 32) {
@@ -98,6 +140,37 @@ faas_sweep_kernel(const float* __restrict__ alive_in,
       const float t_new = prestamped ? dt : __fadd_rn(t, dt);
       const float lo = fminf(fmaxf(t, sk), tend);
       const float hi = fminf(fmaxf(t_new, sk), tend);
+
+      if (GRID) {
+        const float hi_g = fminf(t_new, tend);
+        if (next_g <= hi_g) {
+          // grid points in (t, hi_g]: counts on the pre-expiry pool
+          for (int gb = 0; gb < G; gb += 32) {
+            const int gi = gb + lane;
+            const float g = gi < G ? grow[gi] : 0.f;
+            unsigned hit = __ballot_sync(FULL, gi < G && g > t && g <= hi_g);
+            while (hit) {
+              const int l = __ffs(hit) - 1;
+              hit &= hit - 1;
+              const float gg = __shfl_sync(FULL, g, l);
+              int n_run = 0, n_idle = 0;
+#pragma unroll
+              for (int s = 0; s < S; ++s) {
+                const bool live = alive[s] > 0.f && __fadd_rn(busy[s], texp) > gg;
+                n_run += __popc(__ballot_sync(FULL, live && busy[s] > gg));
+                n_idle += __popc(__ballot_sync(FULL, live && busy[s] <= gg));
+              }
+              if (lane == 0) {
+                float* a = arow + ACC_COLS + gb + l;
+                a[0] = __fadd_rn(a[0], (float)n_run);
+                a[G] = __fadd_rn(a[G], (float)n_idle);
+                if (n_idle == 0) a[2 * G] = __fadd_rn(a[2 * G], 1.f);
+              }
+            }
+          }
+        }
+        if (next_g <= t_new || t_new < t) next_g = next_grid(grow, G, t_new, lane);
+      }
 
       // integrals over (lo, hi] on the pre-expiry pool, then expiry, then
       // the routing candidates on the post-expiry pool
@@ -191,7 +264,7 @@ faas_sweep_kernel(const float* __restrict__ alive_in,
   }
   if (lane == 0) {
     t_out[row] = t;
-    float* a = acc_out + (size_t)row * ACC_COLS;
+    float* a = arow;
     a[0] = a_cold;
     a[1] = a_warm;
     a[2] = a_rej;
@@ -205,44 +278,54 @@ faas_sweep_kernel(const float* __restrict__ alive_in,
 
 template <int S>
 void launch(const float* const* in, float* const* out, int R, int M, int K,
-            float max_c, int prestamped, cudaStream_t stream) {
-  const dim3 grid((R + WARPS - 1) / WARPS), block(WARPS * 32);
-  faas_sweep_kernel<S><<<grid, block, 0, stream>>>(
-      in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], in[9],
-      out[0], out[1], out[2], out[3], out[4], R, M, K, max_c, prestamped);
+            int G, float max_c, int prestamped, cudaStream_t stream) {
+  const dim3 blocks((R + WARPS - 1) / WARPS), threads(WARPS * 32);
+  if (G > 0)
+    faas_sweep_kernel<S, true><<<blocks, threads, 0, stream>>>(
+        in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], in[9],
+        in[10], out[0], out[1], out[2], out[3], out[4], R, M, K, G, max_c,
+        prestamped);
+  else
+    faas_sweep_kernel<S, false><<<blocks, threads, 0, stream>>>(
+        in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], in[9],
+        in[10], out[0], out[1], out[2], out[3], out[4], R, M, K, 0, max_c,
+        prestamped);
 }
 
 }  // namespace
 
 // Plain C entry, bound with ctypes.  Inputs: alive, creation, busy [R, M];
-// t0, t_exp, t_end, skip [R]; dts, warms, colds [R, K] — all f32,
-// contiguous, on `device`.  Outputs: alive, creation, busy [R, M], t [R],
-// acc [R, 8].  Launches on `stream` and returns cudaGetLastError().
+// t0, t_exp, t_end, skip [R]; dts, warms, colds [R, K]; grid [R, G] (may
+// be null when G = 0) — all f32, contiguous, on `device`.  Outputs: alive,
+// creation, busy [R, M], t [R], acc [R, 8 + 3G].  Launches on `stream`
+// and returns cudaGetLastError().
 extern "C" int faas_sweep_f32(
     const void* alive_in, const void* creation_in, const void* busy_in,
     const void* t0, const void* t_exp, const void* t_end, const void* skip,
-    const void* dts, const void* warms, const void* colds, void* alive_out,
-    void* creation_out, void* busy_out, void* t_out, void* acc_out, int R,
-    int M, int K, int max_concurrency, int prestamped, int device,
-    void* stream) {
+    const void* dts, const void* warms, const void* colds, const void* grid,
+    void* alive_out, void* creation_out, void* busy_out, void* t_out,
+    void* acc_out, int R, int M, int K, int G, int max_concurrency,
+    int prestamped, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (R < 1 || M < 1 || M > 1024 || K < 0) return (int)cudaErrorInvalidValue;
-  const float* in[10] = {
+  if (R < 1 || M < 1 || M > 1024 || K < 0 || G < 0 || G > MAX_GRID ||
+      (G > 0 && grid == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const float* in[11] = {
       (const float*)alive_in, (const float*)creation_in, (const float*)busy_in,
       (const float*)t0,       (const float*)t_exp,       (const float*)t_end,
       (const float*)skip,     (const float*)dts,         (const float*)warms,
-      (const float*)colds};
+      (const float*)colds,    (const float*)grid};
   float* out[5] = {(float*)alive_out, (float*)creation_out, (float*)busy_out,
                    (float*)t_out, (float*)acc_out};
   const float max_c = (float)max_concurrency;
   cudaStream_t st = (cudaStream_t)stream;
   const int s = (M + 31) / 32;
-  if (s <= 1) launch<1>(in, out, R, M, K, max_c, prestamped, st);
-  else if (s <= 2) launch<2>(in, out, R, M, K, max_c, prestamped, st);
-  else if (s <= 4) launch<4>(in, out, R, M, K, max_c, prestamped, st);
-  else if (s <= 8) launch<8>(in, out, R, M, K, max_c, prestamped, st);
-  else if (s <= 16) launch<16>(in, out, R, M, K, max_c, prestamped, st);
-  else launch<32>(in, out, R, M, K, max_c, prestamped, st);
+  if (s <= 1) launch<1>(in, out, R, M, K, G, max_c, prestamped, st);
+  else if (s <= 2) launch<2>(in, out, R, M, K, G, max_c, prestamped, st);
+  else if (s <= 4) launch<4>(in, out, R, M, K, G, max_c, prestamped, st);
+  else if (s <= 8) launch<8>(in, out, R, M, K, G, max_c, prestamped, st);
+  else if (s <= 16) launch<16>(in, out, R, M, K, G, max_c, prestamped, st);
+  else launch<32>(in, out, R, M, K, G, max_c, prestamped, st);
   return (int)cudaGetLastError();
 }

@@ -2,17 +2,19 @@
 launcher (backend ``"cuda"``).
 
 :func:`faas_sweep` is the port of ``repro/kernels/faas_event_step.py::
-faas_sweep_pallas`` for the base staged path and the ``prestamped`` mode.
+faas_sweep_pallas`` for the base staged path, the ``prestamped`` mode and
+the transient grid-curve columns (``grid_times``, the temporal engine).
 The kernel itself is ``csrc/faas_event_step.cu`` (one warp per row, the
 pool in registers; its header says what bounds it and why it is built the
 way it is).  For CUDA tensors the wrapper checks device, dtype, shape and
 contiguity, launches the kernel on the current stream and counts the
-launch in ``LAUNCH_COUNTS["faas_sweep"]``; for CPU tensors it runs the
+launch in ``LAUNCH_COUNTS["faas_sweep"]`` (``"faas_sweep_grid"`` for a
+launch with grid columns); for CPU tensors it runs the
 plain version :func:`repro_torch.kernels.ref.faas_sweep_ref`.
 
-The reference kernel's optional layers (metric windows, transient grid
-curves, reliability, retries, fused draws, platform faults) are later
-slices, in the order ROADMAP Queue B gives; the wrapper refuses them.
+The reference kernel's other optional layers (metric windows,
+reliability, retries, fused draws, platform faults) are later slices, in
+the order ROADMAP Queue B gives; the wrapper refuses them.
 """
 
 from __future__ import annotations
@@ -38,13 +40,16 @@ RELY_COLS = 4
 FAULT_COLS = 3
 # the largest pool one warp holds in registers (32 slots per lane)
 MAX_SLOTS = 1024
+# the most grid points per row (csrc/faas_event_step.cu MAX_GRID)
+MAX_GRID = 1024
 
-# kernel launches by wrapper name: bumped once per launch, nowhere else
+# kernel launches by wrapper name ("faas_sweep", "faas_sweep_grid" for a
+# launch with grid columns, "par_sweep"): bumped once per launch, nowhere
+# else
 LAUNCH_COUNTS: collections.Counter = collections.Counter()
 
 _LATER = {
     "window_bounds": "metric windows",
-    "grid_times": "transient grid curves",
     "t_timeout": "reliability",
     "p_fail": "reliability",
     "fail_u": "reliability",
@@ -64,7 +69,7 @@ _LATER = {
 def _kernel():
     """The C entry ``faas_sweep_f32``, built and loaded on first use."""
     fn = _build.load("faas_event_step").faas_sweep_f32
-    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -83,10 +88,11 @@ def faas_sweep(
     skip=0.0,  # f32 [R] or scalar — per-row warm-up exclusion
     max_concurrency: int,
     prestamped: bool = False,
+    grid_times=None,  # f32 [R, G] transient-curve query times
     **later,
 ):
     """Run K arrivals against each row's ``[M]`` pool; returns
-    ``(alive, creation, busy, t, acc[R, 8])`` as
+    ``(alive, creation, busy, t, acc[R, 8 + 3G])`` as
     :func:`~repro_torch.kernels.ref.faas_sweep_ref` defines them.
 
     Rows are independent (replica × grid cell) and ``t_exp``, ``t_end``,
@@ -110,7 +116,7 @@ def faas_sweep(
         return faas_sweep_ref(
             alive, creation, busy, t0, t_exp, dts, warms, colds,
             t_end=t_end, skip=skip, max_concurrency=max_concurrency,
-            prestamped=prestamped,
+            prestamped=prestamped, grid_times=grid_times,
         )
     if dev.type != "cuda":
         raise ValueError(f"faas_sweep runs on CUDA or CPU tensors, got {dev}")
@@ -122,6 +128,10 @@ def faas_sweep(
         skip=(skip, (R,)), dts=(dts, (R, K)), warms=(warms, (R, K)),
         colds=(colds, (R, K)),
     )
+    G = 0
+    if grid_times is not None:
+        G = grid_times.shape[1] if grid_times.dim() == 2 else -1
+        shapes["grid_times"] = (grid_times, (R, G))
     for name, (x, shape) in shapes.items():
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, alive on {dev}")
@@ -136,40 +146,48 @@ def faas_sweep(
             f"faas_sweep needs R >= 1 rows and 1 <= M <= {MAX_SLOTS} slots "
             f"(one warp per row), got R={R}, M={M}"
         )
+    if G > MAX_GRID:
+        raise ValueError(
+            f"faas_sweep takes at most {MAX_GRID} grid points per row, got {G}"
+        )
     if not 1 <= int(max_concurrency) <= 1 << 24:
         raise ValueError("max_concurrency must be in [1, 2**24] (exact in f32)")
     alive_o = torch.empty_like(alive)
     creation_o = torch.empty_like(creation)
     busy_o = torch.empty_like(busy)
     t_o = torch.empty_like(t0)
-    acc = torch.empty((R, ACC_COLS), dtype=torch.float32, device=dev)
+    acc = torch.empty((R, ACC_COLS + GRID_COLS * G), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _kernel()(
         alive.data_ptr(), creation.data_ptr(), busy.data_ptr(), t0.data_ptr(),
         t_exp.data_ptr(), t_end.data_ptr(), skip.data_ptr(), dts.data_ptr(),
-        warms.data_ptr(), colds.data_ptr(), alive_o.data_ptr(),
-        creation_o.data_ptr(), busy_o.data_ptr(), t_o.data_ptr(),
-        acc.data_ptr(), R, M, K, int(max_concurrency), int(bool(prestamped)),
+        warms.data_ptr(), colds.data_ptr(), grid_times.data_ptr() if G else None,
+        alive_o.data_ptr(), creation_o.data_ptr(), busy_o.data_ptr(),
+        t_o.data_ptr(), acc.data_ptr(), R, M, K, G, int(max_concurrency),
+        int(bool(prestamped)),
         dev.index if dev.index is not None else torch.cuda.current_device(),
         stream,
     )
     if err != 0:
         raise RuntimeError(f"faas_sweep kernel launch failed: CUDA error {err}")
-    LAUNCH_COUNTS["faas_sweep"] += 1
+    # launches with grid columns (the temporal path) count apart
+    LAUNCH_COUNTS["faas_sweep_grid" if G else "faas_sweep"] += 1
     return alive_o, creation_o, busy_o, t_o, acc
 
 
 @register_backend(
     "cuda",
-    description="hand-written Hopper kernel, one warp per row (sm_90a)",
+    description="hand-written Hopper kernels, one warp per row (sm_90a)",
+    engines=("scan", "temporal"),
 )
 def _cuda_sweep_rows(
     alive0, creation0, busy0, t0, t_exp, t_end, skip, dts, warms, colds,
-    *, max_concurrency, prestamped,
+    *, max_concurrency, prestamped, grid_times=None,
 ):
-    """Backend ``"cuda"``'s row launcher: the ``[C, 8]`` accumulator."""
+    """Backend ``"cuda"``'s pool-state row launcher: the ``[C, 8 + 3G]``
+    accumulator."""
     return faas_sweep(
         alive0, creation0, busy0, t0, t_exp, dts, warms, colds,
         t_end=t_end, skip=skip, max_concurrency=max_concurrency,
-        prestamped=prestamped,
+        prestamped=prestamped, grid_times=grid_times,
     )[4]

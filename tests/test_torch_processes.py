@@ -144,7 +144,9 @@ def test_staged_from_reference_concatenates_draw_cells():
 def test_port_imports_no_jax():
     code = (
         "import sys, repro_torch, repro_torch.interop, repro_torch.kernels.ref, "
-        "repro_torch.kernels.faas_event_step, repro_torch.kernels._build\n"
+        "repro_torch.kernels.faas_event_step, repro_torch.kernels.par_event_step, "
+        "repro_torch.kernels._build, repro_torch.core.temporal, "
+        "repro_torch.core.par_simulator\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )
@@ -162,8 +164,10 @@ def test_build_names_missing_nvcc(monkeypatch, tmp_path):
         _build.nvcc()
 
 
-def test_build_target_tracks_sources_and_flags(monkeypatch):
-    a = _build._target("faas_event_step")
-    assert a.parent == _build.build_dir() and a.name.startswith("faas_event_step-")
+@pytest.mark.parametrize("name", ["faas_event_step", "par_event_step"])
+def test_build_target_tracks_sources_and_flags(monkeypatch, name):
+    a = _build._target(name)
+    assert a.parent == _build.build_dir() and a.name.startswith(f"{name}-")
+    assert (_build.CSRC / f"{name}.cu").is_file()
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
-    assert _build._target("faas_event_step") != a
+    assert _build._target(name) != a

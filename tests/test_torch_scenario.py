@@ -184,8 +184,10 @@ def test_plan_resolution_and_registry_errors():
         rexec.Execution(backend="cuda", device="cpu").resolve()
     with pytest.raises(ValueError, match=r"registered backends: \[.*'cuda'.*'ref'"):
         rexec.resolve_backend("bogus")
-    with pytest.raises(ValueError, match="registered engines"):
-        rexec.Execution(engine="temporal", device="cpu").resolve()
+    with pytest.raises(
+        ValueError, match=r"registered engines: \['scan', 'temporal', 'par'\]"
+    ):
+        rexec.Execution(engine="bogus", device="cpu").resolve()
     with pytest.raises(TypeError):
         rexec.plan_of("ref")
 
