@@ -29,7 +29,18 @@ Phases (any failure ends the script with a non-zero exit):
    same inputs (``par_sweep`` at c = 80 on the first 4096 events of the
    full-width rows), with the plain version's time and the card's bound
    for the work this data needs;
-6. the kernels line (JSON), the card line, then the device line (JSON) last.
+6. fleets (``fleet_sweep``, in this order): the kernel against its plain
+   version on small cases (F = 1, 3, 8; queues of 0 and 2; gap and
+   prestamped streams; binding and unbounded clusters; binding limits);
+   the full-width catalog sweep through ``fleet_sweep()`` (8 functions,
+   ``n_cluster`` 24, 6 thresholds, 512 replicas, ``sim_time`` 1e5 s: one
+   launch, the stream held once) with its peak under the cap and its 60 s
+   cell held to the JAX reference constants; the same fleet queued
+   (``n_cluster`` 16, ``queue_depth`` 4) through ``fleet_run()``; Table 1
+   as a one-function fleet against ``run()`` on the same draws (4096
+   replicas); the kernel timed at full width, held to its plain version on
+   the first 4096 events of both full-width launches;
+7. the kernels line (JSON), the card line, then the device line (JSON) last.
 """
 
 import json
@@ -89,6 +100,22 @@ PAR_OPS_PER_LIVE_SLOT = 11
 PAR_OPS_PER_SUB_SLOT = 7
 PAR_OPS_PER_ROW_EVENT = 32
 
+# fleet_sweep: only the live instances need per-slot work (the live set is
+# a bitmask; a dead slot's state is never read), so count 11 on each live
+# instance of the fleet (expiry time 1, run integral 3, idle integral 4,
+# the two sums 2, expiry test 1), 5 more on each live instance of the
+# acting function (idle test 2, newest candidate 3), 2 per function (its
+# run/idle sums into the accumulators) and 27 on the fleet's scalars
+# (clock 1, clipped interval 4, decisions 12, counters 6, peak 1, the
+# lowest free slot 1, the function's and the fleet's live counts 2).  An
+# event past t_end changes nothing the fleet reports but the clock (1).
+FLEET_OPS_PER_LIVE_SLOT = 11
+FLEET_OPS_PER_ACTING_LIVE = 5
+FLEET_OPS_PER_FUNCTION_EVENT = 2
+FLEET_OPS_PER_FLEET_EVENT = 27
+# bytes of one event of the merged stream: time, warm, cold (f32) and fid (uint8)
+FLEET_STREAM_BYTES = 13
+
 KERNELS = {
     "faas_sweep": dict(
         name="faas_sweep", route="cuda",
@@ -105,8 +132,17 @@ KERNELS = {
         source="src/repro_torch/kernels/csrc/par_event_step.cu",
         replaces="src/repro/kernels/faas_event_step.py:975",
     ),
+    "fleet_sweep": dict(
+        name="fleet_sweep", route="cuda",
+        source="src/repro_torch/kernels/csrc/fleet_event_step.cu",
+        replaces="src/repro/kernels/faas_event_step.py:1228",
+    ),
 }
-SOURCES = ("faas_event_step", "par_event_step")
+SOURCES = ("faas_event_step", "par_event_step", "fleet_event_step")
+# ptxas' name for each source's kernel template
+KERNEL_NAMES = {"faas_event_step": "faas_sweep_kernel",
+                "par_event_step": "par_sweep_kernel",
+                "fleet_event_step": "fleet_sweep_kernel"}
 
 
 def gpu_line() -> str:
@@ -151,6 +187,32 @@ PAR_PLAIN_EVENTS = 4096  # c = 80 is held against its plain version on these
 TEMPORAL_SIM = 3600.0
 TEMPORAL_GRID = np.linspace(0.0, TEMPORAL_SIM, 61)
 
+# the repo's fleet benchmark at its full grid (benchmarks/run.py:914-925)
+# at FleetScenario's default sim_time of 1e5 s; only replicas are chosen
+FLEET_THRESHOLDS = [float(x) for x in np.linspace(60.0, 1200.0, 6)]
+FLEET_REPLICAS = 512
+FLEET_CLUSTER = 24
+FLEET_QUEUED = dict(n_cluster=16, queue_depth=4)
+FLEET_PLAIN_EVENTS = 4096  # the full-width launches are held to plain on these
+# the JAX reference at the 60 s cell (tools/fleet_reference.py --replicas
+# 32: JAX fleet_sweep(backend="ref") on the CPU, seed 0): per-function
+# cold-start probability and the standard error of its per-replica values,
+# and the cluster's average occupancy with its standard error.  The card's
+# values (other draws: torch generators) must agree within REF_FLEET_SIGMAS
+# standard errors of the difference of the two replica means.
+REF_FLEET = dict(
+    cold_start_prob=[0.00763286929577589, 0.003122523194178939, 0.039322253316640854,
+                     0.012920089066028595, 0.2800758481025696, 0.13221755623817444,
+                     0.01889190822839737, 0.061710502952337265],
+    cold_start_prob_se=[4.007522183514945e-05, 2.041152014149779e-05,
+                        0.00017685719017966435, 6.0654681115940774e-05,
+                        0.0011211333353507355, 0.0004569574898031608,
+                        8.953830432433068e-05, 0.00026071172033269145],
+    avg_cluster_occupancy=21.65937266498804,
+    avg_cluster_occupancy_se=0.007633272826279069,
+)
+REF_FLEET_SIGMAS = 4.0
+
 
 def bound_ms(C, M, K, n_active, G=0, grid_hits=0):
     """Least time for one faas_sweep call over ``n_active`` arrivals inside
@@ -174,6 +236,21 @@ def par_bound_ms(C, M, c, K, n_active, live_slot_events):
     ops = (n_active * (M * PAR_OPS_PER_SLOT_EVENT + PAR_OPS_PER_ROW_EVENT)
            + live_slot_events * (PAR_OPS_PER_LIVE_SLOT + c * PAR_OPS_PER_SUB_SLOT)
            + (C * K - n_active) * OPS_PER_INERT_EVENT)
+    return _bound(nbytes, ops)
+
+
+def fleet_bound_ms(N, F, S, K, n_active, live_events, acting_live_events):
+    """Least time for one fleet_sweep call: N fleets of F functions reading
+    a [S, K] stream (held once), ``n_active`` fleet-events inside their
+    horizons (of N * K), ``live_events`` live instances of the fleet and
+    ``acting_live_events`` live instances of the acting function, each
+    summed over those events."""
+    nbytes = (FLEET_STREAM_BYTES * S * K + 4 * N * (2 * F + 3) + 8 * N
+              + 4 * N * F * 14)
+    ops = (n_active * (F * FLEET_OPS_PER_FUNCTION_EVENT + FLEET_OPS_PER_FLEET_EVENT)
+           + live_events * FLEET_OPS_PER_LIVE_SLOT
+           + acting_live_events * FLEET_OPS_PER_ACTING_LIVE
+           + (N * K - n_active) * OPS_PER_INERT_EVENT)
     return _bound(nbytes, ops)
 
 
@@ -259,16 +336,243 @@ def small_samples(torch, dev, rng, C, K, rate, prestamped):
 
 def print_ptxas(log, kernel):
     """The registers and spills ptxas reports for each template instance
-    (S slots per lane, and the grid-column instances of faas_sweep)."""
+    (S slots per lane, and the grid-column instances of faas_sweep; FP
+    padded functions x SF slots per function per lane for fleet_sweep)."""
     inst = None  # the template instance the next ptxas lines are about
     for line in log.splitlines():
-        m = re.search(kernel + r"ILi(\d+)E(Lb([01])E)?", line)
-        if m:
+        m = re.search(kernel + r"ILi(\d+)E(Lb([01])E|Li(\d+)E)?", line)
+        if m and m.group(4):
+            fp, sf = int(m.group(1)), int(m.group(4))
+            inst = f"FP={fp} SF={sf} (F <= {fp}, M <= {32 * sf})"
+        elif m:
             per_lane = int(m.group(1))
             inst = f"S={per_lane} (M <= {32 * per_lane})" + (
                 " grid" if m.group(3) == "1" else "")
         elif inst and ("registers" in line or "spill" in line):
             print(f"  ptxas {kernel} {inst}: {line.split(':', 1)[-1].strip()}")
+
+
+def held_fleet(torch, out_k, out_p, what):
+    """Fleet kernel vs plain: every acc column but the integrals (3-4) and
+    the queue lengths equal, the integrals within INTEGRAL_RTOL; returns the
+    largest |acc difference|."""
+    (acc_k, q_k), (acc_p, q_p) = out_k, out_p
+    if acc_k.shape != acc_p.shape or not torch.equal(q_k, q_p):
+        raise AssertionError(f"{what}: shapes or queue lengths differ from the plain version")
+    for c in [c for c in range(acc_k.shape[-1]) if c not in (3, 4)]:
+        if not torch.equal(acc_k[..., c], acc_p[..., c]):
+            n = int((acc_k[..., c] != acc_p[..., c]).sum())
+            raise AssertionError(f"{what}: acc column {c} differs in {n} (fleet, function) rows")
+    for c in (3, 4):
+        err = (acc_k[..., c] - acc_p[..., c]).abs()
+        if bool((err > INTEGRAL_RTOL * acc_p[..., c].abs().clamp_min(1.0)).any()):
+            raise AssertionError(f"{what}: acc column {c} off by {err.max().item():.3e}")
+    return float((acc_k.double() - acc_p.double()).abs().max())
+
+
+def fleet_small_inputs(torch, dev, rng, F, ncl, limits, prestamped, M, streams, cells, K):
+    gaps = rng.exponential(1 / 1.2, (streams, K))
+    N, horizon = streams * cells, K / 1.2
+    t = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32, device=dev)
+    return (
+        t(rng.uniform(3.0, 25.0, (N, F))),
+        t(np.broadcast_to(np.asarray(limits, np.float64), (N, F))),
+        t(np.full(N, 1e30 if ncl is None else ncl)),
+        t(horizon * rng.uniform(0.6, 0.9, N)),
+        t(horizon * rng.uniform(0.0, 0.1, N)),
+        torch.arange(streams, device=dev).repeat(cells),
+        t(np.cumsum(gaps, axis=1) if prestamped else gaps),
+        torch.tensor(rng.integers(0, F, (streams, K)), dtype=torch.uint8, device=dev),
+        t(rng.exponential(2.0, (streams, K))),
+        t(rng.exponential(2.5, (streams, K))),
+    )
+
+
+def fleet_prefix(inp, n):
+    """The fleet launch's arguments on the first n events of its stream
+    (all of it, uncopied, for n = K)."""
+    st = inp.staged
+    return (inp.t_exp, inp.limit, inp.ncl, inp.t_end, inp.skip, inp.stream,
+            *(st[k][:, :n].contiguous() for k in ("times", "fids", "warms", "colds")))
+
+
+def fleet_phase(torch, rt, dev, card):
+    """The fleet phase (module docstring, item 6); returns the kernels-line
+    numbers of fleet_sweep."""
+    from repro_torch.core.fleet import fleet_inputs
+    from repro_torch.data.catalog import catalog_names, fleet_of
+    from repro_torch.kernels.faas_event_step import LAUNCH_COUNTS
+    from repro_torch.kernels.fleet_event_step import fleet_sweep
+    from repro_torch.kernels.ref import fleet_sweep_ref
+
+    err = 0.0
+    # 6.1 small cases, kernel against plain: (F, Q, prestamped, ncl, limits, M)
+    cases = [(1, 0, False, None, 1000, 64), (1, 2, False, 3.0, 1000, 16),
+             (3, 2, True, 4.0, (3, 2, 5), 64), (3, 0, False, 5.0, 1000, 40),
+             (8, 0, True, None, 2, 16), (8, 2, True, 6.0, 1000, 64)]
+    for case, (F, Q, pre, ncl, limits, M) in enumerate(cases):
+        rng = np.random.default_rng(400 + case)
+        args = fleet_small_inputs(torch, dev, rng, F, ncl, limits, pre, M, 32, 4, 1024)
+        kw = dict(slots=M, queue_depth=Q, prestamped=pre)
+        out_k = fleet_sweep(*args, **kw)
+        ms_p, out_p = plain_timed(torch, lambda: fleet_sweep_ref(*args, **kw))
+        e = held_fleet(torch, out_k, out_p, f"fleet case {case}")
+        err = max(err, e)
+        tot = out_k[0].sum((0, 1)).tolist()
+        print(f"kernel==plain fleet case {case}: F={F} Q={Q} prestamped={pre} "
+              f"ncl={ncl or 'inf'} limits={limits} M={M}: cold={tot[0]:.0f} "
+              f"warm={tot[1]:.0f} reject={tot[2]:.0f} enqueued={tot[9]:.0f} "
+              f"queue-served={tot[10]:.0f} peak<={out_k[0][..., 12].max().item():.0f} "
+              f"max|acc diff|={e:.3e} (plain {ms_p:.0f} ms)", flush=True)
+        if (ncl is not None or limits != 1000) and tot[2] + tot[9] <= 0:
+            raise AssertionError(f"fleet case {case}: the cluster or limit never bound")
+        if Q and tot[10] <= 0:
+            raise AssertionError(f"fleet case {case}: no queued arrival was served")
+
+    # 6.2 the full-width catalog sweep through fleet_sweep()
+    names = list(catalog_names())
+    fleet = fleet_of(names, n_cluster=FLEET_CLUSTER, skip_time=20.0, slots=64)
+    over = {"expiration_threshold": FLEET_THRESHOLDS}
+    LAUNCH_COUNTS.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grid = rt.fleet_sweep(fleet, over, 5, replicas=FLEET_REPLICAS)
+    sweep_s = time.perf_counter() - t0
+    launches = {"sweep": LAUNCH_COUNTS["fleet_sweep"]}
+    if launches["sweep"] != 1 or LAUNCH_COUNTS["faas_sweep"]:
+        raise AssertionError(f"fleet_sweep() launches: {dict(LAUNCH_COUNTS)}")
+    if not grid.ok.all():
+        raise AssertionError("fleet_sweep() cells are not finite")
+    arrivals = sum(float(s.n_requests.sum()) for s in grid.summaries.reshape(-1))
+    inp = fleet_inputs(fleet, over, 5, replicas=FLEET_REPLICAS, device=dev)
+    N, (S, K) = inp.t_exp.shape[0], inp.staged["times"].shape
+    events = N * K
+    print(f"fleet sweep [{card}]: {len(names)} functions x {len(FLEET_THRESHOLDS)} "
+          f"thresholds x {FLEET_REPLICAS} replicas = {N} fleets x K={K} merged events "
+          f"(stream [{S}, {K}] held once, "
+          f"{FLEET_STREAM_BYTES * S * K / 1e9:.2f} GB), {launches['sweep']} launch: "
+          f"fleet_sweep() {sweep_s:.3f} s wall = {arrivals / sweep_s:.4e} simulated "
+          f"arrivals/s, {events / sweep_s:.4e} events stepped/s", flush=True)
+    for i, thr in enumerate(FLEET_THRESHOLDS):
+        cold = ", ".join(f"{n} {100 * p:.3f}%" for n, p in zip(names, grid.cold_start_prob[i]))
+        print(f"fleet sweep: threshold {thr:.0f} s: cold start {cold}; occupancy "
+              f"{grid.cluster_utilization[i, 0] * FLEET_CLUSTER:.4f} of "
+              f"{FLEET_CLUSTER}, peak {grid.peak_cluster[i, 0]:.0f}", flush=True)
+    peak = float(grid.peak_cluster.max())
+    print(f"fleet sweep: max_peak_cluster {peak:.0f} (cap {FLEET_CLUSTER})", flush=True)
+    if peak > FLEET_CLUSTER:
+        raise AssertionError("the fleet's peak exceeded n_cluster")
+    # the 60 s cell against the JAX reference constants
+    cell = grid.summaries[0]
+    occ_r = sum((s.time_running + s.time_idle) / s.measured_time for s in cell)
+    checks = [(f"{n} cold start", cell[f].cold_start_prob,
+               float((cell[f].n_cold / np.maximum(cell[f].n_cold + cell[f].n_warm, 1)).std(ddof=1)),
+               REF_FLEET["cold_start_prob"][f], REF_FLEET["cold_start_prob_se"][f])
+              for f, n in enumerate(names)]
+    checks.append(("avg cluster occupancy", float(occ_r.mean()), float(occ_r.std(ddof=1)),
+                   REF_FLEET["avg_cluster_occupancy"], REF_FLEET["avg_cluster_occupancy_se"]))
+    for what, got, sd, ref, ref_se in checks:
+        tol = REF_FLEET_SIGMAS * float(np.hypot(sd / np.sqrt(FLEET_REPLICAS), ref_se))
+        print(f"fleet vs JAX reference at 60 s: {what} {got:.6f} (reference {ref:.6f}, "
+              f"|diff| {abs(got - ref):.2e} <= {tol:.2e})", flush=True)
+        if abs(got - ref) > tol:
+            raise AssertionError(f"fleet 60 s cell: {what} is off the JAX reference")
+
+    # 6.3 queued: the same fleet behind a smaller cluster, through fleet_run()
+    fleet_q = fleet_of(names, skip_time=20.0, slots=64, **FLEET_QUEUED)
+    LAUNCH_COUNTS.clear()
+    t0 = time.perf_counter()
+    res_q = rt.fleet_run(fleet_q, 6, replicas=FLEET_REPLICAS)
+    queued_s = time.perf_counter() - t0
+    launches["queued"] = LAUNCH_COUNTS["fleet_sweep"]
+    if launches["queued"] != 1:
+        raise AssertionError(f"fleet_run() launches: {dict(LAUNCH_COUNTS)}")
+    sq = res_q.summary
+    wait = float(sq.queue_wait_sum.sum() / max(sq.queue_served.sum(), 1))
+    print(f"fleet queued [{card}]: n_cluster={FLEET_QUEUED['n_cluster']} queue_depth="
+          f"{FLEET_QUEUED['queue_depth']}, {FLEET_REPLICAS} replicas, 1 launch, "
+          f"{queued_s:.3f} s wall: enqueued {100 * sq.enqueued.sum() / sq.arrivals.sum():.3f}% "
+          f"of arrivals, mean queue wait {wait:.4f} s, rejected "
+          f"{100 * sum(s.n_reject.sum() for s in sq.summaries) / sq.arrivals.sum():.3f}%, "
+          f"peak {sq.max_peak_cluster:.0f}", flush=True)
+    if sq.enqueued.sum() <= 0 or sq.max_peak_cluster > FLEET_QUEUED["n_cluster"]:
+        raise AssertionError("the queued fleet queued nothing or passed its cap")
+    inp_q = fleet_inputs(fleet_q, {}, 6, replicas=FLEET_REPLICAS, device=dev)
+    qkw = dict(slots=64, queue_depth=FLEET_QUEUED["queue_depth"], prestamped=True)
+    part = fleet_prefix(inp_q, FLEET_PLAIN_EVENTS)
+    out_k = fleet_sweep(*part, **qkw)
+    ms_pq, out_p = plain_timed(torch, lambda: fleet_sweep_ref(*part, **qkw))
+    e = held_fleet(torch, out_k, out_p, "queued fleet prefix")
+    err = max(err, e)
+    print(f"kernel==plain fleet queued, first {FLEET_PLAIN_EVENTS} events of "
+          f"{inp_q.staged['times'].shape[1]}: max|acc diff|={e:.3e}, queue-served "
+          f"{out_k[0][..., 10].sum().item():.0f} (plain {ms_pq:.0f} ms)", flush=True)
+    del inp_q, part, out_k, out_p
+
+    # 6.4 Table 1 as a one-function fleet against run() on the same draws
+    scn1 = table1(rt)
+    solo = rt.FleetFunction(
+        name="table1", arrival_process=scn1.arrival_process,
+        warm_service_process=scn1.warm_service_process,
+        cold_service_process=scn1.cold_service_process,
+        expiration_threshold=scn1.expiration_threshold,
+        max_concurrency=scn1.max_concurrency,
+    )
+    fleet1 = rt.FleetScenario(functions=(solo,), sim_time=scn1.sim_time,
+                              skip_time=scn1.skip_time, slots=scn1.slots)
+    LAUNCH_COUNTS.clear()
+    one = rt.fleet_run(fleet1, 7, replicas=FULL_REPLICAS).summary
+    launches["one"] = LAUNCH_COUNTS["fleet_sweep"]
+    base = rt.run(scn1, 7, replicas=FULL_REPLICAS).summary
+    if launches["one"] != 1 or LAUNCH_COUNTS["faas_sweep"] != 1:
+        raise AssertionError(f"one-function fleet launches: {dict(LAUNCH_COUNTS)}")
+    for f in ("n_cold", "n_warm", "n_reject"):
+        if not np.array_equal(getattr(one["table1"], f), getattr(base, f)):
+            raise AssertionError(f"the one-function fleet differs from run() in {f}")
+    print(f"fleet one-function: Table 1, n_cluster=inf, {FULL_REPLICAS} replicas: cold, "
+          f"warm, reject equal to run()'s (faas_sweep) on the same draws; avg servers "
+          f"{one['table1'].avg_server_count:.4f} vs {base.avg_server_count:.4f}", flush=True)
+
+    # 6.5 timing at the full-width shape, and the plain version on its prefix
+    args = fleet_prefix(inp, K)
+    kw = dict(slots=64, queue_depth=0, prestamped=True)
+    ms, out_k = timed(torch, lambda: fleet_sweep(*args, **kw), reps=3)
+    cold_k = out_k[0][..., 0].double().cpu().numpy().reshape(len(FLEET_THRESHOLDS), -1, len(names))
+    for i in range(len(FLEET_THRESHOLDS)):
+        for f in range(len(names)):
+            if not np.array_equal(cold_k[i, :, f], grid.summaries[i, f].n_cold):
+                raise AssertionError("the timed fleet launch does not reproduce fleet_sweep()")
+    part = fleet_prefix(inp, FLEET_PLAIN_EVENTS)
+    out_k = fleet_sweep(*part, **kw)
+    plain_ms, out_p = plain_timed(torch, lambda: fleet_sweep_ref(*part, **kw))
+    e = held_fleet(torch, out_k, out_p, "fleet sweep prefix")
+    err = max(err, e)
+    # events in the horizon (every cell's is sim_time) per replica, all and
+    # by acting function; live instances at an arrival: by PASTA (the merged
+    # stream is Poisson) each function's time-average instance count in
+    # that cell and replica
+    F = len(names)
+    in_h = inp.staged["times"] <= inp.t_end[:1].item()
+    per_row = in_h.sum(1).double().cpu().numpy()
+    per_fn = np.stack([(in_h & (inp.staged["fids"] == f)).sum(1).double().cpu().numpy()
+                       for f in range(F)])
+    del in_h
+    occ = np.array([[(s.time_running + s.time_idle) / s.measured_time for s in row]
+                    for row in grid.summaries])  # [cells, F, replicas]
+    active = int(per_row.sum()) * len(FLEET_THRESHOLDS)
+    live = float((occ * per_row).sum())
+    acting = float((occ * per_fn).sum())
+    b_ms, b_by = fleet_bound_ms(N, F, S, K, active, live, acting)
+    print(f"timing [{card}]: fleet_sweep N={N} F={F} M=64 K={K}: {ms:.3f} ms "
+          f"(mean of 3); {active} fleet-events in horizon = {active / ms * 1e3:.4e}/s; "
+          f"bound {b_ms:.3f} ms ({b_by}; {live:.4e} live and {acting:.4e} acting-function "
+          f"live instance-events by PASTA), kernel {ms / b_ms:.1f}x its bound; plain "
+          f"version {plain_ms:.1f} ms on the first {FLEET_PLAIN_EVENTS} events (held: "
+          f"max|acc diff| {e:.3e}); fleet_sweep() {sweep_s:.3f} s wall", flush=True)
+    del inp, args, part, out_k, out_p
+    torch.cuda.empty_cache()
+    return dict(launches=sum(launches.values()), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by), err
 
 
 def main() -> int:
@@ -298,8 +602,7 @@ def main() -> int:
     # ---- 2. build
     for name, info in _build.build_all(SOURCES).items():
         print(f"build: {name} in {info['seconds']:.1f} s -> {info['path'].name}")
-        print_ptxas(info["log"], {"faas_event_step": "faas_sweep_kernel",
-                                  "par_event_step": "par_sweep_kernel"}[name])
+        print_ptxas(info["log"], KERNEL_NAMES[name])
     sys.stdout.flush()
 
     # ---- 3. kernels vs plain versions on the card, small shapes
@@ -591,12 +894,19 @@ def main() -> int:
               f"{active / par_wall[c]:.4e} arrivals in horizon/s", flush=True)
         del out_k, out_p
     results["par_sweep"] = dict(launches=par_launches, **par_times[3])
-    print(f"script {time.perf_counter() - t_start:.1f} s", flush=True)
+    del dts, warms, colds
+    torch.cuda.empty_cache()
 
-    # ---- 6. kernels line, card line, device line
+    # ---- 6. fleets
+    t0 = time.perf_counter()
+    results["fleet_sweep"], errs["fleet_sweep"] = fleet_phase(torch, rt, dev, card)
+    print(f"fleet phase {time.perf_counter() - t0:.1f} s; script "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---- 7. kernels line, card line, device line
     print(json.dumps({"kernels": [
         dict(KERNELS[k], **results[k], max_abs_err=errs[k], library_ms=None)
-        for k in ("faas_sweep", "faas_sweep_grid", "par_sweep")
+        for k in ("faas_sweep", "faas_sweep_grid", "par_sweep", "fleet_sweep")
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,10 @@
 >>> grid = sweep(scn, over={"expiration_threshold": [...],
 ...                         "arrival_rate": [...]}, seed=0)
 >>> grid = sweep(scn, over=..., seed=0, device="cpu")  # plain version
+>>> from repro_torch.data.catalog import fleet_of
+>>> fleet = fleet_of(["thumbnail", "ml-inference"], n_cluster=8)
+>>> res = fleet_run(fleet, seed=0, replicas=16)       # shared capacity
+>>> grid = fleet_sweep(fleet, {"expiration_threshold": [60.0, 600.0]}, seed=0)
 """
 
 from repro_torch.core.cost import BillingModel, CostEstimate, estimate_cost
@@ -17,6 +21,15 @@ from repro_torch.core.execution import (
     plan_of,
     register_backend,
     resolve_backend,
+)
+from repro_torch.core.fleet import (
+    FleetFunction,
+    FleetGridResult,
+    FleetResult,
+    FleetScenario,
+    FleetSummary,
+    fleet_run,
+    fleet_sweep,
 )
 from repro_torch.core.processes import (
     DeterministicSimProcess,
@@ -56,4 +69,11 @@ __all__ = [
     "TemporalSummary",
     "run",
     "sweep",
+    "FleetFunction",
+    "FleetScenario",
+    "FleetSummary",
+    "FleetResult",
+    "FleetGridResult",
+    "fleet_run",
+    "fleet_sweep",
 ]

@@ -8,14 +8,16 @@ unknown names raise with the registered list.
 
 * ``"cuda"`` — the hand-written Hopper kernels
   (:mod:`repro_torch.kernels.faas_event_step`,
-  :mod:`repro_torch.kernels.par_event_step`); needs a CUDA device.
+  :mod:`repro_torch.kernels.par_event_step`,
+  :mod:`repro_torch.kernels.fleet_event_step`); needs a CUDA device.
 * ``"ref"`` — the plain PyTorch versions of the same loops
   (:mod:`repro_torch.kernels.ref`); runs on any device.
 
 The engines are the reference's: ``"scan"`` (steady state) and
 ``"temporal"`` (transient curves from a custom initial pool) share the
 pool-state launcher; ``"par"`` (concurrency value > 1) has its own
-``finish[M, c]`` launcher.
+``finish[M, c]`` launcher.  Fleets (:mod:`repro_torch.core.fleet`) run on
+the scan engine through each backend's ``"fleet"`` launcher.
 
 Entry points run on the card unless the caller asks for the CPU:
 ``device=None`` means ``"cuda"``, and a CUDA request without a visible GPU
@@ -47,7 +49,10 @@ class BackendSpec:
     tensors and returns the ``[C, ACC_COLS + 3G]`` accumulator; the par
     launcher is ``launch(t_exp, t_end, skip, dts, warms, colds, *,
     max_concurrency, concurrency, slots, prestamped)`` and returns
-    ``[C, PAR_ACC_COLS]``.
+    ``[C, PAR_ACC_COLS]``.  The fleet launcher is ``launch(t_exp, limit,
+    ncl, t_end, skip, stream, times, fids, warms, colds, *, slots,
+    queue_depth, prestamped)`` on ``[N, F]`` / ``[N]`` fleet tensors and a
+    ``[S, K]`` stream, and returns ``(acc[N, F, 13], qleft[N, F])``.
     """
 
     name: str
@@ -79,6 +84,7 @@ _PROVIDERS = {
     "cuda": (
         "repro_torch.kernels.faas_event_step",
         "repro_torch.kernels.par_event_step",
+        "repro_torch.kernels.fleet_event_step",
     ),
 }
 

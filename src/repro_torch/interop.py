@@ -7,6 +7,9 @@ imports nothing of the reference).  :func:`staged_from_reference` turns
 the reference's per-draw-cell ``(dts, warms, colds)`` arrays into the
 ``staged=`` triple that :func:`~repro_torch.core.scenario.run` and
 :func:`~repro_torch.core.scenario.sweep` consume instead of drawing.
+:func:`fleet_from_reference` and :func:`fleet_staged_from_reference` do
+the same for fleets: a reference ``FleetScenario`` and the merged stream
+of its ``_stage_fleet``.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.cost import BillingModel
+from repro_torch.core.fleet import FleetFunction, FleetScenario
 from repro_torch.core.processes import FAMILIES, unported
 from repro_torch.core.scenario import Scenario
 
@@ -67,4 +71,46 @@ def staged_from_reference(parts, device=None) -> tuple:
             )
         ).to(device or "cpu")
         for j in range(3)
+    )
+
+
+def fleet_from_reference(obj) -> FleetScenario:
+    """A port :class:`FleetScenario` equal field by field to the reference
+    one; its processes go through :func:`process_from_reference`."""
+    if type(obj).__name__ != "FleetScenario":
+        raise TypeError(f"expected a reference FleetScenario, got {type(obj).__name__}")
+    ref = _fields(obj)
+    fns = []
+    for fn in ref["functions"]:
+        if type(fn).__name__ != "FleetFunction":
+            raise TypeError(f"expected a reference FleetFunction, got {type(fn).__name__}")
+        kw = _fields(fn)
+        for name in ("arrival_process", "warm_service_process", "cold_service_process"):
+            if kw[name] is not None:
+                kw[name] = process_from_reference(kw[name])
+        fns.append(FleetFunction(**kw))
+    ref["functions"] = tuple(fns)
+    ref["billing"] = BillingModel(**_fields(ref["billing"]))
+    return FleetScenario(**ref)
+
+
+def fleet_staged_from_reference(staged, device=None) -> dict:
+    """The port's fleet ``staged=`` input from the reference's
+    ``_stage_fleet`` dict (``times``, ``fids``, ``warms``, ``colds``, each
+    ``[R, K]``, and ``prestamped``): times cast to f32 after the merge (the
+    reference's f64 absolute times, or f32 gaps for one function), fids as
+    uint8, on ``device`` (default the CPU)."""
+    dev = device or "cpu"
+    f32 = lambda k: torch.from_numpy(
+        np.ascontiguousarray(np.asarray(staged[k]), dtype=np.float32)
+    ).to(dev)
+    fids = np.asarray(staged["fids"])
+    if fids.size and (fids.min() < 0 or fids.max() > 255):
+        raise ValueError("fids must be function indices in [0, 255]")
+    return dict(
+        times=f32("times"),
+        fids=torch.from_numpy(np.ascontiguousarray(fids, dtype=np.uint8)).to(dev),
+        warms=f32("warms"),
+        colds=f32("colds"),
+        prestamped=bool(staged["prestamped"]),
     )

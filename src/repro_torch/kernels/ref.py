@@ -9,6 +9,13 @@ concurrency-value platform's ``finish[M, c]`` loop.  They run on any
 device: the CPU tests and the ``device="cpu"`` entry points use them, and
 ``chip_smoke.py`` holds the CUDA kernels against them on the card.  Their
 row launchers are registered as backend ``"ref"``.
+
+:func:`fleet_sweep_ref` mirrors ``fleet_sweep_ref`` there: F function
+pools under one shared cluster capacity, with FIFO queues.  It keeps the
+reference's per-event arithmetic and tie-breaks but not its block layout
+(one fleet per 8-row block, the merged stream copied into every row):
+pools are ``[N, F, M]`` and each fleet reads its replica's row of one
+``[replicas, K]`` stream through ``stream``.
 """
 
 from __future__ import annotations
@@ -21,6 +28,14 @@ NEG = -1e30
 ACC_COLS = 8
 # par accumulator: the 8 base columns, then ∫in-flight requests
 PAR_ACC_COLS = 9
+# fleet accumulator per function: the 8 base columns, then arrivals,
+# enqueued, queue-served, Σqueue wait and the fleet's peak live count
+FLEET_ACC_COLS = 13
+# the most functions a fleet has on the block backends (the reference's
+# BLOCK_R: a fleet was one 8-row block of the TPU kernel)
+MAX_FUNCTIONS = 8
+# the reference fleet kernel's platform-fault inputs (not ported yet)
+FLEET_FAULTS = ("crash_rate", "crash_u", "cap_edges", "cap_values")
 
 
 def _rows(x, R, device):
@@ -261,6 +276,218 @@ def faas_par_sweep_ref(
     return alive, creation, finish, t, acc
 
 
+def refuse_fleet_faults(fn: str, faults: dict) -> None:
+    """Raise for the reference fleet kernel's fault inputs (a later slice)
+    and for any other unexpected keyword."""
+    for name, value in faults.items():
+        if name not in FLEET_FAULTS:
+            raise TypeError(f"{fn}() got an unexpected keyword {name!r}")
+        if value is not None:
+            raise NotImplementedError(
+                f"{fn}: {name}= (platform faults) is not ported yet; see "
+                "ROADMAP.md Queue A item 4"
+            )
+
+
+def fleet_sweep_ref(
+    t_exp,  # f32 [N, F] per-function expiration threshold
+    limit,  # f32 [N, F] per-function concurrency limit
+    ncl,  # f32 [N] or scalar — shared cluster capacity (1e30 = unbounded)
+    t_end,  # f32 [N] or scalar — per-fleet horizon
+    skip,  # f32 [N] or scalar — per-fleet warm-up exclusion
+    stream,  # int [N] the stream row each fleet reads
+    times,  # f32 [S, K] merged stream: gaps, or absolute times if prestamped
+    fids,  # uint8/int [S, K] acting function of each event
+    warms,  # f32 [S, K]
+    colds,  # f32 [S, K]
+    *,
+    slots: int,
+    queue_depth: int = 0,
+    prestamped: bool = False,
+    **faults,
+):
+    """Run the K events of each fleet's stream row against its F pools of
+    ``slots`` instances.
+
+    Per event: every pool integrates ∫running/∫idle over the interval
+    clipped to ``[skip, t_end]`` and expires past its ``t_exp``
+    (expire-first on a tie); with ``queue_depth`` Q > 0, up to Q passes
+    serve the acting function's queue head (inside the horizon only);
+    then the acting function's arrival goes warm (newest idle, lowest slot
+    on a creation tie), else cold when its live count is below its limit,
+    it has a free slot and the fleet's live count is below ``ncl``, else
+    into its queue if there is room, else it is rejected; the fleet's peak
+    live count is updated on every event.  Returns ``(acc[N, F, 13],
+    qleft[N, F])``: the reference's ``FLEET_ACC_COLS`` (cold, warm,
+    reject, ∫running, ∫idle, Σcold response, Σwarm response, overflow,
+    arrivals, enqueued, queue-served, Σqueue wait, peak; the peak repeated
+    for every function) and the queue lengths left at the end.
+    """
+    refuse_fleet_faults("fleet_sweep_ref", faults)
+    N, F = t_exp.shape
+    M, Q = int(slots), int(queue_depth)
+    K = times.shape[1]
+    dev = times.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    t_exp = torch.as_tensor(t_exp, **f32)
+    limit = torch.as_tensor(limit, **f32)
+    ncl, t_end, skip = (_rows(x, N, dev) for x in (ncl, t_end, skip))
+    idx = torch.as_tensor(stream, device=dev).long()
+    dts = times.index_select(0, idx)
+    fid = fids.index_select(0, idx).long()
+    warm = warms.index_select(0, idx)
+    cold = colds.index_select(0, idx)
+    slot_iota = torch.arange(M, **f32).expand(N, F, M)
+    f_iota = torch.arange(F, device=dev).expand(N, F)
+    alive = torch.zeros((N, F, M), **f32)
+    creation = torch.full((N, F, M), NEG, **f32)
+    busy = torch.full((N, F, M), NEG, **f32)
+    t = torch.zeros((N,), **f32)
+    acc = torch.zeros((N, F, FLEET_ACC_COLS), **f32)
+    peak = torch.zeros((N,), **f32)
+    zero = torch.zeros((N, F), **f32)
+    if Q:
+        q_iota = torch.arange(Q, device=dev).expand(N, F, Q)
+        qt, qw, qc = (torch.full((N, F, Q), NEG, **f32) for _ in range(3))
+        neg_col = torch.full((N, F, 1), NEG, **f32)
+
+    def routing(alive, creation, busy, t_new):
+        idle = (alive > 0) & (busy <= t_new[:, None, None])
+        best = torch.where(idle, creation, NEG).amax(2)
+        any_idle = best > NEG * 0.5
+        is_best = idle & (creation >= best[..., None]) & any_idle[..., None]
+        first_best = torch.where(is_best, slot_iota, 1e9).amin(2)
+        free = alive <= 0
+        any_free = free.any(2)
+        first_free = torch.where(free, slot_iota, 1e9).amin(2)
+        n_alive = alive.sum(2)
+        return any_idle, first_best, any_free, first_free, n_alive
+
+    def start(sel, is_cold, t_new, service, alive, creation, busy):
+        busy = torch.where(sel, (t_new[:, None] + service)[..., None], busy)
+        sel_cold = sel & is_cold[..., None]
+        creation = torch.where(sel_cold, t_new[:, None, None], creation)
+        alive = torch.where(sel_cold, 1.0, alive)
+        return alive, creation, busy
+
+    for i in range(K):
+        dt_i, warm_i, cold_i = dts[:, i], warm[:, i], cold[:, i]
+        act = f_iota == fid[:, i, None]
+        t_new = dt_i if prestamped else t + dt_i
+        lo = torch.clamp(t, skip, t_end)[:, None, None]
+        hi = torch.clamp(t_new, skip, t_end)[:, None, None]
+        expire = busy + t_exp[..., None]
+        run_t = torch.clamp(torch.minimum(busy, hi) - lo, min=0.0)
+        idle_t = torch.clamp(torch.minimum(expire, hi) - torch.maximum(busy, lo), min=0.0)
+        run_sum = (run_t * alive).sum(2)
+        idle_sum = (idle_t * alive).sum(2)
+        expired = (alive > 0) & (expire <= t_new[:, None, None])
+        alive = torch.where(expired, 0.0, alive)
+        cc = (t_new > skip)[:, None]
+        in_h = (t_new <= t_end)[:, None]
+
+        if Q:
+            for _ in range(Q):
+                any_idle, first_best, any_free, first_free, n_alive = routing(
+                    alive, creation, busy, t_new
+                )
+                cluster = n_alive.sum(1)[:, None]
+                ht, hw, hc = qt[..., 0], qw[..., 0], qc[..., 0]
+                has = (ht > NEG * 0.5) & act & in_h
+                can_warm = has & any_idle
+                can_cold = (
+                    has & (~any_idle) & (n_alive < limit) & any_free
+                    & (cluster < ncl[:, None])
+                )
+                serve = can_warm | can_cold
+                if not bool(serve.any()):
+                    break  # a pass that serves nothing changes nothing
+                chosen = torch.where(can_warm, first_best, first_free)
+                sel = (slot_iota == chosen[..., None]) & serve[..., None]
+                alive, creation, busy = start(
+                    sel, can_cold, t_new, torch.where(can_warm, hw, hc),
+                    alive, creation, busy,
+                )
+                delta = torch.stack(
+                    [
+                        (can_cold & cc).float(),
+                        (can_warm & cc).float(),
+                        zero,
+                        zero,
+                        zero,
+                        torch.where(can_cold & cc, hc, 0.0),
+                        torch.where(can_warm & cc, hw, 0.0),
+                        zero,
+                        zero,
+                        zero,
+                        (serve & cc).float(),
+                        torch.where(serve & cc, t_new[:, None] - ht, 0.0),
+                        zero,
+                    ],
+                    dim=2,
+                )
+                acc = acc + delta
+                shift = lambda qx: torch.where(
+                    serve[..., None], torch.cat([qx[..., 1:], neg_col], dim=2), qx
+                )
+                qt, qw, qc = shift(qt), shift(qw), shift(qc)
+
+        any_idle, first_best, any_free, first_free, n_alive = routing(
+            alive, creation, busy, t_new
+        )
+        cluster = n_alive.sum(1)[:, None]
+        active = in_h & act
+        below = n_alive < limit
+        can_cold = (~any_idle) & below & any_free & (cluster < ncl[:, None])
+        overflow = (~any_idle) & below & (~any_free) & active
+        is_warm = any_idle & active
+        is_cold = can_cold & active
+        if Q:
+            qlen = (qt > NEG * 0.5).sum(2)
+            can_enq = (~any_idle) & (~can_cold) & (qlen < Q)
+            is_enq = can_enq & active
+            is_reject = (~any_idle) & (~can_cold) & (~can_enq) & active
+        else:
+            is_enq = torch.zeros_like(active)
+            is_reject = (~any_idle) & (~can_cold) & active
+        chosen = torch.where(is_warm, first_best, first_free)
+        sel = (slot_iota == chosen[..., None]) & (is_warm | is_cold)[..., None]
+        alive, creation, busy = start(
+            sel, is_cold, t_new,
+            torch.where(is_warm, warm_i[:, None], cold_i[:, None]),
+            alive, creation, busy,
+        )
+        if Q:
+            qsel = (q_iota == qlen[..., None]) & is_enq[..., None]
+            qt = torch.where(qsel, t_new[:, None, None], qt)
+            qw = torch.where(qsel, warm_i[:, None, None], qw)
+            qc = torch.where(qsel, cold_i[:, None, None], qc)
+        peak = torch.maximum(peak, alive.sum(2).sum(1))
+        delta = torch.stack(
+            [
+                (is_cold & cc).float(),
+                (is_warm & cc).float(),
+                (is_reject & cc).float(),
+                run_sum,
+                idle_sum,
+                torch.where(is_cold & cc, cold_i[:, None], 0.0),
+                torch.where(is_warm & cc, warm_i[:, None], 0.0),
+                overflow.float(),
+                (active & cc).float(),
+                (is_enq & cc).float(),
+                zero,
+                zero,
+                zero,
+            ],
+            dim=2,
+        )
+        acc = acc + delta
+        t = t_new
+    acc[..., FLEET_ACC_COLS - 1] = peak[:, None]
+    qleft = (qt > NEG * 0.5).sum(2).float() if Q else torch.zeros((N, F), **f32)
+    return acc, qleft
+
+
 @register_backend(
     "ref",
     description="plain PyTorch loops over arrivals (the kernels' mirrors)",
@@ -290,3 +517,15 @@ def _ref_par_rows(
         max_concurrency=max_concurrency, concurrency=concurrency,
         slots=slots, prestamped=prestamped,
     )[4]
+
+
+@register_backend("ref", engines=("fleet",))
+def _ref_fleet_rows(
+    t_exp, limit, ncl, t_end, skip, stream, times, fids, warms, colds,
+    *, slots, queue_depth, prestamped,
+):
+    """Backend ``"ref"``'s fleet launcher: ``(acc[N, F, 13], qleft[N, F])``."""
+    return fleet_sweep_ref(
+        t_exp, limit, ncl, t_end, skip, stream, times, fids, warms, colds,
+        slots=slots, queue_depth=queue_depth, prestamped=prestamped,
+    )

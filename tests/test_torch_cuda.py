@@ -207,3 +207,124 @@ def test_run_engines_launch_the_kernels(cuda_device):
     assert fes.LAUNCH_COUNTS["faas_sweep_grid"] == 1
     assert np.isfinite(par.summary.avg_in_flight) and par.summary.avg_in_flight > 0
     assert tmp.temporal.total_at[0] == 0.0 and tmp.temporal.total_at[2] > 0
+
+
+# ---------------------------------------------------------------------------
+# the fleet kernel
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import fleet_event_step as fles  # noqa: E402
+from repro_torch.kernels.ref import fleet_sweep_ref  # noqa: E402
+
+# fleet columns that are per-function sums of identically computed values,
+# the queue columns and the peak: equal bit for bit
+FLEET_EXACT_COLS = [0, 1, 2, 5, 6, 7, 8, 9, 10, 11, 12]
+
+
+def _fleet_inputs(dev, seed, F, ncl, limits, prestamped, M, streams=9, cells=3, K=400):
+    rng = np.random.default_rng(seed)
+    rate = 1.2
+    gaps = rng.exponential(1 / rate, (streams, K))
+    N = streams * cells
+    horizon = K / rate
+    t = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32, device=dev)
+    args = (
+        t(rng.uniform(3.0, 25.0, (N, F))),
+        t(np.broadcast_to(np.asarray(limits, np.float64), (N, F))),
+        t(np.full(N, 1e30 if ncl is None else ncl)),
+        t(horizon * rng.uniform(0.6, 0.9, N)),
+        t(horizon * rng.uniform(0.0, 0.1, N)),
+        torch.arange(streams, device=dev).repeat(cells),
+        t(np.cumsum(gaps, axis=1) if prestamped else gaps),
+        torch.tensor(rng.integers(0, F, (streams, K)), dtype=torch.uint8, device=dev),
+        t(rng.exponential(2.0, (streams, K))),
+        t(rng.exponential(2.5, (streams, K))),
+    )
+    return args, dict(slots=M, prestamped=prestamped)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "F,Q,prestamped,ncl,limits,M",
+    [
+        (1, 0, False, None, 1000, 40),  # two slots per lane, slots past M masked
+        (1, 2, False, 3.0, 1000, 16),  # a queue behind a binding cluster
+        (3, 2, True, 4.0, (3, 2, 5), 64),  # F padded to 4 in the warp
+        (8, 0, True, None, 2, 16),  # every function's limit binds
+        (8, 2, True, 6.0, 1000, 16),
+        (8, 0, True, 24.0, 1000, 64),  # the catalog benchmark's layout
+    ],
+)
+def test_fleet_kernel_matches_plain(cuda_device, F, Q, prestamped, ncl, limits, M):
+    args, kw = _fleet_inputs(cuda_device, 13 + F + Q, F, ncl, limits, prestamped, M)
+    kw["queue_depth"] = Q
+    before = fles.LAUNCH_COUNTS["fleet_sweep"]
+    acc_k, q_k = (o.cpu().numpy() for o in fles.fleet_sweep(*args, **kw))
+    assert fles.LAUNCH_COUNTS["fleet_sweep"] == before + 1
+    acc_p, q_p = (o.cpu().numpy() for o in fleet_sweep_ref(*args, **kw))
+    np.testing.assert_array_equal(acc_k[..., FLEET_EXACT_COLS], acc_p[..., FLEET_EXACT_COLS])
+    np.testing.assert_allclose(acc_k[..., 3:5], acc_p[..., 3:5], rtol=INTEGRAL_RTOL)
+    np.testing.assert_array_equal(q_k, q_p)
+    assert acc_k[..., 0].sum() > 0 and acc_k[..., 8].sum() > 0
+    if Q:
+        assert acc_k[..., 10].sum() > 0
+
+
+@pytest.mark.cuda
+def test_fleet_wrapper_checks_inputs(cuda_device):
+    args, kw = _fleet_inputs(cuda_device, 14, 3, 4.0, 5, True, 16)
+    args = list(args)
+    launches = fles.LAUNCH_COUNTS["fleet_sweep"]
+
+    def call(i=None, x=None, **more):
+        a = list(args)
+        if i is not None:
+            a[i] = x
+        return fles.fleet_sweep(*a, **{**kw, **more})
+
+    with pytest.raises(ValueError, match="uint8"):
+        call(7, args[7].int())
+    with pytest.raises(ValueError, match="contiguous"):
+        call(6, args[6].t().contiguous().t())
+    with pytest.raises(ValueError, match="shape"):
+        call(8, args[8][:, :10].contiguous())
+    with pytest.raises(ValueError, match="is on cpu"):  # no CPU fallback
+        call(0, args[0].cpu())
+    with pytest.raises(ValueError, match="queue_depth"):
+        call(queue_depth=fles.MAX_QUEUE + 1)
+    with pytest.raises(ValueError, match="registers"):
+        call(slots=512)
+    with pytest.raises(NotImplementedError, match="Queue A item 4"):
+        call(crash_rate=args[2])
+    assert fles.LAUNCH_COUNTS["fleet_sweep"] == launches  # nothing launched
+    # the launch reads nothing back: a fleet whose stream row lies past the
+    # stream's rows reads no stream and gets NaN outputs; the others are
+    # untouched
+    bad = args[5].clone()
+    bad[0] = args[6].shape[0]
+    acc_b, q_b = (o.cpu().numpy() for o in call(5, bad))
+    acc_g, q_g = (o.cpu().numpy() for o in call())
+    assert np.isnan(acc_b[0]).all() and np.isnan(q_b[0]).all()
+    np.testing.assert_array_equal(acc_b[1:], acc_g[1:])
+    np.testing.assert_array_equal(q_b[1:], q_g[1:])
+    assert fles.LAUNCH_COUNTS["fleet_sweep"] == launches + 2
+
+
+@pytest.mark.cuda
+def test_fleet_front_door_launches_the_kernel(cuda_device):
+    import repro_torch as rt
+    from repro_torch.data.catalog import fleet_of
+
+    fleet = fleet_of(["thumbnail", "compression", "ml-inference"], n_cluster=4,
+                     queue_depth=2, sim_time=600.0, skip_time=20.0, slots=16)
+    fles.LAUNCH_COUNTS.clear()
+    res = rt.fleet_run(fleet, 0, replicas=16)
+    grid = rt.fleet_sweep(fleet, {"expiration_threshold": [30.0, 300.0],
+                                  "n_cluster": [4.0, 8.0]}, 0, replicas=16)
+    assert fles.LAUNCH_COUNTS["fleet_sweep"] == 2
+    assert res.summary.max_peak_cluster <= 4.0 and res.summary.enqueued.sum() > 0
+    assert grid.shape == (2, 2, 3) and grid.ok.all()
+    cpu = rt.fleet_sweep(fleet, {"expiration_threshold": [30.0, 300.0],
+                                 "n_cluster": [4.0, 8.0]}, 0, replicas=16, device="cpu")
+    # the draws differ by device (torch generators), so compare statistics
+    assert abs(float(grid.cold_start_prob.mean()) - float(cpu.cold_start_prob.mean())) < 0.1
