@@ -40,7 +40,24 @@ Phases (any failure ends the script with a non-zero exit):
    as a one-function fleet against ``run()`` on the same draws (4096
    replicas); the kernel timed at full width, held to its plain version on
    the first 4096 events of both full-width launches;
-7. the kernels line (JSON), the card line, then the device line (JSON) last.
+7. serving (``flash_attention``, ``decode_attention``): each kernel against
+   its plain version at small shapes over every option (causal, window,
+   prefix_len, softcap; D = 64, 128, 256; G = 1, 4, 8; f32 and bf16; ragged
+   cache_len from 1 to T); then ``llama3.2-1b`` at full width through
+   ``Replica`` (batch 4 x 2,048-token prompts, ``max_len`` 4,096, 128 new
+   tokens): cold and warm times, the keep-alive plan on ``faas_sweep`` and a
+   Poisson replay through ``ServerlessPlatform`` (``launch/serve.py``'s
+   ``measure`` and ``plan_and_replay``); a teacher-forced prefill and 128
+   decode steps with every attention call held to its plain version on the
+   same inputs, 16 launches per prefill and per step; the logits against
+   the same model under ``kernel_backend("ref")`` at full width with the
+   depth cut to 2 layers (at 16 the random-weight model turns any rounding
+   difference into uncorrelated logits, which the phase shows by holding
+   the plain version against itself in another tiling); the path's device
+   time by operation (``torch.profiler``); each kernel timed at the path's
+   shapes beside its bound, its plain version and
+   ``scaled_dot_product_attention``;
+8. the kernels line (JSON), the card line, then the device line (JSON) last.
 """
 
 import json
@@ -137,12 +154,53 @@ KERNELS = {
         source="src/repro_torch/kernels/csrc/fleet_event_step.cu",
         replaces="src/repro/kernels/faas_event_step.py:1228",
     ),
+    "flash_attention": dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:28",
+    ),
+    "decode_attention": dict(
+        name="decode_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:28",
+    ),
 }
-SOURCES = ("faas_event_step", "par_event_step", "fleet_event_step")
+SOURCES = ("faas_event_step", "par_event_step", "fleet_event_step",
+           "flash_attention", "decode_attention")
 # ptxas' name for each source's kernel template
 KERNEL_NAMES = {"faas_event_step": "faas_sweep_kernel",
                 "par_event_step": "par_sweep_kernel",
                 "fleet_event_step": "fleet_sweep_kernel"}
+
+
+# the serving phase: llama3.2-1b at full width (src/repro/configs/llama3_2_1b.py)
+SERVE_ARCH = "llama3.2-1b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_MAX_LEN, SERVE_NEW = 4, 2048, 4096, 128
+# the launcher's defaults (launch/serve.py): 0.2 req/s over 20,000 s, 5% SLO
+SERVE_RATE, SERVE_HORIZON, SERVE_SLO = 0.2, 20000.0, 0.05
+# kernel vs plain: f32 within 1e-4 (other summation orders, expf/tanhf
+# against torch's), bf16 within 2e-2, both relative to 1 + max|v|. An output
+# is a convex combination of v rows, and the two versions round p to bf16 at
+# other points (the plain decode version rounds the normalised p, the kernel
+# the unnormalised one): that moves an output by up to 2^-8 max|v| however
+# small the output itself, and the random-weight model's v reaches ~90
+ATT_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# End-to-end logits. The random-weight model is chaotic in depth: its
+# activations are large (|v| ~ 90, scores ~ 600 at full width), attention is
+# near one-hot, and a rounding difference that moves a score past a near-tied
+# one flips the attended key; two correct versions (the plain version in two
+# tilings) then give uncorrelated logits at 16 layers, and drift already at 2
+# (the phase prints both). So every attention call of the 16-layer path is
+# held to its plain version on the same inputs, and the logits are held at
+# full width with the depth cut to SERVE_E2E_LAYERS = 1, where each position's
+# difference comes from that step's kernel call alone: within a relative L2
+# distance (||kernel - plain|| / ||plain||) of 5e-2 at the prefill and at
+# every teacher-forced decode step.
+SERVE_E2E_LAYERS = 1
+SERVE_LOGIT_REL = 5e-2
+# decode is timed at the middle of the 128 generated tokens
+DECODE_TIMED_LEN = SERVE_PROMPT + SERVE_NEW // 2
+PEAK_BF16_OPS = 989e12  # dense tensor-core bf16
 
 
 def gpu_line() -> str:
@@ -575,6 +633,371 @@ def fleet_phase(torch, rt, dev, card):
                 bound_by=b_by), err
 
 
+def print_attention_ptxas(log):
+    """Registers and spills of each attention kernel instance (element type,
+    and head_dim for the prefill kernels; flash_kernel_tc is bf16 only)."""
+    inst = None
+    for line in log.splitlines():
+        m = re.search(r"(flash_kernel_tc|flash_kernel|decode_split_kernel|"
+                      r"decode_combine_kernel)I(f|13__nv_bfloat16)?(Li(\d+)E)?", line)
+        if m:
+            inst = f"{m.group(1)} {'f32' if m.group(2) == 'f' else 'bf16'}" + (
+                f" D={m.group(4)}" if m.group(4) else "")
+        elif inst and ("registers" in line or "spill" in line):
+            print(f"  ptxas {inst}: {line.split(':', 1)[-1].strip()}")
+
+
+def attention_cases():
+    """(kind, shapes, options) of the small kernel-vs-plain cases."""
+    flash = [  # B, S, T, Hq, Hkv, D, options
+        (2, 200, 200, 4, 4, 64, dict(causal=True)),
+        (1, 256, 256, 8, 2, 128, dict(causal=True, window=100)),
+        (1, 130, 130, 8, 1, 256, dict(causal=True, softcap=30.0)),
+        (2, 192, 192, 8, 2, 64, dict(causal=True, prefix_len=70)),
+        (1, 100, 150, 4, 2, 64, dict(causal=False)),
+        (1, 300, 300, 32, 8, 64, dict(causal=True, window=64, softcap=50.0)),
+    ]
+    decode = [  # B, T, Hq, Hkv, D, window, softcap, cache_len
+        (3, 300, 4, 4, 64, 0, 0.0, [1, 150, 300]),
+        (4, 4096, 32, 8, 64, 0, 0.0, [1, 2049, 4096, 777]),
+        (2, 1000, 16, 2, 128, 200, 0.0, [1000, 517]),
+        (2, 512, 8, 1, 256, 0, 30.0, [1, 512]),
+        (2, 700, 8, 2, 128, 100, 20.0, [64, 700]),
+    ]
+    return flash, decode
+
+
+def held_attention(torch, out, ref, v, tol, what):
+    """Kernel output vs plain within tol * (1 + max|v|); returns max |diff|."""
+    err = (out.float() - ref.float()).abs()
+    lim = tol * (1 + v.float().abs().max().item())
+    if not bool((err <= lim).all()):
+        raise AssertionError(f"{what}: max |diff| {err.max().item():.3e} over {lim:.3e} "
+                             f"({tol} x (1 + max|v|))")
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{what}: non-finite output")
+    return float(err.max())
+
+
+class held_calls:
+    """Context in which ``ops.flash_attention``/``ops.decode_attention`` run
+    the kernel and then the plain version on the same inputs (the plain
+    flash version in the kernel's 64 x 64 tiles); each call appends
+    ``(max |diff|, relative L2, max|v|)`` to ``calls[name]`` and raises past
+    ATT_TOL. The plain versions launch nothing, so the counts stay the
+    kernels'."""
+
+    def __init__(self, torch, ops, calls):
+        self.torch, self.ops, self.calls = torch, ops, calls
+
+    def __enter__(self):
+        from repro_torch.models.attention import decode_attention_ref, flash_attention_ref
+
+        torch, ops = self.torch, self.ops
+        self.orig = ops.flash_attention, ops.decode_attention
+        orig_f, orig_d = self.orig
+
+        def record(name, out, ref, v):
+            e = held_attention(torch, out, ref, v, ATT_TOL["bfloat16"], f"{name} on the path")
+            rel = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+            self.calls[name].append((e, rel, v.float().abs().max().item()))
+
+        def flash(q, k, v, **kw):
+            out = orig_f(q, k, v, **kw)
+            record("flash_attention", out,
+                   flash_attention_ref(q, k, v, **dict(kw, q_chunk=64, kv_chunk=64)), v)
+            return out
+
+        def decode(q, kc, vc, cl, **kw):
+            out = orig_d(q, kc, vc, cl, **kw)
+            record("decode_attention", out, decode_attention_ref(q, kc, vc, cl, **kw), vc)
+            return out
+
+        ops.flash_attention, ops.decode_attention = flash, decode
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.flash_attention, self.ops.decode_attention = self.orig
+        return False
+
+
+def teacher_forced(torch, ops, model, tokens, feed, backend, L):
+    """Prefill ``tokens``, then decode ``feed`` one token per step, under
+    ``kernel_backend(backend)``; returns (logits [B, 1 + steps, V] f32,
+    prefill ms, decode ms per token). With the kernels, checks 16 (L)
+    launches per prefill and per step."""
+    from repro_torch.kernels.faas_event_step import LAUNCH_COUNTS
+
+    out = []
+    with torch.inference_mode(), ops.kernel_backend(backend):
+        LAUNCH_COUNTS.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, caches, cl = model.prefill({"tokens": tokens}, SERVE_MAX_LEN)
+        torch.cuda.synchronize()
+        pre_ms = 1e3 * (time.perf_counter() - t0)
+        if backend is None and LAUNCH_COUNTS["flash_attention"] != L:
+            raise AssertionError(f"a prefill launched flash_attention "
+                                 f"{LAUNCH_COUNTS['flash_attention']} times, expected {L}")
+        out.append(lg.float())
+        t0 = time.perf_counter()
+        for i in range(feed.shape[1]):
+            lg, caches, cl = model.decode_step(feed[:, i:i + 1], caches, cl)
+            out.append(lg.float())
+            if backend is None and LAUNCH_COUNTS["decode_attention"] != L * (i + 1):
+                raise AssertionError(f"decode step {i} launched decode_attention "
+                                     f"{LAUNCH_COUNTS['decode_attention'] - L * i} times")
+        torch.cuda.synchronize()
+        dec_ms = 1e3 * (time.perf_counter() - t0) / feed.shape[1]
+    return torch.cat(out, dim=1), pre_ms, dec_ms
+
+
+def logit_distance(torch, a, b):
+    """Relative L2 distance of two [B, P, V] logit stacks at each position
+    (over batch and vocab), and the share of equal argmaxes."""
+    rel = ((a - b).norm(dim=-1).square().sum(0).sqrt()
+           / b.norm(dim=-1).square().sum(0).sqrt()).cpu().numpy()
+    return rel, float((a.argmax(-1) == b.argmax(-1)).float().mean())
+
+
+def serve_profile(torch, model, tokens, feed, card, steps=8):
+    """Device time by kernel over one prefill and ``steps`` decode steps
+    (torch.profiler); prints the top kernels and the device's busy share of
+    the window (the kernels' summed time over the wall time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    steps = min(steps, feed.shape[1])
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            lg, caches, cl = model.prefill({"tokens": tokens}, SERVE_MAX_LEN)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for i in range(steps):
+                lg, caches, cl = model.decode_step(feed[:, i:i + 1], caches, cl)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+    avgs = prof.key_averages()
+    dev_time = lambda e: getattr(e, "self_device_time_total", None) or getattr(
+        e, "self_cuda_time_total", 0)
+    # the kernels themselves (the CPU ops that launch them carry the same
+    # device time, so they are left out of the sum)
+    kernels = [e for e in avgs if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(dev_time(e) for e in kernels)
+    wall_us = 1e6 * (t2 - t0)
+    print(f"serve profile [{card}]: one prefill ({1e3 * (t1 - t0):.3f} ms under the "
+          f"profiler) and {steps} decode steps ({1e3 * (t2 - t1) / steps:.3f} ms each): "
+          f"device busy {busy_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall "
+          f"({100 * busy_us / max(wall_us, 1):.1f}%)", flush=True)
+    for e in sorted(kernels, key=dev_time, reverse=True)[:12]:
+        print(f"  {dev_time(e) / 1e3:9.3f} ms device  {e.count:6d} calls  {e.key[:90]}")
+    sys.stdout.flush()
+
+
+def serving_phase(torch, dev, card):
+    """The serving phase (module docstring, item 7); returns the kernels-line
+    numbers and largest errors of flash_attention and decode_attention."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.faas_event_step import LAUNCH_COUNTS
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import serve
+    from repro_torch.models.attention import decode_attention_ref, flash_attention_ref
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.engine import Replica
+
+    errs = {"flash_attention": 0.0, "decode_attention": 0.0}
+    gen = torch.Generator(device="cpu").manual_seed(500)
+    randn = lambda dtype, *shapes: [torch.randn(s, generator=gen).to(dev, dtype) for s in shapes]
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+    # 7.1 each kernel against its plain version at small shapes
+    flash_cases, decode_cases = attention_cases()
+    for dname, dtype in dtypes.items():
+        for case, (B, S, T, Hq, Hkv, D, kw) in enumerate(flash_cases):
+            q, k, v = randn(dtype, (B, S, Hq, D), (B, T, Hkv, D), (B, T, Hkv, D))
+            out = flash_attention(q, k, v, **kw)
+            # the plain version in the kernel's 64 x 64 tiles
+            ref = flash_attention_ref(q, k, v, q_chunk=64, kv_chunk=64, **kw)
+            e = held_attention(torch, out, ref, v, ATT_TOL[dname], f"flash case {case} {dname}")
+            errs["flash_attention"] = max(errs["flash_attention"], e)
+            print(f"kernel==plain flash case {case} {dname}: B={B} S={S} T={T} Hq={Hq} "
+                  f"Hkv={Hkv} D={D} {kw}: max|diff|={e:.3e} (tol {ATT_TOL[dname]})", flush=True)
+        for case, (B, T, Hq, Hkv, D, window, softcap, lens) in enumerate(decode_cases):
+            q, k, v = randn(dtype, (B, Hq, D), (B, T, Hkv, D), (B, T, Hkv, D))
+            cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+            out = decode_attention(q, k, v, cl, window=window, softcap=softcap)
+            ref = decode_attention_ref(q, k, v, cl, window=window, softcap=softcap)
+            e = held_attention(torch, out, ref, v, ATT_TOL[dname], f"decode case {case} {dname}")
+            errs["decode_attention"] = max(errs["decode_attention"], e)
+            print(f"kernel==plain decode case {case} {dname}: B={B} T={T} Hq={Hq} Hkv={Hkv} "
+                  f"D={D} window={window} softcap={softcap} cache_len={lens}: "
+                  f"max|diff|={e:.3e} (tol {ATT_TOL[dname]})", flush=True)
+
+    # 7.2 the main path: a full-width replica measured, planned and replayed
+    cfg = get_config(SERVE_ARCH)
+    LAUNCH_COUNTS.clear()
+    rep = Replica(cfg, max_len=SERVE_MAX_LEN, seed=0, device=dev)
+    cold_s, warm_s = serve.measure(rep, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW)
+    gen_counts = dict(LAUNCH_COUNTS)
+    plan, obs = serve.plan_and_replay(cold_s, warm_s, SERVE_RATE, SERVE_HORIZON, SERVE_SLO)
+    launches = dict(LAUNCH_COUNTS)
+    L = cfg.n_layers
+    # warmup: one prefill and one decode step; generate: one prefill, 128 steps
+    want = {"flash_attention": 2 * L, "decode_attention": L * (1 + SERVE_NEW)}
+    for name, n in want.items():
+        if gen_counts.get(name, 0) != n:
+            raise AssertionError(f"the replica launched {name} {gen_counts.get(name, 0)} "
+                                 f"times, expected {n}")
+    if launches.get("faas_sweep", 0) < 1:
+        raise AssertionError("the keep-alive plan did not launch faas_sweep")
+    print(f"serve [{card}]: {cfg.name} full width ({L} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, vocab {cfg.vocab_size}, bf16), batch "
+          f"{SERVE_BATCH} x {SERVE_PROMPT}-token prompts, max_len {SERVE_MAX_LEN}, "
+          f"{SERVE_NEW} new tokens: init {rep.init_seconds:.3f} s, cold {cold_s:.3f} s, "
+          f"warm {warm_s:.3f} s; launches {launches}", flush=True)
+    print(f"serve plan: rate {SERVE_RATE}/s, SLO {SERVE_SLO:.0%}: threshold "
+          f"{plan.expiration_threshold:.0f} s, predicted cold {plan.predicted_cold_prob:.4%}, "
+          f"replicas {plan.predicted_avg_replicas:.4f}, wasted "
+          f"{plan.predicted_wasted_ratio:.4%}", flush=True)
+    print(f"serve replay: observed cold {obs.cold_start_prob:.4%}, replicas "
+          f"{obs.avg_total_replicas:.4f}, wasted {obs.wasted_ratio:.4%}, resp "
+          f"{obs.avg_response_time:.3f} s over {len(obs.records)} requests", flush=True)
+    vals = [cold_s, warm_s, plan.predicted_cold_prob, obs.cold_start_prob,
+            obs.avg_total_replicas, obs.wasted_ratio]
+    if not np.isfinite(vals).all() or not obs.records:
+        raise AssertionError(f"serve loop values not finite: {vals}")
+
+    rng = np.random.default_rng(501)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT))).to(dev)
+    feed = torch.from_numpy(rng.integers(0, cfg.vocab_size, (SERVE_BATCH, SERVE_NEW))).to(dev)
+    # the path's device time by operation (torch.profiler), kernels on
+    serve_profile(torch, rep.model, tokens, feed, card)
+
+    # 7.3 the 16-layer path with every attention call held to its plain
+    # version on the same inputs, then end-to-end logits (module docstring)
+    lk, pre_k, dec_k = teacher_forced(torch, ops, rep.model, tokens, feed, None, L)
+    calls = {"flash_attention": [], "decode_attention": []}
+    with held_calls(torch, ops, calls):
+        teacher_forced(torch, ops, rep.model, tokens, feed, None, L)
+    for name, rows in calls.items():
+        e = max(r[0] for r in rows)
+        errs[name] = max(errs[name], e)
+        print(f"serve [{card}]: {len(rows)} {name} calls of the 16-layer path, each held "
+              f"to its plain version on the same inputs: max|diff| {e:.3e} (tol "
+              f"{ATT_TOL['bfloat16']} x (1 + max|v|), max|v| up to "
+              f"{max(r[2] for r in rows):.1f}), relative L2 max "
+              f"{max(r[1] for r in rows):.3e}", flush=True)
+    lr, pre_r, dec_r = teacher_forced(torch, ops, rep.model, tokens, feed, "ref", L)
+    print(f"serve [{card}]: prefill {pre_k:.3f} ms per request batch (plain attention "
+          f"{pre_r:.3f}), decode {dec_k:.3f} ms per token (plain attention {dec_r:.3f})",
+          flush=True)
+    if not bool(torch.isfinite(lk).all()):
+        raise AssertionError("full-width logits are not finite")
+    # end-to-end logits at 16 layers and at full width cut in depth; beside
+    # each, the plain version against itself in 64-tiles (a second correct
+    # version): the random-weight model's distance between any two
+    # roundings. Only the cut to SERVE_E2E_LAYERS is held to the limit.
+    full = lk, lr
+    for depth in dict.fromkeys((L, 2, SERVE_E2E_LAYERS)):
+        if depth == L:
+            model, (lk, lr) = rep.model, full
+        else:
+            cut = dataclasses.replace(cfg, n_layers=depth, segments=((("attn",), depth),))
+            model = Replica(cut, max_len=SERVE_MAX_LEN, seed=0, device=dev).model
+            lk, _, _ = teacher_forced(torch, ops, model, tokens, feed, None, depth)
+            lr, _, _ = teacher_forced(torch, ops, model, tokens, feed, "ref", depth)
+        orig_tiles = tf._ref_tiles
+        tf._ref_tiles = lambda S: 64
+        try:
+            lt, _, _ = teacher_forced(torch, ops, model, tokens, feed, "ref", depth)
+        finally:
+            tf._ref_tiles = orig_tiles
+        rel, agree = logit_distance(torch, lk, lr)
+        base, base_agree = logit_distance(torch, lt, lr)
+        held = depth == SERVE_E2E_LAYERS
+        print(f"serve logits, full width, {depth} layer(s) [{card}]: kernels vs plain relative "
+              f"L2 prefill {rel[0]:.3e}, decode steps max {rel[1:].max():.3e} mean "
+              f"{rel[1:].mean():.3e}, argmax agreement {agree:.4f}"
+              + (f" (limit {SERVE_LOGIT_REL})" if held else "")
+              + f"; plain in 64-tiles vs plain: {base[0]:.3e}, max {base[1:].max():.3e} mean "
+              f"{base[1:].mean():.3e}, argmax agreement {base_agree:.4f}; max |logit| "
+              f"{lr.abs().max().item():.3f}", flush=True)
+        if not bool(torch.isfinite(lk).all()) or (held and rel.max() > SERVE_LOGIT_REL):
+            raise AssertionError(f"full-width logits at {depth} layers off the plain "
+                                 "versions' or not finite")
+        del lk, lr, lt, model
+    del full
+
+    # 7.4 each kernel timed at the path's shapes
+    B, S, D = SERVE_BATCH, SERVE_PROMPT, cfg.head_dim
+    Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
+    bf = torch.bfloat16
+    q, k, v = randn(bf, (B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D))
+    ms, out = timed(torch, lambda: flash_attention(q, k, v, causal=True), reps=3)
+    tile = max(min(S // 8, 1024), 128)  # the model's tiles for the plain version
+    plain_ms, ref = plain_timed(torch, lambda: flash_attention_ref(
+        q, k, v, causal=True, q_chunk=tile, kv_chunk=tile))
+    e = held_attention(torch, out, ref, v, ATT_TOL["bfloat16"], "flash at the path's shape")
+    errs["flash_attention"] = max(errs["flash_attention"], e)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib_ms, lib = timed(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), reps=3)
+    pairs = B * Hq * S * (S + 1) // 2  # causal (query, key) pairs
+    b_ms, b_by = _attention_bound(4 * D * pairs, 2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D))
+    print(f"timing [{card}]: flash_attention B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} bf16 causal: "
+          f"{ms:.4f} ms (mean of 3); bound {b_ms:.4f} ms ({b_by}; {4 * D * pairs:.4e} FLOP); "
+          f"kernel {ms / b_ms:.1f}x its bound, {4 * D * pairs / ms / 1e9:.2f} TFLOP/s; plain "
+          f"{plain_ms:.3f} ms (max|diff| {e:.3e}); scaled_dot_product_attention {lib_ms:.4f} ms "
+          f"(max|diff| {(lib.transpose(1, 2).float() - ref.float()).abs().max().item():.3e})",
+          flush=True)
+    results = {"flash_attention": dict(launches=want["flash_attention"], ms=ms,
+                                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                       library_ms=lib_ms)}
+    del q, k, v, qt, kt, vt, out, ref, lib
+
+    T = SERVE_MAX_LEN
+    q, kc, vc = randn(bf, (B, Hq, D), (B, T, Hkv, D), (B, T, Hkv, D))
+    cl = torch.full((B,), DECODE_TIMED_LEN, dtype=torch.int32, device=dev)
+    ms, out = timed(torch, lambda: decode_attention(q, kc, vc, cl), reps=3)
+    plain_ms, ref = plain_timed(torch, lambda: decode_attention_ref(q, kc, vc, cl))
+    e = held_attention(torch, out, ref, vc, ATT_TOL["bfloat16"], "decode at the path's shape")
+    errs["decode_attention"] = max(errs["decode_attention"], e)
+    mask = (torch.arange(T, device=dev) < cl[:, None])[:, None, None, :]  # [B, 1, 1, T]
+    lib_ms, lib = timed(torch, lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2), attn_mask=mask,
+        enable_gqa=True), reps=3)
+    valid = B * DECODE_TIMED_LEN
+    b_ms, b_by = _attention_bound(4 * D * valid * Hq,
+                                  2 * (2 * valid * Hkv * D + 2 * B * Hq * D) + 4 * B)
+    print(f"timing [{card}]: decode_attention B={B} T={T} cache_len={DECODE_TIMED_LEN} "
+          f"Hq={Hq} Hkv={Hkv} D={D} bf16: {ms:.4f} ms (mean of 3); bound {b_ms:.4f} ms "
+          f"({b_by}; {2 * 2 * valid * Hkv * D / 1e6:.2f} MB of K/V); kernel {ms / b_ms:.1f}x "
+          f"its bound, {2 * 2 * valid * Hkv * D / ms / 1e6:.1f} GB/s of K/V; plain "
+          f"{plain_ms:.3f} ms (max|diff| {e:.3e}); scaled_dot_product_attention "
+          f"{lib_ms:.4f} ms (max|diff| "
+          f"{(lib[:, :, 0].float() - ref.float()).abs().max().item():.3e})", flush=True)
+    results["decode_attention"] = dict(launches=want["decode_attention"], ms=ms,
+                                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                       library_ms=lib_ms)
+    del q, kc, vc, out, ref, lib, rep
+    torch.cuda.empty_cache()
+    return results, errs
+
+
+def _attention_bound(flops, nbytes):
+    """Least time for the work: FLOP at the bf16 tensor-core peak or bytes
+    at HBM rate, whichever is larger."""
+    t_ops, t_bytes = flops / PEAK_BF16_OPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("bytes" if t_bytes > t_ops else "operations")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -602,7 +1025,10 @@ def main() -> int:
     # ---- 2. build
     for name, info in _build.build_all(SOURCES).items():
         print(f"build: {name} in {info['seconds']:.1f} s -> {info['path'].name}")
-        print_ptxas(info["log"], KERNEL_NAMES[name])
+        if name in KERNEL_NAMES:
+            print_ptxas(info["log"], KERNEL_NAMES[name])
+        else:
+            print_attention_ptxas(info["log"])
     sys.stdout.flush()
 
     # ---- 3. kernels vs plain versions on the card, small shapes
@@ -903,10 +1329,18 @@ def main() -> int:
     print(f"fleet phase {time.perf_counter() - t0:.1f} s; script "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # ---- 7. kernels line, card line, device line
+    # ---- 7. serving
+    t0 = time.perf_counter()
+    serve_results, serve_errs = serving_phase(torch, dev, card)
+    results.update(serve_results)
+    errs.update(serve_errs)
+    print(f"serving phase {time.perf_counter() - t0:.1f} s; script "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---- 8. kernels line, card line, device line
     print(json.dumps({"kernels": [
-        dict(KERNELS[k], **results[k], max_abs_err=errs[k], library_ms=None)
-        for k in ("faas_sweep", "faas_sweep_grid", "par_sweep", "fleet_sweep")
+        dict(KERNELS[k], **dict(dict(library_ms=None), **results[k]), max_abs_err=errs[k])
+        for k in KERNELS
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,8 @@ the reference's per-draw-cell ``(dts, warms, colds)`` arrays into the
 :func:`~repro_torch.core.scenario.sweep` consume instead of drawing.
 :func:`fleet_from_reference` and :func:`fleet_staged_from_reference` do
 the same for fleets: a reference ``FleetScenario`` and the merged stream
-of its ``_stage_fleet``.
+of its ``_stage_fleet``.  :func:`params_from_reference` carries a reference
+model's parameter tree into the port's layout.
 """
 
 from __future__ import annotations
@@ -114,3 +115,46 @@ def fleet_staged_from_reference(staged, device=None) -> dict:
         colds=f32("colds"),
         prestamped=bool(staged["prestamped"]),
     )
+
+
+def params_from_reference(params_np, cfg, device=None) -> dict:
+    """The port's parameter tree (see :mod:`repro_torch.models.model`) from a
+    reference model's, as numpy arrays (``jax.device_get(model.init(key))``):
+    the segments' stacked ``[count, ...]`` leaves are split into one dict
+    per layer, in the order the stack runs them, and every leaf is cast to
+    ``cfg.compute_dtype`` on ``device`` (default the CPU).  The reference
+    keeps f32 parameters and casts them to the compute dtype at every use;
+    both frameworks cast f32 to bf16 by round-to-nearest-even, so the port
+    computes with the same values."""
+    from repro_torch.models.model import dtype_of
+    from repro_torch.models.transformer import check_served, segment_layout
+
+    check_served(cfg)
+    cdt = dtype_of(cfg.compute_dtype)
+    leaf = lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(
+        device or "cpu", cdt)
+
+    def conv(tree, index=None):
+        if isinstance(tree, dict):
+            return {k: conv(v, index) for k, v in tree.items()}
+        return leaf(tree if index is None else np.asarray(tree)[index])
+
+    segs = params_np["blocks"]
+    layout = segment_layout(cfg)
+    if len(segs) != len(layout):
+        raise ValueError(f"{len(segs)} parameter segments for {len(layout)} config segments")
+    blocks = []
+    for (pattern, count, _), seg in zip(layout, segs):
+        if len(seg) != len(pattern):
+            raise ValueError(f"segment {pattern} has {len(seg)} parameter elements")
+        for r in range(count):
+            blocks.extend(conv(elem, r) for elem in seg)
+    out = {k: conv(v) for k, v in params_np.items() if k in ("embed", "head", "final_norm")}
+    out["blocks"] = blocks
+    unknown = set(params_np) - {"embed", "head", "final_norm", "blocks"}
+    if unknown:
+        raise NotImplementedError(
+            f"reference parameters {sorted(unknown)} have no counterpart in the port yet; "
+            "see ROADMAP.md Queue A item 9b"
+        )
+    return out

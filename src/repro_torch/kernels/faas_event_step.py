@@ -44,8 +44,8 @@ MAX_SLOTS = 1024
 MAX_GRID = 1024
 
 # kernel launches by wrapper name ("faas_sweep", "faas_sweep_grid" for a
-# launch with grid columns, "par_sweep", "fleet_sweep"): bumped once per
-# launch, nowhere else
+# launch with grid columns, "par_sweep", "fleet_sweep", "flash_attention",
+# "decode_attention"): bumped once per launch, nowhere else
 LAUNCH_COUNTS: collections.Counter = collections.Counter()
 
 _LATER = {

@@ -1,4 +1,5 @@
-"""The CUDA kernels against their plain PyTorch versions on the card.
+"""The CUDA kernels against their plain PyTorch versions on the card: the
+simulator's event-loop kernels and the serving path's attention kernels.
 
 Needs an NVIDIA GPU and nvcc; every test skips without a visible GPU.
 This file imports no JAX, so on a machine without JAX it runs alone:
@@ -328,3 +329,139 @@ def test_fleet_front_door_launches_the_kernel(cuda_device):
                                  "n_cluster": [4.0, 8.0]}, 0, replicas=16, device="cpu")
     # the draws differ by device (torch generators), so compare statistics
     assert abs(float(grid.cold_start_prob.mean()) - float(cpu.cold_start_prob.mean())) < 0.1
+
+
+# ---------------------------------------------------------------------------
+# attention kernels (serving path)
+# ---------------------------------------------------------------------------
+
+from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.models.attention import (  # noqa: E402
+    decode_attention_ref,
+    flash_attention_ref,
+)
+from repro_torch.models.model import build_model  # noqa: E402
+
+# kernel vs plain on the card: f32 within 1e-4 (sums in other orders, expf
+# and tanhf against torch's, both within an ulp or two); bf16 within 2e-2
+# (a few bf16 ulps of an O(1) output: the output's own rounding, and the
+# plain decode version rounds the normalised p where the kernel rounds the
+# unnormalised one)
+ATT_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _randn(dev, dtype, seed, *shapes):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return [torch.randn(s, generator=g).to(dev, dtype) for s in shapes]
+
+
+def _att_close(out, ref, dtype):
+    err = (out.float() - ref.float()).abs()
+    lim = ATT_TOL[dtype] * (1 + ref.float().abs())
+    assert bool((err <= lim).all()), f"max |diff| {err.max().item():.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,S,T,Hq,Hkv,D,kw",
+    [
+        (2, 200, 200, 4, 4, 64, dict(causal=True)),  # G = 1, ragged tiles
+        (1, 256, 256, 8, 2, 128, dict(causal=True, window=100)),  # G = 4
+        (1, 130, 130, 8, 1, 256, dict(causal=True, softcap=30.0)),  # G = 8
+        (2, 192, 192, 8, 2, 64, dict(causal=True, prefix_len=70)),
+        (1, 100, 150, 4, 2, 64, dict(causal=False)),  # S != T
+        (1, 64, 64, 4, 1, 160, dict(causal=True)),
+        (1, 96, 96, 8, 1, 32, dict(causal=True, window=20, softcap=10.0)),
+    ],
+)
+def test_flash_attention_matches_plain(cuda_device, dtype, B, S, T, Hq, Hkv, D, kw):
+    q, k, v = _randn(cuda_device, dtype, S + D, (B, S, Hq, D), (B, T, Hkv, D), (B, T, Hkv, D))
+    before = fes.LAUNCH_COUNTS["flash_attention"]
+    out = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fes.LAUNCH_COUNTS["flash_attention"] == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    # the plain version in the kernel's 64 x 64 tiles: the same running maxima
+    _att_close(out, flash_attention_ref(q, k, v, q_chunk=64, kv_chunk=64, **kw), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,T,Hq,Hkv,D,window,softcap,lens",
+    [
+        (3, 300, 4, 4, 64, 0, 0.0, [1, 150, 300]),  # G = 1, ragged T
+        (4, 4096, 32, 8, 64, 0, 0.0, [1, 2049, 4096, 777]),  # the serving shape
+        (2, 1000, 16, 2, 128, 200, 0.0, [1000, 517]),  # G = 8, window
+        (2, 512, 8, 1, 256, 0, 30.0, [1, 512]),
+        (1, 129, 8, 8, 160, 50, 20.0, [129]),
+    ],
+)
+def test_decode_attention_matches_plain(cuda_device, dtype, B, T, Hq, Hkv, D, window,
+                                        softcap, lens):
+    q, k, v = _randn(cuda_device, dtype, T + D, (B, Hq, D), (B, T, Hkv, D), (B, T, Hkv, D))
+    cl = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    before = fes.LAUNCH_COUNTS["decode_attention"]
+    out = decode_attention(q, k, v, cl, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert fes.LAUNCH_COUNTS["decode_attention"] == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    _att_close(out, decode_attention_ref(q, k, v, cl, window=window, softcap=softcap), dtype)
+
+
+@pytest.mark.cuda
+def test_attention_wrappers_check_inputs(cuda_device):
+    q, k, v = _randn(cuda_device, torch.float32, 0, (1, 8, 4, 64), (1, 8, 2, 64), (1, 8, 2, 64))
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                        v[..., :48].contiguous())
+    with pytest.raises(ValueError, match="is torch.bfloat16"):
+        flash_attention(q, k.bfloat16(), v)
+    kb, vb = k.bfloat16(), v.bfloat16()
+    shifted = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device=cuda_device)[1:]
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        flash_attention(shifted.view(q.shape), kb, vb)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="int32"):
+        decode_attention(q[:, 0].contiguous(), k, v, torch.tensor([3], device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_model_runs_the_attention_kernels(cuda_device, dtype):
+    """A small model on the card: the kernels against the same model
+    under kernel_backend("ref"), teacher-forced, and one launch of each
+    kernel per layer and step."""
+    import dataclasses
+
+    # the smoke config's head_dim of 16 is below the kernels' 32: widen it
+    cfg = dataclasses.replace(get_smoke_config("llama3.2-1b"), compute_dtype=dtype,
+                              d_model=128, n_heads=4, n_kv_heads=1, head_dim=64)
+    m = build_model(cfg, seed=1, device=cuda_device)
+    g = torch.Generator(device="cpu").manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 100), generator=g).to(cuda_device)
+    feed = torch.randint(0, cfg.vocab_size, (2, 4), generator=g).to(cuda_device)
+    logits = {}
+    with torch.inference_mode():
+        for backend in (None, "ref"):
+            fes.LAUNCH_COUNTS.clear()
+            with ops.kernel_backend(backend):
+                lg, caches, cl = m.prefill({"tokens": tokens}, 128)
+                out = [lg]
+                for i in range(feed.shape[1]):
+                    lg, caches, cl = m.decode_step(feed[:, i:i + 1], caches, cl)
+                    out.append(lg)
+            logits[backend] = torch.cat(out, dim=1).float()
+            n = cfg.n_layers if backend is None else 0
+            assert fes.LAUNCH_COUNTS["flash_attention"] == n
+            assert fes.LAUNCH_COUNTS["decode_attention"] == n * feed.shape[1]
+    k, r = logits[None], logits["ref"]
+    rel = ((k - r).norm() / r.norm()).item()
+    assert rel <= (1e-5 if dtype == "float32" else 2e-2), rel

@@ -1,0 +1,146 @@
+"""The port's serving path against the JAX reference: the platform, the
+workload generator, the keep-alive planner and the launcher.
+
+The platform and the generator are numpy code in both packages: on the same
+requests and service-time functions they must agree exactly.  The planners
+draw their workloads differently (torch generators against ``jax.random``),
+so they must pick the same threshold for SLOs that lie away from the
+boundaries between candidates, and their predicted cold-start probability
+must agree within ``SIGMAS`` binomial standard errors of the difference of
+two independent estimates over the requests a cell simulates.
+"""
+
+import dataclasses
+import math
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from repro.core.execution import Execution
+from repro.data import workload as jwork
+from repro.serving import platform as jplat
+from repro.serving.autoscale import plan_expiration_threshold as jplan
+from repro_torch.data import workload as pwork
+from repro_torch.launch import serve
+from repro_torch.serving import platform as pplat
+from repro_torch.serving.autoscale import (
+    PlanResult,
+    plan_expiration_threshold,
+    select_threshold,
+)
+
+SIGMAS = 5.0
+
+
+def _service_fns(seed):
+    """Service times as a function of the request alone, so that both
+    platforms see the same times whatever order they ask in."""
+    def draw(kind):
+        return lambda r: float(np.random.default_rng([seed, kind, r.request_id]).exponential(
+            3.0 if kind else 1.0))
+    return draw(1), draw(0)
+
+
+@pytest.mark.parametrize("t_exp,max_conc", [(20.0, 1000), (5.0, 2), (200.0, 3)])
+def test_platform_matches_jax(t_exp, max_conc):
+    horizon = 3000.0
+    cold, warm = _service_fns(11)
+    reqs = list(pwork.poisson_arrivals(0.7, horizon, seed=3))
+    jreqs = [jwork.Request(r.arrival_time, r.request_id) for r in reqs]
+    obs = pplat.ServerlessPlatform(cold, warm, expiration_threshold=t_exp,
+                                   max_concurrency=max_conc).run(reqs, horizon)
+    ref = jplat.ServerlessPlatform(cold, warm, expiration_threshold=t_exp,
+                                   max_concurrency=max_conc).run(jreqs, horizon)
+    assert [dataclasses.astuple(r) for r in obs.records] == [
+        dataclasses.astuple(r) for r in ref.records]
+    for f in ("instance_seconds_running", "instance_seconds_idle", "replicas_created",
+              "cold_start_prob", "rejection_prob", "avg_response_time",
+              "avg_running_replicas", "avg_total_replicas", "wasted_ratio"):
+        assert getattr(obs, f) == getattr(ref, f), f
+    if max_conc == 2:
+        assert obs.rejection_prob > 0
+
+
+def test_platform_reaps_replica_objects():
+    made = []
+    plat = pplat.ServerlessPlatform(lambda r: 1.0, lambda r: 1.0, expiration_threshold=5.0,
+                                    replica_factory=lambda: made.append(1) or object())
+    reqs = [pwork.Request(t, i) for i, t in enumerate([1.0, 2.5, 100.0])]
+    m = plat.run(reqs, 200.0)
+    assert m.replicas_created == 2 and len(made) == 2
+    assert [r.cold for r in m.records] == [True, False, True]
+    assert len(plat._live_objects) == 1  # the first replica was reaped
+
+
+@pytest.mark.parametrize("rate,horizon,seed", [(0.2, 2000.0, 0), (3.0, 500.0, 7)])
+def test_poisson_arrivals_match_jax(rate, horizon, seed):
+    p = [(r.arrival_time, r.request_id) for r in pwork.poisson_arrivals(rate, horizon, seed)]
+    j = [(r.arrival_time, r.request_id) for r in jwork.poisson_arrivals(rate, horizon, seed)]
+    assert p == j and len(p) > 10
+
+
+# rate 0.05/s, warm 2 s, cold 5 s over 2e4 s: the JAX reference predicts
+# cold-start probabilities 0.28, 0.12, 0.057, 0.028, 0.010, 0.005 at the
+# candidates 30 ... 1200 s; each SLO below lies between two of them
+PLAN = dict(arrival_rate=0.05, warm_time=2.0, cold_time=5.0, sim_time=2e4, replicas=8)
+
+
+@pytest.mark.parametrize("slo,expected", [(0.2, 60.0), (0.08, 120.0), (0.04, 300.0)])
+def test_planner_matches_jax(slo, expected):
+    plan = plan_expiration_threshold(cold_slo=slo, device="cpu", **PLAN)
+    ref = jplan(cold_slo=slo, execution=Execution(backend="ref"), **PLAN)
+    assert isinstance(plan, PlanResult)
+    assert plan.expiration_threshold == ref.expiration_threshold == expected
+    n = PLAN["arrival_rate"] * PLAN["sim_time"] * PLAN["replicas"]
+    p = ref.predicted_cold_prob
+    tol = SIGMAS * math.sqrt(2 * p * (1 - p) / n)
+    assert abs(plan.predicted_cold_prob - p) <= tol
+    assert plan.predicted_cold_prob <= slo
+    assert plan.predicted_goodput is None and plan.predicted_cost > 0
+    assert 0 < plan.predicted_wasted_ratio < 1 and plan.predicted_avg_replicas > 0
+
+
+def test_select_threshold_takes_the_largest_when_none_meets():
+    class Grid:
+        cold_start_prob = np.array([0.5, 0.4])
+        def axis(self, name):
+            return (10.0, 20.0)
+        def sel(self, expiration_threshold):
+            return dataclasses.make_dataclass("Cell", [
+                "cold_start_prob", "avg_server_count", "wasted_ratio", "goodput",
+                "developer_cost"])(0.4, 2.0, 0.5, 1.0, 3.0)
+    assert select_threshold(Grid(), 0.1).expiration_threshold == 20.0
+
+
+def test_planner_reliability_raises():
+    with pytest.raises(NotImplementedError, match="Queue A item 4"):
+        plan_expiration_threshold(0.1, 1.0, 2.0, 0.05, device="cpu", reliability=object())
+
+
+def test_serve_main_runs_on_cpu(capsys):
+    plan, obs = serve.main(["--device", "cpu", "--width", "smoke", "--horizon", "1500",
+                            "--rate", "0.3", "--prompt-len", "12", "--new-tokens", "4",
+                            "--batch", "2"])
+    out = capsys.readouterr().out
+    assert "[serve] cold" in out and "[serve] threshold" in out and "[serve] observed" in out
+    assert plan.expiration_threshold in (30.0, 60.0, 120.0, 300.0, 600.0, 1200.0)
+    assert len(obs.records) > 100 and 0 <= obs.cold_start_prob <= 1
+
+
+def test_serving_modules_import_no_jax():
+    code = (
+        "import sys, repro_torch.launch.serve, repro_torch.serving.engine, "
+        "repro_torch.serving.platform, repro_torch.serving.autoscale, "
+        "repro_torch.data.workload, repro_torch.kernels.ops, "
+        "repro_torch.kernels.flash_attention, repro_torch.kernels.decode_attention, "
+        "repro_torch.models.model, repro_torch.configs, repro_torch.interop\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=os.path.join(os.path.dirname(__file__), "..", "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
