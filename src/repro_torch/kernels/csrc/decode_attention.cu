@@ -34,29 +34,13 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "attention_common.cuh"
+
 namespace {
 
-constexpr float NEG_INF = -2.3819763e38f;
-constexpr unsigned FULL = 0xffffffffu;
 constexpr int BK = 64;  // keys per tile
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
-constexpr int MAX_SMEM = 232448;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-template <typename T>
-__device__ __forceinline__ float round_to(float x) { return to_f32(from_f32<T>(x)); }
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll

@@ -43,30 +43,13 @@
 #include <math.h>
 #include <mma.h>
 
+#include "attention_common.cuh"
+
 namespace {
 
-constexpr float NEG_INF = -2.3819763e38f;
-constexpr unsigned FULL = 0xffffffffu;
 constexpr int BQ = 64;  // query rows per block
 constexpr int BK = 64;  // keys per tile
 constexpr int THREADS = 128;
-constexpr int MAX_SMEM = 232448;  // the most shared memory a block may use on sm_90
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// p.astype(v.dtype) read back as f32
-template <typename T>
-__device__ __forceinline__ float round_to(float x) { return to_f32(from_f32<T>(x)); }
 
 // tile ki of the block's queries [q_start, q_start + BQ) holds a key that
 // some row may attend to (flash_attention.py:57-63)
