@@ -57,7 +57,23 @@ Phases (any failure ends the script with a non-zero exit):
    path's device time by operation (``torch.profiler``); each kernel timed
    at the path's shapes beside its bound, its plain version and
    ``scaled_dot_product_attention``;
-8. the kernels line (JSON), the card line, then the device line (JSON) last.
+8. serving the recurrent archs (``ssd_scan``, ``rglru_scan``, and the
+   attention kernels at D = 256, G = 16): each scan kernel against its plain
+   version at small shapes (``ssd_scan`` at ``tests/test_kernels.py``'s
+   shapes with G = 1, 2 and chunks 64-256, a ragged L and the smoke widths;
+   ``rglru_scan`` at W = 64-4,096, a ragged L, with and without h0), and
+   flash/decode attention at recurrentgemma's heads, window and full ring;
+   then ``mamba2-2.7b`` and ``recurrentgemma-9b`` in turn at full width
+   through ``Replica`` under phase 7's traffic, ``measure`` and
+   ``plan_and_replay``, launches per prefill (64 ``ssd_scan``; 26
+   ``rglru_scan`` and 12 ``flash_attention``) and per step (12
+   ``decode_attention``), a ``torch.profiler`` breakdown, a teacher-forced
+   prefill and 128 steps with every kernel call held to its plain version
+   on the same inputs, the logits against ``kernel_backend("ref")`` at full
+   depth (printed) and cut to one repetition of the first segment's pattern
+   (held); each replica freed before the next; each kernel timed at the
+   paths' shapes beside its bound and its plain version;
+9. the kernels line (JSON), the card line, then the device line (JSON) last.
 """
 
 import json
@@ -164,9 +180,19 @@ KERNELS = {
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:28",
     ),
+    "ssd_scan": dict(
+        name="ssd_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan.py:24",
+    ),
+    "rglru_scan": dict(
+        name="rglru_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/rglru_scan.cu",
+        replaces="src/repro/kernels/rglru_scan.py:20",
+    ),
 }
 SOURCES = ("faas_event_step", "par_event_step", "fleet_event_step",
-           "flash_attention", "decode_attention")
+           "flash_attention", "decode_attention", "ssd_scan", "rglru_scan")
 # ptxas' name for each source's kernel template
 KERNEL_NAMES = {"faas_event_step": "faas_sweep_kernel",
                 "par_event_step": "par_sweep_kernel",
@@ -206,6 +232,19 @@ SERVE_LOGIT_REL = 5e-2
 # decode is timed at the middle of the 128 generated tokens
 DECODE_TIMED_LEN = SERVE_PROMPT + SERVE_NEW // 2
 PEAK_BF16_OPS = 989e12  # dense tensor-core bf16
+
+# the recurrent serving phase: mamba2-2.7b and recurrentgemma-9b at full
+# width (src/repro/configs/mamba2_2_7b.py, recurrentgemma_9b.py) under the
+# serving phase's traffic
+RECURRENT_ARCHS = ("mamba2-2.7b", "recurrentgemma-9b")
+# ssd_scan vs its plain version at the model's chunk: the kernel scans in
+# 64-token chunks, so its cumulative decays are summed over 64 tokens where
+# the plain version's are summed over up to 256 and exp(cum_t - cum_s)
+# rounds differently; on the CPU the plain version at 64 and at 256 differ
+# by up to 7e-4 x (1 + |y|) per element at strong decay (dA of -1 to -13 a
+# token) and by under 1e-5 in relative L2. rglru_scan is held bit for bit:
+# both sides round one multiply and one add a step.
+SSD_TOL, SSD_REL_L2 = 2e-3, 1e-4
 
 
 def gpu_line() -> str:
@@ -652,6 +691,18 @@ def print_attention_ptxas(log):
             print(f"  ptxas {inst}: {line.split(':', 1)[-1].strip()}")
 
 
+def print_scan_ptxas(log):
+    """Registers and spills of each scan kernel instance (P and N for
+    ssd_scan)."""
+    inst = None
+    for line in log.splitlines():
+        m = re.search(r"(ssd_scan_kernel|rglru_scan_kernel)(ILi(\d+)ELi(\d+)E)?", line)
+        if m:
+            inst = m.group(1) + (f" P={m.group(3)} N={m.group(4)}" if m.group(2) else "")
+        elif inst and ("registers" in line or "spill" in line):
+            print(f"  ptxas {inst}: {line.split(':', 1)[-1].strip()}")
+
+
 def attention_cases():
     """(kind, shapes, options) of the small kernel-vs-plain cases."""
     flash = [  # B, S, T, Hq, Hkv, D, options
@@ -692,22 +743,28 @@ def held_attention(torch, out, ref, dname, what, max_v=None):
 
 
 class held_calls:
-    """Context in which ``ops.flash_attention``/``ops.decode_attention`` run
-    the kernel and then the plain version on the same inputs (the plain
-    flash version in the kernel's 64 x 64 tiles); each call appends
-    ``(max |diff|, relative L2, max|v|)`` to ``calls[name]`` and raises past
-    ATT_TOL x (1 + max|v|) or ATT_REL_L2. The plain versions launch nothing,
-    so the counts stay the kernels'."""
+    """Context in which the dispatch layer's kernels (``ops.flash_attention``,
+    ``decode_attention``, ``ssd_scan``, ``rglru_scan``) run the kernel and
+    then the plain version on the same inputs: the plain flash version in the
+    kernel's 64 x 64 tiles, the plain SSD scan at the call's chunk. Each call
+    appends ``(max |diff|, relative L2, scale)`` to ``calls[name]`` and raises
+    past its limit: attention ATT_TOL x (1 + max|v|) and ATT_REL_L2 (scale
+    max|v|), ssd_scan SSD_TOL x (1 + |plain|) and SSD_REL_L2 on y and on the
+    final state (scale max|y|), rglru_scan bit for bit (scale max|y|). The
+    plain versions launch nothing, so the counts stay the kernels'."""
 
     def __init__(self, torch, ops, calls):
         self.torch, self.ops, self.calls = torch, ops, calls
 
     def __enter__(self):
         from repro_torch.models.attention import decode_attention_ref, flash_attention_ref
+        from repro_torch.models.rglru import rglru_scan_ref
+        from repro_torch.models.ssm import ssd_chunked_ref
 
         torch, ops = self.torch, self.ops
-        self.orig = ops.flash_attention, ops.decode_attention
-        orig_f, orig_d = self.orig
+        names = ("flash_attention", "decode_attention", "ssd_scan", "rglru_scan")
+        self.orig = {name: getattr(ops, name) for name in names}
+        orig = self.orig
 
         def record(name, out, ref, v):
             max_v = v.float().abs().max().item()
@@ -715,30 +772,68 @@ class held_calls:
             self.calls[name].append((e, rel, max_v))
 
         def flash(q, k, v, **kw):
-            out = orig_f(q, k, v, **kw)
+            out = orig["flash_attention"](q, k, v, **kw)
             record("flash_attention", out,
                    flash_attention_ref(q, k, v, **dict(kw, q_chunk=64, kv_chunk=64)), v)
             return out
 
         def decode(q, kc, vc, cl, **kw):
-            out = orig_d(q, kc, vc, cl, **kw)
+            out = orig["decode_attention"](q, kc, vc, cl, **kw)
             record("decode_attention", out, decode_attention_ref(q, kc, vc, cl, **kw), vc)
             return out
 
-        ops.flash_attention, ops.decode_attention = flash, decode
+        def ssd(x, dt, A, Bm, Cm, **kw):
+            out = orig["ssd_scan"](x, dt, A, Bm, Cm, **kw)
+            ref = ssd_chunked_ref(x, dt, A, Bm, Cm, **kw)
+            e, rel = zip(*(held_ssd(torch, o, r, "ssd_scan on the path")
+                           for o, r in zip(out, ref)))
+            self.calls["ssd_scan"].append((max(e), max(rel), ref[0].abs().max().item()))
+            return out
+
+        def rglru(a, b, h0=None):
+            out = orig["rglru_scan"](a, b, h0)
+            ref = rglru_scan_ref(a, b, h0)
+            if not (torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])):
+                raise AssertionError("rglru_scan on the path differs from its plain version: "
+                                     f"{(out[0] - ref[0]).abs().max().item():.3e}")
+            self.calls["rglru_scan"].append((0.0, 0.0, ref[0].abs().max().item()))
+            return out
+
+        for name, fn in zip(names, (flash, decode, ssd, rglru)):
+            setattr(ops, name, fn)
         return self
 
     def __exit__(self, *exc):
-        self.ops.flash_attention, self.ops.decode_attention = self.orig
+        for name, fn in self.orig.items():
+            setattr(self.ops, name, fn)
         return False
 
 
-def teacher_forced(torch, ops, model, tokens, feed, backend, L):
+def held_ssd(torch, out, ref, what):
+    """ssd_scan vs plain: each element within SSD_TOL x (1 + |plain|), the
+    relative L2 within SSD_REL_L2, finite; returns (max |diff|, relative L2)."""
+    err = (out - ref).abs()
+    rel = ((out - ref).norm() / ref.norm()).item()
+    if not bool((err <= SSD_TOL * (1 + ref.abs())).all()):
+        raise AssertionError(f"{what}: |diff| {err.max().item():.3e} over {SSD_TOL} x "
+                             "(1 + |plain|)")
+    if not rel <= SSD_REL_L2 or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{what}: relative L2 {rel:.3e} over {SSD_REL_L2}, or not finite")
+    return float(err.max()), rel
+
+
+def teacher_forced(torch, ops, model, tokens, feed, backend, per_prefill, per_step):
     """Prefill ``tokens``, then decode ``feed`` one token per step, under
     ``kernel_backend(backend)``; returns (logits [B, 1 + steps, V] f32,
-    prefill ms, decode ms per token). With the kernels, checks 16 (L)
-    launches per prefill and per step."""
+    prefill ms, decode ms per token). With the kernels, checks the launches
+    of each kernel per prefill (``per_prefill``) and per step (``per_step``)."""
     from repro_torch.kernels.faas_event_step import LAUNCH_COUNTS
+
+    def check(want, what, scale=1):
+        for name, n in want.items():
+            if backend is None and LAUNCH_COUNTS[name] != n * scale:
+                raise AssertionError(f"{what} launched {name} {LAUNCH_COUNTS[name]} times "
+                                     f"in all, expected {n * scale}")
 
     out = []
     with torch.inference_mode(), ops.kernel_backend(backend):
@@ -748,17 +843,14 @@ def teacher_forced(torch, ops, model, tokens, feed, backend, L):
         lg, caches, cl = model.prefill({"tokens": tokens}, SERVE_MAX_LEN)
         torch.cuda.synchronize()
         pre_ms = 1e3 * (time.perf_counter() - t0)
-        if backend is None and LAUNCH_COUNTS["flash_attention"] != L:
-            raise AssertionError(f"a prefill launched flash_attention "
-                                 f"{LAUNCH_COUNTS['flash_attention']} times, expected {L}")
+        check(per_prefill, "a prefill")
+        LAUNCH_COUNTS.clear()
         out.append(lg.float())
         t0 = time.perf_counter()
         for i in range(feed.shape[1]):
             lg, caches, cl = model.decode_step(feed[:, i:i + 1], caches, cl)
             out.append(lg.float())
-            if backend is None and LAUNCH_COUNTS["decode_attention"] != L * (i + 1):
-                raise AssertionError(f"decode step {i} launched decode_attention "
-                                     f"{LAUNCH_COUNTS['decode_attention'] - L * i} times")
+            check(per_step, f"decode steps 0-{i}", i + 1)
         torch.cuda.synchronize()
         dec_ms = 1e3 * (time.perf_counter() - t0) / feed.shape[1]
     return torch.cat(out, dim=1), pre_ms, dec_ms
@@ -772,7 +864,7 @@ def logit_distance(torch, a, b):
     return rel, float((a.argmax(-1) == b.argmax(-1)).float().mean())
 
 
-def serve_profile(torch, model, tokens, feed, card, steps=8):
+def serve_profile(torch, model, tokens, feed, card, steps=8, name=SERVE_ARCH):
     """Device time by kernel over one prefill and ``steps`` decode steps
     (torch.profiler); prints the top kernels and the device's busy share of
     the window (the kernels' summed time over the wall time)."""
@@ -798,7 +890,7 @@ def serve_profile(torch, model, tokens, feed, card, steps=8):
     kernels = [e for e in avgs if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(dev_time(e) for e in kernels)
     wall_us = 1e6 * (t2 - t0)
-    print(f"serve profile [{card}]: one prefill ({1e3 * (t1 - t0):.3f} ms under the "
+    print(f"serve profile {name} [{card}]: one prefill ({1e3 * (t1 - t0):.3f} ms under the "
           f"profiler) and {steps} decode steps ({1e3 * (t2 - t1) / steps:.3f} ms each): "
           f"device busy {busy_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall "
           f"({100 * busy_us / max(wall_us, 1):.1f}%)", flush=True)
@@ -896,10 +988,11 @@ def serving_phase(torch, dev, card):
 
     # 7.3 the 16-layer path with every attention call held to its plain
     # version on the same inputs, then end-to-end logits (module docstring)
-    lk, pre_k, dec_k = teacher_forced(torch, ops, rep.model, tokens, feed, None, L)
+    counts = ({"flash_attention": L}, {"decode_attention": L})
+    lk, pre_k, dec_k = teacher_forced(torch, ops, rep.model, tokens, feed, None, *counts)
     calls = {"flash_attention": [], "decode_attention": []}
     with held_calls(torch, ops, calls):
-        teacher_forced(torch, ops, rep.model, tokens, feed, None, L)
+        teacher_forced(torch, ops, rep.model, tokens, feed, None, *counts)
     for name, rows in calls.items():
         e = max(r[0] for r in rows)
         errs[name] = max(errs[name], e)
@@ -908,7 +1001,7 @@ def serving_phase(torch, dev, card):
               f"{ATT_TOL['bfloat16']} x (1 + max|v|), max|v| up to "
               f"{max(r[2] for r in rows):.1f}), relative L2 max "
               f"{max(r[1] for r in rows):.3e} (tol {ATT_REL_L2['bfloat16']})", flush=True)
-    lr, pre_r, dec_r = teacher_forced(torch, ops, rep.model, tokens, feed, "ref", L)
+    lr, pre_r, dec_r = teacher_forced(torch, ops, rep.model, tokens, feed, "ref", *counts)
     print(f"serve [{card}]: prefill {pre_k:.3f} ms per request batch (plain attention "
           f"{pre_r:.3f}), decode {dec_k:.3f} ms per token (plain attention {dec_r:.3f})",
           flush=True)
@@ -925,12 +1018,13 @@ def serving_phase(torch, dev, card):
         else:
             cut = dataclasses.replace(cfg, n_layers=depth, segments=((("attn",), depth),))
             model = Replica(cut, max_len=SERVE_MAX_LEN, seed=0, device=dev).model
-            lk, _, _ = teacher_forced(torch, ops, model, tokens, feed, None, depth)
-            lr, _, _ = teacher_forced(torch, ops, model, tokens, feed, "ref", depth)
+            cut_counts = ({"flash_attention": depth}, {"decode_attention": depth})
+            lk, _, _ = teacher_forced(torch, ops, model, tokens, feed, None, *cut_counts)
+            lr, _, _ = teacher_forced(torch, ops, model, tokens, feed, "ref", *cut_counts)
         orig_tiles = tf._ref_tiles
         tf._ref_tiles = lambda S: 64
         try:
-            lt, _, _ = teacher_forced(torch, ops, model, tokens, feed, "ref", depth)
+            lt, _, _ = teacher_forced(torch, ops, model, tokens, feed, "ref", {}, {})
         finally:
             tf._ref_tiles = orig_tiles
         rel, agree = logit_distance(torch, lk, lr)
@@ -1005,6 +1099,327 @@ def serving_phase(torch, dev, card):
     return results, errs
 
 
+def recurrent_cases():
+    """(ssd_scan, rglru_scan, flash, decode) small kernel-vs-plain cases of
+    the recurrent phase."""
+    ssd = [  # B, L, H, P, N, G, chunk: tests/test_kernels.py's shapes, a
+        # ragged L, the smoke widths
+        *[(2, 256, 4, 64, 128, G, c) for G in (1, 2) for c in (64, 128, 256)],
+        (2, 200, 4, 64, 128, 2, 64),
+        (2, 50, 4, 32, 16, 1, 16),
+    ]
+    rglru = [  # B, L, W, with h0
+        (2, 256, 64, False), (2, 256, 512, True), (2, 300, 1024, False),
+        (3, 77, 4096, True), (4, 2048, 4096, True),
+    ]
+    flash = [  # B, S, T, Hq, Hkv, D, options: recurrentgemma's heads, its window
+        (1, 300, 300, 16, 1, 256, dict(causal=True, window=128)),
+        (1, 2100, 2100, 16, 1, 256, dict(causal=True, window=2048)),
+    ]
+    decode = [  # B, T, Hq, Hkv, D, window, softcap, cache_len: rings full or filling
+        (2, 2048, 16, 1, 256, 0, 0.0, [2048, 2048]),
+        (3, 300, 16, 1, 256, 0, 0.0, [300, 17, 1]),
+    ]
+    return ssd, rglru, flash, decode
+
+
+def ssd_bound_ms(B, L, H, P, N, G, Q=64):
+    """Least time for the SSD scan of these shapes at the kernel's chunk Q:
+    operations (2 per multiply-add) C Bᵀ once per group and chunk over the
+    causal half, the causal half of M xd, C stateᵀ and the state update per
+    head; bytes x, y f32, dt, B, C read once, the final state written."""
+    nc = -(-L // Q)
+    tri = Q * (Q + 1) // 2
+    ops = B * nc * (G * 2 * N * tri + H * (2 * P * tri + 4 * Q * P * N))
+    nbytes = 4 * (2 * B * L * H * P + B * L * H + H + 2 * B * L * G * N + B * H * P * N)
+    return _bound(nbytes, ops)
+
+
+def recurrent_phase(torch, dev, card):
+    """The recurrent serving phase (module docstring, item 8); returns the
+    kernels-line numbers of ssd_scan and rglru_scan and the largest errors of
+    the four kernels the phase runs."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import decode_attention, n_splits
+    from repro_torch.kernels.faas_event_step import LAUNCH_COUNTS
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch import serve
+    from repro_torch.models.attention import decode_attention_ref, flash_attention_ref
+    from repro_torch.models.rglru import rglru_scan_ref
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.ssm import ssd_chunked_ref
+    from repro_torch.serving.engine import Replica
+
+    names = ("ssd_scan", "rglru_scan", "flash_attention", "decode_attention")
+    errs = dict.fromkeys(names, 0.0)
+    gen = torch.Generator(device="cpu").manual_seed(800)
+    randn = lambda *s: torch.randn(s, generator=gen)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+    def ssd_inputs(B, L, H, P, N, G):
+        """The model's distributions: dt = softplus(N(0, 1) + 0.5), A = -exp(U(0, 1))."""
+        dt = F.softplus(randn(B, L, H) + 0.5)
+        A = -torch.exp(torch.rand(H, generator=gen))
+        return [x.to(dev) for x in (randn(B, L, H, P), dt, A, randn(B, L, G, N),
+                                    randn(B, L, G, N))]
+
+    # 8.1 each kernel against its plain version at small shapes
+    ssd_cases, rglru_cases, flash_cases, decode_cases = recurrent_cases()
+    for B, L, H, P, N, G, chunk in ssd_cases:
+        x, dt, A, Bm, Cm = ssd_inputs(B, L, H, P, N, G)
+        out = ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+        ref = ssd_chunked_ref(x, dt, A, Bm, Cm, chunk=chunk)
+        what = f"ssd B={B} L={L} H={H} P={P} N={N} G={G} chunk={chunk}"
+        (ey, ly), (es, ls) = (held_ssd(torch, o, r, what) for o, r in zip(out, ref))
+        errs["ssd_scan"] = max(errs["ssd_scan"], ey, es)
+        print(f"kernel==plain {what}: y max|diff| {ey:.3e} relative L2 {ly:.3e}, state "
+              f"{es:.3e} / {ls:.3e} (tol {SSD_TOL} x (1 + |plain|), L2 {SSD_REL_L2})", flush=True)
+    for B, L, W, with_h0 in rglru_cases:
+        a = torch.sigmoid(randn(B, L, W)).to(dev)
+        b = (0.1 * randn(B, L, W)).to(dev)
+        h0 = randn(B, W).to(dev) if with_h0 else None
+        y, h_last = rglru_scan(a, b, h0)
+        yr, hr = rglru_scan_ref(a, b, h0)
+        if not (torch.equal(y, yr) and torch.equal(h_last, hr)):
+            raise AssertionError(f"rglru B={B} L={L} W={W}: kernel != plain, max|diff| "
+                                 f"{(y - yr).abs().max().item():.3e}")
+        print(f"kernel==plain rglru B={B} L={L} W={W} h0={with_h0}: bit-equal", flush=True)
+    for dname, dtype in dtypes.items():
+        for B, S, T, Hq, Hkv, D, kw in flash_cases:
+            q, k, v = (randn(*s).to(dev, dtype) for s in ((B, S, Hq, D), (B, T, Hkv, D),
+                                                         (B, T, Hkv, D)))
+            out = flash_attention(q, k, v, **kw)
+            ref = flash_attention_ref(q, k, v, q_chunk=64, kv_chunk=64, **kw)
+            e, rel = held_attention(torch, out, ref, dname, f"flash D=256 {dname}")
+            errs["flash_attention"] = max(errs["flash_attention"], e)
+            print(f"kernel==plain flash {dname}: B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} {kw}: "
+                  f"max|diff|={e:.3e}, relative L2 {rel:.3e}", flush=True)
+        for B, T, Hq, Hkv, D, window, softcap, lens in decode_cases:
+            q, k, v = (randn(*s).to(dev, dtype) for s in ((B, Hq, D), (B, T, Hkv, D),
+                                                         (B, T, Hkv, D)))
+            cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+            out = decode_attention(q, k, v, cl, window=window, softcap=softcap)
+            ref = decode_attention_ref(q, k, v, cl, window=window, softcap=softcap)
+            e, rel = held_attention(torch, out, ref, dname, f"decode D=256 {dname}")
+            errs["decode_attention"] = max(errs["decode_attention"], e)
+            print(f"kernel==plain decode {dname}: B={B} T={T} Hq={Hq} Hkv={Hkv} D={D} "
+                  f"cache_len={lens}: max|diff|={e:.3e}, relative L2 {rel:.3e}", flush=True)
+
+    results = {}
+    for arch in RECURRENT_ARCHS:
+        # 8.2 the main path: a full-width replica measured, planned and replayed
+        t_arch = time.perf_counter()
+        cfg = get_config(arch)
+        kinds = [k for pattern, count in cfg.segments for _ in range(count) for k in pattern]
+        per_prefill = {name: kinds.count(kind) for name, kind in (
+            ("ssd_scan", "ssm"), ("rglru_scan", "rglru"), ("flash_attention", "local"))
+            if kind in kinds}
+        per_step = {"decode_attention": kinds.count("local")} if "local" in kinds else {}
+        LAUNCH_COUNTS.clear()
+        torch.cuda.reset_peak_memory_stats()
+        rep = Replica(cfg, max_len=SERVE_MAX_LEN, seed=0, device=dev)
+        cold_s, warm_s = serve.measure(rep, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW)
+        gen_counts = dict(LAUNCH_COUNTS)
+        plan, obs = serve.plan_and_replay(cold_s, warm_s, SERVE_RATE, SERVE_HORIZON, SERVE_SLO)
+        launches = dict(LAUNCH_COUNTS)
+        # warmup: one prefill and one decode step; generate: one prefill, 128 steps
+        want = {name: 2 * n for name, n in per_prefill.items()}
+        want.update({name: n * (1 + SERVE_NEW) for name, n in per_step.items()})
+        for name in names:
+            if gen_counts.get(name, 0) != want.get(name, 0):
+                raise AssertionError(f"the {arch} replica launched {name} "
+                                     f"{gen_counts.get(name, 0)} times, expected "
+                                     f"{want.get(name, 0)}")
+        if launches.get("faas_sweep", 0) < 1:
+            raise AssertionError("the keep-alive plan did not launch faas_sweep")
+        print(f"serve [{card}]: {cfg.name} full width ({cfg.n_layers} layers {kinds.count('ssm')} "
+              f"ssm / {kinds.count('rglru')} rglru / {kinds.count('local')} local, d_model "
+              f"{cfg.d_model}, vocab {cfg.vocab_size}, bf16 with f32 leaves), batch "
+              f"{SERVE_BATCH} x {SERVE_PROMPT}-token prompts, max_len {SERVE_MAX_LEN}, "
+              f"{SERVE_NEW} new tokens: init {rep.init_seconds:.3f} s, cold {cold_s:.3f} s, "
+              f"warm {warm_s:.3f} s, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}",
+              flush=True)
+        print(f"serve plan {cfg.name}: rate {SERVE_RATE}/s, SLO {SERVE_SLO:.0%}: threshold "
+              f"{plan.expiration_threshold:.0f} s, predicted cold "
+              f"{plan.predicted_cold_prob:.4%}, replicas {plan.predicted_avg_replicas:.4f}, "
+              f"wasted {plan.predicted_wasted_ratio:.4%}; replay: observed cold "
+              f"{obs.cold_start_prob:.4%}, replicas {obs.avg_total_replicas:.4f}, wasted "
+              f"{obs.wasted_ratio:.4%}, resp {obs.avg_response_time:.3f} s over "
+              f"{len(obs.records)} requests", flush=True)
+        vals = [cold_s, warm_s, plan.predicted_cold_prob, obs.cold_start_prob,
+                obs.avg_total_replicas, obs.wasted_ratio]
+        if not np.isfinite(vals).all() or not obs.records:
+            raise AssertionError(f"serve loop values not finite: {vals}")
+
+        rng = np.random.default_rng(801)
+        draw = lambda n: torch.from_numpy(rng.integers(0, cfg.vocab_size, (SERVE_BATCH, n)))
+        tokens, feed = draw(SERVE_PROMPT).to(dev), draw(SERVE_NEW).to(dev)
+        serve_profile(torch, rep.model, tokens, feed, card, name=cfg.name)
+
+        # 8.3 every kernel call of the full-depth path held to its plain
+        # version on the same inputs; end-to-end logits
+        lk, pre_k, dec_k = teacher_forced(torch, ops, rep.model, tokens, feed, None,
+                                          per_prefill, per_step)
+        calls = {name: [] for name in names}
+        with held_calls(torch, ops, calls):
+            teacher_forced(torch, ops, rep.model, tokens, feed, None, per_prefill, per_step)
+        for name, rows in calls.items():
+            n_want = per_prefill.get(name, 0) + per_step.get(name, 0) * SERVE_NEW
+            if len(rows) != n_want:
+                raise AssertionError(f"{len(rows)} {name} calls held on the {arch} path, "
+                                     f"expected {n_want}")
+            if not rows:
+                continue
+            e = max(r[0] for r in rows)
+            errs[name] = max(errs[name], e)
+            print(f"serve [{card}]: {len(rows)} {name} calls of the {cfg.n_layers}-layer "
+                  f"{cfg.name} path, each held to its plain version on the same inputs: "
+                  f"max|diff| {e:.3e}, relative L2 max {max(r[1] for r in rows):.3e}, scale "
+                  f"up to {max(r[2] for r in rows):.1f}", flush=True)
+        lr, pre_r, dec_r = teacher_forced(torch, ops, rep.model, tokens, feed, "ref",
+                                          per_prefill, per_step)
+        if not bool(torch.isfinite(lk).all()):
+            raise AssertionError(f"{arch} full-width logits are not finite")
+        # a second correct version beside them: the plain versions in other
+        # tilings (the SSD scan in the kernel's 64-token chunks, prefill
+        # attention in 64-tiles), the model's distance between two roundings
+        rep.model.cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, chunk_size=64))
+        orig_tiles, tf._ref_tiles = tf._ref_tiles, lambda S: 64
+        try:
+            lt, _, _ = teacher_forced(torch, ops, rep.model, tokens, feed, "ref", {}, {})
+        finally:
+            rep.model.cfg, tf._ref_tiles = cfg, orig_tiles
+        rel, agree = logit_distance(torch, lk, lr)
+        base, base_agree = logit_distance(torch, lt, lr)
+        print(f"serve [{card}]: {cfg.name} prefill {pre_k:.3f} ms per request batch (plain "
+              f"kernels {pre_r:.3f}), decode {dec_k:.3f} ms per token (plain kernels "
+              f"{dec_r:.3f}); logits at full depth, kernels vs plain: relative L2 prefill "
+              f"{rel[0]:.3e}, decode steps max {rel[1:].max():.3e} mean {rel[1:].mean():.3e}, "
+              f"argmax agreement {agree:.4f}; plain in 64-chunks/tiles vs plain: "
+              f"{base[0]:.3e}, max {base[1:].max():.3e} mean {base[1:].mean():.3e}, argmax "
+              f"agreement {base_agree:.4f}; max |logit| {lr.abs().max().item():.3f}",
+              flush=True)
+        del rep, lk, lr, lt
+        torch.cuda.empty_cache()
+        # the logits held at full width cut to one repetition of the first
+        # segment's pattern (the serving phase's reason: a random-weight
+        # model in depth decorrelates any two roundings)
+        pattern = cfg.segments[0][0]
+        cut = dataclasses.replace(cfg, n_layers=len(pattern), segments=((pattern, 1),))
+        cut_pre = {name: pattern.count(kind) for name, kind in (
+            ("ssd_scan", "ssm"), ("rglru_scan", "rglru"), ("flash_attention", "local"))
+            if kind in pattern}
+        cut_step = {"decode_attention": pattern.count("local")} if "local" in pattern else {}
+        model = Replica(cut, max_len=SERVE_MAX_LEN, seed=0, device=dev).model
+        lk, _, _ = teacher_forced(torch, ops, model, tokens, feed, None, cut_pre, cut_step)
+        lr, _, _ = teacher_forced(torch, ops, model, tokens, feed, "ref", cut_pre, cut_step)
+        rel, agree = logit_distance(torch, lk, lr)
+        print(f"serve logits {cfg.name}, full width cut to {len(pattern)} layer(s) {pattern} "
+              f"[{card}]: kernels vs plain relative L2 prefill {rel[0]:.3e}, decode steps max "
+              f"{rel[1:].max():.3e} mean {rel[1:].mean():.3e} (limit {SERVE_LOGIT_REL}), "
+              f"argmax agreement {agree:.4f}", flush=True)
+        if not bool(torch.isfinite(lk).all()) or rel.max() > SERVE_LOGIT_REL:
+            raise AssertionError(f"{arch} logits at {len(pattern)} layers off the plain "
+                                 "versions' or not finite")
+        del model, lk, lr
+        torch.cuda.empty_cache()
+        results[arch] = dict(launches=gen_counts)
+        print(f"{cfg.name}: {time.perf_counter() - t_arch:.1f} s", flush=True)
+
+    # 8.4 each kernel timed at the paths' shapes
+    B, L = SERVE_BATCH, SERVE_PROMPT
+    m = get_config("mamba2-2.7b")
+    H, P, N, G = (m.ssm.expand * m.d_model // m.ssm.head_dim, m.ssm.head_dim, m.ssm.d_state,
+                  m.ssm.n_groups)
+    x, dt, A, Bm, Cm = ssd_inputs(B, L, H, P, N, G)
+    ms, out = timed(torch, lambda: ssd_scan(x, dt, A, Bm, Cm), reps=10)
+    plain_ms, ref = plain_timed(torch, lambda: ssd_chunked_ref(x, dt, A, Bm, Cm,
+                                                                chunk=m.ssm.chunk_size))
+    e = max(held_ssd(torch, o, r, "ssd at the path's shape")[0] for o, r in zip(out, ref))
+    errs["ssd_scan"] = max(errs["ssd_scan"], e)
+    b_ms, b_by = ssd_bound_ms(B, L, H, P, N, G)
+    print(f"timing [{card}]: ssd_scan B={B} L={L} H={H} P={P} N={N} G={G} f32: {ms:.4f} ms "
+          f"(mean of 10); bound {b_ms:.4f} ms ({b_by}); kernel {ms / b_ms:.1f}x its bound; "
+          f"plain (chunk {m.ssm.chunk_size}) {plain_ms:.3f} ms (max|diff| {e:.3e}); no single "
+          "PyTorch call computes this", flush=True)
+    results["ssd_scan"] = dict(launches=results["mamba2-2.7b"]["launches"]["ssd_scan"], ms=ms,
+                               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    del x, dt, A, Bm, Cm, out, ref
+
+    r = get_config("recurrentgemma-9b")
+    W = r.rglru.lru_width
+    a = torch.rand((B, L, W), generator=gen).to(dev)
+    b = randn(B, L, W).to(dev)
+    ms, out = timed(torch, lambda: rglru_scan(a, b), reps=10)
+    plain_ms, ref = plain_timed(torch, lambda: rglru_scan_ref(a, b))
+    if not torch.equal(out[0], ref[0]):
+        raise AssertionError("rglru_scan at the path's shape differs from its plain version")
+    b_ms, b_by = _bound(3 * 4 * B * L * W, 2 * B * L * W)
+    print(f"timing [{card}]: rglru_scan B={B} L={L} W={W} f32: {ms:.4f} ms (mean of 10); "
+          f"bound {b_ms:.4f} ms ({b_by}: {3 * 4 * B * L * W / 1e6:.1f} MB); kernel "
+          f"{ms / b_ms:.2f}x its bound, {3 * 4 * B * L * W / ms / 1e6:.1f} GB/s; plain "
+          f"{plain_ms:.3f} ms (bit-equal); no single PyTorch call computes this", flush=True)
+    results["rglru_scan"] = dict(launches=results["recurrentgemma-9b"]["launches"]["rglru_scan"],
+                                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    del a, b, out, ref
+
+    Hq, Hkv, D, bf = r.n_heads, r.n_kv_heads, r.head_dim, torch.bfloat16
+    q, k, v = (randn(*s).to(dev, bf) for s in ((B, L, Hq, D), (B, L, Hkv, D), (B, L, Hkv, D)))
+    kw = dict(causal=True, window=r.window)
+    ms, out = timed(torch, lambda: flash_attention(q, k, v, **kw), reps=3)
+    tile = max(min(L // 8, 1024), 128)  # the model's tiles for the plain version
+    plain_ms, ref = plain_timed(torch, lambda: flash_attention_ref(q, k, v, q_chunk=tile,
+                                                                   kv_chunk=tile, **kw))
+    e, _ = held_attention(torch, out, ref, "bfloat16", "flash at recurrentgemma's shape")
+    errs["flash_attention"] = max(errs["flash_attention"], e)
+    qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))
+    pos = torch.arange(L, device=dev)
+    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - r.window)
+    lib_kw = dict(is_causal=True) if r.window >= L else dict(attn_mask=band)
+    lib_ms, lib = timed(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, enable_gqa=True, **lib_kw), reps=3)
+    pairs = B * Hq * L * (L + 1) // 2
+    b_ms, b_by = _attention_bound(4 * D * pairs, 2 * (2 * B * L * Hq * D + 2 * B * L * Hkv * D))
+    print(f"timing [{card}]: flash_attention recurrentgemma B={B} S={L} Hq={Hq} Hkv={Hkv} D={D} "
+          f"bf16 causal window {r.window}: {ms:.4f} ms (mean of 3); bound {b_ms:.4f} ms "
+          f"({b_by}); kernel {ms / b_ms:.1f}x its bound, {4 * D * pairs / ms / 1e9:.2f} TFLOP/s; "
+          f"plain {plain_ms:.3f} ms (max|diff| {e:.3e}); scaled_dot_product_attention "
+          f"{lib_ms:.4f} ms (max|diff| "
+          f"{(lib.transpose(1, 2).float() - ref.float()).abs().max().item():.3e})", flush=True)
+    del q, k, v, qt, kt, vt, out, ref, lib
+
+    T = min(SERVE_MAX_LEN, r.window)  # the ring, full from the first step
+    q, kc, vc = (randn(*s).to(dev, bf) for s in ((B, Hq, D), (B, T, Hkv, D), (B, T, Hkv, D)))
+    cl = torch.full((B,), T, dtype=torch.int32, device=dev)
+    ms, out = timed(torch, lambda: decode_attention(q, kc, vc, cl), reps=10)
+    plain_ms, ref = plain_timed(torch, lambda: decode_attention_ref(q, kc, vc, cl))
+    e, _ = held_attention(torch, out, ref, "bfloat16", "decode at recurrentgemma's shape")
+    errs["decode_attention"] = max(errs["decode_attention"], e)
+    lib_ms, lib = timed(torch, lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2), enable_gqa=True), reps=10)
+    nbytes = 2 * (2 * B * T * Hkv * D + 2 * B * Hq * D) + 4 * B
+    b_ms, b_by = _attention_bound(4 * D * B * T * Hq, nbytes)
+    nsplit = n_splits(B, Hkv, T)
+    print(f"timing [{card}]: decode_attention recurrentgemma B={B} T={T} (full ring) Hq={Hq} "
+          f"Hkv={Hkv} D={D} bf16: {ms:.4f} ms (mean of 10); {B * Hkv * nsplit} blocks "
+          f"({nsplit} splits of T x {B * Hkv} (b, kv head) pairs, {Hq // Hkv} query rows "
+          f"each); bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.2f} MB); kernel "
+          f"{ms / b_ms:.1f}x its bound; plain {plain_ms:.3f} ms (max|diff| {e:.3e}); "
+          f"scaled_dot_product_attention {lib_ms:.4f} ms (max|diff| "
+          f"{(lib[:, :, 0].float() - ref.float()).abs().max().item():.3e})", flush=True)
+    del q, kc, vc, out, ref, lib
+    torch.cuda.empty_cache()
+    return {k: results[k] for k in ("ssd_scan", "rglru_scan")}, errs
+
+
 def _attention_bound(flops, nbytes):
     """Least time for the work: FLOP at the bf16 tensor-core peak or bytes
     at HBM rate, whichever is larger."""
@@ -1041,6 +1456,8 @@ def main() -> int:
         print(f"build: {name} in {info['seconds']:.1f} s -> {info['path'].name}")
         if name in KERNEL_NAMES:
             print_ptxas(info["log"], KERNEL_NAMES[name])
+        elif name.endswith("_scan"):
+            print_scan_ptxas(info["log"])
         else:
             print_attention_ptxas(info["log"])
     sys.stdout.flush()
@@ -1351,7 +1768,16 @@ def main() -> int:
     print(f"serving phase {time.perf_counter() - t0:.1f} s; script "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # ---- 8. kernels line, card line, device line
+    # ---- 8. serving the recurrent archs
+    t0 = time.perf_counter()
+    rec_results, rec_errs = recurrent_phase(torch, dev, card)
+    results.update(rec_results)
+    for name, e in rec_errs.items():
+        errs[name] = max(errs[name], e)
+    print(f"recurrent serving phase {time.perf_counter() - t0:.1f} s; script "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---- 9. kernels line, card line, device line
     print(json.dumps({"kernels": [
         dict(KERNELS[k], **dict(dict(library_ms=None), **results[k]), max_abs_err=errs[k])
         for k in KERNELS

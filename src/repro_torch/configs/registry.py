@@ -1,5 +1,5 @@
 """Architecture registry of the port: the reference's ids, of which the port
-serves the dense attention models ported so far."""
+serves the dense attention, Mamba-2 and Griffin models ported so far."""
 
 from __future__ import annotations
 
@@ -8,21 +8,22 @@ import importlib
 from repro_torch.configs.base import ModelConfig
 
 # archs whose blocks the port serves -> module name
-PORTED = {"llama3.2-1b": "llama3_2_1b"}
+PORTED = {
+    "llama3.2-1b": "llama3_2_1b",
+    "mamba2-2.7b": "mamba2_2_7b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
+}
 
 # the reference's other archs (repro/configs/registry.py): their block kinds
-# (MoE, MLA, SSM, RG-LRU, local attention) or multimodal prefixes are not
-# ported yet
+# (MoE, MLA) or multimodal prefixes are not ported yet
 UNPORTED = (
     "granite-8b",
     "gemma-2b",
     "stablelm-12b",
-    "mamba2-2.7b",
     "paligemma-3b",
     "musicgen-large",
     "llama4-maverick-400b-a17b",
     "deepseek-v3-671b",
-    "recurrentgemma-9b",
 )
 
 

@@ -122,22 +122,24 @@ def params_from_reference(params_np, cfg, device=None) -> dict:
     reference model's, as numpy arrays (``jax.device_get(model.init(key))``):
     the segments' stacked ``[count, ...]`` leaves are split into one dict
     per layer, in the order the stack runs them, and every leaf is cast to
-    ``cfg.compute_dtype`` on ``device`` (default the CPU).  The reference
-    keeps f32 parameters and casts them to the compute dtype at every use;
-    both frameworks cast f32 to bf16 by round-to-nearest-even, so the port
-    computes with the same values."""
+    ``cfg.compute_dtype`` on ``device`` (default the CPU), but those the
+    reference reads in f32 (``models.param.F32_LEAVES``), which stay f32.
+    The reference keeps f32 parameters and casts them to the compute dtype
+    at every use; both frameworks cast f32 to bf16 by round-to-nearest-even,
+    so the port computes with the same values."""
     from repro_torch.models.model import dtype_of
+    from repro_torch.models.param import leaf_dtype
     from repro_torch.models.transformer import check_served, segment_layout
 
     check_served(cfg)
     cdt = dtype_of(cfg.compute_dtype)
-    leaf = lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(
-        device or "cpu", cdt)
+    leaf = lambda name, a: torch.from_numpy(np.array(a, dtype=np.float32)).to(
+        device or "cpu", leaf_dtype(name, cdt))
 
-    def conv(tree, index=None):
+    def conv(tree, index=None, name=None):
         if isinstance(tree, dict):
-            return {k: conv(v, index) for k, v in tree.items()}
-        return leaf(tree if index is None else np.asarray(tree)[index])
+            return {k: conv(v, index, k) for k, v in tree.items()}
+        return leaf(name, tree if index is None else np.asarray(tree)[index])
 
     segs = params_np["blocks"]
     layout = segment_layout(cfg)

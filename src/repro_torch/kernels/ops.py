@@ -1,8 +1,9 @@
-"""Dispatch layer: the attention kernels or their plain versions.
+"""Dispatch layer: the model's kernels or their plain versions.
 
 The port of ``repro/kernels/ops.py``.  The model calls :func:`flash_attention`
-and :func:`decode_attention`; the backend is chosen by the
-:func:`kernel_backend` context:
+and :func:`decode_attention` (attention blocks), :func:`ssd_scan` (Mamba-2
+prefill) and :func:`rglru_scan` (RG-LRU prefill); the backend is chosen by
+the :func:`kernel_backend` context:
 
 * ``None`` (the default) follows the tensors' device: a CUDA tensor goes to
   the hand-written kernel, a CPU tensor to the plain version;
@@ -20,6 +21,10 @@ from typing import Optional
 
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import rglru_scan as _rglru
+from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.models import rglru as _rglru_plain
+from repro_torch.models import ssm as _ssm_plain
 from repro_torch.models.attention import decode_attention_ref, flash_attention_ref
 
 BACKENDS = ("cuda", "ref")
@@ -70,3 +75,16 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=0, softcap=0.0,
     if _use_ref("decode_attention", q):
         return decode_attention_ref(q, k_cache, v_cache, cache_len, **kw)
     return _decode.decode_attention(q, k_cache, v_cache, cache_len, **kw)
+
+
+def ssd_scan(x, dt, A, Bm, Cm, *, chunk=256, initial_state=None):
+    kw = dict(chunk=chunk, initial_state=initial_state)
+    if _use_ref("ssd_scan", x):
+        return _ssm_plain.ssd_chunked_ref(x, dt, A, Bm, Cm, **kw)
+    return _ssd.ssd_scan(x, dt, A, Bm, Cm, **kw)
+
+
+def rglru_scan(a, b, h0=None):
+    if _use_ref("rglru_scan", a):
+        return _rglru_plain.rglru_scan_ref(a, b, h0)
+    return _rglru.rglru_scan(a, b, h0)

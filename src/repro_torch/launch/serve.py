@@ -5,10 +5,13 @@ around real model replicas on the GPU (``--device cpu`` for the CPU):
 measures a replica's cold and warm service times, plans the expiration
 threshold with the SimFaaS core (the ``faas_sweep`` kernel) against the
 target rate and SLO, replays a Poisson workload and prints
-predicted-vs-observed QoS.  The replica runs at the arch's published widths
-(``--width full``, the default: ``llama3.2-1b`` takes ~2.5 GB of bf16
-weights on the card) or at its smoke config (``--width smoke``, which the
-reference launcher uses on its host; its head_dim of 16 is below the CUDA
+predicted-vs-observed QoS.  The served archs are ``llama3.2-1b``,
+``mamba2-2.7b`` and ``recurrentgemma-9b``.  The replica runs at the arch's
+published widths (``--width full``, the default: ``llama3.2-1b`` takes
+~2.5 GB of bf16 weights on the card, ``mamba2-2.7b`` ~5.5 GB and
+``recurrentgemma-9b`` ~21 GB, of which ~3.5 GB are its f32 gate weights) or
+at its smoke config (``--width smoke``, which the reference launcher uses
+on its host; ``llama3.2-1b``'s smoke head_dim of 16 is below the attention
 kernels' 32, so it serves on the CPU only).
 """
 
@@ -77,7 +80,8 @@ def main(argv=None):
         from repro_torch.kernels import _build
 
         t0 = time.perf_counter()
-        _build.build_all(("flash_attention", "decode_attention", "faas_event_step"))
+        _build.build_all(("flash_attention", "decode_attention", "ssd_scan", "rglru_scan",
+                          "faas_event_step"))
         print(f"[serve] CUDA kernels ready in {time.perf_counter() - t0:.1f}s")
     print(f"[serve] measuring {cfg.name} on {args.device or 'cuda'}...")
     rep = Replica(cfg, max_len=args.prompt_len + args.new_tokens + 8, device=args.device)

@@ -1,3 +1,4 @@
-"""The model stack of the port: the dense attention family of
-``repro/models``, whose prefill and decode attention run on the
-hand-written CUDA kernels of :mod:`repro_torch.kernels.ops`."""
+"""The model stack of the port: the dense attention, Mamba-2 and Griffin
+families of ``repro/models``, whose prefill and decode attention and
+recurrent prefill scans run on the hand-written CUDA kernels of
+:mod:`repro_torch.kernels.ops`."""

@@ -1,6 +1,7 @@
-"""Shared blocks of the port: RMSNorm, rotary embeddings, GLU FFNs,
-embedding and unembedding (``repro/models/layers.py`` without its sharding
-annotations, which have no counterpart on one GPU)."""
+"""Shared blocks of the port: RMSNorm, rotary embeddings, GLU FFNs, the
+short causal convolution of the recurrent blocks, embedding and unembedding
+(``repro/models/layers.py`` without its sharding annotations, which have no
+counterpart on one GPU; ``causal_conv1d`` is ``repro/models/ssm.py``'s)."""
 
 from __future__ import annotations
 
@@ -43,19 +44,31 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float, partial: 
     return torch.cat([rotated.to(x.dtype), x_pass], dim=-1)
 
 
-def _gelu_tanh(x):
+def gelu_tanh(x):
     return F.gelu(x, approximate="tanh")
 
 
 def glu_ffn(params, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
     dtype = x.dtype
-    act = F.silu if activation == "silu" else _gelu_tanh
+    act = F.silu if activation == "silu" else gelu_tanh
     up = x @ params["w_up"].to(dtype)
     if "w_gate" in params:  # GLU variant (SwiGLU / GeGLU)
         h = act(x @ params["w_gate"].to(dtype)) * up
     else:  # plain 2-layer MLP
         h = act(up)
     return h @ params["w_down"].to(dtype)
+
+
+def causal_conv1d(x, w, b):
+    """Depthwise causal conv: x [B, L, C], w [K, C] -> [B, L, C]; the K taps
+    summed in the reference's order, each product and sum rounded to x's
+    dtype."""
+    K = w.shape[0]
+    pad = F.pad(x, (0, 0, K - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(K):  # K is tiny (4)
+        out = out + pad[:, i : i + x.shape[1]] * w[i]
+    return out + b
 
 
 def embed(params, tokens: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:

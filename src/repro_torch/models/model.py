@@ -7,15 +7,20 @@ language models (token ids in, logits out): :func:`build_params`,
 ``nn.Module`` that holds the parameters on an explicit device.  The
 parameters live in the compute dtype (the reference keeps f32 parameters
 and casts them at every use; the cast is the same round-to-nearest-even,
-so the values are the same).  The training loss and the multi-token
-prediction head come with the training slice (ROADMAP Queue A item 9b).
+so the values are the same), except the leaves the reference reads in f32
+(:data:`repro_torch.models.param.F32_LEAVES`), which stay f32.  The
+training loss and the multi-token prediction head come with the training
+slice (ROADMAP Queue A item 9b).
 
 Parameters are nested dicts of tensors: ``embed.table [V, d]`` (and
 ``head.w [d, V]`` when untied), ``blocks`` a list with one dict per layer
-(``ln1``, ``ln2``, ``mixer.wq [d, H, D]``, ``wk/wv [d, Hkv, D]``, ``wo [H,
-D, d]``, ``ffn.w_up/w_gate [d, ff]``, ``w_down [ff, d]``) and
-``final_norm.scale``.  Caches are a list with one ``{"k", "v"}`` dict of
-``[B, T, Hkv, D]`` tensors per layer.
+(``ln1``, ``ln2`` but for ``ssm``, ``mixer`` as the layer's kind builds it,
+``ffn.w_up/w_gate [d, ff]``, ``w_down [ff, d]`` but for ``ssm``) and
+``final_norm.scale``.  Caches are a list with one dict per layer, its keys
+following the kind: ``{"k", "v"}`` of ``[B, T, Hkv, D]`` for attention
+(``local``: a ring of ``T = min(max_len, window)`` slots), ``{"state",
+"conv"}`` (f32 ``[B, H, P, N]``, ``[B, K-1, conv_dim]``) for ``ssm`` and
+``{"h", "conv"}`` (f32 ``[B, W]``, ``[B, K-1, W]``) for ``rglru``.
 """
 
 from __future__ import annotations
@@ -29,7 +34,8 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import embed, linear_head, rms_norm, unembed
-from repro_torch.models.param import ParamBuilder
+from repro_torch.models.param import ParamBuilder, leaf_dtype
+from repro_torch.models.ssm import mamba2_dims
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -61,28 +67,72 @@ def _embed_tokens(params, tokens, cfg: ModelConfig):
     return x
 
 
-def build_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> list:
-    """Zeroed decode caches, one ``{"k", "v"}`` per layer."""
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+def _cache_entry(cfg: ModelConfig, kind: str, batch: int, max_len: int, device) -> dict:
+    """A zeroed decode cache for one layer of ``kind``."""
     cdt = dtype_of(cfg.compute_dtype)
-    return [
-        {"k": torch.zeros(shape, dtype=cdt, device=device),
-         "v": torch.zeros(shape, dtype=cdt, device=device)}
-        for _ in tf.layer_kinds(cfg)
-    ]
+    zeros = lambda shape, dt=cdt: torch.zeros(shape, dtype=dt, device=device)
+    if kind == "ssm":
+        _, H, _, N, P, conv_dim = mamba2_dims(cfg)
+        return {"state": zeros((batch, H, P, N), torch.float32),
+                "conv": zeros((batch, cfg.ssm.d_conv - 1, conv_dim))}
+    if kind == "rglru":
+        w = cfg.rglru.lru_width or cfg.d_model
+        return {"h": zeros((batch, w), torch.float32),
+                "conv": zeros((batch, cfg.rglru.d_conv - 1, w))}
+    T = min(max_len, cfg.window) if kind == "local" else max_len
+    shape = (batch, T, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": zeros(shape), "v": zeros(shape)}
+
+
+def build_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> list:
+    """Zeroed decode caches, one dict per layer (keys by the layer's kind)."""
+    return [_cache_entry(cfg, kind, batch, max_len, device) for kind, _ in tf.layer_kinds(cfg)]
+
+
+def _conv_window(tail, K: int):
+    """The last K-1 raw conv inputs of a prefill as an owned ``[B, K-1, C]``
+    tensor (a prompt shorter than K-1 is left-padded with the zeros the
+    causal conv pads with)."""
+    short = K - 1 - tail.shape[1]
+    if short > 0:
+        tail = torch.nn.functional.pad(tail, (0, 0, short, 0))
+    return tail.clone(memory_format=torch.contiguous_format)
 
 
 def _prefill_to_decode_cache(prefill_caches, cfg: ModelConfig, max_len: int) -> list:
-    """Pad each layer's prefill ``(k, v) [B, S, Hkv, D]`` to ``max_len``."""
+    """Each layer's prefill cache entry in the decode layout: attention
+    ``(k, v) [B, S, Hkv, D]`` padded to ``max_len``, or for ``local`` the last
+    ``T = min(max_len, window)`` positions rolled so that position p sits in
+    ring slot p % T; the recurrent states in f32 and the conv windows copied
+    out of the prefill's activations."""
     cdt = dtype_of(cfg.compute_dtype)
     out = []
-    for k, v in prefill_caches:
+    for entry, (kind, _) in zip(prefill_caches, tf.layer_kinds(cfg)):
+        if kind == "ssm":
+            state, tail = entry
+            out.append({"state": state.float(), "conv": _conv_window(tail.to(cdt), cfg.ssm.d_conv)})
+            continue
+        if kind == "rglru":
+            h_last, tail = entry
+            out.append({"h": h_last.float().clone(memory_format=torch.contiguous_format),
+                        "conv": _conv_window(tail.to(cdt), cfg.rglru.d_conv)})
+            continue
+        k, v = entry
         B, S, Hkv, D = k.shape
-        if S > max_len:
-            raise ValueError(f"prompt of {S} tokens does not fit max_len={max_len}")
+        if kind == "local":
+            w = min(max_len, cfg.window)
+            if S >= w:
+                out.append({name: torch.roll(x[:, S - w:], S % w, dims=1).to(cdt)
+                            for name, x in (("k", k), ("v", v))})
+                continue
+            T = w
+        else:
+            if S > max_len:
+                raise ValueError(f"prompt of {S} tokens does not fit max_len={max_len}")
+            T = max_len
         entry = {}
         for name, x in (("k", k), ("v", v)):
-            buf = torch.zeros((B, max_len, Hkv, D), dtype=cdt, device=x.device)
+            buf = torch.zeros((B, T, Hkv, D), dtype=cdt, device=x.device)
             buf[:, :S] = x
             entry[name] = buf
         out.append(entry)
@@ -160,7 +210,8 @@ class BuiltModel(nn.Module):
             gen.manual_seed(int(seed))
             params = build_params(ParamBuilder(gen, cdt), cfg)
         else:
-            params = _map(lambda x: x.to(self.device, cdt), params)
+            params = _map_leaves(lambda name, x: x.to(self.device, leaf_dtype(name, cdt)),
+                                 params)
         self.params = ParamTree(params)
 
     def prefill(self, batch: dict, max_len: int):
@@ -173,12 +224,13 @@ class BuiltModel(nn.Module):
         return build_cache(self.cfg, batch, max_len, self.device)
 
 
-def _map(fn, tree):
+def _map_leaves(fn, tree, name=None):
+    """``fn(leaf name, leaf)`` over a parameter tree's tensors."""
     if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
+        return {k: _map_leaves(fn, v, k) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_map(fn, v) for v in tree]
-    return fn(tree)
+        return [_map_leaves(fn, v, name) for v in tree]
+    return fn(name, tree)
 
 
 def build_model(cfg: ModelConfig, *, seed: int = 0, device=None,

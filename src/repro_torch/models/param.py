@@ -3,8 +3,14 @@
 The port of ``repro/models/param.py::ParamBuilder`` in its ``init`` mode,
 with the same distributions: ``normal`` is N(0, 1) times ``scale``
 (default ``1/sqrt(fan_in)``, fan-in the second-to-last dimension),
-``embed`` is N(0, 0.02²), ``zeros`` and ``ones`` are constant.  Values are
-drawn in f32 on the generator's device and then cast to ``dtype``.  The
+``embed`` is N(0, 0.02²), ``uniform_dt`` is U(0, 1), ``zeros`` and
+``ones`` are constant.  Values are drawn in f32 on the generator's device
+and then cast to the leaf's ``dtype`` (default the builder's).
+
+The port keeps parameters in the compute dtype, but the reference reads a
+few leaves in f32 whatever the compute dtype: :data:`F32_LEAVES` stay f32
+here, on random init (their builders pass ``dtype=torch.float32``) and
+when a reference tree is carried across (:func:`leaf_dtype`).  The
 reference's sharding specs and shape-only modes have no counterpart here.
 The numbers differ from ``jax.random``'s: tests carry the reference's
 parameters across with :func:`repro_torch.interop.params_from_reference`.
@@ -17,6 +23,16 @@ import math
 from typing import Optional, Sequence
 
 import torch
+
+# leaves the reference reads in f32: the Mamba-2 decay, skip and step-size
+# bias (repro/models/ssm.py:189-201) and the RG-LRU gate weights, biases
+# and decay (repro/models/rglru.py:51-54, 65-68)
+F32_LEAVES = frozenset({"A_log", "D", "dt_bias", "w_a", "w_x", "b_a", "b_x", "lambda_p"})
+
+
+def leaf_dtype(name: str, compute: torch.dtype) -> torch.dtype:
+    """The dtype the port stores the parameter leaf ``name`` in."""
+    return torch.float32 if name in F32_LEAVES else compute
 
 
 @dataclasses.dataclass
@@ -41,6 +57,10 @@ class ParamBuilder:
             return torch.zeros(shape, dtype=dtype, device=self.device)
         if init == "ones":
             return torch.ones(shape, dtype=dtype, device=self.device)
+        if init == "uniform_dt":
+            x = torch.rand(shape, generator=self.generator, dtype=torch.float32,
+                           device=self.device)
+            return x.to(dtype)
         if init not in ("normal", "embed"):
             raise ValueError(f"unknown init {init}")
         if init == "embed":

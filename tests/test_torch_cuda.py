@@ -465,3 +465,169 @@ def test_model_runs_the_attention_kernels(cuda_device, dtype):
     k, r = logits[None], logits["ref"]
     rel = ((k - r).norm() / r.norm()).item()
     assert rel <= (1e-5 if dtype == "float32" else 2e-2), rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,S,T,Hq,Hkv,D,kw",
+    [
+        (1, 300, 300, 16, 1, 256, dict(causal=True, window=128)),  # recurrentgemma's MQA
+        (2, 130, 130, 16, 1, 256, dict(causal=True, window=2048)),  # window past S
+    ],
+)
+def test_flash_attention_at_recurrentgemma_shapes(cuda_device, dtype, B, S, T, Hq, Hkv, D, kw):
+    q, k, v = _randn(cuda_device, dtype, S + 7, (B, S, Hq, D), (B, T, Hkv, D), (B, T, Hkv, D))
+    out = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _att_close(out, flash_attention_ref(q, k, v, q_chunk=64, kv_chunk=64, **kw), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_over_a_full_ring(cuda_device, dtype):
+    """recurrentgemma's local layers decode over a ring of T slots that is
+    full from the first step (cache_len = T, window 0), D = 256, G = 16."""
+    B, T, Hq, Hkv, D = 2, 512, 16, 1, 256
+    q, k, v = _randn(cuda_device, dtype, 11, (B, Hq, D), (B, T, Hkv, D), (B, T, Hkv, D))
+    cl = torch.full((B,), T, dtype=torch.int32, device=cuda_device)
+    out = decode_attention(q, k, v, cl)
+    torch.cuda.synchronize()
+    _att_close(out, decode_attention_ref(q, k, v, cl), dtype)
+
+
+# ---------------------------------------------------------------------------
+# scan kernels (Mamba-2 and Griffin prefill)
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
+from repro_torch.models.rglru import rglru_scan_ref  # noqa: E402
+from repro_torch.models.ssm import ssd_chunked_ref  # noqa: E402
+
+# ssd_scan against its plain version at the model's chunk: the kernel scans
+# in 64-token chunks, so its cumulative decays are summed over 64 tokens
+# where the plain version's are summed over up to 256, and exp(cum_t -
+# cum_s) rounds differently; on the CPU the plain version at 64 and at 256
+# differ by up to 7e-4 x (1 + |y|) per element at strong decay (dA of -1 to
+# -13 a token) and by under 1e-5 in relative L2
+SSD_TOL, SSD_REL_L2 = 2e-3, 1e-4
+
+
+def _ssd_inputs(dev, seed, B, L, H, P, N, G, scale=1.0, bias=0.5):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g)
+    dt = torch.nn.functional.softplus(r(B, L, H) * scale + bias)
+    A = -torch.exp(torch.rand(H, generator=g))
+    return [t.to(dev) for t in (r(B, L, H, P), dt, A, r(B, L, G, N), r(B, L, G, N))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "B,L,H,P,N,G,chunk",
+    [
+        (2, 256, 4, 64, 128, 1, 64),  # tests/test_kernels.py's shapes
+        (2, 256, 4, 64, 128, 2, 128),
+        (2, 256, 4, 64, 128, 1, 256),
+        (2, 200, 4, 64, 128, 2, 64),  # ragged L
+        (2, 50, 4, 32, 16, 1, 16),  # the smoke model's widths
+        (1, 77, 8, 128, 32, 4, 64),
+    ],
+)
+def test_ssd_scan_matches_plain(cuda_device, B, L, H, P, N, G, chunk):
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda_device, L + N, B, L, H, P, N, G)
+    before = fes.LAUNCH_COUNTS["ssd_scan"]
+    y, st = ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert fes.LAUNCH_COUNTS["ssd_scan"] == before + 1
+    yr, sr = ssd_chunked_ref(x, dt, A, Bm, Cm, chunk=chunk)
+    for out, ref in ((y, yr), (st, sr)):
+        assert bool(torch.isfinite(out).all())
+        assert bool(((out - ref).abs() <= SSD_TOL * (1 + ref.abs())).all())
+        assert ((out - ref).norm() / ref.norm()).item() <= SSD_REL_L2
+    # an initial state is carried into the first chunk
+    y2, st2 = ssd_scan(x[:, L // 2:].contiguous(), dt[:, L // 2:].contiguous(), A,
+                       Bm[:, L // 2:].contiguous(), Cm[:, L // 2:].contiguous(),
+                       initial_state=ssd_scan(x[:, :L // 2].contiguous(),
+                                              dt[:, :L // 2].contiguous(), A,
+                                              Bm[:, :L // 2].contiguous(),
+                                              Cm[:, :L // 2].contiguous())[1])
+    assert bool(((y2 - yr[:, L // 2:]).abs() <= SSD_TOL * (1 + yr[:, L // 2:].abs())).all())
+    assert bool(((st2 - sr).abs() <= SSD_TOL * (1 + sr.abs())).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "B,L,W,with_h0",
+    [(2, 256, 64, False), (2, 300, 512, True), (3, 77, 4096, True), (1, 1, 100, True)],
+)
+def test_rglru_scan_matches_plain_bitwise(cuda_device, B, L, W, with_h0):
+    """One rounded multiply and one rounded add a step on both sides."""
+    g = torch.Generator(device="cpu").manual_seed(L + W)
+    a = torch.sigmoid(torch.randn((B, L, W), generator=g)).to(cuda_device)
+    b = (0.1 * torch.randn((B, L, W), generator=g)).to(cuda_device)
+    h0 = torch.randn((B, W), generator=g).to(cuda_device) if with_h0 else None
+    before = fes.LAUNCH_COUNTS["rglru_scan"]
+    y, h_last = rglru_scan(a, b, h0)
+    torch.cuda.synchronize()
+    assert fes.LAUNCH_COUNTS["rglru_scan"] == before + 1
+    yr, hr = rglru_scan_ref(a, b, h0)
+    assert torch.equal(y, yr) and torch.equal(h_last, hr)
+
+
+@pytest.mark.cuda
+def test_scan_wrappers_check_inputs(cuda_device):
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda_device, 0, 1, 64, 4, 64, 128, 1)
+    with pytest.raises(ValueError, match="float32"):
+        ssd_scan(x.bfloat16(), dt, A, Bm, Cm)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2), dt, A, Bm, Cm)
+    with pytest.raises(ValueError, match="head_dim P"):
+        ssd_scan(x[..., :48].contiguous(), dt, A, Bm, Cm)
+    with pytest.raises(ValueError, match="is on cpu"):
+        ssd_scan(x, dt, A.cpu(), Bm, Cm)
+    a = torch.rand((2, 8, 64), device=cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        rglru_scan(a.bfloat16(), a.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        rglru_scan(a.transpose(0, 1).contiguous().transpose(0, 1), a)
+    with pytest.raises(ValueError, match="kernel_backend|needs CUDA"):
+        with ops.kernel_backend("cuda"):
+            ops.rglru_scan(a.cpu(), a.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-9b"])
+def test_smoke_archs_launch_the_scan_kernels(cuda_device, arch):
+    """A prefill and decode steps of each smoke arch on the card: the
+    kernels' launches per prefill and step, and the logits against the same
+    model under kernel_backend("ref"), teacher-forced, in f32."""
+    import dataclasses
+
+    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32")
+    m = build_model(cfg, seed=2, device=cuda_device)
+    g = torch.Generator(device="cpu").manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), generator=g).to(cuda_device)
+    feed = torch.randint(0, cfg.vocab_size, (2, 3), generator=g).to(cuda_device)
+    kinds = [k for pattern, count in cfg.segments for _ in range(count) for k in pattern]
+    per_prefill = {"ssd_scan": kinds.count("ssm"), "rglru_scan": kinds.count("rglru"),
+                   "flash_attention": kinds.count("local")}
+    logits = {}
+    with torch.inference_mode():
+        for backend in (None, "ref"):
+            fes.LAUNCH_COUNTS.clear()
+            with ops.kernel_backend(backend):
+                lg, caches, cl = m.prefill({"tokens": tokens}, 48)
+                counts = {k: fes.LAUNCH_COUNTS[k] for k in per_prefill}
+                out = [lg]
+                for i in range(feed.shape[1]):
+                    lg, caches, cl = m.decode_step(feed[:, i:i + 1], caches, cl)
+                    out.append(lg)
+            logits[backend] = torch.cat(out, dim=1)
+            if backend is None:
+                assert counts == per_prefill
+                assert fes.LAUNCH_COUNTS["decode_attention"] == kinds.count("local") * 3
+            else:
+                assert sum(fes.LAUNCH_COUNTS.values()) == 0
+    k, r = logits[None], logits["ref"]
+    assert ((k - r).norm() / r.norm()).item() <= 1e-4

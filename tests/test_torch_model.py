@@ -173,13 +173,13 @@ def test_unported_archs_and_kinds_raise():
     with pytest.raises(NotImplementedError, match="Queue A item 9b"):
         get_config("gemma-2b")
     with pytest.raises(NotImplementedError, match="Queue A item 9b"):
-        get_smoke_config("mamba2-2.7b")
+        get_smoke_config("deepseek-v3-671b")
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("bogus")
     _, cfg = _cfgs()
-    local = dataclasses.replace(cfg, segments=((("attn", "local"), 1),), window=8)
-    with pytest.raises(NotImplementedError, match="local"):
-        build_model(local, device="cpu")
+    mla = dataclasses.replace(cfg, segments=((("attn", "mla"), 1),))
+    with pytest.raises(NotImplementedError, match="mla"):
+        build_model(mla, device="cpu")
     if not torch.cuda.is_available():  # the default device is the GPU
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build_model(cfg)
