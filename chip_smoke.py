@@ -70,9 +70,11 @@ Phases (any failure ends the script with a non-zero exit):
    ``decode_attention``), a ``torch.profiler`` breakdown, a teacher-forced
    prefill and 128 steps with every kernel call held to its plain version
    on the same inputs, the logits against ``kernel_backend("ref")`` at full
-   depth (printed) and cut to one repetition of the first segment's pattern
-   (held); each replica freed before the next; each kernel timed at the
-   paths' shapes beside its bound and its plain version;
+   depth (printed) and cut to ``RECURRENT_E2E_REPS`` repetitions of the first
+   segment's pattern (held), each beside the plain versions in the kernels'
+   tilings against the plain versions; each replica freed before the next;
+   each kernel timed at the paths' shapes beside its bound and its plain
+   version;
 9. the kernels line (JSON), the card line, then the device line (JSON) last.
 """
 
@@ -245,6 +247,16 @@ RECURRENT_ARCHS = ("mamba2-2.7b", "recurrentgemma-9b")
 # token) and by under 1e-5 in relative L2. rglru_scan is held bit for bit:
 # both sides round one multiply and one add a step.
 SSD_TOL, SSD_REL_L2 = 2e-3, 1e-4
+# End-to-end logits of the recurrent archs: at full depth the plain version
+# in the kernels' tilings is as far from the plain version as the kernels
+# are (random weights amplify any rounding in depth), so the logits are held
+# to SERVE_LOGIT_REL at full width cut to this many repetitions of the first
+# segment's pattern: the deepest cut read at which that plain pair stays
+# within half the limit. tools/recurrent_depth.py reads the plain pair's
+# largest distance on an H100 at 1, 2, 4, 8 mamba2 layers as 1.1e-3,
+# 5.5e-3, 1.7e-2, 3.8e-2, and at 1 and 2 repetitions of recurrentgemma's
+# (rglru, rglru, local) as 0 and 8.8e-2
+RECURRENT_E2E_REPS = {"mamba2-2.7b": 4, "recurrentgemma-9b": 1}
 
 
 def gpu_line() -> str:
@@ -758,8 +770,7 @@ class held_calls:
 
     def __enter__(self):
         from repro_torch.models.attention import decode_attention_ref, flash_attention_ref
-        from repro_torch.models.rglru import rglru_scan_ref
-        from repro_torch.models.ssm import ssd_chunked_ref
+        from repro_torch.models.scans import rglru_scan_ref, ssd_chunked_ref
 
         torch, ops = self.torch, self.ops
         names = ("flash_attention", "decode_attention", "ssd_scan", "rglru_scan")
@@ -856,6 +867,25 @@ def teacher_forced(torch, ops, model, tokens, feed, backend, per_prefill, per_st
     return torch.cat(out, dim=1), pre_ms, dec_ms
 
 
+def plain_retiled(torch, model, tokens, feed):
+    """Teacher-forced logits of the plain versions in the kernels' tilings
+    (the SSD scan in 64-token chunks, prefill attention in 64-tiles): a
+    second correct rounding of the same model, beside which a distance
+    between kernels and plain versions is read."""
+    import dataclasses
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+
+    cfg = model.cfg
+    model.cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, chunk_size=64))
+    orig_tiles, tf._ref_tiles = tf._ref_tiles, lambda S: 64
+    try:
+        return teacher_forced(torch, ops, model, tokens, feed, "ref", {}, {})[0]
+    finally:
+        model.cfg, tf._ref_tiles = cfg, orig_tiles
+
+
 def logit_distance(torch, a, b):
     """Relative L2 distance of two [B, P, V] logit stacks at each position
     (over batch and vocab), and the share of equal argmaxes."""
@@ -913,7 +943,6 @@ def serving_phase(torch, dev, card):
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.launch import serve
     from repro_torch.models.attention import decode_attention_ref, flash_attention_ref
-    from repro_torch.models import transformer as tf
     from repro_torch.serving.engine import Replica
 
     errs = {"flash_attention": 0.0, "decode_attention": 0.0}
@@ -1021,12 +1050,7 @@ def serving_phase(torch, dev, card):
             cut_counts = ({"flash_attention": depth}, {"decode_attention": depth})
             lk, _, _ = teacher_forced(torch, ops, model, tokens, feed, None, *cut_counts)
             lr, _, _ = teacher_forced(torch, ops, model, tokens, feed, "ref", *cut_counts)
-        orig_tiles = tf._ref_tiles
-        tf._ref_tiles = lambda S: 64
-        try:
-            lt, _, _ = teacher_forced(torch, ops, model, tokens, feed, "ref", {}, {})
-        finally:
-            tf._ref_tiles = orig_tiles
+        lt = plain_retiled(torch, model, tokens, feed)
         rel, agree = logit_distance(torch, lk, lr)
         base, base_agree = logit_distance(torch, lt, lr)
         held = depth == SERVE_E2E_LAYERS
@@ -1152,9 +1176,7 @@ def recurrent_phase(torch, dev, card):
     from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.launch import serve
     from repro_torch.models.attention import decode_attention_ref, flash_attention_ref
-    from repro_torch.models.rglru import rglru_scan_ref
-    from repro_torch.models import transformer as tf
-    from repro_torch.models.ssm import ssd_chunked_ref
+    from repro_torch.models.scans import rglru_scan_ref, ssd_chunked_ref
     from repro_torch.serving.engine import Replica
 
     names = ("ssd_scan", "rglru_scan", "flash_attention", "decode_attention")
@@ -1288,15 +1310,7 @@ def recurrent_phase(torch, dev, card):
                                           per_prefill, per_step)
         if not bool(torch.isfinite(lk).all()):
             raise AssertionError(f"{arch} full-width logits are not finite")
-        # a second correct version beside them: the plain versions in other
-        # tilings (the SSD scan in the kernel's 64-token chunks, prefill
-        # attention in 64-tiles), the model's distance between two roundings
-        rep.model.cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, chunk_size=64))
-        orig_tiles, tf._ref_tiles = tf._ref_tiles, lambda S: 64
-        try:
-            lt, _, _ = teacher_forced(torch, ops, rep.model, tokens, feed, "ref", {}, {})
-        finally:
-            rep.model.cfg, tf._ref_tiles = cfg, orig_tiles
+        lt = plain_retiled(torch, rep.model, tokens, feed)
         rel, agree = logit_distance(torch, lk, lr)
         base, base_agree = logit_distance(torch, lt, lr)
         print(f"serve [{card}]: {cfg.name} prefill {pre_k:.3f} ms per request batch (plain "
@@ -1309,27 +1323,30 @@ def recurrent_phase(torch, dev, card):
               flush=True)
         del rep, lk, lr, lt
         torch.cuda.empty_cache()
-        # the logits held at full width cut to one repetition of the first
-        # segment's pattern (the serving phase's reason: a random-weight
-        # model in depth decorrelates any two roundings)
-        pattern = cfg.segments[0][0]
-        cut = dataclasses.replace(cfg, n_layers=len(pattern), segments=((pattern, 1),))
-        cut_pre = {name: pattern.count(kind) for name, kind in (
+        # the logits held at full width cut to RECURRENT_E2E_REPS[arch]
+        # repetitions of the first segment's pattern, beside the plain pair
+        reps, pattern = RECURRENT_E2E_REPS[arch], cfg.segments[0][0]
+        cut = dataclasses.replace(cfg, n_layers=reps * len(pattern), segments=((pattern, reps),))
+        cut_pre = {name: reps * pattern.count(kind) for name, kind in (
             ("ssd_scan", "ssm"), ("rglru_scan", "rglru"), ("flash_attention", "local"))
             if kind in pattern}
-        cut_step = {"decode_attention": pattern.count("local")} if "local" in pattern else {}
+        cut_step = ({"decode_attention": reps * pattern.count("local")}
+                    if "local" in pattern else {})
         model = Replica(cut, max_len=SERVE_MAX_LEN, seed=0, device=dev).model
         lk, _, _ = teacher_forced(torch, ops, model, tokens, feed, None, cut_pre, cut_step)
         lr, _, _ = teacher_forced(torch, ops, model, tokens, feed, "ref", cut_pre, cut_step)
+        lt = plain_retiled(torch, model, tokens, feed)
         rel, agree = logit_distance(torch, lk, lr)
-        print(f"serve logits {cfg.name}, full width cut to {len(pattern)} layer(s) {pattern} "
-              f"[{card}]: kernels vs plain relative L2 prefill {rel[0]:.3e}, decode steps max "
-              f"{rel[1:].max():.3e} mean {rel[1:].mean():.3e} (limit {SERVE_LOGIT_REL}), "
-              f"argmax agreement {agree:.4f}", flush=True)
+        base, _ = logit_distance(torch, lt, lr)
+        print(f"serve logits {cfg.name}, full width cut to {cut.n_layers} layer(s), {reps} x "
+              f"{pattern} [{card}]: kernels vs plain relative L2 prefill {rel[0]:.3e}, decode "
+              f"steps max {rel[1:].max():.3e} mean {rel[1:].mean():.3e} (limit "
+              f"{SERVE_LOGIT_REL}), argmax agreement {agree:.4f}; plain in 64-chunks/tiles vs "
+              f"plain: {base[0]:.3e}, max {base[1:].max():.3e}", flush=True)
         if not bool(torch.isfinite(lk).all()) or rel.max() > SERVE_LOGIT_REL:
-            raise AssertionError(f"{arch} logits at {len(pattern)} layers off the plain "
+            raise AssertionError(f"{arch} logits at {cut.n_layers} layers off the plain "
                                  "versions' or not finite")
-        del model, lk, lr
+        del model, lk, lr, lt
         torch.cuda.empty_cache()
         results[arch] = dict(launches=gen_counts)
         print(f"{cfg.name}: {time.perf_counter() - t_arch:.1f} s", flush=True)

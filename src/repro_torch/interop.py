@@ -121,25 +121,23 @@ def params_from_reference(params_np, cfg, device=None) -> dict:
     """The port's parameter tree (see :mod:`repro_torch.models.model`) from a
     reference model's, as numpy arrays (``jax.device_get(model.init(key))``):
     the segments' stacked ``[count, ...]`` leaves are split into one dict
-    per layer, in the order the stack runs them, and every leaf is cast to
-    ``cfg.compute_dtype`` on ``device`` (default the CPU), but those the
-    reference reads in f32 (``models.param.F32_LEAVES``), which stay f32.
-    The reference keeps f32 parameters and casts them to the compute dtype
-    at every use; both frameworks cast f32 to bf16 by round-to-nearest-even,
-    so the port computes with the same values."""
-    from repro_torch.models.model import dtype_of
-    from repro_torch.models.param import leaf_dtype
+    per layer, in the order the stack runs them, and every leaf is cast on
+    ``device`` (default the CPU) to the dtype the port's builder gives it
+    (:func:`repro_torch.models.model.cast_params`): ``cfg.compute_dtype``,
+    but f32 for the leaves the reference reads in f32.  The reference keeps
+    f32 parameters and casts them to the compute dtype at every use; both
+    frameworks cast f32 to bf16 by round-to-nearest-even, so the port
+    computes with the same values."""
+    from repro_torch.models.model import cast_params
     from repro_torch.models.transformer import check_served, segment_layout
 
     check_served(cfg)
-    cdt = dtype_of(cfg.compute_dtype)
-    leaf = lambda name, a: torch.from_numpy(np.array(a, dtype=np.float32)).to(
-        device or "cpu", leaf_dtype(name, cdt))
 
-    def conv(tree, index=None, name=None):
+    def conv(tree, index=None):
         if isinstance(tree, dict):
-            return {k: conv(v, index, k) for k, v in tree.items()}
-        return leaf(name, tree if index is None else np.asarray(tree)[index])
+            return {k: conv(v, index) for k, v in tree.items()}
+        return torch.from_numpy(np.array(tree if index is None else np.asarray(tree)[index],
+                                         dtype=np.float32))
 
     segs = params_np["blocks"]
     layout = segment_layout(cfg)
@@ -159,4 +157,4 @@ def params_from_reference(params_np, cfg, device=None) -> dict:
             f"reference parameters {sorted(unknown)} have no counterpart in the port yet; "
             "see ROADMAP.md Queue A item 9b"
         )
-    return out
+    return cast_params(out, cfg, device or "cpu")

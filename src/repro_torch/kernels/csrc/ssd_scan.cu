@@ -9,11 +9,11 @@
 //   cross-chunk  y += exp(cum_t) (C stateᵀ)
 //   state        state = exp(cum_last) state + (exp(cum_last - cum) xd)ᵀ B
 //
-// which is repro_torch/models/ssm.py::ssd_chunked_ref (the reference's
+// which is repro_torch/models/scans.py::ssd_chunked_ref (the reference's
 // ssd_chunked_ref) in exact arithmetic for any chunk length.  Inputs are f32:
 // x [B, L, H, P], dt [B, L, H], A [H], B and C [B, L, G, N] per group (head h
 // reads group h / (H / G)); outputs y [B, L, H, P] and the final state
-// [B, H, P, N], f32.  An optional initial state [B, H, P, N] is read first.
+// [B, H, P, N], f32.  The state starts at zero, as the reference's does.
 //
 // What bounds it on this card: operations.  At mamba2-2.7b's prefill (B = 4,
 // L = 2,048, H = 80, P = 64, N = 128, G = 1) the products take ~2.4e10 f32
@@ -68,9 +68,8 @@ template <int P, int N>
 __global__ void __launch_bounds__(THREADS)
 ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ A, const float* __restrict__ Bm,
-                const float* __restrict__ Cm, const float* __restrict__ init,
-                float* __restrict__ y, float* __restrict__ state_out, int L,
-                int H, int G) {
+                const float* __restrict__ Cm, float* __restrict__ y,
+                float* __restrict__ state_out, int L, int H, int G) {
   using Lay = Layout<P, N>;
   constexpr int LX = Lay::LX, LN = Lay::LN, LM = Lay::LM;
   constexpr int JP = P / 16, JN = N / 16;
@@ -98,10 +97,7 @@ ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   float* yb = y + (size_t)b * L * row_x + (size_t)h * P;
   const size_t st_off = ((size_t)b * H + h) * P * N;
 
-  for (int i = tid; i < P * N; i += THREADS) {
-    const int p = i / N, n = i % N;
-    Ss[p * LN + n] = init ? init[st_off + i] : 0.f;
-  }
+  for (int i = tid; i < P * N; i += THREADS) Ss[(i / N) * LN + i % N] = 0.f;
 
   for (int t0 = 0; t0 < L; t0 += Q) {
     // ---- load the chunk (rows past L read as zeros: dt = 0 is a no-op)
@@ -244,27 +240,27 @@ ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
 
 template <int P, int N>
 int launch(const float* x, const float* dt, const float* A, const float* Bm,
-           const float* Cm, const float* init, float* y, float* st, int B, int L,
-           int H, int G, cudaStream_t stream) {
+           const float* Cm, float* y, float* st, int B, int L, int H, int G,
+           cudaStream_t stream) {
   constexpr size_t smem = Layout<P, N>::bytes;
   static_assert(smem <= MAX_SMEM, "the chunk does not fit shared memory");
   cudaError_t err = cudaFuncSetAttribute(
       ssd_scan_kernel<P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   ssd_scan_kernel<P, N><<<dim3(H, B), THREADS, smem, stream>>>(
-      x, dt, A, Bm, Cm, init, y, st, L, H, G);
+      x, dt, A, Bm, Cm, y, st, L, H, G);
   return (int)cudaGetLastError();
 }
 
 template <int P>
 int dispatch_n(const float* x, const float* dt, const float* A, const float* Bm,
-               const float* Cm, const float* init, float* y, float* st, int B,
-               int L, int H, int G, int N, cudaStream_t s) {
+               const float* Cm, float* y, float* st, int B, int L, int H,
+               int G, int N, cudaStream_t s) {
   switch (N) {
-    case 16: return launch<P, 16>(x, dt, A, Bm, Cm, init, y, st, B, L, H, G, s);
-    case 32: return launch<P, 32>(x, dt, A, Bm, Cm, init, y, st, B, L, H, G, s);
-    case 64: return launch<P, 64>(x, dt, A, Bm, Cm, init, y, st, B, L, H, G, s);
-    case 128: return launch<P, 128>(x, dt, A, Bm, Cm, init, y, st, B, L, H, G, s);
+    case 16: return launch<P, 16>(x, dt, A, Bm, Cm, y, st, B, L, H, G, s);
+    case 32: return launch<P, 32>(x, dt, A, Bm, Cm, y, st, B, L, H, G, s);
+    case 64: return launch<P, 64>(x, dt, A, Bm, Cm, y, st, B, L, H, G, s);
+    case 128: return launch<P, 128>(x, dt, A, Bm, Cm, y, st, B, L, H, G, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -272,26 +268,26 @@ int dispatch_n(const float* x, const float* dt, const float* A, const float* Bm,
 }  // namespace
 
 // Plain C entry, bound with ctypes.  x [B, L, H, P], dt [B, L, H], A [H],
-// Bm and Cm [B, L, G, N], init [B, H, P, N] or null, y [B, L, H, P] and
-// state [B, H, P, N]: contiguous f32 on `device`; P in {32, 64, 128}, N in
-// {16, 32, 64, 128}, H a multiple of G.  Launches on `stream` and returns
-// the CUDA error code (0 = ok).
+// Bm and Cm [B, L, G, N], y [B, L, H, P] and state [B, H, P, N]:
+// contiguous f32 on `device`; P in {32, 64, 128}, N in {16, 32, 64, 128}, H
+// a multiple of G.  Launches on `stream` and returns the CUDA error code
+// (0 = ok).
 extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* A,
-                            const void* Bm, const void* Cm, const void* init,
-                            void* y, void* state, int B, int L, int H, int G,
-                            int P, int N, int device, void* stream) {
+                            const void* Bm, const void* Cm, void* y, void* state,
+                            int B, int L, int H, int G, int P, int N, int device,
+                            void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B < 1 || B > 65535 || L < 1 || H < 1 || G < 1 || H % G != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const float *xf = (const float*)x, *dtf = (const float*)dt, *Af = (const float*)A,
-              *Bf = (const float*)Bm, *Cf = (const float*)Cm, *If = (const float*)init;
+              *Bf = (const float*)Bm, *Cf = (const float*)Cm;
   float *yf = (float*)y, *sf = (float*)state;
   switch (P) {
-    case 32: return dispatch_n<32>(xf, dtf, Af, Bf, Cf, If, yf, sf, B, L, H, G, N, s);
-    case 64: return dispatch_n<64>(xf, dtf, Af, Bf, Cf, If, yf, sf, B, L, H, G, N, s);
-    case 128: return dispatch_n<128>(xf, dtf, Af, Bf, Cf, If, yf, sf, B, L, H, G, N, s);
+    case 32: return dispatch_n<32>(xf, dtf, Af, Bf, Cf, yf, sf, B, L, H, G, N, s);
+    case 64: return dispatch_n<64>(xf, dtf, Af, Bf, Cf, yf, sf, B, L, H, G, N, s);
+    case 128: return dispatch_n<128>(xf, dtf, Af, Bf, Cf, yf, sf, B, L, H, G, N, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -23,9 +23,8 @@ from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import rglru_scan as _rglru
 from repro_torch.kernels import ssd_scan as _ssd
-from repro_torch.models import rglru as _rglru_plain
-from repro_torch.models import ssm as _ssm_plain
 from repro_torch.models.attention import decode_attention_ref, flash_attention_ref
+from repro_torch.models.scans import rglru_scan_ref, ssd_chunked_ref
 
 BACKENDS = ("cuda", "ref")
 
@@ -77,14 +76,13 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=0, softcap=0.0,
     return _decode.decode_attention(q, k_cache, v_cache, cache_len, **kw)
 
 
-def ssd_scan(x, dt, A, Bm, Cm, *, chunk=256, initial_state=None):
-    kw = dict(chunk=chunk, initial_state=initial_state)
+def ssd_scan(x, dt, A, Bm, Cm, *, chunk=256):
     if _use_ref("ssd_scan", x):
-        return _ssm_plain.ssd_chunked_ref(x, dt, A, Bm, Cm, **kw)
-    return _ssd.ssd_scan(x, dt, A, Bm, Cm, **kw)
+        return ssd_chunked_ref(x, dt, A, Bm, Cm, chunk=chunk)
+    return _ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
 
 
 def rglru_scan(a, b, h0=None):
     if _use_ref("rglru_scan", a):
-        return _rglru_plain.rglru_scan_ref(a, b, h0)
+        return rglru_scan_ref(a, b, h0)
     return _rglru.rglru_scan(a, b, h0)

@@ -11,7 +11,7 @@ it takes any L and W.
 For CUDA tensors the wrapper checks device, dtype, shape and contiguity,
 launches the kernel on the current stream and counts the launch in
 ``LAUNCH_COUNTS["rglru_scan"]``; for CPU tensors it runs the plain version
-:func:`repro_torch.models.rglru.rglru_scan_ref`, with which the kernel
+:func:`repro_torch.models.scans.rglru_scan_ref`, with which the kernel
 agrees bit for bit.
 """
 
@@ -25,9 +25,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.faas_event_step import LAUNCH_COUNTS
 from repro_torch.kernels.flash_attention import device_index
-# the module, not the function: repro_torch.models.rglru imports the dispatch
-# layer (kernels/ops.py), which imports this module
-from repro_torch.models import rglru as _plain
+from repro_torch.models.scans import rglru_scan_ref
 
 
 @functools.lru_cache(maxsize=None)
@@ -50,7 +48,7 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0=None):
         raise ValueError(f"h0 must be {[B, W]}, got {list(h0.shape)}")
     dev = a.device
     if dev.type == "cpu":
-        return _plain.rglru_scan_ref(a, b, h0)
+        return rglru_scan_ref(a, b, h0)
     if dev.type != "cuda":
         raise ValueError(f"rglru_scan runs on CUDA or CPU tensors, got {dev}")
     named = dict(a=a, b=b) if h0 is None else dict(a=a, b=b, h0=h0)

@@ -13,7 +13,7 @@ instead of broadcast to heads, and takes any L.
 For CUDA tensors the wrapper checks device, dtype, shape and contiguity,
 launches the kernel on the current stream and counts the launch in
 ``LAUNCH_COUNTS["ssd_scan"]``; for CPU tensors it runs the plain version
-:func:`repro_torch.models.ssm.ssd_chunked_ref` at ``chunk`` (the kernel's
+:func:`repro_torch.models.scans.ssd_chunked_ref` at ``chunk`` (the kernel's
 own chunk is 64 whatever ``chunk`` says; the two differ by rounding only).
 """
 
@@ -27,9 +27,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.faas_event_step import LAUNCH_COUNTS
 from repro_torch.kernels.flash_attention import device_index
-# the module, not the function: repro_torch.models.ssm imports the dispatch
-# layer (kernels/ops.py), which imports this module
-from repro_torch.models import ssm as _plain
+from repro_torch.models.scans import ssd_chunked_ref
 
 # head dims and state sizes the kernel is instantiated for (csrc/ssd_scan.cu)
 HEAD_DIMS = (32, 64, 128)
@@ -40,7 +38,7 @@ STATE_DIMS = (16, 32, 64, 128)
 def _kernel():
     """The C entry ``ssd_scan_fwd``, built and loaded on first use."""
     fn = _build.load("ssd_scan").ssd_scan_fwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -53,7 +51,6 @@ def ssd_scan(
     Cm: torch.Tensor,  # [B, L, G, N]
     *,
     chunk: int = 256,
-    initial_state=None,  # [B, H, P, N]
 ):
     """Returns (y [B, L, H, P], final_state [B, H, P, N]), f32."""
     if x.dim() != 4 or Bm.dim() != 4:
@@ -65,20 +62,14 @@ def ssd_scan(
     for (name, want), t in zip(shapes.items(), (dt, A, Bm, Cm)):
         if tuple(t.shape) != want:
             raise ValueError(f"{name} must be {list(want)}, got {list(t.shape)}")
-    if initial_state is not None and tuple(initial_state.shape) != (B, H, P, N):
-        raise ValueError(f"initial_state must be {[B, H, P, N]}, "
-                         f"got {list(initial_state.shape)}")
     if G < 1 or H % G:
         raise ValueError(f"ssd_scan: H={H} must be a multiple of G={G}")
     dev = x.device
     if dev.type == "cpu":
-        return _plain.ssd_chunked_ref(x, dt, A, Bm, Cm, chunk=chunk, initial_state=initial_state)
+        return ssd_chunked_ref(x, dt, A, Bm, Cm, chunk=chunk)
     if dev.type != "cuda":
         raise ValueError(f"ssd_scan runs on CUDA or CPU tensors, got {dev}")
-    named = dict(x=x, dt=dt, A=A, Bm=Bm, Cm=Cm)
-    if initial_state is not None:
-        named["initial_state"] = initial_state
-    for name, t in named.items():
+    for name, t in dict(x=x, dt=dt, A=A, Bm=Bm, Cm=Cm).items():
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, x on {dev}")
         if t.dtype != torch.float32:
@@ -92,10 +83,9 @@ def ssd_scan(
         raise ValueError("ssd_scan takes B up to 65535")
     y = torch.empty_like(x)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
-    init = initial_state.data_ptr() if initial_state is not None else None
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _kernel()(
-        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), init,
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
         y.data_ptr(), state.data_ptr(), B, L, H, G, P, N, device_index(dev), stream,
     )
     if err != 0:

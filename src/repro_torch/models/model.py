@@ -7,10 +7,11 @@ language models (token ids in, logits out): :func:`build_params`,
 ``nn.Module`` that holds the parameters on an explicit device.  The
 parameters live in the compute dtype (the reference keeps f32 parameters
 and casts them at every use; the cast is the same round-to-nearest-even,
-so the values are the same), except the leaves the reference reads in f32
-(:data:`repro_torch.models.param.F32_LEAVES`), which stay f32.  The
-training loss and the multi-token prediction head come with the training
-slice (ROADMAP Queue A item 9b).
+so the values are the same), except the leaves the reference reads in f32,
+which the block builders build f32; :func:`cast_params` brings a tree made
+elsewhere to the dtypes the builders give.  The training loss and the
+multi-token prediction head come with the training slice (ROADMAP Queue A
+item 9b).
 
 Parameters are nested dicts of tensors: ``embed.table [V, d]`` (and
 ``head.w [d, V]`` when untied), ``blocks`` a list with one dict per layer
@@ -34,7 +35,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import embed, linear_head, rms_norm, unembed
-from repro_torch.models.param import ParamBuilder, leaf_dtype
+from repro_torch.models.param import ParamBuilder
 from repro_torch.models.ssm import mamba2_dims
 
 
@@ -52,6 +53,31 @@ def build_params(b: ParamBuilder, cfg: ModelConfig) -> dict:
     p["blocks"] = tf.build_blocks(b, cfg)
     p["final_norm"] = {"scale": b.param((cfg.d_model,), init="ones")}
     return p
+
+
+def cast_params(params: dict, cfg: ModelConfig, device) -> dict:
+    """``params``, a tree shaped as :func:`build_params` builds it for
+    ``cfg``, on ``device`` with each leaf in the dtype its builder gives it
+    (read from a shape-only build); raises where the trees differ."""
+    spec = build_params(ParamBuilder(None, dtype_of(cfg.compute_dtype)), cfg)
+
+    def cast(tree, like, path):
+        if isinstance(like, torch.Tensor):
+            if tuple(tree.shape) != tuple(like.shape):
+                raise ValueError(f"parameter {path} is {list(tree.shape)}, the config "
+                                 f"builds {list(like.shape)}")
+            return tree.to(device, like.dtype)
+        if isinstance(like, dict):
+            if set(tree) != set(like):
+                raise ValueError(f"parameters {path or '<root>'} hold {sorted(tree)}, the "
+                                 f"config builds {sorted(like)}")
+            return {k: cast(tree[k], v, f"{path}.{k}".lstrip(".")) for k, v in like.items()}
+        if len(tree) != len(like):
+            raise ValueError(f"parameters {path} hold {len(tree)} layers, the config "
+                             f"builds {len(like)}")
+        return [cast(t, v, f"{path}[{i}]") for i, (t, v) in enumerate(zip(tree, like))]
+
+    return cast(params, spec, "")
 
 
 def _logits(params, h, cfg: ModelConfig):
@@ -210,8 +236,7 @@ class BuiltModel(nn.Module):
             gen.manual_seed(int(seed))
             params = build_params(ParamBuilder(gen, cdt), cfg)
         else:
-            params = _map_leaves(lambda name, x: x.to(self.device, leaf_dtype(name, cdt)),
-                                 params)
+            params = cast_params(params, cfg, self.device)
         self.params = ParamTree(params)
 
     def prefill(self, batch: dict, max_len: int):
@@ -222,15 +247,6 @@ class BuiltModel(nn.Module):
 
     def init_cache(self, batch: int, max_len: int) -> list:
         return build_cache(self.cfg, batch, max_len, self.device)
-
-
-def _map_leaves(fn, tree, name=None):
-    """``fn(leaf name, leaf)`` over a parameter tree's tensors."""
-    if isinstance(tree, dict):
-        return {k: _map_leaves(fn, v, k) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_map_leaves(fn, v, name) for v in tree]
-    return fn(name, tree)
 
 
 def build_model(cfg: ModelConfig, *, seed: int = 0, device=None,

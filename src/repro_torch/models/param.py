@@ -5,15 +5,16 @@ with the same distributions: ``normal`` is N(0, 1) times ``scale``
 (default ``1/sqrt(fan_in)``, fan-in the second-to-last dimension),
 ``embed`` is N(0, 0.02²), ``uniform_dt`` is U(0, 1), ``zeros`` and
 ``ones`` are constant.  Values are drawn in f32 on the generator's device
-and then cast to the leaf's ``dtype`` (default the builder's).
+and then cast to the leaf's ``dtype`` (default the builder's): the builders
+pass ``dtype=torch.float32`` for the few leaves the reference reads in f32
+whatever the compute dtype.
 
-The port keeps parameters in the compute dtype, but the reference reads a
-few leaves in f32 whatever the compute dtype: :data:`F32_LEAVES` stay f32
-here, on random init (their builders pass ``dtype=torch.float32``) and
-when a reference tree is carried across (:func:`leaf_dtype`).  The
-reference's sharding specs and shape-only modes have no counterpart here.
-The numbers differ from ``jax.random``'s: tests carry the reference's
-parameters across with :func:`repro_torch.interop.params_from_reference`.
+A builder without a generator draws nothing: it returns empty ``meta``
+tensors of each leaf's shape and dtype, the tree that
+:func:`repro_torch.models.model.cast_params` casts a carried-across tree
+to.  The reference's sharding specs have no counterpart here.  The numbers
+differ from ``jax.random``'s: tests carry the reference's parameters across
+with :func:`repro_torch.interop.params_from_reference`.
 """
 
 from __future__ import annotations
@@ -24,25 +25,17 @@ from typing import Optional, Sequence
 
 import torch
 
-# leaves the reference reads in f32: the Mamba-2 decay, skip and step-size
-# bias (repro/models/ssm.py:189-201) and the RG-LRU gate weights, biases
-# and decay (repro/models/rglru.py:51-54, 65-68)
-F32_LEAVES = frozenset({"A_log", "D", "dt_bias", "w_a", "w_x", "b_a", "b_x", "lambda_p"})
-
-
-def leaf_dtype(name: str, compute: torch.dtype) -> torch.dtype:
-    """The dtype the port stores the parameter leaf ``name`` in."""
-    return torch.float32 if name in F32_LEAVES else compute
+INITS = ("normal", "embed", "uniform_dt", "zeros", "ones")
 
 
 @dataclasses.dataclass
 class ParamBuilder:
-    generator: torch.Generator
+    generator: Optional[torch.Generator]  # None: shape-only, on the meta device
     dtype: torch.dtype = torch.float32
 
     @property
     def device(self) -> torch.device:
-        return self.generator.device
+        return torch.device("meta") if self.generator is None else self.generator.device
 
     def param(
         self,
@@ -53,6 +46,10 @@ class ParamBuilder:
     ) -> torch.Tensor:
         shape = tuple(int(s) for s in shape)
         dtype = dtype or self.dtype
+        if init not in INITS:
+            raise ValueError(f"unknown init {init}")
+        if self.generator is None:
+            return torch.empty(shape, dtype=dtype, device="meta")
         if init == "zeros":
             return torch.zeros(shape, dtype=dtype, device=self.device)
         if init == "ones":
@@ -61,8 +58,6 @@ class ParamBuilder:
             x = torch.rand(shape, generator=self.generator, dtype=torch.float32,
                            device=self.device)
             return x.to(dtype)
-        if init not in ("normal", "embed"):
-            raise ValueError(f"unknown init {init}")
         if init == "embed":
             scale = 0.02
         elif scale is None:

@@ -10,12 +10,12 @@ The port of ``repro/models/rglru.py``.  Per channel:
 
 Prefill runs the linear recurrence ``h = a*h + b`` through
 :func:`repro_torch.kernels.ops.rglru_scan`, the hand-written CUDA kernel
-``kernels/csrc/rglru_scan.cu`` or its plain version :func:`rglru_scan_ref`;
-decode is the single step :func:`rglru_step`.  The recurrent block wraps
-the RG-LRU in the Griffin layout: linear in, short causal depthwise conv,
-gated branch, linear out.  The gate weights and biases and ``lambda_p``
-are f32 leaves (:data:`repro_torch.models.param.F32_LEAVES`): the gates
-are computed in f32 whatever the compute dtype, as in the reference.
+``kernels/csrc/rglru_scan.cu`` or its plain version
+:func:`repro_torch.models.scans.rglru_scan_ref`; decode is the single step
+:func:`rglru_step`.  The recurrent block wraps the RG-LRU in the Griffin
+layout: linear in, short causal depthwise conv, gated branch, linear out.
+The gate weights and biases and ``lambda_p`` are built f32 whatever the
+compute dtype: the gates are computed in f32, as in the reference.
 """
 
 from __future__ import annotations
@@ -26,20 +26,6 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import causal_conv1d, gelu_tanh
-
-
-def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor, h0=None):
-    """Linear recurrence h_t = a_t h_{t-1} + b_t, one step after another,
-    as the TPU kernel computes it (the reference's plain version runs it as
-    an associative scan, which rounds in another order).
-
-    a, b: [B, L, W] (f32). Returns (h [B, L, W], h_last [B, W])."""
-    h = torch.zeros_like(a[:, 0]) if h0 is None else h0
-    out = torch.empty_like(b)
-    for t in range(a.shape[1]):
-        h = a[:, t] * h + b[:, t]
-        out[:, t] = h
-    return out, out[:, -1]
 
 
 def rglru_step(a_t, b_t, h_prev):

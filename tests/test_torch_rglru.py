@@ -1,5 +1,5 @@
 """The port's Griffin path against the JAX reference on the CPU: the plain
-RG-LRU scan (``models/rglru.py::rglru_scan_ref``, the plain version of
+RG-LRU scan (``models/scans.py::rglru_scan_ref``, the plain version of
 ``kernels/csrc/rglru_scan.cu``), the recurrent block's prefill and decode,
 the local-attention ring cache and the ``recurrentgemma-9b`` smoke model,
 with the reference's weights carried across by
@@ -34,9 +34,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.faas_event_step import LAUNCH_COUNTS
 from repro_torch.launch import serve
 from repro_torch.kernels.rglru_scan import rglru_scan
-from repro_torch.models import rglru
+from repro_torch.models import rglru, scans
 from repro_torch.models.model import build_model
-from repro_torch.models.param import F32_LEAVES
 from repro_torch.serving.engine import Replica
 
 ARCH = "recurrentgemma-9b"
@@ -58,7 +57,7 @@ def _scan_inputs(seed, B, L, W):
 def test_plain_scan_matches_jax_and_pallas_interpret(with_h0, chunk, block_w):
     a, b, h0 = _scan_inputs(0, 2, 256, 512)
     th0, jh0 = (torch.from_numpy(h0), jnp.asarray(h0)) if with_h0 else (None, None)
-    y, h_last = rglru.rglru_scan_ref(torch.from_numpy(a), torch.from_numpy(b), th0)
+    y, h_last = scans.rglru_scan_ref(torch.from_numpy(a), torch.from_numpy(b), th0)
     for jy, jlast in (
         jrglru.rglru_scan_ref(jnp.asarray(a), jnp.asarray(b), jh0),
         rglru_scan_pallas(jnp.asarray(a), jnp.asarray(b), jh0, chunk=chunk,
@@ -72,7 +71,7 @@ def test_plain_scan_matches_jax_and_pallas_interpret(with_h0, chunk, block_w):
 def test_plain_scan_any_length_and_width(L, W):
     """Lengths and widths the Pallas launcher's tiling would refuse."""
     a, b, h0 = _scan_inputs(1, 2, L, W)
-    y, h_last = rglru.rglru_scan_ref(torch.from_numpy(a), torch.from_numpy(b),
+    y, h_last = scans.rglru_scan_ref(torch.from_numpy(a), torch.from_numpy(b),
                                      torch.from_numpy(h0))
     jy, jlast = jrglru.rglru_scan_ref(jnp.asarray(a), jnp.asarray(b), jnp.asarray(h0))
     np.testing.assert_allclose(y.numpy(), np.asarray(jy), atol=SCAN_TOL)
@@ -81,8 +80,8 @@ def test_plain_scan_any_length_and_width(L, W):
 
 def test_decode_step_continues_the_scan():
     a, b, h0 = (torch.from_numpy(x) for x in _scan_inputs(2, 2, 20, 64))
-    y, _ = rglru.rglru_scan_ref(a, b, h0)
-    _, h = rglru.rglru_scan_ref(a[:, :15], b[:, :15], h0)
+    y, _ = scans.rglru_scan_ref(a, b, h0)
+    _, h = scans.rglru_scan_ref(a[:, :15], b[:, :15], h0)
     for t in range(15, 20):
         out, h = rglru.rglru_step(a[:, t], b[:, t], h)
         jout, _ = jrglru.rglru_step(*(jnp.asarray(x[:, t].numpy()) for x in (a, b)),
@@ -96,7 +95,7 @@ def test_scan_dispatch_on_the_cpu():
     version; kernel_backend("cuda") refuses them; shapes are checked."""
     a, b, h0 = (torch.from_numpy(x) for x in _scan_inputs(3, 2, 33, 64))
     before = LAUNCH_COUNTS["rglru_scan"]
-    ref = rglru.rglru_scan_ref(a, b, h0)
+    ref = scans.rglru_scan_ref(a, b, h0)
     for out in (rglru_scan(a, b, h0), ops.rglru_scan(a, b, h0)):
         assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
     assert LAUNCH_COUNTS["rglru_scan"] == before
@@ -245,12 +244,12 @@ def test_bf16_keeps_the_f32_leaves():
     jparams = jax.device_get(jbuild_model(jcfg).init(jax.random.key(3)))
     pparams = params_from_reference(jparams, pcfg)
     lru_leaves = {"w_a", "w_x", "b_a", "b_x", "lambda_p"}
-    assert lru_leaves <= F32_LEAVES
     for tree in (pparams, build_model(pcfg, seed=1, device="cpu").params):
         mix = tree["blocks"][0]["mixer"]
         for name in lru_leaves:
             assert mix["lru"][name].dtype == torch.float32, name
         assert mix["in_proj"].dtype == torch.bfloat16
+    assert set(pparams["blocks"][0]["mixer"]["lru"]) == lru_leaves
     jlru = jax.tree.map(lambda a: a[0], jparams["blocks"][0][0]["mixer"]["lru"])
     plru = pparams["blocks"][0]["mixer"]["lru"]
     for name in lru_leaves:

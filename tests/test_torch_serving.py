@@ -137,7 +137,7 @@ def test_serving_modules_import_no_jax():
         "repro_torch.data.workload, repro_torch.kernels.ops, "
         "repro_torch.kernels.flash_attention, repro_torch.kernels.decode_attention, "
         "repro_torch.kernels.ssd_scan, repro_torch.kernels.rglru_scan, "
-        "repro_torch.models.ssm, repro_torch.models.rglru, "
+        "repro_torch.models.ssm, repro_torch.models.rglru, repro_torch.models.scans, "
         "repro_torch.models.model, repro_torch.configs, repro_torch.interop\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"

@@ -1,5 +1,5 @@
 """The port's Mamba-2 path against the JAX reference on the CPU: the plain
-SSD scan (``models/ssm.py::ssd_chunked_ref``, the plain version of
+SSD scan (``models/scans.py::ssd_chunked_ref``, the plain version of
 ``kernels/csrc/ssd_scan.cu``), the block's prefill and decode, and the
 ``mamba2-2.7b`` smoke model, with the reference's weights carried across by
 ``interop.params_from_reference`` and inputs made with numpy.
@@ -31,9 +31,9 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.faas_event_step import LAUNCH_COUNTS
 from repro_torch.launch import serve
 from repro_torch.kernels.ssd_scan import ssd_scan
-from repro_torch.models import ssm
-from repro_torch.models.model import build_model
-from repro_torch.models.param import F32_LEAVES
+from repro_torch.models import scans, ssm
+from repro_torch.models.model import build_model, build_params, cast_params
+from repro_torch.models.param import ParamBuilder
 from repro_torch.serving.engine import Replica
 
 ARCH = "mamba2-2.7b"
@@ -64,7 +64,7 @@ def _j(*arrays):
 @pytest.mark.parametrize("G", [1, 2])
 def test_plain_scan_matches_jax_chunked(chunk, G):
     arrays = _scan_inputs(0, 2, 256, 4, 64, 128, G)
-    y, st = ssm.ssd_chunked_ref(*_t(*arrays), chunk=chunk)
+    y, st = scans.ssd_chunked_ref(*_t(*arrays), chunk=chunk)
     jy, jst = jssm.ssd_chunked_ref(*_j(*arrays), chunk=chunk)
     np.testing.assert_allclose(y.numpy(), np.asarray(jy), atol=SCAN_TOL)
     np.testing.assert_allclose(st.numpy(), np.asarray(jst), atol=SCAN_TOL)
@@ -77,7 +77,7 @@ def test_plain_scan_matches_pallas_interpret_and_sequential(chunk, G):
     broadcast to heads; the sequential oracle ``kernels/ref.py::ssd_scan_ref``
     the same."""
     x, dt, A, Bm, Cm = _scan_inputs(1, 2, 256, 4, 64, 128, G)
-    y, st = ssm.ssd_chunked_ref(*_t(x, dt, A, Bm, Cm), chunk=chunk)
+    y, st = scans.ssd_chunked_ref(*_t(x, dt, A, Bm, Cm), chunk=chunk)
     hpg = 4 // G
     xd = jnp.asarray(x * dt[..., None])
     dA = jnp.asarray(dt * A[None, None, :])
@@ -96,7 +96,7 @@ def test_plain_scan_ragged_length_and_initial_state(L, chunk):
     in both frameworks; an initial state is carried into the first chunk."""
     arrays = _scan_inputs(2, 2, L, 4, 32, 16, 2)
     h0 = np.random.default_rng(3).standard_normal((2, 4, 32, 16)).astype(np.float32)
-    y, st = ssm.ssd_chunked_ref(*_t(*arrays), chunk=chunk, initial_state=torch.from_numpy(h0))
+    y, st = scans.ssd_chunked_ref(*_t(*arrays), chunk=chunk, initial_state=torch.from_numpy(h0))
     jy, jst = jssm.ssd_chunked_ref(*_j(*arrays), chunk=chunk, initial_state=jnp.asarray(h0))
     assert y.shape == (2, L, 4, 32)
     np.testing.assert_allclose(y.numpy(), np.asarray(jy), atol=SCAN_TOL)
@@ -108,8 +108,8 @@ def test_plain_scan_is_chunk_independent():
     256: in exact arithmetic the chunk does not matter, so the plain version
     at 64 and at 256 differ by rounding only."""
     arrays = _t(*_scan_inputs(4, 1, 512, 4, 64, 128, 1))
-    y64, s64 = ssm.ssd_chunked_ref(*arrays, chunk=64)
-    y256, s256 = ssm.ssd_chunked_ref(*arrays, chunk=256)
+    y64, s64 = scans.ssd_chunked_ref(*arrays, chunk=64)
+    y256, s256 = scans.ssd_chunked_ref(*arrays, chunk=256)
     np.testing.assert_allclose(y64.numpy(), y256.numpy(), atol=SCAN_TOL)
     np.testing.assert_allclose(s64.numpy(), s256.numpy(), atol=SCAN_TOL)
 
@@ -119,8 +119,8 @@ def test_decode_step_matches_jax_and_continues_the_scan():
     and stepping token by token from a prefix's final state gives the
     scan's outputs of the longer sequence."""
     x, dt, A, Bm, Cm = _t(*_scan_inputs(5, 2, 40, 4, 32, 16, 2))
-    y, _ = ssm.ssd_chunked_ref(x, dt, A, Bm, Cm, chunk=16)
-    _, st = ssm.ssd_chunked_ref(x[:, :36], dt[:, :36], A, Bm[:, :36], Cm[:, :36], chunk=16)
+    y, _ = scans.ssd_chunked_ref(x, dt, A, Bm, Cm, chunk=16)
+    _, st = scans.ssd_chunked_ref(x[:, :36], dt[:, :36], A, Bm[:, :36], Cm[:, :36], chunk=16)
     for t in range(36, 40):
         step_in = (x[:, t], dt[:, t], A, Bm[:, t], Cm[:, t])
         jyt, jst = jssm.ssd_decode_step(*_j(st.numpy(), *(a.numpy() for a in step_in)))
@@ -135,7 +135,7 @@ def test_scan_dispatch_on_the_cpu():
     version; kernel_backend("cuda") refuses them; shapes are checked."""
     x, dt, A, Bm, Cm = _t(*_scan_inputs(6, 1, 64, 4, 32, 16, 1))
     before = LAUNCH_COUNTS["ssd_scan"]
-    ref = ssm.ssd_chunked_ref(x, dt, A, Bm, Cm, chunk=32)
+    ref = scans.ssd_chunked_ref(x, dt, A, Bm, Cm, chunk=32)
     for out in (ssd_scan(x, dt, A, Bm, Cm, chunk=32), ops.ssd_scan(x, dt, A, Bm, Cm, chunk=32)):
         assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
     assert LAUNCH_COUNTS["ssd_scan"] == before
@@ -268,7 +268,9 @@ def test_bf16_keeps_the_f32_leaves():
         for name in ssm_leaves:
             assert mix[name].dtype == torch.float32, name
         assert mix["in_proj"].dtype == torch.bfloat16
-    assert ssm_leaves <= F32_LEAVES
+    f32 = {k for k, v in pparams["blocks"][1]["mixer"].items()
+           if isinstance(v, torch.Tensor) and v.dtype == torch.float32}
+    assert f32 == ssm_leaves
     jmix = jax.tree.map(lambda a: a[1], jparams["blocks"][0][0]["mixer"])
     pmix = pparams["blocks"][1]["mixer"]
     for name in ssm_leaves:
@@ -283,6 +285,28 @@ def test_bf16_keeps_the_f32_leaves():
     rounded = {k: v.bfloat16() if k in ssm_leaves else v for k, v in pmix.items()}
     _, A_bf = ssm._ssm_inputs(rounded, torch.from_numpy(raw).bfloat16())
     assert (A_bf - A).abs().max() > 1e-3
+
+
+def test_carried_tree_takes_the_builders_dtypes_and_shapes():
+    """``cast_params`` casts each leaf of a tree made elsewhere to the dtype
+    the builder gives it, and refuses a tree whose leaves, shapes or layer
+    count differ from what the config builds."""
+    _, pcfg = _cfgs("bfloat16")
+    tree = build_params(ParamBuilder(torch.Generator().manual_seed(0), torch.float32), pcfg)
+    out = cast_params(tree, pcfg, "cpu")
+    mix = out["blocks"][1]["mixer"]
+    assert mix["A_log"].dtype == torch.float32 and mix["in_proj"].dtype == torch.bfloat16
+    assert torch.equal(mix["A_log"], tree["blocks"][1]["mixer"]["A_log"])
+    assert out["embed"]["table"].dtype == torch.bfloat16
+    dropped = dict(tree["blocks"][1]["mixer"])
+    del dropped["D"]
+    with pytest.raises(ValueError, match="hold"):
+        cast_params(dict(tree, blocks=[tree["blocks"][0], {**tree["blocks"][1], "mixer": dropped},
+                                       *tree["blocks"][2:]]), pcfg, "cpu")
+    with pytest.raises(ValueError, match="builds"):
+        cast_params(dict(tree, final_norm={"scale": torch.ones(3)}), pcfg, "cpu")
+    with pytest.raises(ValueError, match="layers"):
+        cast_params(dict(tree, blocks=tree["blocks"][:-1]), pcfg, "cpu")
 
 
 def test_serve_launcher_on_cpu(capsys):
