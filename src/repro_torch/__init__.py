@@ -3,7 +3,8 @@ simulator to an NVIDIA H100.
 
 The front door is the same Scenario API: ``run``/``sweep`` on the f32
 block engines, whose hot loops are the hand-written CUDA kernels
-``kernels/csrc/faas_event_step.cu`` (engines ``scan`` and ``temporal``)
+``kernels/csrc/faas_event_step.cu`` (engines ``scan`` and ``temporal``;
+metric windows, timeouts, failures and client retries on ``scan``)
 and ``kernels/csrc/par_event_step.cu`` (engine ``par``), and the fleet
 front door ``fleet_run``/``fleet_sweep`` (function pools under a shared
 cluster capacity) on ``kernels/csrc/fleet_event_step.cu``.  Entry points
@@ -17,6 +18,7 @@ from repro_torch.core import (  # noqa: F401
     DeterministicSimProcess,
     Execution,
     ExpSimProcess,
+    FailurePolicy,
     FleetFunction,
     FleetGridResult,
     FleetResult,
@@ -28,12 +30,15 @@ from repro_torch.core import (  # noqa: F401
     LogNormalSimProcess,
     ParSimulationSummary,
     ParetoSimProcess,
+    Reliability,
     Result,
+    RetryPolicy,
     Scenario,
     SimProcess,
     SimulationSummary,
     TemporalSummary,
     WeibullSimProcess,
+    WindowedMetrics,
     fleet_run,
     fleet_sweep,
     run,
@@ -54,7 +59,11 @@ __all__ = [
     "Result",
     "GridResult",
     "SimulationSummary",
+    "WindowedMetrics",
     "ParSimulationSummary",
+    "FailurePolicy",
+    "RetryPolicy",
+    "Reliability",
     "InstanceSnapshot",
     "TemporalSummary",
     "run",

@@ -9,6 +9,10 @@
 >>> grid = sweep(scn, over={"expiration_threshold": [...],
 ...                         "arrival_rate": [...]}, seed=0)
 >>> grid = sweep(scn, over=..., seed=0, device="cpu")  # plain version
+>>> rel = Reliability(FailurePolicy(p_fail=0.05, t_timeout=8.0),
+...                   RetryPolicy(max_retries=2, backoff_base=2.0))
+>>> grid = sweep(Scenario.of(scn, reliability=rel),
+...              over={"t_timeout": [2.0, 8.0]}, seed=0)    # goodput grid
 >>> from repro_torch.data.catalog import fleet_of
 >>> fleet = fleet_of(["thumbnail", "ml-inference"], n_cluster=8)
 >>> res = fleet_run(fleet, seed=0, replicas=16)       # shared capacity
@@ -41,8 +45,9 @@ from repro_torch.core.processes import (
     WeibullSimProcess,
 )
 from repro_torch.core.par_simulator import ParSimulationSummary
+from repro_torch.core.reliability import FailurePolicy, Reliability, RetryPolicy
 from repro_torch.core.scenario import GridResult, Result, Scenario, run, sweep
-from repro_torch.core.simulator import SimulationSummary
+from repro_torch.core.simulator import SimulationSummary, WindowedMetrics
 from repro_torch.core.temporal import InstanceSnapshot, TemporalSummary
 
 __all__ = [
@@ -64,7 +69,11 @@ __all__ = [
     "Result",
     "GridResult",
     "SimulationSummary",
+    "WindowedMetrics",
     "ParSimulationSummary",
+    "FailurePolicy",
+    "RetryPolicy",
+    "Reliability",
     "InstanceSnapshot",
     "TemporalSummary",
     "run",

@@ -45,7 +45,12 @@ class CostEstimate:
 
 def estimate_cost(summary, billing: BillingModel = BillingModel()) -> CostEstimate:
     """Costs over the measured window of a ``SimulationSummary``,
-    normalised per replica."""
+    normalised per replica.
+
+    Retry-billed by construction: under a reliability policy every served
+    attempt lands in ``n_cold``/``n_warm`` (and its cut-at-timeout runtime
+    in ``time_running``), so failed and timed-out attempts are charged as
+    the platforms charge them."""
     replicas = max(len(summary.n_cold), 1)
     served = float((summary.n_cold + summary.n_warm).sum()) / replicas
     running_time = float(summary.time_running.sum()) / replicas
@@ -56,3 +61,14 @@ def estimate_cost(summary, billing: BillingModel = BillingModel()) -> CostEstima
         provider_infra_cost=total_time / 3600.0 * billing.provider_instance_cost_per_hour,
         horizon=summary.measured_time,
     )
+
+
+def cost_per_completion(summary, billing: BillingModel = BillingModel()) -> float:
+    """Developer $ per successful completion: the numerator bills every
+    attempt (see :func:`estimate_cost`), the denominator counts only the
+    attempts that neither timed out nor failed.  On a run without
+    reliability, completions are the served requests."""
+    est = estimate_cost(summary, billing)
+    replicas = max(len(summary.n_cold), 1)
+    completions = float(summary.n_completions.sum()) / replicas
+    return est.developer_total / max(completions, 1e-12)

@@ -13,7 +13,8 @@ unknown names raise with the registered list.
 * ``"ref"`` — the plain PyTorch versions of the same loops
   (:mod:`repro_torch.kernels.ref`); runs on any device.
 
-The engines are the reference's: ``"scan"`` (steady state) and
+The engines are the reference's (:data:`ENGINE_SPECS`, each with the
+backends that serve its feature layers): ``"scan"`` (steady state) and
 ``"temporal"`` (transient curves from a custom initial pool) share the
 pool-state launcher; ``"par"`` (concurrency value > 1) has its own
 ``finish[M, c]`` launcher.  Fleets (:mod:`repro_torch.core.fleet`) run on
@@ -33,9 +34,33 @@ from typing import Any, Callable, Optional, Sequence
 
 import torch
 
+
+@dataclasses.dataclass(frozen=True)
+class EngineSpec:
+    """An engine (the semantics axis) and the feature layers it serves.
+
+    ``windowed_backends`` lists the backends on which the engine produces
+    per-window metrics, ``reliability_backends`` those on which it serves
+    timeouts, failures and retries; :func:`repro_torch.core.scenario.run`
+    and ``sweep`` refuse a layer on any other backend.
+    """
+
+    name: str
+    windowed_backends: tuple = ()
+    reliability_backends: tuple = ()
+
+
 # engines this port serves on the f32 block kernels; the reference's f64
-# scan substrate arrives with the f64 engine (ROADMAP Queue A item 2)
-ENGINES = ("scan", "temporal", "par")
+# scan substrate arrives with the f64 engine (ROADMAP Queue A item 2), and
+# with it reliability on the temporal and par engines
+ENGINE_SPECS = {
+    "scan": EngineSpec(
+        "scan", windowed_backends=("cuda", "ref"), reliability_backends=("cuda", "ref")
+    ),
+    "temporal": EngineSpec("temporal"),
+    "par": EngineSpec("par"),
+}
+ENGINES = tuple(ENGINE_SPECS)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -19,6 +19,15 @@ on the f32 block engines.
   ONE launch of the kernel (``LAUNCH_COUNTS`` pins it).  Sweeps run the
   steady-state engine only, as in the reference.
 
+The reliability layer (``Scenario.reliability``: timeouts, invocation
+failures, client retries) runs on the scan engine: ``t_timeout`` and
+``p_fail`` are param axes, the ``backoff_*`` parameters draw axes (they
+shape the attempt table), and retries run the sorted attempt table
+prestamped.  Metric windows (``Scenario.window_bounds``, a static axis)
+fill per-cell :class:`~repro_torch.core.simulator.WindowedMetrics` and
+the ``GridResult.windowed_*`` grids; as in the reference, single runs on
+the block engines take no windows.
+
 Samples are staged on the device as f32 ``[C, K]`` buffers from per-draw-
 cell generators (``SeedSequence(seed).spawn(D)``) and never copied to the
 host: the coverage guard sums them on the device in f64, and only the
@@ -26,10 +35,10 @@ host: the coverage guard sums them on the device in f64, and only the
 interop`) replaces the draws with the reference's own buffers.
 
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP item: reliability, faults and metric windows (Queue A item 4),
+ROADMAP item: platform faults (Queue B item 1e), windowed single runs,
 histograms, non-newest routing and sweeps over the f64 engine's knobs
-``scan_unroll``/``hist_bins`` (the f64 engine, Queue A item 2) and
-rate profiles / timestamp processes (Queue A item 3).
+``scan_unroll``/``hist_bins`` (the f64 engine, Queue A item 2) and rate
+profiles / timestamp processes (Queue A item 3).
 """
 
 from __future__ import annotations
@@ -43,21 +52,27 @@ import numpy as np
 import torch
 
 from repro_torch.core.cost import BillingModel, CostEstimate, estimate_cost
-from repro_torch.core.execution import Execution, plan_of
+from repro_torch.core.execution import ENGINE_SPECS, Execution, plan_of
 from repro_torch.core.processes import UNPORTED, ExpSimProcess, SimProcess, unported
 from repro_torch.core.par_simulator import run_par
+from repro_torch.core.reliability import Reliability
 from repro_torch.core.simulator import (
+    RELY_STREAMS,
     SimulationSummary,
+    WindowedMetrics,
     cell_generators,
     check_covered,
     check_staged,
+    check_table_covered,
+    draw_reliability_stream,
     draw_workload_samples,
     host_acc,
     run_samples,
+    staged_widths,
     summary_from_acc,
 )
 from repro_torch.core.temporal import TemporalSummary, run_temporal
-from repro_torch.kernels.ref import ACC_COLS, NEG
+from repro_torch.kernels.ref import ACC_COLS, NEG, WINDOW_COLS
 
 
 def _later(what: str, item: str):
@@ -124,12 +139,18 @@ class Scenario:
             raise ValueError(f"arrival_rate must be > 0, got {self.arrival_rate}")
         if self.concurrency_value < 1:
             raise ValueError("concurrency_value must be >= 1")
-        if self.reliability is not None:
-            _later("Scenario.reliability", "Queue A item 4 (reliability)")
+        if self.reliability is not None and not isinstance(self.reliability, Reliability):
+            raise ValueError(
+                "Scenario.reliability must be a Reliability (or None), got "
+                f"{type(self.reliability).__name__}"
+            )
         if self.faults is not None:
-            _later("Scenario.faults", "Queue A item 4 (platform faults)")
+            _later("Scenario.faults", "Queue B item 1e (platform faults)")
         if self.window_bounds is not None:
-            _later("Scenario.window_bounds", "Queue A item 4 (metric windows)")
+            wb = np.asarray(self.window_bounds, dtype=np.float64)
+            if wb.ndim != 1 or len(wb) < 2 or (np.diff(wb) <= 0).any():
+                raise ValueError("window_bounds must be >= 2 strictly increasing values")
+            object.__setattr__(self, "window_bounds", tuple(float(b) for b in wb))
         if self.track_histogram:
             _later("track_histogram=True", "Queue A item 2 (the f64 engine)")
         if self.routing != "newest":
@@ -172,6 +193,12 @@ class Scenario:
         """True when the arrival process yields absolute timestamps (none
         of the families this slice ports do)."""
         return False
+
+    @property
+    def max_retries(self) -> int:
+        """The retry budget (0 without reliability): it sets the attempt
+        table's width, and a retry stream runs prestamped."""
+        return 0 if self.reliability is None else int(self.reliability.retry.max_retries)
 
     def steps_needed(self) -> int:
         """Upper bound on arrivals within ``sim_time`` (mean + 6 sigma)."""
@@ -225,11 +252,17 @@ class Result:
 # ---------------------------------------------------------------------------
 
 
-def _block_launch(scn, t_exp, t_end, skip, dts, warms, colds, bspec, device):
-    """Fresh pools, per-row f32 parameters and the staged buffers into the
-    backend's row launcher; returns the f64 ``[C, 8]`` accumulator on the
-    host after the overflow guard."""
-    C = dts.shape[0]
+def _block_launch(
+    scn, t_exp, t_end, skip, samples, bspec, device, *,
+    prestamped=False, window_rows=None, t_timeout=None, p_fail=None,
+):
+    """Fresh pools, per-row f32 parameters and the staged buffers
+    (``samples``: ``dts, warms, colds``, then ``fail_u`` with reliability
+    and ``is_first, child_pos`` with retries) into the backend's row
+    launcher; returns the f64 accumulator on the host after the overflow
+    guard.  ``window_rows`` is the ``[C, W+1]`` window-bound matrix;
+    ``t_timeout``/``p_fail`` the per-row reliability parameters."""
+    C = samples[0].shape[0]
     rows = lambda x: torch.tensor(
         np.broadcast_to(np.asarray(x, np.float64), (C,)),
         dtype=torch.float32,
@@ -239,11 +272,49 @@ def _block_launch(scn, t_exp, t_end, skip, dts, warms, colds, bspec, device):
     alive0 = torch.zeros((C, M), dtype=torch.float32, device=device)
     frozen = torch.full((C, M), NEG, dtype=torch.float32, device=device)
     t0 = torch.zeros((C,), dtype=torch.float32, device=device)
+    kw = {}
+    if window_rows is not None:
+        kw["window_bounds"] = torch.tensor(
+            np.asarray(window_rows, np.float64), dtype=torch.float32, device=device
+        )
+    if len(samples) > 3:
+        kw.update(t_timeout=rows(t_timeout), p_fail=rows(p_fail), fail_u=samples[3])
+    if len(samples) > 4:
+        kw.update(is_first=samples[4], child_pos=samples[5])
     return host_acc(bspec.launch(
         alive0, frozen, frozen, t0, rows(t_exp), rows(t_end), rows(skip),
-        dts, warms, colds,
-        max_concurrency=scn.max_concurrency, prestamped=scn.prestamped,
+        *samples[:3], max_concurrency=scn.max_concurrency, prestamped=prestamped, **kw,
     ))
+
+
+def _cell_summaries(acc, R, measured, bounds=None, reliability=False) -> list:
+    """Per-cell summaries off a launch's ``[cells * R, cols]`` accumulator
+    (the 8 base columns, ``5W`` window columns when ``bounds`` is given,
+    then the 4 reliability columns); ``measured[c]`` is cell c's measured
+    time."""
+    W = 0 if bounds is None else len(bounds) - 1
+    A, RB = ACC_COLS, ACC_COLS + WINDOW_COLS * W
+    out = []
+    for c in range(acc.shape[0] // R):
+        cell = acc[c * R:(c + 1) * R]
+        extra = {}
+        if W:
+            cold = cell[:, A:A + W]
+            extra["windows"] = WindowedMetrics(
+                bounds=np.asarray(bounds, np.float64),
+                n_cold=cold,
+                n_warm=cell[:, A + W:A + 2 * W] - cold,
+                n_arrivals=cell[:, A + 2 * W:A + 3 * W],
+                time_running=cell[:, A + 3 * W:A + 4 * W],
+                time_idle=cell[:, A + 4 * W:A + 5 * W],
+            )
+        if reliability:
+            extra.update(
+                n_timeout=cell[:, RB], n_fail=cell[:, RB + 1],
+                n_retry=cell[:, RB + 2], n_abandon=cell[:, RB + 3],
+            )
+        out.append(summary_from_acc(cell, float(measured[c]), **extra))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -268,7 +339,8 @@ def run(
     """Run one scenario on an f32 block engine: ``replicas`` rows, one
     launch of the backend (default: the CUDA kernel on the card).
 
-    * ``engine="scan"`` (default) — steady-state scale-per-request.
+    * ``engine="scan"`` (default) — steady-state scale-per-request, with
+      the reliability layer when ``scenario.reliability`` is set.
     * ``engine="temporal"`` — transient analysis from the pool
       ``initial_instances`` (:class:`~repro_torch.core.temporal.
       InstanceSnapshot`), with point-in-time
@@ -278,15 +350,30 @@ def run(
       (``scenario.concurrency_value`` requests per instance); the summary
       is a :class:`~repro_torch.core.par_simulator.ParSimulationSummary`.
 
-    ``seed`` seeds the draw cell's generators; ``staged`` (a
-    ``(dts, warms, colds)`` triple of ``[replicas, K]`` buffers) replaces
-    the draws, and ``steps`` sets K when drawing.
+    ``seed`` seeds the draw cell's generators; ``staged`` (the ``[replicas,
+    K]`` buffers ``dts, warms, colds``, then ``fail_u`` with reliability
+    and ``is_first, child_pos`` with retries, as
+    :func:`repro_torch.interop.staged_from_reference` builds them)
+    replaces the draws, and ``steps`` sets the base K when drawing.
     """
     plan = plan_of(execution, backend, device, engine=engine)
     bspec, dev = plan.resolve()
     if plan.engine != "temporal" and (grid is not None or len(initial_instances)):
         raise ValueError("grid= and initial_instances= belong to engine='temporal'")
     scn = Scenario.of(scenario)
+    espec = ENGINE_SPECS[plan.engine]
+    if scn.reliability is not None and bspec.name not in espec.reliability_backends:
+        raise ValueError(
+            f"the {plan.engine} engine serves reliability on the f64 scan "
+            "backend only (ROADMAP Queue A item 2); reliability-capable "
+            f"backends (EngineSpec.reliability_backends): {espec.reliability_backends}"
+        )
+    if scn.window_bounds is not None:
+        raise NotImplementedError(
+            "windowed single runs need the f64 engine, which is not ported to "
+            "repro_torch yet (see ROADMAP.md Queue A item 2); windowed grids "
+            "run on the block engines through sweep()"
+        )
     kw = dict(replicas=replicas, steps=steps, staged=staged)
     temporal = None
     if plan.engine == "temporal":
@@ -307,12 +394,17 @@ def run(
 
 def _run_scan(scn, seed, bspec, dev, *, replicas, steps, staged):
     """The steady-state engine: fresh pools, one launch."""
-    dts, warms, colds = run_samples(scn, seed, replicas, steps, staged, dev)
+    samples = run_samples(scn, seed, replicas, steps, staged, dev)
+    rel = scn.reliability
     acc = _block_launch(
-        scn, scn.expiration_threshold, scn.sim_time, scn.skip_time,
-        dts, warms, colds, bspec, dev,
+        scn, scn.expiration_threshold, scn.sim_time, scn.skip_time, samples, bspec, dev,
+        prestamped=scn.prestamped or scn.max_retries > 0,
+        t_timeout=None if rel is None else rel.failure.timeout_or_inf,
+        p_fail=None if rel is None else rel.failure.p_fail,
     )
-    return summary_from_acc(acc, scn.sim_time - scn.skip_time)
+    return _cell_summaries(
+        acc, replicas, [scn.sim_time - scn.skip_time], reliability=rel is not None
+    )[0]
 
 
 # ---------------------------------------------------------------------------
@@ -325,31 +417,33 @@ _STATIC_FIELDS = (
     "max_concurrency",
     "routing",
     "track_histogram",
+    "window_bounds",
 )
 # fields that change the per-cell sample draws (one draw cell each);
 # expiration_threshold stays a draw field, as in the reference, so cells
-# map one to one onto the reference's chained draws
+# map one to one onto the reference's chained draws; the backoff
+# parameters shape the attempt table, so each value is a draw cell
 _DRAW_FIELDS = (
     "expiration_threshold",
     "arrival_rate",
     "arrival_process",
     "warm_service_process",
     "cold_service_process",
+    "backoff_base",
+    "backoff_mult",
+    "backoff_jitter",
 )
 # pure per-row values: cells along these axes share the draw cells' buffers
-_PARAM_FIELDS = ("sim_time", "skip_time")
+# (t_timeout and p_fail are per-row comparisons against the shared draws)
+_PARAM_FIELDS = ("sim_time", "skip_time", "t_timeout", "p_fail")
+# axes that need Scenario.reliability (its structure and failure uniforms)
+_RELY_AXES = ("t_timeout", "p_fail", "backoff_base", "backoff_mult", "backoff_jitter")
 
 # the reference's other sweep axes, and the ROADMAP item that brings each
 _LATER_AXES = {
-    "window_bounds": "Queue A item 4 (metric windows)",
     "profile": "Queue A item 3 (RateProfile and NHPP)",
-    "backoff_base": "Queue A item 4 (reliability)",
-    "backoff_mult": "Queue A item 4 (reliability)",
-    "backoff_jitter": "Queue A item 4 (reliability)",
-    "t_timeout": "Queue A item 4 (reliability)",
-    "p_fail": "Queue A item 4 (reliability)",
-    "crash_rate": "Queue A item 4 (platform faults)",
-    "capacity": "Queue A item 4 (platform faults)",
+    "crash_rate": "Queue B item 1e (platform faults)",
+    "capacity": "Queue B item 1e (platform faults)",
     # knobs of the f64 engine only: the block kernel computes the same
     # thing for every value, so a sweep over them would repeat one launch
     "scan_unroll": "Queue A item 2 (the f64 engine)",
@@ -364,7 +458,10 @@ class GridResult:
     Every metric array has shape ``tuple(len(v) for v in axes.values())``
     in the ``over`` insertion order; ``summaries`` is an object array of
     per-cell :class:`SimulationSummary` (replicas pooled inside each
-    cell); ``ok`` masks cells whose metrics are all finite.
+    cell); ``ok`` masks cells whose metrics are all finite.  Windowed
+    arrays carry a trailing ``W`` axis and are ``None`` when the scenario
+    has no ``window_bounds`` (or when ``window_bounds`` itself is swept:
+    the per-cell summaries keep their windows either way).
     """
 
     axes: dict
@@ -384,6 +481,10 @@ class GridResult:
     availability: Optional[np.ndarray] = None
     ok: Optional[np.ndarray] = None
     execution: Optional[Execution] = None
+    window_bounds: Optional[np.ndarray] = None  # [W+1]
+    windowed_cold_prob: Optional[np.ndarray] = None  # [*dims, W]
+    windowed_arrivals: Optional[np.ndarray] = None  # [*dims, W] replica mean
+    windowed_instance_count: Optional[np.ndarray] = None  # [*dims, W]
 
     _METRIC_FIELDS = (
         "cold_start_prob",
@@ -398,6 +499,12 @@ class GridResult:
         "goodput",
         "availability",
         "ok",
+    )
+    # windowed grids: a trailing [W] axis that selection leaves untouched
+    _WINDOWED_FIELDS = (
+        "windowed_cold_prob",
+        "windowed_arrivals",
+        "windowed_instance_count",
     )
 
     @property
@@ -439,12 +546,13 @@ class GridResult:
             self,
             axes={n: v for n, v in self.axes.items() if n not in picked},
             summaries=self.summaries[indexer],
-            **{f: take(getattr(self, f)) for f in self._METRIC_FIELDS},
+            **{f: take(getattr(self, f)) for f in self._METRIC_FIELDS + self._WINDOWED_FIELDS},
         )
 
     def to_dict(self) -> dict:
         """JSON-able export: axes (non-scalar values stringified), every
-        metric grid including ``ok``, and the resolved device."""
+        metric grid including ``ok`` and the windowed grids when present,
+        and the resolved device."""
         jsonable = lambda x: x if isinstance(x, (int, float, str, bool)) else repr(x)
         out = {
             "axes": {n: [jsonable(x) for x in v] for n, v in self.axes.items()},
@@ -453,10 +561,12 @@ class GridResult:
         }
         if self.execution is not None:
             out["device"] = str(self.execution.device)
-        for f in self._METRIC_FIELDS:
+        for f in self._METRIC_FIELDS + self._WINDOWED_FIELDS:
             a = getattr(self, f)
             if a is not None:
                 out[f] = np.asarray(a).tolist()
+        if self.window_bounds is not None:
+            out["window_bounds"] = np.asarray(self.window_bounds).tolist()
         return out
 
 
@@ -468,6 +578,11 @@ def _apply_axis(scn: Scenario, name: str, value) -> Scenario:
         return Scenario.of(scn, arrival_process=value, arrival_rate=None)
     if name == "arrival_rate":
         return Scenario.of(scn, arrival_rate=float(value))
+    if name in ("backoff_base", "backoff_mult", "backoff_jitter"):
+        retry = dataclasses.replace(scn.reliability.retry, **{name: float(value)})
+        return Scenario.of(
+            scn, reliability=dataclasses.replace(scn.reliability, retry=retry)
+        )
     return Scenario.of(scn, **{name: value})
 
 
@@ -475,7 +590,9 @@ def _apply_axis(scn: Scenario, name: str, value) -> Scenario:
 class SweepInputs:
     """What :func:`sweep` launches for one grid: the per-row parameters
     (host f64, rows in ``(draw, param, replica)`` order) and the staged f32
-    ``[C, K]`` buffers on the device."""
+    ``[C, K]`` buffers on the device (``dts, warms, colds``, then
+    ``fail_u`` with reliability and ``is_first, child_pos`` with retries,
+    whose K is the attempt table's)."""
 
     names: list
     vals: dict
@@ -483,20 +600,13 @@ class SweepInputs:
     sim_rows: np.ndarray
     skip_rows: np.ndarray
     samples: tuple
+    t_timeout_rows: Optional[np.ndarray] = None
+    p_fail_rows: Optional[np.ndarray] = None
+    prestamped: bool = False
 
 
-def sweep_inputs(
-    base: Scenario,
-    over: Mapping[str, Sequence],
-    seed: int,
-    *,
-    replicas: int,
-    device,
-    steps: Optional[int] = None,
-    staged=None,
-) -> SweepInputs:
-    """Partition the axes, build the per-row parameters and stage the
-    samples — everything :func:`sweep` does before its launches."""
+def _check_axes(base: Scenario, over: Mapping[str, Sequence]) -> tuple:
+    """The axis names and value tuples, validated as the reference does."""
     names = list(over.keys())
     if not names:
         raise ValueError("over must name at least one axis to sweep")
@@ -512,6 +622,35 @@ def sweep_inputs(
         vals[n] = tuple(over[n])
         if not vals[n]:
             raise ValueError(f"sweep axis {n!r} is empty")
+    rely_axes = [n for n in names if n in _RELY_AXES]
+    if rely_axes and base.reliability is None:
+        raise ValueError(
+            f"sweeping {rely_axes} needs Scenario.reliability= to be set "
+            "on the base scenario (it provides the static reliability "
+            "structure and the failure uniforms)"
+        )
+    for v in vals.get("t_timeout", ()):
+        if not float(v) > 0:
+            raise ValueError(f"t_timeout values must be > 0, got {v}")
+    for v in vals.get("p_fail", ()):
+        if not 0.0 <= float(v) < 1.0:
+            raise ValueError(f"p_fail values must be in [0, 1), got {v}")
+    return names, vals
+
+
+def sweep_inputs(
+    base: Scenario,
+    over: Mapping[str, Sequence],
+    seed: int,
+    *,
+    replicas: int,
+    device,
+    steps: Optional[int] = None,
+    staged=None,
+) -> SweepInputs:
+    """Partition the axes, build the per-row parameters and stage the
+    samples — everything :func:`sweep` does before its launches."""
+    names, vals = _check_axes(base, over)
     draw_names = [n for n in names if n in _DRAW_FIELDS]
     param_names = [n for n in names if n in _PARAM_FIELDS]
 
@@ -530,24 +669,29 @@ def sweep_inputs(
 
     R = int(replicas)
     D = len(draw_cfgs)
+    rel = base.reliability
+    width = staged_widths(base)
     if staged is not None:
-        dts, warms, colds = check_staged(staged, D * R, device)
+        bufs = check_staged(staged, D * R, device, width)
     else:
         n_steps = (
             int(steps)
             if steps is not None
             else max(Scenario.of(c, sim_time=max_sim).steps_needed() for c in draw_cfgs)
         )
-        dts, warms, colds = (
-            torch.empty((D * R, n_steps), dtype=torch.float32, device=device)
-            for _ in range(3)
+        K = n_steps * (base.max_retries + 1)
+        bufs = tuple(
+            torch.empty((D * R, K), dtype=torch.float32, device=device)
+            for _ in range(width)
         )
-        for d, (c, gens) in enumerate(zip(draw_cfgs, cell_generators(seed, D, device))):
-            part = slice(d * R, (d + 1) * R)
-            draw_workload_samples(
-                c, gens, R, n_steps, device,
-                out=(dts[part], warms[part], colds[part]),
-            )
+        streams = 3 if rel is None else RELY_STREAMS
+        for d, (c, gens) in enumerate(zip(draw_cfgs, cell_generators(seed, D, device, streams))):
+            part = tuple(x[d * R:(d + 1) * R] for x in bufs)
+            if rel is None:
+                draw_workload_samples(c, gens, R, n_steps, device, out=part)
+            else:
+                c_sim = Scenario.of(c, sim_time=max_sim)  # its coverage guard
+                draw_reliability_stream(c_sim, gens, R, n_steps, device, out=part)
 
     param_combos = list(itertools.product(*[vals[n] for n in param_names]))
     Wn = len(param_combos)
@@ -576,7 +720,10 @@ def sweep_inputs(
         ),
         sim_rows=_param_col("sim_time", base.sim_time),
         skip_rows=_param_col("skip_time", base.skip_time),
-        samples=tuple(_expand(x) for x in (dts, warms, colds)),
+        samples=tuple(_expand(x) for x in bufs),
+        t_timeout_rows=None if rel is None else _param_col("t_timeout", rel.failure.timeout_or_inf),
+        p_fail_rows=None if rel is None else _param_col("p_fail", rel.failure.p_fail),
+        prestamped=base.prestamped or base.max_retries > 0,
     )
 
 
@@ -595,9 +742,11 @@ def sweep(
     """Product-grid what-if sweep over scenario fields (module docstring
     has the partitioning rules): one launch per static combination.
 
-    ``seed`` seeds the per-draw-cell generators; ``staged`` (a
-    ``(dts, warms, colds)`` triple of ``[D*replicas, K]`` buffers, draw
-    cells in ``over``'s product order) replaces the draws.
+    ``seed`` seeds the per-draw-cell generators; ``staged`` (the
+    ``[D*replicas, K]`` buffers ``dts, warms, colds``, then ``fail_u``
+    with reliability and ``is_first, child_pos`` with retries, draw cells
+    in ``over``'s product order) replaces the draws, and ``steps`` sets
+    the base K when drawing.
     """
     plan = plan_of(execution, backend, device)
     if plan.engine != "scan":
@@ -608,6 +757,18 @@ def sweep(
     bspec, dev = plan.resolve()
     plan = dataclasses.replace(plan, backend=bspec.name, device=str(dev))
     base = Scenario.of(scenario)
+    espec = ENGINE_SPECS[plan.engine]
+    if base.reliability is not None and bspec.name not in espec.reliability_backends:
+        raise ValueError(
+            f"backend {bspec.name!r} does not serve reliability on engine "
+            f"{plan.engine!r}; reliability_backends: {espec.reliability_backends}"
+        )
+    windowed = base.window_bounds is not None or "window_bounds" in over
+    if windowed and bspec.name not in espec.windowed_backends:
+        raise ValueError(
+            f"backend {bspec.name!r} does not serve metric windows on engine "
+            f"{plan.engine!r}; windowed_backends: {espec.windowed_backends}"
+        )
     inp = sweep_inputs(
         base, over, seed, replicas=replicas, device=dev, steps=steps, staged=staged
     )
@@ -615,30 +776,49 @@ def sweep(
     static_names = [n for n in names if n in _STATIC_FIELDS]
     draw_names = [n for n in names if n in _DRAW_FIELDS]
     param_names = [n for n in names if n in _PARAM_FIELDS]
-    dts, warms, colds = inp.samples
-    check_covered(dts, inp.sim_rows, dev)
+    samples = inp.samples
+    if len(samples) == 6:
+        if staged is not None:  # drawn tables were guarded on their gaps
+            check_table_covered(samples[0], samples[4], inp.sim_rows, dev)
+    else:
+        check_covered(samples[0], inp.sim_rows, dev)
 
     all_summaries: list = []
+    win_parts = []
     for combo in itertools.product(*[vals[n] for n in static_names]):
         scn_s = base
         for n, v in zip(static_names, combo):
             scn_s = _apply_axis(scn_s, n, v)
+        wb = scn_s.window_bounds
         acc = _block_launch(
-            scn_s, inp.thr_rows, inp.sim_rows, inp.skip_rows,
-            dts, warms, colds, bspec, dev,
+            scn_s, inp.thr_rows, inp.sim_rows, inp.skip_rows, samples, bspec, dev,
+            prestamped=inp.prestamped,
+            window_rows=None if wb is None else np.tile(wb, (len(inp.thr_rows), 1)),
+            t_timeout=inp.t_timeout_rows, p_fail=inp.p_fail_rows,
         )
-        cells = acc.reshape(len(inp.thr_rows) // R, R, ACC_COLS)
-        for c in range(cells.shape[0]):
-            row = c * R
-            all_summaries.append(
-                summary_from_acc(cells[c], float(inp.sim_rows[row] - inp.skip_rows[row]))
-            )
+        measured = (inp.sim_rows - inp.skip_rows)[::R]
+        cells = _cell_summaries(acc, R, measured, bounds=wb,
+                                reliability=base.reliability is not None)
+        all_summaries.extend(cells)
+        if wb is not None:
+            win_parts.append(np.stack([
+                np.stack([
+                    c.windows.cold_start_prob,
+                    c.windows.n_arrivals.mean(axis=0),
+                    c.windows.avg_instance_count,
+                ])
+                for c in cells
+            ]))  # [cells, 3, W]
 
     # ---- named-axis grid (internal order: static, draw, param)
     internal_names = static_names + draw_names + param_names
     internal_dims = tuple(len(vals[n]) for n in internal_names)
     perm = [internal_names.index(n) for n in names]
-    _grid = lambda values: np.transpose(np.asarray(values).reshape(internal_dims), perm)
+
+    def _grid(values, trailing=0):
+        values = np.asarray(values)
+        arr = values.reshape(internal_dims + values.shape[values.ndim - trailing:])
+        return np.transpose(arr, perm + list(range(len(perm), arr.ndim)))
 
     costs = [estimate_cost(s, base.billing) for s in all_summaries]
     metric = lambda f: _grid(np.asarray([f(s) for s in all_summaries], np.float64))
@@ -662,6 +842,17 @@ def sweep(
         ok &= np.isfinite(m)
     if not ok.all():
         _warn_nonfinite(vals, ok)
+    windows = {}
+    # one shared window grid stacks into [*dims, W]; a swept window_bounds
+    # axis gives per-combination W's that cannot (the summaries keep them)
+    if base.window_bounds is not None and "window_bounds" not in static_names:
+        stack = np.concatenate(win_parts)  # [cells, 3, W]
+        windows = dict(
+            window_bounds=np.asarray(base.window_bounds),
+            windowed_cold_prob=_grid(stack[:, 0], trailing=1),
+            windowed_arrivals=_grid(stack[:, 1], trailing=1),
+            windowed_instance_count=_grid(stack[:, 2], trailing=1),
+        )
     return GridResult(
         axes={n: vals[n] for n in names},
         replicas=R,
@@ -670,6 +861,7 @@ def sweep(
         summaries=_grid(summaries_grid),
         **metrics,
         ok=ok,
+        **windows,
     )
 
 

@@ -3,7 +3,10 @@
 :class:`SimulationSummary` is the reference's per-replica result record
 (numpy arrays, host side) with the paper's derived metrics;
 :func:`draw_workload_samples` stages the (arrivals, warm, cold) f32
-``[R, n]`` sample buffers on the device from three explicit generators.
+``[R, n]`` sample buffers on the device from three explicit generators,
+and :func:`draw_reliability_stream` adds the reliability layer's failure
+uniforms or, with retries, the sorted attempt table.
+:class:`WindowedMetrics` holds per-window metrics.
 The helpers below them are what every engine does around its launch:
 stage a run's samples behind the coverage guard (:func:`run_samples`),
 bring the accumulator to the host behind the overflow guard
@@ -21,6 +24,56 @@ import torch
 
 
 @dataclasses.dataclass
+class WindowedMetrics:
+    """Per-window metrics over a user time grid.
+
+    Request counts are taken per arrival-window (half-open ``[b_w, b_w+1)``
+    membership of the arrival instant); instance-time integrals are exact
+    over each window intersected with ``[0, sim_time]``.  Windows ignore
+    ``skip_time``: the grid itself says what the user wants to see.
+    """
+
+    bounds: np.ndarray  # [W+1] window boundaries
+    n_cold: np.ndarray  # [R, W]
+    n_warm: np.ndarray  # [R, W]
+    n_arrivals: np.ndarray  # [R, W] (includes rejected arrivals)
+    time_running: np.ndarray  # [R, W] exact integral per window
+    time_idle: np.ndarray  # [R, W]
+
+    @property
+    def widths(self) -> np.ndarray:
+        return np.diff(self.bounds)
+
+    @property
+    def cold_start_prob(self) -> np.ndarray:
+        """[W] pooled-over-replicas per-window cold-start probability."""
+        served = (self.n_cold + self.n_warm).sum(axis=0)
+        return self.n_cold.sum(axis=0) / np.maximum(served, 1)
+
+    @property
+    def arrival_rate(self) -> np.ndarray:
+        """[W] mean observed arrivals per second per window."""
+        return self.n_arrivals.mean(axis=0) / self.widths
+
+    @property
+    def avg_instance_count(self) -> np.ndarray:
+        """[W] replica-mean of total (running+idle) instance count."""
+        return (self.time_running + self.time_idle).mean(axis=0) / self.widths
+
+    @property
+    def avg_running_count(self) -> np.ndarray:
+        return self.time_running.mean(axis=0) / self.widths
+
+    def to_dict(self) -> dict:
+        return {
+            "bounds": self.bounds.tolist(),
+            "cold_start_prob": self.cold_start_prob.tolist(),
+            "arrival_rate": self.arrival_rate.tolist(),
+            "avg_instance_count": self.avg_instance_count.tolist(),
+        }
+
+
+@dataclasses.dataclass
 class SimulationSummary:
     """Aggregated results.  Per-replica arrays retained for CIs."""
 
@@ -35,18 +88,44 @@ class SimulationSummary:
     lifespan_count: np.ndarray
     measured_time: float
     overflow: Optional[np.ndarray] = None
+    windows: Optional[WindowedMetrics] = None  # set when window_bounds given
+    # ---- reliability counters (None unless Scenario.reliability is set) --
+    n_timeout: Optional[np.ndarray] = None  # served but cut at t_timeout
+    n_fail: Optional[np.ndarray] = None  # served, completed, then failed
+    n_retry: Optional[np.ndarray] = None  # re-enqueued attempts processed
+    n_abandon: Optional[np.ndarray] = None  # gave up (retry budget spent)
 
     @property
     def n_requests(self) -> np.ndarray:
-        """Processed arrivals per replica (served plus rejected)."""
+        """Processed attempts per replica (served plus rejected; retries
+        count individually)."""
         return self.n_cold + self.n_warm + self.n_reject
+
+    def _rely(self, x) -> np.ndarray:
+        return np.zeros_like(np.asarray(self.n_cold)) if x is None else x
+
+    @property
+    def n_attempts(self) -> np.ndarray:
+        """Alias of ``n_requests`` emphasising attempts vs completions."""
+        return self.n_requests
 
     @property
     def n_completions(self) -> np.ndarray:
-        """Served arrivals.  The reference also subtracts timeouts,
-        failures and crash interruptions; those layers are not ported yet
-        (ROADMAP Queue A item 4), so every served arrival completes."""
-        return self.n_cold + self.n_warm
+        """Served attempts that neither timed out nor failed.  The
+        reference also subtracts attempts cut by an instance crash;
+        platform faults are not ported yet (ROADMAP Queue B item 1e), so
+        no attempt is cut here."""
+        return self.n_cold + self.n_warm - self._rely(self.n_timeout) - self._rely(self.n_fail)
+
+    @property
+    def timeout_prob(self) -> float:
+        served = (self.n_cold + self.n_warm).sum()
+        return float(self._rely(self.n_timeout).sum() / np.maximum(served, 1))
+
+    @property
+    def failure_prob(self) -> float:
+        served = (self.n_cold + self.n_warm).sum()
+        return float(self._rely(self.n_fail).sum() / np.maximum(served, 1))
 
     @property
     def goodput(self) -> float:
@@ -55,9 +134,17 @@ class SimulationSummary:
 
     @property
     def availability(self) -> float:
-        """Share of served arrivals not cut by an instance crash: 1.0
-        until platform faults are ported (ROADMAP Queue A item 4)."""
+        """Share of served attempts not cut by an instance crash (1 minus
+        the reference's interrupt share): 1.0 here, since platform faults
+        are not ported yet (ROADMAP Queue B item 1e)."""
         return 1.0
+
+    @property
+    def retry_amplification(self) -> float:
+        """Attempts per original request — the retry-amplified load."""
+        attempts = self.n_requests.sum()
+        firsts = attempts - self._rely(self.n_retry).sum()
+        return float(attempts / np.maximum(firsts, 1))
 
     @property
     def cold_start_prob(self) -> float:
@@ -107,22 +194,38 @@ class SimulationSummary:
             "avg_wasted_ratio": self.avg_wasted_ratio,
             "n_requests": int(self.n_requests.sum()),
             "n_completions": int(self.n_completions.sum()),
+            "n_timeouts": int(self._rely(self.n_timeout).sum()),
+            "n_failures": int(self._rely(self.n_fail).sum()),
+            "n_retries": int(self._rely(self.n_retry).sum()),
+            "n_abandoned": int(self._rely(self.n_abandon).sum()),
             "goodput": self.goodput,
+            "retry_amplification": self.retry_amplification,
             "availability": self.availability,
         }
 
 
-def cell_generators(seed: int, n_cells: int, device) -> list:
-    """Three generators (arrival, warm, cold) per draw cell.
+# the streams of one draw cell, in SeedSequence word order: the base
+# (arrival, warm, cold) streams, then the reliability layer's (failure
+# uniforms, backoff jitter, retry attempts' warm and cold draws)
+BASE_STREAMS = 3
+RELY_STREAMS = 7
+
+
+def cell_generators(seed: int, n_cells: int, device, streams: int = BASE_STREAMS) -> list:
+    """``streams`` generators per draw cell (:data:`BASE_STREAMS` or
+    :data:`RELY_STREAMS`).
 
     Cell ``d`` is seeded from ``numpy.random.SeedSequence(seed).spawn(n)[d]``,
     so every cell's streams are independent and a cell's draws do not
-    depend on how many cells the grid has before it changes shape.
+    depend on how many cells the grid has before it changes shape.  A
+    longer ``generate_state`` request keeps its first words, so the
+    reliability streams take words 3 and later and leave the base streams
+    bit for bit as without them.
     """
     out = []
     for child in np.random.SeedSequence(int(seed)).spawn(int(n_cells)):
         gens = []
-        for s in child.generate_state(3, np.uint64):
+        for s in child.generate_state(int(streams), np.uint64):
             g = torch.Generator(device=device)
             g.manual_seed(int(s))
             gens.append(g)
@@ -150,11 +253,86 @@ def draw_workload_samples(scn, generators, replicas: int, n: int, device, out=No
     return arr, warms, colds
 
 
-def check_staged(staged, rows: int, device) -> tuple:
-    """The ``(dts, warms, colds)`` triple handed in instead of draws, as
-    contiguous f32 ``[rows, K]`` tensors on ``device``."""
-    if len(staged) != 3:
-        raise ValueError("staged must be the (dts, warms, colds) triple")
+def draw_reliability_stream(scn, generators, replicas: int, n: int, device, out=None):
+    """Draw ``(samples, extras)`` for a reliability run from the
+    :data:`RELY_STREAMS` generators of one draw cell, as the reference's
+    ``draw_reliability_stream`` lays them out.
+
+    The base ``(arrivals, warm, cold)`` come from the first three streams
+    exactly as :func:`draw_workload_samples` draws them.  With
+    ``max_retries == 0`` the gap stream is kept and ``extras = (fail_u,)``
+    (f32 ``[replicas, n]``).  With retries J > 0 the stream becomes the
+    sorted attempt table of :func:`~repro_torch.core.reliability.
+    build_attempt_table` (K = n·(J+1) attempts; absolute times, so the
+    launch runs ``prestamped``), built in f64 on the device in row chunks
+    after the coverage guard, and ``extras = (fail_u, is_first,
+    child_pos)``.  Every buffer is f32 ``[replicas, K]``; ``out``
+    optionally gives the six (or four) preallocated buffers to fill.
+    """
+    from repro_torch.core.reliability import build_attempt_table
+
+    rel = scn.reliability
+    g_arr, g_warm, g_cold, g_fail, g_jit, g_wx, g_cx = generators
+    J = int(rel.retry.max_retries)
+    f32 = dict(dtype=torch.float32, device=device)
+    if J == 0:
+        base = None if out is None else out[:3]
+        samples = draw_workload_samples(scn, generators[:3], replicas, n, device, out=base)
+        fail = torch.empty((replicas, n), **f32) if out is None else out[3]
+        return samples, (torch.rand(fail.shape, generator=g_fail, out=fail),)
+    K = n * (J + 1)
+    if out is None:
+        out = tuple(torch.empty((replicas, K), **f32) for _ in range(6))
+    gaps, warms, colds = draw_workload_samples(scn, generators[:3], replicas, n, device)
+    # the gap stream becomes absolute times, whose coverage the launch can
+    # no longer check: guard it here, on the f64 sum of the f32 gaps
+    check_covered(gaps, [scn.sim_time] * replicas, device)
+    jitter = torch.rand((replicas, n, J), generator=g_jit, dtype=torch.float64, device=device)
+    warms_x = scn.warm_service_process.sample(g_wx, (replicas, n * J), device)
+    colds_x = scn.cold_service_process.sample(g_cx, (replicas, n * J), device)
+    fail_a = torch.rand((replicas, n, J + 1), generator=g_fail, **f32)
+    for r in range(0, replicas, ATTEMPT_ROWS):
+        rows = slice(r, min(r + ATTEMPT_ROWS, replicas))
+        table = build_attempt_table(
+            torch.cumsum(gaps[rows].double(), dim=1),
+            torch.cat([warms[rows, :, None], warms_x[rows].view(-1, n, J)], dim=2),
+            torch.cat([colds[rows, :, None], colds_x[rows].view(-1, n, J)], dim=2),
+            fail_a[rows],
+            jitter[rows],
+            rel.retry,
+        )
+        for buf, x in zip(out, table):
+            buf[rows] = x
+    return tuple(out[:3]), tuple(out[3:])
+
+
+# rows of one attempt-table build: its f64 temporaries (times, sort keys
+# and ranks, ~40 bytes an attempt) stay a few GB at a full-width horizon
+ATTEMPT_ROWS = 32
+
+
+def staged_widths(scn) -> int:
+    """How many staged buffers a run of ``scn`` takes: the base three,
+    plus ``fail_u`` with reliability, plus ``is_first`` and ``child_pos``
+    with retries."""
+    rel = scn.reliability
+    if rel is None:
+        return 3
+    return 6 if rel.retry.max_retries > 0 else 4
+
+
+def check_staged(staged, rows: int, device, width: int) -> tuple:
+    """The staged buffers handed in instead of draws — ``(dts, warms,
+    colds)``, then ``fail_u`` with reliability and ``is_first``,
+    ``child_pos`` with retries (``width`` of them) — as contiguous f32
+    ``[rows, K]`` tensors on ``device``."""
+    if len(staged) != width:
+        raise ValueError(
+            f"staged must hold {width} buffers (dts, warms, colds"
+            + (", fail_u" if width > 3 else "")
+            + (", is_first, child_pos" if width > 4 else "")
+            + f"), got {len(staged)}"
+        )
     out = tuple(
         torch.as_tensor(x, dtype=torch.float32).to(device).contiguous() for x in staged
     )
@@ -180,18 +358,41 @@ def check_covered(dts, sim_rows, device) -> None:
         )
 
 
+def check_table_covered(times, is_first, sim_rows, device) -> None:
+    """Coverage guard of staged attempt tables (absolute times): every
+    row's first attempts must reach its horizon."""
+    last = torch.where(is_first > 0, times, -torch.inf).amax(1)
+    need = torch.as_tensor(np.asarray(sim_rows, np.float64), device=device)
+    if bool((last.double() < need).any()):
+        raise RuntimeError(
+            "the staged attempt table's first attempts end before sim_time "
+            f"(min last first attempt {last.min().item():.1f}); draw more steps"
+        )
+
+
 def run_samples(scn, seed: int, replicas: int, steps, staged, device) -> tuple:
-    """The ``(dts, warms, colds)`` of one run: the handed-in ``staged``
+    """The staged buffers of one run (``staged_widths(scn)`` of them: the
+    base three, then the reliability extras): the handed-in ``staged``
     buffers, or ``steps`` (default ``scn.steps_needed()``) draws of one
     draw cell seeded by ``seed``; either way behind the coverage guard."""
+    width = staged_widths(scn)
     if staged is not None:
-        samples = check_staged(staged, replicas, device)
+        samples = check_staged(staged, replicas, device, width)
     else:
         n = int(steps or scn.steps_needed())
-        samples = draw_workload_samples(
-            scn, cell_generators(seed, 1, device)[0], replicas, n, device
-        )
-    check_covered(samples[0], [scn.sim_time] * replicas, device)
+        if scn.reliability is None:
+            samples = draw_workload_samples(
+                scn, cell_generators(seed, 1, device)[0], replicas, n, device
+            )
+        else:
+            gens = cell_generators(seed, 1, device, RELY_STREAMS)[0]
+            base, extras = draw_reliability_stream(scn, gens, replicas, n, device)
+            samples = base + extras
+    sim_rows = [scn.sim_time] * replicas
+    if width == 6:
+        check_table_covered(samples[0], samples[4], sim_rows, device)
+    else:
+        check_covered(samples[0], sim_rows, device)
     return samples
 
 

@@ -4,8 +4,9 @@ For a simulator the "weights" are the scenario and the staged sample
 buffers.  :func:`scenario_from_reference` builds a port :class:`Scenario`
 from a reference one, duck-typed on class names and dataclass fields (it
 imports nothing of the reference).  :func:`staged_from_reference` turns
-the reference's per-draw-cell ``(dts, warms, colds)`` arrays into the
-``staged=`` triple that :func:`~repro_torch.core.scenario.run` and
+the reference's per-draw-cell ``(dts, warms, colds)`` arrays (with the
+reliability extras of its ``draw_reliability_stream``) into the
+``staged=`` buffers that :func:`~repro_torch.core.scenario.run` and
 :func:`~repro_torch.core.scenario.sweep` consume instead of drawing.
 :func:`fleet_from_reference` and :func:`fleet_staged_from_reference` do
 the same for fleets: a reference ``FleetScenario`` and the merged stream
@@ -23,6 +24,7 @@ import torch
 from repro_torch.core.cost import BillingModel
 from repro_torch.core.fleet import FleetFunction, FleetScenario
 from repro_torch.core.processes import FAMILIES, unported
+from repro_torch.core.reliability import FailurePolicy, Reliability, RetryPolicy
 from repro_torch.core.scenario import Scenario
 
 
@@ -42,8 +44,21 @@ def process_from_reference(obj):
     return cls(**{f.name: float(ref[f.name]) for f in dataclasses.fields(cls)})
 
 
+def reliability_from_reference(obj) -> Reliability:
+    """The port :class:`Reliability` equal field by field to the reference
+    one (its ``FailurePolicy`` and ``RetryPolicy``)."""
+    if type(obj).__name__ != "Reliability":
+        raise TypeError(f"expected a reference Reliability, got {type(obj).__name__}")
+    ref = _fields(obj)
+    return Reliability(
+        failure=FailurePolicy(**_fields(ref["failure"])),
+        retry=RetryPolicy(**_fields(ref["retry"])),
+    )
+
+
 def scenario_from_reference(obj) -> Scenario:
-    """A port :class:`Scenario` equal field by field to the reference one."""
+    """A port :class:`Scenario` equal field by field to the reference one
+    (its processes, billing, reliability policies and window bounds)."""
     if type(obj).__name__ != "Scenario":
         raise TypeError(f"expected a reference Scenario, got {type(obj).__name__}")
     ref = _fields(obj)
@@ -54,24 +69,39 @@ def scenario_from_reference(obj) -> Scenario:
             v = process_from_reference(v)
         elif f.name == "billing":
             v = BillingModel(**_fields(v))
+        elif f.name == "reliability" and v is not None:
+            v = reliability_from_reference(v)
         kw[f.name] = v
     return Scenario(**kw)
 
 
 def staged_from_reference(parts, device=None) -> tuple:
-    """``parts`` is the reference's list of per-draw-cell ``(dts, warms,
-    colds)`` arrays, each ``[R, K]``, in draw-cell order; returns the three
-    f32 ``[D*R, K]`` tensors (on ``device``, default the CPU)."""
-    parts = list(parts)
-    if not parts or any(len(p) != 3 for p in parts):
-        raise ValueError("parts must be a non-empty list of (dts, warms, colds)")
+    """The port's ``staged=`` buffers from the reference's per-draw-cell
+    draws, in draw-cell order: each part is ``(dts, warms, colds)``, or the
+    ``(samples, extras)`` pair of the reference's
+    ``draw_reliability_stream`` (``extras`` is ``(fail_u,)``, or ``(fail_u,
+    is_first, child_pos)`` beside an attempt table's f64 times), each
+    array ``[R, K]``.  Returns the 3, 4 or 6 buffers as f32 ``[D*R, K]``
+    tensors (on ``device``, default the CPU): times cast after the
+    reference's sort, flags and positions as 0/1 and exact f32 values."""
+    flat = []
+    for p in parts:
+        if len(p) == 2 and isinstance(p[0], (tuple, list)):
+            p = tuple(p[0]) + tuple(p[1])
+        flat.append(tuple(p))
+    widths = {len(p) for p in flat}
+    if not flat or len(widths) != 1 or widths.pop() not in (3, 4, 6):
+        raise ValueError(
+            "parts must be a non-empty list of (dts, warms, colds) or of the "
+            "reference's (samples, extras), all alike"
+        )
     return tuple(
         torch.from_numpy(
             np.ascontiguousarray(
-                np.concatenate([np.asarray(p[j], np.float32) for p in parts])
+                np.concatenate([np.asarray(p[j]).astype(np.float32) for p in flat])
             )
         ).to(device or "cpu")
-        for j in range(3)
+        for j in range(len(flat[0]))
     )
 
 

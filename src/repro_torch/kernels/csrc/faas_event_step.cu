@@ -2,32 +2,54 @@
 //
 // Replaces the TPU kernel repro/kernels/faas_event_step.py::_faas_kernel
 // (launched by faas_sweep_pallas) for its base staged path, the
-// prestamped mode and the transient grid-curve columns.  Each row (one
-// replica of one what-if cell) runs K arrivals against its own pool of M
-// instance slots (alive, creation, busy).  Per arrival: exact integrals
-// of running and idle instance-time over the interval clipped to
-// [skip, t_end]; expiry of idle instances past t_exp (expire-first on a
-// tie); then the newest idle instance serves (warm, lowest slot on a
+// prestamped mode, the transient grid-curve columns, the metric windows,
+// the reliability layer (timeouts, failures) and client retries.  Each row
+// (one replica of one what-if cell) runs K arrivals against its own pool
+// of M instance slots (alive, creation, busy).  Per arrival: exact
+// integrals of running and idle instance-time over the interval clipped
+// to [skip, t_end]; expiry of idle instances past t_exp (expire-first on
+// a tie); then the newest idle instance serves (warm, lowest slot on a
 // creation tie), else a free slot below max_concurrency (cold), else the
 // arrival is rejected.
 //
-// Grid curves (G > 0, the temporal engine): each grid point g of the row
+// Grid curves (GRID, the temporal engine): each grid point g of the row
 // that falls in an arrival's interval (t, min(t_new, t_end)] records the
 // running (busy > g), idle (busy <= g) and no-idle counts of the
-// pre-expiry pool's live instances (busy + t_exp > g) in acc columns
-// [8, 8+G), [8+G, 8+2G), [8+2G, 8+3G).  The warp keeps the smallest grid
-// time past the clock (next_g), so an event that holds no grid point costs
-// one warp-uniform compare.  G is a runtime argument (cap MAX_GRID); the
-// grid code is a template instance of its own (GRID), so the scan path's
-// instances (G = 0) compile to the same loop as without it.
+// pre-expiry pool's live instances (busy + t_exp > g).  The warp keeps the
+// smallest grid time past the clock (next_g), so an event that holds no
+// grid point costs one warp-uniform compare.
+//
+// Metric windows (WIN): W windows [b_w, b_w+1) with strictly increasing
+// bounds.  Per window: cold, served and arrival counts (rejects included)
+// of the active arrivals whose instant lies in it, and the running and
+// idle integrals over the window intersected with (min(t, t_end),
+// min(t_new, t_end)] (windows ignore skip).  Only the windows that
+// overlap the interval give a nonzero term; the clock does not go back,
+// so a cursor (the first window ending past the clock) visits one or two
+// windows per event instead of all W.  The skipped terms are +0 added to
+// sums that start at +0, so the counts stay bit-equal.  The cursor's
+// columns stay in registers until it leaves the window, so no event waits
+// on a global read-modify-write.  A row whose clock does go back rescans
+// from window 0, reloading what it stored.
+//
+// Reliability (RELY): a served attempt holds its instance for
+// min(service, t_timeout) (NO_TIMEOUT = 1e30 leaves min() the identity);
+// it times out when service > t_timeout, else fails when its uniform is
+// below p_fail; response sums read min(service, t_timeout).  Retries
+// (RETRY, implies RELY): the events are a host-built attempt table; an
+// attempt is active only when it is a first attempt or an earlier
+// attempt's timeout, failure or rejection switched it on (child_pos, a
+// later position: the table is sorted stably and backoffs are > 0).
+// Inactive attempts still advance the clock, integrate and expire.
 //
 // What bounds it on this card: every event touches every slot of the row
-// (~25 f32 operations per slot in the body below) while the samples are
-// 12 bytes per event, so at M = 64 it does ~135 operations per byte —
-// far above the H100's f32 balance point (67 TFLOP/s over 3.35 TB/s, ~20
-// operations per byte).  It is bound by operations, and each row is a
-// sequential chain of events, so the latency of each event's reductions
-// matters as much as their count.
+// (~25 f32 operations per slot in the body below, ~12 more per slot and
+// overlapping window) while the samples are 12 to 24 bytes per event, so
+// at M = 64 it does over 60 operations per byte: above the H100's f32
+// balance point (67 TFLOP/s over 3.35 TB/s, ~20 operations per byte).  It
+// is bound by operations, and each row is a sequential chain of events,
+// so the latency of each event's reductions matters as much as their
+// count.
 //
 // What the design does about that: one warp per row, with the pool in
 // registers (ceil(M/32) slots per lane), so no pool state ever leaves the
@@ -36,17 +58,25 @@
 // the pool are warp shuffles (sums and the argmax by xor butterflies) and
 // ballots (the lowest free slot); the butterflies leave the same bits in
 // every lane, so the row's clock and accumulators are replicated per lane
-// and no lane ever waits on shared memory.  Many rows per SM (4 per block,
-// thousands per grid) hide each chain's latency.
+// and no lane ever waits on shared memory.  The window, grid and
+// activation planes are unbounded in W, G and K, so they live in global
+// memory: lane 0 adds each grid term in event order, and stores each
+// window's columns when the cursor leaves it.  A retry's child can fall
+// inside the 32-event batch whose activations were loaded at its start, so
+// activations made during a batch for that batch's own events ride in a
+// warp-uniform bitmask (pend); the global plane is read at the next
+// batch's start after a __syncwarp() that orders lane 0's stores.  Many
+// rows per SM (4 per block, thousands per grid) hide each chain's latency.
 //
 // Arithmetic matches the plain PyTorch version (kernels/ref.py): every
 // clock update is one rounded f32 operation (built with --fmad=false, and
 // written with __fadd_rn), the sentinels are the reference's (NEG = -1e30
 // for dead slots, any_idle = best > NEG/2), and the acc columns are
-// per-row sequential sums in the same order.  Only the two M-reductions of
-// the integrals (acc columns 3 and 4) sum in a different order, so they
-// may differ from the plain version in the last places.  The grid columns
-// are integer counts (ballot popcounts) added in event order: exact.
+// per-row sequential sums in the same order.  Only the M-reductions of the
+// integrals (acc columns 3-4 and each window's two integral columns) sum
+// in a different order, so they may differ from the plain version in the
+// last places.  Counts (base, window, grid, reliability) and the
+// activation plane are exact.
 
 #include <climits>
 #include <cmath>
@@ -55,10 +85,25 @@
 namespace {
 
 constexpr float NEG = -1e30f;
+constexpr float NO_CHILD_F = 1073741824.f;  // 2^30, a last attempt's child_pos
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int WARPS = 4;  // rows per block
 constexpr int ACC_COLS = 8;
 constexpr int MAX_GRID = 1024;  // grid points per row (3 acc columns each)
+constexpr int MAX_WINDOWS = 65536;  // windows per row (5 acc columns each)
+
+// which optional paths a launch runs (a template instance each)
+constexpr int F_GRID = 1, F_WIN = 2, F_RELY = 4, F_RETRY = 8;
+
+struct Params {
+  const float *alive_in, *creation_in, *busy_in, *t0, *t_exp, *t_end, *skip;
+  const float *dts, *warms, *colds, *grid, *wb, *t_to, *p_fail, *fail_u,
+      *is_first, *child_pos;
+  float *alive_out, *creation_out, *busy_out, *t_out, *acc_out, *act_out;
+  int R, M, K, G, W, cols;
+  float max_c;
+  int prestamped;
+};
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -77,29 +122,51 @@ __device__ __forceinline__ float next_grid(const float* grow, int G, float t,
                                            int lane) {
   float m = INFINITY;
   for (int gi = lane; gi < G; gi += 32) {
-    const float g = grow[gi];
+    const float g = __ldg(grow + gi);
     if (g > t) m = fminf(m, g);
   }
   return warp_min(m);
 }
 
-// S: slots per lane (M <= 32 * S); GRID: accumulate the grid columns (G > 0)
-template <int S, bool GRID>
-__global__ void __launch_bounds__(WARPS * 32)
-faas_sweep_kernel(const float* __restrict__ alive_in,
-                  const float* __restrict__ creation_in,
-                  const float* __restrict__ busy_in,
-                  const float* __restrict__ t0, const float* __restrict__ t_exp,
-                  const float* __restrict__ t_end, const float* __restrict__ skip,
-                  const float* __restrict__ dts, const float* __restrict__ warms,
-                  const float* __restrict__ colds,
-                  const float* __restrict__ grid, float* __restrict__ alive_out,
-                  float* __restrict__ creation_out, float* __restrict__ busy_out,
-                  float* __restrict__ t_out, float* __restrict__ acc_out, int R,
-                  int M, int K, int G, float max_c, int prestamped) {
+// The window cursor: the first window ending past the clock, whose five
+// acc columns (cold, served, arrivals, ∫running, ∫idle) live in registers,
+// the same in every lane, from entering the window to leaving it; every
+// term of a window is added while it is the cursor, in event order.
+struct WindowCursor {
+  const float* bounds;  // the row's W + 1 bounds
+  float* acc;           // the row's 5W window columns
+  int W, w;
+  float lo, hi;  // window w's bounds (+inf past the last window)
+  float c[5];
+
+  __device__ __forceinline__ void enter(int to) {
+    __syncwarp();  // lane 0's store of a window left earlier, before the loads
+    w = to;
+    lo = w < W ? __ldg(bounds + w) : INFINITY;
+    hi = w < W ? __ldg(bounds + w + 1) : INFINITY;
+#pragma unroll
+    for (int k = 0; k < 5; ++k) c[k] = w < W ? acc[k * W + w] : 0.f;
+  }
+  __device__ __forceinline__ void leave(int lane) {
+    if (w < W && lane == 0)
+#pragma unroll
+      for (int k = 0; k < 5; ++k) acc[k * W + w] = c[k];
+  }
+  __device__ __forceinline__ void next(int lane) {
+    leave(lane);
+    enter(w + 1);
+  }
+};
+
+// S: slots per lane (M <= 32 * S); GRID, WIN, RELY, RETRY: the optional
+// paths (RETRY implies RELY)
+template <int S, bool GRID, bool WIN, bool RELY, bool RETRY>
+__global__ void __launch_bounds__(WARPS * 32) faas_sweep_kernel(const Params p) {
+  static_assert(!RETRY || RELY, "retries ride on the reliability path");
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (row >= R) return;  // the ragged last block: the whole warp leaves
+  if (row >= p.R) return;  // the ragged last block: the whole warp leaves
+  const int M = p.M, K = p.K, G = p.G, W = p.W;
 
   // slot j = s * 32 + lane; slots past M do not exist (never alive, never free)
   const size_t pool = (size_t)row * M;
@@ -108,36 +175,62 @@ faas_sweep_kernel(const float* __restrict__ alive_in,
   for (int s = 0; s < S; ++s) {
     const int j = s * 32 + lane;
     const bool ex = j < M;
-    alive[s] = ex ? alive_in[pool + j] : 0.f;
-    cre[s] = ex ? creation_in[pool + j] : NEG;
-    busy[s] = ex ? busy_in[pool + j] : NEG;
+    alive[s] = ex ? p.alive_in[pool + j] : 0.f;
+    cre[s] = ex ? p.creation_in[pool + j] : NEG;
+    busy[s] = ex ? p.busy_in[pool + j] : NEG;
   }
-  float t = t0[row];
-  const float texp = t_exp[row], tend = t_end[row], sk = skip[row];
+  float t = p.t0[row];
+  const float texp = p.t_exp[row], tend = p.t_end[row], sk = p.skip[row];
+  const float tto = RELY ? p.t_to[row] : 0.f;
+  const float pf = RELY ? p.p_fail[row] : 0.f;
   float a_cold = 0.f, a_warm = 0.f, a_rej = 0.f, a_run = 0.f, a_idle = 0.f;
   float a_cresp = 0.f, a_wresp = 0.f, a_over = 0.f;
-  float* arow = acc_out + (size_t)row * (ACC_COLS + 3 * G);
-  const float* grow = grid + (size_t)row * G;
+  float a_tout = 0.f, a_fail = 0.f, a_retry = 0.f, a_aband = 0.f;
+  // acc row: 8 base | 5W windows | 3G grid | 4 reliability columns
+  float* arow = p.acc_out + (size_t)row * p.cols;
+  float* wacc = arow + ACC_COLS;
+  float* gacc = wacc + 5 * W;
+  const float* grow = GRID ? p.grid + (size_t)row * G : nullptr;
+  const float* wrow = WIN ? p.wb + (size_t)row * (W + 1) : nullptr;
+  float* act = RETRY ? p.act_out + (size_t)row * K : nullptr;
+  // the planes start at zero; lane 0 adds into them, after the barrier
+  if (WIN)
+    for (int c = lane; c < 5 * W; c += 32) wacc[c] = 0.f;
+  if (GRID)
+    for (int c = lane; c < 3 * G; c += 32) gacc[c] = 0.f;
+  if (RETRY)
+    for (int k = lane; k < K; k += 32) act[k] = 0.f;
+  __syncwarp();
   float next_g = INFINITY;
-  if (GRID) {
-    // grid columns start at zero; lane 0 adds each hit into them
-    for (int c = lane; c < 3 * G; c += 32) arow[ACC_COLS + c] = 0.f;
-    __syncwarp();
-    next_g = next_grid(grow, G, t, lane);
+  if (GRID) next_g = next_grid(grow, G, t, lane);
+  WindowCursor cur;
+  if (WIN) {
+    cur.bounds = wrow;
+    cur.acc = wacc;
+    cur.W = W;
+    cur.enter(0);
   }
 
   const size_t srow = (size_t)row * K;
   for (int base = 0; base < K; base += 32) {
+    if (RETRY) __syncwarp();  // lane 0's activation stores, before the loads
     const int k = base + lane;
-    const float d_l = k < K ? dts[srow + k] : 0.f;
-    const float w_l = k < K ? warms[srow + k] : 0.f;
-    const float c_l = k < K ? colds[srow + k] : 0.f;
+    const bool in = k < K;
+    const float d_l = in ? p.dts[srow + k] : 0.f;
+    const float w_l = in ? p.warms[srow + k] : 0.f;
+    const float c_l = in ? p.colds[srow + k] : 0.f;
+    const float f_l = RELY && in ? p.fail_u[srow + k] : 1.f;
+    const float first_l = RETRY && in ? p.is_first[srow + k] : 0.f;
+    const float child_l = RETRY && in ? p.child_pos[srow + k] : NO_CHILD_F;
+    const float act_l = RETRY && in ? act[k] : 0.f;
+    // activations of this batch's events made during this batch
+    unsigned pend = 0u;
     const int n = min(32, K - base);
     for (int i = 0; i < n; ++i) {
       const float dt = __shfl_sync(FULL, d_l, i);
       const float warm_s = __shfl_sync(FULL, w_l, i);
       const float cold_s = __shfl_sync(FULL, c_l, i);
-      const float t_new = prestamped ? dt : __fadd_rn(t, dt);
+      const float t_new = p.prestamped ? dt : __fadd_rn(t, dt);
       const float lo = fminf(fmaxf(t, sk), tend);
       const float hi = fminf(fmaxf(t_new, sk), tend);
 
@@ -147,7 +240,7 @@ faas_sweep_kernel(const float* __restrict__ alive_in,
           // grid points in (t, hi_g]: counts on the pre-expiry pool
           for (int gb = 0; gb < G; gb += 32) {
             const int gi = gb + lane;
-            const float g = gi < G ? grow[gi] : 0.f;
+            const float g = gi < G ? __ldg(grow + gi) : 0.f;
             unsigned hit = __ballot_sync(FULL, gi < G && g > t && g <= hi_g);
             while (hit) {
               const int l = __ffs(hit) - 1;
@@ -161,7 +254,7 @@ faas_sweep_kernel(const float* __restrict__ alive_in,
                 n_idle += __popc(__ballot_sync(FULL, live && busy[s] <= gg));
               }
               if (lane == 0) {
-                float* a = arow + ACC_COLS + gb + l;
+                float* a = gacc + gb + l;
                 a[0] = __fadd_rn(a[0], (float)n_run);
                 a[G] = __fadd_rn(a[G], (float)n_idle);
                 if (n_idle == 0) a[2 * G] = __fadd_rn(a[2 * G], 1.f);
@@ -170,6 +263,39 @@ faas_sweep_kernel(const float* __restrict__ alive_in,
           }
         }
         if (next_g <= t_new || t_new < t) next_g = next_grid(grow, G, t_new, lane);
+      }
+
+      // the window integrals over (lo_e, hi_e] on the pre-expiry pool
+      const float hi_e = fminf(t_new, tend);
+      if (WIN) {
+        const float lo_e = fminf(t, tend);
+        if (t_new < t) {  // the clock went back: rescan from window 0
+          cur.leave(lane);
+          cur.enter(0);
+        }
+        if (lo_e < hi_e) {
+          while (cur.w < W && cur.hi <= lo_e) cur.next(lane);
+          // the windows overlapping the interval, each in turn the cursor
+          while (cur.w < W && cur.lo < hi_e) {
+            const float wlo = fmaxf(cur.lo, lo_e), whi = fminf(cur.hi, hi_e);
+            if (wlo < whi) {
+              float r_l = 0.f, i_l = 0.f;
+#pragma unroll
+              for (int s = 0; s < S; ++s) {
+                const float expire = __fadd_rn(busy[s], texp);
+                const float r = fmaxf(__fsub_rn(fminf(busy[s], whi), wlo), 0.f);
+                const float d =
+                    fmaxf(__fsub_rn(fminf(expire, whi), fmaxf(busy[s], wlo)), 0.f);
+                r_l = __fadd_rn(r_l, __fmul_rn(r, alive[s]));
+                i_l = __fadd_rn(i_l, __fmul_rn(d, alive[s]));
+              }
+              cur.c[3] = __fadd_rn(cur.c[3], warp_sum(r_l));
+              cur.c[4] = __fadd_rn(cur.c[4], warp_sum(i_l));
+            }
+            if (cur.hi > hi_e) break;  // the window goes on past the interval
+            cur.next(lane);
+          }
+        }
       }
 
       // integrals over (lo, hi] on the pre-expiry pool, then expiry, then
@@ -211,18 +337,27 @@ faas_sweep_kernel(const float* __restrict__ alive_in,
         if (first_free < 0 && fm) first_free = s * 32 + __ffs(fm) - 1;
       }
 
+      bool active = t_new <= tend;
+      float first_i = 1.f, child_i = NO_CHILD_F;
+      if (RETRY) {
+        first_i = __shfl_sync(FULL, first_l, i);
+        child_i = __shfl_sync(FULL, child_l, i);
+        const bool on = __shfl_sync(FULL, act_l, i) > 0.f || ((pend >> i) & 1u);
+        active = active && (first_i > 0.f || on);
+      }
       const bool any_idle = best > NEG * 0.5f;
       const bool any_free = first_free >= 0;
-      const bool active = t_new <= tend;
       const bool counted = t_new > sk;
-      const bool below = n_alive < max_c;
+      const bool below = n_alive < p.max_c;
       const bool can_cold = !any_idle && below && any_free;
       const bool is_warm = any_idle && active;
       const bool is_cold = can_cold && active;
       const bool is_reject = !any_idle && !can_cold && active;
-      if (is_warm || is_cold) {
+      const bool assign = is_warm || is_cold;
+      const float service = is_warm ? warm_s : cold_s;
+      if (assign) {
         const int chosen = is_warm ? best_j : first_free;
-        const float done = __fadd_rn(t_new, is_warm ? warm_s : cold_s);
+        const float done = __fadd_rn(t_new, RELY ? fminf(service, tto) : service);
 #pragma unroll
         for (int s = 0; s < S; ++s) {
           if (s * 32 + lane == chosen) {
@@ -237,11 +372,11 @@ faas_sweep_kernel(const float* __restrict__ alive_in,
       if (counted) {
         if (is_cold) {
           a_cold = __fadd_rn(a_cold, 1.f);
-          a_cresp = __fadd_rn(a_cresp, cold_s);
+          a_cresp = __fadd_rn(a_cresp, RELY ? fminf(cold_s, tto) : cold_s);
         }
         if (is_warm) {
           a_warm = __fadd_rn(a_warm, 1.f);
-          a_wresp = __fadd_rn(a_wresp, warm_s);
+          a_wresp = __fadd_rn(a_wresp, RELY ? fminf(warm_s, tto) : warm_s);
         }
         if (is_reject) a_rej = __fadd_rn(a_rej, 1.f);
       }
@@ -249,83 +384,174 @@ faas_sweep_kernel(const float* __restrict__ alive_in,
       a_idle = __fadd_rn(a_idle, idle_sum);
       // overflow is counted for active arrivals whether or not past skip
       if (!any_idle && below && !any_free && active) a_over = __fadd_rn(a_over, 1.f);
+
+      if (WIN) {
+        // the cursor moves to the first window ending past hi_e; an active
+        // arrival (t_new = hi_e) lies in it when it has begun by t_new
+        while (cur.w < W && cur.hi <= hi_e) cur.next(lane);
+        if (active && cur.w < W && cur.lo <= t_new) {
+          if (is_cold) cur.c[0] = __fadd_rn(cur.c[0], 1.f);
+          if (assign) cur.c[1] = __fadd_rn(cur.c[1], 1.f);
+          cur.c[2] = __fadd_rn(cur.c[2], 1.f);
+        }
+      }
+
+      if (RELY) {
+        const float fail_i = __shfl_sync(FULL, f_l, i);
+        const bool timed_out = assign && service > tto;
+        const bool failed = assign && !timed_out && fail_i < pf;
+        const bool trigger = timed_out || failed || is_reject;
+        if (counted) {
+          if (timed_out) a_tout = __fadd_rn(a_tout, 1.f);
+          if (failed) a_fail = __fadd_rn(a_fail, 1.f);
+        }
+        if (RETRY) {
+          if (first_i <= 0.f && active && counted) a_retry = __fadd_rn(a_retry, 1.f);
+          if (trigger && !(child_i < NO_CHILD_F) && counted)
+            a_aband = __fadd_rn(a_aband, 1.f);
+          // switch on the successor: a position of this row's stream
+          if (trigger && child_i >= 0.f && child_i < (float)K) {
+            const int c = (int)child_i;
+            if ((float)c == child_i) {
+              if (lane == 0) act[c] = 1.f;
+              if (c >= base && c < base + 32) pend |= 1u << (c - base);
+            }
+          }
+        } else if (trigger && counted) {
+          a_aband = __fadd_rn(a_aband, 1.f);
+        }
+      }
       t = t_new;
     }
   }
 
+  if (WIN) cur.leave(lane);
 #pragma unroll
   for (int s = 0; s < S; ++s) {
     const int j = s * 32 + lane;
     if (j < M) {
-      alive_out[pool + j] = alive[s];
-      creation_out[pool + j] = cre[s];
-      busy_out[pool + j] = busy[s];
+      p.alive_out[pool + j] = alive[s];
+      p.creation_out[pool + j] = cre[s];
+      p.busy_out[pool + j] = busy[s];
     }
   }
   if (lane == 0) {
-    t_out[row] = t;
-    float* a = arow;
-    a[0] = a_cold;
-    a[1] = a_warm;
-    a[2] = a_rej;
-    a[3] = a_run;
-    a[4] = a_idle;
-    a[5] = a_cresp;
-    a[6] = a_wresp;
-    a[7] = a_over;
+    p.t_out[row] = t;
+    arow[0] = a_cold;
+    arow[1] = a_warm;
+    arow[2] = a_rej;
+    arow[3] = a_run;
+    arow[4] = a_idle;
+    arow[5] = a_cresp;
+    arow[6] = a_wresp;
+    arow[7] = a_over;
+    if (RELY) {
+      float* r = gacc + 3 * G;
+      r[0] = a_tout;
+      r[1] = a_fail;
+      r[2] = a_retry;
+      r[3] = a_aband;
+    }
   }
 }
 
+template <int S, bool GRID, bool WIN, bool RELY, bool RETRY>
+void launch_one(const Params& p, cudaStream_t stream) {
+  const dim3 blocks((p.R + WARPS - 1) / WARPS), threads(WARPS * 32);
+  faas_sweep_kernel<S, GRID, WIN, RELY, RETRY><<<blocks, threads, 0, stream>>>(p);
+}
+
+// the flag sets the front door reaches: GRID alone (the temporal engine);
+// windows and/or reliability, with or without retries (the scan engine)
 template <int S>
-void launch(const float* const* in, float* const* out, int R, int M, int K,
-            int G, float max_c, int prestamped, cudaStream_t stream) {
-  const dim3 blocks((R + WARPS - 1) / WARPS), threads(WARPS * 32);
-  if (G > 0)
-    faas_sweep_kernel<S, true><<<blocks, threads, 0, stream>>>(
-        in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], in[9],
-        in[10], out[0], out[1], out[2], out[3], out[4], R, M, K, G, max_c,
-        prestamped);
-  else
-    faas_sweep_kernel<S, false><<<blocks, threads, 0, stream>>>(
-        in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], in[9],
-        in[10], out[0], out[1], out[2], out[3], out[4], R, M, K, 0, max_c,
-        prestamped);
+bool launch(const Params& p, int flags, cudaStream_t st) {
+  switch (flags) {
+    case 0: launch_one<S, false, false, false, false>(p, st); return true;
+    case F_GRID: launch_one<S, true, false, false, false>(p, st); return true;
+    case F_WIN: launch_one<S, false, true, false, false>(p, st); return true;
+    case F_RELY: launch_one<S, false, false, true, false>(p, st); return true;
+    case F_WIN | F_RELY: launch_one<S, false, true, true, false>(p, st); return true;
+    case F_RELY | F_RETRY: launch_one<S, false, false, true, true>(p, st); return true;
+    case F_WIN | F_RELY | F_RETRY:
+      launch_one<S, false, true, true, true>(p, st);
+      return true;
+    default: return false;
+  }
 }
 
 }  // namespace
 
 // Plain C entry, bound with ctypes.  Inputs: alive, creation, busy [R, M];
-// t0, t_exp, t_end, skip [R]; dts, warms, colds [R, K]; grid [R, G] (may
-// be null when G = 0) — all f32, contiguous, on `device`.  Outputs: alive,
-// creation, busy [R, M], t [R], acc [R, 8 + 3G].  Launches on `stream`
-// and returns cudaGetLastError().
+// t0, t_exp, t_end, skip [R]; dts, warms, colds [R, K]; then the optional
+// paths' inputs, each null when its path is off: grid [R, G] (G > 0),
+// window_bounds [R, W+1] (W > 0, strictly increasing), t_timeout, p_fail
+// [R] and fail_u [R, K] (reliability), is_first, child_pos [R, K]
+// (retries, with reliability) — all f32, contiguous, on `device`.
+// Outputs: alive, creation, busy [R, M], t [R], acc [R, 8 + 5W + 3G + 4
+// with reliability], act [R, K] with retries (else null).  Launches on
+// `stream` and returns cudaGetLastError(), or cudaErrorInvalidValue for
+// arguments no instance takes.
 extern "C" int faas_sweep_f32(
     const void* alive_in, const void* creation_in, const void* busy_in,
     const void* t0, const void* t_exp, const void* t_end, const void* skip,
     const void* dts, const void* warms, const void* colds, const void* grid,
+    const void* window_bounds, const void* t_timeout, const void* p_fail,
+    const void* fail_u, const void* is_first, const void* child_pos,
     void* alive_out, void* creation_out, void* busy_out, void* t_out,
-    void* acc_out, int R, int M, int K, int G, int max_concurrency,
-    int prestamped, int device, void* stream) {
+    void* acc_out, void* act_out, int R, int M, int K, int G, int W,
+    int max_concurrency, int prestamped, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (R < 1 || M < 1 || M > 1024 || K < 0 || G < 0 || G > MAX_GRID ||
-      (G > 0 && grid == nullptr))
+  const bool rely = t_timeout != nullptr, retry = is_first != nullptr;
+  const int flags = (G > 0 ? F_GRID : 0) | (W > 0 ? F_WIN : 0) |
+                    (rely ? F_RELY : 0) | (retry ? F_RETRY : 0);
+  if (R < 1 || M < 1 || M > 1024 || K < 0 || G < 0 || G > MAX_GRID || W < 0 ||
+      W > MAX_WINDOWS || (G > 0 && grid == nullptr) ||
+      (W > 0 && window_bounds == nullptr) ||
+      (rely && (p_fail == nullptr || fail_u == nullptr)) ||
+      (retry && (child_pos == nullptr || act_out == nullptr || K > (1 << 24))))
     return (int)cudaErrorInvalidValue;
-  const float* in[11] = {
-      (const float*)alive_in, (const float*)creation_in, (const float*)busy_in,
-      (const float*)t0,       (const float*)t_exp,       (const float*)t_end,
-      (const float*)skip,     (const float*)dts,         (const float*)warms,
-      (const float*)colds,    (const float*)grid};
-  float* out[5] = {(float*)alive_out, (float*)creation_out, (float*)busy_out,
-                   (float*)t_out, (float*)acc_out};
-  const float max_c = (float)max_concurrency;
+  Params p;
+  p.alive_in = (const float*)alive_in;
+  p.creation_in = (const float*)creation_in;
+  p.busy_in = (const float*)busy_in;
+  p.t0 = (const float*)t0;
+  p.t_exp = (const float*)t_exp;
+  p.t_end = (const float*)t_end;
+  p.skip = (const float*)skip;
+  p.dts = (const float*)dts;
+  p.warms = (const float*)warms;
+  p.colds = (const float*)colds;
+  p.grid = (const float*)grid;
+  p.wb = (const float*)window_bounds;
+  p.t_to = (const float*)t_timeout;
+  p.p_fail = (const float*)p_fail;
+  p.fail_u = (const float*)fail_u;
+  p.is_first = (const float*)is_first;
+  p.child_pos = (const float*)child_pos;
+  p.alive_out = (float*)alive_out;
+  p.creation_out = (float*)creation_out;
+  p.busy_out = (float*)busy_out;
+  p.t_out = (float*)t_out;
+  p.acc_out = (float*)acc_out;
+  p.act_out = (float*)act_out;
+  p.R = R;
+  p.M = M;
+  p.K = K;
+  p.G = G;
+  p.W = W;
+  p.cols = ACC_COLS + 5 * W + 3 * G + (rely ? 4 : 0);
+  p.max_c = (float)max_concurrency;
+  p.prestamped = prestamped;
   cudaStream_t st = (cudaStream_t)stream;
   const int s = (M + 31) / 32;
-  if (s <= 1) launch<1>(in, out, R, M, K, G, max_c, prestamped, st);
-  else if (s <= 2) launch<2>(in, out, R, M, K, G, max_c, prestamped, st);
-  else if (s <= 4) launch<4>(in, out, R, M, K, G, max_c, prestamped, st);
-  else if (s <= 8) launch<8>(in, out, R, M, K, G, max_c, prestamped, st);
-  else if (s <= 16) launch<16>(in, out, R, M, K, G, max_c, prestamped, st);
-  else launch<32>(in, out, R, M, K, G, max_c, prestamped, st);
+  bool ok;
+  if (s <= 1) ok = launch<1>(p, flags, st);
+  else if (s <= 2) ok = launch<2>(p, flags, st);
+  else if (s <= 4) ok = launch<4>(p, flags, st);
+  else if (s <= 8) ok = launch<8>(p, flags, st);
+  else if (s <= 16) ok = launch<16>(p, flags, st);
+  else ok = launch<32>(p, flags, st);
+  if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

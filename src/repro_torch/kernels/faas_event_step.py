@@ -2,19 +2,22 @@
 launcher (backend ``"cuda"``).
 
 :func:`faas_sweep` is the port of ``repro/kernels/faas_event_step.py::
-faas_sweep_pallas`` for the base staged path, the ``prestamped`` mode and
-the transient grid-curve columns (``grid_times``, the temporal engine).
+faas_sweep_pallas`` for the base staged path, the ``prestamped`` mode, the
+transient grid-curve columns (``grid_times``, the temporal engine), the
+metric windows (``window_bounds``), the reliability layer (``t_timeout``,
+``p_fail``, ``fail_u``) and client retries (``is_first``, ``child_pos``,
+with the activation plane as a sixth output).
 The kernel itself is ``csrc/faas_event_step.cu`` (one warp per row, the
 pool in registers; its header says what bounds it and why it is built the
 way it is).  For CUDA tensors the wrapper checks device, dtype, shape and
 contiguity, launches the kernel on the current stream and counts the
-launch in ``LAUNCH_COUNTS["faas_sweep"]`` (``"faas_sweep_grid"`` for a
-launch with grid columns); for CPU tensors it runs the
-plain version :func:`repro_torch.kernels.ref.faas_sweep_ref`.
+launch in ``LAUNCH_COUNTS`` under its path's key (:func:`launch_key`);
+for CPU tensors it runs the plain version
+:func:`repro_torch.kernels.ref.faas_sweep_ref`.
 
-The reference kernel's other optional layers (metric windows,
-reliability, retries, fused draws, platform faults) are later slices, in
-the order ROADMAP Queue B gives; the wrapper refuses them.
+The reference kernel's two other optional paths, fused draws and platform
+faults, are later slices (ROADMAP Queue B items 1d and 1e); the wrapper
+refuses them.
 """
 
 from __future__ import annotations
@@ -27,49 +30,66 @@ import torch
 
 from repro_torch.core.execution import register_backend
 from repro_torch.kernels import _build
-# NEG (the dead-slot sentinel) and ACC_COLS are shared with the plain version
-from repro_torch.kernels.ref import ACC_COLS, NEG, _rows, faas_sweep_ref  # noqa: F401
+# NEG (the dead-slot sentinel) and the acc layout are shared with the plain
+# version
+from repro_torch.kernels.ref import (  # noqa: F401
+    ACC_COLS,
+    GRID_COLS,
+    NEG,
+    RELY_COLS,
+    WINDOW_COLS,
+    _rows,
+    faas_sweep_ref,
+)
 
-# windowed columns per window: cold, served, arrivals, ∫running, ∫idle
-WINDOW_COLS = 5
-# transient-curve columns per grid point: running, idle, no_idle indicator
-GRID_COLS = 3
-# reliability columns: timeout, fail, retry, abandon
-RELY_COLS = 4
-# platform-fault columns: crashes, evictions, interrupted attempts
-FAULT_COLS = 3
 # the largest pool one warp holds in registers (32 slots per lane)
 MAX_SLOTS = 1024
 # the most grid points per row (csrc/faas_event_step.cu MAX_GRID)
 MAX_GRID = 1024
+# the most metric windows per row (csrc/faas_event_step.cu MAX_WINDOWS): the
+# 5W window columns live in the row's acc in global memory and each row's
+# warp zeroes them before its first event, so W is bounded only to keep
+# that prologue and a row's 5W + 8 columns (1.3 MB at the cap) modest
+MAX_WINDOWS = 1 << 16
+# attempt positions ride in f32 (child_pos); exact up to 2^24
+MAX_RETRY_EVENTS = 1 << 24
 
-# kernel launches by wrapper name ("faas_sweep", "faas_sweep_grid" for a
-# launch with grid columns, "par_sweep", "fleet_sweep", "flash_attention",
-# "decode_attention"): bumped once per launch, nowhere else
+# kernel launches by wrapper name, bumped once per launch and nowhere else.
+# faas_sweep counts each of its paths under its own key: "faas_sweep" (the
+# base scan path), "faas_sweep_grid" (grid columns, the temporal engine),
+# "faas_sweep_win" (metric windows), "faas_sweep_rely" (reliability without
+# retries), "faas_sweep_retry" (retries) and "faas_sweep_win_rely" /
+# "faas_sweep_win_retry" (windows with either); beside them "par_sweep",
+# "fleet_sweep", "flash_attention", "decode_attention", "ssd_scan" and
+# "rglru_scan"
 LAUNCH_COUNTS: collections.Counter = collections.Counter()
 
+# the reference kernel's inputs of paths not ported yet, and the ROADMAP
+# Queue B item that brings each
 _LATER = {
-    "window_bounds": "metric windows",
-    "t_timeout": "reliability",
-    "p_fail": "reliability",
-    "fail_u": "reliability",
-    "is_first": "retries",
-    "child_pos": "retries",
-    "fused_keys": "fused threefry draws",
-    "fused_params": "fused threefry draws",
-    "fused_fail_keys": "fused threefry draws",
-    "crash_rate": "platform faults",
-    "crash_u": "platform faults",
-    "cap_edges": "platform faults",
-    "cap_values": "platform faults",
+    "fused_keys": "fused threefry draws, Queue B item 1d",
+    "fused_params": "fused threefry draws, Queue B item 1d",
+    "fused_fail_keys": "fused threefry draws, Queue B item 1d",
+    "crash_rate": "platform faults, Queue B item 1e",
+    "crash_u": "platform faults, Queue B item 1e",
+    "cap_edges": "platform faults, Queue B item 1e",
+    "cap_values": "platform faults, Queue B item 1e",
 }
+
+
+def launch_key(grid: bool, windows: bool, reliability: bool, retries: bool) -> str:
+    """The ``LAUNCH_COUNTS`` key of a faas_sweep launch with these paths."""
+    if grid:
+        return "faas_sweep_grid"
+    tail = "_retry" if retries else "_rely" if reliability else ""
+    return "faas_sweep" + ("_win" if windows else "") + tail
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
     """The C entry ``faas_sweep_f32``, built and loaded on first use."""
     fn = _build.load("faas_event_step").faas_sweep_f32
-    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 23 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -88,17 +108,27 @@ def faas_sweep(
     skip=0.0,  # f32 [R] or scalar — per-row warm-up exclusion
     max_concurrency: int,
     prestamped: bool = False,
+    window_bounds=None,  # f32 [R, W+1] metric-window boundaries
     grid_times=None,  # f32 [R, G] transient-curve query times
+    t_timeout=None,  # f32 [R] or scalar — execution timeout (reliability)
+    p_fail=None,  # f32 [R] or scalar — failure probability (reliability)
+    fail_u=None,  # f32 [R, K] per-event failure uniforms (reliability)
+    is_first=None,  # f32 [R, K] 0/1 first-attempt flags (retries)
+    child_pos=None,  # f32 [R, K] retry-successor positions (retries)
     **later,
 ):
     """Run K arrivals against each row's ``[M]`` pool; returns
-    ``(alive, creation, busy, t, acc[R, 8 + 3G])`` as
+    ``(alive, creation, busy, t, acc)``, and the activation plane ``act
+    [R, K]`` sixth with retries, as
     :func:`~repro_torch.kernels.ref.faas_sweep_ref` defines them.
 
     Rows are independent (replica × grid cell) and ``t_exp``, ``t_end``,
-    ``skip`` vary per row, so a whole threshold × rate × horizon grid is
-    one launch.  ``later`` names the reference kernel's optional inputs,
-    which raise ``NotImplementedError`` when given.
+    ``skip``, the window bounds, ``t_timeout`` and ``p_fail`` vary per row,
+    so a whole grid over them is one launch.  The kernel runs grid columns
+    alone (the temporal engine) or any of windows and reliability, with or
+    without retries (the scan engine).  ``later`` names the reference
+    kernel's inputs of paths not ported yet, which raise
+    ``NotImplementedError`` when given.
     """
     for name, value in later.items():
         if name not in _LATER:
@@ -106,17 +136,29 @@ def faas_sweep(
         if value is not None:
             raise NotImplementedError(
                 f"faas_sweep: {name}= ({_LATER[name]}) is not ported yet; "
-                "see ROADMAP.md Queue B item 1"
+                "see ROADMAP.md"
             )
     if alive.dim() != 2:
         raise ValueError(f"alive must be [R, M], got shape {tuple(alive.shape)}")
     R, M = alive.shape
     dev = alive.device
+    reliability = t_timeout is not None
+    retries = is_first is not None
+    if len({x is None for x in (t_timeout, p_fail, fail_u)}) > 1:
+        raise ValueError("t_timeout, p_fail and fail_u come together (reliability)")
+    if (child_pos is None) != (not retries):
+        raise ValueError("is_first and child_pos come together (retries)")
+    if retries and not reliability:
+        raise ValueError("retries need the reliability inputs t_timeout, p_fail, fail_u")
+    opt = dict(
+        window_bounds=window_bounds, grid_times=grid_times, t_timeout=t_timeout,
+        p_fail=p_fail, fail_u=fail_u, is_first=is_first, child_pos=child_pos,
+    )
     if dev.type == "cpu":
         return faas_sweep_ref(
             alive, creation, busy, t0, t_exp, dts, warms, colds,
             t_end=t_end, skip=skip, max_concurrency=max_concurrency,
-            prestamped=prestamped, grid_times=grid_times,
+            prestamped=prestamped, **opt,
         )
     if dev.type != "cuda":
         raise ValueError(f"faas_sweep runs on CUDA or CPU tensors, got {dev}")
@@ -128,10 +170,19 @@ def faas_sweep(
         skip=(skip, (R,)), dts=(dts, (R, K)), warms=(warms, (R, K)),
         colds=(colds, (R, K)),
     )
-    G = 0
+    G = W = 0
     if grid_times is not None:
         G = grid_times.shape[1] if grid_times.dim() == 2 else -1
         shapes["grid_times"] = (grid_times, (R, G))
+    if window_bounds is not None:
+        W = window_bounds.shape[1] - 1 if window_bounds.dim() == 2 else -1
+        shapes["window_bounds"] = (window_bounds, (R, W + 1))
+    if reliability:
+        t_timeout, p_fail = _rows(t_timeout, R, dev), _rows(p_fail, R, dev)
+        shapes.update(t_timeout=(t_timeout, (R,)), p_fail=(p_fail, (R,)),
+                      fail_u=(fail_u, (R, K)))
+    if retries:
+        shapes.update(is_first=(is_first, (R, K)), child_pos=(child_pos, (R, K)))
     for name, (x, shape) in shapes.items():
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, alive on {dev}")
@@ -150,29 +201,50 @@ def faas_sweep(
         raise ValueError(
             f"faas_sweep takes at most {MAX_GRID} grid points per row, got {G}"
         )
+    if window_bounds is not None:
+        if not 1 <= W <= MAX_WINDOWS:
+            raise ValueError(
+                f"faas_sweep takes 1 to {MAX_WINDOWS} windows per row, got {W}"
+            )
+        if not bool((window_bounds[:, 1:] > window_bounds[:, :-1]).all()):
+            raise ValueError("window_bounds must be strictly increasing in every row")
+    if G and (W or reliability):
+        raise ValueError(
+            "faas_sweep runs grid columns alone (the temporal engine); "
+            "windows and reliability belong to the scan engine"
+        )
+    if retries and K > MAX_RETRY_EVENTS:
+        raise ValueError(
+            f"with retries K must be <= {MAX_RETRY_EVENTS} (child_pos is exact "
+            f"in f32 only up to 2^24), got K={K}"
+        )
     if not 1 <= int(max_concurrency) <= 1 << 24:
         raise ValueError("max_concurrency must be in [1, 2**24] (exact in f32)")
     alive_o = torch.empty_like(alive)
     creation_o = torch.empty_like(creation)
     busy_o = torch.empty_like(busy)
     t_o = torch.empty_like(t0)
-    acc = torch.empty((R, ACC_COLS + GRID_COLS * G), dtype=torch.float32, device=dev)
+    cols = ACC_COLS + WINDOW_COLS * W + GRID_COLS * G + (RELY_COLS if reliability else 0)
+    acc = torch.empty((R, cols), dtype=torch.float32, device=dev)
+    act = torch.empty((R, K), dtype=torch.float32, device=dev) if retries else None
+    ptr = lambda x: None if x is None else x.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _kernel()(
         alive.data_ptr(), creation.data_ptr(), busy.data_ptr(), t0.data_ptr(),
         t_exp.data_ptr(), t_end.data_ptr(), skip.data_ptr(), dts.data_ptr(),
-        warms.data_ptr(), colds.data_ptr(), grid_times.data_ptr() if G else None,
+        warms.data_ptr(), colds.data_ptr(), ptr(grid_times), ptr(window_bounds),
+        ptr(t_timeout), ptr(p_fail), ptr(fail_u), ptr(is_first), ptr(child_pos),
         alive_o.data_ptr(), creation_o.data_ptr(), busy_o.data_ptr(),
-        t_o.data_ptr(), acc.data_ptr(), R, M, K, G, int(max_concurrency),
-        int(bool(prestamped)),
+        t_o.data_ptr(), acc.data_ptr(), ptr(act), R, M, K, G, W,
+        int(max_concurrency), int(bool(prestamped)),
         dev.index if dev.index is not None else torch.cuda.current_device(),
         stream,
     )
     if err != 0:
         raise RuntimeError(f"faas_sweep kernel launch failed: CUDA error {err}")
-    # launches with grid columns (the temporal path) count apart
-    LAUNCH_COUNTS["faas_sweep_grid" if G else "faas_sweep"] += 1
-    return alive_o, creation_o, busy_o, t_o, acc
+    LAUNCH_COUNTS[launch_key(bool(G), bool(W), reliability, retries)] += 1
+    out = (alive_o, creation_o, busy_o, t_o, acc)
+    return out + (act,) if retries else out
 
 
 @register_backend(
@@ -181,13 +253,11 @@ def faas_sweep(
     engines=("scan", "temporal"),
 )
 def _cuda_sweep_rows(
-    alive0, creation0, busy0, t0, t_exp, t_end, skip, dts, warms, colds,
-    *, max_concurrency, prestamped, grid_times=None,
+    alive0, creation0, busy0, t0, t_exp, t_end, skip, dts, warms, colds, **kw,
 ):
-    """Backend ``"cuda"``'s pool-state row launcher: the ``[C, 8 + 3G]``
-    accumulator."""
+    """Backend ``"cuda"``'s pool-state row launcher: the accumulator
+    (``kw`` as :func:`faas_sweep` takes them)."""
     return faas_sweep(
         alive0, creation0, busy0, t0, t_exp, dts, warms, colds,
-        t_end=t_end, skip=skip, max_concurrency=max_concurrency,
-        prestamped=prestamped, grid_times=grid_times,
+        t_end=t_end, skip=skip, **kw,
     )[4]

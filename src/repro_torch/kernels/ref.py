@@ -3,7 +3,8 @@
 :func:`faas_sweep_ref` is a loop over arrivals of ``[R, M]`` tensor ops in
 the same arithmetic order and with the same tie-breaks as the reference
 mirror ``repro/kernels/ref.py::faas_sweep_ref`` (base staged path, the
-``prestamped`` mode and the transient ``grid_times`` columns).
+``prestamped`` mode, the transient ``grid_times`` columns, metric windows,
+reliability and retries).
 :func:`faas_par_sweep_ref` mirrors ``faas_par_sweep_ref`` there, the
 concurrency-value platform's ``finish[M, c]`` loop.  They run on any
 device: the CPU tests and the ``device="cpu"`` entry points use them, and
@@ -26,6 +27,15 @@ from repro_torch.core.execution import register_backend
 
 NEG = -1e30
 ACC_COLS = 8
+# windowed columns per window: cold, served, arrivals, ∫running, ∫idle
+WINDOW_COLS = 5
+# transient-curve columns per grid point: running, idle, no_idle indicator
+GRID_COLS = 3
+# reliability columns, after the window and grid columns: timeout, fail,
+# retry, abandon
+RELY_COLS = 4
+# child_pos sentinel of a last attempt, as f32 (core.reliability.NO_CHILD)
+NO_CHILD_F = float(1 << 30)
 # par accumulator: the 8 base columns, then ∫in-flight requests
 PAR_ACC_COLS = 9
 # fleet accumulator per function: the 8 base columns, then arrivals,
@@ -57,7 +67,13 @@ def faas_sweep_ref(
     skip=0.0,  # f32 [R] or scalar — per-row warm-up exclusion
     max_concurrency: int,
     prestamped: bool = False,
+    window_bounds=None,  # f32 [R, W+1] metric-window boundaries
     grid_times=None,  # f32 [R, G] transient-curve query times
+    t_timeout=None,  # f32 [R] or scalar — execution timeout (reliability)
+    p_fail=None,  # f32 [R] or scalar — failure probability (reliability)
+    fail_u=None,  # f32 [R, K] per-event failure uniforms (reliability)
+    is_first=None,  # f32 [R, K] 0/1 first-attempt flags (retries)
+    child_pos=None,  # f32 [R, K] retry-successor positions (retries)
 ):
     """Run K arrivals against each row's ``[M]`` pool.
 
@@ -66,14 +82,35 @@ def faas_sweep_ref(
     tie), then the newest idle instance (warm, lowest slot on a creation
     tie), else a free slot below ``max_concurrency`` (cold), else reject.
     Arrivals past ``t_end`` are inert; request counters engage after
-    ``skip``.  Returns ``(alive, creation, busy, t, acc)`` with
-    ``acc[R, 8]`` = cold, warm, reject, ∫running, ∫idle, Σcold response,
-    Σwarm response, overflow.
+    ``skip``.  Returns ``(alive, creation, busy, t, acc)`` (and the
+    activation plane ``act [R, K]`` sixth with retries).  ``acc`` holds
+    the reference's append-only layout: 8 base columns (cold, warm,
+    reject, ∫running, ∫idle, Σcold response, Σwarm response, overflow),
+    then ``5W`` window, ``3G`` grid and 4 reliability columns.
 
-    ``grid_times`` appends ``3G`` columns: running ``[8, 8+G)``, idle
-    ``[8+G, 8+2G)`` and the no-idle indicator ``[8+2G, 8+3G)``, counted on
-    the pre-expiry pool at each grid point inside the interval
-    ``(t, min(t_new, t_end)]`` (live means ``busy + t_exp > g``).
+    ``window_bounds`` (strictly increasing per row) appends, per window,
+    cold starts ``[8, 8+W)``, served ``[8+W, 8+2W)``, arrivals including
+    rejects ``[8+2W, 8+3W)`` by half-open ``[b_w, b_{w+1})`` membership of
+    the active arrival's instant, and ∫running ``[8+3W, 8+4W)`` / ∫idle
+    ``[8+4W, 8+5W)`` over the window intersected with the interval clipped
+    to ``t_end`` (windows ignore ``skip``).
+
+    ``grid_times`` appends ``3G`` columns: running, idle and the no-idle
+    indicator, counted on the pre-expiry pool at each grid point inside
+    the interval ``(t, min(t_new, t_end)]`` (live means ``busy + t_exp >
+    g``).
+
+    ``t_timeout``/``p_fail``/``fail_u`` (reliability) free a served
+    instance at ``t_new + min(service, t_timeout)``; a served attempt
+    times out when ``service > t_timeout``, else fails when its uniform is
+    below ``p_fail``; response sums read ``min(service, t_timeout)``.  The
+    4 last columns count timeouts, failures, retries and abandons.  With
+    ``is_first``/``child_pos`` (retries, an attempt table) an attempt is
+    active only when it is a first attempt or its parent switched it on;
+    inactive attempts still advance the clock, integrate and expire.  A
+    timed-out, failed or rejected attempt switches on its successor
+    ``child_pos`` (counted past ``skip`` or not) or, with none, is
+    abandoned.
     """
     R, M = alive.shape
     K = dts.shape[1]
@@ -82,9 +119,23 @@ def faas_sweep_ref(
     t_end = _rows(t_end, R, dev)
     skip = _rows(skip, R, dev)
     slot_iota = torch.arange(M, dtype=torch.float32, device=dev).expand(R, M)
+    W = 0 if window_bounds is None else window_bounds.shape[1] - 1
     G = 0 if grid_times is None else grid_times.shape[1]
+    reliability = t_timeout is not None
+    retries = is_first is not None
+    if reliability:
+        t_to = _rows(t_timeout, R, dev)
+        p_f = _rows(p_fail, R, dev)
+    if W:
+        w_lo, w_hi = window_bounds[:, :-1], window_bounds[:, 1:]
+    if retries:
+        act = torch.zeros((R, K), dtype=torch.float32, device=dev)
+        rows_iota = torch.arange(R, device=dev)
     t = t0
-    acc = torch.zeros((R, ACC_COLS + 3 * G), dtype=torch.float32, device=dev)
+    acc = torch.zeros(
+        (R, ACC_COLS + WINDOW_COLS * W + GRID_COLS * G + (RELY_COLS if reliability else 0)),
+        dtype=torch.float32, device=dev,
+    )
     for i in range(K):
         dt_i, warm_i, cold_i = dts[:, i], warms[:, i], colds[:, i]
         t_new = dt_i if prestamped else t + dt_i
@@ -98,6 +149,21 @@ def faas_sweep_ref(
         )
         run_sum = (run_t * alive).sum(1)
         idle_sum = (idle_t * alive).sum(1)
+        if W:
+            # the interval clipped to the horizon but not to skip
+            wlo = torch.maximum(w_lo, torch.minimum(t, t_end)[:, None])
+            whi = torch.minimum(w_hi, torch.minimum(t_new, t_end)[:, None])
+            run_w = torch.clamp(
+                torch.minimum(busy[:, None, :], whi[:, :, None]) - wlo[:, :, None],
+                min=0.0,
+            )
+            idle_w = torch.clamp(
+                torch.minimum(expire[:, None, :], whi[:, :, None])
+                - torch.maximum(busy[:, None, :], wlo[:, :, None]),
+                min=0.0,
+            )
+            w_run = (run_w * alive[:, None, :]).sum(2)
+            w_idle = (idle_w * alive[:, None, :]).sum(2)
         if G:
             g = grid_times
             in_win = (g > t[:, None]) & (g <= torch.minimum(t_new, t_end)[:, None])
@@ -121,6 +187,9 @@ def faas_sweep_ref(
         n_alive = alive.sum(1)
 
         active = t_new <= t_end
+        if retries:
+            first_i, child = is_first[:, i], child_pos[:, i]
+            active = active & ((first_i > 0) | (act[:, i] > 0))
         counted = t_new > skip
         below = n_alive < max_concurrency
         can_cold = (~any_idle) & below & any_free
@@ -131,31 +200,77 @@ def faas_sweep_ref(
 
         chosen = torch.where(is_warm, first_best, first_free)
         service = torch.where(is_warm, warm_i, cold_i)
-        sel = (slot_iota == chosen[:, None]) & (is_warm | is_cold)[:, None]
-        busy = torch.where(sel, (t_new + service)[:, None], busy)
+        # the 1e30 no-timeout sentinel leaves min() the identity
+        occupancy = torch.minimum(service, t_to) if reliability else service
+        assign = is_warm | is_cold
+        sel = (slot_iota == chosen[:, None]) & assign[:, None]
+        busy = torch.where(sel, (t_new + occupancy)[:, None], busy)
         sel_cold = sel & is_cold[:, None]
         creation = torch.where(sel_cold, t_new[:, None], creation)
         alive = torch.where(sel_cold, 1.0, alive)
 
+        if reliability:
+            timed_out = assign & (service > t_to)
+            failed = assign & ~timed_out & (fail_u[:, i] < p_f)
+            trigger = timed_out | failed | is_reject
+            cold_resp = torch.minimum(cold_i, t_to)
+            warm_resp = torch.minimum(warm_i, t_to)
+        else:
+            cold_resp, warm_resp = cold_i, warm_i
         cold_c = is_cold & counted
         warm_c = is_warm & counted
-        delta = torch.stack(
-            [
-                cold_c.float(),
-                warm_c.float(),
-                (is_reject & counted).float(),
-                run_sum,
-                idle_sum,
-                torch.where(cold_c, cold_i, 0.0),
-                torch.where(warm_c, warm_i, 0.0),
-                overflow.float(),
-            ],
-            dim=1,
-        )
+        parts = [
+            torch.stack(
+                [
+                    cold_c.float(),
+                    warm_c.float(),
+                    (is_reject & counted).float(),
+                    run_sum,
+                    idle_sum,
+                    torch.where(cold_c, cold_resp, 0.0),
+                    torch.where(warm_c, warm_resp, 0.0),
+                    overflow.float(),
+                ],
+                dim=1,
+            )
+        ]
+        if W:
+            onehot = (t_new[:, None] >= w_lo) & (t_new[:, None] < w_hi) & active[:, None]
+            parts += [
+                (onehot & is_cold[:, None]).float(),
+                (onehot & assign[:, None]).float(),
+                onehot.float(),
+                w_run,
+                w_idle,
+            ]
         if G:
-            delta = torch.cat([delta, g_run, g_idle, g_cold], dim=1)
-        acc = acc + delta
+            parts += [g_run, g_idle, g_cold]
+        if reliability:
+            if retries:
+                r_retry = (first_i <= 0) & active & counted
+                r_abandon = trigger & ~(child < NO_CHILD_F) & counted
+                # switch on the successor (a position past the stream, as
+                # the NO_CHILD sentinel is, matches no event)
+                hit = trigger & (child >= 0) & (child < K) & (child == child.floor())
+                act[rows_iota[hit], child[hit].long()] = 1.0
+            else:
+                r_retry = torch.zeros_like(trigger)
+                r_abandon = trigger & counted
+            parts.append(
+                torch.stack(
+                    [
+                        (timed_out & counted).float(),
+                        (failed & counted).float(),
+                        r_retry.float(),
+                        r_abandon.float(),
+                    ],
+                    dim=1,
+                )
+            )
+        acc = acc + torch.cat(parts, dim=1)
         t = t_new
+    if retries:
+        return alive, creation, busy, t, acc, act
     return alive, creation, busy, t, acc
 
 
@@ -494,15 +609,13 @@ def fleet_sweep_ref(
     engines=("scan", "temporal"),
 )
 def _ref_sweep_rows(
-    alive0, creation0, busy0, t0, t_exp, t_end, skip, dts, warms, colds,
-    *, max_concurrency, prestamped, grid_times=None,
+    alive0, creation0, busy0, t0, t_exp, t_end, skip, dts, warms, colds, **kw,
 ):
-    """Backend ``"ref"``'s pool-state row launcher: the ``[C, 8 + 3G]``
-    accumulator."""
+    """Backend ``"ref"``'s pool-state row launcher: the accumulator
+    (``kw`` as :func:`faas_sweep_ref` takes them)."""
     return faas_sweep_ref(
         alive0, creation0, busy0, t0, t_exp, dts, warms, colds,
-        t_end=t_end, skip=skip, max_concurrency=max_concurrency,
-        prestamped=prestamped, grid_times=grid_times,
+        t_end=t_end, skip=skip, **kw,
     )[4]
 
 

@@ -7,7 +7,8 @@ and pick the smallest meeting a cold-start SLO.  The sweep runs on the
 ``faas_sweep`` CUDA kernel on the GPU and on its plain version on the CPU:
 the reference planner's ``execution=Execution(backend="pallas")`` route.  The
 reference's default substrate, the exact f64 scan, is ROADMAP Queue A item 2;
-``reliability=`` is item 4; fleet plans and ``ThresholdGovernor`` are item 7.
+fleet plans and ``ThresholdGovernor`` are item 7.  ``reliability=`` plans
+under a failure model on the same kernel (its reliability path).
 """
 
 from __future__ import annotations
@@ -66,18 +67,20 @@ def plan_expiration_threshold(
 ) -> PlanResult:
     """Plan the keep-alive threshold for exponential arrivals and service
     times; ``device=None`` sweeps on the GPU, ``device="cpu"`` on the
-    plain version."""
-    if reliability is not None:
-        raise NotImplementedError(
-            "plan_expiration_threshold(reliability=...) is not ported yet; see "
-            "ROADMAP.md Queue A item 4"
-        )
+    plain version.
+
+    ``reliability=`` (a :class:`repro_torch.core.reliability.Reliability`)
+    plans under a failure model: the candidate sweep carries the timeout,
+    failure and retry dynamics (retry-amplified load inflates the predicted
+    replica counts) and the chosen threshold's goodput is reported on the
+    result."""
     base = Scenario(
         arrival_process=ExpSimProcess(rate=arrival_rate),
         warm_service_process=ExpSimProcess(rate=1.0 / warm_time),
         cold_service_process=ExpSimProcess(rate=1.0 / cold_time),
         sim_time=sim_time,
         skip_time=min(100.0, sim_time / 100),
+        reliability=reliability,
     )
     thresholds = [float(t) for t in candidate_thresholds]
     result = scenario_sweep(
@@ -85,5 +88,6 @@ def plan_expiration_threshold(
         replicas=replicas, device=device,
     )
     plan = select_threshold(result, cold_slo)
-    plan.predicted_goodput = None  # a failure-model metric
+    if reliability is None:  # goodput is a failure-model metric here
+        plan.predicted_goodput = None
     return plan

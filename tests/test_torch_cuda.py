@@ -621,3 +621,207 @@ def test_smoke_archs_launch_the_scan_kernels(cuda_device, arch):
                 assert sum(fes.LAUNCH_COUNTS.values()) == 0
     k, r = logits[None], logits["ref"]
     assert ((k - r).norm() / r.norm()).item() <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# faas_sweep's metric windows, reliability and retries
+# ---------------------------------------------------------------------------
+
+from repro_torch.core.reliability import NO_TIMEOUT, RetryPolicy, build_attempt_table  # noqa: E402
+
+
+def _rely_inputs(dev, seed, R, M, N, J, backoff, rate=0.8, windows="irregular"):
+    """One launch's inputs on ``dev``: an attempt table of N base arrivals
+    with J retries each (absolute times), its base gap stream, failure
+    uniforms for both, per-row parameters and window bounds ("irregular"
+    inside the horizon, "narrow": 240 windows, several to a gap, or
+    "past": windows reaching past the horizon)."""
+    rng = np.random.default_rng(seed)
+    gaps = rng.exponential(1 / rate, (R, N)).astype(np.float32)
+    t0 = np.cumsum(gaps.astype(np.float64), axis=1)
+    draws = [rng.exponential(2.0, (R, N, J + 1)), rng.exponential(2.5, (R, N, J + 1)),
+             rng.random((R, N, J + 1)), rng.random((R, N, J))]
+    table = build_attempt_table(
+        torch.from_numpy(t0), *(torch.from_numpy(np.asarray(d, np.float32 if i < 3 else np.float64))
+                                for i, d in enumerate(draws)),
+        RetryPolicy(max_retries=J, backoff_base=backoff, backoff_jitter=0.3),
+    )
+    horizon = float(t0[:, -1].min())
+    if windows == "narrow":
+        wb = np.tile(np.linspace(0.0, horizon, 241), (R, 1))
+    elif windows == "past":
+        wb = np.tile(np.array([0.3, 0.5, 1.5, 3.0]) * horizon, (R, 1))
+    else:
+        wb = np.sort(rng.uniform(0, horizon, (R, 5)), axis=1)
+    t = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32, device=dev)
+    return dict(
+        state=(torch.zeros((R, M), device=dev), torch.full((R, M), -1e30, device=dev),
+               torch.full((R, M), -1e30, device=dev), torch.zeros((R,), device=dev)),
+        t_exp=t(10 * rng.uniform(0.5, 1.5, R)),
+        table=tuple(t(x.numpy()) for x in table),
+        gaps=(t(gaps), t(draws[0][:, :, 0]), t(draws[1][:, :, 0])),
+        fail_gaps=t(draws[2][:, :, 0]),
+        t_end=t(horizon * rng.uniform(0.5, 0.9, R)),
+        skip=t(horizon * rng.uniform(0.0, 0.1, R)),
+        window_bounds=t(wb),
+        t_timeout=t(rng.uniform(1.0, 5.0, R)),
+        p_fail=t(rng.uniform(0.0, 0.3, R)),
+    )
+
+
+def _rely_call(inp, windows, reliability, retries, max_c):
+    """(args, kw) of one combination: retries run the table prestamped, the
+    others the gap stream."""
+    kw = dict(t_end=inp["t_end"], skip=inp["skip"], max_concurrency=max_c,
+              prestamped=retries)
+    samples = inp["table"][:3] if retries else inp["gaps"]
+    if windows:
+        kw["window_bounds"] = inp["window_bounds"]
+    if reliability:
+        kw.update(t_timeout=inp["t_timeout"], p_fail=inp["p_fail"],
+                  fail_u=inp["table"][3] if retries else inp["fail_gaps"])
+    if retries:
+        kw.update(is_first=inp["table"][4], child_pos=inp["table"][5])
+    return (*inp["state"], inp["t_exp"], *samples), kw
+
+
+def _held_rely(out_k, out_p, W):
+    out_k = [o.cpu().numpy() for o in out_k]
+    out_p = [o.cpu().numpy() for o in out_p]
+    assert len(out_k) == len(out_p)
+    for a, b in zip(out_k[:4] + out_k[5:], out_p[:4] + out_p[5:]):  # state, act
+        np.testing.assert_array_equal(a, b)
+    integ = [3, 4] + list(range(8 + 3 * W, 8 + 5 * W))
+    exact = [c for c in range(out_k[4].shape[1]) if c not in integ]
+    np.testing.assert_array_equal(out_k[4][:, exact], out_p[4][:, exact])
+    np.testing.assert_allclose(out_k[4][:, integ], out_p[4][:, integ],
+                               rtol=INTEGRAL_RTOL, atol=1e-5)
+    return out_k
+
+
+RELY_COMBOS = [(True, False, False), (False, True, False), (True, True, False),
+               (False, True, True), (True, True, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [8, 37, 64, 300])
+@pytest.mark.parametrize("windows,reliability,retries", RELY_COMBOS)
+def test_rely_paths_match_plain(cuda_device, M, windows, reliability, retries):
+    inp = _rely_inputs(cuda_device, 20 + M, 33, M, 150, 2, 0.5)
+    args, kw = _rely_call(inp, windows, reliability, retries, 3 if M < 64 else 100)
+    key = fes.launch_key(False, windows, reliability, retries)
+    before = fes.LAUNCH_COUNTS[key]
+    out_k = fes.faas_sweep(*args, **kw)
+    assert fes.LAUNCH_COUNTS[key] == before + 1
+    W = 4 if windows else 0
+    acc = _held_rely(out_k, faas_sweep_ref(*args, **kw), W)[4]
+    if reliability:
+        assert acc[:, -4:-2].sum() > 0  # timeouts and failures
+    if retries:
+        assert acc[:, -2].sum() > 0  # retries processed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("J,backoff", [(1, 0.05), (2, 0.05), (1, 60.0), (2, 60.0)])
+def test_retry_children_in_and_past_the_batch(cuda_device, J, backoff):
+    inp = _rely_inputs(cuda_device, 30 + J, 40, 16, 200, J, backoff)
+    child = inp["table"][5].long().cpu()
+    pos = torch.arange(child.shape[1]).expand_as(child)
+    has = child < (1 << 30)
+    same = (child[has] // 32 == pos[has] // 32).float().mean().item()
+    # a short backoff puts most children inside their parent's 32-event
+    # batch, a long one most past it
+    assert same > 0.5 if backoff < 1 else same < 0.5
+    args, kw = _rely_call(inp, True, True, True, 2)
+    out = _held_rely(fes.faas_sweep(*args, **kw), faas_sweep_ref(*args, **kw), 4)
+    assert out[5].sum() > 0 and out[4][:, -2].sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("windows", ["narrow", "past", "unsorted"])
+def test_window_cursor_matches_plain(cuda_device, windows):
+    inp = _rely_inputs(cuda_device, 40, 33, 40, 200, 1, 1.0, windows=windows)
+    args, kw = _rely_call(inp, True, False, False, 100)
+    if windows == "unsorted":
+        # absolute times in shuffled order: the clock goes back, and the
+        # cursor rescans from the first window
+        g = torch.Generator().manual_seed(0)
+        order = torch.stack([torch.randperm(200, generator=g) for _ in range(33)])
+        times = torch.cumsum(inp["gaps"][0].cpu().double(), 1).float()
+        args = args[:5] + (torch.gather(times, 1, order).to(cuda_device),) + args[6:]
+        kw["prestamped"] = True
+    W = inp["window_bounds"].shape[1] - 1
+    acc = _held_rely(fes.faas_sweep(*args, **kw), faas_sweep_ref(*args, **kw), W)[4]
+    assert acc[:, 8 + 2 * W:8 + 3 * W].sum() > 0
+
+
+@pytest.mark.cuda
+def test_trivial_policy_is_a_noop_on_the_card(cuda_device):
+    inp = _rely_inputs(cuda_device, 41, 33, 64, 200, 1, 1.0)
+    args, kw = _rely_call(inp, True, False, False, 3)
+    plain = [o.cpu() for o in fes.faas_sweep(*args, **kw)]
+    rely = [o.cpu() for o in fes.faas_sweep(
+        *args, **kw, t_timeout=NO_TIMEOUT, p_fail=0.0, fail_u=inp["fail_gaps"])]
+    for a, b in zip(plain[:4], rely[:4]):
+        assert torch.equal(a, b)
+    assert torch.equal(rely[4][:, :-4], plain[4])
+    assert float(rely[4][:, -4:-1].sum()) == 0.0
+
+
+@pytest.mark.cuda
+def test_rely_wrapper_checks_inputs(cuda_device):
+    inp = _rely_inputs(cuda_device, 42, 8, 8, 40, 1, 1.0)
+    args, kw = _rely_call(inp, True, True, True, 3)
+    launches = dict(fes.LAUNCH_COUNTS)
+    bad = inp["window_bounds"].clone()
+    bad[3, 2] = bad[3, 1]
+    with pytest.raises(ValueError, match="strictly increasing"):
+        fes.faas_sweep(*args, **dict(kw, window_bounds=bad))
+    wide = torch.arange(fes.MAX_WINDOWS + 2, dtype=torch.float32, device=cuda_device)
+    with pytest.raises(ValueError, match="windows per row"):
+        fes.faas_sweep(*args, **dict(kw, window_bounds=wide.expand(8, -1).contiguous()))
+    with pytest.raises(ValueError, match="float32"):
+        fes.faas_sweep(*args, **dict(kw, child_pos=kw["child_pos"].double()))
+    with pytest.raises(ValueError, match="shape"):
+        fes.faas_sweep(*args, **dict(kw, fail_u=kw["fail_u"][:, :5].contiguous()))
+    with pytest.raises(ValueError, match="grid columns alone"):
+        fes.faas_sweep(*args, **dict(kw, grid_times=inp["t_end"][:, None].contiguous()))
+    with pytest.raises(NotImplementedError, match="Queue B item 1d"):
+        fes.faas_sweep(*args, **kw, fused_keys=inp["t_end"])
+    assert dict(fes.LAUNCH_COUNTS) == launches  # nothing launched
+
+
+@pytest.mark.cuda
+def test_front_door_runs_reliability_on_the_kernel(cuda_device):
+    import repro_torch as rt
+
+    rel = rt.Reliability(rt.FailurePolicy(p_fail=0.05, t_timeout=4.0),
+                         rt.RetryPolicy(max_retries=2, backoff_base=2.0, backoff_jitter=0.3))
+    scn = rt.Scenario(
+        arrival_process=rt.ExpSimProcess(rate=0.9),
+        warm_service_process=rt.ExpSimProcess(rate=1 / 1.991),
+        cold_service_process=rt.ExpSimProcess(rate=1 / 2.244),
+        expiration_threshold=60.0, sim_time=2000.0, skip_time=50.0, slots=32,
+        reliability=rel, window_bounds=(0.0, 500.0, 1200.0, 2000.0),
+    )
+    over = {"t_timeout": [2.0, 8.0], "expiration_threshold": [30.0, 120.0]}
+    # the same staged draws on the card and on the CPU
+    inp = rt.core.scenario.sweep_inputs(scn, over, 3, replicas=8, device="cpu")
+    D = 2 * 8
+    staged = tuple(x.reshape(2, 2, 8, -1)[:, 0].reshape(D, -1) for x in inp.samples)
+    fes.LAUNCH_COUNTS.clear()
+    card = rt.sweep(scn, over, 0, replicas=8, staged=tuple(x.to(cuda_device) for x in staged))
+    assert dict(fes.LAUNCH_COUNTS) == {"faas_sweep_win_retry": 1}
+    cpu = rt.sweep(scn, over, 0, replicas=8, staged=staged, device="cpu")
+    for a, b in zip(card.summaries.ravel(), cpu.summaries.ravel()):
+        for f in ("n_cold", "n_warm", "n_reject", "n_timeout", "n_fail", "n_retry",
+                  "n_abandon", "sum_cold_resp", "sum_warm_resp"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+        np.testing.assert_array_equal(a.windows.n_arrivals, b.windows.n_arrivals)
+        np.testing.assert_allclose(a.time_running, b.time_running, rtol=INTEGRAL_RTOL)
+    np.testing.assert_array_equal(card.windowed_arrivals, cpu.windowed_arrivals)
+    fes.LAUNCH_COUNTS.clear()
+    res = rt.run(rt.Scenario.of(scn, window_bounds=None,
+                                reliability=rt.Reliability(rel.failure)), 1, replicas=64)
+    assert dict(fes.LAUNCH_COUNTS) == {"faas_sweep_rely": 1}
+    assert res.summary.n_fail.sum() > 0 and np.isfinite(res.summary.goodput)

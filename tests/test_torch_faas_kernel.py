@@ -131,7 +131,7 @@ def test_wrapper_runs_plain_version_on_cpu_tensors():
 
 
 @pytest.mark.parametrize(
-    "name", ["window_bounds", "cap_edges", "t_timeout", "fused_keys", "crash_u"]
+    "name", ["fused_params", "cap_edges", "crash_rate", "fused_keys", "crash_u"]
 )
 def test_wrapper_refuses_later_features(name):
     inp = _inputs(4, R=8, M=4, K=8)

@@ -437,7 +437,8 @@ def test_pointed_errors():
 def test_new_modules_import_no_jax():
     code = (
         "import sys, repro_torch, repro_torch.core.fleet, repro_torch.data.catalog, "
-        "repro_torch.kernels.fleet_event_step, repro_torch.interop\n"
+        "repro_torch.kernels.fleet_event_step, repro_torch.interop, "
+        "repro_torch.core.reliability, repro_torch.core.metrics\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )

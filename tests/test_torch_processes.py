@@ -12,7 +12,8 @@ import pytest
 import torch
 
 import repro.core.processes as jproc
-from repro.core import Reliability, Scenario as JScenario
+from repro.core import Reliability, RetryPolicy, Scenario as JScenario
+from repro.core.faults import FaultModel
 from repro_torch import interop
 from repro_torch.core import processes as rproc
 from repro_torch.kernels import _build
@@ -127,8 +128,16 @@ def test_scenario_refuses_unported_family():
 
 
 def test_reference_reliability_is_refused():
-    with pytest.raises(NotImplementedError, match="reliability"):
-        interop.scenario_from_reference(_jax_scenario(reliability=Reliability()))
+    # the reference's policies are carried across; a policy that is not a
+    # Reliability is refused, and platform faults are not ported yet
+    rel = Reliability(retry=RetryPolicy(max_retries=2, backoff_base=0.5))
+    scn = interop.scenario_from_reference(_jax_scenario(reliability=rel))
+    assert scn.reliability.retry.max_retries == 2
+    assert scn.reliability.retry.backoff_base == 0.5
+    with pytest.raises(TypeError, match="Reliability"):
+        interop.reliability_from_reference(rel.retry)
+    with pytest.raises(NotImplementedError, match="platform faults"):
+        interop.scenario_from_reference(_jax_scenario(faults=FaultModel(crash_rate=0.1)))
 
 
 def test_staged_from_reference_concatenates_draw_cells():
@@ -146,7 +155,8 @@ def test_port_imports_no_jax():
         "import sys, repro_torch, repro_torch.interop, repro_torch.kernels.ref, "
         "repro_torch.kernels.faas_event_step, repro_torch.kernels.par_event_step, "
         "repro_torch.kernels._build, repro_torch.core.temporal, "
-        "repro_torch.core.par_simulator\n"
+        "repro_torch.core.par_simulator, repro_torch.core.reliability, "
+        "repro_torch.core.metrics, repro_torch.core.cost\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )

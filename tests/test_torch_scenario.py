@@ -223,9 +223,7 @@ def test_grid_selection_and_export():
 @pytest.mark.parametrize(
     "kw,item",
     [
-        (dict(reliability=object()), "reliability"),
         (dict(faults=object()), "platform faults"),
-        (dict(window_bounds=(0.0, 10.0)), "metric windows"),
         (dict(track_histogram=True), "f64 engine"),
         (dict(routing="oldest"), "f64 engine"),
         (dict(rate_profile=object()), "RateProfile"),
@@ -239,7 +237,7 @@ def test_scenario_refuses_later_layers(kw, item):
 
 @pytest.mark.parametrize(
     "axis",
-    ["t_timeout", "profile", "crash_rate", "window_bounds", "scan_unroll", "hist_bins"],
+    ["capacity", "profile", "crash_rate", "scan_unroll", "hist_bins"],
 )
 def test_sweep_refuses_later_axes(axis):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
