@@ -94,7 +94,24 @@ Phases (any failure ends the script with a non-zero exit):
    its plain version on its first 4096 events; the invariants (every
    attempt served or rejected; first attempts plus retries = attempts;
    the windows' arrivals = the horizon's);
-10. the kernels line (JSON), the card line, then the device line (JSON) last.
+10. fused draws (the kernel draws every sample from per-row threefry keys,
+    each path a template instance counted under its own ``_fused`` key):
+    the kernel against its plain version on small cases (every family on
+    every stream, M = 8, 37, 64, 300, 258 rows x 509 events; base, 240
+    narrow windows, reliability, both) and against the staged kernel on
+    the same draws materialized by ``drawplan.materialize_stream`` (bit for
+    bit); 2^26 draws of each family under two parameter sets, mean and
+    variance within 4 standard errors of the closed form; then through the
+    entry points, the launch counts set to 0 before each: phase 4's
+    Table-1 sweep with ``Execution(draws="fused")`` (one launch, Table 1
+    within 5%, each cell's instance count within 4 standard errors of the
+    staged sweep's, peak memory beside the staged sweep's), the same sweep
+    at 256 replicas (32,768 rows, whose staged buffers would fill the
+    card), a fused fail-only ``run()`` and a fused windowed sweep (its
+    windows hold the horizon's arrivals); each launch timed at full width
+    beside its bound (the draws' int32, f32 and special-function work
+    counted) and held to its plain version on its first 4096 events;
+11. the kernels line (JSON), the card line, then the device line (JSON) last.
 """
 
 import json
@@ -194,6 +211,22 @@ KERNELS = {
     ),
     "faas_sweep_rely": dict(
         name="faas_sweep_rely", route="cuda",
+        source="src/repro_torch/kernels/csrc/faas_event_step.cu",
+        replaces="src/repro/kernels/faas_event_step.py:107",
+    ),
+    # fused draws: the same kernel's template instances that draw their samples
+    "faas_sweep_fused": dict(
+        name="faas_sweep_fused", route="cuda",
+        source="src/repro_torch/kernels/csrc/faas_event_step.cu",
+        replaces="src/repro/kernels/faas_event_step.py:107",
+    ),
+    "faas_sweep_rely_fused": dict(
+        name="faas_sweep_rely_fused", route="cuda",
+        source="src/repro_torch/kernels/csrc/faas_event_step.cu",
+        replaces="src/repro/kernels/faas_event_step.py:107",
+    ),
+    "faas_sweep_win_fused": dict(
+        name="faas_sweep_win_fused", route="cuda",
         source="src/repro_torch/kernels/csrc/faas_event_step.cu",
         replaces="src/repro/kernels/faas_event_step.py:107",
     ),
@@ -577,8 +610,8 @@ def print_ptxas(log, kernel):
         elif m:
             per_lane = int(m.group(1))
             flags = re.findall(r"Lb([01])E", m.group(2) or "")
-            paths = [n for n, f in zip(("grid", "windows", "reliability", "retries"), flags)
-                     if f == "1"]
+            paths = [n for n, f in zip(("grid", "windows", "reliability", "retries", "fused"),
+                                       flags) if f == "1"]
             inst = f"S={per_lane} (M <= {32 * per_lane})" + "".join(f" {n}" for n in paths)
         elif inst and ("registers" in line or "spill" in line):
             print(f"  ptxas {kernel} {inst}: {line.split(':', 1)[-1].strip()}")
@@ -1947,6 +1980,472 @@ def reliability_phase(torch, rt, dev, card, table1_grid):
     return results, errs
 
 
+# ---- the fused draw phase (module docstring, item 10)
+# per stream, per event: threefry-2x32 (4 key-schedule and counter ops, 20
+# rounds of add, rotate and xor, 5 key injections of 3 adds) and the two
+# mantissa fills (shift and or each): int32 operations
+INT_OPS_PER_DRAW = 83
+# f32 operations and libm calls of each transform (drawplan.sample_dist):
+# divisions, products and sums count as f32 operations (the two mantissa
+# subtractions and the clamp included); log, sqrt, cos, exp and pow each
+# count as one call of the special-function unit
+FUSED_F32_OPS = {"exp": 4, "det": 3, "gauss": 7, "weibull": 5, "lognorm": 7, "pareto": 5}
+FUSED_SFU_CALLS = {"exp": 1, "det": 0, "gauss": 3, "weibull": 2, "lognorm": 4, "pareto": 1}
+# H100 SXM per SM (NVIDIA H100 architecture whitepaper): 128 FP32 lanes (the
+# 67 TFLOP/s above counts an FMA as 2), 64 INT32 lanes and 16 special-
+# function units, 132 SMs at the 1,980 MHz boost clock
+PEAK_INT32_OPS = 132 * 64 * 1.98e9
+PEAK_SFU_OPS = 132 * 16 * 1.98e9
+# the small cases: (arrival, warm, cold) families with their (p0, p1); across
+# the six cases every family is drawn on every stream
+FUSED_CASES = (
+    (("exp", 0.8, 0.0), ("weibull", 1.5, 2.2), ("pareto", 3.0, 1.6)),
+    (("det", 1.3, 0.0), ("gauss", 2.0, 0.5), ("lognorm", 0.5, 0.6)),
+    (("gauss", 1.25, 0.3), ("exp", 0.5, 0.0), ("weibull", 0.8, 2.0)),
+    (("weibull", 1.2, 1.3), ("det", 2.0, 0.0), ("gauss", 2.5, 0.8)),
+    (("lognorm", 0.0, 0.5), ("pareto", 2.5, 1.2), ("exp", 0.4, 0.0)),
+    (("pareto", 3.0, 0.8), ("lognorm", 0.4, 0.7), ("det", 2.4, 0.0)),
+)
+# rows (not a multiple of the kernel's 4 rows a block), events (not a
+# multiple of its 32-event batches) and pool sizes of the small cases
+FUSED_SMALL_ROWS, FUSED_SMALL_EVENTS, FUSED_SMALL_SLOTS = 258, 509, (8, 37, 64, 300)
+# the paths: windows ("narrow": 240, several to a gap), reliability
+FUSED_PATHS = (("base", False, False), ("240 narrow windows", True, False),
+               ("reliability", False, True), ("windows + reliability", True, True))
+# the sampler check: 2^26 draws of each family under Table 1's mean service
+# time (1.991 s) and under a heavier tail; Pareto keeps alpha > 4, where the
+# standard error of the sample variance is finite
+SAMPLER_ROWS, SAMPLER_EVENTS = 1 << 16, 1 << 10
+SAMPLER_SETS = {
+    "Table 1": {"exp": (1 / 1.991, 0.0), "det": (1.991, 0.0), "gauss": (1.991, 0.5),
+                "weibull": (1.5, 1.991 / 0.9027452929509336),
+                "lognorm": (float(np.log(1.991) - 0.125), 0.5),
+                "pareto": (5.0, 1.991 * 4 / 5)},
+    "heavy tail": {"exp": (0.1, 0.0), "det": (0.25, 0.0), "gauss": (1.991, 1.5),
+                   "weibull": (0.6, 1.0), "lognorm": (0.0, 1.0), "pareto": (4.5, 1.0)},
+}
+SAMPLER_SIGMAS = 4.0
+FUSED_PLAIN_EVENTS = 4096  # each full-width launch is held to plain on these
+FUSED_WIDE_REPLICAS = 256  # 32,768 rows: the staged buffers would fill the card
+# the arrivals before skip of a windowed row are counted on a materialized
+# prefix of its stream this long (at 2/s, 100 s holds ~200 arrivals)
+SKIP_PREFIX_EVENTS = 512
+
+
+def fused_bound_ms(C, M, K, n_active, dists, W=0, window_passes=0, rely=False):
+    """Least time for one fused faas_sweep call: ``bound_ms``'s pool walk
+    without the sample bytes, plus the keys and parameters (8 bytes a row
+    each) and the draws of every event in a horizon, one more per row (the
+    event that steps past it), each stream's int32 operations, f32
+    operations and special-function calls at their own rates."""
+    streams = 3 + (1 if rely else 0)
+    cols = 8 + 5 * W + (4 if rely else 0)
+    nbytes = (4 * (3 * C * M + 4 * C + C * (W + 1 if W else 0)) + 8 * C * (2 * 3 + rely)
+              + 4 * (3 * C * M + C + cols * C) + (8 * C if rely else 0))
+    f32 = (n_active * (M * OPS_PER_SLOT_EVENT + OPS_PER_ROW_EVENT)
+           + (C * K - n_active) * OPS_PER_INERT_EVENT + C * M * OPS_PER_SLOT_FINAL)
+    if W:
+        f32 += (n_active * WIN_OPS_PER_EVENT
+                + window_passes * (M * WIN_OPS_PER_SLOT_WINDOW + WIN_OPS_PER_WINDOW))
+    if rely:
+        f32 += n_active * RELY_OPS_PER_EVENT
+    drawn = n_active + C
+    f32 += drawn * (sum(FUSED_F32_OPS[d] for d in dists) + (1 if rely else 0))
+    ints = drawn * streams * INT_OPS_PER_DRAW
+    sfu = drawn * sum(FUSED_SFU_CALLS[d] for d in dists)
+    times = {"bytes": nbytes / PEAK_BYTES, "operations": max(
+        f32 / PEAK_F32_OPS, ints / PEAK_INT32_OPS, sfu / PEAK_SFU_OPS)}
+    by = max(times, key=times.get)
+    return 1e3 * times[by], by
+
+
+def fused_small_inputs(torch, dev, rng, C, M, K, case):
+    """One small launch's inputs: numpy-seeded uint32 keys for the four
+    streams, the case's families and per-row parameters (each row's p0
+    jittered by 10%), per-row thresholds, horizons, warm-ups, timeouts and
+    failure rates, and 240 narrow windows over the shortest horizon."""
+    from repro_torch.core.drawplan import materialize_stream
+
+    to = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32, device=dev)
+    keys = [torch.from_numpy(rng.integers(0, 1 << 32, (C, 2), dtype=np.uint64)
+                             .astype(np.uint32)).to(dev) for _ in range(4)]
+    params = [to(np.stack([p0 * rng.uniform(0.9, 1.1, C), np.full(C, p1)], 1))
+              for _, p0, p1 in case]
+    dists = tuple(d for d, _, _ in case)
+    # the mean gap, read off a prefix of the arrival stream itself
+    gap = float(materialize_stream(dists[0], keys[0], (params[0][:, 0], params[0][:, 1]),
+                                   64, dev).double().mean())
+    horizon = K * gap
+    t_end = horizon * rng.uniform(0.5, 0.9, C)
+    return dict(
+        pool=fresh_pools(torch, C, M, dev), t_exp=to(10 * rng.uniform(0.5, 1.5, C)),
+        keys=keys, params=params, dists=dists, t_end=to(t_end),
+        skip=to(horizon * rng.uniform(0.0, 0.1, C)),
+        window_bounds=to(np.tile(np.linspace(0.0, 0.5 * horizon, 241), (C, 1))),
+        t_timeout=to(rng.uniform(1.0, 5.0, C)), p_fail=to(np.full(C, 0.1)),
+    )
+
+
+def fused_call(inp, K, windows, rely, max_c):
+    """(args, kw) of a fused faas_sweep call on ``fused_small_inputs``."""
+    kw = dict(t_end=inp["t_end"], skip=inp["skip"], max_concurrency=max_c,
+              fused_keys=tuple(inp["keys"][:3]), fused_params=tuple(inp["params"]),
+              fused_dists=inp["dists"], fused_k=K)
+    if windows:
+        kw["window_bounds"] = inp["window_bounds"]
+    if rely:
+        kw.update(t_timeout=inp["t_timeout"], p_fail=inp["p_fail"],
+                  fused_fail_keys=inp["keys"][3])
+    return (*inp["pool"], inp["t_exp"], None, None, None), kw
+
+
+def staged_twin(inp, K, kw):
+    """The staged call on the fused call's draws: the port's
+    materialize_stream on the card from the same keys (and the failure
+    stream's word-0 uniforms as fail_u)."""
+    from repro_torch.core.drawplan import materialize_stream
+
+    dev = inp["t_end"].device
+    bufs = [materialize_stream(d, k, (p[:, 0], p[:, 1]), K, dev)
+            for d, k, p in zip(inp["dists"], inp["keys"][:3], inp["params"])]
+    skw = {k: v for k, v in kw.items() if not k.startswith("fused")}
+    if "fused_fail_keys" in kw:
+        skw["fail_u"] = materialize_stream("uniform", kw["fused_fail_keys"], None, K, dev)
+    return (*inp["pool"], inp["t_exp"], *bufs), skw
+
+
+def fused_small_cases(torch, dev):
+    """The fused kernel against its plain version on every family of every
+    stream, every path and M = 8, 37, 64, 300, and against the staged kernel
+    on the same draws materialized; returns the largest |acc difference|
+    per launch key."""
+    from repro_torch.kernels.faas_event_step import LAUNCH_COUNTS, faas_sweep, launch_key
+    from repro_torch.kernels.ref import faas_sweep_ref
+
+    C, K = FUSED_SMALL_ROWS, FUSED_SMALL_EVENTS
+    errs = {}
+    t0 = time.perf_counter()
+    for m_i, M in enumerate(FUSED_SMALL_SLOTS):
+        max_c = 3 if M in (8, 64) else 1000
+        for c_i, case in enumerate(FUSED_CASES):
+            name, windows, rely = FUSED_PATHS[(c_i + m_i) % len(FUSED_PATHS)]
+            rng = np.random.default_rng(1000 + 10 * M + c_i)
+            inp = fused_small_inputs(torch, dev, rng, C, M, K, case)
+            args, kw = fused_call(inp, K, windows, rely, max_c)
+            key = launch_key(False, windows, rely, False, True)
+            before = LAUNCH_COUNTS[key]
+            out_k = faas_sweep(*args, **kw)
+            if LAUNCH_COUNTS[key] != before + 1:
+                raise AssertionError(f"fused {name}: no {key} launch counted")
+            out_p = faas_sweep_ref(*args, **kw)
+            W = 240 if windows else 0
+            what = f"fused M={M} {name} {inp['dists']}"
+            err = held_against_plain(torch, out_k, out_p, what,
+                                     integral_cols=window_integral_cols(W))
+            errs[key] = max(errs.get(key, 0.0), err)
+            # the same draws materialized and staged: the staged kernel
+            # makes the same launch bit for bit
+            sargs, skw = staged_twin(inp, K, kw)
+            out_s = faas_sweep(*sargs, **skw)
+            same = all(torch.equal(a, b) for a, b in zip(out_k, out_s))
+            if not same:
+                raise AssertionError(f"{what}: the fused launch differs from the staged "
+                                     "launch on its materialized draws")
+            tot = out_k[4].sum(0).tolist()
+            line = (f"kernel==plain==staged fused M={M} {name} {'/'.join(inp['dists'])}: "
+                    f"cold={tot[0]:.0f} warm={tot[1]:.0f} reject={tot[2]:.0f}")
+            if W:
+                line += f", window arrivals {sum(tot[8 + 2 * W:8 + 3 * W]):.0f}"
+            if rely:
+                line += f", timeouts {tot[-4]:.0f} failures {tot[-3]:.0f}"
+                if tot[-3] <= 0:
+                    raise AssertionError(f"{what}: no failure happened")
+            if tot[0] + tot[1] <= 0:
+                raise AssertionError(f"{what}: nothing was served")
+            print(line + f", max|acc diff| {err:.3e}", flush=True)
+    print(f"fused small cases: {len(FUSED_CASES)} family cases x {len(FUSED_SMALL_SLOTS)} "
+          f"pool sizes over {len(FUSED_PATHS)} paths, {C} rows x {K} events, each equal to "
+          f"its plain version and to the staged kernel on its materialized draws, in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return errs
+
+
+def sampler_check(torch, dev):
+    """2^26 draws of each family and parameter set materialized on the card:
+    mean and variance within SAMPLER_SIGMAS standard errors of the closed
+    form (the Gaussian's clamped at 1e-9); the deterministic family exact."""
+    from math import erf, exp, gamma, pi, sqrt
+
+    from repro_torch.core.drawplan import materialize_stream
+
+    Phi = lambda x: 0.5 * (1 + erf(x / sqrt(2)))
+    phi = lambda x: exp(-x * x / 2) / sqrt(2 * pi)
+
+    def moments(kind, p0, p1):
+        """The first two raw moments of the clamped family."""
+        if kind == "exp":
+            return 1 / p0, 2 / p0 ** 2
+        if kind == "det":
+            return p0, p0 ** 2
+        if kind == "gauss":
+            a = p0 / p1
+            return (p0 * Phi(a) + p1 * phi(a),
+                    (p0 ** 2 + p1 ** 2) * Phi(a) + p0 * p1 * phi(a))
+        if kind == "weibull":
+            return p1 * gamma(1 + 1 / p0), p1 ** 2 * gamma(1 + 2 / p0)
+        if kind == "lognorm":
+            return exp(p0 + p1 ** 2 / 2), exp(2 * p0 + 2 * p1 ** 2)
+        return p0 * p1 / (p0 - 1), p0 * p1 ** 2 / (p0 - 2)
+
+    rng = np.random.default_rng(7)
+    N = SAMPLER_ROWS * SAMPLER_EVENTS
+    worst = 0.0
+    t0 = time.perf_counter()
+    for set_name, fams in SAMPLER_SETS.items():
+        for kind, (p0, p1) in fams.items():
+            keys = torch.from_numpy(rng.integers(0, 1 << 32, (SAMPLER_ROWS, 2), dtype=np.uint64)
+                                    .astype(np.uint32)).to(dev)
+            x = materialize_stream(kind, keys, (p0, p1), SAMPLER_EVENTS, dev).double()
+            m = float(x.mean())
+            var = float(x.var(unbiased=False))
+            m1, m2 = moments(kind, p0, p1)
+            if kind == "det":
+                if not bool((x == float(np.float32(p0))).all()):
+                    raise AssertionError(f"sampler {set_name} det: a draw is not p0")
+                print(f"sampler {set_name} {kind}({p0:.5g}): every one of {N} draws equals p0",
+                      flush=True)
+                continue
+            mu4 = float(((x - m) ** 4).mean())
+            z_m = abs(m - m1) / sqrt(var / N)
+            z_v = abs(var - (m2 - m1 ** 2)) / sqrt(max(mu4 - var ** 2, 1e-300) / N)
+            worst = max(worst, z_m, z_v)
+            print(f"sampler {set_name} {kind}({p0:.5g}, {p1:.5g}): mean {m:.6f} (closed form "
+                  f"{m1:.6f}, {z_m:.2f} standard errors), variance {var:.6f} ({m2 - m1 ** 2:.6f}, "
+                  f"{z_v:.2f}) over {N} draws", flush=True)
+            if max(z_m, z_v) > SAMPLER_SIGMAS:
+                raise AssertionError(f"sampler {set_name} {kind}: more than {SAMPLER_SIGMAS} "
+                                     "standard errors from the closed form")
+            del x
+    print(f"sampler check: {sum(len(f) for f in SAMPLER_SETS.values())} family sets, largest "
+          f"{worst:.2f} standard "
+          f"errors, in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def cell_server_stats(grid):
+    """Per cell: the replica mean of the average instance count and its
+    standard error."""
+    mean, se = [], []
+    for s in grid.summaries.ravel():
+        v = (s.time_running + s.time_idle) / s.measured_time
+        mean.append(v.mean())
+        se.append(v.std(ddof=1) / np.sqrt(len(v)))
+    return np.asarray(mean), np.asarray(se)
+
+
+def fused_timed(torch, rt, dev, card, scn, over, seed, replicas, what, window_bounds=None):
+    """One fused launch at an entry point's width on its own inputs (from
+    sweep_inputs, or run()'s single cell), timed by CUDA events and held to
+    the plain version on the first FUSED_PLAIN_EVENTS events; returns
+    (ms, plain_ms, bound_ms, bound_by, err, acc, arrivals before skip per
+    row, arrivals in the horizons)."""
+    from repro_torch.core.scenario import fused_state, sweep_inputs
+    from repro_torch.kernels.faas_event_step import faas_sweep
+    from repro_torch.kernels.ref import faas_sweep_ref
+
+    row = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32, device=dev)
+    rel = scn.reliability
+    if over is None:
+        st = fused_state([scn], seed, replicas, scn.steps_needed(), dev)
+        C = replicas
+        thr, sim, skip = (np.full(C, v) for v in (scn.expiration_threshold, scn.sim_time,
+                                                  scn.skip_time))
+    else:
+        inp = sweep_inputs(scn, over, seed, replicas=replicas, device=dev, draws="fused")
+        st, thr, sim, skip = inp.fused, inp.thr_rows, inp.sim_rows, inp.skip_rows
+        C = len(thr)
+    K = st["n_steps"]
+    args = (*fresh_pools(torch, C, scn.slots, dev), row(thr), None, None, None)
+    kw = dict(t_end=row(sim), skip=row(skip), max_concurrency=scn.max_concurrency,
+              fused_keys=st["keys"], fused_params=st["params"], fused_dists=st["dists"],
+              fused_k=K)
+    W = 0
+    if window_bounds is not None:
+        W = len(window_bounds) - 1
+        kw["window_bounds"] = row(np.tile(window_bounds, (C, 1)))
+    if rel is not None:
+        kw.update(t_timeout=row(np.full(C, rel.failure.timeout_or_inf)),
+                  p_fail=row(np.full(C, rel.failure.p_fail)), fused_fail_keys=st["fail_keys"])
+    ms, out_full = timed(torch, lambda: faas_sweep(*args, **kw), reps=3)
+    acc = out_full[4]
+    # arrivals in the horizons: every counted event, the ones before skip
+    # read off a materialized prefix of each row's arrival stream
+    before_skip = skip_arrivals(torch, st, skip, dev)
+    active = int(acc[:, :3].double().sum()) + int(before_skip.sum())
+    passes = active + C * W
+    b_ms, b_by = fused_bound_ms(C, scn.slots, K, active, st["dists"], W=W,
+                                window_passes=passes, rely=rel is not None)
+    pkw = dict(kw, fused_k=FUSED_PLAIN_EVENTS)
+    out_k = faas_sweep(*args, **pkw)
+    plain_ms, out_p = plain_timed(torch, lambda: faas_sweep_ref(*args, **pkw))
+    err = held_against_plain(torch, out_k, out_p, f"{what}, first {FUSED_PLAIN_EVENTS} events",
+                             integral_cols=window_integral_cols(W))
+    print(f"timing [{card}]: faas_sweep fused {what} C={C} M={scn.slots} K={K} "
+          f"{'/'.join(st['dists'])}: {ms:.3f} ms; {active} arrivals in horizon = "
+          f"{active / ms * 1e3:.4e} arrivals/s; bound {b_ms:.3f} ms ({b_by}; the draws' "
+          f"int32, f32 and special-function work included); plain version {plain_ms:.1f} ms "
+          f"on the first {FUSED_PLAIN_EVENTS} events (max|acc diff| {err:.3e})", flush=True)
+    return ms, plain_ms, b_ms, b_by, err, acc, before_skip, active
+
+
+def skip_arrivals(torch, st, skip, dev):
+    """Arrivals at or before each row's skip, on the f64 sum of a
+    materialized prefix of its fused arrival stream."""
+    from repro_torch.core.drawplan import materialize_stream
+
+    p = st["params"][0]
+    gaps = materialize_stream(st["dists"][0], st["keys"][0], (p[:, 0], p[:, 1]),
+                              SKIP_PREFIX_EVENTS, dev).double().cumsum(1)
+    skip = torch.as_tensor(np.asarray(skip, np.float64), device=dev)
+    if bool((gaps[:, -1] <= skip).any()):
+        raise AssertionError("the materialized prefix does not reach skip_time")
+    return (gaps <= skip[:, None]).sum(1).double()
+
+
+def fused_phase(torch, rt, dev, card, staged_grid, staged_peak):
+    """The fused draw phase (module docstring, item 10); returns the
+    kernels-line entries and the largest differences."""
+    from repro_torch.kernels.faas_event_step import LAUNCH_COUNTS
+
+    results = {}
+    errs = fused_small_cases(torch, dev)
+    sampler_check(torch, dev)
+    fused = rt.Execution(draws="fused")
+
+    # ---- 1. the Table-1 sweep with fused draws
+    scn = table1(rt)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCH_COUNTS.clear()
+    t0 = time.perf_counter()
+    grid = rt.sweep(scn, SWEEP_OVER, seed=10, replicas=SWEEP_REPLICAS, execution=fused)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = LAUNCH_COUNTS["faas_sweep_fused"]
+    if dict(LAUNCH_COUNTS) != {"faas_sweep_fused": 1}:
+        raise AssertionError(f"the fused sweep's launches: {dict(LAUNCH_COUNTS)}")
+    if not grid.ok.all() or grid.to_dict()["draws"] != "fused":
+        raise AssertionError("the fused sweep's cells are not finite, or it ran staged")
+    servers = float(grid.sel(arrival_rate=0.9, expiration_threshold=600.0).avg_server_count)
+    if abs(servers / PAPER_SERVERS - 1) > 0.05:
+        raise AssertionError("the fused Table-1 cell is more than 5% from the paper")
+    m_f, se_f = cell_server_stats(grid)
+    m_s, se_s = cell_server_stats(staged_grid)
+    z = np.abs(m_f - m_s) / np.sqrt(se_f ** 2 + se_s ** 2)
+    print(f"fused sweep: {grid.shape} cells x {SWEEP_REPLICAS} replicas, 1 launch, {wall:.3f} s "
+          f"wall, peak {peak / 2**30:.3f} GiB on the card (the staged sweep: "
+          f"{staged_peak / 2**30:.3f} GiB); (0.9/s, 600 s) avg servers {servers:.4f} (paper "
+          f"{PAPER_SERVERS}); per-cell avg instances against the staged sweep: largest "
+          f"{z.max():.2f} combined standard errors over {z.size} cells", flush=True)
+    if z.max() > REF_RETRY_SIGMAS:
+        raise AssertionError("a fused cell is more than 4 standard errors from the staged one")
+    ms, plain_ms, b_ms, b_by, err, acc, _, active = fused_timed(
+        torch, rt, dev, card, scn, SWEEP_OVER, 10, SWEEP_REPLICAS, "Table-1 sweep")
+    cold = acc[:, 0].double().cpu().numpy().reshape(grid.shape + (SWEEP_REPLICAS,))
+    want = np.stack([[s.n_cold for s in r] for r in grid.summaries])
+    if not np.array_equal(cold, want):
+        raise AssertionError("the timed fused launch does not reproduce sweep()")
+    print(f"end to end [{card}]: fused sweep() {active / wall:.4e} simulated arrivals/s "
+          f"({wall:.3f} s incl. keys and assembly), kernel {ms:.3f} ms", flush=True)
+    errs["faas_sweep_fused"] = max(errs.get("faas_sweep_fused", 0.0), err)
+    results["faas_sweep_fused"] = dict(launches=launches, ms=ms, plain_ms=plain_ms,
+                                       bound_ms=b_ms, bound_by=b_by)
+    del acc
+    torch.cuda.empty_cache()
+
+    # ---- 2. the same sweep over 32,768 rows, whose staged buffers would fill the card
+    rows = len(SWEEP_OVER["expiration_threshold"]) * len(SWEEP_OVER["arrival_rate"]) \
+        * FUSED_WIDE_REPLICAS
+    K = max(rt.Scenario.of(scn, arrival_rate=r).steps_needed() for r in SWEEP_OVER["arrival_rate"])
+    staged_gb = 3 * 4 * rows * K / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCH_COUNTS.clear()
+    t0 = time.perf_counter()
+    wide = rt.sweep(scn, SWEEP_OVER, seed=11, replicas=FUSED_WIDE_REPLICAS, execution=fused)
+    wide_wall = time.perf_counter() - t0
+    wide_peak = torch.cuda.max_memory_allocated()
+    if dict(LAUNCH_COUNTS) != {"faas_sweep_fused": 1} or not wide.ok.all():
+        raise AssertionError(f"the 32,768-row sweep: {dict(LAUNCH_COUNTS)}")
+    results["faas_sweep_fused"]["launches"] += 1
+    w_servers = float(wide.sel(arrival_rate=0.9, expiration_threshold=600.0).avg_server_count)
+    print(f"fused sweep at {FUSED_WIDE_REPLICAS} replicas: {rows} rows x "
+          f"{K} events, 1 launch, {wide_wall:.3f} s wall, peak "
+          f"{wide_peak / 2**30:.3f} GiB on the card (staged, its three [C, K] buffers alone: "
+          f"{staged_gb:.1f} GB); (0.9/s, 600 s) avg servers {w_servers:.4f}", flush=True)
+    if abs(w_servers / PAPER_SERVERS - 1) > 0.05:
+        raise AssertionError("the 32,768-row Table-1 cell is more than 5% from the paper")
+    del wide
+    torch.cuda.empty_cache()
+
+    # ---- 3. a fused fail-only run() of Table 1
+    scn_f = table1(rt, reliability=rt.Reliability(rt.FailurePolicy(p_fail=0.05, t_timeout=8.0)))
+    LAUNCH_COUNTS.clear()
+    t0 = time.perf_counter()
+    res = rt.run(scn_f, seed=12, replicas=FAIL_REPLICAS, execution=fused)
+    fail_wall = time.perf_counter() - t0
+    if dict(LAUNCH_COUNTS) != {"faas_sweep_rely_fused": 1}:
+        raise AssertionError(f"the fused fail-only run's launches: {dict(LAUNCH_COUNTS)}")
+    s = res.summary
+    served = float((s.n_cold + s.n_warm).sum())
+    want_to = float((s.n_warm.sum() * np.exp(-8 / 1.991) + s.n_cold.sum() * np.exp(-8 / 2.244))
+                    / served)
+    for name, got, want in (("failure", s.failure_prob, 0.05 * (1 - want_to)),
+                            ("timeout", s.timeout_prob, want_to)):
+        zz = abs(got - want) / np.sqrt(want * (1 - want) / served)
+        print(f"fused fail-only run: {name} probability {got:.6f}, expected {want:.6f} "
+              f"({zz:.2f} standard errors)", flush=True)
+        if zz > REF_RETRY_SIGMAS:
+            raise AssertionError(f"the fused fail-only run's {name} probability is off")
+    print(f"fused fail-only run: Table 1, {FAIL_REPLICAS} replicas, 1 launch, {fail_wall:.3f} s "
+          f"wall; goodput {s.goodput:.5f}/s, avg servers {res.avg_server_count:.4f}", flush=True)
+    ms, plain_ms, b_ms, b_by, err, acc, _, _ = fused_timed(
+        torch, rt, dev, card, scn_f, None, 12, FAIL_REPLICAS, "fail-only run")
+    if not np.array_equal(acc[:, 9].double().cpu().numpy(), s.n_fail):
+        raise AssertionError("the timed fused fail-only launch does not reproduce run()")
+    errs["faas_sweep_rely_fused"] = max(errs.get("faas_sweep_rely_fused", 0.0), err)
+    results["faas_sweep_rely_fused"] = dict(launches=1, ms=ms, plain_ms=plain_ms,
+                                            bound_ms=b_ms, bound_by=b_by)
+    del acc
+    torch.cuda.empty_cache()
+
+    # ---- 4. a fused windowed sweep: the windows hold the horizon's arrivals
+    scn_w = table1(rt, window_bounds=TABLE1_WINDOWS)
+    W = len(TABLE1_WINDOWS) - 1
+    LAUNCH_COUNTS.clear()
+    t0 = time.perf_counter()
+    grid_w = rt.sweep(scn_w, SWEEP_OVER, seed=10, replicas=SWEEP_REPLICAS, execution=fused)
+    win_wall = time.perf_counter() - t0
+    if dict(LAUNCH_COUNTS) != {"faas_sweep_win_fused": 1}:
+        raise AssertionError(f"the fused windowed sweep's launches: {dict(LAUNCH_COUNTS)}")
+    if not np.array_equal(grid_w.cold_start_prob, grid.cold_start_prob):
+        raise AssertionError("the fused windows changed a decision of the fused sweep")
+    ms, plain_ms, b_ms, b_by, err, acc, before_skip, _ = fused_timed(
+        torch, rt, dev, card, scn_w, SWEEP_OVER, 10, SWEEP_REPLICAS, "windowed sweep",
+        window_bounds=TABLE1_WINDOWS)
+    win_arr = np.concatenate([s.windows.n_arrivals.sum(1) for s in grid_w.summaries.ravel()])
+    counted = np.concatenate([s.n_requests for s in grid_w.summaries.ravel()])
+    diff = win_arr - counted - before_skip.cpu().numpy()
+    print(f"fused windowed sweep: {grid_w.shape} cells x {SWEEP_REPLICAS} replicas x {W} "
+          f"windows, 1 launch, {win_wall:.3f} s wall; windows vs horizon: largest per-row "
+          f"difference {np.abs(diff).max():.0f}, {int((diff != 0).sum())} rows differ by one",
+          flush=True)
+    if np.abs(diff).max() > 1:
+        raise AssertionError("the fused windows' arrivals do not add up to the horizon's")
+    errs["faas_sweep_win_fused"] = max(errs.get("faas_sweep_win_fused", 0.0), err)
+    results["faas_sweep_win_fused"] = dict(launches=1, ms=ms, plain_ms=plain_ms,
+                                           bound_ms=b_ms, bound_by=b_by)
+    return results, errs
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2076,10 +2575,12 @@ def main() -> int:
 
     # ---- 4. the main paths through the entry points a user calls
     scn = table1(rt)
+    torch.cuda.reset_peak_memory_stats()
     LAUNCH_COUNTS.clear()
     t0 = time.perf_counter()
     grid = rt.sweep(scn, SWEEP_OVER, seed=0, replicas=SWEEP_REPLICAS)
     sweep_s = time.perf_counter() - t0
+    staged_peak = torch.cuda.max_memory_allocated()
     sweep_launches = LAUNCH_COUNTS["faas_sweep"]
     if sweep_launches < 1:
         raise AssertionError("sweep() did not launch the faas_sweep kernel")
@@ -2087,7 +2588,8 @@ def main() -> int:
         raise AssertionError(f"{int((~grid.ok).sum())} sweep cells are not finite")
     servers = float(grid.sel(arrival_rate=0.9, expiration_threshold=600.0).avg_server_count)
     print(f"sweep: {grid.shape} cells x {SWEEP_REPLICAS} replicas, "
-          f"{sweep_launches} launch(es), {sweep_s:.2f} s wall; "
+          f"{sweep_launches} launch(es), {sweep_s:.2f} s wall, peak "
+          f"{staged_peak / 2**30:.3f} GiB on the card; "
           f"(0.9/s, 600 s) avg servers {servers:.4f} (paper {PAPER_SERVERS})", flush=True)
     if abs(servers / PAPER_SERVERS - 1) > 0.05:
         raise AssertionError("the Table-1 cell is more than 5% from the paper")
@@ -2305,7 +2807,15 @@ def main() -> int:
     print(f"reliability phase {time.perf_counter() - t0:.1f} s; script "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # ---- 10. kernels line, card line, device line
+    # ---- 10. fused draws
+    t0 = time.perf_counter()
+    fused_results, fused_errs = fused_phase(torch, rt, dev, card, grid, staged_peak)
+    results.update(fused_results)
+    errs.update(fused_errs)
+    print(f"fused draw phase {time.perf_counter() - t0:.1f} s; script "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---- 11. kernels line, card line, device line
     print(json.dumps({"kernels": [
         dict(KERNELS[k], **dict(dict(library_ms=None), **results[k]), max_abs_err=errs[k])
         for k in KERNELS

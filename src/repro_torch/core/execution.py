@@ -1,7 +1,9 @@
 """Execution plans and the backend registry of the PyTorch port.
 
 A frozen :class:`Execution` names the engine (simulation semantics), the
-backend (the row launchers that run the f32 block kernels) and the device.
+backend (the row launchers that run the f32 block kernels), the device and
+the draw mode (``"staged"`` sample buffers, or ``"fused"`` draws made in the
+kernel from per-row threefry keys, :mod:`repro_torch.core.drawplan`).
 Backends register one row launcher per engine at import; the registry
 imports the providing modules on first resolution (``_PROVIDERS``), and
 unknown names raise with the registered list.
@@ -41,13 +43,16 @@ class EngineSpec:
 
     ``windowed_backends`` lists the backends on which the engine produces
     per-window metrics, ``reliability_backends`` those on which it serves
-    timeouts, failures and retries; :func:`repro_torch.core.scenario.run`
-    and ``sweep`` refuse a layer on any other backend.
+    timeouts, failures and retries, ``fused_backends`` those on which it
+    draws its samples inline (``Execution(draws="fused")``);
+    :func:`repro_torch.core.scenario.run` and ``sweep`` refuse a layer on
+    any other backend.
     """
 
     name: str
     windowed_backends: tuple = ()
     reliability_backends: tuple = ()
+    fused_backends: tuple = ()
 
 
 # engines this port serves on the f32 block kernels; the reference's f64
@@ -55,7 +60,8 @@ class EngineSpec:
 # with it reliability on the temporal and par engines
 ENGINE_SPECS = {
     "scan": EngineSpec(
-        "scan", windowed_backends=("cuda", "ref"), reliability_backends=("cuda", "ref")
+        "scan", windowed_backends=("cuda", "ref"), reliability_backends=("cuda", "ref"),
+        fused_backends=("cuda", "ref"),
     ),
     "temporal": EngineSpec("temporal"),
     "par": EngineSpec("par"),
@@ -71,7 +77,10 @@ class BackendSpec:
     launcher (engines ``scan`` and ``temporal``) is ``launch(alive0,
     creation0, busy0, t0, t_exp, t_end, skip, dts, warms, colds, *,
     max_concurrency, prestamped, grid_times=None)`` on ``[C, ...]`` row
-    tensors and returns the ``[C, ACC_COLS + 3G]`` accumulator; the par
+    tensors and returns the ``[C, ACC_COLS + 3G]`` accumulator (with fused
+    draws, ``dts``/``warms``/``colds`` None and the ``fused_*`` inputs of
+    ``faas_sweep``, the pair ``(acc, t)``: the final clock feeds the
+    coverage guard); the par
     launcher is ``launch(t_exp, t_end, skip, dts, warms, colds, *,
     max_concurrency, concurrency, slots, prestamped)`` and returns
     ``[C, PAR_ACC_COLS]``.  The fleet launcher is ``launch(t_exp, limit,
@@ -149,16 +158,31 @@ def resolve_backend(name: str) -> BackendSpec:
 
 @dataclasses.dataclass(frozen=True)
 class Execution:
-    """One frozen execution plan: engine, backend and device.
+    """One frozen execution plan: engine, backend, device and draw mode.
 
     ``backend=None`` and ``device=None`` resolve as the module docstring
-    says; :meth:`resolve` validates the triple and returns the backend
-    spec and the concrete :class:`torch.device`.
+    says; ``draws=None`` means ``"staged"``.  :meth:`resolve` validates the
+    plan and returns the backend spec and the concrete
+    :class:`torch.device`.
     """
 
     engine: str = "scan"
     backend: Optional[str] = None
     device: Optional[Any] = None
+    draws: Optional[str] = None
+
+    def __post_init__(self):
+        if self.draws not in (None, "staged", "fused"):
+            raise ValueError(
+                f"unknown draws mode {self.draws!r}; supported: 'staged' "
+                "(sample buffers staged on the device) and 'fused' (draws "
+                "made in the kernel from per-row threefry keys)"
+            )
+
+    @property
+    def resolved_draws(self) -> str:
+        """The concrete draw mode: an unset ``draws`` means staged."""
+        return self.draws or "staged"
 
     def resolved_device(self) -> torch.device:
         dev = torch.device("cuda" if self.device is None else self.device)
@@ -174,7 +198,8 @@ class Execution:
 
     def resolve(self) -> tuple:
         """``(BackendSpec, torch.device)`` for this plan, validated: the
-        engine is known and the backend has a row launcher for it."""
+        engine is known, the backend has a row launcher for it and, with
+        fused draws, is one of the engine's ``fused_backends``."""
         if self.engine not in ENGINES:
             raise ValueError(
                 f"unknown engine {self.engine!r}; registered engines: "
@@ -189,6 +214,13 @@ class Execution:
                 "device; use backend='ref' for the plain version on the CPU"
             )
         bspec.launch_for(self.engine)
+        espec = ENGINE_SPECS[self.engine]
+        if self.resolved_draws == "fused" and name not in espec.fused_backends:
+            raise ValueError(
+                f"engine {self.engine!r} cannot draw fused samples on backend "
+                f"{name!r}; fused-capable backends: {espec.fused_backends or '()'} "
+                "(drop draws='fused' to keep the staged pipeline)"
+            )
         return bspec, dev
 
 

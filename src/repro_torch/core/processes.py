@@ -6,6 +6,9 @@ returns f32 samples clamped strictly positive at ``_EPS``, drawn from an
 explicit :class:`torch.Generator` (which must live on ``device``);
 ``sample_into(out, generator)`` fills a preallocated f32 buffer in place,
 so a sweep can stage its ``[C, K]`` buffers without a second copy.
+``draw_spec()`` lowers a process to the fused draw path
+(:mod:`repro_torch.core.drawplan`): a distribution id and its parameters,
+as the reference's families do.
 
 The families ported so far are the stationary closed-form ones:
 exponential, deterministic, (truncated) Gaussian, Weibull, Pareto and
@@ -95,6 +98,9 @@ class ExpSimProcess(SimProcess):
     def with_rate(self, rate):
         return dataclasses.replace(self, rate=float(rate))
 
+    def draw_spec(self):
+        return "exp", (self.rate,)
+
 
 @dataclasses.dataclass(frozen=True)
 class DeterministicSimProcess(SimProcess):
@@ -110,6 +116,9 @@ class DeterministicSimProcess(SimProcess):
 
     def with_rate(self, rate):
         return dataclasses.replace(self, interval=1.0 / float(rate))
+
+    def draw_spec(self):
+        return "det", (self.interval,)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,6 +140,9 @@ class GaussianSimProcess(SimProcess):
         f = (1.0 / float(rate)) / self.mu
         return dataclasses.replace(self, mu=self.mu * f, sigma=self.sigma * f)
 
+    def draw_spec(self):
+        return "gauss", (self.mu, self.sigma)
+
 
 @dataclasses.dataclass(frozen=True)
 class WeibullSimProcess(SimProcess):
@@ -151,6 +163,9 @@ class WeibullSimProcess(SimProcess):
             self, scale=1.0 / (float(rate) * math.gamma(1.0 + 1.0 / self.shape_k))
         )
 
+    def draw_spec(self):
+        return "weibull", (self.shape_k, self.scale)
+
 
 @dataclasses.dataclass(frozen=True)
 class LogNormalSimProcess(SimProcess):
@@ -169,6 +184,9 @@ class LogNormalSimProcess(SimProcess):
         return dataclasses.replace(
             self, mu=float(-math.log(rate) - 0.5 * self.sigma**2)
         )
+
+    def draw_spec(self):
+        return "lognorm", (self.mu, self.sigma)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,6 +212,9 @@ class ParetoSimProcess(SimProcess):
         return dataclasses.replace(
             self, x_m=(self.alpha - 1.0) / (self.alpha * float(rate))
         )
+
+    def draw_spec(self):
+        return "pareto", (self.alpha, self.x_m)
 
 
 # the families this slice ports, by reference class name (interop lookup)

@@ -34,6 +34,14 @@ host: the coverage guard sums them on the device in f64, and only the
 ``[C, 8]`` accumulator comes back.  ``staged=`` (see :mod:`repro_torch.
 interop`) replaces the draws with the reference's own buffers.
 
+With ``Execution(draws="fused")`` (scan engine, no retries) no sample
+buffer exists: the grid lowers to one :class:`~repro_torch.core.drawplan.
+DrawPlan`, each row carries a uint32 key pair per stream and f32 parameter
+pairs (48 bytes a row, 56 with the failure stream), the kernel draws every
+sample, and the coverage guard reads the kernel's final clock.
+``fused_keys=`` replaces the keys derived from ``seed`` (see
+:func:`repro_torch.interop.fused_keys_from_reference`).
+
 Not ported yet, each raising ``NotImplementedError`` that names its
 ROADMAP item: platform faults (Queue B item 1e), windowed single runs,
 histograms, non-newest routing and sweeps over the f64 engine's knobs
@@ -51,6 +59,7 @@ from typing import Any, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import drawplan as dp
 from repro_torch.core.cost import BillingModel, CostEstimate, estimate_cost
 from repro_torch.core.execution import ENGINE_SPECS, Execution, plan_of
 from repro_torch.core.processes import UNPORTED, ExpSimProcess, SimProcess, unported
@@ -61,6 +70,7 @@ from repro_torch.core.simulator import (
     SimulationSummary,
     WindowedMetrics,
     cell_generators,
+    check_clock_covered,
     check_covered,
     check_staged,
     check_table_covered,
@@ -254,15 +264,17 @@ class Result:
 
 def _block_launch(
     scn, t_exp, t_end, skip, samples, bspec, device, *,
-    prestamped=False, window_rows=None, t_timeout=None, p_fail=None,
+    prestamped=False, window_rows=None, t_timeout=None, p_fail=None, fused=None,
 ):
     """Fresh pools, per-row f32 parameters and the staged buffers
     (``samples``: ``dts, warms, colds``, then ``fail_u`` with reliability
     and ``is_first, child_pos`` with retries) into the backend's row
     launcher; returns the f64 accumulator on the host after the overflow
     guard.  ``window_rows`` is the ``[C, W+1]`` window-bound matrix;
-    ``t_timeout``/``p_fail`` the per-row reliability parameters."""
-    C = samples[0].shape[0]
+    ``t_timeout``/``p_fail`` the per-row reliability parameters.  With
+    ``fused`` (:func:`fused_state`) there are no samples: the kernel draws
+    them, and its final clock goes through the coverage guard."""
+    C = fused["keys"][0].shape[0] if fused is not None else samples[0].shape[0]
     rows = lambda x: torch.tensor(
         np.broadcast_to(np.asarray(x, np.float64), (C,)),
         dtype=torch.float32,
@@ -277,6 +289,18 @@ def _block_launch(
         kw["window_bounds"] = torch.tensor(
             np.asarray(window_rows, np.float64), dtype=torch.float32, device=device
         )
+    if fused is not None:
+        kw.update(fused_keys=fused["keys"], fused_params=fused["params"],
+                  fused_dists=fused["dists"], fused_k=fused["n_steps"])
+        if t_timeout is not None:
+            kw.update(t_timeout=rows(t_timeout), p_fail=rows(p_fail),
+                      fused_fail_keys=fused["fail_keys"])
+        acc, t_last = bspec.launch(
+            alive0, frozen, frozen, t0, rows(t_exp), rows(t_end), rows(skip),
+            None, None, None, max_concurrency=scn.max_concurrency, **kw,
+        )
+        check_clock_covered(t_last, np.broadcast_to(np.asarray(t_end, np.float64), (C,)))
+        return host_acc(acc)
     if len(samples) > 3:
         kw.update(t_timeout=rows(t_timeout), p_fail=rows(p_fail), fail_u=samples[3])
     if len(samples) > 4:
@@ -285,6 +309,69 @@ def _block_launch(
         alive0, frozen, frozen, t0, rows(t_exp), rows(t_end), rows(skip),
         *samples[:3], max_concurrency=scn.max_concurrency, prestamped=prestamped, **kw,
     ))
+
+
+def fused_state(cfgs, seed, replicas: int, n_steps: int, device, *, param_cells=1,
+                fused_keys=None) -> dict:
+    """The fused launch's whole sample state for the draw cells ``cfgs``
+    (rows in ``(draw, param, replica)`` order, each draw cell's rows
+    repeated over ``param_cells``): ``dists``, uint32 ``[C, 2]`` ``keys``
+    (arrival, warm, cold) and ``fail_keys`` (with reliability, else None),
+    f32 ``[C, 2]`` ``params`` and ``n_steps``, on ``device``.  The keys are
+    :func:`~repro_torch.core.drawplan.stream_row_keys` of ``seed``, or
+    ``fused_keys`` (a dict of ``[D*replicas, 2]`` uint32 arrays per
+    stream) when given.  One plan serves the grid, so every draw cell must
+    lower to the same distribution families."""
+    lowered = [dp.lower_scenario(c) for c in cfgs]
+    plans = {plan for plan, _ in lowered}
+    if len(plans) > 1:
+        raise ValueError(
+            "fused draws run one DrawPlan for the whole grid; sweeping "
+            "distribution families across draw cells needs draws='staged'"
+        )
+    plan = plans.pop()
+    D, R = len(cfgs), int(replicas)
+    streams = dp.STREAMS[:4 if plan.fail else 3]
+    if fused_keys is None:
+        cells = [dp.stream_row_keys(seed, d, R, fail=plan.fail) for d in range(D)]
+        keys = {s: np.concatenate([c[s] for c in cells]) for s in streams}
+    else:
+        keys = _handed_keys(fused_keys, streams, D * R)
+    rep = lambda a: np.repeat(a.reshape(D, 1, R, 2), param_cells, axis=1).reshape(-1, 2)
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    params = [
+        np.repeat(np.asarray([pv[s] for _, pv in lowered], np.float32), param_cells * R, axis=0)
+        for s in streams[:3]
+    ]
+    return dict(
+        dists=plan.dists,
+        keys=tuple(dev(rep(keys[s])) for s in streams[:3]),
+        fail_keys=dev(rep(keys["fail"])) if plan.fail else None,
+        params=tuple(dev(p) for p in params),
+        n_steps=int(n_steps),
+    )
+
+
+def _handed_keys(fused_keys, streams, rows: int) -> dict:
+    """The handed-in ``fused_keys`` as numpy uint32 ``[rows, 2]`` arrays."""
+    missing = [s for s in streams if s not in fused_keys]
+    if missing:
+        raise ValueError(f"fused_keys needs the streams {list(streams)}; missing {missing}")
+    out = {}
+    for s in streams:
+        x = fused_keys[s]
+        if isinstance(x, torch.Tensor):
+            if x.dtype != torch.uint32:
+                raise ValueError(f"fused_keys[{s!r}] must be uint32, got {x.dtype}")
+            x = x.cpu().view(torch.int32).numpy().view(np.uint32)
+        x = np.asarray(x)
+        if x.dtype != np.uint32 or x.shape != (rows, 2):
+            raise ValueError(
+                f"fused_keys[{s!r}] must be uint32 [{rows}, 2] (draw cell, "
+                f"replica rows), got {x.dtype} {x.shape}"
+            )
+        out[s] = x
+    return out
 
 
 def _cell_summaries(acc, R, measured, bounds=None, reliability=False) -> list:
@@ -335,6 +422,7 @@ def run(
     staged=None,
     grid=None,
     initial_instances: Sequence = (),
+    fused_keys=None,
 ) -> Result:
     """Run one scenario on an f32 block engine: ``replicas`` rows, one
     launch of the backend (default: the CUDA kernel on the card).
@@ -354,10 +442,15 @@ def run(
     K]`` buffers ``dts, warms, colds``, then ``fail_u`` with reliability
     and ``is_first, child_pos`` with retries, as
     :func:`repro_torch.interop.staged_from_reference` builds them)
-    replaces the draws, and ``steps`` sets the base K when drawing.
+    replaces the draws, and ``steps`` sets the base K when drawing.  With
+    ``execution=Execution(draws="fused")`` the kernel draws ``steps``
+    (default ``scenario.steps_needed()``) events from keys derived from
+    ``seed``, or from ``fused_keys`` (uint32 ``[replicas, 2]`` per stream).
     """
     plan = plan_of(execution, backend, device, engine=engine)
     bspec, dev = plan.resolve()
+    fused = plan.resolved_draws == "fused"
+    _check_draw_inputs(fused, staged, fused_keys)
     if plan.engine != "temporal" and (grid is not None or len(initial_instances)):
         raise ValueError("grid= and initial_instances= belong to engine='temporal'")
     scn = Scenario.of(scenario)
@@ -383,7 +476,7 @@ def run(
     elif plan.engine == "par":
         summary = run_par(scn, seed, bspec, dev, **kw)
     else:
-        summary = _run_scan(scn, seed, bspec, dev, **kw)
+        summary = _run_scan(scn, seed, bspec, dev, fused=fused, fused_keys=fused_keys, **kw)
     return Result(
         scenario=scn,
         summary=summary,
@@ -392,15 +485,32 @@ def run(
     )
 
 
-def _run_scan(scn, seed, bspec, dev, *, replicas, steps, staged):
+def _check_draw_inputs(fused: bool, staged, fused_keys) -> None:
+    """``staged=`` hands in staged buffers, ``fused_keys=`` fused keys."""
+    if fused and staged is not None:
+        raise ValueError(
+            "staged= hands in sample buffers, which fused draws do not read; "
+            "hand keys in with fused_keys=, or use draws='staged'"
+        )
+    if not fused and fused_keys is not None:
+        raise ValueError("fused_keys= needs execution=Execution(draws='fused')")
+
+
+def _run_scan(scn, seed, bspec, dev, *, replicas, steps, staged, fused=False,
+              fused_keys=None):
     """The steady-state engine: fresh pools, one launch."""
-    samples = run_samples(scn, seed, replicas, steps, staged, dev)
     rel = scn.reliability
+    samples, state = (), None
+    if fused:
+        n = int(steps or scn.steps_needed())
+        state = fused_state([scn], seed, replicas, n, dev, fused_keys=fused_keys)
+    else:
+        samples = run_samples(scn, seed, replicas, steps, staged, dev)
     acc = _block_launch(
         scn, scn.expiration_threshold, scn.sim_time, scn.skip_time, samples, bspec, dev,
         prestamped=scn.prestamped or scn.max_retries > 0,
         t_timeout=None if rel is None else rel.failure.timeout_or_inf,
-        p_fail=None if rel is None else rel.failure.p_fail,
+        p_fail=None if rel is None else rel.failure.p_fail, fused=state,
     )
     return _cell_summaries(
         acc, replicas, [scn.sim_time - scn.skip_time], reliability=rel is not None
@@ -552,7 +662,7 @@ class GridResult:
     def to_dict(self) -> dict:
         """JSON-able export: axes (non-scalar values stringified), every
         metric grid including ``ok`` and the windowed grids when present,
-        and the resolved device."""
+        and the resolved device and draw mode."""
         jsonable = lambda x: x if isinstance(x, (int, float, str, bool)) else repr(x)
         out = {
             "axes": {n: [jsonable(x) for x in v] for n, v in self.axes.items()},
@@ -561,6 +671,7 @@ class GridResult:
         }
         if self.execution is not None:
             out["device"] = str(self.execution.device)
+            out["draws"] = self.execution.resolved_draws
         for f in self._METRIC_FIELDS + self._WINDOWED_FIELDS:
             a = getattr(self, f)
             if a is not None:
@@ -592,7 +703,8 @@ class SweepInputs:
     (host f64, rows in ``(draw, param, replica)`` order) and the staged f32
     ``[C, K]`` buffers on the device (``dts, warms, colds``, then
     ``fail_u`` with reliability and ``is_first, child_pos`` with retries,
-    whose K is the attempt table's)."""
+    whose K is the attempt table's), or with fused draws no buffers and
+    the :func:`fused_state` dict."""
 
     names: list
     vals: dict
@@ -603,6 +715,7 @@ class SweepInputs:
     t_timeout_rows: Optional[np.ndarray] = None
     p_fail_rows: Optional[np.ndarray] = None
     prestamped: bool = False
+    fused: Optional[dict] = None
 
 
 def _check_axes(base: Scenario, over: Mapping[str, Sequence]) -> tuple:
@@ -647,9 +760,12 @@ def sweep_inputs(
     device,
     steps: Optional[int] = None,
     staged=None,
+    draws: str = "staged",
+    fused_keys=None,
 ) -> SweepInputs:
     """Partition the axes, build the per-row parameters and stage the
-    samples — everything :func:`sweep` does before its launches."""
+    samples (or, with ``draws="fused"``, the keys and parameters) —
+    everything :func:`sweep` does before its launches."""
     names, vals = _check_axes(base, over)
     draw_names = [n for n in names if n in _DRAW_FIELDS]
     param_names = [n for n in names if n in _PARAM_FIELDS]
@@ -671,14 +787,20 @@ def sweep_inputs(
     D = len(draw_cfgs)
     rel = base.reliability
     width = staged_widths(base)
-    if staged is not None:
+    param_cells = int(np.prod([len(vals[n]) for n in param_names]))
+    n_steps = (
+        int(steps)
+        if steps is not None
+        else max(Scenario.of(c, sim_time=max_sim).steps_needed() for c in draw_cfgs)
+    )
+    fused = None
+    if draws == "fused":
+        fused = fused_state(draw_cfgs, seed, R, n_steps, device, param_cells=param_cells,
+                            fused_keys=fused_keys)
+        bufs = ()
+    elif staged is not None:
         bufs = check_staged(staged, D * R, device, width)
     else:
-        n_steps = (
-            int(steps)
-            if steps is not None
-            else max(Scenario.of(c, sim_time=max_sim).steps_needed() for c in draw_cfgs)
-        )
         K = n_steps * (base.max_retries + 1)
         bufs = tuple(
             torch.empty((D * R, K), dtype=torch.float32, device=device)
@@ -724,6 +846,7 @@ def sweep_inputs(
         t_timeout_rows=None if rel is None else _param_col("t_timeout", rel.failure.timeout_or_inf),
         p_fail_rows=None if rel is None else _param_col("p_fail", rel.failure.p_fail),
         prestamped=base.prestamped or base.max_retries > 0,
+        fused=fused,
     )
 
 
@@ -738,6 +861,7 @@ def sweep(
     execution: Optional[Execution] = None,
     steps: Optional[int] = None,
     staged=None,
+    fused_keys=None,
 ) -> GridResult:
     """Product-grid what-if sweep over scenario fields (module docstring
     has the partitioning rules): one launch per static combination.
@@ -746,7 +870,10 @@ def sweep(
     ``[D*replicas, K]`` buffers ``dts, warms, colds``, then ``fail_u``
     with reliability and ``is_first, child_pos`` with retries, draw cells
     in ``over``'s product order) replaces the draws, and ``steps`` sets
-    the base K when drawing.
+    the base K when drawing.  With ``execution=Execution(draws="fused")``
+    the kernel draws every sample from per-row keys (``fused_keys``, uint32
+    ``[D*replicas, 2]`` per stream, replaces the keys of ``seed``); the
+    result's ``execution.draws`` says which mode ran.
     """
     plan = plan_of(execution, backend, device)
     if plan.engine != "scan":
@@ -755,7 +882,9 @@ def sweep(
             "single scenarios only (use run(), or engine='scan' for grids)"
         )
     bspec, dev = plan.resolve()
-    plan = dataclasses.replace(plan, backend=bspec.name, device=str(dev))
+    plan = dataclasses.replace(plan, backend=bspec.name, device=str(dev),
+                               draws=plan.resolved_draws)
+    _check_draw_inputs(plan.draws == "fused", staged, fused_keys)
     base = Scenario.of(scenario)
     espec = ENGINE_SPECS[plan.engine]
     if base.reliability is not None and bspec.name not in espec.reliability_backends:
@@ -770,7 +899,8 @@ def sweep(
             f"{plan.engine!r}; windowed_backends: {espec.windowed_backends}"
         )
     inp = sweep_inputs(
-        base, over, seed, replicas=replicas, device=dev, steps=steps, staged=staged
+        base, over, seed, replicas=replicas, device=dev, steps=steps, staged=staged,
+        draws=plan.draws, fused_keys=fused_keys,
     )
     names, vals, R = inp.names, inp.vals, int(replicas)
     static_names = [n for n in names if n in _STATIC_FIELDS]
@@ -780,7 +910,7 @@ def sweep(
     if len(samples) == 6:
         if staged is not None:  # drawn tables were guarded on their gaps
             check_table_covered(samples[0], samples[4], inp.sim_rows, dev)
-    else:
+    elif inp.fused is None:  # fused launches are guarded on their final clock
         check_covered(samples[0], inp.sim_rows, dev)
 
     all_summaries: list = []
@@ -794,7 +924,7 @@ def sweep(
             scn_s, inp.thr_rows, inp.sim_rows, inp.skip_rows, samples, bspec, dev,
             prestamped=inp.prestamped,
             window_rows=None if wb is None else np.tile(wb, (len(inp.thr_rows), 1)),
-            t_timeout=inp.t_timeout_rows, p_fail=inp.p_fail_rows,
+            t_timeout=inp.t_timeout_rows, p_fail=inp.p_fail_rows, fused=inp.fused,
         )
         measured = (inp.sim_rows - inp.skip_rows)[::R]
         cells = _cell_summaries(acc, R, measured, bounds=wb,

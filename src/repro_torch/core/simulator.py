@@ -358,6 +358,17 @@ def check_covered(dts, sim_rows, device) -> None:
         )
 
 
+def check_clock_covered(t_last, sim_rows) -> None:
+    """Coverage guard of a fused launch, on the kernel's final clock: every
+    row's drawn arrivals must reach its horizon."""
+    need = torch.as_tensor(np.array(sim_rows, np.float64), device=t_last.device)
+    if bool((t_last.double() < need).any()):
+        raise RuntimeError(
+            "fused arrival stream ended before sim_time "
+            f"(min final t {t_last.min().item():.1f}); pass a larger `steps`"
+        )
+
+
 def check_table_covered(times, is_first, sim_rows, device) -> None:
     """Coverage guard of staged attempt tables (absolute times): every
     row's first attempts must reach its horizon."""

@@ -7,7 +7,9 @@ imports nothing of the reference).  :func:`staged_from_reference` turns
 the reference's per-draw-cell ``(dts, warms, colds)`` arrays (with the
 reliability extras of its ``draw_reliability_stream``) into the
 ``staged=`` buffers that :func:`~repro_torch.core.scenario.run` and
-:func:`~repro_torch.core.scenario.sweep` consume instead of drawing.
+:func:`~repro_torch.core.scenario.sweep` consume instead of drawing, and
+:func:`fused_keys_from_reference` turns the reference's per-draw-cell
+fused stream keys into the ``fused_keys=`` that fused runs draw from.
 :func:`fleet_from_reference` and :func:`fleet_staged_from_reference` do
 the same for fleets: a reference ``FleetScenario`` and the merged stream
 of its ``_stage_fleet``.  :func:`params_from_reference` carries a reference
@@ -103,6 +105,27 @@ def staged_from_reference(parts, device=None) -> tuple:
         ).to(device or "cpu")
         for j in range(len(flat[0]))
     )
+
+
+def fused_keys_from_reference(parts, device=None) -> dict:
+    """The port's ``fused_keys=`` from the reference's per-draw-cell
+    ``stream_row_keys`` dicts (uint32 ``[R, 2]`` arrays under ``"arrival"``,
+    ``"warm"``, ``"cold"`` and, with reliability, ``"fail"``), in draw-cell
+    order: one uint32 ``[D*R, 2]`` tensor per stream (on ``device``,
+    default the CPU).  The fused bitstream is the contract between the
+    packages, so with the same keys both draw the same uniforms."""
+    parts = [dict(p) for p in parts]
+    names = {frozenset(p) for p in parts}
+    if not parts or len(names) != 1:
+        raise ValueError("parts must be a non-empty list of stream_row_keys dicts, all alike")
+    out = {}
+    for name in parts[0]:
+        arrs = [np.asarray(p[name]) for p in parts]
+        if any(a.dtype != np.uint32 or a.ndim != 2 or a.shape[1] != 2 for a in arrs):
+            raise ValueError(f"stream {name!r}: keys must be uint32 [R, 2] arrays")
+        out[name] = torch.from_numpy(np.ascontiguousarray(np.concatenate(arrs))).to(
+            device or "cpu")
+    return out
 
 
 def fleet_from_reference(obj) -> FleetScenario:

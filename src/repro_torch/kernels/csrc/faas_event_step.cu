@@ -3,7 +3,8 @@
 // Replaces the TPU kernel repro/kernels/faas_event_step.py::_faas_kernel
 // (launched by faas_sweep_pallas) for its base staged path, the
 // prestamped mode, the transient grid-curve columns, the metric windows,
-// the reliability layer (timeouts, failures) and client retries.  Each row
+// the reliability layer (timeouts, failures), client retries and fused
+// threefry draws.  Each row
 // (one replica of one what-if cell) runs K arrivals against its own pool
 // of M instance slots (alive, creation, busy).  Per arrival: exact
 // integrals of running and idle instance-time over the interval clipped
@@ -42,6 +43,18 @@
 // later position: the table is sorted stably and backoffs are > 0).
 // Inactive attempts still advance the clock, integrate and expire.
 //
+// Fused draws (FUSED; base, windows and reliability): instead of reading
+// staged samples, the kernel draws event k's samples from the row's
+// per-stream uint32 key pair, as repro_torch/core/drawplan.py defines the
+// bitstream: threefry-2x32 of the counter (k, 0), 20 rounds, each word's
+// top 23 bits filling the mantissa of 1.0, minus 1, then the stream's
+// inverse CDF or Box-Muller transform with its two per-row parameters
+// (distribution ids are runtime, warp-uniform arguments, so the template
+// instances do not multiply by 6^3).  The failure uniform is word 0 of the
+// fail stream's draw.  The transforms call the same libm functions in the
+// same order as the plain version (logf, cosf, expf, powf, sqrtf,
+// correctly rounded divisions, the 1e-9 clamp).
+//
 // What bounds it on this card: every event touches every slot of the row
 // (~25 f32 operations per slot in the body below, ~12 more per slot and
 // overlapping window) while the samples are 12 to 24 bytes per event, so
@@ -51,10 +64,16 @@
 // so the latency of each event's reductions matters as much as their
 // count.
 //
+// Fused draws add per event about 130 integer operations a stream (3 or 4
+// streams) and up to 4 transcendental calls, against the ~25 M f32
+// operations of the pool walk, and remove the 12-16 bytes of sample loads.
+//
 // What the design does about that: one warp per row, with the pool in
 // registers (ceil(M/32) slots per lane), so no pool state ever leaves the
 // SM.  Samples are loaded 32 events at a time, one per lane (coalesced),
-// and broadcast per event with __shfl_sync.  The per-event reductions over
+// and broadcast per event with __shfl_sync; with fused draws lane l draws
+// event base + l of the batch instead of loading it, so the 32 lanes draw a
+// batch in parallel and the broadcast stays.  The per-event reductions over
 // the pool are warp shuffles (sums and the argmax by xor butterflies) and
 // ballots (the lowest free slot); the butterflies leave the same bits in
 // every lane, so the row's clock and accumulators are replicated per lane
@@ -93,16 +112,107 @@ constexpr int MAX_GRID = 1024;  // grid points per row (3 acc columns each)
 constexpr int MAX_WINDOWS = 65536;  // windows per row (5 acc columns each)
 
 // which optional paths a launch runs (a template instance each)
-constexpr int F_GRID = 1, F_WIN = 2, F_RELY = 4, F_RETRY = 8;
+constexpr int F_GRID = 1, F_WIN = 2, F_RELY = 4, F_RETRY = 8, F_FUSED = 16;
+
+// fused distribution ids (repro_torch/core/drawplan.py FUSED_DISTS)
+enum Dist { D_EXP = 0, D_DET, D_GAUSS, D_WEIBULL, D_LOGNORM, D_PARETO, N_DISTS };
 
 struct Params {
   const float *alive_in, *creation_in, *busy_in, *t0, *t_exp, *t_end, *skip;
   const float *dts, *warms, *colds, *grid, *wb, *t_to, *p_fail, *fail_u,
       *is_first, *child_pos;
+  // fused draws: uint32 key pairs [R, 2] (arrival, warm, cold, fail) and
+  // f32 (p0, p1) pairs [R, 2] (arrival, warm, cold)
+  const unsigned *keys[4];
+  const float* params[3];
+  int dists[3];
   float *alive_out, *creation_out, *busy_out, *t_out, *acc_out, *act_out;
   int R, M, K, G, W, cols;
   float max_c;
   int prestamped;
+};
+
+// four threefry rounds with rotations R0..R3
+template <int R0, int R1, int R2, int R3>
+__device__ __forceinline__ void threefry_rounds(unsigned& x0, unsigned& x1) {
+  x0 += x1; x1 = __funnelshift_l(x1, x1, R0); x1 ^= x0;
+  x0 += x1; x1 = __funnelshift_l(x1, x1, R1); x1 ^= x0;
+  x0 += x1; x1 = __funnelshift_l(x1, x1, R2); x1 ^= x0;
+  x0 += x1; x1 = __funnelshift_l(x1, x1, R3); x1 ^= x0;
+}
+
+// threefry-2x32, 20 rounds, of the counter (c0, 0) under key (k0, k1): five
+// blocks of four rounds, after block b the key words (b+1)%3 and (b+2)%3 and
+// the block number b+1 injected
+__device__ __forceinline__ void threefry2x32(unsigned k0, unsigned k1, unsigned c0,
+                                             unsigned& o0, unsigned& o1) {
+  const unsigned k2 = k0 ^ k1 ^ 0x1BD11BDAu;
+  unsigned x0 = c0 + k0, x1 = k1;
+  threefry_rounds<13, 15, 26, 6>(x0, x1);
+  x0 += k1; x1 += k2 + 1u;
+  threefry_rounds<17, 29, 16, 24>(x0, x1);
+  x0 += k2; x1 += k0 + 2u;
+  threefry_rounds<13, 15, 26, 6>(x0, x1);
+  x0 += k0; x1 += k1 + 3u;
+  threefry_rounds<17, 29, 16, 24>(x0, x1);
+  x0 += k1; x1 += k2 + 4u;
+  threefry_rounds<13, 15, 26, 6>(x0, x1);
+  x0 += k2; x1 += k0 + 5u;
+  o0 = x0;
+  o1 = x1;
+}
+
+// a [0, 1) uniform from a word: its top 23 bits fill the mantissa of 1.0
+__device__ __forceinline__ float uniform_from_bits(unsigned b) {
+  return __fsub_rn(__uint_as_float((b >> 9) | 0x3F800000u), 1.f);
+}
+
+__device__ __forceinline__ float box_muller(float u0, float u1) {
+  const float r = sqrtf(__fmul_rn(-2.f, logf(__fsub_rn(1.f, u0))));
+  return __fmul_rn(r, cosf(__fmul_rn(6.2831855f, u1)));
+}
+
+// one sample by inverse CDF or Box-Muller, as drawplan.sample_dist
+__device__ __forceinline__ float sample_dist(int kind, float u0, float u1, float p0,
+                                             float p1) {
+  float out;
+  switch (kind) {
+    case D_EXP: out = __fdiv_rn(-logf(__fsub_rn(1.f, u0)), p0); break;
+    case D_DET: out = p0; break;
+    case D_GAUSS: out = __fadd_rn(p0, __fmul_rn(p1, box_muller(u0, u1))); break;
+    case D_WEIBULL:
+      out = __fmul_rn(p1, powf(-logf(__fsub_rn(1.f, u0)), __fdiv_rn(1.f, p0)));
+      break;
+    case D_LOGNORM: out = expf(__fadd_rn(p0, __fmul_rn(p1, box_muller(u0, u1)))); break;
+    default: out = __fdiv_rn(p1, powf(__fsub_rn(1.f, u0), __fdiv_rn(1.f, p0))); break;
+  }
+  return fmaxf(out, 1e-9f);
+}
+
+// a row's fused stream: its key pair and parameters, loaded once
+struct FusedStream {
+  unsigned k0, k1;
+  float p0, p1;
+  int kind;
+
+  __device__ __forceinline__ void load(const unsigned* keys, const float* params, int d,
+                                       int row) {
+    k0 = keys[2 * row];
+    k1 = keys[2 * row + 1];
+    p0 = params ? params[2 * row] : 0.f;
+    p1 = params ? params[2 * row + 1] : 0.f;
+    kind = d;
+  }
+  __device__ __forceinline__ float draw(unsigned k) const {
+    unsigned b0, b1;
+    threefry2x32(k0, k1, k, b0, b1);
+    return sample_dist(kind, uniform_from_bits(b0), uniform_from_bits(b1), p0, p1);
+  }
+  __device__ __forceinline__ float uniform(unsigned k) const {
+    unsigned b0, b1;
+    threefry2x32(k0, k1, k, b0, b1);
+    return uniform_from_bits(b0);
+  }
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -158,11 +268,12 @@ struct WindowCursor {
   }
 };
 
-// S: slots per lane (M <= 32 * S); GRID, WIN, RELY, RETRY: the optional
-// paths (RETRY implies RELY)
-template <int S, bool GRID, bool WIN, bool RELY, bool RETRY>
+// S: slots per lane (M <= 32 * S); GRID, WIN, RELY, RETRY, FUSED: the
+// optional paths (RETRY implies RELY; FUSED goes without GRID and RETRY)
+template <int S, bool GRID, bool WIN, bool RELY, bool RETRY, bool FUSED>
 __global__ void __launch_bounds__(WARPS * 32) faas_sweep_kernel(const Params p) {
   static_assert(!RETRY || RELY, "retries ride on the reliability path");
+  static_assert(!FUSED || (!GRID && !RETRY), "fused draws serve base, windows, reliability");
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (row >= p.R) return;  // the ragged last block: the whole warp leaves
@@ -211,15 +322,32 @@ __global__ void __launch_bounds__(WARPS * 32) faas_sweep_kernel(const Params p) 
     cur.enter(0);
   }
 
+  FusedStream fa, fw, fc, ff;
+  if (FUSED) {
+    fa.load(p.keys[0], p.params[0], p.dists[0], row);
+    fw.load(p.keys[1], p.params[1], p.dists[1], row);
+    fc.load(p.keys[2], p.params[2], p.dists[2], row);
+    if (RELY) ff.load(p.keys[3], nullptr, 0, row);
+  }
+
   const size_t srow = (size_t)row * K;
   for (int base = 0; base < K; base += 32) {
     if (RETRY) __syncwarp();  // lane 0's activation stores, before the loads
     const int k = base + lane;
     const bool in = k < K;
-    const float d_l = in ? p.dts[srow + k] : 0.f;
-    const float w_l = in ? p.warms[srow + k] : 0.f;
-    const float c_l = in ? p.colds[srow + k] : 0.f;
-    const float f_l = RELY && in ? p.fail_u[srow + k] : 1.f;
+    // lane l loads (or, fused, draws) event base + l of the batch
+    float d_l, w_l, c_l, f_l;
+    if (FUSED) {
+      d_l = in ? fa.draw((unsigned)k) : 0.f;
+      w_l = in ? fw.draw((unsigned)k) : 0.f;
+      c_l = in ? fc.draw((unsigned)k) : 0.f;
+      f_l = RELY && in ? ff.uniform((unsigned)k) : 1.f;
+    } else {
+      d_l = in ? p.dts[srow + k] : 0.f;
+      w_l = in ? p.warms[srow + k] : 0.f;
+      c_l = in ? p.colds[srow + k] : 0.f;
+      f_l = RELY && in ? p.fail_u[srow + k] : 1.f;
+    }
     const float first_l = RETRY && in ? p.is_first[srow + k] : 0.f;
     const float child_l = RETRY && in ? p.child_pos[srow + k] : NO_CHILD_F;
     const float act_l = RETRY && in ? act[k] : 0.f;
@@ -455,14 +583,15 @@ __global__ void __launch_bounds__(WARPS * 32) faas_sweep_kernel(const Params p) 
   }
 }
 
-template <int S, bool GRID, bool WIN, bool RELY, bool RETRY>
+template <int S, bool GRID, bool WIN, bool RELY, bool RETRY, bool FUSED = false>
 void launch_one(const Params& p, cudaStream_t stream) {
   const dim3 blocks((p.R + WARPS - 1) / WARPS), threads(WARPS * 32);
-  faas_sweep_kernel<S, GRID, WIN, RELY, RETRY><<<blocks, threads, 0, stream>>>(p);
+  faas_sweep_kernel<S, GRID, WIN, RELY, RETRY, FUSED><<<blocks, threads, 0, stream>>>(p);
 }
 
 // the flag sets the front door reaches: GRID alone (the temporal engine);
-// windows and/or reliability, with or without retries (the scan engine)
+// windows and/or reliability, with or without retries, staged or (without
+// retries) fused draws (the scan engine)
 template <int S>
 bool launch(const Params& p, int flags, cudaStream_t st) {
   switch (flags) {
@@ -475,6 +604,12 @@ bool launch(const Params& p, int flags, cudaStream_t st) {
     case F_WIN | F_RELY | F_RETRY:
       launch_one<S, false, true, true, true>(p, st);
       return true;
+    case F_FUSED: launch_one<S, false, false, false, false, true>(p, st); return true;
+    case F_FUSED | F_WIN: launch_one<S, false, true, false, false, true>(p, st); return true;
+    case F_FUSED | F_RELY: launch_one<S, false, false, true, false, true>(p, st); return true;
+    case F_FUSED | F_WIN | F_RELY:
+      launch_one<S, false, true, true, false, true>(p, st);
+      return true;
     default: return false;
   }
 }
@@ -482,34 +617,47 @@ bool launch(const Params& p, int flags, cudaStream_t st) {
 }  // namespace
 
 // Plain C entry, bound with ctypes.  Inputs: alive, creation, busy [R, M];
-// t0, t_exp, t_end, skip [R]; dts, warms, colds [R, K]; then the optional
-// paths' inputs, each null when its path is off: grid [R, G] (G > 0),
-// window_bounds [R, W+1] (W > 0, strictly increasing), t_timeout, p_fail
-// [R] and fail_u [R, K] (reliability), is_first, child_pos [R, K]
-// (retries, with reliability) — all f32, contiguous, on `device`.
-// Outputs: alive, creation, busy [R, M], t [R], acc [R, 8 + 5W + 3G + 4
-// with reliability], act [R, K] with retries (else null).  Launches on
-// `stream` and returns cudaGetLastError(), or cudaErrorInvalidValue for
-// arguments no instance takes.
+// t0, t_exp, t_end, skip [R]; dts, warms, colds [R, K] (null with fused
+// draws); then the optional paths' inputs, each null when its path is off:
+// grid [R, G] (G > 0), window_bounds [R, W+1] (W > 0, strictly
+// increasing), t_timeout, p_fail [R] and fail_u [R, K] (reliability; null
+// fail_u with fused draws), is_first, child_pos [R, K] (retries, with
+// reliability) — all f32, contiguous, on `device`; fused draws: uint32 key
+// pairs [R, 2] arrival, warm, cold (and fail with reliability), f32
+// parameter pairs [R, 2] arrival, warm, cold and the three distribution
+// ids (FUSED_DISTS order).  Outputs: alive, creation, busy [R, M], t [R],
+// acc [R, 8 + 5W + 3G + 4 with reliability], act [R, K] with retries
+// (else null).  Launches on `stream` and returns cudaGetLastError(), or
+// cudaErrorInvalidValue for arguments no instance takes.
 extern "C" int faas_sweep_f32(
     const void* alive_in, const void* creation_in, const void* busy_in,
     const void* t0, const void* t_exp, const void* t_end, const void* skip,
     const void* dts, const void* warms, const void* colds, const void* grid,
     const void* window_bounds, const void* t_timeout, const void* p_fail,
     const void* fail_u, const void* is_first, const void* child_pos,
+    const void* akey, const void* wkey, const void* ckey, const void* fkey,
+    const void* apar, const void* wpar, const void* cpar,
     void* alive_out, void* creation_out, void* busy_out, void* t_out,
     void* acc_out, void* act_out, int R, int M, int K, int G, int W,
-    int max_concurrency, int prestamped, int device, void* stream) {
+    int max_concurrency, int prestamped, int d_arr, int d_warm, int d_cold,
+    int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const bool rely = t_timeout != nullptr, retry = is_first != nullptr;
+  const bool fused = akey != nullptr;
   const int flags = (G > 0 ? F_GRID : 0) | (W > 0 ? F_WIN : 0) |
-                    (rely ? F_RELY : 0) | (retry ? F_RETRY : 0);
+                    (rely ? F_RELY : 0) | (retry ? F_RETRY : 0) |
+                    (fused ? F_FUSED : 0);
+  const bool dists_ok = d_arr >= 0 && d_arr < N_DISTS && d_warm >= 0 &&
+                        d_warm < N_DISTS && d_cold >= 0 && d_cold < N_DISTS;
   if (R < 1 || M < 1 || M > 1024 || K < 0 || G < 0 || G > MAX_GRID || W < 0 ||
       W > MAX_WINDOWS || (G > 0 && grid == nullptr) ||
       (W > 0 && window_bounds == nullptr) ||
-      (rely && (p_fail == nullptr || fail_u == nullptr)) ||
-      (retry && (child_pos == nullptr || act_out == nullptr || K > (1 << 24))))
+      (rely && (p_fail == nullptr || (fused ? fkey : fail_u) == nullptr)) ||
+      (retry && (child_pos == nullptr || act_out == nullptr || K > (1 << 24))) ||
+      (fused && (wkey == nullptr || ckey == nullptr || apar == nullptr ||
+                 wpar == nullptr || cpar == nullptr || !dists_ok || prestamped)) ||
+      (!fused && (dts == nullptr || warms == nullptr || colds == nullptr)))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.alive_in = (const float*)alive_in;
@@ -529,6 +677,16 @@ extern "C" int faas_sweep_f32(
   p.fail_u = (const float*)fail_u;
   p.is_first = (const float*)is_first;
   p.child_pos = (const float*)child_pos;
+  p.keys[0] = (const unsigned*)akey;
+  p.keys[1] = (const unsigned*)wkey;
+  p.keys[2] = (const unsigned*)ckey;
+  p.keys[3] = (const unsigned*)fkey;
+  p.params[0] = (const float*)apar;
+  p.params[1] = (const float*)wpar;
+  p.params[2] = (const float*)cpar;
+  p.dists[0] = d_arr;
+  p.dists[1] = d_warm;
+  p.dists[2] = d_cold;
   p.alive_out = (float*)alive_out;
   p.creation_out = (float*)creation_out;
   p.busy_out = (float*)busy_out;

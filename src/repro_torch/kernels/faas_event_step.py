@@ -5,8 +5,11 @@ launcher (backend ``"cuda"``).
 faas_sweep_pallas`` for the base staged path, the ``prestamped`` mode, the
 transient grid-curve columns (``grid_times``, the temporal engine), the
 metric windows (``window_bounds``), the reliability layer (``t_timeout``,
-``p_fail``, ``fail_u``) and client retries (``is_first``, ``child_pos``,
-with the activation plane as a sixth output).
+``p_fail``, ``fail_u``), client retries (``is_first``, ``child_pos``,
+with the activation plane as a sixth output) and fused threefry draws
+(``fused_keys``, ``fused_params``, ``fused_dists``, ``fused_k``, and
+``fused_fail_keys`` with reliability: the kernel draws every sample from
+per-row keys, :mod:`repro_torch.core.drawplan`).
 The kernel itself is ``csrc/faas_event_step.cu`` (one warp per row, the
 pool in registers; its header says what bounds it and why it is built the
 way it is).  For CUDA tensors the wrapper checks device, dtype, shape and
@@ -15,9 +18,8 @@ launch in ``LAUNCH_COUNTS`` under its path's key (:func:`launch_key`);
 for CPU tensors it runs the plain version
 :func:`repro_torch.kernels.ref.faas_sweep_ref`.
 
-The reference kernel's two other optional paths, fused draws and platform
-faults, are later slices (ROADMAP Queue B items 1d and 1e); the wrapper
-refuses them.
+The reference kernel's last optional path, platform faults, is a later
+slice (ROADMAP Queue B item 1e); the wrapper refuses its inputs.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import functools
 
 import torch
 
+from repro_torch.core.drawplan import FUSED_DISTS
 from repro_torch.core.execution import register_backend
 from repro_torch.kernels import _build
 # NEG (the dead-slot sentinel) and the acc layout are shared with the plain
@@ -53,13 +56,18 @@ MAX_GRID = 1024
 MAX_WINDOWS = 1 << 16
 # attempt positions ride in f32 (child_pos); exact up to 2^24
 MAX_RETRY_EVENTS = 1 << 24
+# fused draws count events in the kernel's int (the threefry counter is
+# the event index)
+MAX_FUSED_EVENTS = (1 << 31) - 1
 
 # kernel launches by wrapper name, bumped once per launch and nowhere else.
 # faas_sweep counts each of its paths under its own key: "faas_sweep" (the
 # base scan path), "faas_sweep_grid" (grid columns, the temporal engine),
 # "faas_sweep_win" (metric windows), "faas_sweep_rely" (reliability without
 # retries), "faas_sweep_retry" (retries) and "faas_sweep_win_rely" /
-# "faas_sweep_win_retry" (windows with either); beside them "par_sweep",
+# "faas_sweep_win_retry" (windows with either), each with "_fused" appended
+# when the kernel draws its samples (e.g. "faas_sweep_fused",
+# "faas_sweep_win_rely_fused"); beside them "par_sweep",
 # "fleet_sweep", "flash_attention", "decode_attention", "ssd_scan" and
 # "rglru_scan"
 LAUNCH_COUNTS: collections.Counter = collections.Counter()
@@ -67,9 +75,6 @@ LAUNCH_COUNTS: collections.Counter = collections.Counter()
 # the reference kernel's inputs of paths not ported yet, and the ROADMAP
 # Queue B item that brings each
 _LATER = {
-    "fused_keys": "fused threefry draws, Queue B item 1d",
-    "fused_params": "fused threefry draws, Queue B item 1d",
-    "fused_fail_keys": "fused threefry draws, Queue B item 1d",
     "crash_rate": "platform faults, Queue B item 1e",
     "crash_u": "platform faults, Queue B item 1e",
     "cap_edges": "platform faults, Queue B item 1e",
@@ -77,19 +82,20 @@ _LATER = {
 }
 
 
-def launch_key(grid: bool, windows: bool, reliability: bool, retries: bool) -> str:
+def launch_key(grid: bool, windows: bool, reliability: bool, retries: bool,
+               fused: bool = False) -> str:
     """The ``LAUNCH_COUNTS`` key of a faas_sweep launch with these paths."""
     if grid:
         return "faas_sweep_grid"
     tail = "_retry" if retries else "_rely" if reliability else ""
-    return "faas_sweep" + ("_win" if windows else "") + tail
+    return "faas_sweep" + ("_win" if windows else "") + tail + ("_fused" if fused else "")
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
     """The C entry ``faas_sweep_f32``, built and loaded on first use."""
     fn = _build.load("faas_event_step").faas_sweep_f32
-    fn.argtypes = [ctypes.c_void_p] * 23 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 30 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -115,6 +121,11 @@ def faas_sweep(
     fail_u=None,  # f32 [R, K] per-event failure uniforms (reliability)
     is_first=None,  # f32 [R, K] 0/1 first-attempt flags (retries)
     child_pos=None,  # f32 [R, K] retry-successor positions (retries)
+    fused_keys=None,  # uint32 [R, 2] x3 (arrival, warm, cold) stream keys
+    fused_params=None,  # f32 [R, 2] x3 per-row (p0, p1) distribution params
+    fused_fail_keys=None,  # uint32 [R, 2] failure-stream keys (reliability)
+    fused_dists=None,  # 3 names of drawplan.FUSED_DISTS
+    fused_k: int = 0,  # events to run with fused draws
     **later,
 ):
     """Run K arrivals against each row's ``[M]`` pool; returns
@@ -126,9 +137,12 @@ def faas_sweep(
     ``skip``, the window bounds, ``t_timeout`` and ``p_fail`` vary per row,
     so a whole grid over them is one launch.  The kernel runs grid columns
     alone (the temporal engine) or any of windows and reliability, with or
-    without retries (the scan engine).  ``later`` names the reference
-    kernel's inputs of paths not ported yet, which raise
-    ``NotImplementedError`` when given.
+    without retries (the scan engine).  With fused draws (``dts``,
+    ``warms``, ``colds`` and ``fail_u`` None) it draws ``fused_k`` events
+    from the keys, with windows and reliability but not with retries (the
+    attempt table is sorted over the whole stream) nor grid columns.
+    ``later`` names the reference kernel's inputs of paths not ported yet,
+    which raise ``NotImplementedError`` when given.
     """
     for name, value in later.items():
         if name not in _LATER:
@@ -144,16 +158,31 @@ def faas_sweep(
     dev = alive.device
     reliability = t_timeout is not None
     retries = is_first is not None
-    if len({x is None for x in (t_timeout, p_fail, fail_u)}) > 1:
-        raise ValueError("t_timeout, p_fail and fail_u come together (reliability)")
+    fused = fused_dists is not None
+    fail_in = fused_fail_keys if fused else fail_u
+    if len({x is None for x in (t_timeout, p_fail, fail_in)}) > 1:
+        raise ValueError(
+            "t_timeout, p_fail and "
+            + ("fused_fail_keys" if fused else "fail_u")
+            + " come together (reliability)"
+        )
     if (child_pos is None) != (not retries):
         raise ValueError("is_first and child_pos come together (retries)")
     if retries and not reliability:
         raise ValueError("retries need the reliability inputs t_timeout, p_fail, fail_u")
+    if fused:
+        _check_fused(dts, warms, colds, fail_u, fused_keys, fused_params, fused_dists,
+                     fused_k, retries, grid_times, prestamped)
+    elif any(x is not None for x in (fused_keys, fused_params, fused_fail_keys)):
+        raise ValueError("fused_keys, fused_params and fused_fail_keys need fused_dists")
     opt = dict(
         window_bounds=window_bounds, grid_times=grid_times, t_timeout=t_timeout,
         p_fail=p_fail, fail_u=fail_u, is_first=is_first, child_pos=child_pos,
     )
+    if fused:
+        opt.update(fused_keys=fused_keys, fused_params=fused_params,
+                   fused_fail_keys=fused_fail_keys, fused_dists=tuple(fused_dists),
+                   fused_k=int(fused_k))
     if dev.type == "cpu":
         return faas_sweep_ref(
             alive, creation, busy, t0, t_exp, dts, warms, colds,
@@ -162,14 +191,19 @@ def faas_sweep(
         )
     if dev.type != "cuda":
         raise ValueError(f"faas_sweep runs on CUDA or CPU tensors, got {dev}")
-    K = dts.shape[1] if dts.dim() == 2 else -1
+    if fused:
+        K = int(fused_k)
+    else:
+        K = dts.shape[1] if dts.dim() == 2 else -1
     t_exp, t_end, skip = (_rows(x, R, dev) for x in (t_exp, t_end, skip))
     shapes = dict(
         alive=(alive, (R, M)), creation=(creation, (R, M)), busy=(busy, (R, M)),
-        t0=(t0, (R,)), t_exp=(t_exp, (R,)), t_end=(t_end, (R,)),
-        skip=(skip, (R,)), dts=(dts, (R, K)), warms=(warms, (R, K)),
-        colds=(colds, (R, K)),
+        t0=(t0, (R,)), t_exp=(t_exp, (R,)), t_end=(t_end, (R,)), skip=(skip, (R,)),
     )
+    if fused:
+        shapes.update({f"fused_params[{i}]": (x, (R, 2)) for i, x in enumerate(fused_params)})
+    else:
+        shapes.update(dts=(dts, (R, K)), warms=(warms, (R, K)), colds=(colds, (R, K)))
     G = W = 0
     if grid_times is not None:
         G = grid_times.shape[1] if grid_times.dim() == 2 else -1
@@ -179,19 +213,20 @@ def faas_sweep(
         shapes["window_bounds"] = (window_bounds, (R, W + 1))
     if reliability:
         t_timeout, p_fail = _rows(t_timeout, R, dev), _rows(p_fail, R, dev)
-        shapes.update(t_timeout=(t_timeout, (R,)), p_fail=(p_fail, (R,)),
-                      fail_u=(fail_u, (R, K)))
+        shapes.update(t_timeout=(t_timeout, (R,)), p_fail=(p_fail, (R,)))
+        if not fused:
+            shapes["fail_u"] = (fail_u, (R, K))
     if retries:
         shapes.update(is_first=(is_first, (R, K)), child_pos=(child_pos, (R, K)))
+    keys = {}
+    if fused:
+        keys = {f"fused_keys[{i}]": x for i, x in enumerate(fused_keys)}
+        if reliability:
+            keys["fused_fail_keys"] = fused_fail_keys
+    for name, x in keys.items():
+        _check_tensor(name, x, dev, torch.uint32, (R, 2))
     for name, (x, shape) in shapes.items():
-        if x.device != dev:
-            raise ValueError(f"{name} is on {x.device}, alive on {dev}")
-        if x.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {x.dtype}")
-        if tuple(x.shape) != shape:
-            raise ValueError(f"{name} must have shape {shape}, got {tuple(x.shape)}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        _check_tensor(name, x, dev, torch.float32, shape)
     if R < 1 or not 1 <= M <= MAX_SLOTS:
         raise ValueError(
             f"faas_sweep needs R >= 1 rows and 1 <= M <= {MAX_SLOTS} slots "
@@ -229,22 +264,68 @@ def faas_sweep(
     act = torch.empty((R, K), dtype=torch.float32, device=dev) if retries else None
     ptr = lambda x: None if x is None else x.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    fk = tuple(fused_keys) + (fused_fail_keys,) if fused else (None,) * 4
+    fp = tuple(fused_params) if fused else (None,) * 3
+    ids = [FUSED_DISTS.index(d) for d in fused_dists] if fused else [0, 0, 0]
     err = _kernel()(
         alive.data_ptr(), creation.data_ptr(), busy.data_ptr(), t0.data_ptr(),
-        t_exp.data_ptr(), t_end.data_ptr(), skip.data_ptr(), dts.data_ptr(),
-        warms.data_ptr(), colds.data_ptr(), ptr(grid_times), ptr(window_bounds),
+        t_exp.data_ptr(), t_end.data_ptr(), skip.data_ptr(), ptr(dts),
+        ptr(warms), ptr(colds), ptr(grid_times), ptr(window_bounds),
         ptr(t_timeout), ptr(p_fail), ptr(fail_u), ptr(is_first), ptr(child_pos),
+        *(ptr(x) for x in fk), *(ptr(x) for x in fp),
         alive_o.data_ptr(), creation_o.data_ptr(), busy_o.data_ptr(),
         t_o.data_ptr(), acc.data_ptr(), ptr(act), R, M, K, G, W,
-        int(max_concurrency), int(bool(prestamped)),
+        int(max_concurrency), int(bool(prestamped)), *ids,
         dev.index if dev.index is not None else torch.cuda.current_device(),
         stream,
     )
     if err != 0:
         raise RuntimeError(f"faas_sweep kernel launch failed: CUDA error {err}")
-    LAUNCH_COUNTS[launch_key(bool(G), bool(W), reliability, retries)] += 1
+    LAUNCH_COUNTS[launch_key(bool(G), bool(W), reliability, retries, fused)] += 1
     out = (alive_o, creation_o, busy_o, t_o, acc)
     return out + (act,) if retries else out
+
+
+def _check_tensor(name, x, dev, dtype, shape):
+    if not isinstance(x, torch.Tensor):
+        raise ValueError(f"{name} must be a tensor, got {type(x).__name__}")
+    if x.device != dev:
+        raise ValueError(f"{name} is on {x.device}, alive on {dev}")
+    if x.dtype != dtype:
+        raise ValueError(f"{name} must be {str(dtype).replace('torch.', '')}, got {x.dtype}")
+    if tuple(x.shape) != shape:
+        raise ValueError(f"{name} must have shape {shape}, got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_fused(dts, warms, colds, fail_u, keys, params, dists, k, retries, grid_times,
+                 prestamped):
+    """The fused inputs' structure, on any device (the tensors themselves
+    are checked before a launch)."""
+    if any(x is not None for x in (dts, warms, colds, fail_u)):
+        raise ValueError(
+            "fused draws take no staged samples: pass dts, warms, colds (and "
+            "fail_u) as None with fused_dists"
+        )
+    if retries:
+        raise ValueError(
+            "fused draws do not serve retry streams (the attempt table is "
+            "sorted over the whole stream); use staged draws"
+        )
+    if grid_times is not None:
+        raise ValueError("fused draws serve the scan engine; grid columns take staged draws")
+    if prestamped:
+        raise ValueError("fused draws are inter-arrival gaps; prestamped must be False")
+    if keys is None or params is None or len(keys) != 3 or len(params) != 3:
+        raise ValueError("fused draws need fused_keys and fused_params, three each "
+                         "(arrival, warm, cold)")
+    if len(dists) != 3 or any(d not in FUSED_DISTS for d in dists):
+        raise ValueError(
+            f"fused_dists must name 3 distributions of {FUSED_DISTS}, got {tuple(dists)}"
+        )
+    if not 0 <= int(k) <= MAX_FUSED_EVENTS:
+        raise ValueError(f"fused_k must be in [0, {MAX_FUSED_EVENTS}], got {k}")
 
 
 @register_backend(
@@ -255,9 +336,11 @@ def faas_sweep(
 def _cuda_sweep_rows(
     alive0, creation0, busy0, t0, t_exp, t_end, skip, dts, warms, colds, **kw,
 ):
-    """Backend ``"cuda"``'s pool-state row launcher: the accumulator
-    (``kw`` as :func:`faas_sweep` takes them)."""
-    return faas_sweep(
+    """Backend ``"cuda"``'s pool-state row launcher: the accumulator, and
+    with fused draws ``(acc, t)`` for the caller's coverage guard (``kw``
+    as :func:`faas_sweep` takes them)."""
+    out = faas_sweep(
         alive0, creation0, busy0, t0, t_exp, dts, warms, colds,
         t_end=t_end, skip=skip, **kw,
-    )[4]
+    )
+    return (out[4], out[3]) if kw.get("fused_dists") is not None else out[4]

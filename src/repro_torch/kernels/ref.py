@@ -4,7 +4,7 @@
 the same arithmetic order and with the same tie-breaks as the reference
 mirror ``repro/kernels/ref.py::faas_sweep_ref`` (base staged path, the
 ``prestamped`` mode, the transient ``grid_times`` columns, metric windows,
-reliability and retries).
+reliability, retries and fused threefry draws).
 :func:`faas_par_sweep_ref` mirrors ``faas_par_sweep_ref`` there, the
 concurrency-value platform's ``finish[M, c]`` loop.  They run on any
 device: the CPU tests and the ``device="cpu"`` entry points use them, and
@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.drawplan import StreamDraws, param_rows
 from repro_torch.core.execution import register_backend
 
 NEG = -1e30
@@ -74,6 +75,11 @@ def faas_sweep_ref(
     fail_u=None,  # f32 [R, K] per-event failure uniforms (reliability)
     is_first=None,  # f32 [R, K] 0/1 first-attempt flags (retries)
     child_pos=None,  # f32 [R, K] retry-successor positions (retries)
+    fused_keys=None,  # uint32 [R, 2] x3 (arrival, warm, cold) stream keys
+    fused_params=None,  # f32 [R, 2] x3 per-row (p0, p1) distribution params
+    fused_fail_keys=None,  # uint32 [R, 2] failure-stream keys (reliability)
+    fused_dists=None,  # 3 distribution names (drawplan.FUSED_DISTS)
+    fused_k: int = 0,  # events to run when fused (no dts to size from)
 ):
     """Run K arrivals against each row's ``[M]`` pool.
 
@@ -111,9 +117,17 @@ def faas_sweep_ref(
     timed-out, failed or rejected attempt switches on its successor
     ``child_pos`` (counted past ``skip`` or not) or, with none, is
     abandoned.
+
+    Fused draws (``fused_dists`` given; ``dts``, ``warms``, ``colds`` and
+    ``fail_u`` are None): each event's samples are drawn from the global
+    event index ``i`` under each row's stream keys, as
+    :mod:`repro_torch.core.drawplan` defines them, for ``fused_k`` events;
+    the failure uniform is word 0 of ``fused_fail_keys``' draw.  The final
+    clock ``t`` is what the caller's coverage guard reads.
     """
     R, M = alive.shape
-    K = dts.shape[1]
+    fused = fused_dists is not None
+    K = int(fused_k) if fused else dts.shape[1]
     dev = alive.device
     t_exp = _rows(t_exp, R, dev)
     t_end = _rows(t_end, R, dev)
@@ -126,6 +140,13 @@ def faas_sweep_ref(
     if reliability:
         t_to = _rows(t_timeout, R, dev)
         p_f = _rows(p_fail, R, dev)
+    if fused:
+        streams = [
+            StreamDraws(kind, keys, *param_rows(par, R, dev))
+            for kind, keys, par in zip(fused_dists, fused_keys, fused_params)
+        ]
+        if reliability:
+            streams.append(StreamDraws("uniform", fused_fail_keys))
     if W:
         w_lo, w_hi = window_bounds[:, :-1], window_bounds[:, 1:]
     if retries:
@@ -137,7 +158,12 @@ def faas_sweep_ref(
         dtype=torch.float32, device=dev,
     )
     for i in range(K):
-        dt_i, warm_i, cold_i = dts[:, i], warms[:, i], colds[:, i]
+        if fused:
+            dt_i, warm_i, cold_i, *fail = (s.take(i) for s in streams)
+            fail_i = fail[0] if reliability else None
+        else:
+            dt_i, warm_i, cold_i = dts[:, i], warms[:, i], colds[:, i]
+            fail_i = fail_u[:, i] if reliability else None
         t_new = dt_i if prestamped else t + dt_i
         lo = torch.clamp(t, skip, t_end)
         hi = torch.clamp(t_new, skip, t_end)
@@ -211,7 +237,7 @@ def faas_sweep_ref(
 
         if reliability:
             timed_out = assign & (service > t_to)
-            failed = assign & ~timed_out & (fail_u[:, i] < p_f)
+            failed = assign & ~timed_out & (fail_i < p_f)
             trigger = timed_out | failed | is_reject
             cold_resp = torch.minimum(cold_i, t_to)
             warm_resp = torch.minimum(warm_i, t_to)
@@ -611,12 +637,14 @@ def fleet_sweep_ref(
 def _ref_sweep_rows(
     alive0, creation0, busy0, t0, t_exp, t_end, skip, dts, warms, colds, **kw,
 ):
-    """Backend ``"ref"``'s pool-state row launcher: the accumulator
-    (``kw`` as :func:`faas_sweep_ref` takes them)."""
-    return faas_sweep_ref(
+    """Backend ``"ref"``'s pool-state row launcher: the accumulator, and
+    with fused draws ``(acc, t)`` for the caller's coverage guard (``kw``
+    as :func:`faas_sweep_ref` takes them)."""
+    out = faas_sweep_ref(
         alive0, creation0, busy0, t0, t_exp, dts, warms, colds,
         t_end=t_end, skip=skip, **kw,
-    )[4]
+    )
+    return (out[4], out[3]) if kw.get("fused_dists") is not None else out[4]
 
 
 @register_backend("ref", engines=("par",))

@@ -786,8 +786,8 @@ def test_rely_wrapper_checks_inputs(cuda_device):
         fes.faas_sweep(*args, **dict(kw, fail_u=kw["fail_u"][:, :5].contiguous()))
     with pytest.raises(ValueError, match="grid columns alone"):
         fes.faas_sweep(*args, **dict(kw, grid_times=inp["t_end"][:, None].contiguous()))
-    with pytest.raises(NotImplementedError, match="Queue B item 1d"):
-        fes.faas_sweep(*args, **kw, fused_keys=inp["t_end"])
+    with pytest.raises(NotImplementedError, match="Queue B item 1e"):
+        fes.faas_sweep(*args, **kw, crash_u=inp["t_end"])
     assert dict(fes.LAUNCH_COUNTS) == launches  # nothing launched
 
 
@@ -824,4 +824,145 @@ def test_front_door_runs_reliability_on_the_kernel(cuda_device):
     res = rt.run(rt.Scenario.of(scn, window_bounds=None,
                                 reliability=rt.Reliability(rel.failure)), 1, replicas=64)
     assert dict(fes.LAUNCH_COUNTS) == {"faas_sweep_rely": 1}
+    assert res.summary.n_fail.sum() > 0 and np.isfinite(res.summary.goodput)
+
+
+# ---------------------------------------------------------------------------
+# faas_sweep's fused draws
+# ---------------------------------------------------------------------------
+
+from repro_torch.core.drawplan import materialize_stream  # noqa: E402
+
+# (arrival, warm, cold) families and (p0, p1): across the cases every family
+# is drawn on every stream
+FUSED_CASES = [
+    (("exp", 0.8, 0.0), ("weibull", 1.5, 2.2), ("pareto", 3.0, 1.6)),
+    (("det", 1.3, 0.0), ("gauss", 2.0, 0.5), ("lognorm", 0.5, 0.6)),
+    (("gauss", 1.25, 0.3), ("exp", 0.5, 0.0), ("weibull", 0.8, 2.0)),
+    (("weibull", 1.2, 1.3), ("det", 2.0, 0.0), ("gauss", 2.5, 0.8)),
+    (("lognorm", 0.0, 0.5), ("pareto", 2.5, 1.2), ("exp", 0.4, 0.0)),
+    (("pareto", 3.0, 0.8), ("lognorm", 0.4, 0.7), ("det", 2.4, 0.0)),
+]
+FUSED_PATHS = [(False, False), (True, False), (False, True), (True, True)]
+
+
+def _fused_inputs(dev, seed, R, M, K, case):
+    rng = np.random.default_rng(seed)
+    t = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32, device=dev)
+    keys = [torch.from_numpy(rng.integers(0, 1 << 32, (R, 2), dtype=np.uint64)
+                             .astype(np.uint32)).to(dev) for _ in range(4)]
+    params = [t(np.stack([p0 * rng.uniform(0.9, 1.1, R), np.full(R, p1)], 1))
+              for _, p0, p1 in case]
+    horizon = K * 1.2
+    return dict(
+        state=(torch.zeros((R, M), device=dev), torch.full((R, M), -1e30, device=dev),
+               torch.full((R, M), -1e30, device=dev), torch.zeros((R,), device=dev)),
+        t_exp=t(10 * rng.uniform(0.5, 1.5, R)), keys=keys, params=params,
+        dists=tuple(d for d, _, _ in case),
+        t_end=t(horizon * rng.uniform(0.5, 0.9, R)), skip=t(horizon * rng.uniform(0.0, 0.1, R)),
+        window_bounds=t(np.tile(np.linspace(0.0, 0.5 * horizon, 241), (R, 1))),
+        t_timeout=t(rng.uniform(1.0, 5.0, R)), p_fail=t(np.full(R, 0.1)),
+    )
+
+
+def _fused_call(inp, K, windows, reliability, max_c):
+    kw = dict(t_end=inp["t_end"], skip=inp["skip"], max_concurrency=max_c,
+              fused_keys=tuple(inp["keys"][:3]), fused_params=tuple(inp["params"]),
+              fused_dists=inp["dists"], fused_k=K)
+    if windows:
+        kw["window_bounds"] = inp["window_bounds"]
+    if reliability:
+        kw.update(t_timeout=inp["t_timeout"], p_fail=inp["p_fail"],
+                  fused_fail_keys=inp["keys"][3])
+    return (*inp["state"], inp["t_exp"], None, None, None), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [8, 37, 64, 300])
+@pytest.mark.parametrize("path", range(4))
+def test_fused_kernel_matches_plain(cuda_device, M, path):
+    windows, reliability = FUSED_PATHS[path]
+    for c, case in enumerate(FUSED_CASES):
+        if (c + path) % 2:  # half the family cases per path, every family on every stream
+            continue
+        inp = _fused_inputs(cuda_device, 50 + M + c, 37, M, 301, case)
+        args, kw = _fused_call(inp, 301, windows, reliability, 3 if M < 64 else 100)
+        key = fes.launch_key(False, windows, reliability, False, True)
+        before = fes.LAUNCH_COUNTS[key]
+        out_k = fes.faas_sweep(*args, **kw)
+        assert fes.LAUNCH_COUNTS[key] == before + 1
+        acc = _held_rely(out_k, faas_sweep_ref(*args, **kw), 240 if windows else 0)[4]
+        assert acc[:, :2].sum() > 0
+        if reliability:
+            assert acc[:, -3].sum() > 0  # failures
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(FUSED_CASES)))
+def test_fused_kernel_equals_staged_kernel_on_materialized_draws(cuda_device, case):
+    K = 997
+    inp = _fused_inputs(cuda_device, 70 + case, 258, 64, K, FUSED_CASES[case])
+    args, kw = _fused_call(inp, K, True, True, 100)
+    fused = fes.faas_sweep(*args, **kw)
+    bufs = [materialize_stream(d, k, (p[:, 0], p[:, 1]), K, cuda_device)
+            for d, k, p in zip(inp["dists"], inp["keys"], inp["params"])]
+    skw = {k: v for k, v in kw.items() if not k.startswith("fused")}
+    skw["fail_u"] = materialize_stream("uniform", inp["keys"][3], None, K, cuda_device)
+    staged = fes.faas_sweep(*args[:5], *bufs, **skw)
+    for a, b in zip(fused, staged):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_fused_wrapper_checks_inputs(cuda_device):
+    inp = _fused_inputs(cuda_device, 80, 8, 8, 40, FUSED_CASES[0])
+    args, kw = _fused_call(inp, 40, False, True, 3)
+    launches = dict(fes.LAUNCH_COUNTS)
+    keys = kw["fused_keys"]
+    with pytest.raises(ValueError, match="uint32"):
+        fes.faas_sweep(*args, **dict(kw, fused_keys=(keys[0].long(),) + keys[1:]))
+    with pytest.raises(ValueError, match="shape"):
+        fes.faas_sweep(*args, **dict(kw, fused_fail_keys=keys[0][:4].contiguous()))
+    with pytest.raises(ValueError, match="float32"):
+        fes.faas_sweep(*args, **dict(kw, fused_params=(kw["fused_params"][0].double(),)
+                                     + kw["fused_params"][1:]))
+    with pytest.raises(ValueError, match="fused_dists"):
+        fes.faas_sweep(*args, **dict(kw, fused_dists=("exp", "gamma", "exp")))
+    with pytest.raises(ValueError, match="retry streams"):
+        fes.faas_sweep(*args, **dict(kw, is_first=torch.ones((8, 40), device=cuda_device),
+                                     child_pos=torch.ones((8, 40), device=cuda_device)))
+    with pytest.raises(ValueError, match="grid columns"):
+        fes.faas_sweep(*args, **dict(kw, grid_times=inp["t_end"][:, None].contiguous()))
+    assert dict(fes.LAUNCH_COUNTS) == launches  # nothing launched
+
+
+@pytest.mark.cuda
+def test_front_door_runs_fused_draws_on_the_kernel(cuda_device):
+    import repro_torch as rt
+
+    scn = rt.Scenario(
+        arrival_process=rt.ExpSimProcess(rate=0.9),
+        warm_service_process=rt.ExpSimProcess(rate=1 / 1.991),
+        cold_service_process=rt.ExpSimProcess(rate=1 / 2.244),
+        expiration_threshold=60.0, sim_time=2000.0, skip_time=50.0, slots=32,
+        window_bounds=(0.0, 500.0, 1200.0, 2000.0),
+    )
+    over = {"expiration_threshold": [30.0, 120.0], "arrival_rate": [0.5, 0.9]}
+    card = rt.Execution(draws="fused", backend="cuda")
+    plain = rt.Execution(draws="fused", backend="ref")  # the plain version, on the card
+    fes.LAUNCH_COUNTS.clear()
+    g = rt.sweep(scn, over, 3, replicas=8, execution=card)
+    assert dict(fes.LAUNCH_COUNTS) == {"faas_sweep_win_fused": 1}
+    assert g.to_dict()["draws"] == "fused"
+    p = rt.sweep(scn, over, 3, replicas=8, execution=plain)
+    for a, b in zip(g.summaries.ravel(), p.summaries.ravel()):
+        for f in ("n_cold", "n_warm", "n_reject", "sum_cold_resp", "sum_warm_resp"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+        np.testing.assert_array_equal(a.windows.n_arrivals, b.windows.n_arrivals)
+        np.testing.assert_allclose(a.time_running, b.time_running, rtol=INTEGRAL_RTOL)
+    fes.LAUNCH_COUNTS.clear()
+    rel = rt.Reliability(rt.FailurePolicy(p_fail=0.05, t_timeout=4.0))
+    res = rt.run(rt.Scenario.of(scn, window_bounds=None, reliability=rel), 1, replicas=64,
+                 execution=card)
+    assert dict(fes.LAUNCH_COUNTS) == {"faas_sweep_rely_fused": 1}
     assert res.summary.n_fail.sum() > 0 and np.isfinite(res.summary.goodput)
