@@ -111,7 +111,25 @@ Phases (any failure ends the script with a non-zero exit):
     windows hold the horizon's arrivals); each launch timed at full width
     beside its bound (the draws' int32, f32 and special-function work
     counted) and held to its plain version on its first 4096 events;
-11. the kernels line (JSON), the card line, then the device line (JSON) last.
+11. platform faults (the fault paths of ``faas_sweep`` and ``fleet_sweep``,
+    counted under ``_fault`` keys): each kernel against its plain version on
+    small cases, bit for bit with the crash clocks compared (crashes,
+    capacity or both, alone, with reliability and with retries at M = 8 and
+    64, two at M = 300; creation-time ties under a non-integer ceiling; a
+    crash past t_end; an interrupted attempt that triggers its retry; fleets
+    at F = 1, 3, 8); then through the entry points, the launch counts set to
+    0 before each: ``benchmarks/run.py::bench_fault_sweep``'s grid at 512
+    replicas (6,144 rows x 5,400 events, one launch, held to plain on all
+    events, each cell's availability, cold-start probability and instance
+    count within ``REF_FAULT_SIGMAS`` standard errors of ``REF_FAULT``);
+    the same scenario through ``run()`` with reliability and with retries;
+    phase 4's Table-1 sweep with crashes, timed against the launch without
+    faults on the same events; ``examples/chaos.py``'s capacity dip at 4,096
+    fleets (held to plain on all events, availability against
+    ``REF_FLEET_FAULT``, peak within the ceiling); phase 6's catalog sweep
+    with crashes and a dip, timed against the launch without faults; each
+    beside its bound;
+12. the kernels line (JSON), the card line, then the device line (JSON) last.
 """
 
 import json
@@ -230,6 +248,23 @@ KERNELS = {
         source="src/repro_torch/kernels/csrc/faas_event_step.cu",
         replaces="src/repro/kernels/faas_event_step.py:107",
     ),
+    # platform faults: the same kernel's template instances with crash clocks
+    # and capacity ceilings
+    "faas_sweep_fault": dict(
+        name="faas_sweep_fault", route="cuda",
+        source="src/repro_torch/kernels/csrc/faas_event_step.cu",
+        replaces="src/repro/kernels/faas_event_step.py:107",
+    ),
+    "faas_sweep_rely_fault": dict(
+        name="faas_sweep_rely_fault", route="cuda",
+        source="src/repro_torch/kernels/csrc/faas_event_step.cu",
+        replaces="src/repro/kernels/faas_event_step.py:107",
+    ),
+    "faas_sweep_retry_fault": dict(
+        name="faas_sweep_retry_fault", route="cuda",
+        source="src/repro_torch/kernels/csrc/faas_event_step.cu",
+        replaces="src/repro/kernels/faas_event_step.py:107",
+    ),
     "par_sweep": dict(
         name="par_sweep", route="cuda",
         source="src/repro_torch/kernels/csrc/par_event_step.cu",
@@ -237,6 +272,11 @@ KERNELS = {
     ),
     "fleet_sweep": dict(
         name="fleet_sweep", route="cuda",
+        source="src/repro_torch/kernels/csrc/fleet_event_step.cu",
+        replaces="src/repro/kernels/faas_event_step.py:1228",
+    ),
+    "fleet_sweep_fault": dict(
+        name="fleet_sweep_fault", route="cuda",
         source="src/repro_torch/kernels/csrc/fleet_event_step.cu",
         replaces="src/repro/kernels/faas_event_step.py:1228",
     ),
@@ -454,14 +494,16 @@ RETRY_OPS_PER_EVENT = 11
 
 
 def bound_ms(C, M, K, n_active, G=0, grid_hits=0, W=0, window_passes=0,
-             rely=False, retry=False):
+             rely=False, retry=False, fault=None):
     """Least time for one faas_sweep call over ``n_active`` events inside
     their rows' horizons (of C * K staged), with ``grid_hits`` of the C * G
     grid points inside a horizon, W windows overlapped ``window_passes``
-    times by those events' intervals, and the reliability (and retry)
-    path: its bytes (every input read once, every output written once) at
-    HBM rate, or the f32 operations this data needs at the f32 peak,
-    whichever is larger."""
+    times by those events' intervals, the reliability (and retry) path and
+    the fault path (``fault``: the profiles' edge count E, -1 without
+    capacity, whether crashes run, the cold starts and the evictions): its
+    bytes (every input read once, every output written once) at HBM rate,
+    or the f32 operations this data needs at the f32 peak, whichever is
+    larger."""
     cols = 8 + 5 * W + 3 * G + (4 if rely else 0)
     nbytes = (4 * (3 * C * M + 4 * C + 3 * C * K + C * G + C * (W + 1 if W else 0))
               + 4 * (3 * C * M + C + cols * C))
@@ -478,6 +520,9 @@ def bound_ms(C, M, K, n_active, G=0, grid_hits=0, W=0, window_passes=0,
     if retry:
         nbytes += 4 * 3 * C * K  # is_first, child_pos in; the activation plane out
         ops += n_active * RETRY_OPS_PER_EVENT
+    if fault is not None:
+        fb, fo = fault_extra(C, M, K, n_active, *fault)
+        nbytes, ops = nbytes + fb, ops + fo
     return _bound(nbytes, ops)
 
 
@@ -491,18 +536,31 @@ def par_bound_ms(C, M, c, K, n_active, live_slot_events):
     return _bound(nbytes, ops)
 
 
-def fleet_bound_ms(N, F, S, K, n_active, live_events, acting_live_events):
+def fleet_bound_ms(N, F, S, K, n_active, live_events, acting_live_events, fault=None, M=64):
     """Least time for one fleet_sweep call: N fleets of F functions reading
     a [S, K] stream (held once), ``n_active`` fleet-events inside their
     horizons (of N * K), ``live_events`` live instances of the fleet and
     ``acting_live_events`` live instances of the acting function, each
-    summed over those events."""
+    summed over those events; with ``fault`` (the profile's edge count E,
+    -1 without capacity, whether crashes run, the cold starts, the
+    evictions) the fault path's bytes (rates, profiles, the [S, K] crash
+    stream in, the [N, F, M] crash clocks out) and work (on each live
+    instance per event, on the fleet per event, per cold start, and a pass
+    over the F * M slots per eviction)."""
     nbytes = (FLEET_STREAM_BYTES * S * K + 4 * N * (2 * F + 3) + 8 * N
               + 4 * N * F * 14)
     ops = (n_active * (F * FLEET_OPS_PER_FUNCTION_EVENT + FLEET_OPS_PER_FLEET_EVENT)
            + live_events * FLEET_OPS_PER_LIVE_SLOT
            + acting_live_events * FLEET_OPS_PER_ACTING_LIVE
            + (N * K - n_active) * OPS_PER_INERT_EVENT)
+    if fault is not None:
+        E, crashes, cold_starts, evictions = fault
+        nbytes += 4 * N * F * 3 + (4 * N * (2 * E + 1) if E >= 0 else 0)
+        if crashes:
+            nbytes += 4 * (N + S * K + N * F * M)
+        ops += (live_events * FAULT_OPS_PER_SLOT_EVENT + n_active * FAULT_OPS_PER_ROW_EVENT
+                + cold_starts * FAULT_OPS_PER_COLD
+                + evictions * F * M * FAULT_OPS_PER_EVICT_SLOT)
     return _bound(nbytes, ops)
 
 
@@ -536,14 +594,15 @@ def fresh_pools(torch, C, M, dev):
 
 def held_against_plain(torch, out_k, out_p, what, integral_cols=(3, 4)):
     """Kernel result vs plain result: the final state (and the activation
-    plane of a retry launch) equal, every acc column but the integrals
+    plane of a retry launch, the crash clocks of a crash launch) equal, or
+    None in both, every acc column but the integrals
     equal (the base counters, grid and window counts, the reliability
     columns), the integrals within INTEGRAL_RTOL of their size; returns
     the largest |acc difference|."""
     if len(out_k) != len(out_p):
         raise AssertionError(f"{what}: {len(out_k)} outputs vs {len(out_p)}")
     for i, (a, b) in enumerate(zip(out_k, out_p)):
-        if i != 4 and not torch.equal(a, b):
+        if i != 4 and ((a is None) != (b is None) or (a is not None and not torch.equal(a, b))):
             raise AssertionError(f"{what}: output {i} differs from the plain version")
     acc_k, acc_p = out_k[4], out_p[4]
     if acc_k.shape != acc_p.shape:
@@ -576,6 +635,45 @@ def timed(torch, fn, reps):
     return start.elapsed_time(end) / reps, out
 
 
+def card_state() -> str:
+    """The SM clock, temperature and power draw that nvidia-smi reads now."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,temperature.gpu,power.draw",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0].strip()
+
+
+def against_base(torch, base_fn, fault_fn, reps, rounds):
+    """A fault launch against the launch without faults on the same events:
+    (base, faults, faults, base) ``rounds`` times, each reading the mean ms
+    of ``reps`` calls by CUDA events after a warm-up call, with the card's
+    SM clock, temperature and power read while those calls run.  Returns
+    the base readings, the fault readings, all of them in order as text,
+    and the last fault output."""
+    base, fault, text, last = [], [], [], None
+    for _ in range(rounds):
+        for name, fn in (("base", base_fn), ("faults", fault_fn), ("faults", fault_fn),
+                         ("base", base_fn)):
+            out = fn()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                out = fn()
+            end.record()
+            state = card_state()  # the calls are still running on the card
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end) / reps
+            (base if name == "base" else fault).append(ms)
+            if name == "faults":
+                last = out
+            text.append(f"{name} {ms:.3f} ms [{state}]")
+    return base, fault, "; ".join(text), last
+
+
 def plain_timed(torch, fn):
     """Host ms of one call of a plain version, synchronised."""
     torch.cuda.synchronize()
@@ -603,27 +701,30 @@ def print_ptxas(log, kernel):
     fleet_sweep)."""
     inst = None  # the template instance the next ptxas lines are about
     for line in log.splitlines():
-        m = re.search(kernel + r"ILi(\d+)E((?:Lb[01]E)+|Li(\d+)E)?", line)
-        if m and m.group(3):
-            fp, sf = int(m.group(1)), int(m.group(3))
-            inst = f"FP={fp} SF={sf} (F <= {fp}, M <= {32 * sf})"
+        m = re.search(kernel + r"ILi(\d+)E(?:Li(\d+)E)?((?:Lb[01]E)*)", line)
+        if m and m.group(2):
+            fp, sf = int(m.group(1)), int(m.group(2))
+            fault = " faults" if m.group(3) == "Lb1E" else ""
+            inst = f"FP={fp} SF={sf} (F <= {fp}, M <= {32 * sf}){fault}"
         elif m:
             per_lane = int(m.group(1))
-            flags = re.findall(r"Lb([01])E", m.group(2) or "")
-            paths = [n for n, f in zip(("grid", "windows", "reliability", "retries", "fused"),
-                                       flags) if f == "1"]
+            flags = re.findall(r"Lb([01])E", m.group(3))
+            paths = [n for n, f in zip(("grid", "windows", "reliability", "retries", "fused",
+                                        "faults"), flags) if f == "1"]
             inst = f"S={per_lane} (M <= {32 * per_lane})" + "".join(f" {n}" for n in paths)
         elif inst and ("registers" in line or "spill" in line):
             print(f"  ptxas {kernel} {inst}: {line.split(':', 1)[-1].strip()}")
 
 
 def held_fleet(torch, out_k, out_p, what):
-    """Fleet kernel vs plain: every acc column but the integrals (3-4) and
-    the queue lengths equal, the integrals within INTEGRAL_RTOL; returns the
-    largest |acc difference|."""
-    (acc_k, q_k), (acc_p, q_p) = out_k, out_p
+    """Fleet kernel vs plain: every acc column but the integrals (3-4), the
+    queue lengths and (with crashes) the crash clocks equal, the integrals
+    within INTEGRAL_RTOL; returns the largest |acc difference|."""
+    (acc_k, q_k, *doom_k), (acc_p, q_p, *doom_p) = out_k, out_p
     if acc_k.shape != acc_p.shape or not torch.equal(q_k, q_p):
         raise AssertionError(f"{what}: shapes or queue lengths differ from the plain version")
+    if len(doom_k) != len(doom_p) or not all(torch.equal(a, b) for a, b in zip(doom_k, doom_p)):
+        raise AssertionError(f"{what}: the crash clocks differ from the plain version")
     for c in [c for c in range(acc_k.shape[-1]) if c not in (3, 4)]:
         if not torch.equal(acc_k[..., c], acc_p[..., c]):
             n = int((acc_k[..., c] != acc_p[..., c]).sum())
@@ -1812,7 +1913,7 @@ def reliability_phase(torch, rt, dev, card, table1_grid):
     # the work the result needs: only switched-on attempts (first attempts
     # and the children a trigger activated) change a count; the kernel walks
     # the pool for every attempt in the horizon, as the reference does
-    switched = int((in_h & ((first > 0) | (out_full[5] > 0))).sum())
+    switched = int((in_h & ((first > 0) | (out_full.act > 0))).sum())
     b_ms, b_by = bound_ms(Cr, scn_r.slots, Kr, switched, rely=True, retry=True)
     b_all_ms, _ = bound_ms(Cr, scn_r.slots, Kr, active, rely=True, retry=True)
     part = [prefix(x, RELY_PLAIN_EVENTS) for x in (times, inp.samples[1], inp.samples[2])]
@@ -2147,7 +2248,8 @@ def fused_small_cases(torch, dev):
             # makes the same launch bit for bit
             sargs, skw = staged_twin(inp, K, kw)
             out_s = faas_sweep(*sargs, **skw)
-            same = all(torch.equal(a, b) for a, b in zip(out_k, out_s))
+            same = all((a is None) == (b is None) and (a is None or torch.equal(a, b))
+                       for a, b in zip(out_k, out_s))
             if not same:
                 raise AssertionError(f"{what}: the fused launch differs from the staged "
                                      "launch on its materialized draws")
@@ -2443,6 +2545,612 @@ def fused_phase(torch, rt, dev, card, staged_grid, staged_peak):
     errs["faas_sweep_win_fused"] = max(errs.get("faas_sweep_win_fused", 0.0), err)
     results["faas_sweep_win_fused"] = dict(launches=1, ms=ms, plain_ms=plain_ms,
                                            bound_ms=b_ms, bound_by=b_by)
+    return results, errs
+
+
+# ---------------------------------------------------------------------------
+# platform faults
+# ---------------------------------------------------------------------------
+
+# benchmarks/run.py::bench_fault_sweep's full grid (:996-1016): paper_cfg at
+# 4000 s, a 50 s warm-up, max_concurrency 30, the capacity dip 40 -> 2 -> 40
+# at 0.4 T and 0.7 T, crash_rate x threshold, 5,400 steps; only the
+# replicas are raised (2 -> 512: 6,144 rows in one launch)
+FAULT_SIM, FAULT_SKIP, FAULT_STEPS = 4000.0, 50.0, 5400
+FAULT_OVER = {"crash_rate": [1e-4, 1e-3, 5e-3, 2e-2], "expiration_threshold": [30.0, 120.0, 600.0]}
+FAULT_DIP = ((0.4 * FAULT_SIM, 0.7 * FAULT_SIM), (40.0, 2.0, 40.0))
+FAULT_REPLICAS = 512
+FAULT_RUN_REPLICAS = 4096  # rows of the fault runs with reliability and retries
+# Table 1's sweep (phase 4) with crashes at the chaos frontier's base rate
+# (examples/chaos.py:40-76)
+TABLE1_CRASH_RATE = 1e-3
+# rounds of (base, faults, faults, base) readings of that launch against the
+# launch without faults; two, so that a spread between readings shows
+TABLE1_FAULT_ROUNDS = 2
+# examples/chaos.py:79-109's capacity dip: api and batch under n_cluster 40,
+# crash_rate 2e-3, the ceiling 40 -> 10 -> 40 at 0.4 T and 0.7 T, T = 1000 s
+DIP_T, DIP_FLEETS, DIP_CRASH_RATE = 1000.0, 4096, 2e-3
+# the catalog sweep of phase 6 with chaos.py's crash rate and dip ratio
+CATALOG_CRASH_RATE, CATALOG_DIP = 2e-3, (24.0, 6.0, 24.0)
+FAULT_PLAIN_EVENTS = 4096  # the Table-1 and catalog launches are held to plain on these
+# the JAX reference per cell, crash_rate-major (tools/fault_reference.py
+# --replicas 256: JAX sweep()/fleet_run() on the f64 scan backend, on the
+# CPU, seeds 0 and 1): availability and cold-start probability pooled over
+# replicas, the average instance count as the replica mean, each with the
+# standard error of its per-replica values; and the dip fleet's
+# per-function availability.  The card's values (other draws: torch
+# generators) must agree within REF_FAULT_SIGMAS standard errors of the
+# difference.
+REF_FAULT = dict(
+    availability=[0.9998083443174708, 0.999793621036319, 0.9997938579545524,
+                  0.9979564411663986, 0.9979537846951497, 0.9979524332596917,
+                  0.9900568146714808, 0.9901805237794797, 0.9901933815810736,
+                  0.9613659185697652, 0.9613199112308711, 0.9611658847428264],
+    availability_se=[1.4925765740638021e-05, 1.4918990964887121e-05, 1.6285024918772196e-05,
+                     4.769611856798651e-05, 5.274321157188688e-05, 4.8156384717459866e-05,
+                     0.00010449796932189488, 0.00010917199689763725, 0.00011119471881411338,
+                     0.00021891062251167367, 0.0002037485074717568, 0.00019843954257443535],
+    cold_start_prob=[0.027351120629323072, 0.007414813066383585, 0.0035105866901364116,
+                     0.03015763713664399, 0.010995935989047311, 0.008259383138121273,
+                     0.042748159516025, 0.028559575563542616, 0.02828870191210556,
+                     0.09156065375824744, 0.08847602322184647, 0.08854380065433061],
+    cold_start_prob_se=[0.000152647214495357, 7.135443187270021e-05, 4.261209608448006e-05,
+                        0.0001531846668797617, 9.098540265896853e-05, 8.794445312941459e-05,
+                        0.00019066642854822648, 0.00016026012230817998, 0.00016490566921650805,
+                        0.00028487964374893646, 0.0002783280070373732, 0.00028985102302212683],
+    avg_server_count=[4.27448429249014, 5.066962880297887, 5.657340489109119,
+                      4.225264725862197, 4.883914330953774, 5.09869631382633,
+                      4.026592410265435, 4.3271551178939305, 4.327089091077085,
+                      3.500677574783542, 3.524692572135615, 3.511177623724322],
+    avg_server_count_se=[0.005522610169664349, 0.00912248968031673, 0.01670245787488804,
+                         0.0055879223622780135, 0.009314110137034102, 0.013487465073170555,
+                         0.005484826319960063, 0.007382045637434626, 0.007679408322068043,
+                         0.004787834185006855, 0.0048779236398310164, 0.004965482867111069],
+)
+REF_FLEET_FAULT = dict(
+    functions=["api", "batch"],
+    availability=[0.9958985153018821, 0.9901985390275154],
+    availability_se=[0.0001372768055611804, 0.00033779258765725295],
+)
+REF_FAULT_SIGMAS = 4.0
+# f32 operations the fault path adds, counted as the kernel bodies do them:
+# 5 on each slot per event (the crash-clipped stop, the exit clock, the
+# crash test's 3 compares), 8 on the row (the crash count 1, the segment
+# test 2, live count minus ceiling 1, the admission gate 1, the
+# interruption test 2, its count 1), 4 per cold start (1 - u, the log, the
+# division, the clock) and 5 on each slot per eviction pass (idle and
+# newest tests, the arg-max butterfly's share)
+FAULT_OPS_PER_SLOT_EVENT = 5
+FAULT_OPS_PER_ROW_EVENT = 8
+FAULT_OPS_PER_COLD = 4
+FAULT_OPS_PER_EVICT_SLOT = 5
+# (crashes, capacity, reliability, retries): every fault path set
+FAULT_PATHS = [(c, k, rel, ret)
+               for c, k in ((True, False), (False, True), (True, True))
+               for rel, ret in ((False, False), (True, False), (True, True))]
+
+
+def fault_extra(C, M, K, n_active, E, crashes, cold_starts, evictions):
+    """The bytes and f32 operations the fault path adds to a faas_sweep
+    call's bound: the crash rates and uniforms in and the crash clocks
+    out, the capacity profiles in, the 3 fault columns out; per event in a
+    horizon the slot and row work, per cold start its lifetime and per
+    eviction one pass over the pool."""
+    nbytes = 4 * 3 * C + (4 * C * (2 * E + 1) if E >= 0 else 0)
+    if crashes:
+        nbytes += 4 * (C + C * K + C * M)
+    ops = (n_active * (M * FAULT_OPS_PER_SLOT_EVENT + FAULT_OPS_PER_ROW_EVENT)
+           + cold_starts * FAULT_OPS_PER_COLD + evictions * M * FAULT_OPS_PER_EVICT_SLOT)
+    return nbytes, ops
+
+
+def fault_kwargs(torch, dev, rng, C, K, horizon, crashes, capacity, values=(6.0, 1.5, 8.0)):
+    """Per-row crash rates and a crash uniform per event; a per-row ceiling
+    stepping through ``values`` (a non-integer one among them) inside the
+    horizon."""
+    to = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32, device=dev)
+    kw = {}
+    if crashes:
+        kw.update(crash_rate=to(rng.uniform(0.005, 0.05, C)), crash_u=to(rng.random((C, K))))
+    if capacity:
+        kw.update(cap_edges=to(np.sort(rng.uniform(0.2, 0.8, (C, len(values) - 1)), 1) * horizon),
+                  cap_values=to(np.tile(values, (C, 1))))
+    return kw
+
+
+def fault_small_cases(torch, dev):
+    """The fault kernels against their plain versions on small cases
+    (module docstring, item 11); returns the largest |acc difference| per
+    LAUNCH_COUNTS key."""
+    from repro_torch.kernels.faas_event_step import LAUNCH_COUNTS, faas_sweep, launch_key
+    from repro_torch.kernels.fleet_event_step import fleet_sweep
+    from repro_torch.kernels.ref import faas_sweep_ref, fleet_sweep_ref
+
+    errs = {}
+    C, N = RELY_SMALL_ROWS, RELY_SMALL_EVENTS
+    t0 = time.perf_counter()
+    cases = [(M, *p) for M in (8, 64) for p in FAULT_PATHS]
+    cases += [(300, True, True, False, False), (300, True, True, True, True)]
+    for case, (M, crashes, capacity, rely, retry) in enumerate(cases):
+        rng = np.random.default_rng(500 + case)
+        inp = rely_small_inputs(torch, dev, rng, C, M, N, 2, 0.5, None)
+        args, kw = rely_call(inp, False, rely, retry, 3 if M == 8 else 100)
+        horizon = float(inp["t_end"].max())
+        kw.update(fault_kwargs(torch, dev, rng, C, args[5].shape[1], horizon, crashes, capacity))
+        key = launch_key(False, False, rely, retry, faults=True)
+        before = LAUNCH_COUNTS[key]
+        out_k = faas_sweep(*args, **kw)
+        if LAUNCH_COUNTS[key] != before + 1:
+            raise AssertionError(f"fault case {case}: no {key} launch counted")
+        # pools, the activation plane and the crash clocks equal bit for bit
+        err = held_against_plain(torch, out_k, faas_sweep_ref(*args, **kw),
+                                 f"fault case {case}")
+        errs[key] = max(errs.get(key, 0.0), err)
+        tot = out_k[4].sum(0).tolist()
+        crash_n, evict_n, cut_n = tot[-3:]
+        print(f"kernel==plain fault case {case} M={M}: crashes={crashes} capacity={capacity} "
+              f"reliability={rely} retries={retry}: cold={tot[0]:.0f} warm={tot[1]:.0f} "
+              f"reject={tot[2]:.0f} crashed={crash_n:.0f} evicted={evict_n:.0f} "
+              f"interrupted={cut_n:.0f}" + (f" retries={tot[-5]:.0f}" if retry else "")
+              + f", doom plane equal, max|acc diff| {err:.3e}", flush=True)
+        if (crash_n > 0) != crashes or (evict_n > 0) != capacity or (cut_n > 0) != crashes:
+            raise AssertionError(f"fault case {case}: a fault path did not act")
+
+    # creation-time ties under eviction: arrival times on whole seconds,
+    # ceilings 5 -> 2.5 -> 3.5, crashes on
+    R, K, M = 256, 512, 32
+    rng = np.random.default_rng(560)
+    times = np.floor(np.cumsum(rng.exponential(1 / 3.0, (R, K)), axis=1))
+    to = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32, device=dev)
+    horizon = float(times[:, -1].min())
+    args = (*fresh_pools(torch, R, M, dev), to(rng.uniform(5.0, 20.0, R)), to(times),
+            to(rng.exponential(0.6, (R, K))), to(rng.exponential(0.8, (R, K))))
+    kw = dict(t_end=to(np.full(R, horizon)), skip=0.0, max_concurrency=100, prestamped=True,
+              **fault_kwargs(torch, dev, rng, R, K, horizon, True, True, (5.0, 2.5, 3.5)))
+    out_k = faas_sweep(*args, **kw)
+    err = held_against_plain(torch, out_k, faas_sweep_ref(*args, **kw), "fault tie case")
+    errs["faas_sweep_fault"] = max(errs["faas_sweep_fault"], err)
+    # slots whose last cold start shares its instant with another slot's
+    cre = out_k[1].cpu().numpy()
+    tied = sum(int((c > -1e29).sum() - len(set(c[c > -1e29]))) for c in cre)
+    print(f"kernel==plain fault tie case: {R} rows of whole-second arrival times, ceilings "
+          f"5 -> 2.5 -> 3.5: evicted {out_k[4][:, -2].sum().item():.0f}, {tied} slots' last "
+          f"cold starts share an instant with another's, pools equal", flush=True)
+    if out_k[4][:, -2].sum() <= 0 or tied <= 0:
+        raise AssertionError("the tie case evicted nothing or holds no tie")
+
+    # a crash past t_end: one instance cold at t = 1 lives 50 s (dies at
+    # 51), seen by the arrival at 60; t_end runs from 40 to 59 over the
+    # rows, so the crash counts exactly where doom <= t_end
+    rate = 0.02
+    u = float(np.float32(-np.expm1(-50.0 * rate)))
+    R = 256
+    t_end = np.linspace(40.0, 59.0, R)
+    full = lambda v, k: torch.full((R, k), v, dtype=torch.float32, device=dev)
+    args = (*fresh_pools(torch, R, 8, dev), full(100.0, 1)[:, 0].contiguous(),
+            to(np.tile([1.0, 45.0, 60.0], (R, 1))), full(2.0, 3), full(2.0, 3))
+    kw = dict(t_end=to(t_end), skip=0.0, max_concurrency=10, prestamped=True,
+              crash_rate=full(rate, 1)[:, 0].contiguous(),
+              crash_u=to(np.tile([u, 0.5, 0.5], (R, 1))))
+    out_k = faas_sweep(*args, **kw)
+    err = held_against_plain(torch, out_k, faas_sweep_ref(*args, **kw), "crash past t_end")
+    errs["faas_sweep_fault"] = max(errs["faas_sweep_fault"], err)
+    doom = out_k.doom[:, 0]
+    want = (doom <= to(t_end)).float()
+    if (not torch.equal(out_k[4][:, -3], want) or not 0 < int(want.sum()) < R
+            or abs(doom[0].item() - 51.0) > 1e-3 or not torch.equal(doom, doom[:1].expand(R))):
+        raise AssertionError("a crash past t_end was counted, or one inside was not")
+    print(f"kernel==plain crash past t_end: doom {doom[0].item():.4f}, counted in "
+          f"{int(want.sum())} of {R} rows (those with t_end >= doom)", flush=True)
+
+    # an interrupted attempt triggers its retry: attempt 0 (child 1) starts
+    # cold at t = 1 for 3 s on an instance that dies at 3; attempt 1 at t = 5
+    # runs, attempt 2 reuses its instance
+    u2 = float(np.float32(-np.expm1(-2.0 * 0.5)))
+    args = (*fresh_pools(torch, R, 8, dev), full(100.0, 1)[:, 0].contiguous(),
+            to(np.tile([1.0, 5.0, 9.0], (R, 1))), full(3.0, 3), full(3.0, 3))
+    kw = dict(t_end=full(20.0, 1)[:, 0].contiguous(), skip=0.0, max_concurrency=10,
+              prestamped=True, t_timeout=full(100.0, 1)[:, 0].contiguous(),
+              p_fail=full(0.0, 1)[:, 0].contiguous(), fail_u=full(1.0, 3),
+              is_first=to(np.tile([1.0, 0.0, 1.0], (R, 1))),
+              child_pos=to(np.tile([1.0, float(1 << 30), float(1 << 30)], (R, 1))),
+              crash_rate=full(0.5, 1)[:, 0].contiguous(),
+              crash_u=to(np.tile([u2, 0.9999, 0.9999], (R, 1))))
+    out_k = faas_sweep(*args, **kw)
+    err = held_against_plain(torch, out_k, faas_sweep_ref(*args, **kw), "interrupted retry")
+    errs["faas_sweep_retry_fault"] = max(errs["faas_sweep_retry_fault"], err)
+    acc = out_k[4]
+    if not (torch.equal(out_k.act[:, 1], full(1.0, 1)[:, 0]) and bool((acc[:, 10] == 1).all())
+            and bool((acc[:, -1] == 1).all())):
+        raise AssertionError("the interrupted attempt did not trigger its retry")
+    print(f"kernel==plain interrupted retry: every row's attempt 0 interrupted, its retry "
+          f"switched on and processed ({R} rows)", flush=True)
+
+    # fleets: F = 1, 3, 8, crashes and/or capacity, a non-integer ceiling
+    for case, (F, M, crashes, capacity) in enumerate(
+            [(1, 64, True, True), (3, 64, True, False), (3, 40, False, True),
+             (3, 64, True, True), (8, 16, True, True), (8, 64, True, True)]):
+        rng = np.random.default_rng(570 + case)
+        args = fleet_small_inputs(torch, dev, rng, F, 4.0 * F, 1000, True, M, 32, 4, 1024)
+        Nf, (S, Kf) = args[0].shape[0], args[6].shape
+        horizon = float(args[3].max())
+        fk = {}
+        if crashes:
+            fk.update(crash_rate=to(rng.uniform(0.01, 0.05, Nf)), crash_u=to(rng.random((S, Kf))))
+        if capacity:
+            fk.update(cap_edges=to(np.sort(rng.uniform(0.2, 0.8, (Nf, 2)), 1) * horizon),
+                      cap_values=to(np.tile([3.0 * F, 1.5 * F + 0.5, 4.0 * F], (Nf, 1))))
+        before = LAUNCH_COUNTS["fleet_sweep_fault"]
+        out_k = fleet_sweep(*args, slots=M, prestamped=True, **fk)
+        if LAUNCH_COUNTS["fleet_sweep_fault"] != before + 1:
+            raise AssertionError(f"fleet fault case {case}: no fleet_sweep_fault launch counted")
+        e = held_fleet(torch, out_k, fleet_sweep_ref(*args, slots=M, prestamped=True, **fk),
+                       f"fleet fault case {case}")
+        errs["fleet_sweep_fault"] = max(errs.get("fleet_sweep_fault", 0.0), e)
+        tot = out_k[0].sum((0, 1)).tolist()
+        print(f"kernel==plain fleet fault case {case}: F={F} M={M} crashes={crashes} "
+              f"capacity={capacity}: cold={tot[0]:.0f} warm={tot[1]:.0f} reject={tot[2]:.0f} "
+              f"crashed={tot[13]:.0f} evicted={tot[14]:.0f} interrupted={tot[15]:.0f} "
+              f"peak<={out_k[0][..., 12].max().item():.0f}, max|acc diff| {e:.3e}", flush=True)
+        if (tot[13] > 0) != crashes or (tot[14] > 0) != capacity:
+            raise AssertionError(f"fleet fault case {case}: a fault path did not act")
+    print(f"fault small cases in {time.perf_counter() - t0:.1f} s", flush=True)
+    return errs
+
+
+def fault_rows_on(torch, dev, inp):
+    """A sweep_inputs' per-row fault inputs as f32 tensors on the card."""
+    row = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32, device=dev)
+    out = {}
+    if "crash_rate" in inp.fault_rows:
+        out.update(crash_rate=row(inp.fault_rows["crash_rate"]), crash_u=inp.samples[-1])
+    if "cap_values" in inp.fault_rows:
+        out.update(cap_edges=row(inp.fault_rows["cap_edges"]),
+                   cap_values=row(inp.fault_rows["cap_values"]))
+    return out
+
+
+def fault_launch(torch, dev, card, what, scn, inp, plain_events, reps=3):
+    """One fault launch at an entry point's width on its own sweep_inputs:
+    timed by CUDA events, held to the plain version on its first
+    ``plain_events`` events (None: all of them); returns (ms, plain_ms,
+    bound_ms, bound_by, err, acc, out)."""
+    from repro_torch.kernels.faas_event_step import faas_sweep
+    from repro_torch.kernels.ref import faas_sweep_ref
+
+    row = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32, device=dev)
+    C = len(inp.thr_rows)
+    rel = scn.reliability
+    retry = scn.max_retries > 0
+    samples = inp.samples[:-1] if "crash_rate" in inp.fault_rows else inp.samples
+    args = (*fresh_pools(torch, C, scn.slots, dev), row(inp.thr_rows), *samples[:3])
+    kw = dict(t_end=row(inp.sim_rows), skip=row(inp.skip_rows),
+              max_concurrency=scn.max_concurrency, prestamped=inp.prestamped,
+              **fault_rows_on(torch, dev, inp))
+    if rel is not None:
+        kw.update(t_timeout=row(inp.t_timeout_rows), p_fail=row(inp.p_fail_rows),
+                  fail_u=samples[3])
+    if retry:
+        kw.update(is_first=samples[4], child_pos=samples[5])
+    ms, out = timed(torch, lambda: faas_sweep(*args, **kw), reps=reps)
+    acc = out[4]
+    K = samples[0].shape[1]
+    if plain_events is None or plain_events >= K:
+        pargs, pkw, held = args, kw, f"all {K} events"
+    else:
+        pargs = (*args[:5], *(prefix(x, plain_events) for x in args[5:]))
+        pkw = {k: prefix(v, plain_events) if torch.is_tensor(v) and v.dim() == 2
+               and v.shape[1] == K else v for k, v in kw.items()}
+        held = f"the first {plain_events} of {K} events"
+    out_k = faas_sweep(*pargs, **pkw)
+    plain_ms, out_p = plain_timed(torch, lambda: faas_sweep_ref(*pargs, **pkw))
+    err = held_against_plain(torch, out_k, out_p, f"{what}, {held}")
+    # the work this data needs: the events in their rows' horizons (gaps
+    # summed in f64; an attempt table's times compared), the cold starts and
+    # evictions it counted
+    if retry:
+        active = int((samples[0] <= kw["t_end"][:, None]).sum())
+    else:
+        active = arrivals_in_horizon(samples[0], kw["t_end"])
+    E = kw["cap_values"].shape[1] - 1 if "cap_values" in kw else -1
+    b_ms, b_by = bound_ms(C, scn.slots, K, active, rely=rel is not None, retry=retry,
+                          fault=(E, "crash_rate" in kw, float(acc[:, 0].sum()),
+                                 float(acc[:, -2].sum())))
+    print(f"timing [{card}]: faas_sweep {what} C={C} M={scn.slots} K={K}: {ms:.3f} ms; "
+          f"{active} events in horizon = {active / ms * 1e3:.4e}/s; bound {b_ms:.3f} ms "
+          f"({b_by}), kernel {ms / b_ms:.1f}x its bound; plain version {plain_ms:.1f} ms on "
+          f"{held} (doom plane and counts equal, max|acc diff| {err:.3e})", flush=True)
+    return ms, plain_ms, b_ms, b_by, err, acc, out
+
+
+def fault_cell_stats(grid):
+    """Per cell (in grid order): availability and cold-start probability
+    pooled over replicas and the replica mean of the instance count, each
+    with the standard error of its per-replica values."""
+    out = {k: ([], []) for k in ("availability", "cold_start_prob", "avg_server_count")}
+    for s in grid.summaries.ravel():
+        served = np.maximum(s.n_cold + s.n_warm, 1)
+        se = lambda v: float(np.std(v, ddof=1) / np.sqrt(len(v)))
+        for k, v, per in (("availability", s.availability, 1 - s.n_interrupt / served),
+                          ("cold_start_prob", s.cold_start_prob, s.n_cold / served),
+                          ("avg_server_count", s.avg_server_count,
+                           (s.time_running + s.time_idle) / s.measured_time)):
+            out[k][0].append(v)
+            out[k][1].append(se(per))
+    return out
+
+
+def faults_phase(torch, rt, dev, card):
+    """The platform-fault phase (module docstring, item 11); returns the
+    kernels-line entries and the largest differences."""
+    import dataclasses
+
+    from repro_torch.core.fleet import fleet_inputs
+    from repro_torch.core.scenario import sweep_inputs
+    from repro_torch.data.catalog import catalog_names, fleet_of
+    from repro_torch.kernels.faas_event_step import LAUNCH_COUNTS, faas_sweep
+    from repro_torch.kernels.fleet_event_step import fleet_sweep
+    from repro_torch.kernels.ref import faas_sweep_ref, fleet_sweep_ref
+
+    errs = fault_small_cases(torch, dev)
+    results = {}
+    launches = {k: 0 for k in ("faas_sweep_fault", "faas_sweep_rely_fault",
+                               "faas_sweep_retry_fault", "fleet_sweep_fault")}
+
+    # ---- 1. bench_fault_sweep's grid at 512 replicas, through sweep()
+    dip = rt.CapacityProfile(*FAULT_DIP)
+    scn_f = table1(rt, sim_time=FAULT_SIM, skip_time=FAULT_SKIP, expiration_threshold=120.0,
+                   max_concurrency=30,
+                   faults=rt.FaultModel(crash_rate=FAULT_OVER["crash_rate"][0], capacity=dip))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCH_COUNTS.clear()
+    t0 = time.perf_counter()
+    grid_f = rt.sweep(scn_f, FAULT_OVER, seed=11, replicas=FAULT_REPLICAS, steps=FAULT_STEPS)
+    wall = time.perf_counter() - t0
+    if dict(LAUNCH_COUNTS) != {"faas_sweep_fault": 1}:
+        raise AssertionError(f"the fault sweep's launches: {dict(LAUNCH_COUNTS)}")
+    launches["faas_sweep_fault"] += 1
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not grid_f.ok.all():
+        raise AssertionError("fault sweep cells are not finite")
+    stats = fault_cell_stats(grid_f)
+    worst = 0.0
+    for name, (card_v, card_se) in stats.items():
+        ref_v, ref_se = np.asarray(REF_FAULT[name]), np.asarray(REF_FAULT[name + "_se"])
+        z = np.abs(np.asarray(card_v) - ref_v) / np.hypot(np.asarray(card_se), ref_se)
+        worst = max(worst, float(z.max()))
+        print(f"fault sweep {name} per cell (crash_rate-major) "
+              + " ".join(f"{v:.5f}" for v in card_v) + "; JAX reference "
+              + " ".join(f"{v:.5f}" for v in ref_v) + f"; max {z.max():.2f} standard errors",
+              flush=True)
+        if z.max() > REF_FAULT_SIGMAS:
+            raise AssertionError(f"the fault sweep's {name} is more than "
+                                 f"{REF_FAULT_SIGMAS} standard errors from the reference")
+    crashes = sum(float(s.n_crash.sum()) for s in grid_f.summaries.ravel())
+    evictions = sum(float(s.n_evict.sum()) for s in grid_f.summaries.ravel())
+    print(f"fault sweep: {grid_f.shape} cells x {FAULT_REPLICAS} replicas = "
+          f"{grid_f.summaries.size * FAULT_REPLICAS} rows x K={FAULT_STEPS}, 1 launch, "
+          f"{wall:.3f} s wall, peak {peak:.3f} GiB; crashes {crashes:.0f}, evictions "
+          f"{evictions:.0f}, worst availability {grid_f.availability.min():.5f}", flush=True)
+    inp = sweep_inputs(scn_f, FAULT_OVER, 11, replicas=FAULT_REPLICAS, device=dev,
+                       steps=FAULT_STEPS)
+    ms, plain_ms, b_ms, b_by, err, acc, _ = fault_launch(
+        torch, dev, card, "fault sweep", scn_f, inp, None)
+    errs["faas_sweep_fault"] = max(errs["faas_sweep_fault"], err)
+    cold = acc[:, 0].double().reshape(len(FAULT_OVER["expiration_threshold"]),
+                                      len(FAULT_OVER["crash_rate"]), FAULT_REPLICAS)
+    want = np.stack([[grid_f.summaries[i, j].n_cold for i in range(len(FAULT_OVER["crash_rate"]))]
+                     for j in range(len(FAULT_OVER["expiration_threshold"]))])
+    if not np.array_equal(cold.cpu().numpy(), want):
+        raise AssertionError("the timed fault launch does not reproduce sweep()")
+    print(f"end to end [{card}]: fault sweep() {wall:.3f} s wall "
+          f"({ms:.3f} ms of it the kernel)", flush=True)
+    results["faas_sweep_fault"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    del inp, acc
+
+    # ---- 2. the fault runs with reliability and with retries, through
+    # run(), at the frontier's base crash rate
+    flt_r = rt.FaultModel(crash_rate=TABLE1_CRASH_RATE, capacity=dip)
+    for key, rel in (("faas_sweep_rely_fault", rt.Reliability(rt.FailurePolicy(0.05, 8.0))),
+                     ("faas_sweep_retry_fault", retry_policy(rt))):
+        scn_r = rt.Scenario.of(scn_f, reliability=rel, faults=flt_r)
+        LAUNCH_COUNTS.clear()
+        t0 = time.perf_counter()
+        res = rt.run(scn_r, 13, replicas=FAULT_RUN_REPLICAS, steps=FAULT_STEPS)
+        wall = time.perf_counter() - t0
+        if dict(LAUNCH_COUNTS) != {key: 1}:
+            raise AssertionError(f"the fault run's launches: {dict(LAUNCH_COUNTS)}")
+        launches[key] += 1
+        s = res.summary
+        total = s.n_completions + s.n_interrupt + s.n_timeout + s.n_fail + s.n_reject
+        if not (s.n_requests == total).all() or s.n_interrupt.sum() <= 0:
+            raise AssertionError(f"{key}: an attempt is in no bucket, or none was interrupted")
+        print(f"fault run {key}: {FAULT_RUN_REPLICAS} replicas, 1 launch, {wall:.3f} s wall: "
+              f"availability {s.availability:.5f}, goodput {s.goodput:.5f}/s, retries "
+              f"{s.n_retry.sum():.0f}, interrupted {s.n_interrupt.sum():.0f}; every attempt "
+              f"completed, interrupted, timed out, failed or rejected", flush=True)
+        inp = sweep_inputs(scn_r, {"expiration_threshold": [scn_r.expiration_threshold]}, 13,
+                           replicas=FAULT_RUN_REPLICAS, device=dev, steps=FAULT_STEPS)
+        ms, plain_ms, b_ms, b_by, err, acc, _ = fault_launch(
+            torch, dev, card, f"{key} run", scn_r, inp, FAULT_PLAIN_EVENTS)
+        if not np.array_equal(acc[:, 0].double().cpu().numpy(), s.n_cold):
+            raise AssertionError(f"the timed {key} launch does not reproduce run()")
+        errs[key] = max(errs.get(key, 0.0), err)
+        results[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        del inp, acc
+
+    # ---- 3. the Table-1 sweep (phase 4) with crashes, against the same
+    # launch without them on the same events (base, faults, faults, base)
+    scn_c = table1(rt, faults=rt.FaultModel(crash_rate=TABLE1_CRASH_RATE))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCH_COUNTS.clear()
+    t0 = time.perf_counter()
+    grid_c = rt.sweep(scn_c, SWEEP_OVER, seed=0, replicas=SWEEP_REPLICAS)
+    wall = time.perf_counter() - t0
+    if dict(LAUNCH_COUNTS) != {"faas_sweep_fault": 1}:
+        raise AssertionError(f"the Table-1 crash sweep's launches: {dict(LAUNCH_COUNTS)}")
+    launches["faas_sweep_fault"] += 1
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not grid_c.ok.all():
+        raise AssertionError("Table-1 crash sweep cells are not finite")
+    cell = grid_c.sel(arrival_rate=0.9, expiration_threshold=600.0)
+    print(f"Table-1 sweep with crashes (rate {TABLE1_CRASH_RATE}): 1 launch, {wall:.3f} s "
+          f"wall, peak {peak:.3f} GiB; (0.9/s, 600 s) avg servers "
+          f"{float(cell.avg_server_count):.4f}, cold start "
+          f"{100 * float(cell.cold_start_prob):.4f}%, availability "
+          f"{float(cell.availability):.5f}", flush=True)
+    inp = sweep_inputs(scn_c, SWEEP_OVER, 0, replicas=SWEEP_REPLICAS, device=dev)
+    row = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32, device=dev)
+    Cc = len(inp.thr_rows)
+    base_args = (*fresh_pools(torch, Cc, scn_c.slots, dev), row(inp.thr_rows), *inp.samples[:3])
+    base_kw = dict(t_end=row(inp.sim_rows), skip=row(inp.skip_rows),
+                   max_concurrency=scn_c.max_concurrency)
+    crash_kw = dict(base_kw, **fault_rows_on(torch, dev, inp))
+    base_ms, crash_ms, readings, out_c = against_base(
+        torch, lambda: faas_sweep(*base_args, **base_kw),
+        lambda: faas_sweep(*base_args, **crash_kw), reps=3, rounds=TABLE1_FAULT_ROUNDS)
+    if not np.array_equal(out_c[4][:, 0].double().cpu().numpy(),
+                          np.concatenate([s.n_cold for s in grid_c.summaries.ravel()])):
+        raise AssertionError("the timed Table-1 crash launch does not reproduce sweep()")
+    pargs = (*base_args[:5], *(prefix(x, FAULT_PLAIN_EVENTS) for x in base_args[5:]))
+    pkw = dict(crash_kw, crash_u=prefix(crash_kw["crash_u"], FAULT_PLAIN_EVENTS))
+    out_k = faas_sweep(*pargs, **pkw)
+    plain_c, out_p = plain_timed(torch, lambda: faas_sweep_ref(*pargs, **pkw))
+    e = held_against_plain(torch, out_k, out_p,
+                           f"Table-1 crash sweep, first {FAULT_PLAIN_EVENTS} events")
+    errs["faas_sweep_fault"] = max(errs["faas_sweep_fault"], e)
+    K = inp.samples[0].shape[1]
+    active = arrivals_in_horizon(inp.samples[0], base_kw["t_end"])
+    acc = out_c[4]
+    b_c, b_by_c = bound_ms(Cc, scn_c.slots, K, active,
+                           fault=(-1, True, float(acc[:, 0].sum()), 0.0))
+    crashed = float(acc[:, -3].sum())
+    print(f"timing [{card}]: faas_sweep Table-1 with crashes C={Cc} M={scn_c.slots} K={K}: "
+          f"{readings} (without faults on the same events; clock, temperature and power "
+          f"read during each): {100 * (sum(crash_ms) / sum(base_ms) - 1):+.1f}%, fault "
+          f"readings {min(crash_ms):.3f} to {max(crash_ms):.3f} ms, base {min(base_ms):.3f} "
+          f"to {max(base_ms):.3f} ms; bound {b_c:.3f} ms ({b_by_c}); "
+          f"{crashed:.0f} crashes, {float(acc[:, -1].sum()):.0f} interrupted; plain version "
+          f"{plain_c:.1f} ms on the first {FAULT_PLAIN_EVENTS} events (held: max|acc diff| "
+          f"{e:.3e}); sweep() {wall:.3f} s wall", flush=True)
+    del inp, base_args, crash_kw, base_kw, out_c, out_k, out_p, pargs, pkw, acc
+    torch.cuda.empty_cache()
+
+    # ---- 4. examples/chaos.py's capacity dip at 4,096 fleets, through fleet_run()
+    fn = lambda name, rate, warm, cold, thr, limit: rt.FleetFunction(
+        name=name, arrival_process=rt.ExpSimProcess(rate=rate),
+        warm_service_process=rt.ExpSimProcess(rate=warm),
+        cold_service_process=rt.ExpSimProcess(rate=cold),
+        expiration_threshold=thr, max_concurrency=limit)
+    fleet_d = rt.FleetScenario(
+        functions=(fn("api", 0.8, 0.5, 0.25, 60.0, 25), fn("batch", 0.3, 0.2, 0.1, 120.0, 20)),
+        n_cluster=40, sim_time=DIP_T, skip_time=0.0,
+        faults=rt.FaultModel(crash_rate=DIP_CRASH_RATE, capacity=rt.CapacityProfile(
+            (0.4 * DIP_T, 0.7 * DIP_T), (40.0, 10.0, 40.0))))
+    LAUNCH_COUNTS.clear()
+    t0 = time.perf_counter()
+    res_d = rt.fleet_run(fleet_d, 12, replicas=DIP_FLEETS)
+    wall_d = time.perf_counter() - t0
+    if dict(LAUNCH_COUNTS) != {"fleet_sweep_fault": 1}:
+        raise AssertionError(f"the dip fleet's launches: {dict(LAUNCH_COUNTS)}")
+    launches["fleet_sweep_fault"] += 1
+    sd = res_d.summary
+    for f, (name, s) in enumerate(zip(sd.functions, sd.summaries)):
+        per = 1 - s.n_interrupt / np.maximum(s.n_cold + s.n_warm, 1)
+        se = float(np.std(per, ddof=1) / np.sqrt(len(per)))
+        ref, ref_se = REF_FLEET_FAULT["availability"][f], REF_FLEET_FAULT["availability_se"][f]
+        tol = REF_FAULT_SIGMAS * float(np.hypot(se, ref_se))
+        print(f"fleet dip {name}: availability {s.availability:.5f} (JAX reference "
+              f"{ref:.5f}, |diff| {abs(s.availability - ref):.2e} <= {tol:.2e}); crashes "
+              f"{s.n_crash.sum():.0f}, evictions {s.n_evict.sum():.0f}, interrupted "
+              f"{s.n_interrupt.sum():.0f}", flush=True)
+        if abs(s.availability - ref) > tol:
+            raise AssertionError(f"the dip fleet's {name} availability is off the reference")
+    if sd.max_peak_cluster > 40 or sum(s.n_evict.sum() for s in sd.summaries) <= 0:
+        raise AssertionError("the dip fleet passed its ceiling or evicted nothing")
+    inp = fleet_inputs(fleet_d, {}, 12, replicas=DIP_FLEETS, device=dev)
+    Kd = inp.staged["times"].shape[1]
+    args = fleet_prefix(inp, Kd)
+    kw = dict(slots=fleet_d.slots, queue_depth=0, prestamped=True, **inp.faults)
+    ms_d, out_k = timed(torch, lambda: fleet_sweep(*args, **kw), reps=3)
+    plain_d, out_p = plain_timed(torch, lambda: fleet_sweep_ref(*args, **kw))
+    e = held_fleet(torch, out_k, out_p, "dip fleet, all events")
+    errs["fleet_sweep_fault"] = max(errs["fleet_sweep_fault"], e)
+    for f, s in enumerate(sd.summaries):
+        if not np.array_equal(out_k[0][:, f, 0].double().cpu().numpy(), s.n_cold):
+            raise AssertionError("the timed dip launch does not reproduce fleet_run()")
+    print(f"timing [{card}]: fleet_sweep dip N={DIP_FLEETS} F=2 K={Kd}: {ms_d:.3f} ms; plain "
+          f"version {plain_d:.1f} ms on all events (doom plane and counts equal, max|acc diff| "
+          f"{e:.3e}); peak {sd.max_peak_cluster:.0f} <= 40; fleet_run() {wall_d:.3f} s wall",
+          flush=True)
+    del inp, args, kw, out_k, out_p
+
+    # ---- 5. the catalog sweep (phase 6) with crashes and a dip, timed
+    # against the same launch without faults (base, faults, faults, base)
+    names = list(catalog_names())
+    fleet_c = dataclasses.replace(
+        fleet_of(names, n_cluster=FLEET_CLUSTER, skip_time=20.0, slots=64),
+        faults=rt.FaultModel(crash_rate=CATALOG_CRASH_RATE, capacity=rt.CapacityProfile(
+            (0.4e5, 0.7e5), CATALOG_DIP)))
+    over = {"expiration_threshold": FLEET_THRESHOLDS}
+    LAUNCH_COUNTS.clear()
+    t0 = time.perf_counter()
+    grid = rt.fleet_sweep(fleet_c, over, 5, replicas=FLEET_REPLICAS)
+    wall = time.perf_counter() - t0
+    if dict(LAUNCH_COUNTS) != {"fleet_sweep_fault": 1}:
+        raise AssertionError(f"the faulty catalog sweep's launches: {dict(LAUNCH_COUNTS)}")
+    launches["fleet_sweep_fault"] += 1
+    if not grid.ok.all() or float(grid.peak_cluster.max()) > FLEET_CLUSTER:
+        raise AssertionError("the faulty catalog sweep is not finite or passed its cap")
+    inp = fleet_inputs(fleet_c, over, 5, replicas=FLEET_REPLICAS, device=dev)
+    N, (S, K) = inp.t_exp.shape[0], inp.staged["times"].shape
+    args = fleet_prefix(inp, K)
+    kw0 = dict(slots=64, queue_depth=0, prestamped=True)
+    kw = dict(kw0, **inp.faults)
+    base, fault_ms, readings, out_f = against_base(
+        torch, lambda: fleet_sweep(*args, **kw0), lambda: fleet_sweep(*args, **kw),
+        reps=1, rounds=1)
+    ms_f = sum(fault_ms) / len(fault_ms)
+    F = len(fleet_c.functions)
+    cold_k = out_f[0][..., 0].double().cpu().numpy().reshape(len(FLEET_THRESHOLDS), -1, F)
+    for i in range(len(FLEET_THRESHOLDS)):
+        for f in range(F):
+            if not np.array_equal(cold_k[i, :, f], grid.summaries[i, f].n_cold):
+                raise AssertionError("the timed catalog launch does not reproduce fleet_sweep()")
+    tot = out_f[0].sum((0, 1)).tolist()
+    part = fleet_prefix(inp, FAULT_PLAIN_EVENTS)
+    pkw = dict(kw, crash_u=prefix(kw["crash_u"], FAULT_PLAIN_EVENTS))
+    out_k = fleet_sweep(*part, **pkw)
+    plain_ms, out_p = plain_timed(torch, lambda: fleet_sweep_ref(*part, **pkw))
+    e = held_fleet(torch, out_k, out_p, "faulty catalog sweep prefix")
+    errs["fleet_sweep_fault"] = max(errs["fleet_sweep_fault"], e)
+    # the bound: phase 6's count (events in the horizon; live instances by
+    # PASTA from this sweep's occupancies) plus the fault path's work
+    in_h = inp.staged["times"] <= inp.t_end[:1].item()
+    per_row = in_h.sum(1).double().cpu().numpy()
+    per_fn = np.stack([(in_h & (inp.staged["fids"] == f)).sum(1).double().cpu().numpy()
+                       for f in range(F)])
+    del in_h
+    occ = np.array([[(s.time_running + s.time_idle) / s.measured_time for s in row]
+                    for row in grid.summaries])
+    active = int(per_row.sum()) * len(FLEET_THRESHOLDS)
+    live, acting = float((occ * per_row).sum()), float((occ * per_fn).sum())
+    b_ms, b_by = fleet_bound_ms(N, F, S, K, active, live, acting,
+                                fault=(2, True, tot[0], tot[14]))
+    print(f"timing [{card}]: fleet_sweep with faults N={N} F={F} M=64 K={K}: {readings} "
+          f"(without faults on the same stream; clock, temperature and power read during "
+          f"each): {100 * (sum(fault_ms) / sum(base) - 1):+.1f}%; bound {b_ms:.3f} ms ({b_by}); "
+          f"crashes {tot[13]:.0f}, evictions {tot[14]:.0f}, interrupted {tot[15]:.0f}; plain "
+          f"version {plain_ms:.1f} ms on the first {FAULT_PLAIN_EVENTS} events (held: max|acc "
+          f"diff| {e:.3e}); fleet_sweep() {wall:.3f} s wall", flush=True)
+    results["fleet_sweep_fault"] = dict(ms=ms_f, plain_ms=plain_ms, bound_ms=b_ms,
+                                        bound_by=b_by)
+    del inp, args, part, out_f, out_k, out_p
+    torch.cuda.empty_cache()
+    for k, n in launches.items():
+        results[k]["launches"] = n
     return results, errs
 
 
@@ -2815,7 +3523,15 @@ def main() -> int:
     print(f"fused draw phase {time.perf_counter() - t0:.1f} s; script "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # ---- 11. kernels line, card line, device line
+    # ---- 11. platform faults
+    t0 = time.perf_counter()
+    fault_results, fault_errs = faults_phase(torch, rt, dev, card)
+    results.update(fault_results)
+    errs.update(fault_errs)
+    print(f"fault phase {time.perf_counter() - t0:.1f} s; script "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---- 12. kernels line, card line, device line
     print(json.dumps({"kernels": [
         dict(KERNELS[k], **dict(dict(library_ms=None), **results[k]), max_abs_err=errs[k])
         for k in KERNELS

@@ -4,10 +4,12 @@ simulator to an NVIDIA H100.
 The front door is the same Scenario API: ``run``/``sweep`` on the f32
 block engines, whose hot loops are the hand-written CUDA kernels
 ``kernels/csrc/faas_event_step.cu`` (engines ``scan`` and ``temporal``;
-metric windows, timeouts, failures and client retries on ``scan``)
+metric windows, timeouts, failures, client retries and platform faults on
+``scan``)
 and ``kernels/csrc/par_event_step.cu`` (engine ``par``), and the fleet
 front door ``fleet_run``/``fleet_sweep`` (function pools under a shared
-cluster capacity) on ``kernels/csrc/fleet_event_step.cu``.  Entry points
+cluster capacity, with platform faults) on
+``kernels/csrc/fleet_event_step.cu``.  Entry points
 run on the GPU unless called with ``device="cpu"``, which selects the
 plain PyTorch versions of the kernels.  This package imports torch and
 numpy only.
@@ -15,10 +17,12 @@ numpy only.
 
 from repro_torch.core import (  # noqa: F401
     BillingModel,
+    CapacityProfile,
     DeterministicSimProcess,
     Execution,
     ExpSimProcess,
     FailurePolicy,
+    FaultModel,
     FleetFunction,
     FleetGridResult,
     FleetResult,
@@ -64,6 +68,8 @@ __all__ = [
     "FailurePolicy",
     "RetryPolicy",
     "Reliability",
+    "CapacityProfile",
+    "FaultModel",
     "InstanceSnapshot",
     "TemporalSummary",
     "run",

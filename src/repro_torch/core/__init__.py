@@ -26,6 +26,7 @@ from repro_torch.core.execution import (
     register_backend,
     resolve_backend,
 )
+from repro_torch.core.faults import CapacityProfile, FaultModel
 from repro_torch.core.fleet import (
     FleetFunction,
     FleetGridResult,
@@ -74,6 +75,8 @@ __all__ = [
     "FailurePolicy",
     "RetryPolicy",
     "Reliability",
+    "CapacityProfile",
+    "FaultModel",
     "InstanceSnapshot",
     "TemporalSummary",
     "run",

@@ -44,7 +44,9 @@ class EngineSpec:
     ``windowed_backends`` lists the backends on which the engine produces
     per-window metrics, ``reliability_backends`` those on which it serves
     timeouts, failures and retries, ``fused_backends`` those on which it
-    draws its samples inline (``Execution(draws="fused")``);
+    draws its samples inline (``Execution(draws="fused")``),
+    ``faults_backends`` those on which it serves platform faults
+    (instance crashes and capacity churn);
     :func:`repro_torch.core.scenario.run` and ``sweep`` refuse a layer on
     any other backend.
     """
@@ -53,6 +55,7 @@ class EngineSpec:
     windowed_backends: tuple = ()
     reliability_backends: tuple = ()
     fused_backends: tuple = ()
+    faults_backends: tuple = ()
 
 
 # engines this port serves on the f32 block kernels; the reference's f64
@@ -61,7 +64,7 @@ class EngineSpec:
 ENGINE_SPECS = {
     "scan": EngineSpec(
         "scan", windowed_backends=("cuda", "ref"), reliability_backends=("cuda", "ref"),
-        fused_backends=("cuda", "ref"),
+        fused_backends=("cuda", "ref"), faults_backends=("cuda", "ref"),
     ),
     "temporal": EngineSpec("temporal"),
     "par": EngineSpec("par"),

@@ -25,9 +25,17 @@ stream and a whole sweep is ONE launch of the fleet kernel
 ``"cuda"`` (the kernel ``kernels/csrc/fleet_event_step.cu``, F <= 8) or
 ``"ref"`` (its plain version).
 
+Platform faults (``FleetScenario(faults=FaultModel(...))``, not with
+queues) run the fault path of the fleet kernel: each function pool under
+the crash hazard, the fleet's live count under the capacity ceiling.  The
+crash uniforms are one ``[replicas, K]`` stream positional on the merged
+events, drawn from the crash generator of function 0's draw cell (so a
+one-function fleet draws what :func:`~repro_torch.core.scenario.run`
+draws); each function's summary carries its crashes, evictions and
+interrupted arrivals.
+
 Not ported yet, each raising with its ROADMAP item: the f64 fleet scan
-(backend ``"scan"``, Queue A item 2), platform faults (``faults=``, Queue A
-item 4) and rate profiles (Queue A item 3).
+(backend ``"scan"``, Queue A item 2) and rate profiles (Queue A item 3).
 """
 
 from __future__ import annotations
@@ -42,14 +50,18 @@ import torch
 
 from repro_torch.core.cost import BillingModel, CostEstimate, estimate_cost
 from repro_torch.core.execution import _PROVIDERS, Execution, plan_of, resolve_backend
+from repro_torch.core.faults import FaultModel
 from repro_torch.core.processes import SimProcess
 from repro_torch.core.scenario import GridResult, Scenario
 from repro_torch.core.simulator import (
+    CRASH_STREAM,
+    FAULT_STREAMS,
     SimulationSummary,
     cell_generators,
+    draw_crash_uniforms,
     draw_workload_samples,
 )
-from repro_torch.kernels.ref import FLEET_ACC_COLS, MAX_FUNCTIONS
+from repro_torch.kernels.ref import FAULT_COLS, FLEET_ACC_COLS, MAX_FUNCTIONS
 
 __all__ = [
     "FleetFunction",
@@ -133,8 +145,9 @@ class FleetScenario:
     ``n_cluster`` is the total live-instance capacity across all functions
     (``math.inf``: uncoupled pools); ``queue_depth`` is each function's
     FIFO queue for arrivals that cannot start (0: they are rejected, as in
-    the single-function engines); ``slots`` is each function's pool size.
-    ``faults`` must stay ``None``: platform faults are not ported yet.
+    the single-function engines); ``slots`` is each function's pool size;
+    ``faults`` is an optional :class:`~repro_torch.core.faults.FaultModel`
+    (not with queues).
     """
 
     functions: Tuple[FleetFunction, ...]
@@ -160,10 +173,16 @@ class FleetScenario:
             raise ValueError(f"n_cluster must be > 0, got {self.n_cluster}")
         if self.queue_depth < 0:
             raise ValueError("queue_depth must be >= 0")
-        if self.faults is not None:
-            raise NotImplementedError(
-                "FleetScenario.faults is not ported to repro_torch yet; see "
-                "ROADMAP.md Queue A item 4 (platform faults)"
+        if self.faults is not None and not isinstance(self.faults, FaultModel):
+            raise ValueError(
+                "FleetScenario.faults must be a FaultModel (or None), got "
+                f"{type(self.faults).__name__}"
+            )
+        if self.active_faults is not None and self.queue_depth > 0:
+            raise ValueError(
+                "platform faults do not serve fleet FIFO queues yet "
+                "(eviction would have to reconcile queued work); set "
+                "queue_depth=0 or drop the FaultModel"
             )
         if not self.sim_time > 0:
             raise ValueError(f"sim_time must be > 0, got {self.sim_time}")
@@ -175,6 +194,11 @@ class FleetScenario:
     @property
     def names(self) -> Tuple[str, ...]:
         return tuple(f.name for f in self.functions)
+
+    @property
+    def active_faults(self) -> Optional[FaultModel]:
+        """The fault model when it injects anything, else None."""
+        return self.faults if self.faults is not None and self.faults.enabled else None
 
     def with_rates(self, rates: Dict[str, float]) -> "FleetScenario":
         """Copy with the named functions' arrival processes re-rated
@@ -215,8 +239,10 @@ def _stage_fleet(
     """Draw every function's stream on ``device`` and merge them per replica.
 
     Returns ``times`` (f32), ``fids`` (uint8), ``warms``, ``colds`` (f32),
-    each ``[replicas, K]``, and ``prestamped``.  For F > 1 each function's
-    gaps are cumulated in f64 and must reach ``max_sim``; the streams,
+    each ``[replicas, K]``, and ``prestamped``; with crashes also
+    ``crash_u`` (f32 ``[replicas, K]``, one uniform per merged event).
+    For F > 1 each function's gaps are cumulated in f64 and must reach
+    ``max_sim``; the streams,
     concatenated in function order, are merged by a stable sort on the f64
     times (the reference's ``np.lexsort((fids, times))``) and cast to f32
     after the merge: at t ~ 1e5 s f32 spaces times ~0.008 s apart, so
@@ -225,19 +251,30 @@ def _stage_fleet(
     scenario.run` draws them.
     """
     F, R = len(fleet.functions), int(replicas)
+    flt = fleet.active_faults
+    crashes = flt is not None and flt.crashes
     limit = torch.tensor(max_sim, dtype=torch.float64, device=device)
     times, fids, warms, colds = [], [], [], []
-    for f, (fn, gens) in enumerate(zip(fleet.functions, cell_generators(seed, F, device))):
+    cells = cell_generators(seed, F, device, FAULT_STREAMS if crashes else 3)
+
+    def with_crashes(out):
+        if crashes:
+            # one uniform per merged event, drawn after the merge
+            K = out["times"].shape[1]
+            out["crash_u"] = draw_crash_uniforms(cells[0][CRASH_STREAM], R, K, device)
+        return out
+
+    for f, (fn, gens) in enumerate(zip(fleet.functions, cells)):
         scn_f = fn.as_scenario(sim_time=max_sim, skip_time=fleet.skip_time, slots=fleet.slots)
         n_f = int(steps) if steps is not None else scn_f.steps_needed()
-        arr, warm, cold = draw_workload_samples(scn_f, gens, R, n_f, device)
+        arr, warm, cold = draw_workload_samples(scn_f, gens[:3], R, n_f, device)
         if F == 1:
             if bool((arr.sum(1, dtype=torch.float64) < limit).any()):
                 _short(fn.name)
-            return dict(
+            return with_crashes(dict(
                 times=arr, fids=torch.zeros(arr.shape, dtype=torch.uint8, device=device),
                 warms=warm, colds=cold, prestamped=False,
-            )
+            ))
         t_f = arr.double().cumsum_(1)
         if bool((t_f[:, -1] < limit).any()):
             _short(fn.name)
@@ -249,33 +286,37 @@ def _stage_fleet(
     merged, order = torch.sort(torch.cat(times, 1), dim=1, stable=True)
     del times
     take = lambda parts: torch.cat(parts, 1).gather(1, order)
-    return dict(
+    return with_crashes(dict(
         times=merged.float(), fids=take(fids), warms=take(warms), colds=take(colds),
         prestamped=True,
-    )
+    ))
 
 
 def _check_staged(staged, fleet: FleetScenario, replicas: int, max_sim: float, device) -> dict:
     """A handed-in stream (see :func:`repro_torch.interop.
     fleet_staged_from_reference`) on ``device``, behind the coverage
-    guard: every function's last arrival must reach ``max_sim``."""
-    keys = ("times", "fids", "warms", "colds", "prestamped")
+    guard: every function's last arrival must reach ``max_sim``.  With
+    crashes it also holds ``crash_u``."""
+    crashes = fleet.active_faults is not None and fleet.faults.crashes
+    keys = ("times", "fids", "warms", "colds", "prestamped") + (("crash_u",) if crashes else ())
     if not isinstance(staged, Mapping) or any(k not in staged for k in keys):
         raise ValueError(
-            "staged must map times, fids, warms, colds and prestamped "
-            "(see repro_torch.interop.fleet_staged_from_reference)"
+            "staged must map times, fids, warms, colds and prestamped"
+            + (" (and crash_u with crashes)" if crashes else "")
+            + " (see repro_torch.interop.fleet_staged_from_reference)"
         )
+    floats = ("times", "warms", "colds") + (("crash_u",) if crashes else ())
     out = {k: torch.as_tensor(staged[k], dtype=torch.float32).to(device).contiguous()
-           for k in ("times", "warms", "colds")}
+           for k in floats}
     out["fids"] = torch.as_tensor(staged["fids"]).to(device, torch.uint8).contiguous()
     out["prestamped"] = bool(staged["prestamped"])
     shape = tuple(out["times"].shape)
     if len(shape) != 2 or shape[0] != replicas or any(
-        tuple(out[k].shape) != shape for k in ("fids", "warms", "colds")
+        tuple(out[k].shape) != shape for k in ("fids",) + floats[1:]
     ):
         raise ValueError(
             f"staged buffers must all be [{replicas}, K]; got "
-            f"{[tuple(out[k].shape) for k in keys[:4]]}"
+            f"{[tuple(out[k].shape) for k in ('times', 'fids') + floats[1:]]}"
         )
     times, fids = out["times"], out["fids"]
     if out["prestamped"]:
@@ -391,6 +432,7 @@ class FleetInputs:
     skip: torch.Tensor
     stream: torch.Tensor
     staged: dict
+    faults: dict  # the launch's fault inputs (empty without faults)
 
 
 def fleet_inputs(
@@ -432,6 +474,13 @@ def fleet_inputs(
         device=device,
     ).contiguous()
     ncl = np.where(np.isfinite(cells["n_cluster"]), cells["n_cluster"], 1e30)
+    flt = fleet.active_faults
+    faults = {}
+    if flt is not None and flt.crashes:
+        faults.update(crash_rate=rows(np.full(C, flt.crash_rate)), crash_u=staged["crash_u"])
+    if flt is not None and flt.capacity is not None:
+        cap = lambda x: rows(np.tile(np.asarray(x, np.float64), (C, 1)))
+        faults.update(cap_edges=cap(flt.capacity.edges), cap_values=cap(flt.capacity.values))
     return FleetInputs(
         axis_vals=axis_vals,
         cells=cells,
@@ -442,6 +491,7 @@ def fleet_inputs(
         skip=rows(cells["skip_time"]),
         stream=torch.arange(R, dtype=torch.int64, device=device).repeat(C),
         staged=staged,
+        faults=faults,
     )
 
 
@@ -455,9 +505,12 @@ def _launch_fleet(fleet: FleetScenario, inp: FleetInputs, bspec, replicas: int) 
         inp.t_exp, inp.limit, inp.ncl, inp.t_end, inp.skip, inp.stream,
         st["times"], st["fids"], st["warms"], st["colds"],
         slots=fleet.slots, queue_depth=fleet.queue_depth, prestamped=st["prestamped"],
+        **inp.faults,
     )
     C = len(inp.cells["n_cluster"])
-    acc = acc.double().cpu().numpy().reshape(C, R, F, FLEET_ACC_COLS)
+    faults = bool(inp.faults)
+    cols = FLEET_ACC_COLS + (FAULT_COLS if faults else 0)
+    acc = acc.double().cpu().numpy().reshape(C, R, F, cols)
     qleft = qleft.double().cpu().numpy().reshape(C, R, F)
     if acc[..., 7].sum() > 0:
         raise RuntimeError(
@@ -475,6 +528,10 @@ def _launch_fleet(fleet: FleetScenario, inp: FleetInputs, bspec, replicas: int) 
                 sum_cold_resp=a[:, f, 5], sum_warm_resp=a[:, f, 6],
                 lifespan_sum=zeros, lifespan_count=zeros,
                 measured_time=measured, overflow=a[:, f, 7],
+                **(dict(
+                    n_crash=a[:, f, FLEET_ACC_COLS], n_evict=a[:, f, FLEET_ACC_COLS + 1],
+                    n_interrupt=a[:, f, FLEET_ACC_COLS + 2],
+                ) if faults else {}),
             )
             for f in range(F)
         ]
@@ -662,8 +719,8 @@ def fleet_run(
 
     ``seed`` seeds the per-function generators; ``staged`` (a dict of
     ``[replicas, K]`` ``times``/``fids``/``warms``/``colds`` and
-    ``prestamped``) replaces the draws, and ``steps`` sets each function's
-    draw count.
+    ``prestamped``, and ``crash_u`` with crashes) replaces the draws, and
+    ``steps`` sets each function's draw count.
     """
     _, bspec, dev = _resolve_fleet(execution, engine, backend, device)
     inp = fleet_inputs(fleet, {}, seed, replicas=replicas, device=dev, steps=steps,

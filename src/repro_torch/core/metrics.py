@@ -69,32 +69,45 @@ def mape(pred: Sequence[float], truth: Sequence[float]) -> float:
 
 
 def reliability_report(summary) -> dict:
-    """Attempts-vs-completions view of a reliability run.
+    """Attempts-vs-completions view of a reliability or fault run.
 
     Takes a :class:`~repro_torch.core.simulator.SimulationSummary` from a
-    run with ``Scenario.reliability=`` set and flattens its derived
-    metrics into one plain dict: served attempts (the retry-amplified load
-    the platform carried), successful completions, per-outcome counts,
-    goodput (completions per second of measured time) and the retry
-    amplification factor (attempts per distinct request).  The
-    reference's fault block (crashes, evictions, interruptions,
-    availability) comes with platform faults (ROADMAP Queue B item 1e).
+    run with ``Scenario.reliability=`` and/or ``Scenario.faults=`` set and
+    flattens its derived metrics into one plain dict: served attempts (the
+    retry-amplified load the platform carried), successful completions,
+    per-outcome counts, goodput (completions per second of measured time)
+    and the retry amplification factor (attempts per distinct request).
+    Runs with a fault model also report instance crashes, capacity
+    evictions, crash-interrupted attempts and availability; either layer
+    alone is enough, and missing counters read as zero.
     """
-    if summary.n_timeout is None:
+    rely = summary.n_timeout is not None
+    faults = summary.n_crash is not None
+    if not (rely or faults):
         raise ValueError(
             "summary has no reliability or fault counters; run with "
             "Scenario.reliability= or Scenario.faults= set"
         )
-    return {
+    zero = np.zeros_like(np.asarray(summary.n_cold))
+    rel = lambda x: x if x is not None else zero  # noqa: E731
+    report = {
         "attempts": float(summary.n_attempts.sum()),
         "completions": float(summary.n_completions.sum()),
-        "timeouts": float(summary.n_timeout.sum()),
-        "failures": float(summary.n_fail.sum()),
-        "retries": float(summary.n_retry.sum()),
-        "abandoned": float(summary.n_abandon.sum()),
+        "timeouts": float(rel(summary.n_timeout).sum()),
+        "failures": float(rel(summary.n_fail).sum()),
+        "retries": float(rel(summary.n_retry).sum()),
+        "abandoned": float(rel(summary.n_abandon).sum()),
         "rejected": float(summary.n_reject.sum()),
         "timeout_prob": summary.timeout_prob,
         "failure_prob": summary.failure_prob,
         "goodput": summary.goodput,
         "retry_amplification": summary.retry_amplification,
     }
+    if faults:
+        report.update(
+            crashes=float(summary.n_crash.sum()),
+            evictions=float(summary.n_evict.sum()),
+            interrupted=float(summary.n_interrupt.sum()),
+            availability=summary.availability,
+        )
+    return report

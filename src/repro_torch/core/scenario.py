@@ -28,6 +28,15 @@ fill per-cell :class:`~repro_torch.core.simulator.WindowedMetrics` and
 the ``GridResult.windowed_*`` grids; as in the reference, single runs on
 the block engines take no windows.
 
+Platform faults (``Scenario.faults``, a :class:`~repro_torch.core.faults.
+FaultModel`: instance crashes and capacity churn) run on the scan engine
+with staged draws, alone, with reliability or with retries; the
+``crash_rate`` and ``capacity`` axes are param axes, so a crash-rate ×
+threshold × capacity grid is one launch.  Each draw cell's crash uniforms
+come from its own generator (:data:`~repro_torch.core.simulator.
+CRASH_STREAM`), after the base and reliability streams, which a fault
+model leaves bit for bit unchanged.
+
 Samples are staged on the device as f32 ``[C, K]`` buffers from per-draw-
 cell generators (``SeedSequence(seed).spawn(D)``) and never copied to the
 host: the coverage guard sums them on the device in f64, and only the
@@ -43,10 +52,10 @@ sample, and the coverage guard reads the kernel's final clock.
 :func:`repro_torch.interop.fused_keys_from_reference`).
 
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP item: platform faults (Queue B item 1e), windowed single runs,
-histograms, non-newest routing and sweeps over the f64 engine's knobs
-``scan_unroll``/``hist_bins`` (the f64 engine, Queue A item 2) and rate
-profiles / timestamp processes (Queue A item 3).
+ROADMAP item: windowed single runs, histograms, non-newest routing and
+sweeps over the f64 engine's knobs ``scan_unroll``/``hist_bins`` (the f64
+engine, Queue A item 2) and rate profiles / timestamp processes (Queue A
+item 3).
 """
 
 from __future__ import annotations
@@ -62,10 +71,13 @@ import torch
 from repro_torch.core import drawplan as dp
 from repro_torch.core.cost import BillingModel, CostEstimate, estimate_cost
 from repro_torch.core.execution import ENGINE_SPECS, Execution, plan_of
+from repro_torch.core.faults import CapacityProfile, FaultModel
 from repro_torch.core.processes import UNPORTED, ExpSimProcess, SimProcess, unported
 from repro_torch.core.par_simulator import run_par
 from repro_torch.core.reliability import Reliability
 from repro_torch.core.simulator import (
+    CRASH_STREAM,
+    FAULT_STREAMS,
     RELY_STREAMS,
     SimulationSummary,
     WindowedMetrics,
@@ -74,6 +86,7 @@ from repro_torch.core.simulator import (
     check_covered,
     check_staged,
     check_table_covered,
+    draw_crash_uniforms,
     draw_reliability_stream,
     draw_workload_samples,
     host_acc,
@@ -82,7 +95,7 @@ from repro_torch.core.simulator import (
     summary_from_acc,
 )
 from repro_torch.core.temporal import TemporalSummary, run_temporal
-from repro_torch.kernels.ref import ACC_COLS, NEG, WINDOW_COLS
+from repro_torch.kernels.ref import ACC_COLS, NEG, RELY_COLS, WINDOW_COLS
 
 
 def _later(what: str, item: str):
@@ -155,7 +168,21 @@ class Scenario:
                 f"{type(self.reliability).__name__}"
             )
         if self.faults is not None:
-            _later("Scenario.faults", "Queue B item 1e (platform faults)")
+            if not isinstance(self.faults, FaultModel):
+                raise ValueError(
+                    "Scenario.faults must be a FaultModel (or None), got "
+                    f"{type(self.faults).__name__}"
+                )
+            if self.faults.enabled and self.window_bounds is not None:
+                raise ValueError(
+                    "platform faults do not serve windowed metrics yet; "
+                    "drop window_bounds or the FaultModel"
+                )
+            if self.faults.enabled and self.track_histogram:
+                raise ValueError(
+                    "platform faults do not serve the instance-count "
+                    "histogram; drop track_histogram or the FaultModel"
+                )
         if self.window_bounds is not None:
             wb = np.asarray(self.window_bounds, dtype=np.float64)
             if wb.ndim != 1 or len(wb) < 2 or (np.diff(wb) <= 0).any():
@@ -203,6 +230,11 @@ class Scenario:
         """True when the arrival process yields absolute timestamps (none
         of the families this slice ports do)."""
         return False
+
+    @property
+    def active_faults(self) -> Optional[FaultModel]:
+        """The fault model when it injects anything, else None."""
+        return self.faults if self.faults is not None and self.faults.enabled else None
 
     @property
     def max_retries(self) -> int:
@@ -265,15 +297,19 @@ class Result:
 def _block_launch(
     scn, t_exp, t_end, skip, samples, bspec, device, *,
     prestamped=False, window_rows=None, t_timeout=None, p_fail=None, fused=None,
+    faults=None,
 ):
     """Fresh pools, per-row f32 parameters and the staged buffers
-    (``samples``: ``dts, warms, colds``, then ``fail_u`` with reliability
-    and ``is_first, child_pos`` with retries) into the backend's row
-    launcher; returns the f64 accumulator on the host after the overflow
-    guard.  ``window_rows`` is the ``[C, W+1]`` window-bound matrix;
-    ``t_timeout``/``p_fail`` the per-row reliability parameters.  With
-    ``fused`` (:func:`fused_state`) there are no samples: the kernel draws
-    them, and its final clock goes through the coverage guard."""
+    (``samples``: ``dts, warms, colds``, then ``fail_u`` with reliability,
+    ``is_first, child_pos`` with retries and ``crash_u`` with crashes) into
+    the backend's row launcher; returns the f64 accumulator on the host
+    after the overflow guard.  ``window_rows`` is the ``[C, W+1]``
+    window-bound matrix; ``t_timeout``/``p_fail`` the per-row reliability
+    parameters; ``faults`` the per-row fault inputs (:func:`_fault_rows`:
+    ``crash_rate`` ``[C]`` with crashes, ``cap_edges``/``cap_values``
+    ``[C, E]``/``[C, E+1]`` with capacity).  With ``fused``
+    (:func:`fused_state`) there are no samples: the kernel draws them, and
+    its final clock goes through the coverage guard."""
     C = fused["keys"][0].shape[0] if fused is not None else samples[0].shape[0]
     rows = lambda x: torch.tensor(
         np.broadcast_to(np.asarray(x, np.float64), (C,)),
@@ -301,6 +337,14 @@ def _block_launch(
         )
         check_clock_covered(t_last, np.broadcast_to(np.asarray(t_end, np.float64), (C,)))
         return host_acc(acc)
+    faults = faults or {}
+    if "crash_rate" in faults:
+        kw.update(crash_rate=rows(faults["crash_rate"]), crash_u=samples[-1])
+        samples = samples[:-1]
+    if "cap_values" in faults:
+        mat = lambda a: torch.tensor(np.asarray(a, np.float64), dtype=torch.float32,
+                                     device=device)
+        kw.update(cap_edges=mat(faults["cap_edges"]), cap_values=mat(faults["cap_values"]))
     if len(samples) > 3:
         kw.update(t_timeout=rows(t_timeout), p_fail=rows(p_fail), fail_u=samples[3])
     if len(samples) > 4:
@@ -374,13 +418,14 @@ def _handed_keys(fused_keys, streams, rows: int) -> dict:
     return out
 
 
-def _cell_summaries(acc, R, measured, bounds=None, reliability=False) -> list:
+def _cell_summaries(acc, R, measured, bounds=None, reliability=False, faults=False) -> list:
     """Per-cell summaries off a launch's ``[cells * R, cols]`` accumulator
     (the 8 base columns, ``5W`` window columns when ``bounds`` is given,
-    then the 4 reliability columns); ``measured[c]`` is cell c's measured
-    time."""
+    then the 4 reliability columns, then the 3 fault columns);
+    ``measured[c]`` is cell c's measured time."""
     W = 0 if bounds is None else len(bounds) - 1
     A, RB = ACC_COLS, ACC_COLS + WINDOW_COLS * W
+    FB = RB + (RELY_COLS if reliability else 0)
     out = []
     for c in range(acc.shape[0] // R):
         cell = acc[c * R:(c + 1) * R]
@@ -400,8 +445,42 @@ def _cell_summaries(acc, R, measured, bounds=None, reliability=False) -> list:
                 n_timeout=cell[:, RB], n_fail=cell[:, RB + 1],
                 n_retry=cell[:, RB + 2], n_abandon=cell[:, RB + 3],
             )
+        if faults:
+            extra.update(
+                n_crash=cell[:, FB], n_evict=cell[:, FB + 1], n_interrupt=cell[:, FB + 2],
+            )
         out.append(summary_from_acc(cell, float(measured[c]), **extra))
     return out
+
+
+def _fault_rows(crashes: bool, crash_rate, profiles) -> dict:
+    """The launch's per-row fault inputs: ``crash_rate`` (a scalar or
+    ``[C]``) with crashes, ``cap_edges``/``cap_values`` matrices from the
+    per-row :class:`CapacityProfile` list ``profiles`` (None: no
+    capacity)."""
+    out = {}
+    if crashes:
+        out["crash_rate"] = crash_rate
+    if profiles is not None:
+        out["cap_edges"] = np.asarray([p.edges for p in profiles], np.float64).reshape(
+            len(profiles), len(profiles[0].edges))
+        out["cap_values"] = np.asarray([p.values for p in profiles], np.float64)
+    return out
+
+
+def _check_fault_plan(espec, bspec_name: str, fused: bool) -> None:
+    """The reference's capability errors of a fault run on this plan."""
+    if bspec_name not in espec.faults_backends:
+        raise ValueError(
+            f"engine {espec.name!r} does not serve platform faults on "
+            f"backend {bspec_name!r}; fault-capable backends "
+            f"(EngineSpec.faults_backends): {espec.faults_backends or '()'}"
+        )
+    if fused:
+        raise ValueError(
+            "draws='fused' does not serve platform faults (the crash "
+            "stream is host-staged); use draws='staged'"
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -455,6 +534,8 @@ def run(
         raise ValueError("grid= and initial_instances= belong to engine='temporal'")
     scn = Scenario.of(scenario)
     espec = ENGINE_SPECS[plan.engine]
+    if scn.active_faults is not None:
+        _check_fault_plan(espec, bspec.name, fused)
     if scn.reliability is not None and bspec.name not in espec.reliability_backends:
         raise ValueError(
             f"the {plan.engine} engine serves reliability on the f64 scan "
@@ -499,7 +580,7 @@ def _check_draw_inputs(fused: bool, staged, fused_keys) -> None:
 def _run_scan(scn, seed, bspec, dev, *, replicas, steps, staged, fused=False,
               fused_keys=None):
     """The steady-state engine: fresh pools, one launch."""
-    rel = scn.reliability
+    rel, flt = scn.reliability, scn.active_faults
     samples, state = (), None
     if fused:
         n = int(steps or scn.steps_needed())
@@ -511,9 +592,13 @@ def _run_scan(scn, seed, bspec, dev, *, replicas, steps, staged, fused=False,
         prestamped=scn.prestamped or scn.max_retries > 0,
         t_timeout=None if rel is None else rel.failure.timeout_or_inf,
         p_fail=None if rel is None else rel.failure.p_fail, fused=state,
+        faults=None if flt is None else _fault_rows(
+            flt.crashes, flt.crash_rate,
+            None if flt.capacity is None else [flt.capacity] * replicas),
     )
     return _cell_summaries(
-        acc, replicas, [scn.sim_time - scn.skip_time], reliability=rel is not None
+        acc, replicas, [scn.sim_time - scn.skip_time], reliability=rel is not None,
+        faults=flt is not None,
     )[0]
 
 
@@ -544,16 +629,18 @@ _DRAW_FIELDS = (
     "backoff_jitter",
 )
 # pure per-row values: cells along these axes share the draw cells' buffers
-# (t_timeout and p_fail are per-row comparisons against the shared draws)
-_PARAM_FIELDS = ("sim_time", "skip_time", "t_timeout", "p_fail")
+# (t_timeout and p_fail are per-row comparisons against the shared draws;
+# crash_rate scales the shared crash uniforms into lifetimes per row, and
+# capacity is a per-row profile: CapacityProfile values sharing a step count)
+_PARAM_FIELDS = ("sim_time", "skip_time", "t_timeout", "p_fail", "crash_rate", "capacity")
 # axes that need Scenario.reliability (its structure and failure uniforms)
 _RELY_AXES = ("t_timeout", "p_fail", "backoff_base", "backoff_mult", "backoff_jitter")
+# axes that need Scenario.faults (its structure and the crash stream)
+_FAULT_AXES = ("crash_rate", "capacity")
 
 # the reference's other sweep axes, and the ROADMAP item that brings each
 _LATER_AXES = {
     "profile": "Queue A item 3 (RateProfile and NHPP)",
-    "crash_rate": "Queue B item 1e (platform faults)",
-    "capacity": "Queue B item 1e (platform faults)",
     # knobs of the f64 engine only: the block kernel computes the same
     # thing for every value, so a sweep over them would repeat one launch
     "scan_unroll": "Queue A item 2 (the f64 engine)",
@@ -716,6 +803,7 @@ class SweepInputs:
     p_fail_rows: Optional[np.ndarray] = None
     prestamped: bool = False
     fused: Optional[dict] = None
+    fault_rows: Optional[dict] = None
 
 
 def _check_axes(base: Scenario, over: Mapping[str, Sequence]) -> tuple:
@@ -748,7 +836,38 @@ def _check_axes(base: Scenario, over: Mapping[str, Sequence]) -> tuple:
     for v in vals.get("p_fail", ()):
         if not 0.0 <= float(v) < 1.0:
             raise ValueError(f"p_fail values must be in [0, 1), got {v}")
+    fault_axes = [n for n in names if n in _FAULT_AXES]
+    if fault_axes and base.faults is None:
+        raise ValueError(
+            f"sweeping {fault_axes} needs Scenario.faults= to be set on "
+            "the base scenario (it provides the static fault structure "
+            "and the crash stream)"
+        )
+    for v in vals.get("crash_rate", ()):
+        if not np.isfinite(float(v)) or float(v) < 0:
+            raise ValueError(f"crash_rate values must be finite and >= 0, got {v}")
+    caps = vals.get("capacity", ())
+    for v in caps:
+        if not isinstance(v, CapacityProfile):
+            raise TypeError(
+                f"capacity axis values must be CapacityProfile, got {type(v).__name__}"
+            )
+    if caps and len({len(v.values) for v in caps}) > 1:
+        raise ValueError(
+            "capacity profiles on one sweep axis must share a step count "
+            "(one launch takes one [C, len(values)] ceiling matrix); split the sweep"
+        )
     return names, vals
+
+
+def fault_plan(base: Scenario, names) -> tuple:
+    """``(crashes, capped)``: whether a sweep over ``names`` runs the crash
+    path (the base has a crash rate, or ``crash_rate`` is swept) and the
+    capacity path."""
+    flt = base.faults
+    crashes = flt is not None and (flt.crashes or "crash_rate" in names)
+    capped = flt is not None and (flt.capacity is not None or "capacity" in names)
+    return crashes, capped
 
 
 def sweep_inputs(
@@ -786,7 +905,8 @@ def sweep_inputs(
     R = int(replicas)
     D = len(draw_cfgs)
     rel = base.reliability
-    width = staged_widths(base)
+    crashes, capped = fault_plan(base, names)
+    width = staged_widths(base, crashes)
     param_cells = int(np.prod([len(vals[n]) for n in param_names]))
     n_steps = (
         int(steps)
@@ -799,21 +919,25 @@ def sweep_inputs(
                             fused_keys=fused_keys)
         bufs = ()
     elif staged is not None:
-        bufs = check_staged(staged, D * R, device, width)
+        bufs = check_staged(staged, D * R, device, width, crashes)
     else:
         K = n_steps * (base.max_retries + 1)
         bufs = tuple(
             torch.empty((D * R, K), dtype=torch.float32, device=device)
             for _ in range(width)
         )
-        streams = 3 if rel is None else RELY_STREAMS
+        streams = FAULT_STREAMS if crashes else 3 if rel is None else RELY_STREAMS
         for d, (c, gens) in enumerate(zip(draw_cfgs, cell_generators(seed, D, device, streams))):
             part = tuple(x[d * R:(d + 1) * R] for x in bufs)
             if rel is None:
-                draw_workload_samples(c, gens, R, n_steps, device, out=part)
+                draw_workload_samples(c, gens[:3], R, n_steps, device, out=part[:3])
             else:
                 c_sim = Scenario.of(c, sim_time=max_sim)  # its coverage guard
-                draw_reliability_stream(c_sim, gens, R, n_steps, device, out=part)
+                draw_reliability_stream(c_sim, gens[:RELY_STREAMS], R, n_steps, device,
+                                        out=part[:width - int(crashes)])
+            if crashes:
+                # positional per event, shared by the draw cell's param cells
+                draw_crash_uniforms(gens[CRASH_STREAM], R, K, device, out=part[-1])
 
     param_combos = list(itertools.product(*[vals[n] for n in param_names]))
     Wn = len(param_combos)
@@ -833,6 +957,19 @@ def sweep_inputs(
         k = x.shape[1]
         return x.reshape(D, 1, R, k).expand(D, Wn, R, k).reshape(D * Wn * R, k)
 
+    fault_rows = None
+    if crashes or capped:
+        flt = base.faults
+        if "capacity" in param_names:
+            i = param_names.index("capacity")
+            profs = [pc[i] for pc in param_combos]
+        else:
+            profs = [flt.capacity] * Wn
+        # [Wn] -> [C] in the (draw, param, replica) row order
+        fault_rows = _fault_rows(
+            crashes, _param_col("crash_rate", flt.crash_rate),
+            [p for _ in range(D) for p in profs for _ in range(R)] if capped else None,
+        )
     return SweepInputs(
         names=names,
         vals=vals,
@@ -847,6 +984,7 @@ def sweep_inputs(
         p_fail_rows=None if rel is None else _param_col("p_fail", rel.failure.p_fail),
         prestamped=base.prestamped or base.max_retries > 0,
         fused=fused,
+        fault_rows=fault_rows,
     )
 
 
@@ -898,6 +1036,18 @@ def sweep(
             f"backend {bspec.name!r} does not serve metric windows on engine "
             f"{plan.engine!r}; windowed_backends: {espec.windowed_backends}"
         )
+    if any(fault_plan(base, over)):
+        _check_fault_plan(espec, bspec.name, plan.draws == "fused")
+        if windowed:
+            raise ValueError(
+                "platform faults do not serve windowed metrics yet; drop "
+                "window_bounds or the fault axes"
+            )
+        if base.track_histogram or "track_histogram" in over:
+            raise ValueError(
+                "platform faults do not serve the instance-count "
+                "histogram; drop track_histogram or the fault axes"
+            )
     inp = sweep_inputs(
         base, over, seed, replicas=replicas, device=dev, steps=steps, staged=staged,
         draws=plan.draws, fused_keys=fused_keys,
@@ -907,7 +1057,7 @@ def sweep(
     draw_names = [n for n in names if n in _DRAW_FIELDS]
     param_names = [n for n in names if n in _PARAM_FIELDS]
     samples = inp.samples
-    if len(samples) == 6:
+    if base.max_retries > 0:
         if staged is not None:  # drawn tables were guarded on their gaps
             check_table_covered(samples[0], samples[4], inp.sim_rows, dev)
     elif inp.fused is None:  # fused launches are guarded on their final clock
@@ -925,10 +1075,12 @@ def sweep(
             prestamped=inp.prestamped,
             window_rows=None if wb is None else np.tile(wb, (len(inp.thr_rows), 1)),
             t_timeout=inp.t_timeout_rows, p_fail=inp.p_fail_rows, fused=inp.fused,
+            faults=inp.fault_rows,
         )
         measured = (inp.sim_rows - inp.skip_rows)[::R]
         cells = _cell_summaries(acc, R, measured, bounds=wb,
-                                reliability=base.reliability is not None)
+                                reliability=base.reliability is not None,
+                                faults=inp.fault_rows is not None)
         all_summaries.extend(cells)
         if wb is not None:
             win_parts.append(np.stack([

@@ -4,8 +4,9 @@
 (numpy arrays, host side) with the paper's derived metrics;
 :func:`draw_workload_samples` stages the (arrivals, warm, cold) f32
 ``[R, n]`` sample buffers on the device from three explicit generators,
-and :func:`draw_reliability_stream` adds the reliability layer's failure
-uniforms or, with retries, the sorted attempt table.
+:func:`draw_reliability_stream` adds the reliability layer's failure
+uniforms or, with retries, the sorted attempt table, and
+:func:`draw_crash_uniforms` the platform-fault layer's crash stream.
 :class:`WindowedMetrics` holds per-window metrics.
 The helpers below them are what every engine does around its launch:
 stage a run's samples behind the coverage guard (:func:`run_samples`),
@@ -94,6 +95,10 @@ class SimulationSummary:
     n_fail: Optional[np.ndarray] = None  # served, completed, then failed
     n_retry: Optional[np.ndarray] = None  # re-enqueued attempts processed
     n_abandon: Optional[np.ndarray] = None  # gave up (retry budget spent)
+    # ---- platform-fault counters (None unless Scenario.faults is set) ----
+    n_crash: Optional[np.ndarray] = None  # instances lost to the crash hazard
+    n_evict: Optional[np.ndarray] = None  # idle instances evicted by churn
+    n_interrupt: Optional[np.ndarray] = None  # served attempts cut by a crash
 
     @property
     def n_requests(self) -> np.ndarray:
@@ -111,11 +116,15 @@ class SimulationSummary:
 
     @property
     def n_completions(self) -> np.ndarray:
-        """Served attempts that neither timed out nor failed.  The
-        reference also subtracts attempts cut by an instance crash;
-        platform faults are not ported yet (ROADMAP Queue B item 1e), so
-        no attempt is cut here."""
-        return self.n_cold + self.n_warm - self._rely(self.n_timeout) - self._rely(self.n_fail)
+        """Served attempts that neither timed out, failed, nor were
+        interrupted by an instance crash."""
+        return (
+            self.n_cold
+            + self.n_warm
+            - self._rely(self.n_timeout)
+            - self._rely(self.n_fail)
+            - self._rely(self.n_interrupt)
+        )
 
     @property
     def timeout_prob(self) -> float:
@@ -133,11 +142,17 @@ class SimulationSummary:
         return float(self.n_completions.mean() / max(self.measured_time, 1e-12))
 
     @property
+    def interrupt_prob(self) -> float:
+        """Served attempts cut short by an instance crash, per served."""
+        served = (self.n_cold + self.n_warm).sum()
+        return float(self._rely(self.n_interrupt).sum() / np.maximum(served, 1))
+
+    @property
     def availability(self) -> float:
-        """Share of served attempts not cut by an instance crash (1 minus
-        the reference's interrupt share): 1.0 here, since platform faults
-        are not ported yet (ROADMAP Queue B item 1e)."""
-        return 1.0
+        """Fraction of served attempts the platform carried to completion
+        without losing the instance underneath them: 1 − interrupt_prob
+        (1.0 when no fault model is active)."""
+        return 1.0 - self.interrupt_prob
 
     @property
     def retry_amplification(self) -> float:
@@ -200,27 +215,33 @@ class SimulationSummary:
             "n_abandoned": int(self._rely(self.n_abandon).sum()),
             "goodput": self.goodput,
             "retry_amplification": self.retry_amplification,
+            "n_crashes": int(self._rely(self.n_crash).sum()),
+            "n_evictions": int(self._rely(self.n_evict).sum()),
+            "n_interrupted": int(self._rely(self.n_interrupt).sum()),
             "availability": self.availability,
         }
 
 
 # the streams of one draw cell, in SeedSequence word order: the base
 # (arrival, warm, cold) streams, then the reliability layer's (failure
-# uniforms, backoff jitter, retry attempts' warm and cold draws)
+# uniforms, backoff jitter, retry attempts' warm and cold draws), then the
+# fault layer's crash uniforms (stream CRASH_STREAM of FAULT_STREAMS)
 BASE_STREAMS = 3
 RELY_STREAMS = 7
+FAULT_STREAMS = 8
+CRASH_STREAM = 7
 
 
 def cell_generators(seed: int, n_cells: int, device, streams: int = BASE_STREAMS) -> list:
-    """``streams`` generators per draw cell (:data:`BASE_STREAMS` or
-    :data:`RELY_STREAMS`).
+    """``streams`` generators per draw cell (:data:`BASE_STREAMS`,
+    :data:`RELY_STREAMS` or :data:`FAULT_STREAMS`).
 
     Cell ``d`` is seeded from ``numpy.random.SeedSequence(seed).spawn(n)[d]``,
     so every cell's streams are independent and a cell's draws do not
     depend on how many cells the grid has before it changes shape.  A
     longer ``generate_state`` request keeps its first words, so the
-    reliability streams take words 3 and later and leave the base streams
-    bit for bit as without them.
+    reliability streams take words 3 to 6 and the crash stream word 7, and
+    each layer leaves the streams before it bit for bit as without it.
     """
     out = []
     for child in np.random.SeedSequence(int(seed)).spawn(int(n_cells)):
@@ -311,26 +332,41 @@ def draw_reliability_stream(scn, generators, replicas: int, n: int, device, out=
 ATTEMPT_ROWS = 32
 
 
-def staged_widths(scn) -> int:
+def draw_crash_uniforms(generator, replicas: int, n: int, device, out=None):
+    """The fault layer's per-event crash-lifetime uniforms, f32 ``[replicas,
+    n]`` on ``device`` from the draw cell's crash generator (``out``: a
+    preallocated buffer to fill).  ``n`` is the width of the event stream
+    the launch steps (the attempt table's under retries): a cold start at
+    event k draws its lifetime from uniform k."""
+    if out is None:
+        out = torch.empty((replicas, n), dtype=torch.float32, device=device)
+    return torch.rand(out.shape, generator=generator, out=out)
+
+
+def staged_widths(scn, crashes: Optional[bool] = None) -> int:
     """How many staged buffers a run of ``scn`` takes: the base three,
     plus ``fail_u`` with reliability, plus ``is_first`` and ``child_pos``
-    with retries."""
+    with retries, plus ``crash_u`` with crashes (``crashes``, default:
+    the scenario's fault model has a crash rate)."""
     rel = scn.reliability
-    if rel is None:
-        return 3
-    return 6 if rel.retry.max_retries > 0 else 4
+    if crashes is None:
+        crashes = scn.faults is not None and scn.faults.crashes
+    width = 3 if rel is None else 6 if rel.retry.max_retries > 0 else 4
+    return width + int(bool(crashes))
 
 
-def check_staged(staged, rows: int, device, width: int) -> tuple:
+def check_staged(staged, rows: int, device, width: int, crashes: bool = False) -> tuple:
     """The staged buffers handed in instead of draws — ``(dts, warms,
-    colds)``, then ``fail_u`` with reliability and ``is_first``,
-    ``child_pos`` with retries (``width`` of them) — as contiguous f32
-    ``[rows, K]`` tensors on ``device``."""
+    colds)``, then ``fail_u`` with reliability, ``is_first``, ``child_pos``
+    with retries and ``crash_u`` with crashes (``width`` of them) — as
+    contiguous f32 ``[rows, K]`` tensors on ``device``."""
     if len(staged) != width:
+        rely = width - int(crashes)
         raise ValueError(
             f"staged must hold {width} buffers (dts, warms, colds"
-            + (", fail_u" if width > 3 else "")
-            + (", is_first, child_pos" if width > 4 else "")
+            + (", fail_u" if rely > 3 else "")
+            + (", is_first, child_pos" if rely > 4 else "")
+            + (", crash_u" if crashes else "")
             + f"), got {len(staged)}"
         )
     out = tuple(
@@ -383,24 +419,30 @@ def check_table_covered(times, is_first, sim_rows, device) -> None:
 
 def run_samples(scn, seed: int, replicas: int, steps, staged, device) -> tuple:
     """The staged buffers of one run (``staged_widths(scn)`` of them: the
-    base three, then the reliability extras): the handed-in ``staged``
-    buffers, or ``steps`` (default ``scn.steps_needed()``) draws of one
-    draw cell seeded by ``seed``; either way behind the coverage guard."""
+    base three, then the reliability extras, then the crash uniforms): the
+    handed-in ``staged`` buffers, or ``steps`` (default
+    ``scn.steps_needed()``) draws of one draw cell seeded by ``seed``;
+    either way behind the coverage guard."""
+    crashes = scn.faults is not None and scn.faults.crashes
     width = staged_widths(scn)
     if staged is not None:
-        samples = check_staged(staged, replicas, device, width)
+        samples = check_staged(staged, replicas, device, width, crashes)
     else:
         n = int(steps or scn.steps_needed())
+        streams = FAULT_STREAMS if crashes else BASE_STREAMS if scn.reliability is None \
+            else RELY_STREAMS
+        gens = cell_generators(seed, 1, device, streams)[0]
         if scn.reliability is None:
-            samples = draw_workload_samples(
-                scn, cell_generators(seed, 1, device)[0], replicas, n, device
-            )
+            samples = draw_workload_samples(scn, gens[:3], replicas, n, device)
         else:
-            gens = cell_generators(seed, 1, device, RELY_STREAMS)[0]
-            base, extras = draw_reliability_stream(scn, gens, replicas, n, device)
+            base, extras = draw_reliability_stream(scn, gens[:RELY_STREAMS], replicas, n,
+                                                   device)
             samples = base + extras
+        if crashes:
+            samples = samples + (draw_crash_uniforms(
+                gens[CRASH_STREAM], replicas, samples[0].shape[1], device),)
     sim_rows = [scn.sim_time] * replicas
-    if width == 6:
+    if scn.max_retries > 0:
         check_table_covered(samples[0], samples[4], sim_rows, device)
     else:
         check_covered(samples[0], sim_rows, device)

@@ -5,8 +5,8 @@ buffers.  :func:`scenario_from_reference` builds a port :class:`Scenario`
 from a reference one, duck-typed on class names and dataclass fields (it
 imports nothing of the reference).  :func:`staged_from_reference` turns
 the reference's per-draw-cell ``(dts, warms, colds)`` arrays (with the
-reliability extras of its ``draw_reliability_stream``) into the
-``staged=`` buffers that :func:`~repro_torch.core.scenario.run` and
+reliability extras of its ``draw_reliability_stream`` and its crash
+uniforms) into the ``staged=`` buffers that :func:`~repro_torch.core.scenario.run` and
 :func:`~repro_torch.core.scenario.sweep` consume instead of drawing, and
 :func:`fused_keys_from_reference` turns the reference's per-draw-cell
 fused stream keys into the ``fused_keys=`` that fused runs draw from.
@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.cost import BillingModel
+from repro_torch.core.faults import CapacityProfile, FaultModel
 from repro_torch.core.fleet import FleetFunction, FleetScenario
 from repro_torch.core.processes import FAMILIES, unported
 from repro_torch.core.reliability import FailurePolicy, Reliability, RetryPolicy
@@ -58,9 +59,24 @@ def reliability_from_reference(obj) -> Reliability:
     )
 
 
+def faults_from_reference(obj) -> FaultModel:
+    """The port :class:`FaultModel` equal field by field to the reference
+    one (its crash rate and :class:`CapacityProfile`)."""
+    if type(obj).__name__ != "FaultModel":
+        raise TypeError(f"expected a reference FaultModel, got {type(obj).__name__}")
+    ref = _fields(obj)
+    cap = ref["capacity"]
+    if cap is not None:
+        if type(cap).__name__ != "CapacityProfile":
+            raise TypeError(f"expected a reference CapacityProfile, got {type(cap).__name__}")
+        cap = CapacityProfile(**_fields(cap))
+    return FaultModel(crash_rate=ref["crash_rate"], capacity=cap)
+
+
 def scenario_from_reference(obj) -> Scenario:
     """A port :class:`Scenario` equal field by field to the reference one
-    (its processes, billing, reliability policies and window bounds)."""
+    (its processes, billing, reliability policies, fault model and window
+    bounds)."""
     if type(obj).__name__ != "Scenario":
         raise TypeError(f"expected a reference Scenario, got {type(obj).__name__}")
     ref = _fields(obj)
@@ -73,19 +89,24 @@ def scenario_from_reference(obj) -> Scenario:
             v = BillingModel(**_fields(v))
         elif f.name == "reliability" and v is not None:
             v = reliability_from_reference(v)
+        elif f.name == "faults" and v is not None:
+            v = faults_from_reference(v)
         kw[f.name] = v
     return Scenario(**kw)
 
 
-def staged_from_reference(parts, device=None) -> tuple:
+def staged_from_reference(parts, device=None, crash_u=None) -> tuple:
     """The port's ``staged=`` buffers from the reference's per-draw-cell
     draws, in draw-cell order: each part is ``(dts, warms, colds)``, or the
     ``(samples, extras)`` pair of the reference's
     ``draw_reliability_stream`` (``extras`` is ``(fail_u,)``, or ``(fail_u,
     is_first, child_pos)`` beside an attempt table's f64 times), each
-    array ``[R, K]``.  Returns the 3, 4 or 6 buffers as f32 ``[D*R, K]``
-    tensors (on ``device``, default the CPU): times cast after the
-    reference's sort, flags and positions as 0/1 and exact f32 values."""
+    array ``[R, K]``; ``crash_u`` optionally gives each draw cell's crash
+    uniforms (the reference's ``draw_crash_uniforms``, ``[R, K]`` each),
+    which become the last buffer.  Returns the 3, 4 or 6 buffers (one more
+    with crashes) as f32 ``[D*R, K]`` tensors (on ``device``, default the
+    CPU): times cast after the reference's sort, flags and positions as
+    0/1 and exact f32 values."""
     flat = []
     for p in parts:
         if len(p) == 2 and isinstance(p[0], (tuple, list)):
@@ -97,6 +118,10 @@ def staged_from_reference(parts, device=None) -> tuple:
             "parts must be a non-empty list of (dts, warms, colds) or of the "
             "reference's (samples, extras), all alike"
         )
+    if crash_u is not None:
+        if len(crash_u) != len(flat):
+            raise ValueError(f"crash_u needs one array per draw cell ({len(flat)})")
+        flat = [p + (u,) for p, u in zip(flat, crash_u)]
     return tuple(
         torch.from_numpy(
             np.ascontiguousarray(
@@ -145,29 +170,33 @@ def fleet_from_reference(obj) -> FleetScenario:
         fns.append(FleetFunction(**kw))
     ref["functions"] = tuple(fns)
     ref["billing"] = BillingModel(**_fields(ref["billing"]))
+    if ref.get("faults") is not None:
+        ref["faults"] = faults_from_reference(ref["faults"])
     return FleetScenario(**ref)
 
 
 def fleet_staged_from_reference(staged, device=None) -> dict:
     """The port's fleet ``staged=`` input from the reference's
     ``_stage_fleet`` dict (``times``, ``fids``, ``warms``, ``colds``, each
-    ``[R, K]``, and ``prestamped``): times cast to f32 after the merge (the
-    reference's f64 absolute times, or f32 gaps for one function), fids as
-    uint8, on ``device`` (default the CPU)."""
+    ``[R, K]``, and ``prestamped``; with crashes the ``crash_u`` its fleet
+    launcher adds): times cast to f32 after the merge (the reference's f64
+    absolute times, or f32 gaps for one function), fids as uint8, on
+    ``device`` (default the CPU)."""
     dev = device or "cpu"
-    f32 = lambda k: torch.from_numpy(
-        np.ascontiguousarray(np.asarray(staged[k]), dtype=np.float32)
-    ).to(dev)
+    f32 = lambda k: torch.from_numpy(np.array(staged[k], dtype=np.float32)).to(dev)
     fids = np.asarray(staged["fids"])
     if fids.size and (fids.min() < 0 or fids.max() > 255):
         raise ValueError("fids must be function indices in [0, 255]")
-    return dict(
+    out = dict(
         times=f32("times"),
         fids=torch.from_numpy(np.ascontiguousarray(fids, dtype=np.uint8)).to(dev),
         warms=f32("warms"),
         colds=f32("colds"),
         prestamped=bool(staged["prestamped"]),
     )
+    if staged.get("crash_u") is not None:
+        out["crash_u"] = f32("crash_u")
+    return out
 
 
 def params_from_reference(params_np, cfg, device=None) -> dict:

@@ -3,8 +3,8 @@
 // Replaces the TPU kernel repro/kernels/faas_event_step.py::_faas_kernel
 // (launched by faas_sweep_pallas) for its base staged path, the
 // prestamped mode, the transient grid-curve columns, the metric windows,
-// the reliability layer (timeouts, failures), client retries and fused
-// threefry draws.  Each row
+// the reliability layer (timeouts, failures), client retries, fused
+// threefry draws and platform faults.  Each row
 // (one replica of one what-if cell) runs K arrivals against its own pool
 // of M instance slots (alive, creation, busy).  Per arrival: exact
 // integrals of running and idle instance-time over the interval clipped
@@ -55,6 +55,26 @@
 // same order as the plain version (logf, cosf, expf, powf, sqrtf,
 // correctly rounded divisions, the 1e-9 clamp).
 //
+// Platform faults (FAULT; base, reliability, retries): instance crashes
+// and capacity churn.  With crashes each cold start stamps its slot's crash
+// clock doom = t_new + (-log(1 - u) / crash_rate) (+inf at a zero rate)
+// from the event's crash uniform; a warm hit keeps it, and fresh slots hold
+// +inf.  The integrals stop at min(hi, doom), an instance leaves at
+// min(expiry, doom), and the exit counts as a crash when doom < expiry and
+// skip < doom <= t_end.  A served attempt whose instance dies before
+// t_new + occupancy is interrupted (with reliability: one not timed out or
+// failed, and it triggers the retry).  With a capacity profile (E edges,
+// E + 1 ceilings per row; a leading 0 edge implied) the ceiling in effect
+// at t_new gates cold starts (live count below it) and, inside the horizon,
+// ceil(live - ceiling) of the newest idle instances are evicted: one warp
+// arg-max pass over (creation, lower slot on a tie) per eviction, the
+// routing rule, so the pass after the last eviction leaves the routing
+// candidate.  The row's segment [lo, hi) stays in registers and is looked
+// up again only when t_new leaves it.  With the crash clocks off the
+// doom plane holds +inf, which leaves every min() above the identity, so
+// one template instance serves crashes, capacity or both (a runtime,
+// warp-uniform choice); without FAULT the code is the path without faults.
+//
 // What bounds it on this card: every event touches every slot of the row
 // (~25 f32 operations per slot in the body below, ~12 more per slot and
 // overlapping window) while the samples are 12 to 24 bytes per event, so
@@ -101,18 +121,19 @@
 #include <cmath>
 #include <cuda_runtime.h>
 
+#include "event_step_common.cuh"
+
 namespace {
 
 constexpr float NEG = -1e30f;
 constexpr float NO_CHILD_F = 1073741824.f;  // 2^30, a last attempt's child_pos
-constexpr unsigned FULL = 0xffffffffu;
 constexpr int WARPS = 4;  // rows per block
 constexpr int ACC_COLS = 8;
 constexpr int MAX_GRID = 1024;  // grid points per row (3 acc columns each)
 constexpr int MAX_WINDOWS = 65536;  // windows per row (5 acc columns each)
 
 // which optional paths a launch runs (a template instance each)
-constexpr int F_GRID = 1, F_WIN = 2, F_RELY = 4, F_RETRY = 8, F_FUSED = 16;
+constexpr int F_GRID = 1, F_WIN = 2, F_RELY = 4, F_RETRY = 8, F_FUSED = 16, F_FAULT = 32;
 
 // fused distribution ids (repro_torch/core/drawplan.py FUSED_DISTS)
 enum Dist { D_EXP = 0, D_DET, D_GAUSS, D_WEIBULL, D_LOGNORM, D_PARETO, N_DISTS };
@@ -126,8 +147,11 @@ struct Params {
   const unsigned *keys[4];
   const float* params[3];
   int dists[3];
-  float *alive_out, *creation_out, *busy_out, *t_out, *acc_out, *act_out;
-  int R, M, K, G, W, cols;
+  // platform faults: crash rates [R] and uniforms [R, K] (null without
+  // crashes), capacity edges [R, E] and ceilings [R, E+1] (null without)
+  const float *crate, *crash_u, *cap_e, *cap_v;
+  float *alive_out, *creation_out, *busy_out, *t_out, *acc_out, *act_out, *doom_out;
+  int R, M, K, G, W, E, cols;
   float max_c;
   int prestamped;
 };
@@ -227,6 +251,25 @@ __device__ __forceinline__ float warp_min(float v) {
   return v;
 }
 
+// the newest idle instance of the pool (largest creation, lowest slot on a
+// tie) as best/best_j in every lane; best = NEG when no instance is idle
+template <int S>
+__device__ __forceinline__ void newest_idle(const float (&alive)[S], const float (&cre)[S],
+                                            const float (&busy)[S], float t_new, int lane,
+                                            float& best, int& best_j) {
+  best = NEG;
+  best_j = INT_MAX;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    // this lane's slots ascend with s, so '>' keeps the lowest slot on a tie
+    if (alive[s] > 0.f && busy[s] <= t_new && cre[s] > best) {
+      best = cre[s];
+      best_j = s * 32 + lane;
+    }
+  }
+  warp_argmax(best, best_j);
+}
+
 // the smallest grid time past the clock t (+inf if none), in every lane
 __device__ __forceinline__ float next_grid(const float* grow, int G, float t,
                                            int lane) {
@@ -268,12 +311,14 @@ struct WindowCursor {
   }
 };
 
-// S: slots per lane (M <= 32 * S); GRID, WIN, RELY, RETRY, FUSED: the
-// optional paths (RETRY implies RELY; FUSED goes without GRID and RETRY)
-template <int S, bool GRID, bool WIN, bool RELY, bool RETRY, bool FUSED>
+// S: slots per lane (M <= 32 * S); GRID, WIN, RELY, RETRY, FUSED, FAULT:
+// the optional paths (RETRY implies RELY; FUSED goes without GRID and
+// RETRY; FAULT without GRID, WIN and FUSED)
+template <int S, bool GRID, bool WIN, bool RELY, bool RETRY, bool FUSED, bool FAULT>
 __global__ void __launch_bounds__(WARPS * 32) faas_sweep_kernel(const Params p) {
   static_assert(!RETRY || RELY, "retries ride on the reliability path");
   static_assert(!FUSED || (!GRID && !RETRY), "fused draws serve base, windows, reliability");
+  static_assert(!FAULT || (!GRID && !WIN && !FUSED), "faults serve base, reliability, retries");
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (row >= p.R) return;  // the ragged last block: the whole warp leaves
@@ -297,7 +342,22 @@ __global__ void __launch_bounds__(WARPS * 32) faas_sweep_kernel(const Params p) 
   float a_cold = 0.f, a_warm = 0.f, a_rej = 0.f, a_run = 0.f, a_idle = 0.f;
   float a_cresp = 0.f, a_wresp = 0.f, a_over = 0.f;
   float a_tout = 0.f, a_fail = 0.f, a_retry = 0.f, a_aband = 0.f;
-  // acc row: 8 base | 5W windows | 3G grid | 4 reliability columns
+  // faults: the crash clocks (+inf: none stamped), the row's crash rate and
+  // capacity profile, its current segment (empty: looked up at the first
+  // event) and the fault columns
+  float doom[S];
+  const bool crash = FAULT && p.crash_u != nullptr;
+  const bool capped = FAULT && p.cap_v != nullptr;
+  const float crate = crash ? p.crate[row] : 0.f;
+  const float* cap_e = capped ? p.cap_e + (size_t)row * p.E : nullptr;
+  const float* cap_v = capped ? p.cap_v + (size_t)row * (p.E + 1) : nullptr;
+  float cap_now = 0.f, cap_lo = INFINITY, cap_hi = -INFINITY;
+  float a_crash = 0.f, a_evict = 0.f, a_int = 0.f;
+  if (FAULT) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) doom[s] = INFINITY;
+  }
+  // acc row: 8 base | 5W windows | 3G grid | 4 reliability | 3 fault columns
   float* arow = p.acc_out + (size_t)row * p.cols;
   float* wacc = arow + ACC_COLS;
   float* gacc = wacc + 5 * W;
@@ -348,6 +408,7 @@ __global__ void __launch_bounds__(WARPS * 32) faas_sweep_kernel(const Params p) 
       c_l = in ? p.colds[srow + k] : 0.f;
       f_l = RELY && in ? p.fail_u[srow + k] : 1.f;
     }
+    const float u_l = FAULT && crash && in ? p.crash_u[srow + k] : 0.f;
     const float first_l = RETRY && in ? p.is_first[srow + k] : 0.f;
     const float child_l = RETRY && in ? p.child_pos[srow + k] : NO_CHILD_F;
     const float act_l = RETRY && in ? act[k] : 0.f;
@@ -431,14 +492,25 @@ __global__ void __launch_bounds__(WARPS * 32) faas_sweep_kernel(const Params p) 
       float run_l = 0.f, idle_l = 0.f, alive_l = 0.f;
       float best = NEG;
       int best_j = INT_MAX;
+      int crash_l = 0;
 #pragma unroll
       for (int s = 0; s < S; ++s) {
         const float expire = __fadd_rn(busy[s], texp);
-        const float r = fmaxf(__fsub_rn(fminf(busy[s], hi), lo), 0.f);
-        const float d = fmaxf(__fsub_rn(fminf(expire, hi), fmaxf(busy[s], lo)), 0.f);
+        // a crashed instance accrues nothing past its doom
+        const float stop = FAULT ? fminf(hi, doom[s]) : hi;
+        const float r = fmaxf(__fsub_rn(fminf(busy[s], stop), lo), 0.f);
+        const float d = fmaxf(__fsub_rn(fminf(expire, stop), fmaxf(busy[s], lo)), 0.f);
         run_l = __fadd_rn(run_l, __fmul_rn(r, alive[s]));
         idle_l = __fadd_rn(idle_l, __fmul_rn(d, alive[s]));
-        if (alive[s] > 0.f && expire <= t_new) alive[s] = 0.f;
+        if (FAULT) {
+          // the exit clock that fires first: expiry, or a crash
+          if (alive[s] > 0.f && fminf(expire, doom[s]) <= t_new) {
+            crash_l += doom[s] < expire && doom[s] > sk && doom[s] <= tend;
+            alive[s] = 0.f;
+          }
+        } else if (alive[s] > 0.f && expire <= t_new) {
+          alive[s] = 0.f;
+        }
         alive_l = __fadd_rn(alive_l, alive[s]);
         // this lane's slots ascend with s, so '>' keeps the lowest slot on a tie
         if (alive[s] > 0.f && busy[s] <= t_new && cre[s] > best) {
@@ -448,14 +520,31 @@ __global__ void __launch_bounds__(WARPS * 32) faas_sweep_kernel(const Params p) 
       }
       const float run_sum = warp_sum(run_l);
       const float idle_sum = warp_sum(idle_l);
-      const float n_alive = warp_sum(alive_l);
+      float n_alive = warp_sum(alive_l);
+      warp_argmax(best, best_j);
+      if (crash) {
+        const int n_crash = (int)__reduce_add_sync(FULL, (unsigned)crash_l);
+        if (n_crash) a_crash = __fadd_rn(a_crash, (float)n_crash);
+      }
+      if (capped) {
+        // capacity churn: evict the newest idle instances above the
+        // ceiling, each pass's arg-max the next newest
+        if (!(t_new >= cap_lo && t_new < cap_hi))
+          cap_seek(cap_e, cap_v, p.E, t_new, lane, cap_now, cap_lo, cap_hi);
+        const float over = __fsub_rn(n_alive, cap_now);
+        if (over > 0.f && t_new <= tend) {
+          int nev = 0;
+          while ((float)nev < over && best > NEG * 0.5f) {
 #pragma unroll
-      for (int m = 16; m >= 1; m >>= 1) {
-        const float ob = __shfl_xor_sync(FULL, best, m);
-        const int oj = __shfl_xor_sync(FULL, best_j, m);
-        if (ob > best || (ob == best && oj < best_j)) {
-          best = ob;
-          best_j = oj;
+            for (int s = 0; s < S; ++s)
+              if (s * 32 + lane == best_j) alive[s] = 0.f;
+            ++nev;
+            newest_idle<S>(alive, cre, busy, t_new, lane, best, best_j);
+          }
+          if (nev) {
+            n_alive = __fsub_rn(n_alive, (float)nev);
+            if (t_new > sk) a_evict = __fadd_rn(a_evict, (float)nev);
+          }
         }
       }
       int first_free = -1;
@@ -477,15 +566,25 @@ __global__ void __launch_bounds__(WARPS * 32) faas_sweep_kernel(const Params p) 
       const bool any_free = first_free >= 0;
       const bool counted = t_new > sk;
       const bool below = n_alive < p.max_c;
-      const bool can_cold = !any_idle && below && any_free;
+      // with a capacity profile a cold start also needs the live count below
+      // the ceiling
+      const bool can_cold = !any_idle && below && any_free && (!capped || n_alive < cap_now);
       const bool is_warm = any_idle && active;
       const bool is_cold = can_cold && active;
       const bool is_reject = !any_idle && !can_cold && active;
       const bool assign = is_warm || is_cold;
       const float service = is_warm ? warm_s : cold_s;
+      // the served attempt's instance dies before the attempt ends
+      bool cut = false;
       if (assign) {
         const int chosen = is_warm ? best_j : first_free;
         const float done = __fadd_rn(t_new, RELY ? fminf(service, tto) : service);
+        float life = INFINITY;
+        if (crash && is_cold) {
+          const float u = __shfl_sync(FULL, u_l, i);
+          if (crate > 0.f) life = __fdiv_rn(-logf(__fsub_rn(1.f, u)), crate);
+        }
+        float dc = INFINITY;
 #pragma unroll
         for (int s = 0; s < S; ++s) {
           if (s * 32 + lane == chosen) {
@@ -493,9 +592,12 @@ __global__ void __launch_bounds__(WARPS * 32) faas_sweep_kernel(const Params p) 
             if (is_cold) {
               cre[s] = t_new;
               alive[s] = 1.f;
+              if (crash) doom[s] = __fadd_rn(t_new, life);
             }
+            if (FAULT) dc = doom[s];
           }
         }
+        if (crash) cut = __shfl_sync(FULL, dc, chosen & 31) < done;
       }
       if (counted) {
         if (is_cold) {
@@ -524,11 +626,13 @@ __global__ void __launch_bounds__(WARPS * 32) faas_sweep_kernel(const Params p) 
         }
       }
 
+      bool interrupted = cut;
       if (RELY) {
         const float fail_i = __shfl_sync(FULL, f_l, i);
         const bool timed_out = assign && service > tto;
         const bool failed = assign && !timed_out && fail_i < pf;
-        const bool trigger = timed_out || failed || is_reject;
+        interrupted = cut && !timed_out && !failed;
+        const bool trigger = timed_out || failed || interrupted || is_reject;
         if (counted) {
           if (timed_out) a_tout = __fadd_rn(a_tout, 1.f);
           if (failed) a_fail = __fadd_rn(a_fail, 1.f);
@@ -549,6 +653,7 @@ __global__ void __launch_bounds__(WARPS * 32) faas_sweep_kernel(const Params p) 
           a_aband = __fadd_rn(a_aband, 1.f);
         }
       }
+      if (interrupted && counted) a_int = __fadd_rn(a_int, 1.f);
       t = t_new;
     }
   }
@@ -561,6 +666,7 @@ __global__ void __launch_bounds__(WARPS * 32) faas_sweep_kernel(const Params p) 
       p.alive_out[pool + j] = alive[s];
       p.creation_out[pool + j] = cre[s];
       p.busy_out[pool + j] = busy[s];
+      if (crash) p.doom_out[pool + j] = doom[s];
     }
   }
   if (lane == 0) {
@@ -573,25 +679,34 @@ __global__ void __launch_bounds__(WARPS * 32) faas_sweep_kernel(const Params p) 
     arow[5] = a_cresp;
     arow[6] = a_wresp;
     arow[7] = a_over;
+    float* r = gacc + 3 * G;
     if (RELY) {
-      float* r = gacc + 3 * G;
       r[0] = a_tout;
       r[1] = a_fail;
       r[2] = a_retry;
       r[3] = a_aband;
+      r += 4;
+    }
+    if (FAULT) {
+      r[0] = a_crash;
+      r[1] = a_evict;
+      r[2] = a_int;
     }
   }
 }
 
-template <int S, bool GRID, bool WIN, bool RELY, bool RETRY, bool FUSED = false>
+template <int S, bool GRID, bool WIN, bool RELY, bool RETRY, bool FUSED = false,
+          bool FAULT = false>
 void launch_one(const Params& p, cudaStream_t stream) {
   const dim3 blocks((p.R + WARPS - 1) / WARPS), threads(WARPS * 32);
-  faas_sweep_kernel<S, GRID, WIN, RELY, RETRY, FUSED><<<blocks, threads, 0, stream>>>(p);
+  faas_sweep_kernel<S, GRID, WIN, RELY, RETRY, FUSED, FAULT>
+      <<<blocks, threads, 0, stream>>>(p);
 }
 
 // the flag sets the front door reaches: GRID alone (the temporal engine);
 // windows and/or reliability, with or without retries, staged or (without
-// retries) fused draws (the scan engine)
+// retries) fused draws, and staged faults alone, with reliability or with
+// retries (the scan engine)
 template <int S>
 bool launch(const Params& p, int flags, cudaStream_t st) {
   switch (flags) {
@@ -610,6 +725,13 @@ bool launch(const Params& p, int flags, cudaStream_t st) {
     case F_FUSED | F_WIN | F_RELY:
       launch_one<S, false, true, true, false, true>(p, st);
       return true;
+    case F_FAULT: launch_one<S, false, false, false, false, false, true>(p, st); return true;
+    case F_FAULT | F_RELY:
+      launch_one<S, false, false, true, false, false, true>(p, st);
+      return true;
+    case F_FAULT | F_RELY | F_RETRY:
+      launch_one<S, false, false, true, true, false, true>(p, st);
+      return true;
     default: return false;
   }
 }
@@ -625,9 +747,12 @@ bool launch(const Params& p, int flags, cudaStream_t st) {
 // reliability) — all f32, contiguous, on `device`; fused draws: uint32 key
 // pairs [R, 2] arrival, warm, cold (and fail with reliability), f32
 // parameter pairs [R, 2] arrival, warm, cold and the three distribution
-// ids (FUSED_DISTS order).  Outputs: alive, creation, busy [R, M], t [R],
-// acc [R, 8 + 5W + 3G + 4 with reliability], act [R, K] with retries
-// (else null).  Launches on `stream` and returns cudaGetLastError(), or
+// ids (FUSED_DISTS order); faults: crash_rate [R] and crash_u [R, K]
+// (crashes), cap_edges [R, E] (strictly increasing, > 0; null when E = 0)
+// and cap_values [R, E+1] (capacity).  Outputs: alive, creation, busy [R,
+// M], t [R], acc [R, 8 + 5W + 3G + 4 with reliability + 3 with faults],
+// act [R, K] with retries and doom [R, M] with crashes (else null).
+// Launches on `stream` and returns cudaGetLastError(), or
 // cudaErrorInvalidValue for arguments no instance takes.
 extern "C" int faas_sweep_f32(
     const void* alive_in, const void* creation_in, const void* busy_in,
@@ -636,18 +761,20 @@ extern "C" int faas_sweep_f32(
     const void* window_bounds, const void* t_timeout, const void* p_fail,
     const void* fail_u, const void* is_first, const void* child_pos,
     const void* akey, const void* wkey, const void* ckey, const void* fkey,
-    const void* apar, const void* wpar, const void* cpar,
+    const void* apar, const void* wpar, const void* cpar, const void* crash_rate,
+    const void* crash_u, const void* cap_edges, const void* cap_values,
     void* alive_out, void* creation_out, void* busy_out, void* t_out,
-    void* acc_out, void* act_out, int R, int M, int K, int G, int W,
-    int max_concurrency, int prestamped, int d_arr, int d_warm, int d_cold,
+    void* acc_out, void* act_out, void* doom_out, int R, int M, int K, int G, int W,
+    int E, int max_concurrency, int prestamped, int d_arr, int d_warm, int d_cold,
     int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const bool rely = t_timeout != nullptr, retry = is_first != nullptr;
   const bool fused = akey != nullptr;
+  const bool crash = crash_u != nullptr, capped = cap_values != nullptr;
   const int flags = (G > 0 ? F_GRID : 0) | (W > 0 ? F_WIN : 0) |
                     (rely ? F_RELY : 0) | (retry ? F_RETRY : 0) |
-                    (fused ? F_FUSED : 0);
+                    (fused ? F_FUSED : 0) | (crash || capped ? F_FAULT : 0);
   const bool dists_ok = d_arr >= 0 && d_arr < N_DISTS && d_warm >= 0 &&
                         d_warm < N_DISTS && d_cold >= 0 && d_cold < N_DISTS;
   if (R < 1 || M < 1 || M > 1024 || K < 0 || G < 0 || G > MAX_GRID || W < 0 ||
@@ -657,7 +784,9 @@ extern "C" int faas_sweep_f32(
       (retry && (child_pos == nullptr || act_out == nullptr || K > (1 << 24))) ||
       (fused && (wkey == nullptr || ckey == nullptr || apar == nullptr ||
                  wpar == nullptr || cpar == nullptr || !dists_ok || prestamped)) ||
-      (!fused && (dts == nullptr || warms == nullptr || colds == nullptr)))
+      (!fused && (dts == nullptr || warms == nullptr || colds == nullptr)) ||
+      (crash && (crash_rate == nullptr || doom_out == nullptr)) ||
+      (capped && (E < 0 || (E > 0 && cap_edges == nullptr))))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.alive_in = (const float*)alive_in;
@@ -687,18 +816,24 @@ extern "C" int faas_sweep_f32(
   p.dists[0] = d_arr;
   p.dists[1] = d_warm;
   p.dists[2] = d_cold;
+  p.crate = (const float*)crash_rate;
+  p.crash_u = (const float*)crash_u;
+  p.cap_e = (const float*)cap_edges;
+  p.cap_v = (const float*)cap_values;
   p.alive_out = (float*)alive_out;
   p.creation_out = (float*)creation_out;
   p.busy_out = (float*)busy_out;
   p.t_out = (float*)t_out;
   p.acc_out = (float*)acc_out;
   p.act_out = (float*)act_out;
+  p.doom_out = (float*)doom_out;
   p.R = R;
   p.M = M;
   p.K = K;
   p.G = G;
   p.W = W;
-  p.cols = ACC_COLS + 5 * W + 3 * G + (rely ? 4 : 0);
+  p.E = capped ? E : 0;
+  p.cols = ACC_COLS + 5 * W + 3 * G + (rely ? 4 : 0) + (crash || capped ? 3 : 0);
   p.max_c = (float)max_concurrency;
   p.prestamped = prestamped;
   cudaStream_t st = (cudaStream_t)stream;

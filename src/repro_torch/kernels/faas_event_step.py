@@ -6,10 +6,12 @@ faas_sweep_pallas`` for the base staged path, the ``prestamped`` mode, the
 transient grid-curve columns (``grid_times``, the temporal engine), the
 metric windows (``window_bounds``), the reliability layer (``t_timeout``,
 ``p_fail``, ``fail_u``), client retries (``is_first``, ``child_pos``,
-with the activation plane as a sixth output) and fused threefry draws
+with the activation plane as output ``act``), fused threefry draws
 (``fused_keys``, ``fused_params``, ``fused_dists``, ``fused_k``, and
 ``fused_fail_keys`` with reliability: the kernel draws every sample from
-per-row keys, :mod:`repro_torch.core.drawplan`).
+per-row keys, :mod:`repro_torch.core.drawplan`) and platform faults
+(``crash_rate``, ``crash_u``: instance crashes, with the crash clocks as
+output ``doom``; ``cap_edges``, ``cap_values``: capacity churn).
 The kernel itself is ``csrc/faas_event_step.cu`` (one warp per row, the
 pool in registers; its header says what bounds it and why it is built the
 way it is).  For CUDA tensors the wrapper checks device, dtype, shape and
@@ -17,9 +19,6 @@ contiguity, launches the kernel on the current stream and counts the
 launch in ``LAUNCH_COUNTS`` under its path's key (:func:`launch_key`);
 for CPU tensors it runs the plain version
 :func:`repro_torch.kernels.ref.faas_sweep_ref`.
-
-The reference kernel's last optional path, platform faults, is a later
-slice (ROADMAP Queue B item 1e); the wrapper refuses its inputs.
 """
 
 from __future__ import annotations
@@ -37,11 +36,14 @@ from repro_torch.kernels import _build
 # version
 from repro_torch.kernels.ref import (  # noqa: F401
     ACC_COLS,
+    FAULT_COLS,
     GRID_COLS,
     NEG,
     RELY_COLS,
     WINDOW_COLS,
+    SweepOut,
     _rows,
+    check_fault_inputs,
     faas_sweep_ref,
 )
 
@@ -67,35 +69,28 @@ MAX_FUSED_EVENTS = (1 << 31) - 1
 # retries), "faas_sweep_retry" (retries) and "faas_sweep_win_rely" /
 # "faas_sweep_win_retry" (windows with either), each with "_fused" appended
 # when the kernel draws its samples (e.g. "faas_sweep_fused",
-# "faas_sweep_win_rely_fused"); beside them "par_sweep",
-# "fleet_sweep", "flash_attention", "decode_attention", "ssd_scan" and
-# "rglru_scan"
+# "faas_sweep_win_rely_fused") or "_fault" with platform faults
+# ("faas_sweep_fault", "faas_sweep_rely_fault", "faas_sweep_retry_fault");
+# beside them "par_sweep", "fleet_sweep" (and "fleet_sweep_fault"),
+# "flash_attention", "decode_attention", "ssd_scan" and "rglru_scan"
 LAUNCH_COUNTS: collections.Counter = collections.Counter()
-
-# the reference kernel's inputs of paths not ported yet, and the ROADMAP
-# Queue B item that brings each
-_LATER = {
-    "crash_rate": "platform faults, Queue B item 1e",
-    "crash_u": "platform faults, Queue B item 1e",
-    "cap_edges": "platform faults, Queue B item 1e",
-    "cap_values": "platform faults, Queue B item 1e",
-}
 
 
 def launch_key(grid: bool, windows: bool, reliability: bool, retries: bool,
-               fused: bool = False) -> str:
+               fused: bool = False, faults: bool = False) -> str:
     """The ``LAUNCH_COUNTS`` key of a faas_sweep launch with these paths."""
     if grid:
         return "faas_sweep_grid"
     tail = "_retry" if retries else "_rely" if reliability else ""
-    return "faas_sweep" + ("_win" if windows else "") + tail + ("_fused" if fused else "")
+    return ("faas_sweep" + ("_win" if windows else "") + tail + ("_fused" if fused else "")
+            + ("_fault" if faults else ""))
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
     """The C entry ``faas_sweep_f32``, built and loaded on first use."""
     fn = _build.load("faas_event_step").faas_sweep_f32
-    fn.argtypes = [ctypes.c_void_p] * 30 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 35 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -126,12 +121,18 @@ def faas_sweep(
     fused_fail_keys=None,  # uint32 [R, 2] failure-stream keys (reliability)
     fused_dists=None,  # 3 names of drawplan.FUSED_DISTS
     fused_k: int = 0,  # events to run with fused draws
-    **later,
+    crash_rate=None,  # f32 [R] or scalar — crash hazard (faults)
+    crash_u=None,  # f32 [R, K] per-event crash-lifetime uniforms (faults)
+    cap_edges=None,  # f32 [R, E] capacity-profile step times (faults)
+    cap_values=None,  # f32 [R, E+1] per-segment capacity ceilings (faults)
 ):
-    """Run K arrivals against each row's ``[M]`` pool; returns
-    ``(alive, creation, busy, t, acc)``, and the activation plane ``act
-    [R, K]`` sixth with retries, as
-    :func:`~repro_torch.kernels.ref.faas_sweep_ref` defines them.
+    """Run K arrivals against each row's ``[M]`` pool; returns a
+    :class:`~repro_torch.kernels.ref.SweepOut`: ``(alive, creation, busy,
+    t, acc)``, the activation plane ``act [R, K]`` with retries and the
+    crash clocks ``doom [R, M]`` with crashes (None otherwise), as
+    :func:`~repro_torch.kernels.ref.faas_sweep_ref` defines them.  (The
+    reference launcher drops the doom plane; it is returned here so that
+    the kernel can be held to its plain version on it.)
 
     Rows are independent (replica × grid cell) and ``t_exp``, ``t_end``,
     ``skip``, the window bounds, ``t_timeout`` and ``p_fail`` vary per row,
@@ -141,17 +142,10 @@ def faas_sweep(
     ``warms``, ``colds`` and ``fail_u`` None) it draws ``fused_k`` events
     from the keys, with windows and reliability but not with retries (the
     attempt table is sorted over the whole stream) nor grid columns.
-    ``later`` names the reference kernel's inputs of paths not ported yet,
-    which raise ``NotImplementedError`` when given.
+    Platform faults run alone, with reliability or with retries, on staged
+    draws: not with windows, grid columns or fused draws, as in the
+    reference.
     """
-    for name, value in later.items():
-        if name not in _LATER:
-            raise TypeError(f"faas_sweep() got an unexpected keyword {name!r}")
-        if value is not None:
-            raise NotImplementedError(
-                f"faas_sweep: {name}= ({_LATER[name]}) is not ported yet; "
-                "see ROADMAP.md"
-            )
     if alive.dim() != 2:
         raise ValueError(f"alive must be [R, M], got shape {tuple(alive.shape)}")
     R, M = alive.shape
@@ -175,9 +169,13 @@ def faas_sweep(
                      fused_k, retries, grid_times, prestamped)
     elif any(x is not None for x in (fused_keys, fused_params, fused_fail_keys)):
         raise ValueError("fused_keys, fused_params and fused_fail_keys need fused_dists")
+    crashes, capped = check_fault_inputs(crash_rate, crash_u, cap_edges, cap_values)
+    if crashes or capped:
+        _check_fault_paths(window_bounds, grid_times, fused)
     opt = dict(
         window_bounds=window_bounds, grid_times=grid_times, t_timeout=t_timeout,
         p_fail=p_fail, fail_u=fail_u, is_first=is_first, child_pos=child_pos,
+        crash_rate=crash_rate, crash_u=crash_u, cap_edges=cap_edges, cap_values=cap_values,
     )
     if fused:
         opt.update(fused_keys=fused_keys, fused_params=fused_params,
@@ -218,6 +216,13 @@ def faas_sweep(
             shapes["fail_u"] = (fail_u, (R, K))
     if retries:
         shapes.update(is_first=(is_first, (R, K)), child_pos=(child_pos, (R, K)))
+    E = 0
+    if crashes:
+        crash_rate = _rows(crash_rate, R, dev)
+        shapes.update(crash_rate=(crash_rate, (R,)), crash_u=(crash_u, (R, K)))
+    if capped:
+        E = cap_values.shape[1] - 1 if cap_values.dim() == 2 else -1
+        shapes.update(cap_edges=(cap_edges, (R, E)), cap_values=(cap_values, (R, E + 1)))
     keys = {}
     if fused:
         keys = {f"fused_keys[{i}]": x for i, x in enumerate(fused_keys)}
@@ -259,9 +264,12 @@ def faas_sweep(
     creation_o = torch.empty_like(creation)
     busy_o = torch.empty_like(busy)
     t_o = torch.empty_like(t0)
-    cols = ACC_COLS + WINDOW_COLS * W + GRID_COLS * G + (RELY_COLS if reliability else 0)
+    faults = crashes or capped
+    cols = (ACC_COLS + WINDOW_COLS * W + GRID_COLS * G + (RELY_COLS if reliability else 0)
+            + (FAULT_COLS if faults else 0))
     acc = torch.empty((R, cols), dtype=torch.float32, device=dev)
     act = torch.empty((R, K), dtype=torch.float32, device=dev) if retries else None
+    doom = torch.empty_like(alive) if crashes else None
     ptr = lambda x: None if x is None else x.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
     fk = tuple(fused_keys) + (fused_fail_keys,) if fused else (None,) * 4
@@ -272,18 +280,18 @@ def faas_sweep(
         t_exp.data_ptr(), t_end.data_ptr(), skip.data_ptr(), ptr(dts),
         ptr(warms), ptr(colds), ptr(grid_times), ptr(window_bounds),
         ptr(t_timeout), ptr(p_fail), ptr(fail_u), ptr(is_first), ptr(child_pos),
-        *(ptr(x) for x in fk), *(ptr(x) for x in fp),
+        *(ptr(x) for x in fk), *(ptr(x) for x in fp), ptr(crash_rate if crashes else None),
+        ptr(crash_u), ptr(cap_edges if capped and E else None), ptr(cap_values),
         alive_o.data_ptr(), creation_o.data_ptr(), busy_o.data_ptr(),
-        t_o.data_ptr(), acc.data_ptr(), ptr(act), R, M, K, G, W,
+        t_o.data_ptr(), acc.data_ptr(), ptr(act), ptr(doom), R, M, K, G, W, E,
         int(max_concurrency), int(bool(prestamped)), *ids,
         dev.index if dev.index is not None else torch.cuda.current_device(),
         stream,
     )
     if err != 0:
         raise RuntimeError(f"faas_sweep kernel launch failed: CUDA error {err}")
-    LAUNCH_COUNTS[launch_key(bool(G), bool(W), reliability, retries, fused)] += 1
-    out = (alive_o, creation_o, busy_o, t_o, acc)
-    return out + (act,) if retries else out
+    LAUNCH_COUNTS[launch_key(bool(G), bool(W), reliability, retries, fused, faults)] += 1
+    return SweepOut(alive_o, creation_o, busy_o, t_o, acc, act, doom)
 
 
 def _check_tensor(name, x, dev, dtype, shape):
@@ -297,6 +305,19 @@ def _check_tensor(name, x, dev, dtype, shape):
         raise ValueError(f"{name} must have shape {shape}, got {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _check_fault_paths(window_bounds, grid_times, fused):
+    """The paths platform faults run with, on any device."""
+    if fused:
+        raise ValueError(
+            "fused draws do not serve platform faults (the crash stream is "
+            "staged); use staged draws"
+        )
+    if window_bounds is not None:
+        raise ValueError("platform faults do not serve windowed metrics")
+    if grid_times is not None:
+        raise ValueError("platform faults serve the scan engine; grid columns run without them")
 
 
 def _check_fused(dts, warms, colds, fail_u, keys, params, dists, k, retries, grid_times,
@@ -338,9 +359,10 @@ def _cuda_sweep_rows(
 ):
     """Backend ``"cuda"``'s pool-state row launcher: the accumulator, and
     with fused draws ``(acc, t)`` for the caller's coverage guard (``kw``
-    as :func:`faas_sweep` takes them)."""
+    as :func:`faas_sweep` takes them; the kernel's other outputs are
+    dropped, as in the reference launcher)."""
     out = faas_sweep(
         alive0, creation0, busy0, t0, t_exp, dts, warms, colds,
         t_end=t_end, skip=skip, **kw,
     )
-    return (out[4], out[3]) if kw.get("fused_dists") is not None else out[4]
+    return (out.acc, out.t) if kw.get("fused_dists") is not None else out.acc

@@ -3,8 +3,9 @@
 
 :func:`fleet_sweep` is the port of ``repro/kernels/faas_event_step.py::
 fleet_sweep_pallas`` (and its launcher ``_pallas_fleet_rows``) for the base
-path, the gap and prestamped stream modes and FIFO queues: F <= 8 function
-pools under one shared cluster capacity.  The kernel is
+path, the gap and prestamped stream modes, FIFO queues and platform faults
+(crashes and capacity churn, not with queues): F <= 8 function pools under
+one shared cluster capacity.  The kernel is
 ``csrc/fleet_event_step.cu`` (one warp per fleet, all F*M slots in
 registers; its header says what bounds it and why it is built the way it
 is).  Unlike the reference's 8-row blocks, each fleet reads its replica's
@@ -13,9 +14,9 @@ row of one ``[replicas, K]`` merged stream through the per-fleet index
 
 For CUDA tensors the wrapper checks device, dtype, shape and contiguity,
 launches the kernel on the current stream and counts the launch in
-``LAUNCH_COUNTS["fleet_sweep"]``; for CPU tensors it runs the plain version
-:func:`repro_torch.kernels.ref.fleet_sweep_ref`.  The reference kernel's
-platform-fault inputs are a later slice and raise.
+``LAUNCH_COUNTS["fleet_sweep"]`` (``"fleet_sweep_fault"`` with faults); for
+CPU tensors it runs the plain version
+:func:`repro_torch.kernels.ref.fleet_sweep_ref`.
 """
 
 from __future__ import annotations
@@ -29,11 +30,12 @@ from repro_torch.core.execution import register_backend
 from repro_torch.kernels import _build
 from repro_torch.kernels.faas_event_step import LAUNCH_COUNTS
 from repro_torch.kernels.ref import (
+    FAULT_COLS,
     FLEET_ACC_COLS,
     MAX_FUNCTIONS,
     _rows,
+    check_fault_inputs,
     fleet_sweep_ref,
-    refuse_fleet_faults,
 )
 
 # slots per lane of one warp (csrc/fleet_event_step.cu): F rounded up to a
@@ -57,7 +59,7 @@ def fleet_slots(F: int, M: int) -> int:
 def _kernel():
     """The C entry ``fleet_sweep_f32``, built and loaded on first use."""
     fn = _build.load("fleet_event_step").fleet_sweep_f32
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -77,21 +79,30 @@ def fleet_sweep(
     slots: int,
     queue_depth: int = 0,
     prestamped: bool = False,
-    **faults,
+    crash_rate=None,  # f32 [N] or scalar — crash hazard (faults)
+    crash_u=None,  # f32 [S, K] per-event crash-lifetime uniforms (faults)
+    cap_edges=None,  # f32 [N, E] capacity-profile step times (faults)
+    cap_values=None,  # f32 [N, E+1] per-segment capacity ceilings (faults)
 ):
     """Run each fleet's stream row against its F pools; returns
-    ``(acc[N, F, 13], qleft[N, F])`` as
+    ``(acc[N, F, 13], qleft[N, F])``, with faults ``acc[N, F, 16]`` and
+    with crashes the crash clocks ``doom[N, F, M]`` third, as
     :func:`~repro_torch.kernels.ref.fleet_sweep_ref` defines them.
 
     Every fleet value (thresholds, limits, capacity, horizon, warm-up) is a
     per-fleet input, so a whole fleet sweep is one launch.  The launch
     reads nothing back from the card: on CUDA tensors a fleet whose
     ``stream`` row lies outside ``[0, S)`` gets NaN outputs instead of an
-    error.  ``faults``
-    names the reference kernel's fault inputs, which raise
-    ``NotImplementedError`` when given.
+    error.
     """
-    refuse_fleet_faults("fleet_sweep", faults)
+    crashes, capped = check_fault_inputs(crash_rate, crash_u, cap_edges, cap_values)
+    if (crashes or capped) and int(queue_depth) > 0:
+        raise ValueError(
+            "platform faults do not serve fleet FIFO queues yet (eviction would "
+            "have to reconcile queued work); set queue_depth=0 or drop the faults"
+        )
+    faults = dict(crash_rate=crash_rate, crash_u=crash_u, cap_edges=cap_edges,
+                  cap_values=cap_values)
     if times.dim() != 2 or t_exp.dim() != 2:
         raise ValueError(
             f"times must be [S, K] and t_exp [N, F], got {tuple(times.shape)} "
@@ -101,7 +112,7 @@ def fleet_sweep(
     if dev.type == "cpu":
         return fleet_sweep_ref(
             t_exp, limit, ncl, t_end, skip, stream, times, fids, warms, colds,
-            slots=slots, queue_depth=queue_depth, prestamped=prestamped,
+            slots=slots, queue_depth=queue_depth, prestamped=prestamped, **faults,
         )
     if dev.type != "cuda":
         raise ValueError(f"fleet_sweep runs on CUDA or CPU tensors, got {dev}")
@@ -115,6 +126,15 @@ def fleet_sweep(
         times=(times, (S, K), torch.float32), fids=(fids, (S, K), torch.uint8),
         warms=(warms, (S, K), torch.float32), colds=(colds, (S, K), torch.float32),
     )
+    E = 0
+    if crashes:
+        crash_rate = _rows(crash_rate, N, dev)
+        shapes.update(crash_rate=(crash_rate, (N,), torch.float32),
+                      crash_u=(crash_u, (S, K), torch.float32))
+    if capped:
+        E = cap_values.shape[1] - 1 if cap_values.dim() == 2 else -1
+        shapes.update(cap_edges=(cap_edges, (N, E), torch.float32),
+                      cap_values=(cap_values, (N, E + 1), torch.float32))
     for name, (x, shape, dtype) in shapes.items():
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, times on {dev}")
@@ -139,29 +159,33 @@ def fleet_sweep(
         raise ValueError(f"queue_depth must be in [0, {MAX_QUEUE}], got {Q}")
     if K >= 1 << 31:
         raise ValueError(f"fleet_sweep takes fewer than 2**31 events, got K={K}")
-    acc = torch.empty((N, F, FLEET_ACC_COLS), dtype=torch.float32, device=dev)
+    cols = FLEET_ACC_COLS + (FAULT_COLS if crashes or capped else 0)
+    acc = torch.empty((N, F, cols), dtype=torch.float32, device=dev)
     qleft = torch.empty((N, F), dtype=torch.float32, device=dev)
+    doom = torch.empty((N, F, M), dtype=torch.float32, device=dev) if crashes else None
+    ptr = lambda x: None if x is None else x.data_ptr()
     err = _kernel()(
         t_exp.data_ptr(), limit.data_ptr(), ncl.data_ptr(), t_end.data_ptr(),
         skip.data_ptr(), stream.data_ptr(), times.data_ptr(), fids.data_ptr(),
-        warms.data_ptr(), colds.data_ptr(), acc.data_ptr(), qleft.data_ptr(),
-        N, F, M, S, K, Q, int(bool(prestamped)),
+        warms.data_ptr(), colds.data_ptr(), ptr(crash_rate if crashes else None),
+        ptr(crash_u), ptr(cap_edges if capped and E else None), ptr(cap_values),
+        acc.data_ptr(), qleft.data_ptr(), ptr(doom), N, F, M, S, K, Q, E,
+        int(bool(prestamped)),
         dev.index if dev.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"fleet_sweep kernel launch failed: CUDA error {err}")
-    LAUNCH_COUNTS["fleet_sweep"] += 1
-    return acc, qleft
+    LAUNCH_COUNTS["fleet_sweep_fault" if crashes or capped else "fleet_sweep"] += 1
+    return (acc, qleft, doom) if crashes else (acc, qleft)
 
 
 @register_backend("cuda", engines=("fleet",))
 def _cuda_fleet_rows(
-    t_exp, limit, ncl, t_end, skip, stream, times, fids, warms, colds,
-    *, slots, queue_depth, prestamped,
+    t_exp, limit, ncl, t_end, skip, stream, times, fids, warms, colds, **kw,
 ):
-    """Backend ``"cuda"``'s fleet launcher: ``(acc[N, F, 13], qleft[N, F])``."""
+    """Backend ``"cuda"``'s fleet launcher: ``(acc[N, F, 13 or 16], qleft[N,
+    F])`` (``kw`` as :func:`fleet_sweep` takes them)."""
     return fleet_sweep(
-        t_exp, limit, ncl, t_end, skip, stream, times, fids, warms, colds,
-        slots=slots, queue_depth=queue_depth, prestamped=prestamped,
-    )
+        t_exp, limit, ncl, t_end, skip, stream, times, fids, warms, colds, **kw,
+    )[:2]

@@ -4,7 +4,7 @@
 the same arithmetic order and with the same tie-breaks as the reference
 mirror ``repro/kernels/ref.py::faas_sweep_ref`` (base staged path, the
 ``prestamped`` mode, the transient ``grid_times`` columns, metric windows,
-reliability, retries and fused threefry draws).
+reliability, retries, fused threefry draws and platform faults).
 :func:`faas_par_sweep_ref` mirrors ``faas_par_sweep_ref`` there, the
 concurrency-value platform's ``finish[M, c]`` loop.  They run on any
 device: the CPU tests and the ``device="cpu"`` entry points use them, and
@@ -17,9 +17,20 @@ reference's per-event arithmetic and tie-breaks but not its block layout
 (one fleet per 8-row block, the merged stream copied into every row):
 pools are ``[N, F, M]`` and each fleet reads its replica's row of one
 ``[replicas, K]`` stream through ``stream``.
+
+Platform faults (``crash_rate``, ``crash_u``, ``cap_edges``,
+``cap_values``; both plain versions) follow the reference's operations in
+its order: an Exp(``crash_rate``) lifetime stamped at each cold start
+(the ``doom`` plane), exits at ``min(expiry, doom)``, and a
+piecewise-constant capacity ceiling that evicts the newest idle instances
+above it and gates cold starts.  One deviation: a row whose crash rate is
+0 draws an infinite lifetime even from a zero uniform, where the
+reference's ``-log(1 - 0) / 0`` gives NaN.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -45,13 +56,84 @@ FLEET_ACC_COLS = 13
 # the most functions a fleet has on the block backends (the reference's
 # BLOCK_R: a fleet was one 8-row block of the TPU kernel)
 MAX_FUNCTIONS = 8
-# the reference fleet kernel's platform-fault inputs (not ported yet)
-FLEET_FAULTS = ("crash_rate", "crash_u", "cap_edges", "cap_values")
+# platform-fault columns, after the reliability columns: crashes,
+# evictions, interrupted attempts
+FAULT_COLS = 3
+
+
+class SweepOut(NamedTuple):
+    """What :func:`faas_sweep_ref` and the kernel's wrapper return: the
+    final pool state and clock, the accumulator, and the planes of the
+    optional paths by name, None where the path is off."""
+
+    alive: torch.Tensor  # f32 [R, M] 0/1
+    creation: torch.Tensor  # f32 [R, M]
+    busy: torch.Tensor  # f32 [R, M]
+    t: torch.Tensor  # f32 [R] final clock
+    acc: torch.Tensor  # f32 [R, cols]
+    act: Optional[torch.Tensor] = None  # f32 [R, K] activation plane (retries)
+    doom: Optional[torch.Tensor] = None  # f32 [R, M] crash clocks (crashes)
+
+    def apply(self, fn):
+        """The same outputs with ``fn`` applied to each that is not None."""
+        return self._replace(**{k: fn(v) for k, v in self._asdict().items() if v is not None})
 
 
 def _rows(x, R, device):
     """A per-row f32 ``[R]`` vector from a scalar or an ``[R]`` tensor."""
     return torch.as_tensor(x, dtype=torch.float32, device=device).expand(R).contiguous()
+
+
+def check_fault_inputs(crash_rate, crash_u, cap_edges, cap_values):
+    """The fault inputs' structure, as both block wrappers check it on any
+    device: each pair comes together, and a profile's edges (a leading 0.0
+    edge implied) are positive and strictly increasing in every row.
+    Returns ``(crashes, capped)``."""
+    if (crash_rate is None) != (crash_u is None):
+        raise ValueError("crash_rate and crash_u come together (crashes)")
+    if (cap_edges is None) != (cap_values is None):
+        raise ValueError("cap_edges and cap_values come together (capacity)")
+    capped = cap_values is not None
+    if (capped and isinstance(cap_edges, torch.Tensor) and cap_edges.dim() == 2
+            and cap_edges.shape[1] and not bool(
+                (cap_edges[:, 0] > 0).all() & (cap_edges[:, 1:] > cap_edges[:, :-1]).all())):
+        raise ValueError("cap_edges must be positive and strictly increasing in every row")
+    return crash_u is not None, capped
+
+
+def lifetime(crash_u, crate):
+    """Exp(``crate``) lifetimes from uniforms, ``-log(1 - u) / rate`` (+inf
+    where the rate is 0)."""
+    life = -torch.log(1.0 - crash_u) / crate
+    return torch.where(crate > 0, life, torch.inf)
+
+
+class Capacity:
+    """A per-row piecewise-constant ceiling: ``edges`` f32 ``[R, E]``,
+    ``values`` f32 ``[R, E+1]``, with the reference launcher's leading 0.0
+    edge, so the segment of ``t`` is a plain count."""
+
+    def __init__(self, edges, values):
+        R = values.shape[0]
+        zero = torch.zeros((R, 1), dtype=torch.float32, device=values.device)
+        self.edges = torch.cat([zero, edges.to(torch.float32)], dim=1)
+        self.values = values.to(torch.float32)
+        self.col = torch.arange(self.values.shape[1], dtype=torch.float32,
+                                device=values.device)
+
+    def at(self, t_new):
+        """The ceiling in effect at each row's ``t_new`` ``[R]``."""
+        seg = (self.edges <= t_new[:, None]).float().sum(1) - 1.0
+        return (self.values * (self.col == seg[:, None])).sum(1)
+
+
+def newer_rank(idle, creation, flat):
+    """Per slot, the idle slots newer than it: a higher creation time, or
+    an equal one at a lower flat id (``flat`` ``[..., M]``)."""
+    cre_a, cre_b = creation[..., :, None], creation[..., None, :]
+    fa, fb = flat[..., :, None], flat[..., None, :]
+    newer = (cre_b > cre_a) | ((cre_b == cre_a) & (fb < fa))
+    return (idle[..., None, :] & newer).float().sum(-1)
 
 
 def faas_sweep_ref(
@@ -80,6 +162,10 @@ def faas_sweep_ref(
     fused_fail_keys=None,  # uint32 [R, 2] failure-stream keys (reliability)
     fused_dists=None,  # 3 distribution names (drawplan.FUSED_DISTS)
     fused_k: int = 0,  # events to run when fused (no dts to size from)
+    crash_rate=None,  # f32 [R] or scalar — crash hazard (faults)
+    crash_u=None,  # f32 [R, K] per-event crash-lifetime uniforms (faults)
+    cap_edges=None,  # f32 [R, E] capacity-profile step times (faults)
+    cap_values=None,  # f32 [R, E+1] per-segment capacity ceilings (faults)
 ):
     """Run K arrivals against each row's ``[M]`` pool.
 
@@ -88,11 +174,12 @@ def faas_sweep_ref(
     tie), then the newest idle instance (warm, lowest slot on a creation
     tie), else a free slot below ``max_concurrency`` (cold), else reject.
     Arrivals past ``t_end`` are inert; request counters engage after
-    ``skip``.  Returns ``(alive, creation, busy, t, acc)`` (and the
-    activation plane ``act [R, K]`` sixth with retries).  ``acc`` holds
-    the reference's append-only layout: 8 base columns (cold, warm,
-    reject, ∫running, ∫idle, Σcold response, Σwarm response, overflow),
-    then ``5W`` window, ``3G`` grid and 4 reliability columns.
+    ``skip``.  Returns a :class:`SweepOut`: ``(alive, creation, busy, t,
+    acc)``, the activation plane ``act [R, K]`` with retries and the crash
+    clocks ``doom [R, M]`` with crashes (None otherwise).  ``acc`` holds the reference's
+    append-only layout: 8 base columns (cold, warm, reject, ∫running,
+    ∫idle, Σcold response, Σwarm response, overflow), then ``5W`` window,
+    ``3G`` grid, 4 reliability and 3 fault columns.
 
     ``window_bounds`` (strictly increasing per row) appends, per window,
     cold starts ``[8, 8+W)``, served ``[8+W, 8+2W)``, arrivals including
@@ -124,6 +211,20 @@ def faas_sweep_ref(
     :mod:`repro_torch.core.drawplan` defines them, for ``fused_k`` events;
     the failure uniform is word 0 of ``fused_fail_keys``' draw.  The final
     clock ``t`` is what the caller's coverage guard reads.
+
+    Platform faults: ``crash_rate``/``crash_u`` (crashes) stamp each cold
+    start's crash clock ``doom = t_new + lifetime(u, rate)`` (fresh pools
+    carry +inf; a warm hit keeps it); an instance stops accruing run/idle
+    time at its doom and leaves at ``min(expiry, doom)``, which counts as a
+    crash when ``skip < doom <= t_end`` and ``doom < expiry``.  A served
+    attempt whose instance dies before it finishes is interrupted (with
+    reliability: one not timed out or failed, and it triggers its retry).
+    ``cap_edges``/``cap_values`` (capacity) set the ceiling in effect at
+    each arrival: above it the newest idle instances are evicted (inside
+    the horizon; ranked by creation, the lower slot newer on a tie), and a
+    cold start needs the live count below it.  The 3 fault columns count
+    crashes, evictions (past ``skip``) and interrupted attempts (past
+    ``skip``).
     """
     R, M = alive.shape
     fused = fused_dists is not None
@@ -152,9 +253,17 @@ def faas_sweep_ref(
     if retries:
         act = torch.zeros((R, K), dtype=torch.float32, device=dev)
         rows_iota = torch.arange(R, device=dev)
+    crashes = crash_u is not None
+    cap = None if cap_values is None else Capacity(cap_edges, cap_values)
+    faults = crashes or cap is not None
+    zero = torch.zeros((R,), dtype=torch.float32, device=dev)
+    if crashes:
+        crate = _rows(crash_rate, R, dev)
+        doom = torch.full((R, M), torch.inf, dtype=torch.float32, device=dev)
     t = t0
     acc = torch.zeros(
-        (R, ACC_COLS + WINDOW_COLS * W + GRID_COLS * G + (RELY_COLS if reliability else 0)),
+        (R, ACC_COLS + WINDOW_COLS * W + GRID_COLS * G + (RELY_COLS if reliability else 0)
+         + (FAULT_COLS if faults else 0)),
         dtype=torch.float32, device=dev,
     )
     for i in range(K):
@@ -168,10 +277,11 @@ def faas_sweep_ref(
         lo = torch.clamp(t, skip, t_end)
         hi = torch.clamp(t_new, skip, t_end)
         expire = busy + t_exp[:, None]
-        run_t = torch.clamp(torch.minimum(busy, hi[:, None]) - lo[:, None], min=0.0)
+        # a crashed instance stops accruing run/idle time at its doom
+        stop = torch.minimum(hi[:, None], doom) if crashes else hi[:, None]
+        run_t = torch.clamp(torch.minimum(busy, stop) - lo[:, None], min=0.0)
         idle_t = torch.clamp(
-            torch.minimum(expire, hi[:, None]) - torch.maximum(busy, lo[:, None]),
-            min=0.0,
+            torch.minimum(expire, stop) - torch.maximum(busy, lo[:, None]), min=0.0
         )
         run_sum = (run_t * alive).sum(1)
         idle_sum = (idle_t * alive).sum(1)
@@ -199,8 +309,28 @@ def faas_sweep_ref(
             g_run = torch.where(in_win, running_g.float(), 0.0)
             g_idle = torch.where(in_win, idle_g.float(), 0.0)
             g_cold = (in_win & (idle_g == 0)).float()
-        expired = (alive > 0) & (expire <= t_new[:, None])
+        # exits: expiry or crash, whichever clock fires first
+        exit_time = torch.minimum(expire, doom) if crashes else expire
+        expired = (alive > 0) & (exit_time <= t_new[:, None])
+        if crashes:
+            crash_ok = (expired & (doom < expire) & (doom > skip[:, None])
+                        & (doom <= t_end[:, None]))
+            n_crash = crash_ok.float().sum(1)
         alive = torch.where(expired, 0.0, alive)
+        if cap is not None:
+            # capacity churn: evict the newest idle instances above the
+            # ceiling in effect at this arrival
+            cap_now = cap.at(t_new)
+            over = alive.sum(1) - cap_now
+            n_evict = zero
+            # (ranks are needed only above a ceiling: rank >= 0 >= over
+            # evicts nothing)
+            if bool((over > 0).any()):
+                idle_now = (alive > 0) & (busy <= t_new[:, None])
+                rank = newer_rank(idle_now, creation, slot_iota)
+                evict = idle_now & (rank < over[:, None]) & (t_new <= t_end)[:, None]
+                n_evict = (evict & (t_new > skip)[:, None]).float().sum(1)
+                alive = torch.where(evict, 0.0, alive)
 
         idle = (alive > 0) & (busy <= t_new[:, None])
         best = torch.where(idle, creation, NEG).amax(1)
@@ -219,6 +349,9 @@ def faas_sweep_ref(
         counted = t_new > skip
         below = n_alive < max_concurrency
         can_cold = (~any_idle) & below & any_free
+        if cap is not None:
+            # admission gate while degraded: no cold start over the ceiling
+            can_cold = can_cold & (n_alive < cap_now)
         overflow = (~any_idle) & below & (~any_free) & active
         is_warm = any_idle & active
         is_cold = can_cold & active
@@ -234,14 +367,26 @@ def faas_sweep_ref(
         sel_cold = sel & is_cold[:, None]
         creation = torch.where(sel_cold, t_new[:, None], creation)
         alive = torch.where(sel_cold, 1.0, alive)
+        if crashes:
+            # the Exp(crash_rate) lifetime stamped at cold start; a warm hit
+            # keeps the instance's doom
+            life = lifetime(crash_u[:, i], crate)
+            doom = torch.where(sel_cold, (t_new + life)[:, None], doom)
+            doom_chosen = torch.where(sel, doom, torch.inf).amin(1)
+            cut = assign & (doom_chosen < t_new + occupancy)
 
         if reliability:
             timed_out = assign & (service > t_to)
             failed = assign & ~timed_out & (fail_i < p_f)
             trigger = timed_out | failed | is_reject
+            if crashes:
+                interrupted = cut & ~timed_out & ~failed
+                trigger = trigger | interrupted
             cold_resp = torch.minimum(cold_i, t_to)
             warm_resp = torch.minimum(warm_i, t_to)
         else:
+            if crashes:
+                interrupted = cut
             cold_resp, warm_resp = cold_i, warm_i
         cold_c = is_cold & counted
         warm_c = is_warm & counted
@@ -293,11 +438,16 @@ def faas_sweep_ref(
                     dim=1,
                 )
             )
+        if faults:
+            parts.append(torch.stack([
+                n_crash if crashes else zero,
+                n_evict if cap is not None else zero,
+                (interrupted & counted).float() if crashes else zero,
+            ], dim=1))
         acc = acc + torch.cat(parts, dim=1)
         t = t_new
-    if retries:
-        return alive, creation, busy, t, acc, act
-    return alive, creation, busy, t, acc
+    return SweepOut(alive, creation, busy, t, acc, act if retries else None,
+                    doom if crashes else None)
 
 
 def faas_par_sweep_ref(
@@ -417,19 +567,6 @@ def faas_par_sweep_ref(
     return alive, creation, finish, t, acc
 
 
-def refuse_fleet_faults(fn: str, faults: dict) -> None:
-    """Raise for the reference fleet kernel's fault inputs (a later slice)
-    and for any other unexpected keyword."""
-    for name, value in faults.items():
-        if name not in FLEET_FAULTS:
-            raise TypeError(f"{fn}() got an unexpected keyword {name!r}")
-        if value is not None:
-            raise NotImplementedError(
-                f"{fn}: {name}= (platform faults) is not ported yet; see "
-                "ROADMAP.md Queue A item 4"
-            )
-
-
 def fleet_sweep_ref(
     t_exp,  # f32 [N, F] per-function expiration threshold
     limit,  # f32 [N, F] per-function concurrency limit
@@ -445,7 +582,10 @@ def fleet_sweep_ref(
     slots: int,
     queue_depth: int = 0,
     prestamped: bool = False,
-    **faults,
+    crash_rate=None,  # f32 [N] or scalar — crash hazard (faults)
+    crash_u=None,  # f32 [S, K] per-event crash-lifetime uniforms (faults)
+    cap_edges=None,  # f32 [N, E] capacity-profile step times (faults)
+    cap_values=None,  # f32 [N, E+1] per-segment capacity ceilings (faults)
 ):
     """Run the K events of each fleet's stream row against its F pools of
     ``slots`` instances.
@@ -463,8 +603,18 @@ def fleet_sweep_ref(
     reject, ∫running, ∫idle, Σcold response, Σwarm response, overflow,
     arrivals, enqueued, queue-served, Σqueue wait, peak; the peak repeated
     for every function) and the queue lengths left at the end.
+
+    Platform faults act as in :func:`faas_sweep_ref`, per function pool,
+    with no reliability layer and not with queues: the crash uniforms are
+    read through ``stream`` like the samples, and the rate and capacity
+    profile are per fleet.  The ceiling applies to the fleet's live count:
+    the newest idle instances fleet-wide are evicted (on a creation tie the
+    lower flat id ``f * slots + m`` counts as newer) and a cold start needs
+    the fleet's live count below it.  ``acc`` then has 16 columns per
+    function (crashes of its instances, their evictions past ``skip``, its
+    interrupted attempts past ``skip``), and with crashes the crash clocks
+    ``doom[N, F, M]`` come third.
     """
-    refuse_fleet_faults("fleet_sweep_ref", faults)
     N, F = t_exp.shape
     M, Q = int(slots), int(queue_depth)
     K = times.shape[1]
@@ -484,7 +634,18 @@ def fleet_sweep_ref(
     creation = torch.full((N, F, M), NEG, **f32)
     busy = torch.full((N, F, M), NEG, **f32)
     t = torch.zeros((N,), **f32)
-    acc = torch.zeros((N, F, FLEET_ACC_COLS), **f32)
+    crashes = crash_u is not None
+    cap = None if cap_values is None else Capacity(cap_edges, cap_values)
+    faults = crashes or cap is not None
+    if Q and faults:
+        raise ValueError("fleet faults are incompatible with queue_depth > 0")
+    if crashes:
+        crate = _rows(crash_rate, N, dev)
+        crash = crash_u.index_select(0, idx)
+        doom = torch.full((N, F, M), torch.inf, **f32)
+    if cap is not None:
+        flat = torch.arange(F * M, **f32).expand(N, F * M)
+    acc = torch.zeros((N, F, FLEET_ACC_COLS + (FAULT_COLS if faults else 0)), **f32)
     peak = torch.zeros((N,), **f32)
     zero = torch.zeros((N, F), **f32)
     if Q:
@@ -518,14 +679,31 @@ def fleet_sweep_ref(
         lo = torch.clamp(t, skip, t_end)[:, None, None]
         hi = torch.clamp(t_new, skip, t_end)[:, None, None]
         expire = busy + t_exp[..., None]
-        run_t = torch.clamp(torch.minimum(busy, hi) - lo, min=0.0)
-        idle_t = torch.clamp(torch.minimum(expire, hi) - torch.maximum(busy, lo), min=0.0)
+        stop = torch.minimum(hi, doom) if crashes else hi
+        run_t = torch.clamp(torch.minimum(busy, stop) - lo, min=0.0)
+        idle_t = torch.clamp(torch.minimum(expire, stop) - torch.maximum(busy, lo), min=0.0)
         run_sum = (run_t * alive).sum(2)
         idle_sum = (idle_t * alive).sum(2)
-        expired = (alive > 0) & (expire <= t_new[:, None, None])
+        exit_time = torch.minimum(expire, doom) if crashes else expire
+        expired = (alive > 0) & (exit_time <= t_new[:, None, None])
+        if crashes:
+            crash_ok = (expired & (doom < expire) & (doom > skip[:, None, None])
+                        & (doom <= t_end[:, None, None]))
+            n_crash = crash_ok.float().sum(2)
         alive = torch.where(expired, 0.0, alive)
         cc = (t_new > skip)[:, None]
         in_h = (t_new <= t_end)[:, None]
+        if cap is not None:
+            # the fleet's ceiling: the newest idle instances fleet-wide go
+            cap_now = cap.at(t_new)
+            over = alive.sum(2).sum(1) - cap_now
+            n_evict = zero
+            if bool((over > 0).any()):  # ranks are needed only above a ceiling
+                idle_now = (alive > 0) & (busy <= t_new[:, None, None])
+                rank = newer_rank(idle_now.view(N, F * M), creation.view(N, F * M), flat)
+                evict = idle_now & (rank.view(N, F, M) < over[:, None, None]) & in_h[..., None]
+                n_evict = (evict & cc[..., None]).float().sum(2)
+                alive = torch.where(evict, 0.0, alive)
 
         if Q:
             for _ in range(Q):
@@ -580,6 +758,8 @@ def fleet_sweep_ref(
         active = in_h & act
         below = n_alive < limit
         can_cold = (~any_idle) & below & any_free & (cluster < ncl[:, None])
+        if cap is not None:
+            can_cold = can_cold & (cluster < cap_now[:, None])
         overflow = (~any_idle) & below & (~any_free) & active
         is_warm = any_idle & active
         is_cold = can_cold & active
@@ -592,12 +772,15 @@ def fleet_sweep_ref(
             is_enq = torch.zeros_like(active)
             is_reject = (~any_idle) & (~can_cold) & active
         chosen = torch.where(is_warm, first_best, first_free)
-        sel = (slot_iota == chosen[..., None]) & (is_warm | is_cold)[..., None]
-        alive, creation, busy = start(
-            sel, is_cold, t_new,
-            torch.where(is_warm, warm_i[:, None], cold_i[:, None]),
-            alive, creation, busy,
-        )
+        assign = is_warm | is_cold
+        sel = (slot_iota == chosen[..., None]) & assign[..., None]
+        service = torch.where(is_warm, warm_i[:, None], cold_i[:, None])
+        alive, creation, busy = start(sel, is_cold, t_new, service, alive, creation, busy)
+        if crashes:
+            life = lifetime(crash[:, i], crate)
+            doom = torch.where(sel & is_cold[..., None], (t_new + life)[:, None, None], doom)
+            doom_chosen = torch.where(sel, doom, torch.inf).amin(2)
+            interrupted = assign & (doom_chosen < t_new[:, None] + service)
         if Q:
             qsel = (q_iota == qlen[..., None]) & is_enq[..., None]
             qt = torch.where(qsel, t_new[:, None, None], qt)
@@ -619,14 +802,19 @@ def fleet_sweep_ref(
                 zero,
                 zero,
                 zero,
-            ],
+            ]
+            + ([
+                n_crash if crashes else zero,
+                n_evict if cap is not None else zero,
+                (interrupted & cc).float() if crashes else zero,
+            ] if faults else []),
             dim=2,
         )
         acc = acc + delta
         t = t_new
     acc[..., FLEET_ACC_COLS - 1] = peak[:, None]
     qleft = (qt > NEG * 0.5).sum(2).float() if Q else torch.zeros((N, F), **f32)
-    return acc, qleft
+    return (acc, qleft, doom) if crashes else (acc, qleft)
 
 
 @register_backend(
@@ -644,7 +832,7 @@ def _ref_sweep_rows(
         alive0, creation0, busy0, t0, t_exp, dts, warms, colds,
         t_end=t_end, skip=skip, **kw,
     )
-    return (out[4], out[3]) if kw.get("fused_dists") is not None else out[4]
+    return (out.acc, out.t) if kw.get("fused_dists") is not None else out.acc
 
 
 @register_backend("ref", engines=("par",))
@@ -662,11 +850,10 @@ def _ref_par_rows(
 
 @register_backend("ref", engines=("fleet",))
 def _ref_fleet_rows(
-    t_exp, limit, ncl, t_end, skip, stream, times, fids, warms, colds,
-    *, slots, queue_depth, prestamped,
+    t_exp, limit, ncl, t_end, skip, stream, times, fids, warms, colds, **kw,
 ):
-    """Backend ``"ref"``'s fleet launcher: ``(acc[N, F, 13], qleft[N, F])``."""
+    """Backend ``"ref"``'s fleet launcher: ``(acc[N, F, 13 or 16], qleft[N,
+    F])`` (``kw`` as :func:`fleet_sweep_ref` takes them)."""
     return fleet_sweep_ref(
-        t_exp, limit, ncl, t_end, skip, stream, times, fids, warms, colds,
-        slots=slots, queue_depth=queue_depth, prestamped=prestamped,
-    )
+        t_exp, limit, ncl, t_end, skip, stream, times, fids, warms, colds, **kw,
+    )[:2]

@@ -72,9 +72,9 @@ def test_kernel_matches_plain(cuda_device, M, t_exp, max_c, prestamped):
     args, kw = _inputs(cuda_device, 5, 37, M, 300, t_exp, prestamped)
     kw.update(max_concurrency=max_c, prestamped=prestamped)
     before = fes.LAUNCH_COUNTS["faas_sweep"]
-    out_k = [o.cpu().numpy() for o in fes.faas_sweep(*args, **kw)]
+    out_k = fes.faas_sweep(*args, **kw).apply(lambda o: o.cpu().numpy())
     assert fes.LAUNCH_COUNTS["faas_sweep"] == before + 1
-    out_p = [o.cpu().numpy() for o in faas_sweep_ref(*args, **kw)]
+    out_p = faas_sweep_ref(*args, **kw).apply(lambda o: o.cpu().numpy())
     for a, b in zip(out_k[:4], out_p[:4]):
         np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(out_k[4][:, EXACT_COLS], out_p[4][:, EXACT_COLS])
@@ -166,9 +166,9 @@ def test_faas_grid_columns_match_plain(cuda_device):
     rng.shuffle(grid)
     kw.update(max_concurrency=100, grid_times=t(np.tile(grid, (R, 1))))
     before = fes.LAUNCH_COUNTS["faas_sweep_grid"]
-    out_k = [o.cpu().numpy() for o in fes.faas_sweep(*args, **kw)]
+    out_k = fes.faas_sweep(*args, **kw).apply(lambda o: o.cpu().numpy())
     assert fes.LAUNCH_COUNTS["faas_sweep_grid"] == before + 1
-    out_p = [o.cpu().numpy() for o in faas_sweep_ref(*args, **kw)]
+    out_p = faas_sweep_ref(*args, **kw).apply(lambda o: o.cpu().numpy())
     for a, b in zip(out_k[:4], out_p[:4]):
         np.testing.assert_array_equal(a, b)
     assert out_k[4].shape == (R, 8 + 3 * G)
@@ -295,8 +295,13 @@ def test_fleet_wrapper_checks_inputs(cuda_device):
         call(queue_depth=fles.MAX_QUEUE + 1)
     with pytest.raises(ValueError, match="registers"):
         call(slots=512)
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
+    with pytest.raises(ValueError, match="come together"):  # crash_u is missing
         call(crash_rate=args[2])
+    crash_u = torch.rand(args[6].shape, device=cuda_device)
+    with pytest.raises(ValueError, match="queue"):
+        call(queue_depth=2, crash_rate=args[2], crash_u=crash_u)
+    with pytest.raises(ValueError, match="shape"):
+        call(crash_rate=args[2], crash_u=crash_u[:, :10].contiguous())
     assert fles.LAUNCH_COUNTS["fleet_sweep"] == launches  # nothing launched
     # the launch reads nothing back: a fleet whose stream row lies past the
     # stream's rows reads no stream and gets NaN outputs; the others are
@@ -686,10 +691,10 @@ def _rely_call(inp, windows, reliability, retries, max_c):
 
 
 def _held_rely(out_k, out_p, W):
-    out_k = [o.cpu().numpy() for o in out_k]
-    out_p = [o.cpu().numpy() for o in out_p]
+    out_k = out_k.apply(lambda o: o.cpu().numpy())
+    out_p = out_p.apply(lambda o: o.cpu().numpy())
     assert len(out_k) == len(out_p)
-    for a, b in zip(out_k[:4] + out_k[5:], out_p[:4] + out_p[5:]):  # state, act
+    for a, b in zip(out_k[:4] + out_k[5:], out_p[:4] + out_p[5:]):  # state, act, doom
         np.testing.assert_array_equal(a, b)
     integ = [3, 4] + list(range(8 + 3 * W, 8 + 5 * W))
     exact = [c for c in range(out_k[4].shape[1]) if c not in integ]
@@ -734,7 +739,7 @@ def test_retry_children_in_and_past_the_batch(cuda_device, J, backoff):
     assert same > 0.5 if backoff < 1 else same < 0.5
     args, kw = _rely_call(inp, True, True, True, 2)
     out = _held_rely(fes.faas_sweep(*args, **kw), faas_sweep_ref(*args, **kw), 4)
-    assert out[5].sum() > 0 and out[4][:, -2].sum() > 0
+    assert out.act.sum() > 0 and out.acc[:, -2].sum() > 0
 
 
 @pytest.mark.cuda
@@ -759,9 +764,10 @@ def test_window_cursor_matches_plain(cuda_device, windows):
 def test_trivial_policy_is_a_noop_on_the_card(cuda_device):
     inp = _rely_inputs(cuda_device, 41, 33, 64, 200, 1, 1.0)
     args, kw = _rely_call(inp, True, False, False, 3)
-    plain = [o.cpu() for o in fes.faas_sweep(*args, **kw)]
-    rely = [o.cpu() for o in fes.faas_sweep(
-        *args, **kw, t_timeout=NO_TIMEOUT, p_fail=0.0, fail_u=inp["fail_gaps"])]
+    plain = fes.faas_sweep(*args, **kw).apply(lambda o: o.cpu())
+    rely = fes.faas_sweep(
+        *args, **kw, t_timeout=NO_TIMEOUT, p_fail=0.0, fail_u=inp["fail_gaps"]
+    ).apply(lambda o: o.cpu())
     for a, b in zip(plain[:4], rely[:4]):
         assert torch.equal(a, b)
     assert torch.equal(rely[4][:, :-4], plain[4])
@@ -786,8 +792,13 @@ def test_rely_wrapper_checks_inputs(cuda_device):
         fes.faas_sweep(*args, **dict(kw, fail_u=kw["fail_u"][:, :5].contiguous()))
     with pytest.raises(ValueError, match="grid columns alone"):
         fes.faas_sweep(*args, **dict(kw, grid_times=inp["t_end"][:, None].contiguous()))
-    with pytest.raises(NotImplementedError, match="Queue B item 1e"):
+    with pytest.raises(ValueError, match="come together"):  # crash_rate is missing
         fes.faas_sweep(*args, **kw, crash_u=inp["t_end"])
+    cap = dict(cap_edges=torch.tensor([[5.0, 3.0]], device=cuda_device).expand(8, 2)
+               .contiguous(), cap_values=torch.ones((8, 3), device=cuda_device))
+    no_windows = {k: v for k, v in kw.items() if k != "window_bounds"}
+    with pytest.raises(ValueError, match="cap_edges must be positive and strictly increasing"):
+        fes.faas_sweep(*args, **no_windows, **cap)
     assert dict(fes.LAUNCH_COUNTS) == launches  # nothing launched
 
 
@@ -825,6 +836,158 @@ def test_front_door_runs_reliability_on_the_kernel(cuda_device):
                                 reliability=rt.Reliability(rel.failure)), 1, replicas=64)
     assert dict(fes.LAUNCH_COUNTS) == {"faas_sweep_rely": 1}
     assert res.summary.n_fail.sum() > 0 and np.isfinite(res.summary.goodput)
+
+
+# ---------------------------------------------------------------------------
+# platform faults: the fault paths of faas_sweep and fleet_sweep
+# ---------------------------------------------------------------------------
+
+
+def _fault_kw(dev, seed, R, K, crashes, capacity, horizon, values=(6.0, 1.5, 8.0)):
+    """Per-row crash rates and a crash uniform per event; a per-row ceiling
+    stepping through ``values`` (a non-integer one among them) inside the
+    horizon."""
+    rng = np.random.default_rng(seed)
+    t = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32, device=dev)
+    kw = {}
+    if crashes:
+        kw.update(crash_rate=t(rng.uniform(0.005, 0.05, R)), crash_u=t(rng.random((R, K))))
+    if capacity:
+        kw.update(cap_edges=t(np.sort(rng.uniform(0.2, 0.8, (R, len(values) - 1)), 1) * horizon),
+                  cap_values=t(np.tile(values, (R, 1))))
+    return kw
+
+
+# (crashes, capacity, reliability, retries): every fault path set
+FAULT_PATHS = [(c, k, rel, ret)
+               for c, k in ((True, False), (False, True), (True, True))
+               for rel, ret in ((False, False), (True, False), (True, True))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [8, 64, 300])
+@pytest.mark.parametrize("crashes,capacity,reliability,retries", FAULT_PATHS)
+def test_fault_paths_match_plain(cuda_device, M, crashes, capacity, reliability, retries):
+    inp = _rely_inputs(cuda_device, 50 + M, 33, M, 150, 2, 0.5)
+    args, kw = _rely_call(inp, False, reliability, retries, 3 if M < 64 else 100)
+    horizon = float(inp["t_end"].max())
+    kw.update(_fault_kw(cuda_device, M, 33, args[5].shape[1], crashes, capacity, horizon))
+    key = fes.launch_key(False, False, reliability, retries, faults=True)
+    before = fes.LAUNCH_COUNTS[key]
+    out_k = fes.faas_sweep(*args, **kw)
+    assert fes.LAUNCH_COUNTS[key] == before + 1
+    # pools, the activation plane and the crash clocks equal bit for bit
+    out = _held_rely(out_k, faas_sweep_ref(*args, **kw), 0)
+    assert (out.act is not None, out.doom is not None) == (retries, crashes)
+    faults = out[4][:, -3:].sum(0)
+    assert (faults[0] > 0) == crashes and (faults[1] > 0) == capacity
+    if crashes:
+        assert faults[2] > 0 and np.isfinite(out.doom).any()
+
+
+@pytest.mark.cuda
+def test_eviction_ties_and_fractional_ceilings_on_the_card(cuda_device):
+    # arrival times on whole seconds (several arrivals a second) give equal
+    # creation times; the ceilings 5 -> 2.5 -> 3.5 evict ceil(live - c) of
+    # the tied idle instances, the lower slots first
+    R, K, M = 64, 400, 32
+    rng = np.random.default_rng(60)
+    times = np.floor(np.cumsum(rng.exponential(1 / 3.0, (R, K)), axis=1))
+    t = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32, device=cuda_device)
+    state = (torch.zeros((R, M), device=cuda_device),
+             torch.full((R, M), -1e30, device=cuda_device),
+             torch.full((R, M), -1e30, device=cuda_device),
+             torch.zeros((R,), device=cuda_device))
+    args = (*state, t(rng.uniform(5.0, 20.0, R)), t(times), t(rng.exponential(0.6, (R, K))),
+            t(rng.exponential(0.8, (R, K))))
+    horizon = float(times[:, -1].min())
+    kw = dict(t_end=t(np.full(R, horizon)), skip=0.0, max_concurrency=100, prestamped=True,
+              **_fault_kw(cuda_device, 61, R, K, True, True, horizon, (5.0, 2.5, 3.5)))
+    out = _held_rely(fes.faas_sweep(*args, **kw), faas_sweep_ref(*args, **kw), 0)
+    assert out[4][:, -2].sum() > 0  # evictions happened
+    # ties arose: slots whose last cold start shares its instant with another's
+    tied = [(c > -1e29).sum() - len(set(c[c > -1e29])) for c in out[1]]
+    assert sum(tied) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "F,M,crashes,capacity",
+    [(1, 40, True, True), (3, 64, True, False), (3, 16, False, True), (8, 16, True, True),
+     (8, 64, True, True)],
+)
+def test_fleet_fault_kernel_matches_plain(cuda_device, F, M, crashes, capacity):
+    args, kw = _fleet_inputs(cuda_device, 70 + F, F, 4.0 * F, 1000, True, M)
+    N, (S, K) = args[0].shape[0], args[6].shape
+    rng = np.random.default_rng(71 + F)
+    t = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32, device=cuda_device)
+    if crashes:
+        kw.update(crash_rate=t(rng.uniform(0.01, 0.05, N)), crash_u=t(rng.random((S, K))))
+    if capacity:
+        horizon = float(args[3].max())
+        kw.update(cap_edges=t(np.sort(rng.uniform(0.2, 0.8, (N, 2)), 1) * horizon),
+                  cap_values=t(np.tile([3.0 * F, 1.5 * F + 0.5, 4.0 * F], (N, 1))))
+    before = fles.LAUNCH_COUNTS["fleet_sweep_fault"]
+    out_k = [o.cpu().numpy() for o in fles.fleet_sweep(*args, **kw)]
+    assert fles.LAUNCH_COUNTS["fleet_sweep_fault"] == before + 1
+    out_p = [o.cpu().numpy() for o in fleet_sweep_ref(*args, **kw)]
+    exact = [c for c in range(16) if c not in (3, 4)]
+    np.testing.assert_array_equal(out_k[0][..., exact], out_p[0][..., exact])
+    np.testing.assert_allclose(out_k[0][..., 3:5], out_p[0][..., 3:5], rtol=INTEGRAL_RTOL)
+    for a, b in zip(out_k[1:], out_p[1:]):  # queue lengths, crash clocks
+        np.testing.assert_array_equal(a, b)
+    faults = out_k[0][..., 13:].sum((0, 1))
+    assert (faults[0] > 0) == crashes and (faults[1] > 0) == capacity
+
+
+@pytest.mark.cuda
+def test_front_door_runs_faults_on_the_kernel(cuda_device):
+    import repro_torch as rt
+
+    flt = rt.FaultModel(crash_rate=0.005, capacity=rt.CapacityProfile((600.0, 1200.0),
+                                                                      (30.0, 2.5, 30.0)))
+    scn = rt.Scenario(
+        arrival_process=rt.ExpSimProcess(rate=0.9),
+        warm_service_process=rt.ExpSimProcess(rate=1 / 1.991),
+        cold_service_process=rt.ExpSimProcess(rate=1 / 2.244),
+        expiration_threshold=60.0, sim_time=2000.0, skip_time=50.0, slots=32,
+        max_concurrency=30, faults=flt,
+        reliability=rt.Reliability(rt.FailurePolicy(p_fail=0.05, t_timeout=4.0)),
+    )
+    over = {"crash_rate": [0.001, 0.01], "expiration_threshold": [30.0, 120.0],
+            "capacity": [flt.capacity, rt.CapacityProfile((600.0, 1200.0), (30.0, 8.0, 30.0))]}
+    inp = rt.core.scenario.sweep_inputs(scn, over, 3, replicas=8, device="cpu")
+    staged = tuple(x.reshape(2, 2, 2, 8, -1)[:, 0, 0].reshape(16, -1) for x in inp.samples)
+    fes.LAUNCH_COUNTS.clear()
+    card = rt.sweep(scn, over, 0, replicas=8, staged=tuple(x.to(cuda_device) for x in staged))
+    assert dict(fes.LAUNCH_COUNTS) == {"faas_sweep_rely_fault": 1}
+    cpu = rt.sweep(scn, over, 0, replicas=8, staged=staged, device="cpu")
+    for a, b in zip(card.summaries.ravel(), cpu.summaries.ravel()):
+        for f in ("n_cold", "n_warm", "n_reject", "n_timeout", "n_fail", "n_crash",
+                  "n_evict", "n_interrupt", "sum_cold_resp", "sum_warm_resp"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+        np.testing.assert_allclose(a.time_running, b.time_running, rtol=INTEGRAL_RTOL)
+    np.testing.assert_array_equal(card.availability, cpu.availability)
+    fleet = rt.FleetScenario(
+        functions=(rt.FleetFunction("api", rt.ExpSimProcess(0.8), rt.ExpSimProcess(0.5),
+                                    rt.ExpSimProcess(0.25), 60.0, 25),
+                   rt.FleetFunction("batch", rt.ExpSimProcess(0.3), rt.ExpSimProcess(0.2),
+                                    rt.ExpSimProcess(0.1), 120.0, 20)),
+        n_cluster=40, sim_time=1000.0, skip_time=0.0,
+        faults=rt.FaultModel(crash_rate=2e-3, capacity=rt.CapacityProfile(
+            (400.0, 700.0), (40.0, 10.0, 40.0))),
+    )
+    # the same merged stream and crash uniforms on the card and on the CPU
+    st = rt.core.fleet.fleet_inputs(fleet, {}, 1, replicas=64, device="cpu").staged
+    fes.LAUNCH_COUNTS.clear()
+    a = rt.fleet_run(fleet, 1, replicas=64, staged={
+        k: v.to(cuda_device) if torch.is_tensor(v) else v for k, v in st.items()}).summary
+    assert dict(fes.LAUNCH_COUNTS) == {"fleet_sweep_fault": 1}
+    b = rt.fleet_run(fleet, 1, replicas=64, device="cpu", staged=st).summary
+    for sa, sb in zip(a.summaries, b.summaries):
+        for f in ("n_cold", "n_warm", "n_reject", "n_crash", "n_evict", "n_interrupt"):
+            np.testing.assert_array_equal(getattr(sa, f), getattr(sb, f))
+    assert sum(s.n_evict.sum() for s in a.summaries) > 0
 
 
 # ---------------------------------------------------------------------------
@@ -909,8 +1072,9 @@ def test_fused_kernel_equals_staged_kernel_on_materialized_draws(cuda_device, ca
     skw = {k: v for k, v in kw.items() if not k.startswith("fused")}
     skw["fail_u"] = materialize_stream("uniform", inp["keys"][3], None, K, cuda_device)
     staged = fes.faas_sweep(*args[:5], *bufs, **skw)
-    for a, b in zip(fused, staged):
+    for a, b in zip(fused[:5], staged[:5]):
         assert torch.equal(a, b)
+    assert fused[5:] == staged[5:] == (None, None)  # no activation plane, no crash clocks
 
 
 @pytest.mark.cuda

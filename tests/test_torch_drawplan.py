@@ -214,8 +214,9 @@ def test_plain_fused_equals_plain_staged_on_materialized_draws(windows, reliabil
     fused = fes.faas_sweep(*inp["state"], inp["t_exp"], None, None, None, **fkw)
     assert dict(fes.LAUNCH_COUNTS) == before  # CPU tensors: the plain version
     staged = faas_sweep_ref(*inp["state"], inp["t_exp"], *bufs, **kw)
-    for a, b in zip(fused, staged):
+    for a, b in zip(fused[:5], staged[:5]):
         assert torch.equal(a, b)
+    assert fused[5:] == staged[5:] == (None, None)  # no activation plane, no crash clocks
     acc = fused[4]
     assert acc[:, 0].sum() > 0 and acc[:, 2].sum() > 0  # cold starts and rejections
     if reliability:
@@ -384,17 +385,20 @@ def test_a_process_without_a_draw_spec_is_refused():
 
 
 def test_faults_are_refused_with_fused_draws():
-    # the front door cannot hold a fault model yet, and the kernel's fault
-    # inputs are still refused beside the fused ones
-    with pytest.raises(NotImplementedError, match="Queue B item 1e"):
+    # fused draws serve no platform faults (the crash stream is staged), as
+    # in the reference: not at the front door, and not in the kernel beside
+    # the fused inputs; a fault model must be the port's FaultModel
+    with pytest.raises(ValueError, match="must be a FaultModel"):
         _scn(faults=object())
-    with pytest.raises(NotImplementedError, match="Queue B item 1e"):
-        rt.sweep(_scn(), {"crash_rate": [0.1]}, 0, device="cpu", execution=FUSED)
+    faulty = _scn(faults=rt.FaultModel(crash_rate=0.1))
+    with pytest.raises(ValueError, match="draws='fused' does not serve platform faults"):
+        rt.sweep(faulty, {"crash_rate": [0.1]}, 0, device="cpu", execution=FUSED)
     inp = _fused_inputs(4)
-    with pytest.raises(NotImplementedError, match="Queue B item 1e"):
+    with pytest.raises(ValueError, match="fused draws do not serve platform faults"):
         fes.faas_sweep(*inp["state"], inp["t_exp"], None, None, None, max_concurrency=4,
                        fused_keys=tuple(inp["keys"][:3]), fused_params=tuple(inp["params"]),
-                       fused_dists=inp["dists"], fused_k=10, crash_u=torch.ones(9, 10))
+                       fused_dists=inp["dists"], fused_k=10, crash_rate=0.1,
+                       crash_u=torch.ones(9, 10))
 
 
 def test_draw_inputs_are_checked():

@@ -65,7 +65,7 @@ def _port(inp, max_c, prestamped, fn=faas_sweep_ref):
         t_end=t(inp["t_end"]), skip=t(inp["skip"]),
         max_concurrency=max_c, prestamped=prestamped,
     )
-    return [o.numpy() for o in out]
+    return out.apply(lambda o: o.numpy())
 
 
 def _assert_matches(port, ref):
@@ -109,7 +109,8 @@ def test_counters_match_event_driven_oracle():
     inp = _inputs(7, t_exp=10.0)
     inp["t_end"] = np.full_like(inp["t_end"], np.inf)
     inp["skip"] = np.zeros_like(inp["skip"])
-    _, _, _, t_final, acc = _port(inp, 100, False)
+    out = _port(inp, 100, False)
+    t_final, acc = out.t, out.acc
     dts, warms, colds = inp["samples"]
     for r in range(dts.shape[0]):
         ref = simulate_pyref(
@@ -130,11 +131,25 @@ def test_wrapper_runs_plain_version_on_cpu_tensors():
     assert dict(fes.LAUNCH_COUNTS) == before  # no kernel ran
 
 
+PARTNER = {"crash_rate": "crash_u", "crash_u": "crash_rate", "cap_edges": "cap_values",
+           "cap_values": "cap_edges"}
+
+
 @pytest.mark.parametrize("name", ["crash_rate", "crash_u", "cap_edges", "cap_values"])
 def test_wrapper_refuses_later_features(name):
+    # the platform-fault inputs come in pairs: one alone is refused, and
+    # with its partner the wrapper runs the fault path (on CPU tensors the
+    # plain version), which appends the 3 fault columns
     inp = _inputs(4, R=8, M=4, K=8)
-    with pytest.raises(NotImplementedError, match="Queue B item 1e"):
-        _port(inp, 4, False, fn=lambda *a, **k: fes.faas_sweep(*a, **k, **{name: 1.0}))
+    faults = dict(crash_rate=torch.full((8,), 0.05), crash_u=torch.full((8, 8), 0.5),
+                  cap_edges=torch.full((8, 1), 5.0), cap_values=torch.full((8, 2), 2.0))
+    pair = {k: faults[k] for k in (name, PARTNER[name])}
+    with pytest.raises(ValueError, match="come together"):
+        _port(inp, 4, False, fn=lambda *a, **k: fes.faas_sweep(*a, **k, **{name: faults[name]}))
+    out = _port(inp, 4, False, fn=lambda *a, **k: fes.faas_sweep(*a, **k, **pair))
+    base = _port(inp, 4, False)
+    assert out[4].shape == (8, base[4].shape[1] + 3)
+    assert out.act is None and (out.doom is not None) == ("crash_u" in pair)
 
 
 def test_wrapper_rejects_unknown_keyword():

@@ -170,14 +170,22 @@ def test_wrapper_runs_plain_version_on_cpu_tensors():
 
 
 def test_fault_inputs_are_refused():
+    # the fault inputs come in pairs (the wrapper refuses one alone), and
+    # faults are refused beside queues, by the wrapper and the plain version
     inp = _inputs(4, 1, math.inf, 1000, False)
+    N, (S, K) = inp["t_exp"].shape[0], inp["times"].shape
+    faults = dict(crash_rate=torch.full((N,), 0.05), crash_u=torch.full((S, K), 0.5),
+                  cap_edges=torch.full((N, 1), 50.0), cap_values=torch.full((N, 2), 3.0))
+    pairs = dict(crash_rate="crash_u", crash_u="crash_rate", cap_edges="cap_values",
+                 cap_values="cap_edges")
     for name in ("crash_rate", "crash_u", "cap_edges", "cap_values"):
-        with pytest.raises(NotImplementedError, match="Queue A item 4"):
-            _port(inp, 0, False, fn=lambda *a, **k: fleet_sweep_ref(
-                *a, **k, **{name: torch.ones(1)}))
-        with pytest.raises(NotImplementedError, match="Queue A item 4"):
+        with pytest.raises(ValueError, match="come together"):
             _port(inp, 0, False, fn=lambda *a, **k: fles.fleet_sweep(
-                *a, **k, **{name: torch.ones(1)}))
+                *a, **k, **{name: faults[name]}))
+        pair = {k: faults[k] for k in (name, pairs[name])}
+        for fn in (fleet_sweep_ref, fles.fleet_sweep):
+            with pytest.raises(ValueError, match="queue"):
+                _port(inp, 2, False, fn=lambda *a, **k: fn(*a, **k, **pair))
 
 
 # ---------------------------------------------------------------------------
@@ -409,7 +417,7 @@ def test_pointed_errors():
     )
     with pytest.raises(ValueError, match="at most 8 functions.*Queue A item 2"):
         rfleet.fleet_run(nine, 0, **kw)
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
+    with pytest.raises(ValueError, match="must be a FaultModel"):
         dataclasses.replace(fleet, faults=object())
     with pytest.raises(ValueError, match="fleet-capable combinations: engine='scan'"):
         rfleet.fleet_run(fleet, 0, engine="par", **kw)

@@ -128,16 +128,17 @@ def test_scenario_refuses_unported_family():
 
 
 def test_reference_reliability_is_refused():
-    # the reference's policies are carried across; a policy that is not a
-    # Reliability is refused, and platform faults are not ported yet
+    # the reference's policies and fault model are carried across; a policy
+    # that is not a Reliability is refused
     rel = Reliability(retry=RetryPolicy(max_retries=2, backoff_base=0.5))
     scn = interop.scenario_from_reference(_jax_scenario(reliability=rel))
     assert scn.reliability.retry.max_retries == 2
     assert scn.reliability.retry.backoff_base == 0.5
     with pytest.raises(TypeError, match="Reliability"):
         interop.reliability_from_reference(rel.retry)
-    with pytest.raises(NotImplementedError, match="platform faults"):
-        interop.scenario_from_reference(_jax_scenario(faults=FaultModel(crash_rate=0.1)))
+    scn = interop.scenario_from_reference(_jax_scenario(faults=FaultModel(crash_rate=0.1)))
+    assert type(scn.faults).__module__ == "repro_torch.core.faults"
+    assert scn.faults.crash_rate == 0.1 and scn.faults.capacity is None
 
 
 def test_staged_from_reference_concatenates_draw_cells():

@@ -193,7 +193,7 @@ def _port(inp, samples, kw, max_c, fn=faas_sweep_ref):
     t = lambda x: torch.from_numpy(np.array(x)) if isinstance(x, np.ndarray) else x
     out = fn(*map(t, inp["state"]), t(inp["t_exp"]), *map(t, samples),
              max_concurrency=max_c, **{k: t(v) for k, v in kw.items()})
-    return [o.numpy() for o in out]
+    return out.apply(lambda o: o.numpy())
 
 
 def _jax_kw(kw, W):
@@ -219,7 +219,7 @@ def test_plain_matches_jax_mirror(windows, reliability, retries, max_c):
         assert rely[0] > 0 and rely[1] > 0  # timeouts and failures happen
         if retries:
             assert rely[2] > 0  # retries are processed
-            assert len(port) == 6 and port[5].shape == samples[0].shape
+            assert port.act.shape == samples[0].shape and port.doom is None
     if max_c == 3:
         assert acc[:, 2].sum() > 0  # rejections happen
 
@@ -245,7 +245,7 @@ def test_activation_plane_is_the_triggered_children():
     inp = kernel_inputs(3)
     samples, kw = combo_kwargs(inp, False, True, True)
     out = _port(inp, samples, kw, 3)
-    act, acc = out[5], out[4]
+    act, acc = out.act, out.acc
     # an activated event is a retry (not a first attempt), and every
     # processed retry was activated
     first = inp["is_first"] > 0
@@ -524,9 +524,10 @@ def test_fused_and_fault_inputs_still_refused(name):
     inp = kernel_inputs(7, R=8, M=4, N=8)
     samples, kw = combo_kwargs(inp, False, True, False)
     # fused inputs beside staged samples are refused (the fused path is
-    # chosen by fused_dists); the fault inputs are not ported yet
+    # chosen by fused_dists); a fault input without its partner (crash_u,
+    # cap_edges) is refused
     err, match = ((ValueError, "need fused_dists") if name.startswith("fused")
-                  else (NotImplementedError, "Queue B item 1e"))
+                  else (ValueError, "come together"))
     with pytest.raises(err, match=match):
         _port(inp, samples, dict(kw, **{name: np.ones(8, np.float32)}), 3,
               fn=fes.faas_sweep)

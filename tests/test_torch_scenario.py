@@ -231,6 +231,11 @@ def test_grid_selection_and_export():
 )
 def test_scenario_refuses_later_layers(kw, item):
     base = _port_base()
+    if item == "platform faults":
+        # platform faults are ported: a fault model must be a FaultModel
+        with pytest.raises(ValueError, match="must be a FaultModel"):
+            rscn.Scenario.of(base, **kw)
+        return
     with pytest.raises(NotImplementedError, match=item):
         rscn.Scenario.of(base, **kw)
 
@@ -240,6 +245,12 @@ def test_scenario_refuses_later_layers(kw, item):
     ["capacity", "profile", "crash_rate", "scan_unroll", "hist_bins"],
 )
 def test_sweep_refuses_later_axes(axis):
+    if axis in ("capacity", "crash_rate"):
+        # the fault axes are ported: they need Scenario.faults, as in the
+        # reference
+        with pytest.raises(ValueError, match="needs Scenario.faults="):
+            rscn.sweep(_port_base(), {axis: [1.0]}, 0, device="cpu")
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         rscn.sweep(_port_base(), {axis: [1.0]}, 0, device="cpu")
 

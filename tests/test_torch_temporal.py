@@ -75,7 +75,7 @@ def _port(inp, max_c, prestamped, fn=faas_sweep_ref):
         t_end=t(inp["t_end"]), skip=t(inp["skip"]), max_concurrency=max_c,
         prestamped=prestamped, grid_times=t(inp["grid"]),
     )
-    return [o.numpy() for o in out]
+    return out.apply(lambda o: o.numpy())
 
 
 def _jax_args(inp):

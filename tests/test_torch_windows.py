@@ -77,7 +77,7 @@ def _port(inp, max_c):
         t_end=t(inp["t_end"]), skip=t(inp["skip"]), max_concurrency=max_c,
         window_bounds=t(inp["window_bounds"]),
     )
-    return [o.numpy() for o in out]
+    return out.apply(lambda o: o.numpy())
 
 
 def _jax_args(inp):
