@@ -683,6 +683,75 @@ def plain_timed(torch, fn):
     return 1e3 * (time.perf_counter() - t0), out
 
 
+def graph_timed(torch, fn, reps):
+    """Device ms of one call: ``reps`` calls captured in a CUDA graph,
+    replayed once to warm up, then one replay timed by CUDA events, so no
+    host launch time sits between the calls (a call shorter than its host
+    side reads at the host's rate under ``timed``)."""
+    out = fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, out
+
+
+def device_ms_by_kernel(torch, fn, names, reps=20):
+    """Device ms a call of each kernel whose name holds one of ``names``,
+    from torch.profiler over ``reps`` calls: the decode split and combine
+    kernels launch from one C call, so no CUDA event can sit between them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev_time = lambda e: getattr(e, "self_device_time_total", None) or getattr(
+        e, "self_cuda_time_total", 0)
+    out = {}
+    for e in prof.key_averages():
+        for name in names:
+            if name in e.key and e.device_type == torch.autograd.DeviceType.CUDA:
+                out[name] = out.get(name, 0.0) + dev_time(e) / 1e3 / reps
+    return out
+
+
+def decode_timing_line(torch, card, what, kernel, library, B, Hkv, G, D, T, kv_bytes, b_ms,
+                       b_by):
+    """Times decode_attention at one shape: eager calls by CUDA events (the
+    host's launch rate), the device time under a CUDA graph, the split and
+    combine kernels apart (profiler), the block count and K/V GB/s; and the
+    library call the same two ways. Returns (device ms, library device ms)."""
+    from repro_torch.kernels.decode_attention import n_splits
+
+    eager_ms, _ = timed(torch, kernel, reps=20)
+    ms, _ = graph_timed(torch, kernel, reps=20)
+    parts = device_ms_by_kernel(torch, kernel, ("decode_split", "decode_combine"))
+    lib_eager, _ = timed(torch, library, reps=20)
+    lib_ms, _ = graph_timed(torch, library, reps=20)
+    nsplit, pairs = n_splits(B, Hkv, T, G), B * Hkv * -(-G // 16)
+    part = ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items()) or "not measured"
+    print(f"timing [{card}]: decode_attention {what}: {ms:.4f} ms device (CUDA graph of 20 "
+          f"calls), {eager_ms:.4f} ms eager (mean of 20); split/combine by kernel: {part}; "
+          f"{pairs * nsplit} split blocks ({nsplit} splits x {pairs} (b, kv head, 16-row "
+          f"group)) and {-(-D // 64) * Hkv * G * B} combine blocks (64-column slice x query "
+          f"head x b); {kv_bytes / ms / 1e6:.1f} GB/s of K/V ({kv_bytes / 1e6:.2f} MB); bound "
+          f"{b_ms:.4f} ms ({b_by}), kernel {ms / b_ms:.1f}x its bound; "
+          f"scaled_dot_product_attention {lib_ms:.4f} ms device, {lib_eager:.4f} ms eager",
+          flush=True)
+    return ms, lib_ms
+
+
 def small_samples(torch, dev, rng, C, K, rate, prestamped):
     dts = rng.exponential(1 / rate, (C, K))
     if prestamped:
@@ -943,16 +1012,37 @@ def fleet_phase(torch, rt, dev, card):
 
 def print_attention_ptxas(log):
     """Registers and spills of each attention kernel instance (element type,
-    and head_dim for the prefill kernels; flash_kernel_tc is bf16 only)."""
+    and head_dim where the kernel is a template over it; flash_kernel_wgmma
+    and decode_split_mma are bf16 only), the dynamic shared memory of the bf16
+    instances, and ptxas' performance advisories (serialised wgmma)."""
     inst = None
     for line in log.splitlines():
-        m = re.search(r"(flash_kernel_tc|flash_kernel|decode_split_kernel|"
+        m = re.search(r"(flash_kernel_wgmma|flash_kernel|decode_split_mma|decode_split_kernel|"
                       r"decode_combine_kernel)I(f|13__nv_bfloat16)?(Li(\d+)E)?", line)
         if m:
-            inst = f"{m.group(1)} {'f32' if m.group(2) == 'f' else 'bf16'}" + (
+            new = f"{m.group(1)} {'f32' if m.group(2) == 'f' else 'bf16'}" + (
                 f" D={m.group(4)}" if m.group(4) else "")
+            first, inst = new != inst, new
+            if first and m.group(1) in ("flash_kernel_wgmma", "decode_split_mma") and m.group(4):
+                print(f"  {inst}: {attention_smem(m.group(1), int(m.group(4)))} bytes of "
+                      "dynamic shared memory")
         elif inst and ("registers" in line or "spill" in line):
             print(f"  ptxas {inst}: {line.split(':', 1)[-1].strip()}")
+        elif "Performance Loss" in line or "C75" in line:
+            print(f"  ptxas advisory: {line.strip()[:200]}")
+
+
+def attention_smem(kernel, D):
+    """Dynamic shared memory of a bf16 attention instance, as csrc computes it
+    (flash_attention.cu Cfg<D>::SMEM, decode_attention.cu Cfg<D>::SMEM)."""
+    if kernel == "flash_kernel_wgmma":
+        bq = 192 if D <= 64 else 128
+        bk = 128 if D <= 128 else 64
+        q_bytes, kv_bytes = bq * D * 2, bk * D * 2
+        st = min(3, (232448 - 1024 - 256 - q_bytes) // (2 * kv_bytes))
+        return 1024 + q_bytes + 2 * st * kv_bytes + 256
+    st = 3 if D <= 128 else 2
+    return 2 * (16 * (D + 8) + 2 * st * 64 * (D + 8))
 
 
 def print_scan_ptxas(log):
@@ -1010,7 +1100,7 @@ class held_calls:
     """Context in which the dispatch layer's kernels (``ops.flash_attention``,
     ``decode_attention``, ``ssd_scan``, ``rglru_scan``) run the kernel and
     then the plain version on the same inputs: the plain flash version in the
-    kernel's 64 x 64 tiles, the plain SSD scan at the call's chunk. Each call
+    kernel's tiles (``kernel_tiles``), the plain SSD scan at the call's chunk. Each call
     appends ``(max |diff|, relative L2, scale)`` to ``calls[name]`` and raises
     past its limit: attention ATT_TOL x (1 + max|v|) and ATT_REL_L2 (scale
     max|v|), ssd_scan SSD_TOL x (1 + |plain|) and SSD_REL_L2 on y and on the
@@ -1021,6 +1111,7 @@ class held_calls:
         self.torch, self.ops, self.calls = torch, ops, calls
 
     def __enter__(self):
+        from repro_torch.kernels.flash_attention import kernel_tiles
         from repro_torch.models.attention import decode_attention_ref, flash_attention_ref
         from repro_torch.models.scans import rglru_scan_ref, ssd_chunked_ref
 
@@ -1036,8 +1127,9 @@ class held_calls:
 
         def flash(q, k, v, **kw):
             out = orig["flash_attention"](q, k, v, **kw)
-            record("flash_attention", out,
-                   flash_attention_ref(q, k, v, **dict(kw, q_chunk=64, kv_chunk=64)), v)
+            q_chunk, kv_chunk = kernel_tiles(q.shape[-1], q.dtype)
+            record("flash_attention", out, flash_attention_ref(
+                q, k, v, **dict(kw, q_chunk=q_chunk, kv_chunk=kv_chunk)), v)
             return out
 
         def decode(q, kc, vc, cl, **kw):
@@ -1192,7 +1284,7 @@ def serving_phase(torch, dev, card):
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.faas_event_step import LAUNCH_COUNTS
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention, kernel_tiles
     from repro_torch.launch import serve
     from repro_torch.models.attention import decode_attention_ref, flash_attention_ref
     from repro_torch.serving.engine import Replica
@@ -1208,8 +1300,9 @@ def serving_phase(torch, dev, card):
         for case, (B, S, T, Hq, Hkv, D, kw) in enumerate(flash_cases):
             q, k, v = randn(dtype, (B, S, Hq, D), (B, T, Hkv, D), (B, T, Hkv, D))
             out = flash_attention(q, k, v, **kw)
-            # the plain version in the kernel's 64 x 64 tiles
-            ref = flash_attention_ref(q, k, v, q_chunk=64, kv_chunk=64, **kw)
+            # the plain version in the kernel's tiles
+            q_chunk, kv_chunk = kernel_tiles(D, dtype)
+            ref = flash_attention_ref(q, k, v, q_chunk=q_chunk, kv_chunk=kv_chunk, **kw)
             e, rel = held_attention(torch, out, ref, dname, f"flash case {case} {dname}")
             errs["flash_attention"] = max(errs["flash_attention"], e)
             print(f"kernel==plain flash case {case} {dname}: B={B} S={S} T={T} Hq={Hq} "
@@ -1283,9 +1376,13 @@ def serving_phase(torch, dev, card):
               f"{max(r[2] for r in rows):.1f}), relative L2 max "
               f"{max(r[1] for r in rows):.3e} (tol {ATT_REL_L2['bfloat16']})", flush=True)
     lr, pre_r, dec_r = teacher_forced(torch, ops, rep.model, tokens, feed, "ref", *counts)
-    print(f"serve [{card}]: prefill {pre_k:.3f} ms per request batch (plain attention "
-          f"{pre_r:.3f}), decode {dec_k:.3f} ms per token (plain attention {dec_r:.3f})",
-          flush=True)
+    # the host-bound decode step read again after the plain run: kernels,
+    # plain, kernels, so that the spread between readings shows beside the
+    # difference
+    _, pre_k2, dec_k2 = teacher_forced(torch, ops, rep.model, tokens, feed, None, *counts)
+    print(f"serve [{card}]: prefill {pre_k:.3f} and {pre_k2:.3f} ms per request batch (plain "
+          f"attention {pre_r:.3f}), decode {dec_k:.3f} and {dec_k2:.3f} ms per token (plain "
+          f"attention {dec_r:.3f}; kernels, plain, kernels in turn)", flush=True)
     if not bool(torch.isfinite(lk).all()):
         raise AssertionError("full-width logits are not finite")
     # end-to-end logits at 16 layers and at full width cut in depth; beside
@@ -1324,7 +1421,7 @@ def serving_phase(torch, dev, card):
     Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
     bf = torch.bfloat16
     q, k, v = randn(bf, (B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D))
-    ms, out = timed(torch, lambda: flash_attention(q, k, v, causal=True), reps=3)
+    ms, out = timed(torch, lambda: flash_attention(q, k, v, causal=True), reps=10)
     tile = max(min(S // 8, 1024), 128)  # the model's tiles for the plain version
     plain_ms, ref = plain_timed(torch, lambda: flash_attention_ref(
         q, k, v, causal=True, q_chunk=tile, kv_chunk=tile))
@@ -1336,7 +1433,7 @@ def serving_phase(torch, dev, card):
     pairs = B * Hq * S * (S + 1) // 2  # causal (query, key) pairs
     b_ms, b_by = _attention_bound(4 * D * pairs, 2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D))
     print(f"timing [{card}]: flash_attention B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} bf16 causal: "
-          f"{ms:.4f} ms (mean of 3); bound {b_ms:.4f} ms ({b_by}; {4 * D * pairs:.4e} FLOP); "
+          f"{ms:.4f} ms (mean of 10); bound {b_ms:.4f} ms ({b_by}; {4 * D * pairs:.4e} FLOP); "
           f"kernel {ms / b_ms:.1f}x its bound, {4 * D * pairs / ms / 1e9:.2f} TFLOP/s; plain "
           f"{plain_ms:.3f} ms (max|diff| {e:.3e}); scaled_dot_product_attention {lib_ms:.4f} ms "
           f"(max|diff| {(lib.transpose(1, 2).float() - ref.float()).abs().max().item():.3e})",
@@ -1349,24 +1446,23 @@ def serving_phase(torch, dev, card):
     T = SERVE_MAX_LEN
     q, kc, vc = randn(bf, (B, Hq, D), (B, T, Hkv, D), (B, T, Hkv, D))
     cl = torch.full((B,), DECODE_TIMED_LEN, dtype=torch.int32, device=dev)
-    ms, out = timed(torch, lambda: decode_attention(q, kc, vc, cl), reps=3)
+    out = decode_attention(q, kc, vc, cl)
     plain_ms, ref = plain_timed(torch, lambda: decode_attention_ref(q, kc, vc, cl))
     e, _ = held_attention(torch, out, ref, "bfloat16", "decode at the path's shape")
     errs["decode_attention"] = max(errs["decode_attention"], e)
     mask = (torch.arange(T, device=dev) < cl[:, None])[:, None, None, :]  # [B, 1, 1, T]
-    lib_ms, lib = timed(torch, lambda: F.scaled_dot_product_attention(
-        q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2), attn_mask=mask,
-        enable_gqa=True), reps=3)
+    library = lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2), attn_mask=mask, enable_gqa=True)
+    lib = library()
     valid = B * DECODE_TIMED_LEN
     b_ms, b_by = _attention_bound(4 * D * valid * Hq,
                                   2 * (2 * valid * Hkv * D + 2 * B * Hq * D) + 4 * B)
-    print(f"timing [{card}]: decode_attention B={B} T={T} cache_len={DECODE_TIMED_LEN} "
-          f"Hq={Hq} Hkv={Hkv} D={D} bf16: {ms:.4f} ms (mean of 3); bound {b_ms:.4f} ms "
-          f"({b_by}; {2 * 2 * valid * Hkv * D / 1e6:.2f} MB of K/V); kernel {ms / b_ms:.1f}x "
-          f"its bound, {2 * 2 * valid * Hkv * D / ms / 1e6:.1f} GB/s of K/V; plain "
-          f"{plain_ms:.3f} ms (max|diff| {e:.3e}); scaled_dot_product_attention "
-          f"{lib_ms:.4f} ms (max|diff| "
-          f"{(lib[:, :, 0].float() - ref.float()).abs().max().item():.3e})", flush=True)
+    ms, lib_ms = decode_timing_line(
+        torch, card, f"B={B} T={T} cache_len={DECODE_TIMED_LEN} Hq={Hq} Hkv={Hkv} D={D} bf16",
+        lambda: decode_attention(q, kc, vc, cl), library, B, Hkv, Hq // Hkv, D, T,
+        2 * 2 * valid * Hkv * D, b_ms, b_by)
+    print(f"  decode plain {plain_ms:.3f} ms (max|diff| {e:.3e}); library max|diff| "
+          f"{(lib[:, :, 0].float() - ref.float()).abs().max().item():.3e}", flush=True)
     results["decode_attention"] = dict(launches=gen_counts["decode_attention"], ms=ms,
                                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                                        library_ms=lib_ms)
@@ -1421,9 +1517,9 @@ def recurrent_phase(torch, dev, card):
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.kernels.decode_attention import decode_attention, n_splits
+    from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.faas_event_step import LAUNCH_COUNTS
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention, kernel_tiles
     from repro_torch.kernels.rglru_scan import rglru_scan
     from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.launch import serve
@@ -1470,7 +1566,8 @@ def recurrent_phase(torch, dev, card):
             q, k, v = (randn(*s).to(dev, dtype) for s in ((B, S, Hq, D), (B, T, Hkv, D),
                                                          (B, T, Hkv, D)))
             out = flash_attention(q, k, v, **kw)
-            ref = flash_attention_ref(q, k, v, q_chunk=64, kv_chunk=64, **kw)
+            q_chunk, kv_chunk = kernel_tiles(D, dtype)
+            ref = flash_attention_ref(q, k, v, q_chunk=q_chunk, kv_chunk=kv_chunk, **kw)
             e, rel = held_attention(torch, out, ref, dname, f"flash D=256 {dname}")
             errs["flash_attention"] = max(errs["flash_attention"], e)
             print(f"kernel==plain flash {dname}: B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} {kw}: "
@@ -1643,7 +1740,7 @@ def recurrent_phase(torch, dev, card):
     Hq, Hkv, D, bf = r.n_heads, r.n_kv_heads, r.head_dim, torch.bfloat16
     q, k, v = (randn(*s).to(dev, bf) for s in ((B, L, Hq, D), (B, L, Hkv, D), (B, L, Hkv, D)))
     kw = dict(causal=True, window=r.window)
-    ms, out = timed(torch, lambda: flash_attention(q, k, v, **kw), reps=3)
+    ms, out = timed(torch, lambda: flash_attention(q, k, v, **kw), reps=10)
     tile = max(min(L // 8, 1024), 128)  # the model's tiles for the plain version
     plain_ms, ref = plain_timed(torch, lambda: flash_attention_ref(q, k, v, q_chunk=tile,
                                                                    kv_chunk=tile, **kw))
@@ -1658,7 +1755,7 @@ def recurrent_phase(torch, dev, card):
     pairs = B * Hq * L * (L + 1) // 2
     b_ms, b_by = _attention_bound(4 * D * pairs, 2 * (2 * B * L * Hq * D + 2 * B * L * Hkv * D))
     print(f"timing [{card}]: flash_attention recurrentgemma B={B} S={L} Hq={Hq} Hkv={Hkv} D={D} "
-          f"bf16 causal window {r.window}: {ms:.4f} ms (mean of 3); bound {b_ms:.4f} ms "
+          f"bf16 causal window {r.window}: {ms:.4f} ms (mean of 10); bound {b_ms:.4f} ms "
           f"({b_by}); kernel {ms / b_ms:.1f}x its bound, {4 * D * pairs / ms / 1e9:.2f} TFLOP/s; "
           f"plain {plain_ms:.3f} ms (max|diff| {e:.3e}); scaled_dot_product_attention "
           f"{lib_ms:.4f} ms (max|diff| "
@@ -1668,22 +1765,20 @@ def recurrent_phase(torch, dev, card):
     T = min(SERVE_MAX_LEN, r.window)  # the ring, full from the first step
     q, kc, vc = (randn(*s).to(dev, bf) for s in ((B, Hq, D), (B, T, Hkv, D), (B, T, Hkv, D)))
     cl = torch.full((B,), T, dtype=torch.int32, device=dev)
-    ms, out = timed(torch, lambda: decode_attention(q, kc, vc, cl), reps=10)
+    out = decode_attention(q, kc, vc, cl)
     plain_ms, ref = plain_timed(torch, lambda: decode_attention_ref(q, kc, vc, cl))
     e, _ = held_attention(torch, out, ref, "bfloat16", "decode at recurrentgemma's shape")
     errs["decode_attention"] = max(errs["decode_attention"], e)
-    lib_ms, lib = timed(torch, lambda: F.scaled_dot_product_attention(
-        q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2), enable_gqa=True), reps=10)
+    library = lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2), enable_gqa=True)
+    lib = library()
     nbytes = 2 * (2 * B * T * Hkv * D + 2 * B * Hq * D) + 4 * B
     b_ms, b_by = _attention_bound(4 * D * B * T * Hq, nbytes)
-    nsplit = n_splits(B, Hkv, T)
-    print(f"timing [{card}]: decode_attention recurrentgemma B={B} T={T} (full ring) Hq={Hq} "
-          f"Hkv={Hkv} D={D} bf16: {ms:.4f} ms (mean of 10); {B * Hkv * nsplit} blocks "
-          f"({nsplit} splits of T x {B * Hkv} (b, kv head) pairs, {Hq // Hkv} query rows "
-          f"each); bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.2f} MB); kernel "
-          f"{ms / b_ms:.1f}x its bound; plain {plain_ms:.3f} ms (max|diff| {e:.3e}); "
-          f"scaled_dot_product_attention {lib_ms:.4f} ms (max|diff| "
-          f"{(lib[:, :, 0].float() - ref.float()).abs().max().item():.3e})", flush=True)
+    decode_timing_line(torch, card, f"recurrentgemma B={B} T={T} (full ring) Hq={Hq} "
+                       f"Hkv={Hkv} D={D} bf16", lambda: decode_attention(q, kc, vc, cl),
+                       library, B, Hkv, Hq // Hkv, D, T, 2 * 2 * B * T * Hkv * D, b_ms, b_by)
+    print(f"  decode plain {plain_ms:.3f} ms (max|diff| {e:.3e}); library max|diff| "
+          f"{(lib[:, :, 0].float() - ref.float()).abs().max().item():.3e}", flush=True)
     del q, kc, vc, out, ref, lib
     torch.cuda.empty_cache()
     return {k: results[k] for k in ("ssd_scan", "rglru_scan")}, errs

@@ -4,10 +4,12 @@
 decode_attention_pallas``: one query token per sequence, ``q [B, Hq, D]``,
 against ``k_cache, v_cache [B, T, Hkv, D]`` whose positions at and past
 ``cache_len [B]`` are invalid, with the options window, softcap and scale.
-The kernel is ``csrc/decode_attention.cu`` (one block per (b, kv head, split
-of T) holding the G grouped query rows, then a combine pass; its header says
-what bounds it and why it is built the way it is).  Unlike the Pallas
-launcher it takes any T.
+The kernel is ``csrc/decode_attention.cu``: a split kernel (bf16: one block
+per (split, kv head x 16 of its G query heads, b), the split's share of the
+valid 64-key tiles through a cp.async ring onto the tensor cores; f32: one
+block per (b, kv head, split of T) of scalar FMAs), then a combine pass over
+(64-column slice, query head, b) blocks; its header says what bounds it and
+why it is built the way it is.  Unlike the Pallas launcher it takes any T.
 
 For CUDA tensors the wrapper checks device, dtype, shape and contiguity,
 launches on the current stream and counts the launch in
@@ -29,6 +31,7 @@ from repro_torch.kernels.flash_attention import DTYPES, check_attention_inputs, 
 from repro_torch.models.attention import decode_attention_ref
 
 BK = 64  # keys per tile (csrc/decode_attention.cu)
+ROWS = 16  # query rows of a bf16 split block (one mma.sync m16 tile)
 # blocks to aim for when splitting T: two per SM of an H100
 TARGET_BLOCKS = 264
 MAX_SMEM = 232448
@@ -44,11 +47,12 @@ def _kernel():
     return fn
 
 
-def n_splits(B: int, Hkv: int, T: int) -> int:
-    """Splits of the T axis: enough (b, kv head, split) blocks to fill the
-    card, each split at least one 64-key tile."""
+def n_splits(B: int, Hkv: int, T: int, G: int = 1) -> int:
+    """Splits of the T axis: enough (b, kv head, group of up to 16 of its G
+    query heads, split) blocks to fill the card, at most one split per
+    64-key tile."""
     n_tiles = -(-T // BK)
-    want = max(1, -(-TARGET_BLOCKS // (B * Hkv)))
+    want = max(1, -(-TARGET_BLOCKS // (B * Hkv * -(-G // ROWS))))
     tps = -(-n_tiles // min(n_tiles, want))
     return -(-n_tiles // tps)
 
@@ -87,16 +91,20 @@ def decode_attention(
     if cache_len.device != dev or cache_len.dtype != torch.int32:
         raise ValueError(f"cache_len must be int32 on {dev}")
     G = Hq // Hkv
-    smem = 4 * (2 * G * D + 2 * BK * (D + 1) + G * BK + 3 * G)
-    if smem > MAX_SMEM:
-        raise ValueError(
-            f"decode_attention holds G*D = {G * D} query values per block: "
-            f"{smem} bytes of shared memory, more than {MAX_SMEM}"
-        )
-    if B > 65535 or Hkv > 65535:
-        raise ValueError("decode_attention takes B and Hkv up to 65535")
+    if q.dtype == torch.float32:  # the f32 kernel holds all G query rows a block
+        smem = 4 * (2 * G * D + 2 * BK * (D + 1) + G * BK + 3 * G)
+        if smem > MAX_SMEM:
+            raise ValueError(
+                f"decode_attention holds G*D = {G * D} query values per block: "
+                f"{smem} bytes of shared memory, more than {MAX_SMEM}"
+            )
+    elif any(x.data_ptr() % 16 for x in (q, k_cache, v_cache)):
+        raise ValueError("decode_attention reads bf16 rows in 16-byte vectors: q, k_cache "
+                         "and v_cache must start on a 16-byte boundary")
+    if B > 65535 or Hkv * -(-G // ROWS) > 65535:
+        raise ValueError("decode_attention takes B and Hkv * ceil(G / 16) up to 65535")
     scale = scale if scale is not None else D**-0.5
-    nsplit = n_splits(B, Hkv, T)
+    nsplit = n_splits(B, Hkv, T, G)
     lens = cache_len.contiguous()
     out = torch.empty_like(q)
     scratch = torch.empty(B * Hkv * nsplit * G * (D + 2), dtype=torch.float32, device=dev)

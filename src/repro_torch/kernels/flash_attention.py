@@ -3,10 +3,12 @@
 :func:`flash_attention` is the port of ``repro/kernels/flash_attention.py::
 flash_attention_pallas``: ``q [B, S, Hq, D]`` against ``k, v [B, T, Hkv,
 D]`` with the options causal, window, prefix_len, softcap and scale.  The
-kernel is ``csrc/flash_attention.cu`` (one block per (b, head, 64-query
-tile), looping over 64-key tiles with m, l, acc on chip; bf16 on the tensor
-cores, f32 in scalar FMAs; its header says what bounds it and why it is
-built the way it is).  Unlike the Pallas
+kernel is ``csrc/flash_attention.cu``: for bf16 one block per (b, head,
+192- or 128-query tile) of three or two wgmma warpgroups fed by a TMA
+producer warpgroup through a ring of K/V tiles, for f32 one block per (b,
+head, 64-query tile) of scalar FMAs; its header says what bounds it and why it is built the way it is.
+:func:`kernel_tiles` gives the query and key tiles each walks, the chunks
+at which the plain version keeps the same running maxima.  Unlike the Pallas
 launcher it takes any S and T (the ragged tiles are masked); D must be a
 multiple of 32 up to 256.
 
@@ -42,6 +44,15 @@ def _kernel():
                    + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def kernel_tiles(D: int, dtype: torch.dtype) -> tuple:
+    """(query rows, keys) of the tiles ``csrc/flash_attention.cu`` walks for
+    head_dim D in ``dtype``: the ``q_chunk``/``kv_chunk`` at which
+    :func:`flash_attention_ref` keeps the kernel's running maxima."""
+    if dtype == torch.bfloat16:
+        return (192 if D <= 64 else 128), (128 if D <= 128 else 64)
+    return 64, 64
 
 
 def check_attention_inputs(what: str, dev: torch.device, named: dict, D: int, Hq: int, Hkv: int):

@@ -19,7 +19,7 @@ from repro.models import attention as jatt
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import decode_attention, n_splits
 from repro_torch.kernels.faas_event_step import LAUNCH_COUNTS
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention, kernel_tiles
 from repro_torch.models.attention import decode_attention_ref, flash_attention_ref
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -78,6 +78,41 @@ def test_flash_ref_ragged_tiles(kw):
     port = flash_attention_ref(tq, tk, tv, q_chunk=32, kv_chunk=32, **kw)
     ref = jatt.flash_attention_ref(jq, jk, jv, q_chunk=100, kv_chunk=100, **kw)
     _close(port, ref, "float32")
+
+
+# the bf16 kernel's tiles (192 x 128 at D <= 64, 128 x 128 to D = 128, 128 x
+# 64 above): S = T = 384 is a multiple of each, as the JAX reference needs
+KERNEL_TILE_CASES = [
+    # B, Hq, Hkv, D, options
+    (1, 4, 2, 64, dict(causal=True)),
+    (1, 4, 1, 128, dict(causal=True, window=150)),
+    (1, 16, 1, 256, dict(causal=True, window=200)),
+    (1, 4, 2, 64, dict(causal=True, prefix_len=200)),
+    (1, 2, 2, 96, dict(causal=False, softcap=20.0)),
+]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,D,kw", KERNEL_TILE_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_ref_at_the_kernel_tiles_matches_jax_ref(B, Hq, Hkv, D, kw, dtype):
+    """The plain version tiled as the bf16 kernel tiles (the chunks at which
+    the card's checks hold the kernel) against the JAX reference at the same
+    chunks, on numpy inputs from a seed: within TOL."""
+    S = 384
+    q_chunk, kv_chunk = kernel_tiles(D, torch.bfloat16)
+    assert S % q_chunk == 0 and S % kv_chunk == 0
+    arrays = _arrays(D + S, [(B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D)])
+    (jq, jk, jv), (tq, tk, tv) = _both(arrays, dtype)
+    port = flash_attention_ref(tq, tk, tv, q_chunk=q_chunk, kv_chunk=kv_chunk, **kw)
+    ref = jatt.flash_attention_ref(jq, jk, jv, q_chunk=q_chunk, kv_chunk=kv_chunk, **kw)
+    _close(port, ref, dtype)
+
+
+def test_kernel_tiles_cover_every_head_dim():
+    for D in HEAD_DIMS:
+        bq, bk = kernel_tiles(D, torch.bfloat16)
+        assert bq % 64 == 0 and bk % 64 == 0  # whole warpgroups, whole wgmma widths
+    assert kernel_tiles(64, torch.float32) == (64, 64)
 
 
 DECODE_CASES = [
@@ -144,6 +179,11 @@ def test_wrappers_check_shapes():
 def test_decode_splits_fill_the_card():
     # the serving path's decode: B = 4, Hkv = 8, T = 4096 -> 8 splits of 8 tiles
     assert n_splits(4, 8, 4096) == 8
+    assert n_splits(4, 8, 4096, G=4) == 8  # llama's G fits one 16-row group
+    # recurrentgemma's local layers: B = 4, Hkv = 1, G = 16, the 2,048-slot
+    # ring -> one split per 64-key tile, 128 blocks
+    assert n_splits(4, 1, 2048, G=16) == 32
+    assert n_splits(4, 1, 2048, G=32) == 32  # two row groups: 256 blocks
     assert n_splits(1, 1, 64) == 1  # one tile cannot split
     assert n_splits(64, 8, 4096) == 1  # 512 blocks already
     for B, Hkv, T in [(3, 2, 1000), (1, 8, 130), (2, 1, 4096)]:

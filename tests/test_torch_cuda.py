@@ -343,7 +343,11 @@ def test_fleet_front_door_launches_the_kernel(cuda_device):
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    HEAD_DIMS,
+    flash_attention,
+    kernel_tiles,
+)
 from repro_torch.models.attention import (  # noqa: E402
     decode_attention_ref,
     flash_attention_ref,
@@ -369,6 +373,13 @@ def _att_close(out, ref, dtype):
     assert bool((err <= lim).all()), f"max |diff| {err.max().item():.3e}"
 
 
+def _flash_plain(q, k, v, kw):
+    """The plain version in the kernel's tiles (kernel_tiles): the same
+    running maxima."""
+    q_chunk, kv_chunk = kernel_tiles(q.shape[-1], q.dtype)
+    return flash_attention_ref(q, k, v, q_chunk=q_chunk, kv_chunk=kv_chunk, **kw)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
@@ -390,8 +401,7 @@ def test_flash_attention_matches_plain(cuda_device, dtype, B, S, T, Hq, Hkv, D, 
     torch.cuda.synchronize()
     assert fes.LAUNCH_COUNTS["flash_attention"] == before + 1
     assert out.dtype == dtype and out.shape == q.shape
-    # the plain version in the kernel's 64 x 64 tiles: the same running maxima
-    _att_close(out, flash_attention_ref(q, k, v, q_chunk=64, kv_chunk=64, **kw), dtype)
+    _att_close(out, _flash_plain(q, k, v, kw), dtype)
 
 
 @pytest.mark.cuda
@@ -485,7 +495,7 @@ def test_flash_attention_at_recurrentgemma_shapes(cuda_device, dtype, B, S, T, H
     q, k, v = _randn(cuda_device, dtype, S + 7, (B, S, Hq, D), (B, T, Hkv, D), (B, T, Hkv, D))
     out = flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    _att_close(out, flash_attention_ref(q, k, v, q_chunk=64, kv_chunk=64, **kw), dtype)
+    _att_close(out, _flash_plain(q, k, v, kw), dtype)
 
 
 @pytest.mark.cuda
@@ -499,6 +509,76 @@ def test_decode_attention_over_a_full_ring(cuda_device, dtype):
     out = decode_attention(q, k, v, cl)
     torch.cuda.synchronize()
     _att_close(out, decode_attention_ref(q, k, v, cl), dtype)
+
+
+# the bf16 kernels' edges: tiles of 192 or 128 query rows and 128 or 64 keys
+# (kernel_tiles) for prefill; splits of whole 64-key tiles for decode
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "B,S,T,Hq,Hkv,D,kw",
+    [
+        (1, 129, 129, 4, 2, 64, dict(causal=True)),  # S, T past a tile by one
+        (1, 257, 257, 8, 2, 128, dict(causal=True, window=100)),
+        (2, 257, 257, 4, 1, 256, dict(causal=True)),
+        (1, 640, 640, 4, 1, 256, dict(causal=True)),  # query tiles cross 2-3 key tiles
+        (1, 640, 640, 8, 2, 64, dict(causal=True)),
+        (1, 300, 300, 16, 1, 256, dict(causal=True, window=100)),  # G = 16, window < S
+        (2, 300, 300, 4, 2, 64, dict(causal=True, prefix_len=150)),  # prefix crosses a tile
+        (1, 300, 300, 4, 1, 256, dict(causal=True, prefix_len=100)),
+        (1, 100, 333, 4, 2, 128, dict(causal=False)),  # S != T
+        (1, 257, 70, 4, 2, 64, dict(causal=False, softcap=20.0)),
+    ],
+)
+def test_flash_attention_bf16_tile_edges(cuda_device, B, S, T, Hq, Hkv, D, kw):
+    q, k, v = _randn(cuda_device, torch.bfloat16, S + T + D, (B, S, Hq, D), (B, T, Hkv, D),
+                     (B, T, Hkv, D))
+    before = fes.LAUNCH_COUNTS["flash_attention"]
+    out = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fes.LAUNCH_COUNTS["flash_attention"] == before + 1
+    _att_close(out, _flash_plain(q, k, v, kw), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", HEAD_DIMS)
+def test_flash_attention_bf16_every_head_dim(cuda_device, D):
+    """Each head_dim reaches the wgmma kernel: 128- or 64-byte swizzle, one
+    to eight column blocks."""
+    q, k, v = _randn(cuda_device, torch.bfloat16, D, (2, 200, 4, D), (2, 200, 2, D),
+                     (2, 200, 2, D))
+    before = fes.LAUNCH_COUNTS["flash_attention"]
+    out = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fes.LAUNCH_COUNTS["flash_attention"] == before + 1
+    _att_close(out, _flash_plain(q, k, v, dict(causal=True)), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "B,T,Hq,Hkv,D,window,lens",
+    [
+        (3, 300, 8, 2, 64, 0, [0, 5, 0]),  # cache_len 0 reads nothing: zeros
+        (2, 300, 8, 2, 128, 0, [300, 300]),  # cache_len = T, a ragged last tile
+        (2, 64, 4, 1, 64, 0, [64, 1]),  # one tile: one split
+        (2, 65, 4, 1, 64, 0, [65, 64]),  # a second, one-key tile
+        (2, 2048, 16, 1, 256, 0, [2048, 2048]),  # G = 16, D = 256, a full ring
+        (2, 1024, 32, 8, 64, 300, [1024, 900]),  # the window crosses splits
+        (1, 500, 32, 1, 64, 0, [500]),  # G = 32: two 16-row groups
+    ],
+)
+def test_decode_attention_bf16_split_edges(cuda_device, B, T, Hq, Hkv, D, window, lens):
+    q, k, v = _randn(cuda_device, torch.bfloat16, T + D + 1, (B, Hq, D), (B, T, Hkv, D),
+                     (B, T, Hkv, D))
+    cl = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    before = fes.LAUNCH_COUNTS["decode_attention"]
+    out = decode_attention(q, k, v, cl, window=window)
+    torch.cuda.synchronize()
+    assert fes.LAUNCH_COUNTS["decode_attention"] == before + 1
+    live = cl > 0
+    assert bool((out[~live] == 0).all())
+    if bool(live.any()):
+        ref = decode_attention_ref(q[live], k[live], v[live], cl[live], window=window)
+        _att_close(out[live], ref, torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------
