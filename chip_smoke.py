@@ -26,8 +26,8 @@ Phases (any failure ends the script with a non-zero exit):
    columns).  Every result finite, and each held to the paper;
 5. timing: each kernel at its main path's full width by CUDA events (mean
    of 3 after a warm-up), held once more against its plain version on the
-   same inputs (``par_sweep`` at c = 80 on the first 4096 events of the
-   full-width rows), with the plain version's time and the card's bound
+   same inputs (``par_sweep`` at c = 1 and 80 on the first 4096 events of
+   the full-width rows), with the plain version's time and the card's bound
    for the work this data needs;
 6. fleets (``fleet_sweep``, in this order): the kernel against its plain
    version on small cases (F = 1, 3, 8; queues of 0 and 2; gap and
@@ -127,8 +127,9 @@ Phases (any failure ends the script with a non-zero exit):
     faults on the same events; ``examples/chaos.py``'s capacity dip at 4,096
     fleets (held to plain on all events, availability against
     ``REF_FLEET_FAULT``, peak within the ceiling); phase 6's catalog sweep
-    with crashes and a dip, timed against the launch without faults; each
-    beside its bound;
+    with crashes and a dip, timed against the launch without faults, and
+    with the crashes alone and the dip alone, each against the same base;
+    each beside its bound;
 12. the kernels line (JSON), the card line, then the device line (JSON) last.
 """
 
@@ -766,18 +767,19 @@ def small_samples(torch, dev, rng, C, K, rate, prestamped):
 def print_ptxas(log, kernel):
     """The registers and spills ptxas reports for each template instance
     (S slots per lane and, for faas_sweep, the optional paths the instance
-    runs; FP padded functions x SF slots per function per lane for
-    fleet_sweep)."""
+    runs; L live-table entries per lane for fleet_sweep)."""
     inst = None  # the template instance the next ptxas lines are about
     for line in log.splitlines():
-        m = re.search(kernel + r"ILi(\d+)E(?:Li(\d+)E)?((?:Lb[01]E)*)", line)
-        if m and m.group(2):
-            fp, sf = int(m.group(1)), int(m.group(2))
-            fault = " faults" if m.group(3) == "Lb1E" else ""
-            inst = f"FP={fp} SF={sf} (F <= {fp}, M <= {32 * sf}){fault}"
+        m = re.search(kernel + r"ILi(\d+)E((?:Lb[01]E)*)", line)
+        if m and kernel == "fleet_sweep_kernel":
+            per_lane = int(m.group(1))
+            flags = re.findall(r"Lb([01])E", m.group(2))
+            paths = [n for n, f in zip(("faults", "queues"), flags) if f == "1"]
+            inst = (f"L={per_lane} (a table of {32 * per_lane} live instances)"
+                    + "".join(f" {n}" for n in paths))
         elif m:
             per_lane = int(m.group(1))
-            flags = re.findall(r"Lb([01])E", m.group(3))
+            flags = re.findall(r"Lb([01])E", m.group(2))
             paths = [n for n, f in zip(("grid", "windows", "reliability", "retries", "fused",
                                         "faults"), flags) if f == "1"]
             inst = f"S={per_lane} (M <= {32 * per_lane})" + "".join(f" {n}" for n in paths)
@@ -837,7 +839,7 @@ def fleet_phase(torch, rt, dev, card):
     from repro_torch.core.fleet import fleet_inputs
     from repro_torch.data.catalog import catalog_names, fleet_of
     from repro_torch.kernels.faas_event_step import LAUNCH_COUNTS
-    from repro_torch.kernels.fleet_event_step import fleet_sweep
+    from repro_torch.kernels.fleet_event_step import fleet_sweep, table_entries
     from repro_torch.kernels.ref import fleet_sweep_ref
 
     err = 0.0
@@ -935,7 +937,7 @@ def fleet_phase(torch, rt, dev, card):
     inp_q = fleet_inputs(fleet_q, {}, 6, replicas=FLEET_REPLICAS, device=dev)
     qkw = dict(slots=64, queue_depth=FLEET_QUEUED["queue_depth"], prestamped=True)
     part = fleet_prefix(inp_q, FLEET_PLAIN_EVENTS)
-    out_k = fleet_sweep(*part, **qkw)
+    out_k = fleet_sweep(*part, **qkw, live_bound=inp_q.live_bound)
     ms_pq, out_p = plain_timed(torch, lambda: fleet_sweep_ref(*part, **qkw))
     e = held_fleet(torch, out_k, out_p, "queued fleet prefix")
     err = max(err, e)
@@ -970,15 +972,17 @@ def fleet_phase(torch, rt, dev, card):
 
     # 6.5 timing at the full-width shape, and the plain version on its prefix
     args = fleet_prefix(inp, K)
+    # the launch fleet_sweep() makes: the table sized by the host's bound
     kw = dict(slots=64, queue_depth=0, prestamped=True)
-    ms, out_k = timed(torch, lambda: fleet_sweep(*args, **kw), reps=3)
+    table = dict(live_bound=inp.live_bound)
+    ms, out_k = timed(torch, lambda: fleet_sweep(*args, **kw, **table), reps=3)
     cold_k = out_k[0][..., 0].double().cpu().numpy().reshape(len(FLEET_THRESHOLDS), -1, len(names))
     for i in range(len(FLEET_THRESHOLDS)):
         for f in range(len(names)):
             if not np.array_equal(cold_k[i, :, f], grid.summaries[i, f].n_cold):
                 raise AssertionError("the timed fleet launch does not reproduce fleet_sweep()")
     part = fleet_prefix(inp, FLEET_PLAIN_EVENTS)
-    out_k = fleet_sweep(*part, **kw)
+    out_k = fleet_sweep(*part, **kw, **table)
     plain_ms, out_p = plain_timed(torch, lambda: fleet_sweep_ref(*part, **kw))
     e = held_fleet(torch, out_k, out_p, "fleet sweep prefix")
     err = max(err, e)
@@ -998,7 +1002,9 @@ def fleet_phase(torch, rt, dev, card):
     live = float((occ * per_row).sum())
     acting = float((occ * per_fn).sum())
     b_ms, b_by = fleet_bound_ms(N, F, S, K, active, live, acting)
-    print(f"timing [{card}]: fleet_sweep N={N} F={F} M=64 K={K}: {ms:.3f} ms "
+    print(f"timing [{card}]: fleet_sweep N={N} F={F} M=64 K={K} (live bound "
+          f"{inp.live_bound}: the launch's table {table_entries(F, 64, inp.live_bound)} entries "
+          f"a lane): {ms:.3f} ms "
           f"(mean of 3); {active} fleet-events in horizon = {active / ms * 1e3:.4e}/s; "
           f"bound {b_ms:.3f} ms ({b_by}; {live:.4e} live and {acting:.4e} acting-function "
           f"live instance-events by PASTA), kernel {ms / b_ms:.1f}x its bound; plain "
@@ -3169,7 +3175,8 @@ def faults_phase(torch, rt, dev, card):
     Kd = inp.staged["times"].shape[1]
     args = fleet_prefix(inp, Kd)
     kw = dict(slots=fleet_d.slots, queue_depth=0, prestamped=True, **inp.faults)
-    ms_d, out_k = timed(torch, lambda: fleet_sweep(*args, **kw), reps=3)
+    ms_d, out_k = timed(torch, lambda: fleet_sweep(*args, **kw, live_bound=inp.live_bound),
+                        reps=3)
     plain_d, out_p = plain_timed(torch, lambda: fleet_sweep_ref(*args, **kw))
     e = held_fleet(torch, out_k, out_p, "dip fleet, all events")
     errs["fleet_sweep_fault"] = max(errs["fleet_sweep_fault"], e)
@@ -3204,8 +3211,10 @@ def faults_phase(torch, rt, dev, card):
     args = fleet_prefix(inp, K)
     kw0 = dict(slots=64, queue_depth=0, prestamped=True)
     kw = dict(kw0, **inp.faults)
+    table = dict(live_bound=inp.live_bound)
     base, fault_ms, readings, out_f = against_base(
-        torch, lambda: fleet_sweep(*args, **kw0), lambda: fleet_sweep(*args, **kw),
+        torch, lambda: fleet_sweep(*args, **kw0, **table),
+        lambda: fleet_sweep(*args, **kw, **table),
         reps=1, rounds=1)
     ms_f = sum(fault_ms) / len(fault_ms)
     F = len(fleet_c.functions)
@@ -3217,7 +3226,7 @@ def faults_phase(torch, rt, dev, card):
     tot = out_f[0].sum((0, 1)).tolist()
     part = fleet_prefix(inp, FAULT_PLAIN_EVENTS)
     pkw = dict(kw, crash_u=prefix(kw["crash_u"], FAULT_PLAIN_EVENTS))
-    out_k = fleet_sweep(*part, **pkw)
+    out_k = fleet_sweep(*part, **pkw, **table)
     plain_ms, out_p = plain_timed(torch, lambda: fleet_sweep_ref(*part, **pkw))
     e = held_fleet(torch, out_k, out_p, "faulty catalog sweep prefix")
     errs["fleet_sweep_fault"] = max(errs["fleet_sweep_fault"], e)
@@ -3242,7 +3251,20 @@ def faults_phase(torch, rt, dev, card):
           f"diff| {e:.3e}); fleet_sweep() {wall:.3f} s wall", flush=True)
     results["fleet_sweep_fault"] = dict(ms=ms_f, plain_ms=plain_ms, bound_ms=b_ms,
                                         bound_by=b_by)
-    del inp, args, part, out_f, out_k, out_p
+    # the two faults apart, each against the same base: what each costs
+    alone = {"crashes": dict(crash_rate=kw["crash_rate"], crash_u=kw["crash_u"]),
+             "the dip": dict(cap_edges=kw["cap_edges"], cap_values=kw["cap_values"])}
+    for what, fk in alone.items():
+        base, one_ms, readings, out_1 = against_base(
+            torch, lambda: fleet_sweep(*args, **kw0, **table),
+            lambda: fleet_sweep(*args, **kw0, **fk, **table), reps=1, rounds=1)
+        if not bool(torch.isfinite(out_1[0]).all()):
+            raise AssertionError(f"the catalog sweep with {what} alone is not finite")
+        one = out_1[0].sum((0, 1)).tolist()
+        print(f"timing [{card}]: fleet_sweep with {what} alone N={N} F={F} M=64 K={K}: "
+              f"{readings}: {100 * (sum(one_ms) / sum(base) - 1):+.1f}%; crashes {one[13]:.0f}, "
+              f"evictions {one[14]:.0f}, interrupted {one[15]:.0f}", flush=True)
+    del inp, args, part, out_f, out_k, out_p, out_1
     torch.cuda.empty_cache()
     for k, n in launches.items():
         results[k]["launches"] = n
@@ -3542,7 +3564,7 @@ def main() -> int:
     full = lambda v: torch.full((Cp,), v, dtype=torch.float32, device=dev)
     active = arrivals_in_horizon(dts, full(sp.sim_time))
     par_times = {}
-    for c in PAR_CS[1:]:
+    for c in PAR_CS:
         kw = dict(t_end=full(sp.sim_time), skip=full(sp.skip_time),
                   max_concurrency=sp.max_concurrency, concurrency=c, slots=sp.slots)
         ms, out_k = timed(torch, lambda: par_sweep(full(sp.expiration_threshold),

@@ -433,6 +433,25 @@ class FleetInputs:
     stream: torch.Tensor
     staged: dict
     faults: dict  # the launch's fault inputs (empty without faults)
+    live_bound: int  # no fleet of the launch holds more live instances
+
+
+def live_bound(n_cluster, limits, slots: int) -> int:
+    """The most live instances any fleet can hold, known on the host: a
+    cold start needs the fleet's live count below ``n_cluster`` and its
+    function's below its limit and a free slot of ``slots``, so each fleet
+    holds at most min(ceil(n_cluster), sum_f min(ceil(limit_f), slots),
+    F * slots).  ``n_cluster`` is ``[N]`` (inf or 1e30: unbounded) and
+    ``limits`` ``[N, F]``, compared in f32 as the kernel compares them;
+    the result is the largest over the fleets, at least 1.
+    """
+    lim = np.atleast_2d(np.asarray(limits, np.float32)).astype(np.float64)
+    ncl = np.asarray(n_cluster, np.float32).astype(np.float64)
+    M = int(slots)
+    by_fn = np.clip(np.nan_to_num(np.ceil(lim), nan=0.0), 0, M).sum(1)
+    by_cluster = np.nan_to_num(np.ceil(ncl), nan=0.0)
+    per_fleet = np.minimum(np.minimum(by_cluster, by_fn), lim.shape[1] * M)
+    return max(int(per_fleet.max()), 1)
 
 
 def fleet_inputs(
@@ -492,6 +511,7 @@ def fleet_inputs(
         stream=torch.arange(R, dtype=torch.int64, device=device).repeat(C),
         staged=staged,
         faults=faults,
+        live_bound=live_bound(ncl, cells["limit"], fleet.slots),
     )
 
 
@@ -505,7 +525,7 @@ def _launch_fleet(fleet: FleetScenario, inp: FleetInputs, bspec, replicas: int) 
         inp.t_exp, inp.limit, inp.ncl, inp.t_end, inp.skip, inp.stream,
         st["times"], st["fids"], st["warms"], st["colds"],
         slots=fleet.slots, queue_depth=fleet.queue_depth, prestamped=st["prestamped"],
-        **inp.faults,
+        live_bound=inp.live_bound, **inp.faults,
     )
     C = len(inp.cells["n_cluster"])
     faults = bool(inp.faults)

@@ -1,8 +1,11 @@
-// The warp helpers that faas_event_step.cu (one pool per warp) and
-// fleet_event_step.cu (a fleet's pools per warp) share: the arg-max behind
-// warm routing and the newest-idle eviction order, and the capacity
-// segment lookup of the fault path.  One copy, so that the tie rule and
-// the segment rule cannot drift apart between the two engines.
+// The warp helpers of the event-loop kernels: faas_event_step.cu (one pool
+// per warp), fleet_event_step.cu (a fleet's pools per warp) and
+// par_event_step.cu (one concurrency-value pool per warp).  The arg-max
+// behind warm routing and the newest-idle eviction order (a shuffle tree in
+// faas, an order key and two reduxes in fleet and par), the capacity
+// segment lookup of the fault path, and what a live instance accrues ahead
+// of the clock.  One copy, so that the tie rule, the segment rule and the
+// integrals cannot drift apart between the engines.
 
 #pragma once
 
@@ -25,6 +28,37 @@ __device__ __forceinline__ void warp_argmax(float& best, int& best_j) {
       best_j = oj;
     }
   }
+}
+
+// An order-preserving u32 of an f32 (NaN aside): x < y iff key(x) <
+// key(y), -0 and +0 share a key, and every float's key is above 0, which
+// stands for "no candidate".  The warp's newest candidate is then one redux
+// (the largest key) and its lowest id among ties a second: two
+// instructions, where warp_argmax takes ten shuffles.
+__device__ __forceinline__ unsigned order_key(float x) {
+  const unsigned u = __float_as_uint(__fadd_rn(x, 0.f));  // -0 + 0 = +0
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float key_value(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// What an instance accrues over (from, te] if its state holds: running
+// time until min(busy, doom) and idle time from busy until min(expire,
+// doom), clipped to the horizon's end te (from <= te).  The reference
+// integrates each event's interval (lo, hi]; over a span (P, Q] in which
+// the state holds, with P <= Q <= te, the sum of those pieces is
+// accrue(P) - accrue(Q) exactly in real arithmetic, so a kernel can add
+// accrue(P) when the state starts, subtract accrue(Q) when it ends, and
+// do no per-event work.  Each piece is one rounded subtraction, as in the
+// reference; only the accumulation order differs.
+__device__ __forceinline__ float2 accrue(float busy, float expire, float doom, float from,
+                                         float te) {
+  const float run = fmaxf(__fsub_rn(fminf(fminf(busy, doom), te), from), 0.f);
+  const float idle =
+      fmaxf(__fsub_rn(fminf(fminf(expire, doom), te), fmaxf(busy, from)), 0.f);
+  return make_float2(run, idle);
 }
 
 // The capacity segment of t in a profile (E edges, a leading 0 edge

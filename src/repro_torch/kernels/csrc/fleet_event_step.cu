@@ -39,15 +39,15 @@
 // t_end) for the dying instance's function.  Between steps 2 and 4, with a
 // capacity profile (per fleet, a leading 0 edge implied), ceil(fleet live
 // count - ceiling) of the newest idle instances fleet-wide are evicted
-// inside the horizon: one warp arg-max pass each over (creation, lower
-// flat id f*M + m on a tie), counted past skip for the evicted instance's
-// function; step 4's cold start also needs the fleet's live count below
-// the ceiling, and an arrival whose instance dies before its service ends
-// is interrupted.  The three fault columns (crashes, evictions, interrupted
-// attempts) follow the 13; crashes and evictions, found in any lane, are
-// counted into their function's owner lane by ballots, only on events that
-// have one.  With crashes off the clocks hold +inf, which leaves the mins
-// the identity; without FAULT the code is the path without faults.
+// inside the horizon (creation, then the lower flat id f*M + m on a tie),
+// counted past skip for the evicted instance's function; step 4's cold
+// start also needs the fleet's live count below the ceiling, and an
+// arrival whose instance dies before its service ends is interrupted.  The
+// three fault columns (crashes, evictions, interrupted attempts) follow
+// the 13.  The crash clocks come out as doom[N, F, M]: +inf where no cold
+// start stamped one, else the last stamped, live or not.  With crashes off
+// the clocks hold +inf, which leaves the mins the identity; without FAULT
+// the code is the path without faults.
 //
 // What the TPU kernel's layout was, and why this one differs: the TPU
 // kernel makes a fleet an 8-row block, one row per function, and its
@@ -56,43 +56,72 @@
 // through the per-fleet row index `stream`, so a sweep's cells share one
 // [replicas, K] stream; fids travel as uint8.
 //
-// What bounds it on this card: operations.  Each event needs the two
-// integrals and the expiry test on every live instance of the fleet
-// (11 f32 operations each), the idle and newest tests on the acting
-// function's live instances, and O(1) scalar work (clock, decisions,
-// counters, the lowest free slot, live counts), against 13 bytes of
-// stream per event, read once for every cell that shares the stream: at
-// the catalog sweep (F = 8, M = 64, ~23 live instances) ~320 operations,
-// ~25 per byte for a single cell, above the H100's f32 balance point
-// (~20 operations per byte).  This kernel does the per-slot work
-// (~16 f32 operations) on all F*M slots, live or not, ~25x what the live
-// instances need there, and each fleet is a sequential chain of events.
+// What bounds it on this card: operations, in a sequential chain per
+// fleet.  Each event needs the two integrals and the exit test on every
+// live instance of the fleet, the idle and newest tests on the acting
+// function's live instances, and O(1) scalar work, against 13 bytes of
+// stream per event read once for every cell that shares it: ~25
+// operations per byte at the catalog sweep (F = 8, M = 64, ~23 live
+// instances of 512 slots), above the H100's f32 balance point.  The first
+// design walked all F*M slots per event (16 a lane, ~4.6% live) and ran
+// seven warp collectives on each: 221x its bound, in two waves.
 //
-// What the design does about that: one warp per fleet, with all F*M slots
-// in the warp's registers (FP*SF slots per lane: function g's slot m sits
-// in lane m % 32, register g*SF + m/32; FP is F rounded up to a power of
-// two, SF = M/32 rounded up), so the fleet-wide live count is one
-// __reduce_add_sync of the lanes' alive-bit popcounts and never needs a
-// block barrier.  Expiry and the integrals run over every slot; routing
-// touches only the acting function's SF registers (its id is warp-uniform,
-// so the branch is uniform).  The per-function run/idle sums of an event
-// are one reduce-scatter over the warp (FP values per lane halved at each
-// butterfly stage: 2(FP-1) + 2(5 - log2 FP) shuffles for both sums instead
-// of 10 FP), after which lane g holds function g's sums; lane g also owns
-// function g's 12 accumulators, its queue's head and length, and its
-// limit, so nothing is replicated F times.  The queues are three [FP, Q]
-// planes per warp in shared memory, used as rings (same FIFO order as the
-// reference's shifted arrays).  Samples are loaded 32 events at a time,
-// one per lane (coalesced), and broadcast per event with __shfl_sync.
+// What the design does about that: one warp per fleet, and per-event work
+// only where the event changes something.
+//   - The slots are an alive bitmap, one unsigned a lane (function g's
+//     slot m is bit g*SF + m/32 of lane m % 32, SF = ceil(M/32)): the
+//     acting function's lowest free slot and live count are SF ballots,
+//     without touching per-instance data, and are read only when no
+//     instance is idle.  The bitmap bounds the caps: F*SF <= 32.
+//   - The live instances sit in a compact table, L entries a lane (entry j
+//     of lane l holds any instance): its function and slot, creation (as
+//     an order key), busy, expiry and, with faults, crash clock, in
+//     registers.  The host bounds the live count without reading the card
+//     (min(ncl, sum of min(limit, M)), F*M) and the launch takes the
+//     narrowest L that holds it: L = 1 at the catalog's ncl = 24, against
+//     16 slots a lane in the first design.  A cold start takes the lowest
+//     empty entry (ballot, __ffs); a fleet that found none (a bound below
+//     the true count) gets NaN outputs.
+//   - The integrals are accrued, not summed per event: an instance's
+//     running and idle time over a span in which its state holds is
+//     accrue(P) - accrue(Q) (event_step_common.cuh), so its function's
+//     columns gain accrue(hi) when its state starts (cold start, warm
+//     start) and lose accrue(hi) when the state ends (warm start, expiry,
+//     crash, eviction, the last event).  Where the clipped clock goes
+//     back from hi_prev to hi (unsorted prestamped times, negative gaps),
+//     the reference counts (hi, hi_prev] again on the next intervals: one
+//     pass over the live entries adds accrue(hi) - accrue(hi_prev) of each.
+//   - Exits are found without a per-event vote: the fleet keeps a lower
+//     bound of its instances' earliest exit clock (lowered by each start,
+//     exact after each exit pass), and the exit pass (a test per entry, a
+//     vote, a warp-uniform loop over the ballot of the entries that left,
+//     a redux for the new bound) runs only once the clock reaches it.
+//   - Warm routing is the newest idle entry of the acting function by
+//     (creation, slot) and eviction the newest idle entry of the fleet by
+//     (creation, flat id): an order key per lane and two reduxes each, the
+//     lowest id winning a tie as in the reference.  A warm event then
+//     costs the samples' broadcast, those two reduxes and the winning
+//     lane's update: ~4 collectives, where the first design ran ~12.
+//   - The fleet-wide live count is a warp-uniform counter (+1 per cold
+//     start, -1 per death), so the peak and the capacity checks need no
+//     collective; lane g owns function g's accumulators, limit, threshold
+//     and queue pointers.
+//   - The queues are three [F, Q] planes per warp in shared memory, used as
+//     rings (same FIFO order as the reference's shifted arrays).  Samples
+//     are loaded 32 events at a time, one per lane (coalesced), and
+//     broadcast per event with __shfl_sync.
+//   - The crash clocks go to doom[fleet, f, m] at each cold start (+inf at
+//     the fleet's start), written by lane m % 32, the same thread for every
+//     value of one address, so program order leaves the last one stamped.
 //
 // Arithmetic matches the plain PyTorch version (kernels/ref.py::
 // fleet_sweep_ref): every clock update is one rounded f32 operation
 // (built with --fmad=false, written with __fadd_rn), the sentinels are
 // the reference's (NEG = -1e30, any_idle = best > NEG/2, ncl = inf as
-// 1e30), live counts are exact integers, and each accumulator adds the
-// same values in the same order (drain passes first, then the arrival).
-// Only the per-function M-sums of the integrals (columns 3 and 4) are
-// summed in another order, so they may differ in the last places.
+// 1e30), live counts are exact integers, and each counter adds the same
+// values as the reference's.  The integral columns (3 and 4) add the same
+// pieces in another association (per state span rather than per event),
+// so they may differ in the last places.
 
 #include <climits>
 #include <cstdint>
@@ -110,131 +139,269 @@ constexpr int MAX_FUNCTIONS = 8;
 // queue entries per function: 3 planes x 8 functions x 128 entries x 4
 // warps x 4 bytes is the 48 KB of shared memory a block has by default
 constexpr int MAX_QUEUE = 128;
+// table entries per lane: 32 x 32 = 1024 instances, the most slots a fleet has
+constexpr int MAX_TABLE = 32;
 
-template <int FP>
-struct Log2 {
-  static constexpr int value = 1 + Log2<FP / 2>::value;
-};
-template <>
-struct Log2<1> {
-  static constexpr int value = 0;
+// Blocks a SM that the register budget must allow: 768 catalog blocks fit
+// the 132 SMs in one wave at 6 a SM (<= 80 registers a thread); the wider
+// tables keep ptxas' own choice.
+template <int L>
+struct MinBlocks {
+  static constexpr int value = L == 1 ? 6 : 1;
 };
 
-// v[FP] per lane -> the warp sum of value index (lane >> (5 - log2 FP)),
-// returned in that lane: each butterfly stage sends the half of the values
-// a lane does not keep, the last 5 - log2 FP stages reduce the one left.
-template <int FP>
-__device__ __forceinline__ float reduce_scatter(float (&v)[FP], int lane) {
-#pragma unroll
-  for (int st = 0; st < Log2<FP>::value; ++st) {
-    const int h = FP >> (st + 1), m = 16 >> st;
-    const bool upper = (lane & m) != 0;
-#pragma unroll
-    for (int i = 0; i < h; ++i) {
-      const float send = upper ? v[i] : v[i + h];
-      const float keep = upper ? v[i + h] : v[i];
-      v[i] = __fadd_rn(keep, __shfl_xor_sync(FULL, send, m));
-    }
-  }
-#pragma unroll
-  for (int m = 16 / FP; m >= 1; m >>= 1)
-    v[0] = __fadd_rn(v[0], __shfl_xor_sync(FULL, v[0], m));
-  return v[0];
+// A fleet's instances: the alive bitmap and the lane's L table entries.
+template <int L, bool FAULT>
+struct Pool {
+  unsigned alive = 0u;  // bit g*SF + q: slot q*32 + lane of function g is live
+  unsigned used = 0u;   // bit j: entry j holds a live instance
+  unsigned ckey[L];     // order_key(creation)
+  float busy[L], expire[L];
+  float doom[FAULT ? L : 1];
+  int id[L];  // (function << 16) | slot
+};
+
+template <int L, bool FAULT>
+__device__ __forceinline__ float doom_of(const Pool<L, FAULT>& p, int j) {
+  return FAULT ? p.doom[FAULT ? j : 0] : INFINITY;
 }
 
-// The acting function's routing candidates on the current pool: the
-// newest idle instance (lowest slot on a creation tie) as best/best_m,
-// the lowest free slot (-1 if none) and its live count, in every lane.
-template <int FP, int SF>
-__device__ __forceinline__ void route(int fa, unsigned alive, const float (&cre)[FP * SF],
-                                      const float (&busy)[FP * SF], float t_new, int M,
-                                      int lane, float& best, int& best_m,
-                                      int& first_free, int& n_alive) {
-  best = NEG;
-  best_m = INT_MAX;
-  first_free = -1;
-  int nal = 0;
+// The fleet's newest idle instance of function fa (fa < 0: of any
+// function) by (creation, then the lowest slot, or flat id f*M + m for
+// fa < 0): the lane's own candidate (key 0: none, idx, ent) and the warp's
+// (best, best_idx), in every lane.
+struct Newest {
+  unsigned key, idx, best, best_idx;
+  int ent;
+  __device__ __forceinline__ bool mine() const {
+    return key != 0u && key == best && idx == best_idx;
+  }
+};
+
+template <int L, bool FAULT>
+__device__ __forceinline__ Newest newest(const Pool<L, FAULT>& p, int fa, int M, float t_new) {
+  Newest n;
+  n.key = 0u;
+  n.idx = UINT_MAX;
+  n.ent = 0;
 #pragma unroll
-  for (int g = 0; g < FP; ++g) {
-    if (g == fa) {  // warp-uniform
+  for (int j = 0; j < L; ++j) {
+    const int g = p.id[j] >> 16, m = p.id[j] & 0xffff;
+    const bool cand = ((p.used >> j) & 1u) && (fa < 0 || g == fa) && p.busy[j] <= t_new;
+    const unsigned k = cand ? p.ckey[j] : 0u;
+    const unsigned x = fa < 0 ? (unsigned)(g * M + m) : (unsigned)m;
+    // a lane's ids need not ascend with j, so the tie is compared
+    if (k > n.key || (k != 0u && k == n.key && x < n.idx)) {
+      n.key = k;
+      n.idx = x;
+      n.ent = j;
+    }
+  }
+  n.best = __reduce_max_sync(FULL, n.key);
+  n.best_idx = n.best != 0u ? __reduce_min_sync(FULL, n.key == n.best ? n.idx : UINT_MAX)
+                            : UINT_MAX;
+  return n;
+}
+
+// The acting function's lowest free slot (-1 if none) and live count, from
+// the bitmap: SF ballots.
+struct Slots {
+  int first_free, n_alive;
+};
+
+__device__ __forceinline__ Slots slots_of(unsigned alive, int fa, int M, int SF) {
+  Slots r{-1, 0};
+  for (int q = 0; q < SF; ++q) {
+    const unsigned b = __ballot_sync(FULL, (alive >> (fa * SF + q)) & 1u);
+    r.n_alive += __popc(b);
+    const int left = M - q * 32;
+    const unsigned fr = ~b & (left >= 32 ? FULL : (1u << left) - 1u);
+    if (r.first_free < 0 && fr) r.first_free = q * 32 + __ffs(fr) - 1;
+  }
+  return r;
+}
+
+// The fleet's running state outside the table: the live count, a lower
+// bound of the earliest exit clock of its instances (an exit pass runs only
+// once the clock reaches it), the accumulators a lane owns, and the broken
+// flag (an instance that found no table entry).
+struct Fleet {
+  int live = 0;
+  float next_exit = INFINITY;
+  float a_run = 0.f, a_idle = 0.f;
+  bool broken = false;
+};
+
+// A warm start on the routed instance, busy until `done`: its lane swaps
+// the accrual to the new state; returns its crash clock.
+template <int L, bool FAULT>
+__device__ __forceinline__ float warm_start(Pool<L, FAULT>& p, Fleet& s, const Newest& r,
+                                            int fa, float hi, float te, float done,
+                                            float expire, int lane) {
+  const bool win = r.mine();
+  float dr = 0.f, di = 0.f, dm = INFINITY;
 #pragma unroll
-      for (int q = 0; q < SF; ++q) {
-        const int s = g * SF + q;
-        const int m = q * 32 + lane;
-        const bool al = (alive >> s) & 1u;
-        // a lane's slots ascend with q, so '>' keeps the lowest slot on a tie
-        if (al && busy[s] <= t_new && cre[s] > best) {
-          best = cre[s];
-          best_m = m;
-        }
-        nal += al;
-        const unsigned fm = __ballot_sync(FULL, m < M && !al);
-        if (first_free < 0 && fm) first_free = q * 32 + __ffs(fm) - 1;
+  for (int j = 0; j < L; ++j) {
+    if (win && j == r.ent) {
+      // accrue(busy, expire, doom, hi, te) of the idle instance: busy <=
+      // t_new <= t_end, so busy <= hi, its running time past hi is 0 and its
+      // idle time starts at hi
+      const float dj = doom_of(p, j);
+      const float was = fmaxf(__fsub_rn(fminf(fminf(p.expire[j], dj), te), hi), 0.f);
+      const float2 now = accrue(done, expire, dj, hi, te);
+      dr = now.x;
+      di = __fsub_rn(now.y, was);
+      dm = dj;
+    }
+    p.busy[j] = win && j == r.ent ? done : p.busy[j];
+    p.expire[j] = win && j == r.ent ? expire : p.expire[j];
+  }
+  // the instance's exit clock moves to min(expire, its doom), at least
+  // min(expire, the old bound)
+  s.next_exit = fminf(s.next_exit, expire);
+  const int wl = __ffs(__ballot_sync(FULL, win)) - 1;
+  dr = __shfl_sync(FULL, dr, wl);
+  di = __shfl_sync(FULL, di, wl);
+  if (lane == fa) {
+    s.a_run = __fadd_rn(s.a_run, dr);
+    s.a_idle = __fadd_rn(s.a_idle, di);
+  }
+  return FAULT ? __shfl_sync(FULL, dm, wl) : INFINITY;
+}
+
+// A cold start of function fa on slot m, busy until `done`, crash clock
+// `doom` (stamped into doom_f[m], function fa's [M] plane, when not null):
+// the lowest empty table entry takes it.
+template <int L, bool FAULT>
+__device__ __forceinline__ void cold_start(Pool<L, FAULT>& p, Fleet& s, int fa, int m,
+                                           float t_new, float hi, float te, float done,
+                                           float expire, float doom, int SF, int lane,
+                                           float* doom_f) {
+  int el = -1, ej = 0;
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    if (el < 0) {  // warp-uniform
+      const unsigned e = __ballot_sync(FULL, !((p.used >> j) & 1u));
+      if (e) {
+        el = __ffs(e) - 1;
+        ej = j;
       }
     }
   }
-  warp_argmax(best, best_m);
-  n_alive = (int)__reduce_add_sync(FULL, (unsigned)nal);
+  if (el < 0) {
+    s.broken = true;
+    return;
+  }
+  const unsigned ck = order_key(t_new);
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    const bool hit = lane == el && j == ej;
+    p.ckey[j] = hit ? ck : p.ckey[j];
+    p.busy[j] = hit ? done : p.busy[j];
+    p.expire[j] = hit ? expire : p.expire[j];
+    p.id[j] = hit ? (fa << 16) | m : p.id[j];
+    if (FAULT) p.doom[FAULT ? j : 0] = hit ? doom : p.doom[FAULT ? j : 0];
+  }
+  if (lane == el) p.used |= 1u << ej;
+  if (lane == (m & 31)) {
+    p.alive |= 1u << (fa * SF + (m >> 5));
+    if (doom_f != nullptr) doom_f[m] = doom;
+  }
+  if (lane == fa) {
+    const float2 a = accrue(done, expire, doom, hi, te);
+    s.a_run = __fadd_rn(s.a_run, a.x);
+    s.a_idle = __fadd_rn(s.a_idle, a.y);
+  }
+  s.next_exit = fminf(s.next_exit, fminf(expire, doom));
+  ++s.live;
 }
 
-// start slot m of function fa: busy until `done`; a cold start also stamps
-// its creation and makes it live
-template <int FP, int SF>
-__device__ __forceinline__ void assign(int fa, int m, bool cold, float t_new, float done,
-                                       int lane, unsigned& alive, float (&cre)[FP * SF],
-                                       float (&busy)[FP * SF]) {
+// Every live entry's accrual moved from clock `to` to clock `from` (<= te):
+// function g's columns gain accrue(from) - accrue(to) of g's entries.  At
+// the end of the run (from = te, where nothing is left to accrue) it gives
+// back what the live instances accrued past the last clock; after the clock
+// went back (from < to) it counts (from, to] again, as the reference's next
+// intervals do.  Warp-uniform.
+template <int L, bool FAULT>
+__device__ __forceinline__ void settle(const Pool<L, FAULT>& p, Fleet& s, float from, float to,
+                                       float te, int F, int lane) {
+  for (int g = 0; g < F; ++g) {
+    float r = 0.f, d = 0.f;
 #pragma unroll
-  for (int g = 0; g < FP; ++g) {
-    if (g == fa) {
-#pragma unroll
-      for (int q = 0; q < SF; ++q) {
-        const int s = g * SF + q;
-        if (q * 32 + lane == m) {
-          busy[s] = done;
-          if (cold) {
-            cre[s] = t_new;
-            alive |= 1u << s;
-          }
-        }
+    for (int j = 0; j < L; ++j) {
+      if (((p.used >> j) & 1u) && (p.id[j] >> 16) == g) {
+        const float2 a = accrue(p.busy[j], p.expire[j], doom_of(p, j), from, te);
+        const float2 b = accrue(p.busy[j], p.expire[j], doom_of(p, j), to, te);
+        r = __fadd_rn(r, __fsub_rn(a.x, b.x));
+        d = __fadd_rn(d, __fsub_rn(a.y, b.y));
       }
     }
-  }
-}
-
-// the fleet's newest idle instance (largest creation, lowest flat id f*M +
-// m on a tie) as best/best_f in every lane; best = NEG when none is idle
-template <int FP, int SF>
-__device__ __forceinline__ void newest_idle_fleet(unsigned alive, const float (&cre)[FP * SF],
-                                                  const float (&busy)[FP * SF], float t_new,
-                                                  int M, int lane, float& best, int& best_f) {
-  best = NEG;
-  best_f = INT_MAX;
 #pragma unroll
-  for (int s = 0; s < FP * SF; ++s) {
-    // a lane's flat ids ascend with s, so '>' keeps the lowest on a tie
-    if (((alive >> s) & 1u) && busy[s] <= t_new && cre[s] > best) {
-      best = cre[s];
-      best_f = (s / SF) * M + (s % SF) * 32 + lane;
+    for (int m = 16; m >= 1; m >>= 1) {
+      r = __fadd_rn(r, __shfl_xor_sync(FULL, r, m));
+      d = __fadd_rn(d, __shfl_xor_sync(FULL, d, m));
+    }
+    if (lane == g) {
+      s.a_run = __fadd_rn(s.a_run, r);
+      s.a_idle = __fadd_rn(s.a_idle, d);
     }
   }
-  warp_argmax(best, best_f);
 }
 
-// per function g, the lanes' bits of `mask` (bit s: slot s) among g's
-// slots, counted into lane g's `acc` (one add per function with any)
-template <int FP, int SF>
-__device__ __forceinline__ void count_into_owner(unsigned mask, int lane, float& acc) {
+// The exit pass (the clock has reached the bound): entries whose exit clock
+// (expiry, or a crash) is at or before t_new leave the fleet, each giving
+// back what it accrued past hi, freeing its slot and leaving the live count;
+// a crash (doom < expiry, skip < doom <= t_end) is counted for its
+// function.  A warp-uniform loop over the ballot of each entry index; then
+// the bound becomes the earliest exit clock left.
+template <int L, bool FAULT>
+__device__ __forceinline__ void exits(Pool<L, FAULT>& p, Fleet& s, float t_new, float hi,
+                                      float sk, float te, int SF, int lane, float& a_crash) {
+  unsigned gone = 0u, crashed = 0u;
 #pragma unroll
-  for (int g = 0; g < FP; ++g) {
-    int n = 0;
-#pragma unroll
-    for (int q = 0; q < SF; ++q) n += __popc(__ballot_sync(FULL, (mask >> (g * SF + q)) & 1u));
-    if (lane == g && n) acc = __fadd_rn(acc, (float)n);
+  for (int j = 0; j < L; ++j) {
+    const float dj = doom_of(p, j);
+    if (((p.used >> j) & 1u) && fminf(p.expire[j], dj) <= t_new) {
+      gone |= 1u << j;
+      if (FAULT && dj < p.expire[j] && dj > sk && dj <= te) crashed |= 1u << j;
+    }
   }
+  if (__any_sync(FULL, gone)) {
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      unsigned lanes = __ballot_sync(FULL, (gone >> j) & 1u);
+      if (!lanes) continue;  // warp-uniform
+      const float2 a = (gone >> j) & 1u ? accrue(p.busy[j], p.expire[j], doom_of(p, j), hi, te)
+                                        : make_float2(0.f, 0.f);
+      while (lanes) {
+        const int src = __ffs(lanes) - 1;
+        lanes &= lanes - 1;
+        const int id = __shfl_sync(FULL, p.id[j], src);
+        const float r = __shfl_sync(FULL, a.x, src), d = __shfl_sync(FULL, a.y, src);
+        const bool cr = FAULT && __shfl_sync(FULL, (crashed >> j) & 1u, src);
+        const int g = id >> 16, m = id & 0xffff;
+        if (lane == g) {
+          s.a_run = __fsub_rn(s.a_run, r);
+          s.a_idle = __fsub_rn(s.a_idle, d);
+          if (cr) a_crash = __fadd_rn(a_crash, 1.f);
+        }
+        if (lane == (m & 31)) p.alive &= ~(1u << (g * SF + (m >> 5)));
+        --s.live;
+      }
+    }
+    p.used &= ~gone;
+  }
+  float nx = INFINITY;
+#pragma unroll
+  for (int j = 0; j < L; ++j)
+    if ((p.used >> j) & 1u) nx = fminf(nx, fminf(p.expire[j], doom_of(p, j)));
+  s.next_exit = key_value(__reduce_min_sync(FULL, order_key(nx)));
 }
 
-template <int FP, int SF, bool FAULT>
-__global__ void __launch_bounds__(WARPS * 32)
+// QUEUE: queue_depth > 0 (never with FAULT); without it the queue code
+// compiles away
+template <int L, bool FAULT, bool QUEUE>
+__global__ void __launch_bounds__(WARPS * 32, MinBlocks<L>::value)
 fleet_sweep_kernel(const float* __restrict__ t_exp, const float* __restrict__ limit,
                    const float* __restrict__ ncl_in, const float* __restrict__ t_end,
                    const float* __restrict__ skip, const long long* __restrict__ stream,
@@ -243,11 +410,11 @@ fleet_sweep_kernel(const float* __restrict__ t_exp, const float* __restrict__ li
                    const float* __restrict__ crate_in, const float* __restrict__ crash_u,
                    const float* __restrict__ cap_e_in, const float* __restrict__ cap_v_in,
                    float* __restrict__ acc_out, float* __restrict__ qleft_out,
-                   float* __restrict__ doom_out, int N, int F, int M, int K, int Q, int E,
-                   int prestamped, long long rows) {
-  constexpr int S = FP * SF;
-  constexpr int SHIFT = 5 - Log2<FP>::value;
+                   float* __restrict__ doom_out, int N, int F, int M, int K, int Q_in,
+                   int E, int prestamped, long long rows) {
+  const int Q = QUEUE ? Q_in : 0;
   constexpr int COLS = ACC_COLS + (FAULT ? FAULT_COLS : 0);
+  const float qnan = __int_as_float(0x7fc00000);
   extern __shared__ float qmem[];
   const int lane = threadIdx.x & 31;
   const int wib = threadIdx.x >> 5;
@@ -256,53 +423,51 @@ fleet_sweep_kernel(const float* __restrict__ t_exp, const float* __restrict__ li
   const long long row = stream[fleet];
   if (row < 0 || row >= rows) {  // no stream row to read: the fleet's outputs are NaN
     if (lane < F) {
-      for (int c = 0; c < COLS; ++c)
-        acc_out[((size_t)fleet * F + lane) * COLS + c] = __int_as_float(0x7fc00000);
-      qleft_out[(size_t)fleet * F + lane] = __int_as_float(0x7fc00000);
+      for (int c = 0; c < COLS; ++c) acc_out[((size_t)fleet * F + lane) * COLS + c] = qnan;
+      qleft_out[(size_t)fleet * F + lane] = qnan;
     }
     return;
   }
+  const int SF = (M + 31) >> 5;
 
-  // this warp's three [FP, Q] queue planes (enqueue time, warm, cold)
-  float* qt = qmem + (size_t)wib * 3 * FP * Q;
-  float* qw = qt + FP * Q;
-  float* qc = qw + FP * Q;
+  // this warp's three [F, Q] queue planes (enqueue time, warm, cold)
+  float* qt = qmem + (size_t)wib * 3 * F * Q;
+  float* qw = qt + F * Q;
+  float* qc = qw + F * Q;
 
-  unsigned alive = 0u;  // bit s: slot s is live
-  float cre[S], busy[S];
+  Pool<L, FAULT> p;
 #pragma unroll
-  for (int s = 0; s < S; ++s) {
-    cre[s] = NEG;
-    busy[s] = NEG;
+  for (int j = 0; j < L; ++j) {
+    p.ckey[j] = 0u;
+    p.busy[j] = NEG;
+    p.expire[j] = NEG;
+    p.id[j] = 0;
+    if (FAULT) p.doom[FAULT ? j : 0] = INFINITY;
   }
-  // every function's threshold in every lane (indexed by the slot's
-  // function, a compile-time index); padded functions are never live
-  float texp[FP];
-#pragma unroll
-  for (int g = 0; g < FP; ++g) texp[g] = g < F ? t_exp[(size_t)fleet * F + g] : 1.f;
+  Fleet s;
   const float ncl = ncl_in[fleet], tend = t_end[fleet], sk = skip[fleet];
-  // lane g owns function g: its limit, accumulators and queue pointers
+  // lane g owns function g: its threshold, limit, accumulators and queue
   const bool owner = lane < F;
+  const float my_texp = owner ? t_exp[(size_t)fleet * F + lane] : 0.f;
   const float my_limit = owner ? limit[(size_t)fleet * F + lane] : 0.f;
-  float a_cold = 0.f, a_warm = 0.f, a_rej = 0.f, a_run = 0.f, a_idle = 0.f;
+  float a_cold = 0.f, a_warm = 0.f, a_rej = 0.f;
   float a_cresp = 0.f, a_wresp = 0.f, a_over = 0.f, a_arr = 0.f, a_enq = 0.f;
   float a_qsrv = 0.f, a_qwait = 0.f;
   int my_qhead = 0, my_qlen = 0;
   float peak = 0.f, t = 0.f;
-  // faults: the crash clocks (+inf: none stamped), the fleet's crash rate
-  // and capacity profile, its current segment (empty: looked up at the
-  // first event) and the owner lane's fault columns
-  float doom[S];
+  float hi_prev = fminf(fmaxf(t, sk), tend);  // the previous clock, clipped
+  // faults: the fleet's crash rate and capacity profile, its current
+  // segment (empty: looked up at the first event) and the owner lane's
+  // fault columns
+  // (the rate, the profile and the clocks' plane are read where they are
+  // used, which keeps the fault path within the registers of six blocks a SM)
   const bool crash = FAULT && crash_u != nullptr;
   const bool capped = FAULT && cap_v_in != nullptr;
-  const float crate = crash ? crate_in[fleet] : 0.f;
-  const float* cap_e = capped ? cap_e_in + (size_t)fleet * E : nullptr;
-  const float* cap_v = capped ? cap_v_in + (size_t)fleet * (E + 1) : nullptr;
   float cap_now = 0.f, cap_lo = INFINITY, cap_hi = -INFINITY;
   float a_crash = 0.f, a_evict = 0.f, a_int = 0.f;
-  if (FAULT) {
-#pragma unroll
-    for (int s = 0; s < S; ++s) doom[s] = INFINITY;
+  if (crash) {  // +inf until stamped, by the lane that stamps each slot
+    for (int g = 0; g < F; ++g)
+      for (int m = lane; m < M; m += 32) doom_out[((size_t)fleet * F + g) * M + m] = INFINITY;
   }
 
   const size_t srow = (size_t)row * (size_t)K;
@@ -321,201 +486,172 @@ fleet_sweep_kernel(const float* __restrict__ t_exp, const float* __restrict__ li
       const float warm_s = __shfl_sync(FULL, w_l, i);
       const float cold_s = __shfl_sync(FULL, c_l, i);
       const float t_new = prestamped ? dt : __fadd_rn(t, dt);
-      const float lo = fminf(fmaxf(t, sk), tend);
       const float hi = fminf(fmaxf(t_new, sk), tend);
+      // the clock went back: (hi, hi_prev] is counted again (rare)
+      if (hi < hi_prev) settle(p, s, hi, hi_prev, tend, F, lane);
+      hi_prev = hi;
 
-      // 1-2. integrals over (lo, hi] on the pre-expiry pools, then expiry
-      float run_v[FP], idle_v[FP];
-      unsigned kept = alive, crashed = 0u;
-#pragma unroll
-      for (int g = 0; g < FP; ++g) {
-        run_v[g] = 0.f;
-        idle_v[g] = 0.f;
-#pragma unroll
-        for (int q = 0; q < SF; ++q) {
-          const int s = g * SF + q;
-          const bool al = (alive >> s) & 1u;
-          const float expire = __fadd_rn(busy[s], texp[g]);
-          // a crashed instance accrues nothing past its doom
-          const float stop = FAULT ? fminf(hi, doom[s]) : hi;
-          const float r = fmaxf(__fsub_rn(fminf(busy[s], stop), lo), 0.f);
-          const float d = fmaxf(__fsub_rn(fminf(expire, stop), fmaxf(busy[s], lo)), 0.f);
-          run_v[g] = __fadd_rn(run_v[g], al ? r : 0.f);
-          idle_v[g] = __fadd_rn(idle_v[g], al ? d : 0.f);
-          if (FAULT) {
-            // the exit clock that fires first: expiry, or a crash
-            if (al && fminf(expire, doom[s]) <= t_new) {
-              kept &= ~(1u << s);
-              if (doom[s] < expire && doom[s] > sk && doom[s] <= tend) crashed |= 1u << s;
-            }
-          } else if (al && expire <= t_new) {
-            kept &= ~(1u << s);
-          }
-        }
-      }
-      alive = kept;
-      if (crash && __any_sync(FULL, crashed)) count_into_owner<FP, SF>(crashed, lane, a_crash);
-      const int src = (lane & (FP - 1)) << SHIFT;  // the lane holding function lane's sums
-      const float run_sum = __shfl_sync(FULL, reduce_scatter<FP>(run_v, lane), src);
-      const float idle_sum = __shfl_sync(FULL, reduce_scatter<FP>(idle_v, lane), src);
-      a_run = __fadd_rn(a_run, run_sum);
-      a_idle = __fadd_rn(a_idle, idle_sum);
+      // 1-2. the exits (expiry, or a crash), once the clock reaches the
+      // bound; the integrals up to hi are already accrued
+      if (t_new >= s.next_exit) exits(p, s, t_new, hi, sk, tend, SF, lane, a_crash);
 
       const bool counted = t_new > sk;
       const bool in_h = t_new <= tend;
       if (capped) {
         // capacity churn: evict the newest idle instances fleet-wide above
-        // the ceiling, one arg-max pass each
+        // the ceiling, one newest() each (removing instances keeps the
+        // exit bound a bound)
         if (!(t_new >= cap_lo && t_new < cap_hi))
-          cap_seek(cap_e, cap_v, E, t_new, lane, cap_now, cap_lo, cap_hi);
-        const float cl0 = (float)__reduce_add_sync(FULL, (unsigned)__popc(alive));
-        const float over = __fsub_rn(cl0, cap_now);
+          cap_seek(cap_e_in + (size_t)fleet * E, cap_v_in + (size_t)fleet * (E + 1), E, t_new,
+                   lane, cap_now, cap_lo, cap_hi);
+        const float over = __fsub_rn((float)s.live, cap_now);
         if (over > 0.f && in_h) {
-          float best;
-          int best_f;
-          newest_idle_fleet<FP, SF>(alive, cre, busy, t_new, M, lane, best, best_f);
-          for (int nev = 0; (float)nev < over && best > NEG * 0.5f; ++nev) {
-            const int g = best_f / M, m = best_f - g * M;
-            if (lane == (m & 31)) alive &= ~(1u << (g * SF + (m >> 5)));
-            if (lane == g && counted) a_evict = __fadd_rn(a_evict, 1.f);
-            newest_idle_fleet<FP, SF>(alive, cre, busy, t_new, M, lane, best, best_f);
+          for (int nev = 0; (float)nev < over; ++nev) {
+            const Newest r = newest(p, -1, M, t_new);
+            if (r.best == 0u) break;  // nothing idle is left
+            const bool win = r.mine();
+            float2 a = make_float2(0.f, 0.f);
+#pragma unroll
+            for (int j = 0; j < L; ++j)
+              if (win && j == r.ent) a = accrue(p.busy[j], p.expire[j], doom_of(p, j), hi, tend);
+            if (win) p.used &= ~(1u << r.ent);
+            const int wl = __ffs(__ballot_sync(FULL, win)) - 1;
+            const float rr = __shfl_sync(FULL, a.x, wl), d = __shfl_sync(FULL, a.y, wl);
+            const int g = (int)r.best_idx / M, m = (int)r.best_idx - g * M;
+            if (lane == g) {
+              s.a_run = __fsub_rn(s.a_run, rr);
+              s.a_idle = __fsub_rn(s.a_idle, d);
+              if (counted) a_evict = __fadd_rn(a_evict, 1.f);
+            }
+            if (lane == (m & 31)) p.alive &= ~(1u << (g * SF + (m >> 5)));
+            --s.live;
           }
         }
       }
-      if (fa < F) {  // warp-uniform; an id past F acts on no function
-        const float lim = __shfl_sync(FULL, my_limit, fa);
+      // an event past the horizon changes nothing but the clock and the exits
+      if (fa < F && in_h) {  // warp-uniform; an id past F acts on no function
+        const float texp = __shfl_sync(FULL, my_texp, fa);
         const bool mine = lane == fa;
-        float best;
-        int best_m, first_free, nal;
+        float* doom_f = crash ? doom_out + ((size_t)fleet * F + fa) * M : nullptr;
         int qlen = 0, qhead = 0;
         if (Q > 0) {
           qlen = __shfl_sync(FULL, my_qlen, fa);
           qhead = __shfl_sync(FULL, my_qhead, fa);
         }
-        // 3. drain passes ahead of the arrival
-        if (Q > 0 && in_h) {
-          for (int pass = 0; pass < Q && qlen > 0; ++pass) {
-            route<FP, SF>(fa, alive, cre, busy, t_new, M, lane, best, best_m, first_free, nal);
-            const int cl = (int)__reduce_add_sync(FULL, (unsigned)__popc(alive));
-            const bool any_idle = best > NEG * 0.5f;
-            const bool can_cold = !any_idle && (float)nal < lim && first_free >= 0 &&
-                                  (float)cl < ncl;
-            if (!any_idle && !can_cold) break;  // nothing served: nothing changes
-            const int h = fa * Q + qhead;
-            const float ht = qt[h], hw = qw[h], hc = qc[h];
-            const float service = any_idle ? hw : hc;
-            assign<FP, SF>(fa, any_idle ? best_m : first_free, can_cold, t_new,
-                           __fadd_rn(t_new, service), lane, alive, cre, busy);
-            if (mine && counted) {
-              if (can_cold) {
-                a_cold = __fadd_rn(a_cold, 1.f);
-                a_cresp = __fadd_rn(a_cresp, hc);
-              } else {
-                a_warm = __fadd_rn(a_warm, 1.f);
-                a_wresp = __fadd_rn(a_wresp, hw);
-              }
-              a_qsrv = __fadd_rn(a_qsrv, 1.f);
-              a_qwait = __fadd_rn(a_qwait, __fsub_rn(t_new, ht));
-            }
-            qhead = qhead + 1 == Q ? 0 : qhead + 1;
-            --qlen;
+        // 3. drain passes ahead of the arrival (no faults with queues)
+        for (int pass = 0; pass < Q && qlen > 0; ++pass) {
+          const Newest r = newest(p, fa, M, t_new);
+          const bool any_idle = r.best != 0u && key_value(r.best) > NEG * 0.5f;
+          Slots fs{-1, 0};
+          bool can_cold = false;
+          if (!any_idle) {
+            fs = slots_of(p.alive, fa, M, SF);
+            can_cold = (float)fs.n_alive < __shfl_sync(FULL, my_limit, fa) &&
+                       fs.first_free >= 0 && (float)s.live < ncl;
+            if (!can_cold) break;  // nothing served: nothing changes
           }
+          const int h = fa * Q + qhead;
+          const float ht = qt[h], hw = qw[h], hc = qc[h];
+          const float done = __fadd_rn(t_new, any_idle ? hw : hc);
+          const float expire = __fadd_rn(done, texp);
+          if (any_idle) warm_start(p, s, r, fa, hi, tend, done, expire, lane);
+          else cold_start(p, s, fa, fs.first_free, t_new, hi, tend, done, expire, INFINITY, SF,
+                          lane, doom_f);
+          if (mine && counted) {
+            if (can_cold) {
+              a_cold = __fadd_rn(a_cold, 1.f);
+              a_cresp = __fadd_rn(a_cresp, hc);
+            } else {
+              a_warm = __fadd_rn(a_warm, 1.f);
+              a_wresp = __fadd_rn(a_wresp, hw);
+            }
+            a_qsrv = __fadd_rn(a_qsrv, 1.f);
+            a_qwait = __fadd_rn(a_qwait, __fsub_rn(t_new, ht));
+          }
+          qhead = qhead + 1 == Q ? 0 : qhead + 1;
+          --qlen;
         }
-        // 4. the arrival
-        route<FP, SF>(fa, alive, cre, busy, t_new, M, lane, best, best_m, first_free, nal);
-        const int cl = (int)__reduce_add_sync(FULL, (unsigned)__popc(alive));
-        const bool any_idle = best > NEG * 0.5f;
-        const bool any_free = first_free >= 0;
-        const bool below = (float)nal < lim;
-        // with a capacity profile a cold start also needs the fleet's live
-        // count below the ceiling
-        const bool can_cold = !any_idle && below && any_free && (float)cl < ncl &&
-                              (!capped || (float)cl < cap_now);
-        const bool is_warm = any_idle && in_h;
-        const bool is_cold = can_cold && in_h;
-        const bool can_enq = !any_idle && !can_cold && qlen < Q;
-        const bool is_enq = can_enq && in_h;
-        const bool is_reject = !any_idle && !can_cold && !can_enq && in_h;
-        if (is_warm || is_cold) {
-          const int m = is_warm ? best_m : first_free;
-          const float done = __fadd_rn(t_new, is_warm ? warm_s : cold_s);
-          assign<FP, SF>(fa, m, is_cold, t_new, done, lane, alive, cre, busy);
-          if (crash) {
+        // 4. the arrival: warm on the newest idle instance; the slots are
+        // read only when none is idle
+        const Newest r = newest(p, fa, M, t_new);
+        const bool is_warm = r.best != 0u && key_value(r.best) > NEG * 0.5f;
+        if (is_warm) {
+          const float done = __fadd_rn(t_new, warm_s);
+          const float dc =
+              warm_start(p, s, r, fa, hi, tend, done, __fadd_rn(done, texp), lane);
+          if (mine && counted) {
+            a_warm = __fadd_rn(a_warm, 1.f);
+            a_wresp = __fadd_rn(a_wresp, warm_s);
+            a_arr = __fadd_rn(a_arr, 1.f);
+            if (crash && dc < done) a_int = __fadd_rn(a_int, 1.f);
+          }
+        } else {
+          const Slots fs = slots_of(p.alive, fa, M, SF);
+          const bool any_free = fs.first_free >= 0;
+          const bool below = (float)fs.n_alive < __shfl_sync(FULL, my_limit, fa);
+          // with a capacity profile a cold start also needs the fleet's
+          // live count below the ceiling
+          const bool is_cold = below && any_free && (float)s.live < ncl &&
+                               (!capped || (float)s.live < cap_now);
+          const bool is_enq = !is_cold && qlen < Q;
+          if (is_cold) {
             // the lifetime stamped at a cold start; the served attempt is
             // interrupted when its instance dies before the service ends
             float life = INFINITY;
-            if (is_cold && crate > 0.f)
+            const float crate = crash ? __ldg(crate_in + fleet) : 0.f;
+            if (crate > 0.f)
               life = __fdiv_rn(-logf(__fsub_rn(1.f, __shfl_sync(FULL, u_l, i))), crate);
-            float dc = INFINITY;
-#pragma unroll
-            for (int g = 0; g < FP; ++g) {
-              if (g == fa) {
-#pragma unroll
-                for (int q = 0; q < SF; ++q) {
-                  if (q * 32 + lane == m) {
-                    if (is_cold) doom[g * SF + q] = __fadd_rn(t_new, life);
-                    dc = doom[g * SF + q];
-                  }
-                }
-              }
+            const float done = __fadd_rn(t_new, cold_s);
+            const float doom = FAULT ? __fadd_rn(t_new, life) : INFINITY;
+            cold_start(p, s, fa, fs.first_free, t_new, hi, tend, done, __fadd_rn(done, texp),
+                       doom, SF, lane, doom_f);
+            if (mine && counted && crash && doom < done) a_int = __fadd_rn(a_int, 1.f);
+          }
+          if (is_enq) {
+            int pos = qhead + qlen;
+            if (pos >= Q) pos -= Q;
+            if (lane == 0) {
+              qt[fa * Q + pos] = t_new;
+              qw[fa * Q + pos] = warm_s;
+              qc[fa * Q + pos] = cold_s;
             }
-            const bool cut = __shfl_sync(FULL, dc, m & 31) < done;
-            if (mine && counted && cut) a_int = __fadd_rn(a_int, 1.f);
+            __syncwarp();
+            ++qlen;
           }
-        }
-        if (is_enq) {
-          int pos = qhead + qlen;
-          if (pos >= Q) pos -= Q;
-          if (lane == 0) {
-            qt[fa * Q + pos] = t_new;
-            qw[fa * Q + pos] = warm_s;
-            qc[fa * Q + pos] = cold_s;
+          if (mine) {
+            if (counted) {
+              if (is_cold) {
+                a_cold = __fadd_rn(a_cold, 1.f);
+                a_cresp = __fadd_rn(a_cresp, cold_s);
+              }
+              if (!is_cold && !is_enq) a_rej = __fadd_rn(a_rej, 1.f);
+              a_arr = __fadd_rn(a_arr, 1.f);
+              if (is_enq) a_enq = __fadd_rn(a_enq, 1.f);
+            }
+            // overflow is counted for arrivals in the horizon, past skip or not
+            if (below && !any_free) a_over = __fadd_rn(a_over, 1.f);
           }
-          __syncwarp();
-          ++qlen;
         }
         if (mine) {
-          if (counted) {
-            if (is_cold) {
-              a_cold = __fadd_rn(a_cold, 1.f);
-              a_cresp = __fadd_rn(a_cresp, cold_s);
-            }
-            if (is_warm) {
-              a_warm = __fadd_rn(a_warm, 1.f);
-              a_wresp = __fadd_rn(a_wresp, warm_s);
-            }
-            if (is_reject) a_rej = __fadd_rn(a_rej, 1.f);
-            if (in_h) a_arr = __fadd_rn(a_arr, 1.f);
-            if (is_enq) a_enq = __fadd_rn(a_enq, 1.f);
-          }
-          // overflow is counted for arrivals in the horizon, past skip or not
-          if (!any_idle && below && !any_free && in_h) a_over = __fadd_rn(a_over, 1.f);
           my_qlen = qlen;
           my_qhead = qhead;
         }
       }
       // 5. the fleet-wide peak, on every event
-      peak = fmaxf(peak, (float)__reduce_add_sync(FULL, (unsigned)__popc(alive)));
+      peak = fmaxf(peak, (float)s.live);
       t = t_new;
     }
   }
 
-  if (crash) {
-#pragma unroll
-    for (int g = 0; g < FP; ++g)
-#pragma unroll
-      for (int q = 0; q < SF; ++q) {
-        const int m = q * 32 + lane;
-        if (g < F && m < M) doom_out[((size_t)fleet * F + g) * M + m] = doom[g * SF + q];
-      }
-  }
+  // the live instances give back what they accrued past the last clock
+  settle(p, s, tend, fminf(fmaxf(t, sk), tend), tend, F, lane);
   if (owner) {
     float* a = acc_out + ((size_t)fleet * F + lane) * COLS;
     a[0] = a_cold;
     a[1] = a_warm;
     a[2] = a_rej;
-    a[3] = a_run;
-    a[4] = a_idle;
+    a[3] = s.a_run;
+    a[4] = s.a_idle;
     a[5] = a_cresp;
     a[6] = a_wresp;
     a[7] = a_over;
@@ -530,6 +666,10 @@ fleet_sweep_kernel(const float* __restrict__ t_exp, const float* __restrict__ li
       a[15] = a_int;
     }
     qleft_out[(size_t)fleet * F + lane] = (float)my_qlen;
+    if (s.broken) {  // the live-count bound was below the live count
+      for (int c = 0; c < COLS; ++c) a[c] = qnan;
+      qleft_out[(size_t)fleet * F + lane] = qnan;
+    }
   }
 }
 
@@ -539,11 +679,11 @@ struct Dims {
   long long rows;
 };
 
-template <int FP, int SF, bool FAULT>
+template <int L, bool FAULT, bool QUEUE>
 void launch(const void* const* in, void* const* out, const Dims& d, cudaStream_t stream) {
   const dim3 blocks((d.N + WARPS - 1) / WARPS), threads(WARPS * 32);
-  const size_t smem = (size_t)WARPS * 3 * FP * d.Q * sizeof(float);
-  fleet_sweep_kernel<FP, SF, FAULT><<<blocks, threads, smem, stream>>>(
+  const size_t smem = (size_t)WARPS * 3 * d.F * d.Q * sizeof(float);
+  fleet_sweep_kernel<L, FAULT, QUEUE><<<blocks, threads, smem, stream>>>(
       (const float*)in[0], (const float*)in[1], (const float*)in[2], (const float*)in[3],
       (const float*)in[4], (const long long*)in[5], (const float*)in[6],
       (const uint8_t*)in[7], (const float*)in[8], (const float*)in[9],
@@ -552,21 +692,22 @@ void launch(const void* const* in, void* const* out, const Dims& d, cudaStream_t
       d.K, d.Q, d.E, d.prestamped, d.rows);
 }
 
-// the narrowest instance holding sf slots per function per lane; past 32
-// slots per lane (FP * SF > 32) there is none
-template <int FP, int SF = 1>
-int launch_fp(const void* const* in, void* const* out, const Dims& d, bool faults,
-              cudaStream_t st) {
-  if constexpr (FP * SF > 32) {
-    return (int)cudaErrorInvalidValue;
-  } else {
-    if ((d.M + 31) / 32 <= SF) {
-      if (faults) launch<FP, SF, true>(in, out, d, st);
-      else launch<FP, SF, false>(in, out, d, st);
-      return 0;
-    }
-    return launch_fp<FP, SF * 2>(in, out, d, faults, st);
+// entries a lane of the narrowest table holding `live` instances in 32 lanes
+int table_entries(int live) {
+  int L = 1;
+  while (L < MAX_TABLE && 32 * L < live) L *= 2;
+  return L;
+}
+
+template <int L = 1>
+void launch_table(const void* const* in, void* const* out, const Dims& d, int entries,
+                  bool faults, cudaStream_t st) {
+  if constexpr (L < MAX_TABLE) {
+    if (L < entries) return launch_table<L * 2>(in, out, d, entries, faults, st);
   }
+  if (faults) launch<L, true, false>(in, out, d, st);
+  else if (d.Q > 0) launch<L, false, true>(in, out, d, st);
+  else launch<L, false, false>(in, out, d, st);
 }
 
 }  // namespace
@@ -579,10 +720,13 @@ int launch_fp(const void* const* in, void* const* out, const Dims& d, bool fault
 // [N, E] (strictly increasing, > 0; null when E = 0) and cap_values [N,
 // E+1] (capacity) — all contiguous, on `device`.  Outputs: acc [N, F, 13,
 // or 16 with faults], qleft [N, F] f32, and doom [N, F, M] with crashes
-// (else null).  Caps: F <= 8, F rounded up to a power of two times M
-// rounded up to a power-of-two multiple of 32 at most 1024 slots, Q <=
-// 128.  Launches on `stream_ptr` and returns cudaGetLastError() (or
-// cudaErrorInvalidValue for an input past a cap).
+// (else null).  `live` bounds every fleet's live instance count (the table
+// holds the narrowest power-of-two multiple of 32 entries at or above it,
+// up to 1024; a fleet that outgrows it gets NaN outputs).  Caps: F <= 8, F
+// rounded up to a power of two times M rounded up to a power-of-two
+// multiple of 32 at most 1024 slots, Q <= 128.  Launches on `stream_ptr`
+// and returns cudaGetLastError() (or cudaErrorInvalidValue for an input
+// past a cap).
 extern "C" int fleet_sweep_f32(const void* t_exp, const void* limit, const void* ncl,
                                const void* t_end, const void* skip, const void* stream,
                                const void* times, const void* fids, const void* warms,
@@ -590,12 +734,15 @@ extern "C" int fleet_sweep_f32(const void* t_exp, const void* limit, const void*
                                const void* crash_u, const void* cap_edges,
                                const void* cap_values, void* acc, void* qleft, void* doom,
                                int N, int F, int M, int S, int K, int Q, int E,
-                               int prestamped, int device, void* stream_ptr) {
+                               int prestamped, int live, int device, void* stream_ptr) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const bool crash = crash_u != nullptr, capped = cap_values != nullptr;
-  if (N < 1 || F < 1 || F > MAX_FUNCTIONS || M < 1 || S < 1 || K < 0 || Q < 0 ||
-      Q > MAX_QUEUE || ((crash || capped) && Q > 0) ||
+  int fp = 1, sf = 1;
+  while (fp < F) fp *= 2;
+  while (32 * sf < M) sf *= 2;
+  if (N < 1 || F < 1 || F > MAX_FUNCTIONS || M < 1 || fp * sf > 32 || S < 1 || K < 0 ||
+      Q < 0 || Q > MAX_QUEUE || live < 1 || ((crash || capped) && Q > 0) ||
       (crash && (crash_rate == nullptr || doom == nullptr)) ||
       (capped && (E < 0 || (E > 0 && cap_edges == nullptr))))
     return (int)cudaErrorInvalidValue;
@@ -603,13 +750,11 @@ extern "C" int fleet_sweep_f32(const void* t_exp, const void* limit, const void*
                         fids,  warms, colds, crash_rate, crash_u, cap_edges, cap_values};
   void* out[3] = {acc, qleft, doom};
   const Dims d{N, F, M, K, Q, capped ? E : 0, prestamped, S};
-  const bool faults = crash || capped;
-  cudaStream_t st = (cudaStream_t)stream_ptr;
-  int rc;
-  if (F <= 1) rc = launch_fp<1>(in, out, d, faults, st);
-  else if (F <= 2) rc = launch_fp<2>(in, out, d, faults, st);
-  else if (F <= 4) rc = launch_fp<4>(in, out, d, faults, st);
-  else rc = launch_fp<8>(in, out, d, faults, st);
-  if (rc != 0) return rc;
+  launch_table(in, out, d, table_entries(live < F * M ? live : F * M), crash || capped,
+               (cudaStream_t)stream_ptr);
   return (int)cudaGetLastError();
 }
+
+// The table entries a lane that fleet_sweep_f32 launches with for `live`
+// (its live bound, clipped to F*M by the caller).
+extern "C" int fleet_table_entries(int live) { return table_entries(live); }

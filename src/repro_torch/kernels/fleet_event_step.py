@@ -6,9 +6,10 @@ fleet_sweep_pallas`` (and its launcher ``_pallas_fleet_rows``) for the base
 path, the gap and prestamped stream modes, FIFO queues and platform faults
 (crashes and capacity churn, not with queues): F <= 8 function pools under
 one shared cluster capacity.  The kernel is
-``csrc/fleet_event_step.cu`` (one warp per fleet, all F*M slots in
-registers; its header says what bounds it and why it is built the way it
-is).  Unlike the reference's 8-row blocks, each fleet reads its replica's
+``csrc/fleet_event_step.cu`` (one warp per fleet: an alive bitmap of
+the F*M slots and a compact table of the live instances in registers, the
+integrals accrued per state span; its header says what bounds it and why
+it is built the way it is).  Unlike the reference's 8-row blocks, each fleet reads its replica's
 row of one ``[replicas, K]`` merged stream through the per-fleet index
 ``stream``, so the cells of a sweep share the stream instead of copying it.
 
@@ -38,8 +39,9 @@ from repro_torch.kernels.ref import (
     fleet_sweep_ref,
 )
 
-# slots per lane of one warp (csrc/fleet_event_step.cu): F rounded up to a
-# power of two times M rounded up to a power-of-two multiple of 32 must fit
+# the alive bitmap of one warp (csrc/fleet_event_step.cu), one unsigned a
+# lane: F rounded up to a power of two times M rounded up to a power-of-two
+# multiple of 32 must fit
 MAX_FLEET_SLOTS = 1024
 # queue entries per function (three [8, Q] planes per warp in shared memory)
 MAX_QUEUE = 128
@@ -59,9 +61,17 @@ def fleet_slots(F: int, M: int) -> int:
 def _kernel():
     """The C entry ``fleet_sweep_f32``, built and loaded on first use."""
     fn = _build.load("fleet_event_step").fleet_sweep_f32
-    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def table_entries(F: int, M: int, live_bound=None) -> int:
+    """Entries a lane of the live table that :func:`fleet_sweep` launches
+    the kernel with for ``live_bound`` (None: F*M), as the kernel's launch
+    chooses them (builds the kernel on first use)."""
+    live = F * M if live_bound is None else int(live_bound)
+    return int(_build.load("fleet_event_step").fleet_table_entries(min(live, F * M)))
 
 
 def fleet_sweep(
@@ -83,6 +93,7 @@ def fleet_sweep(
     crash_u=None,  # f32 [S, K] per-event crash-lifetime uniforms (faults)
     cap_edges=None,  # f32 [N, E] capacity-profile step times (faults)
     cap_values=None,  # f32 [N, E+1] per-segment capacity ceilings (faults)
+    live_bound=None,  # int: no fleet ever holds more live instances (None: F*M)
 ):
     """Run each fleet's stream row against its F pools; returns
     ``(acc[N, F, 13], qleft[N, F])``, with faults ``acc[N, F, 16]`` and
@@ -94,6 +105,11 @@ def fleet_sweep(
     reads nothing back from the card: on CUDA tensors a fleet whose
     ``stream`` row lies outside ``[0, S)`` gets NaN outputs instead of an
     error.
+
+    ``live_bound`` sizes the kernel's table of live instances: the host
+    knows it without reading the card
+    (:func:`repro_torch.core.fleet.live_bound`), and a fleet
+    that outgrows it gets NaN outputs.
     """
     crashes, capped = check_fault_inputs(crash_rate, crash_u, cap_edges, cap_values)
     if (crashes or capped) and int(queue_depth) > 0:
@@ -151,7 +167,7 @@ def fleet_sweep(
         )
     if fleet_slots(F, M) > MAX_FLEET_SLOTS:
         raise ValueError(
-            f"fleet_sweep keeps a fleet's slots in one warp's registers: F "
+            f"fleet_sweep keeps a fleet's alive bitmap in one warp's registers: F "
             f"and M/32 rounded up to powers of two must give at most "
             f"{MAX_FLEET_SLOTS} slots, got F={F}, M={M} -> {fleet_slots(F, M)}"
         )
@@ -159,6 +175,9 @@ def fleet_sweep(
         raise ValueError(f"queue_depth must be in [0, {MAX_QUEUE}], got {Q}")
     if K >= 1 << 31:
         raise ValueError(f"fleet_sweep takes fewer than 2**31 events, got K={K}")
+    live = F * M if live_bound is None else int(live_bound)
+    if live < 1:
+        raise ValueError(f"live_bound must be >= 1, got {live_bound}")
     cols = FLEET_ACC_COLS + (FAULT_COLS if crashes or capped else 0)
     acc = torch.empty((N, F, cols), dtype=torch.float32, device=dev)
     qleft = torch.empty((N, F), dtype=torch.float32, device=dev)
@@ -170,7 +189,7 @@ def fleet_sweep(
         warms.data_ptr(), colds.data_ptr(), ptr(crash_rate if crashes else None),
         ptr(crash_u), ptr(cap_edges if capped and E else None), ptr(cap_values),
         acc.data_ptr(), qleft.data_ptr(), ptr(doom), N, F, M, S, K, Q, E,
-        int(bool(prestamped)),
+        int(bool(prestamped)), min(live, F * M),
         dev.index if dev.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(dev).cuda_stream,
     )

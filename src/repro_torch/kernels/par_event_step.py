@@ -4,8 +4,10 @@
 par_sweep_pallas``, the concurrency-value platform (Knative / Cloud Run
 style): each instance serves up to ``concurrency`` requests, held as
 ``finish[M, c]`` request finish times.  The kernel is
-``csrc/par_event_step.cu`` (one warp per row, ``finish`` in shared memory;
-its header says what bounds it and why it is built the way it is).  It
+``csrc/par_event_step.cu`` (one warp per row, ``finish`` in shared memory,
+each instance's busy and free-by clocks in registers, the integrals accrued
+per state span; its header says what bounds it and why it is built the way
+it is).  It
 keeps exactly ``slots`` slots and runs exactly K arrivals: the reference's
 lane padding of the slot axis and ``1e30`` padding of K are TPU layout.
 

@@ -850,10 +850,12 @@ def _ref_par_rows(
 
 @register_backend("ref", engines=("fleet",))
 def _ref_fleet_rows(
-    t_exp, limit, ncl, t_end, skip, stream, times, fids, warms, colds, **kw,
+    t_exp, limit, ncl, t_end, skip, stream, times, fids, warms, colds, *,
+    live_bound=None, **kw,
 ):
     """Backend ``"ref"``'s fleet launcher: ``(acc[N, F, 13 or 16], qleft[N,
-    F])`` (``kw`` as :func:`fleet_sweep_ref` takes them)."""
+    F])`` (``kw`` as :func:`fleet_sweep_ref` takes them; ``live_bound``
+    sizes only the kernel's table)."""
     return fleet_sweep_ref(
         t_exp, limit, ncl, t_end, skip, stream, times, fids, warms, colds, **kw,
     )[:2]

@@ -104,7 +104,7 @@ def test_wrapper_checks_inputs(cuda_device):
 PAR_INTEGRAL_COLS = [3, 4, 8]
 
 
-def _par_inputs(dev, seed, R, K, t_exp, prestamped, rate=1.5):
+def _par_inputs(dev, seed, R, K, t_exp, prestamped, rate=1.5, shift=0.0):
     rng = np.random.default_rng(seed)
     dts = rng.exponential(1 / rate, (R, K))
     horizon = K / rate
@@ -115,7 +115,7 @@ def _par_inputs(dev, seed, R, K, t_exp, prestamped, rate=1.5):
     args = (
         t(t_exp * rng.uniform(0.5, 1.5, R)),
         t(dts),
-        t(rng.exponential(2.0, (R, K))),
+        t(rng.exponential(2.0, (R, K)) - shift),
         t(rng.exponential(2.5, (R, K))),
     )
     kw = dict(t_end=t(horizon * rng.uniform(0.5, 0.9, R)),
@@ -123,19 +123,35 @@ def _par_inputs(dev, seed, R, K, t_exp, prestamped, rate=1.5):
     return args, kw
 
 
+def _par_case(M, c, t_exp, max_c, prestamped, rate=1.5, shift=0.0, id=None):
+    return pytest.param(M, c, t_exp, max_c, prestamped, rate, shift,
+                        id=id or f"{M}-{c}-{t_exp}-{max_c}-{prestamped}")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "M,c,t_exp,max_c,prestamped",
+    "M,c,t_exp,max_c,prestamped,rate,shift",
     [
-        (40, 1, 10.0, 100, False),
-        (40, 3, 10.0, 4, False),  # rejections
-        (7, 80, 30.0, 100, False),  # one slot per lane, 80 sub-slots
-        (130, 3, 30.0, 1000, True),  # five slots per lane, absolute timestamps
-        (4, 3, 0.5, 100, False),  # cold starts into expired, stale slots
+        _par_case(40, 1, 10.0, 100, False),
+        _par_case(40, 3, 10.0, 4, False),  # rejections
+        _par_case(7, 80, 30.0, 100, False),  # one slot per lane, 80 sub-slots
+        _par_case(130, 3, 30.0, 1000, True),  # five slots per lane, absolute timestamps
+        _par_case(4, 3, 0.5, 100, False),  # cold starts into expired, stale slots
+        # c at and past a warp's width, arrivals fast enough that several
+        # instances are live: a pass over a row spans one, two, three words a lane
+        _par_case(64, 32, 30.0, 100, False, rate=40.0, id="c32-several-live"),
+        _par_case(64, 33, 30.0, 100, False, rate=40.0, id="c33-several-live"),
+        _par_case(64, 80, 30.0, 100, False, rate=100.0, id="c80-several-live"),
+        # the last c the owner lane walks alone, and the first spread over lanes
+        _par_case(64, 3, 30.0, 100, False, rate=20.0, id="c3-owner-walk"),
+        _par_case(64, 4, 30.0, 100, False, rate=20.0, id="c4-spread"),
+        # warm services below zero: a warm request replaces the instance's
+        # maximal finish with a smaller one, so busy falls
+        _par_case(16, 4, 10.0, 100, False, rate=3.0, shift=1.5, id="busy-falls"),
     ],
 )
-def test_par_kernel_matches_plain(cuda_device, M, c, t_exp, max_c, prestamped):
-    args, kw = _par_inputs(cuda_device, 8, 37, 300, t_exp, prestamped)
+def test_par_kernel_matches_plain(cuda_device, M, c, t_exp, max_c, prestamped, rate, shift):
+    args, kw = _par_inputs(cuda_device, 8, 37, 300, t_exp, prestamped, rate, shift)
     kw.update(max_concurrency=max_c, concurrency=c, slots=M, prestamped=prestamped)
     before = pes.LAUNCH_COUNTS["par_sweep"]
     out_k = [o.cpu().numpy() for o in pes.par_sweep(*args, **kw)]
@@ -148,6 +164,71 @@ def test_par_kernel_matches_plain(cuda_device, M, c, t_exp, max_c, prestamped):
         out_k[4][:, PAR_INTEGRAL_COLS], out_p[4][:, PAR_INTEGRAL_COLS],
         rtol=INTEGRAL_RTOL,
     )
+    if rate > 10:  # several instances took requests in most rows
+        assert (out_k[0].sum(1) >= 2).mean() > 0.5
+    if shift:  # some warm service ended before it started
+        assert (args[2].cpu().numpy() < 0).any() and out_k[4][:, 1].sum() > 0
+
+
+def _shuffled(times, rows, lo, hi, seed):
+    """``times`` with events [lo, hi) of ``rows`` in a random order: the
+    prestamped clock goes back and forth there."""
+    g = torch.Generator().manual_seed(seed)
+    out = times.clone()
+    for r in rows:
+        perm = torch.randperm(hi - lo, generator=g).to(times.device) + lo
+        out[r, lo:hi] = times[r, perm]
+    return out
+
+
+def _clock_goes_back(times, rows, skip, t_end):
+    """Whether the clock clipped to [skip, t_end] goes back in each row."""
+    hi = torch.minimum(torch.maximum(times[rows], skip[:, None]), t_end[:, None])
+    return (hi[:, 1:] < hi[:, :-1]).any(1).cpu().numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("faults", [False, True])
+def test_par_and_fleet_recount_a_clock_that_goes_back(cuda_device, faults):
+    # the kernels accrue the integrals per state span; where the clipped
+    # clock goes back, the plain version counts the interval it went back
+    # over again, and so must they: every output as the plain version's
+    if not faults:
+        args, kw = _par_inputs(cuda_device, 12, 16, 300, 10.0, True, rate=3.0)
+        times = _shuffled(args[1], range(0, 16, 2), 100, 140, 0)  # even rows
+        assert _clock_goes_back(times, slice(0, 16, 2), kw["skip"][::2], kw["t_end"][::2]).all()
+        kw.update(max_concurrency=100, concurrency=3, slots=16, prestamped=True)
+        out_k = [o.cpu().numpy() for o in pes.par_sweep(args[0], times, *args[2:], **kw)]
+        out_p = [o.cpu().numpy() for o in faas_par_sweep_ref(args[0], times, *args[2:], **kw)]
+        for a, b in zip(out_k[:4], out_p[:4]):  # alive, creation, finish, t
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(out_k[4][:, EXACT_COLS], out_p[4][:, EXACT_COLS])
+        np.testing.assert_allclose(out_k[4][:, PAR_INTEGRAL_COLS],
+                                   out_p[4][:, PAR_INTEGRAL_COLS], rtol=INTEGRAL_RTOL)
+        assert np.isfinite(out_k[4]).all()
+    fargs, fkw = _fleet_inputs(cuda_device, 16, 3, 4.0, 1000, True, 16)
+    fargs = list(fargs)
+    fargs[6] = _shuffled(fargs[6], (0, 1), 50, 90, 1)  # stream rows 0 and 1
+    N, (S, K) = fargs[0].shape[0], fargs[6].shape
+    sel = fargs[5] <= 1  # the fleets that read those rows
+    assert _clock_goes_back(fargs[6][fargs[5][sel]], slice(None), fargs[4][sel],
+                            fargs[3][sel]).all()
+    cols = FLEET_EXACT_COLS
+    if faults:
+        rng = np.random.default_rng(17)
+        t = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32, device=cuda_device)
+        horizon = float(fargs[3].max())
+        fkw.update(crash_rate=t(rng.uniform(0.01, 0.05, N)), crash_u=t(rng.random((S, K))),
+                   cap_edges=t(np.sort(rng.uniform(0.2, 0.8, (N, 2)), 1) * horizon),
+                   cap_values=t(np.tile([12.0, 6.5, 16.0], (N, 1))))
+        cols = [c for c in range(16) if c not in (3, 4)]
+    out_f = [o.cpu().numpy() for o in fles.fleet_sweep(*fargs, **fkw)]
+    out_r = [o.cpu().numpy() for o in fleet_sweep_ref(*fargs, **fkw)]
+    np.testing.assert_array_equal(out_f[0][..., cols], out_r[0][..., cols])
+    np.testing.assert_allclose(out_f[0][..., 3:5], out_r[0][..., 3:5], rtol=INTEGRAL_RTOL)
+    for a, b in zip(out_f[1:], out_r[1:]):  # queue lengths, crash clocks
+        np.testing.assert_array_equal(a, b)
+    assert np.isfinite(out_f[0]).all()
 
 
 @pytest.mark.cuda
@@ -214,6 +295,7 @@ def test_run_engines_launch_the_kernels(cuda_device):
 # the fleet kernel
 # ---------------------------------------------------------------------------
 
+from repro_torch.core.fleet import live_bound  # noqa: E402
 from repro_torch.kernels import fleet_event_step as fles  # noqa: E402
 from repro_torch.kernels.ref import fleet_sweep_ref  # noqa: E402
 
@@ -222,10 +304,12 @@ from repro_torch.kernels.ref import fleet_sweep_ref  # noqa: E402
 FLEET_EXACT_COLS = [0, 1, 2, 5, 6, 7, 8, 9, 10, 11, 12]
 
 
-def _fleet_inputs(dev, seed, F, ncl, limits, prestamped, M, streams=9, cells=3, K=400):
+def _fleet_inputs(dev, seed, F, ncl, limits, prestamped, M, streams=9, cells=3, K=400,
+                  rate=1.2, whole_seconds=False):
     rng = np.random.default_rng(seed)
-    rate = 1.2
     gaps = rng.exponential(1 / rate, (streams, K))
+    if whole_seconds:  # arrivals on whole seconds, several at once: creation ties
+        gaps = np.diff(np.floor(np.cumsum(gaps, axis=1)), axis=1, prepend=0.0)
     N = streams * cells
     horizon = K / rate
     t = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32, device=dev)
@@ -244,31 +328,71 @@ def _fleet_inputs(dev, seed, F, ncl, limits, prestamped, M, streams=9, cells=3, 
     return args, dict(slots=M, prestamped=prestamped)
 
 
+def _host_bound(args, M):
+    """The live-instance bound the front door passes (core/fleet.py)."""
+    return live_bound(args[2].cpu().numpy(), args[1].cpu().numpy(), M)
+
+
+def _fleet_case(F, Q, prestamped, ncl, limits, M, rate=1.2, id=None):
+    return pytest.param(F, Q, prestamped, ncl, limits, M, rate, id=id)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "F,Q,prestamped,ncl,limits,M",
+    "F,Q,prestamped,ncl,limits,M,rate",
     [
-        (1, 0, False, None, 1000, 40),  # two slots per lane, slots past M masked
-        (1, 2, False, 3.0, 1000, 16),  # a queue behind a binding cluster
-        (3, 2, True, 4.0, (3, 2, 5), 64),  # F padded to 4 in the warp
-        (8, 0, True, None, 2, 16),  # every function's limit binds
-        (8, 2, True, 6.0, 1000, 16),
-        (8, 0, True, 24.0, 1000, 64),  # the catalog benchmark's layout
+        # two slots per lane, slots past M masked
+        _fleet_case(1, 0, False, None, 1000, 40, id="1-0-False-None-1000-40"),
+        # a queue behind a binding cluster
+        _fleet_case(1, 2, False, 3.0, 1000, 16, id="1-2-False-3.0-1000-16"),
+        # F padded to 4 in the bitmap
+        _fleet_case(3, 2, True, 4.0, (3, 2, 5), 64, id="3-2-True-4.0-limits2-64"),
+        # every function's limit binds
+        _fleet_case(8, 0, True, None, 2, 16, id="8-0-True-None-2-16"),
+        _fleet_case(8, 2, True, 6.0, 1000, 16, id="8-2-True-6.0-1000-16"),
+        # the catalog benchmark's layout
+        _fleet_case(8, 0, True, 24.0, 1000, 64, id="8-0-True-24.0-1000-64"),
+        # the live table exactly full (one entry a lane), and one past (two)
+        _fleet_case(8, 0, True, 32.0, 1000, 64, rate=6.0, id="table-full"),
+        _fleet_case(8, 0, True, 33.0, 1000, 64, rate=6.0, id="table-one-past-full"),
+        # an unbounded cluster whose limits let hundreds live (16 entries a lane)
+        _fleet_case(8, 0, True, None, 1000, 64, rate=40.0, id="unbounded-hundreds"),
     ],
 )
-def test_fleet_kernel_matches_plain(cuda_device, F, Q, prestamped, ncl, limits, M):
-    args, kw = _fleet_inputs(cuda_device, 13 + F + Q, F, ncl, limits, prestamped, M)
+def test_fleet_kernel_matches_plain(cuda_device, F, Q, prestamped, ncl, limits, M, rate):
+    args, kw = _fleet_inputs(cuda_device, 13 + F + Q, F, ncl, limits, prestamped, M,
+                             rate=rate)
     kw["queue_depth"] = Q
-    before = fles.LAUNCH_COUNTS["fleet_sweep"]
-    acc_k, q_k = (o.cpu().numpy() for o in fles.fleet_sweep(*args, **kw))
-    assert fles.LAUNCH_COUNTS["fleet_sweep"] == before + 1
     acc_p, q_p = (o.cpu().numpy() for o in fleet_sweep_ref(*args, **kw))
-    np.testing.assert_array_equal(acc_k[..., FLEET_EXACT_COLS], acc_p[..., FLEET_EXACT_COLS])
-    np.testing.assert_allclose(acc_k[..., 3:5], acc_p[..., 3:5], rtol=INTEGRAL_RTOL)
-    np.testing.assert_array_equal(q_k, q_p)
+    # the front door's table (the host bound) and the widest (F * M)
+    for bound in (_host_bound(args, M), None):
+        before = fles.LAUNCH_COUNTS["fleet_sweep"]
+        acc_k, q_k = (o.cpu().numpy() for o in fles.fleet_sweep(*args, **kw, live_bound=bound))
+        assert fles.LAUNCH_COUNTS["fleet_sweep"] == before + 1
+        np.testing.assert_array_equal(acc_k[..., FLEET_EXACT_COLS],
+                                      acc_p[..., FLEET_EXACT_COLS])
+        np.testing.assert_allclose(acc_k[..., 3:5], acc_p[..., 3:5], rtol=INTEGRAL_RTOL)
+        np.testing.assert_array_equal(q_k, q_p)
     assert acc_k[..., 0].sum() > 0 and acc_k[..., 8].sum() > 0
     if Q:
         assert acc_k[..., 10].sum() > 0
+    if rate > 1.2:  # the table filled as far as the case says
+        peak = acc_k[..., 12].max()
+        assert peak == ncl if ncl is not None else peak > 64
+
+
+@pytest.mark.cuda
+def test_fleet_table_past_its_bound_gives_nan(cuda_device):
+    # a bound below the true live count: the fleets that outgrow the table
+    # say so with NaN outputs, the others are untouched
+    args, kw = _fleet_inputs(cuda_device, 15, 8, 40.0, 1000, True, 64, rate=6.0)
+    acc_k, q_k = (o.cpu().numpy() for o in fles.fleet_sweep(*args, **kw, live_bound=32))
+    acc_p, q_p = (o.cpu().numpy() for o in fleet_sweep_ref(*args, **kw))
+    over = acc_p[:, 0, 12] > 32
+    assert over.any() and (~over).any()
+    assert np.isnan(acc_k[over]).all() and np.isnan(q_k[over]).all()
+    np.testing.assert_array_equal(acc_k[~over][..., FLEET_EXACT_COLS],
+                                  acc_p[~over][..., FLEET_EXACT_COLS])
 
 
 @pytest.mark.cuda
@@ -990,34 +1114,58 @@ def test_eviction_ties_and_fractional_ceilings_on_the_card(cuda_device):
     assert sum(tied) > 0
 
 
+def _fault_case(F, M, crashes, capacity, stream="exp", id=None):
+    return pytest.param(F, M, crashes, capacity, stream, id=id or f"{F}-{M}-{crashes}-{capacity}")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "F,M,crashes,capacity",
-    [(1, 40, True, True), (3, 64, True, False), (3, 16, False, True), (8, 16, True, True),
-     (8, 64, True, True)],
+    "F,M,crashes,capacity,stream",
+    [
+        _fault_case(1, 40, True, True), _fault_case(3, 64, True, False),
+        _fault_case(3, 16, False, True), _fault_case(8, 16, True, True),
+        _fault_case(8, 64, True, True),
+        # arrivals on whole seconds: evictions among idle instances tied on
+        # creation time (the lower flat id goes first)
+        _fault_case(8, 64, False, True, "whole-seconds", id="eviction-creation-ties"),
+        # crashes ten times as often on 16 slots: slots die and cold-start
+        # again, each time in whichever table entry is lowest free
+        _fault_case(3, 16, True, False, "churn", id="slots-reborn-in-other-lanes"),
+    ],
 )
-def test_fleet_fault_kernel_matches_plain(cuda_device, F, M, crashes, capacity):
-    args, kw = _fleet_inputs(cuda_device, 70 + F, F, 4.0 * F, 1000, True, M)
+def test_fleet_fault_kernel_matches_plain(cuda_device, F, M, crashes, capacity, stream):
+    args, kw = _fleet_inputs(cuda_device, 70 + F, F, 4.0 * F, 1000, True, M,
+                             rate=3.0 if stream == "whole-seconds" else 1.2,
+                             whole_seconds=stream == "whole-seconds")
     N, (S, K) = args[0].shape[0], args[6].shape
     rng = np.random.default_rng(71 + F)
     t = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32, device=cuda_device)
     if crashes:
-        kw.update(crash_rate=t(rng.uniform(0.01, 0.05, N)), crash_u=t(rng.random((S, K))))
+        scale = 10.0 if stream == "churn" else 1.0
+        kw.update(crash_rate=t(scale * rng.uniform(0.01, 0.05, N)),
+                  crash_u=t(rng.random((S, K))))
     if capacity:
         horizon = float(args[3].max())
         kw.update(cap_edges=t(np.sort(rng.uniform(0.2, 0.8, (N, 2)), 1) * horizon),
                   cap_values=t(np.tile([3.0 * F, 1.5 * F + 0.5, 4.0 * F], (N, 1))))
-    before = fles.LAUNCH_COUNTS["fleet_sweep_fault"]
-    out_k = [o.cpu().numpy() for o in fles.fleet_sweep(*args, **kw)]
-    assert fles.LAUNCH_COUNTS["fleet_sweep_fault"] == before + 1
     out_p = [o.cpu().numpy() for o in fleet_sweep_ref(*args, **kw)]
     exact = [c for c in range(16) if c not in (3, 4)]
-    np.testing.assert_array_equal(out_k[0][..., exact], out_p[0][..., exact])
-    np.testing.assert_allclose(out_k[0][..., 3:5], out_p[0][..., 3:5], rtol=INTEGRAL_RTOL)
-    for a, b in zip(out_k[1:], out_p[1:]):  # queue lengths, crash clocks
-        np.testing.assert_array_equal(a, b)
+    # the front door's table (the host bound) and the widest (F * M)
+    for bound in (_host_bound(args, M), None):
+        before = fles.LAUNCH_COUNTS["fleet_sweep_fault"]
+        out_k = [o.cpu().numpy() for o in fles.fleet_sweep(*args, **kw, live_bound=bound)]
+        assert fles.LAUNCH_COUNTS["fleet_sweep_fault"] == before + 1
+        np.testing.assert_array_equal(out_k[0][..., exact], out_p[0][..., exact])
+        np.testing.assert_allclose(out_k[0][..., 3:5], out_p[0][..., 3:5], rtol=INTEGRAL_RTOL)
+        for a, b in zip(out_k[1:], out_p[1:]):  # queue lengths, crash clocks
+            np.testing.assert_array_equal(a, b)
     faults = out_k[0][..., 13:].sum((0, 1))
     assert (faults[0] > 0) == crashes and (faults[1] > 0) == capacity
+    if stream == "churn":  # each stamped slot crashed twice and more on average
+        assert faults[0] > 2 * np.isfinite(out_k[2]).sum() > 0
+    if stream == "whole-seconds":
+        times = args[6].cpu().numpy()
+        assert (np.diff(times, axis=1) == 0).any() and faults[1] > 0
 
 
 @pytest.mark.cuda

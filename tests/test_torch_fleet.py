@@ -392,6 +392,47 @@ def test_sweep_is_one_launch_and_seeded():
     assert not np.array_equal(a.avg_server_count, c.avg_server_count)
 
 
+@pytest.mark.parametrize(
+    "n_cluster,limits,slots,bound",
+    [
+        ([24.0], [[1000.0] * 8], 64, 24),  # the catalog: the cluster binds
+        ([math.inf], [[1000.0] * 8], 64, 512),  # unbounded: every slot
+        ([1e30], [[100.0] * 8], 64, 512),  # limits above M count M each
+        ([math.inf], [[2.0] * 8], 16, 16),  # the limits bind
+        ([4.5], [[3.0, 2.0, 5.0]], 64, 5),  # a fractional cluster admits ceil
+        ([math.inf], [[3.5, 0.0, 1000.0]], 4, 8),  # ceil(3.5) + 0 + M
+        ([2.0, 40.0], [[10.0, 10.0], [10.0, 10.0]], 64, 20),  # the widest fleet
+        ([32.0], [[1000.0] * 8], 64, 32),  # a table exactly full at one entry a lane
+        ([33.0], [[1000.0] * 8], 64, 33),  # one past: two entries a lane
+    ],
+)
+def test_live_bound_from_cluster_limits_and_slots(n_cluster, limits, slots, bound):
+    assert rfleet.live_bound(np.asarray(n_cluster), np.asarray(limits), slots) == bound
+
+
+def test_fleet_inputs_pass_the_live_bound_down():
+    seen = []
+
+    @rexec.register_backend("bound_ref", engines=("scan", "fleet"))
+    def _seen(*a, **k):
+        seen.append(k["live_bound"])
+        return _ref_fleet_rows(*a, **k)
+
+    names = list(rcat.catalog_names())
+    fleet = rcat.fleet_of(names, n_cluster=24, sim_time=60.0, skip_time=5.0, slots=64)
+    inp = rfleet.fleet_inputs(fleet, {}, 0, replicas=2, device="cpu")
+    assert inp.live_bound == 24
+    over = {"n_cluster": [4.0, 30.0]}
+    assert rfleet.fleet_inputs(fleet, over, 0, replicas=2, device="cpu").live_bound == 30
+    unbounded = dataclasses.replace(fleet, n_cluster=math.inf)
+    assert rfleet.fleet_inputs(unbounded, {}, 0, replicas=2, device="cpu").live_bound == sum(
+        min(f.max_concurrency, 64) for f in fleet.functions)
+    a = rfleet.fleet_sweep(fleet, over, 1, replicas=2, backend="bound_ref", device="cpu")
+    b = rfleet.fleet_sweep(fleet, over, 1, replicas=2, device="cpu")
+    assert seen == [30]
+    np.testing.assert_array_equal(a.avg_server_count, b.avg_server_count)
+
+
 def test_catalog_matches_reference():
     assert rcat.catalog_names() == jcat.catalog_names()
     for name in jcat.catalog_names():
