@@ -7,8 +7,9 @@ Phases (any failure ends the script with a non-zero exit):
 
 1. device: require CUDA; print the card's name and power limit;
 2. build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``,
-   one ``nvcc`` per source, all started together; print ptxas' registers
-   and spills for every template instance;
+   one ``nvcc`` per source, all started together in the background (phase
+   3's plain versions run meanwhile); print ptxas' registers and spills for
+   every template instance;
 3. kernels vs plain versions at C=256, M=64, K=4096 from numpy seeds:
    ``faas_sweep`` over several (t_exp, max_concurrency) pairs (one with
    rejections, one prestamped); ``par_sweep`` at c = 1, 3, 80, with
@@ -28,7 +29,9 @@ Phases (any failure ends the script with a non-zero exit):
    of 3 after a warm-up), held once more against its plain version on the
    same inputs (``par_sweep`` at c = 1 and 80 on the first 4096 events of
    the full-width rows), with the plain version's time and the card's bound
-   for the work this data needs;
+   for the work this data needs; ``faas_sweep``'s events past their
+   horizons, and its inert tail's share of the time (the Table-1 launch with
+   every horizon before the first event, scaled by that share of events);
 6. fleets (``fleet_sweep``, in this order): the kernel against its plain
    version on small cases (F = 1, 3, 8; queues of 0 and 2; gap and
    prestamped streams; binding and unbounded clusters; binding limits);
@@ -137,6 +140,7 @@ import json
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -3295,20 +3299,24 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     errs = {k: 0.0 for k in KERNELS}
 
-    # ---- 2. build
-    for name, info in _build.build_all(SOURCES).items():
-        print(f"build: {name} in {info['seconds']:.1f} s -> {info['path'].name}")
-        if name in KERNEL_NAMES:
-            print_ptxas(info["log"], KERNEL_NAMES[name])
-        elif name.endswith("_scan"):
-            print_scan_ptxas(info["log"])
-        else:
-            print_attention_ptxas(info["log"])
-    sys.stdout.flush()
+    # ---- 2. build, one nvcc per source, in the background: phase 3's plain
+    # versions (CPU-bound launches of small torch ops) run meanwhile
+    built, build_error = {}, []
 
-    # ---- 3. kernels vs plain versions on the card, small shapes
+    def build():
+        try:
+            built.update(_build.build_all(SOURCES))
+        except Exception as e:  # re-raised once the plain versions are done
+            build_error.append(e)
+
+    builder = threading.Thread(target=build)
+    builder.start()
+
+    # ---- 3. kernels vs plain versions on the card, small shapes: the plain
+    # versions first, then each kernel on the same inputs
     C, M, K = 256, 64, 4096
     plain_small_ms = None
+    faas_cases = []
     for case, (t_exp, max_c, prestamped) in enumerate(
         [(10.0, 100, False), (3.0, 4, False), (50.0, 2, False), (60.0, 1000, True)]
     ):
@@ -3326,18 +3334,10 @@ def main() -> int:
         ]
         args = (*fresh_pools(torch, C, M, dev), rows[0], *samples)
         kw = dict(t_end=rows[1], skip=rows[2], max_concurrency=max_c, prestamped=prestamped)
-        out_k = faas_sweep(*args, **kw)
         plain_small_ms, out_p = plain_timed(torch, lambda: faas_sweep_ref(*args, **kw))
-        err = held_against_plain(torch, out_k, out_p, f"faas case {case}")
-        errs["faas_sweep"] = max(errs["faas_sweep"], err)
-        tot = out_k[4].sum(0).tolist()
-        print(f"kernel==plain faas case {case}: t_exp~{t_exp} max_c={max_c} "
-              f"prestamped={prestamped} cold={tot[0]:.0f} warm={tot[1]:.0f} "
-              f"reject={tot[2]:.0f} overflow={tot[7]:.0f} max|acc diff|={err:.3e}",
-              flush=True)
-        if max_c == 4 and tot[2] <= 0:
-            raise AssertionError("the max_concurrency=4 case made no rejections")
+        faas_cases.append((case, t_exp, max_c, prestamped, args, kw, out_p))
 
+    par_cases = []
     for case, (c, t_exp, max_c, prestamped) in enumerate(
         [(1, 60.0, 1000, False), (3, 60.0, 1000, False), (80, 60.0, 1000, False),
          (3, 10.0, 2, False), (3, 60.0, 1000, True)]
@@ -3356,19 +3356,8 @@ def main() -> int:
         ]
         kw = dict(t_end=rows[1], skip=rows[2], max_concurrency=max_c,
                   concurrency=c, slots=M, prestamped=prestamped)
-        out_k = par_sweep(rows[0], *samples, **kw)
         ms_p, out_p = plain_timed(torch, lambda: faas_par_sweep_ref(rows[0], *samples, **kw))
-        err = held_against_plain(torch, out_k, out_p, f"par case {case}",
-                                 integral_cols=(3, 4, 8))
-        errs["par_sweep"] = max(errs["par_sweep"], err)
-        tot = out_k[4].sum(0).tolist()
-        print(f"kernel==plain par case {case}: c={c} t_exp~{t_exp} max_c={max_c} "
-              f"prestamped={prestamped} cold={tot[0]:.0f} warm={tot[1]:.0f} "
-              f"reject={tot[2]:.0f} overflow={tot[7]:.0f} "
-              f"in-flight/running={tot[8] / max(tot[3], 1e-9):.3f} "
-              f"max|acc diff|={err:.3e} (plain {ms_p:.0f} ms)", flush=True)
-        if max_c == 2 and tot[2] <= 0:
-            raise AssertionError("the max_concurrency=2 par case made no rejections")
+        par_cases.append((case, c, t_exp, max_c, prestamped, rows[0], samples, kw, ms_p, out_p))
 
     # the grid columns from a non-empty pool: the temporal path's inputs
     G = TEMPORAL_GRID.size
@@ -3381,22 +3370,65 @@ def main() -> int:
     pool = (to(live), to(np.where(live, -rng.uniform(0, 600, (C, M)), -1e30)),
             to(np.where(live, rng.uniform(-300, 5, (C, M)), -1e30)))
     grid_small = np.sort(np.concatenate([[0.0], rng.uniform(0, horizon, G - 1)]))
-    kw = dict(t_end=to(horizon * rng.uniform(0.5, 0.9, C)), skip=0.0,
-              max_concurrency=1000, grid_times=to(np.tile(grid_small, (C, 1))))
-    args = (*pool, torch.zeros((C,), dtype=torch.float32, device=dev),
-            to(60.0 * rng.uniform(0.5, 1.5, C)), *samples)
-    out_k = faas_sweep(*args, **kw)
-    ms_p, out_p = plain_timed(torch, lambda: faas_sweep_ref(*args, **kw))
-    err = held_against_plain(torch, out_k, out_p, "faas grid case")
+    grid_kw = dict(t_end=to(horizon * rng.uniform(0.5, 0.9, C)), skip=0.0,
+                   max_concurrency=1000, grid_times=to(np.tile(grid_small, (C, 1))))
+    grid_args = (*pool, torch.zeros((C,), dtype=torch.float32, device=dev),
+                 to(60.0 * rng.uniform(0.5, 1.5, C)), *samples)
+    grid_ms_p, grid_out_p = plain_timed(torch, lambda: faas_sweep_ref(*grid_args, **grid_kw))
+
+    builder.join()
+    if build_error:
+        raise build_error[0]
+    for name, info in built.items():
+        print(f"build: {name} in {info['seconds']:.1f} s -> {info['path'].name}")
+        if name in KERNEL_NAMES:
+            print_ptxas(info["log"], KERNEL_NAMES[name])
+        elif name.endswith("_scan"):
+            print_scan_ptxas(info["log"])
+        else:
+            print_attention_ptxas(info["log"])
+    sys.stdout.flush()
+
+    for case, t_exp, max_c, prestamped, args, kw, out_p in faas_cases:
+        out_k = faas_sweep(*args, **kw)
+        err = held_against_plain(torch, out_k, out_p, f"faas case {case}")
+        errs["faas_sweep"] = max(errs["faas_sweep"], err)
+        tot = out_k[4].sum(0).tolist()
+        print(f"kernel==plain faas case {case}: t_exp~{t_exp} max_c={max_c} "
+              f"prestamped={prestamped} cold={tot[0]:.0f} warm={tot[1]:.0f} "
+              f"reject={tot[2]:.0f} overflow={tot[7]:.0f} max|acc diff|={err:.3e}",
+              flush=True)
+        if max_c == 4 and tot[2] <= 0:
+            raise AssertionError("the max_concurrency=4 case made no rejections")
+    del faas_cases
+
+    for case, c, t_exp, max_c, prestamped, thr, samples, kw, ms_p, out_p in par_cases:
+        out_k = par_sweep(thr, *samples, **kw)
+        err = held_against_plain(torch, out_k, out_p, f"par case {case}",
+                                 integral_cols=(3, 4, 8))
+        errs["par_sweep"] = max(errs["par_sweep"], err)
+        tot = out_k[4].sum(0).tolist()
+        print(f"kernel==plain par case {case}: c={c} t_exp~{t_exp} max_c={max_c} "
+              f"prestamped={prestamped} cold={tot[0]:.0f} warm={tot[1]:.0f} "
+              f"reject={tot[2]:.0f} overflow={tot[7]:.0f} "
+              f"in-flight/running={tot[8] / max(tot[3], 1e-9):.3f} "
+              f"max|acc diff|={err:.3e} (plain {ms_p:.0f} ms)", flush=True)
+        if max_c == 2 and tot[2] <= 0:
+            raise AssertionError("the max_concurrency=2 par case made no rejections")
+    del par_cases
+
+    out_k = faas_sweep(*grid_args, **grid_kw)
+    err = held_against_plain(torch, out_k, grid_out_p, "faas grid case")
     errs["faas_sweep_grid"] = err
     gsum = out_k[4][:, 8:].sum(0)
     print(f"kernel==plain faas grid case: C={C} M={M} K={K} G={G}, "
           f"{int(live.sum())} live instances at t=0; running counts "
           f"{gsum[:G].sum().item():.0f}, idle {gsum[G:2 * G].sum().item():.0f}, "
           f"no-idle points {gsum[2 * G:].sum().item():.0f}; grid columns and "
-          f"counters equal; max|acc diff|={err:.3e} (plain {ms_p:.0f} ms)", flush=True)
+          f"counters equal; max|acc diff|={err:.3e} (plain {grid_ms_p:.0f} ms)", flush=True)
     if gsum[:G].sum() <= 0 or gsum[G:2 * G].sum() <= 0:
         raise AssertionError("the grid case counted no running or no idle instance")
+    del grid_args, grid_kw, grid_out_p
 
     # ---- 4. the main paths through the entry points a user calls
     scn = table1(rt)
@@ -3501,6 +3533,10 @@ def main() -> int:
     kw = dict(t_end=row(inp.sim_rows), skip=row(inp.skip_rows),
               max_concurrency=scn.max_concurrency)
     ms, out_k = timed(torch, lambda: faas_sweep(*args, **kw), reps=3)
+    # the inert tail alone: the same launch with every horizon before the
+    # first event, so that each 32-event batch only moves the clock
+    tail_kw = dict(kw, t_end=torch.full_like(kw["t_end"], -1.0), skip=-2.0)
+    tail_ms, _ = timed(torch, lambda: faas_sweep(*args, **tail_kw), reps=3)
     plain_ms, out_p = plain_timed(torch, lambda: faas_sweep_ref(*args, **kw))
     errs["faas_sweep"] = max(
         errs["faas_sweep"], held_against_plain(torch, out_k, out_p, "full width"))
@@ -3508,6 +3544,7 @@ def main() -> int:
     # horizon are arrivals the sweep asked for
     events = Cw * Kw
     active = arrivals_in_horizon(dts, kw["t_end"])
+    past = events - active
     counted = int(out_k[4][:, :3].double().sum())
     b_ms, b_by = bound_ms(Cw, scn.slots, Kw, active)
     b_all_ms, _ = bound_ms(Cw, scn.slots, Kw, events)
@@ -3519,6 +3556,10 @@ def main() -> int:
           f"every staged event were stepped; plain version {plain_ms:.1f} ms "
           f"(max|acc diff| {errs['faas_sweep']:.3e}); plain at C={C} M={M} K={K}: "
           f"{plain_small_ms:.1f} ms", flush=True)
+    print(f"timing [{card}]: faas_sweep's inert tail: {past} events past their horizons "
+          f"({100 * past / events:.1f}%); with every event past t_end the launch takes "
+          f"{tail_ms:.3f} ms, so the tail is ~{100 * tail_ms * past / events / ms:.1f}% of the "
+          f"{ms:.3f} ms", flush=True)
     print(f"end to end [{card}]: sweep() {active / sweep_s:.4e} simulated arrivals/s, "
           f"{events / sweep_s:.4e} events stepped/s ({sweep_s:.3f} s incl. draws "
           f"and assembly)", flush=True)

@@ -1,11 +1,10 @@
 // The warp helpers of the event-loop kernels: faas_event_step.cu (one pool
 // per warp), fleet_event_step.cu (a fleet's pools per warp) and
-// par_event_step.cu (one concurrency-value pool per warp).  The arg-max
-// behind warm routing and the newest-idle eviction order (a shuffle tree in
-// faas, an order key and two reduxes in fleet and par), the capacity
-// segment lookup of the fault path, and what a live instance accrues ahead
-// of the clock.  One copy, so that the tie rule, the segment rule and the
-// integrals cannot drift apart between the engines.
+// par_event_step.cu (one concurrency-value pool per warp).  The order key
+// behind warm routing and the newest-idle eviction order (a key and two
+// reduxes), the capacity segment lookup of the fault path, and what a live
+// instance accrues ahead of the clock.  One copy, so that the tie rule, the
+// segment rule and the integrals cannot drift apart between the engines.
 
 #pragma once
 
@@ -17,24 +16,11 @@ namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
 
-// the warp's largest best (the lowest best_j on a tie), in every lane
-__device__ __forceinline__ void warp_argmax(float& best, int& best_j) {
-#pragma unroll
-  for (int m = 16; m >= 1; m >>= 1) {
-    const float ob = __shfl_xor_sync(FULL, best, m);
-    const int oj = __shfl_xor_sync(FULL, best_j, m);
-    if (ob > best || (ob == best && oj < best_j)) {
-      best = ob;
-      best_j = oj;
-    }
-  }
-}
-
 // An order-preserving u32 of an f32 (NaN aside): x < y iff key(x) <
 // key(y), -0 and +0 share a key, and every float's key is above 0, which
 // stands for "no candidate".  The warp's newest candidate is then one redux
 // (the largest key) and its lowest id among ties a second: two
-// instructions, where warp_argmax takes ten shuffles.
+// instructions, where a shuffle tree takes ten.
 __device__ __forceinline__ unsigned order_key(float x) {
   const unsigned u = __float_as_uint(__fadd_rn(x, 0.f));  // -0 + 0 = +0
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);

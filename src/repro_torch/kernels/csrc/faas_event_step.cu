@@ -11,7 +11,8 @@
 // to [skip, t_end]; expiry of idle instances past t_exp (expire-first on
 // a tie); then the newest idle instance serves (warm, lowest slot on a
 // creation tie), else a free slot below max_concurrency (cold), else the
-// arrival is rejected.
+// arrival is rejected.  Arrivals past t_end are inert: they move the clock
+// and expire instances, nothing else.
 //
 // Grid curves (GRID, the temporal engine): each grid point g of the row
 // that falls in an arrival's interval (t, min(t_new, t_end)] records the
@@ -24,14 +25,11 @@
 // bounds.  Per window: cold, served and arrival counts (rejects included)
 // of the active arrivals whose instant lies in it, and the running and
 // idle integrals over the window intersected with (min(t, t_end),
-// min(t_new, t_end)] (windows ignore skip).  Only the windows that
-// overlap the interval give a nonzero term; the clock does not go back,
-// so a cursor (the first window ending past the clock) visits one or two
-// windows per event instead of all W.  The skipped terms are +0 added to
-// sums that start at +0, so the counts stay bit-equal.  The cursor's
-// columns stay in registers until it leaves the window, so no event waits
-// on a global read-modify-write.  A row whose clock does go back rescans
-// from window 0, reloading what it stored.
+// min(t_new, t_end)] (windows ignore skip).  A cursor (the first window
+// ending past the clock) holds its window's columns in registers from
+// entering it to leaving it, so no event waits on a global
+// read-modify-write; a row whose clock goes back recounts the windows it
+// went back over and re-enters the cursor's window.
 //
 // Reliability (RELY): a served attempt holds its instance for
 // min(service, t_timeout) (NO_TIMEOUT = 1e30 leaves min() the identity);
@@ -66,56 +64,88 @@
 // failed, and it triggers the retry).  With a capacity profile (E edges,
 // E + 1 ceilings per row; a leading 0 edge implied) the ceiling in effect
 // at t_new gates cold starts (live count below it) and, inside the horizon,
-// ceil(live - ceiling) of the newest idle instances are evicted: one warp
-// arg-max pass over (creation, lower slot on a tie) per eviction, the
-// routing rule, so the pass after the last eviction leaves the routing
-// candidate.  The row's segment [lo, hi) stays in registers and is looked
-// up again only when t_new leaves it.  With the crash clocks off the
-// doom plane holds +inf, which leaves every min() above the identity, so
-// one template instance serves crashes, capacity or both (a runtime,
+// ceil(live - ceiling) of the newest idle instances are evicted, each the
+// routing rule's choice, so the choice after the last eviction is the
+// routing candidate.  The row's segment [lo, hi) stays in registers and is
+// looked up again only when t_new leaves it.  With the crash clocks off
+// the doom plane holds +inf, which leaves every min() above the identity,
+// so one template instance serves crashes, capacity or both (a runtime,
 // warp-uniform choice); without FAULT the code is the path without faults.
 //
-// What bounds it on this card: every event touches every slot of the row
-// (~25 f32 operations per slot in the body below, ~12 more per slot and
-// overlapping window) while the samples are 12 to 24 bytes per event, so
-// at M = 64 it does over 60 operations per byte: above the H100's f32
-// balance point (67 TFLOP/s over 3.35 TB/s, ~20 operations per byte).  It
-// is bound by operations, and each row is a sequential chain of events,
-// so the latency of each event's reductions matters as much as their
-// count.
+// What bounds it on this card: each row is a chain of dependent events, and
+// the samples are 12 to 24 bytes an event read once.  The first design
+// walked every slot on every event, inside the horizon or not: the two
+// integral terms, three warp sums, a ten-shuffle arg-max and M/32 ballots,
+// ~25 operations a slot, which made it bound by operations at 24.8x the
+// bound.  An event changes at most one instance, and those past the horizon
+// change none, so what an event needs is its own chain of collectives: the
+// longest rows (2.0/s, ~200,000 events in horizon at Table 1) set a floor of
+// their event count times one event's latency.  On an H100 one row alone
+// takes ~447 cycles an event (two reduxes of ~48 cycles, ~10 warp-uniform
+// branches of ~16), and Table 1's 4,096 rows take 2.4x that floor: the
+// rows on a scheduler share its issue at ~126 instructions a warm event.
 //
-// Fused draws add per event about 130 integer operations a stream (3 or 4
-// streams) and up to 4 transcendental calls, against the ~25 M f32
-// operations of the pool walk, and remove the 12-16 bytes of sample loads.
-//
-// What the design does about that: one warp per row, with the pool in
-// registers (ceil(M/32) slots per lane), so no pool state ever leaves the
-// SM.  Samples are loaded 32 events at a time, one per lane (coalesced),
-// and broadcast per event with __shfl_sync; with fused draws lane l draws
-// event base + l of the batch instead of loading it, so the 32 lanes draw a
-// batch in parallel and the broadcast stays.  The per-event reductions over
-// the pool are warp shuffles (sums and the argmax by xor butterflies) and
-// ballots (the lowest free slot); the butterflies leave the same bits in
-// every lane, so the row's clock and accumulators are replicated per lane
-// and no lane ever waits on shared memory.  The window, grid and
-// activation planes are unbounded in W, G and K, so they live in global
-// memory: lane 0 adds each grid term in event order, and stores each
-// window's columns when the cursor leaves it.  A retry's child can fall
-// inside the 32-event batch whose activations were loaded at its start, so
-// activations made during a batch for that batch's own events ride in a
-// warp-uniform bitmask (pend); the global plane is read at the next
-// batch's start after a __syncwarp() that orders lane 0's stores.  Many
-// rows per SM (4 per block, thousands per grid) hide each chain's latency.
+// What the design does about that: one warp per row, the pool in registers
+// (ceil(M/32) slots a lane, the alive flags a bitmask), and work only where
+// an event changes something:
+//   - The integrals are accrued per state span (event_step_common.cuh
+//     accrue): the owning lane adds accrue(hi) of an instance when its state
+//     starts (cold or warm start) and subtracts it when the state ends (warm
+//     start, eviction, the last event; an exit accrues nothing past its exit
+//     clock, so it subtracts 0).  Each lane keeps its own part of the two
+//     sums, added across the warp once at the end.  Where the clipped clock
+//     goes back (unsorted prestamped times, negative gaps) a pass over the
+//     live slots adds accrue(hi) - accrue(hi_prev), the interval the plain
+//     version counts again.  The metric windows accrue the same way into the
+//     cursor's columns, with one pass over the live slots each time the
+//     clock crosses into a window.
+//   - Exits are found without a per-event walk: the row keeps a lower bound
+//     of its earliest exit clock (lowered at each start, exact after each
+//     exit pass) and runs the exit pass (a test a slot, one redux for the
+//     count, one for the new bound) only once the clock reaches it.
+//   - Routing is an order key of the creation time (kept per slot) and two
+//     reduxes (the newest idle instance, then its lowest slot), the eviction
+//     order under a capacity profile the same; the live count is a
+//     warp-uniform counter, and the first-free ballots run only when no
+//     instance is idle.  The owning lane's updates are selects, not
+//     branches, and each event's gap and warm sample are broadcast ahead of
+//     their use.
+//   - A quiet event (inside the horizon, nothing deferred, the clipped
+//     clock not going back, no exit, grid point, window bound or capacity
+//     step due: one warp-uniform test) goes straight to the routing.
+//   - The inert tail: an event past t_end changes the clock and the exits it
+//     passes, and nothing else.  Expiry is monotone in the clock while
+//     nothing is assigned, so one exit pass at the largest clock reached
+//     gives the same pool and crash count as a pass per event; it runs
+//     before the next event inside the horizon, and at the end.  A batch of
+//     32 events wholly past the horizon (the clock past t_end, and gaps >= 0
+//     or times past t_end) only advances the clock: its warm, cold and other
+//     samples are neither loaded nor drawn.  Inactive retry attempts skip the
+//     routing the same way.
+// Samples are loaded 32 events at a time, one per lane (coalesced), and
+// broadcast per event with __shfl_sync; with fused draws lane l draws event
+// base + l of the batch.  Pools of more than 512 slots keep their creation
+// keys (and crash clocks) in shared memory, a column per lane.  The window, grid and activation planes are
+// unbounded in W, G and K, so they live in global memory: lane 0 adds each
+// grid term in event order, and stores each window's columns when the
+// cursor leaves it.  A retry's child can fall inside the 32-event batch
+// whose activations were loaded at its start, so activations made during a
+// batch for that batch's own events ride in a warp-uniform bitmask (pend);
+// the global plane is read at the next batch's start after a __syncwarp()
+// that orders lane 0's stores.  Many rows per SM (4 per block, thousands per
+// grid) hide each chain's latency.
 //
 // Arithmetic matches the plain PyTorch version (kernels/ref.py): every
 // clock update is one rounded f32 operation (built with --fmad=false, and
 // written with __fadd_rn), the sentinels are the reference's (NEG = -1e30
-// for dead slots, any_idle = best > NEG/2), and the acc columns are
-// per-row sequential sums in the same order.  Only the M-reductions of the
-// integrals (acc columns 3-4 and each window's two integral columns) sum
-// in a different order, so they may differ from the plain version in the
-// last places.  Counts (base, window, grid, reliability) and the
-// activation plane are exact.
+// for dead slots, any_idle = best > NEG/2), live counts are exact integers,
+// and the counters are per-row sequential sums in the same order.  The
+// alive plane is 0/1.  Only the integrals (acc columns 3-4 and each
+// window's two integral columns) add the same pieces in another
+// association (per state span and per lane rather than per event), so they
+// may differ from the plain version in the last places.  Counts (base,
+// window, grid, reliability, faults), the activation plane, the pools, the
+// crash clocks and the final clock are exact.
 
 #include <climits>
 #include <cmath>
@@ -251,23 +281,148 @@ __device__ __forceinline__ float warp_min(float v) {
   return v;
 }
 
-// the newest idle instance of the pool (largest creation, lowest slot on a
-// tie) as best/best_j in every lane; best = NEG when no instance is idle
-template <int S>
-__device__ __forceinline__ void newest_idle(const float (&alive)[S], const float (&cre)[S],
-                                            const float (&busy)[S], float t_new, int lane,
-                                            float& best, int& best_j) {
-  best = NEG;
-  best_j = INT_MAX;
+// Blocks a SM that the register budget must allow: at one or two slots a
+// lane (M <= 64, Table 1's width) the 1,024 blocks of a 4,096-row sweep fit
+// the 132 SMs in one wave at 8 a SM (<= 64 registers a thread), which the
+// paths without reliability and faults fit; those two take 6 (<= 80
+// registers); the fused draws and the wider pools keep ptxas' own choice.
+template <int S, bool RELY, bool FUSED, bool FAULT>
+struct MinBlocks {
+  static constexpr int value = S > 2 || FUSED ? 1 : RELY || FAULT ? 6 : 8;
+};
+
+// A per-slot array of the pool: in registers (element s of this lane's
+// slots), or, for the widest pools, in this warp's column of shared memory
+// (element s at [s][lane]), where 32 slots a lane of creation keys and crash
+// clocks beside the busy clocks would not fit the register file.
+template <typename T, int S, bool SHARED>
+struct Slots {
+  T v[S];
+  __device__ __forceinline__ T& operator[](int s) { return v[s]; }
+  __device__ __forceinline__ const T& operator[](int s) const { return v[s]; }
+};
+template <typename T, int S>
+struct Slots<T, S, true> {
+  T* col;
+  __device__ __forceinline__ T& operator[](int s) { return col[s * 32]; }
+  __device__ __forceinline__ const T& operator[](int s) const { return col[s * 32]; }
+};
+
+// What an instance accrues over (from, te] (event_step_common.cuh accrue):
+// with crash clocks (FAULT) the full form, without them the same with doom
+// = +inf left out (fminf(x, +inf) is no identity to the compiler, which
+// keeps NaN's).
+template <bool FAULT>
+__device__ __forceinline__ float2 accrue_of(float busy, float expire, float doom, float from,
+                                            float te) {
+  if (FAULT) return accrue(busy, expire, doom, from, te);
+  const float run = fmaxf(__fsub_rn(fminf(busy, te), from), 0.f);
+  const float idle = fmaxf(__fsub_rn(fminf(expire, te), fmaxf(busy, from)), 0.f);
+  return make_float2(run, idle);
+}
+
+// What slot state (busy, doom) accrues from `from` on, up to the horizon's
+// end te: running time until min(busy, doom) and idle time from busy until
+// min(busy + t_exp, doom).
+template <bool FAULT>
+__device__ __forceinline__ float2 slot_accrue(float busy, float texp, float doom, float from,
+                                              float te) {
+  return accrue_of<FAULT>(busy, __fadd_rn(busy, texp), doom, from, te);
+}
+
+// The newest idle instance of the pool (largest creation, lowest slot on a
+// tie), in every lane: best is its order key (0: none is idle), j its slot.
+struct Newest {
+  unsigned best, j;
+  // an idle instance whose creation is above NEG / 2, as the plain version
+  // reads its arg-max (the order key keeps the order, 0 stands for none)
+  __device__ __forceinline__ bool found() const { return best > order_key(NEG * 0.5f); }
+};
+
+template <int S, class Keys>
+__device__ __forceinline__ Newest newest_idle(unsigned live, const Keys& ckey,
+                                              const float (&busy)[S], float t_new, int lane) {
+  unsigned k = 0u;
+  int ks = 0;
 #pragma unroll
   for (int s = 0; s < S; ++s) {
+    const unsigned c = ((live >> s) & 1u) && busy[s] <= t_new ? ckey[s] : 0u;
     // this lane's slots ascend with s, so '>' keeps the lowest slot on a tie
-    if (alive[s] > 0.f && busy[s] <= t_new && cre[s] > best) {
-      best = cre[s];
-      best_j = s * 32 + lane;
+    if (c > k) {
+      k = c;
+      ks = s;
     }
   }
-  warp_argmax(best, best_j);
+  Newest n;
+  n.best = __reduce_max_sync(FULL, k);
+  n.j = __reduce_min_sync(FULL, k == n.best && k ? (unsigned)(ks * 32 + lane) : UINT_MAX);
+  return n;
+}
+
+// the lowest free slot below M (-1 if none), in every lane
+template <int S>
+__device__ __forceinline__ int first_free_slot(unsigned live, int M, int lane) {
+  int ff = -1;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const unsigned fm = __ballot_sync(FULL, s * 32 + lane < M && !((live >> s) & 1u));
+    if (ff < 0 && fm) ff = s * 32 + __ffs(fm) - 1;
+  }
+  return ff;
+}
+
+// The exit pass at clock T: live slots whose exit clock (expiry, or a
+// crash) is at or before T leave; a crash (doom < expiry, skip < doom <=
+// t_end) counts in this lane's crash_l.  They accrued nothing past their
+// exit, so there is nothing to give back.  The live count drops by the
+// exits, and the bound becomes the earliest exit clock left.  Warp-uniform.
+template <int S, bool FAULT, class Dooms>
+__device__ __forceinline__ void exit_pass(unsigned& live, const float (&busy)[S],
+                                          const Dooms& doom, float texp,
+                                          float T, float sk, float te, int& n_live,
+                                          float& next_exit, int& crash_l) {
+  unsigned gone = 0u;
+  float nx = INFINITY;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    if ((live >> s) & 1u) {
+      const float e = __fadd_rn(busy[s], texp);
+      const float d = FAULT ? doom[FAULT ? s : 0] : INFINITY;
+      const float x = FAULT ? fminf(e, d) : e;
+      if (x <= T) {
+        gone |= 1u << s;
+        if (FAULT) crash_l += d < e && d > sk && d <= te;
+      } else {
+        nx = fminf(nx, x);
+      }
+    }
+  }
+  live &= ~gone;
+  n_live -= (int)__reduce_add_sync(FULL, (unsigned)__popc(gone));
+  next_exit = key_value(__reduce_min_sync(FULL, order_key(nx)));
+}
+
+// Every live slot's accrual moved from clock `to` to clock `from` (<= te):
+// this lane's parts gain accrue(from) - accrue(to) of its live slots.  At the
+// end of the run (from = te, where nothing is left to accrue) it gives back
+// what the live instances accrued past the last clock; after the clock
+// went back (from < to) it counts (from, to] again, as the plain version's
+// next intervals do.
+template <int S, bool FAULT, class Dooms>
+__device__ __forceinline__ void settle(unsigned live, const float (&busy)[S],
+                                       const Dooms& doom, float texp,
+                                       float from, float to, float te, float& run_l,
+                                       float& idle_l) {
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    if ((live >> s) & 1u) {
+      const float d = FAULT ? doom[FAULT ? s : 0] : INFINITY;
+      const float2 a = slot_accrue<FAULT>(busy[s], texp, d, from, te);
+      const float2 b = slot_accrue<FAULT>(busy[s], texp, d, to, te);
+      run_l = __fadd_rn(run_l, __fsub_rn(a.x, b.x));
+      idle_l = __fadd_rn(idle_l, __fsub_rn(a.y, b.y));
+    }
+  }
 }
 
 // the smallest grid time past the clock t (+inf if none), in every lane
@@ -281,33 +436,94 @@ __device__ __forceinline__ float next_grid(const float* grow, int G, float t,
   return warp_min(m);
 }
 
-// The window cursor: the first window ending past the clock, whose five
-// acc columns (cold, served, arrivals, ∫running, ∫idle) live in registers,
-// the same in every lane, from entering the window to leaving it; every
-// term of a window is added while it is the cursor, in event order.
+// The window cursor: the first window ending past the window clock
+// min(t, t_end), whose five acc columns live in registers from entering the
+// window to leaving it: the three counts the same in every lane, the two
+// integrals as this lane's part (lane 0's starts from what was stored),
+// added across the warp when the cursor leaves.  A state that starts at
+// window clock x adds what it accrues in the cursor's window from x on
+// (window_accrue), and subtracts it at clock y when it ends; when the clock
+// crosses into a window every live instance adds what it accrues there from
+// the window's start.
 struct WindowCursor {
   const float* bounds;  // the row's W + 1 bounds
   float* acc;           // the row's 5W window columns
   int W, w;
   float lo, hi;  // window w's bounds (+inf past the last window)
-  float c[5];
+  float c[3];    // cold, served, arrivals
+  float r, i;    // this lane's part of ∫running, ∫idle
 
-  __device__ __forceinline__ void enter(int to) {
+  __device__ __forceinline__ void enter(int to, int lane) {
     __syncwarp();  // lane 0's store of a window left earlier, before the loads
     w = to;
-    lo = w < W ? __ldg(bounds + w) : INFINITY;
-    hi = w < W ? __ldg(bounds + w + 1) : INFINITY;
+    const bool in = w < W;
+    lo = in ? __ldg(bounds + w) : INFINITY;
+    hi = in ? __ldg(bounds + w + 1) : INFINITY;
 #pragma unroll
-    for (int k = 0; k < 5; ++k) c[k] = w < W ? acc[k * W + w] : 0.f;
+    for (int k = 0; k < 3; ++k) c[k] = in ? acc[k * W + w] : 0.f;
+    r = in && lane == 0 ? acc[3 * W + w] : 0.f;
+    i = in && lane == 0 ? acc[4 * W + w] : 0.f;
   }
+  // warp-uniform
   __device__ __forceinline__ void leave(int lane) {
-    if (w < W && lane == 0)
+    if (w >= W) return;
+    const float rs = warp_sum(r), is = warp_sum(i);
+    if (lane == 0) {
 #pragma unroll
-      for (int k = 0; k < 5; ++k) acc[k * W + w] = c[k];
+      for (int k = 0; k < 3; ++k) acc[k * W + w] = c[k];
+      acc[3 * W + w] = rs;
+      acc[4 * W + w] = is;
+    }
   }
-  __device__ __forceinline__ void next(int lane) {
+  // the first window ending past x, entered straight (no accrual)
+  __device__ __forceinline__ void seek(float x, int lane) {
+    int w0 = 0;
+    while (w0 < W && __ldg(bounds + w0 + 1) <= x) ++w0;
+    enter(w0, lane);
+  }
+  // what a state accrues in the cursor's window from window clock x on
+  __device__ __forceinline__ float2 window_accrue(float busy, float texp, float x,
+                                                  float te) const {
+    return slot_accrue<false>(busy, texp, INFINITY, fmaxf(x, lo), fminf(hi, te));
+  }
+  // every live slot's window_accrue(x) - window_accrue(y) into this lane's part
+  template <int S>
+  __device__ __forceinline__ void add_live(unsigned live, const float (&busy)[S], float texp,
+                                           float x, float y, float te) {
+    if (w >= W) return;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      if ((live >> s) & 1u) {
+        const float2 a = window_accrue(busy[s], texp, x, te);
+        const float2 b = window_accrue(busy[s], texp, y, te);
+        r = __fadd_rn(r, __fsub_rn(a.x, b.x));
+        i = __fadd_rn(i, __fsub_rn(a.y, b.y));
+      }
+    }
+  }
+  // the window clock moves forward to x: each window entered on the way
+  // takes every live state from its start
+  template <int S>
+  __device__ __forceinline__ void cross(unsigned live, const float (&busy)[S], float texp,
+                                        float x, float te, int lane) {
+    while (w < W && hi <= x) {
+      leave(lane);
+      enter(w + 1, lane);
+      add_live(live, busy, texp, lo, INFINITY, te);
+    }
+  }
+  // the window clock went back from x to y: every live state gives back
+  // what it added past x in the cursor's window and, the cursor moved back
+  // to y's window, adds what it accrues there from y on; the windows in
+  // between take it again when the clock crosses them, as the plain
+  // version's next intervals count (y, x] again
+  template <int S>
+  __device__ __forceinline__ void back(unsigned live, const float (&busy)[S], float texp,
+                                       float y, float x, float te, int lane) {
+    add_live(live, busy, texp, INFINITY, x, te);
     leave(lane);
-    enter(w + 1);
+    seek(y, lane);
+    add_live(live, busy, texp, y, INFINITY, te);
   }
 };
 
@@ -315,7 +531,8 @@ struct WindowCursor {
 // the optional paths (RETRY implies RELY; FUSED goes without GRID and
 // RETRY; FAULT without GRID, WIN and FUSED)
 template <int S, bool GRID, bool WIN, bool RELY, bool RETRY, bool FUSED, bool FAULT>
-__global__ void __launch_bounds__(WARPS * 32) faas_sweep_kernel(const Params p) {
+__global__ void __launch_bounds__(WARPS * 32, (MinBlocks<S, RELY, FUSED, FAULT>::value))
+    faas_sweep_kernel(const Params p) {
   static_assert(!RETRY || RELY, "retries ride on the reliability path");
   static_assert(!FUSED || (!GRID && !RETRY), "fused draws serve base, windows, reliability");
   static_assert(!FAULT || (!GRID && !WIN && !FUSED), "faults serve base, reliability, retries");
@@ -324,39 +541,48 @@ __global__ void __launch_bounds__(WARPS * 32) faas_sweep_kernel(const Params p) 
   if (row >= p.R) return;  // the ragged last block: the whole warp leaves
   const int M = p.M, K = p.K, G = p.G, W = p.W;
 
-  // slot j = s * 32 + lane; slots past M do not exist (never alive, never free)
+  // slot j = s * 32 + lane; slots past M do not exist (never alive, never
+  // free); bit s of `live` is slot j's alive flag
   const size_t pool = (size_t)row * M;
-  float alive[S], cre[S], busy[S];
+  unsigned live = 0u;
+  float busy[S];
+  // order_key of each slot's creation time; faults: the crash clocks (+inf:
+  // none stamped); past 16 slots a lane, in shared memory
+  constexpr bool WIDE = S > 16;
+  Slots<unsigned, S, WIDE> ckey;
+  Slots<float, FAULT ? S : 1, WIDE && FAULT> doom;
+  if constexpr (WIDE) {
+    extern __shared__ float slot_smem[];
+    float* warp_cols = slot_smem + (size_t)(threadIdx.x >> 5) * (FAULT ? 2 : 1) * S * 32;
+    ckey.col = (unsigned*)warp_cols + lane;
+    if constexpr (FAULT) doom.col = warp_cols + S * 32 + lane;
+  }
 #pragma unroll
   for (int s = 0; s < S; ++s) {
     const int j = s * 32 + lane;
     const bool ex = j < M;
-    alive[s] = ex ? p.alive_in[pool + j] : 0.f;
-    cre[s] = ex ? p.creation_in[pool + j] : NEG;
+    if (ex && p.alive_in[pool + j] > 0.f) live |= 1u << s;
+    ckey[s] = order_key(ex ? p.creation_in[pool + j] : NEG);
     busy[s] = ex ? p.busy_in[pool + j] : NEG;
+    if (FAULT) doom[FAULT ? s : 0] = INFINITY;
   }
   float t = p.t0[row];
   const float texp = p.t_exp[row], tend = p.t_end[row], sk = p.skip[row];
   const float tto = RELY ? p.t_to[row] : 0.f;
   const float pf = RELY ? p.p_fail[row] : 0.f;
-  float a_cold = 0.f, a_warm = 0.f, a_rej = 0.f, a_run = 0.f, a_idle = 0.f;
+  float a_cold = 0.f, a_warm = 0.f, a_rej = 0.f;
   float a_cresp = 0.f, a_wresp = 0.f, a_over = 0.f;
   float a_tout = 0.f, a_fail = 0.f, a_retry = 0.f, a_aband = 0.f;
-  // faults: the crash clocks (+inf: none stamped), the row's crash rate and
-  // capacity profile, its current segment (empty: looked up at the first
-  // event) and the fault columns
-  float doom[S];
+  // faults: the row's crash rate and capacity profile, its current segment
+  // (empty: looked up at the first event) and the fault columns
   const bool crash = FAULT && p.crash_u != nullptr;
   const bool capped = FAULT && p.cap_v != nullptr;
   const float crate = crash ? p.crate[row] : 0.f;
   const float* cap_e = capped ? p.cap_e + (size_t)row * p.E : nullptr;
   const float* cap_v = capped ? p.cap_v + (size_t)row * (p.E + 1) : nullptr;
   float cap_now = 0.f, cap_lo = INFINITY, cap_hi = -INFINITY;
-  float a_crash = 0.f, a_evict = 0.f, a_int = 0.f;
-  if (FAULT) {
-#pragma unroll
-    for (int s = 0; s < S; ++s) doom[s] = INFINITY;
-  }
+  float a_evict = 0.f, a_int = 0.f;
+  int crash_l = 0;
   // acc row: 8 base | 5W windows | 3G grid | 4 reliability | 3 fault columns
   float* arow = p.acc_out + (size_t)row * p.cols;
   float* wacc = arow + ACC_COLS;
@@ -374,12 +600,38 @@ __global__ void __launch_bounds__(WARPS * 32) faas_sweep_kernel(const Params p) 
   __syncwarp();
   float next_g = INFINITY;
   if (GRID) next_g = next_grid(grow, G, t, lane);
+
+  // the row's running state: the clock clipped to [skip, t_end] (hi_prev)
+  // and to t_end (hie_prev, the windows' clock), the live count, the lower
+  // bound of the earliest exit clock, this lane's part of the integrals,
+  // and the exits deferred past the horizon (up to the clock tmax)
+  float hi_prev = fminf(fmaxf(t, sk), tend);
+  float hie_prev = fminf(t, tend);
+  int n_live = (int)__reduce_add_sync(FULL, (unsigned)__popc(live));
+  float run_l = 0.f, idle_l = 0.f;
+  float next_exit;
+  {
+    float nx = INFINITY;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      if ((live >> s) & 1u) {
+        nx = fminf(nx, __fadd_rn(busy[s], texp));
+        const float2 a = slot_accrue<false>(busy[s], texp, INFINITY, hi_prev, tend);
+        run_l = __fadd_rn(run_l, a.x);
+        idle_l = __fadd_rn(idle_l, a.y);
+      }
+    }
+    next_exit = key_value(__reduce_min_sync(FULL, order_key(nx)));
+  }
+  float tmax = -INFINITY;
+  bool deferred = false;
   WindowCursor cur;
   if (WIN) {
     cur.bounds = wrow;
     cur.acc = wacc;
     cur.W = W;
-    cur.enter(0);
+    cur.seek(hie_prev, lane);
+    cur.add_live(live, busy, texp, hie_prev, INFINITY, tend);
   }
 
   FusedStream fa, fw, fc, ff;
@@ -395,15 +647,33 @@ __global__ void __launch_bounds__(WARPS * 32) faas_sweep_kernel(const Params p) 
     if (RETRY) __syncwarp();  // lane 0's activation stores, before the loads
     const int k = base + lane;
     const bool in = k < K;
+    const int n = min(32, K - base);
     // lane l loads (or, fused, draws) event base + l of the batch
-    float d_l, w_l, c_l, f_l;
+    const float d_l = in ? (FUSED ? fa.draw((unsigned)k) : p.dts[srow + k]) : 0.f;
+    // a batch wholly past the horizon (the clock past t_end, and gaps >= 0 or
+    // times past t_end) only moves the clock; its exits wait for the pass
+    // at the largest clock reached
+    if (!(t <= tend)) {
+      const bool inert = !in || (p.prestamped ? !(d_l <= tend) : d_l >= 0.f);
+      if (__all_sync(FULL, inert)) {
+        if (p.prestamped) {
+          t = __shfl_sync(FULL, d_l, n - 1);
+          tmax = fmaxf(tmax, key_value(__reduce_max_sync(FULL, in ? order_key(d_l) : 0u)));
+        } else {
+#pragma unroll 8
+          for (int i = 0; i < n; ++i) t = __fadd_rn(t, __shfl_sync(FULL, d_l, i));
+          tmax = fmaxf(tmax, t);
+        }
+        deferred = true;
+        continue;
+      }
+    }
+    float w_l, c_l, f_l;
     if (FUSED) {
-      d_l = in ? fa.draw((unsigned)k) : 0.f;
       w_l = in ? fw.draw((unsigned)k) : 0.f;
       c_l = in ? fc.draw((unsigned)k) : 0.f;
       f_l = RELY && in ? ff.uniform((unsigned)k) : 1.f;
     } else {
-      d_l = in ? p.dts[srow + k] : 0.f;
       w_l = in ? p.warms[srow + k] : 0.f;
       c_l = in ? p.colds[srow + k] : 0.f;
       f_l = RELY && in ? p.fail_u[srow + k] : 1.f;
@@ -414,259 +684,282 @@ __global__ void __launch_bounds__(WARPS * 32) faas_sweep_kernel(const Params p) 
     const float act_l = RETRY && in ? act[k] : 0.f;
     // activations of this batch's events made during this batch
     unsigned pend = 0u;
-    const int n = min(32, K - base);
+    // each event's gap (or time) and warm sample are broadcast one event
+    // ahead of their use, off the chain of the routing
+    float d_next = __shfl_sync(FULL, d_l, 0);
     for (int i = 0; i < n; ++i) {
-      const float dt = __shfl_sync(FULL, d_l, i);
-      const float warm_s = __shfl_sync(FULL, w_l, i);
-      const float cold_s = __shfl_sync(FULL, c_l, i);
+      const float dt = d_next;
+      d_next = __shfl_sync(FULL, d_l, (i + 1) & 31);
+      const float w_i = __shfl_sync(FULL, w_l, i);
       const float t_new = p.prestamped ? dt : __fadd_rn(t, dt);
-      const float lo = fminf(fmaxf(t, sk), tend);
       const float hi = fminf(fmaxf(t_new, sk), tend);
-
-      if (GRID) {
-        const float hi_g = fminf(t_new, tend);
-        if (next_g <= hi_g) {
-          // grid points in (t, hi_g]: counts on the pre-expiry pool
-          for (int gb = 0; gb < G; gb += 32) {
-            const int gi = gb + lane;
-            const float g = gi < G ? __ldg(grow + gi) : 0.f;
-            unsigned hit = __ballot_sync(FULL, gi < G && g > t && g <= hi_g);
-            while (hit) {
-              const int l = __ffs(hit) - 1;
-              hit &= hit - 1;
-              const float gg = __shfl_sync(FULL, g, l);
-              int n_run = 0, n_idle = 0;
+      // a quiet event moves no clock-driven state: inside the horizon with
+      // nothing deferred, the clipped clock not going back, no exit, grid
+      // point, window bound or capacity step due
+      bool quiet = t_new <= tend && !deferred && hi >= hi_prev && t_new < next_exit;
+      if (GRID) quiet = quiet && next_g > t_new && t_new >= t;
+      if (WIN) quiet = quiet && t_new >= hie_prev && cur.hi > t_new;
+      if (capped)
+        quiet = quiet && t_new >= cap_lo && t_new < cap_hi && (float)n_live <= cap_now;
+      Newest r{0u, UINT_MAX};
+      bool have_r = false;
+      const bool counted = t_new > sk;
+      if (!quiet) {
+        const bool inert = !(t_new <= tend);
+        if (!inert && deferred) {
+          // back inside the horizon: first the exits deferred past it
+          exit_pass<S, FAULT>(live, busy, doom, texp, tmax, sk, tend, n_live, next_exit,
+                              crash_l);
+          deferred = false;
+        }
+        if (GRID) {
+          const float hi_g = fminf(t_new, tend);
+          if (next_g <= hi_g) {
+            // grid points in (t, hi_g]: counts on the pre-expiry pool
+            for (int gb = 0; gb < G; gb += 32) {
+              const int gi = gb + lane;
+              const float g = gi < G ? __ldg(grow + gi) : 0.f;
+              unsigned hit = __ballot_sync(FULL, gi < G && g > t && g <= hi_g);
+              while (hit) {
+                const int l = __ffs(hit) - 1;
+                hit &= hit - 1;
+                const float gg = __shfl_sync(FULL, g, l);
+                int n_run = 0, n_idle = 0;
 #pragma unroll
-              for (int s = 0; s < S; ++s) {
-                const bool live = alive[s] > 0.f && __fadd_rn(busy[s], texp) > gg;
-                n_run += __popc(__ballot_sync(FULL, live && busy[s] > gg));
-                n_idle += __popc(__ballot_sync(FULL, live && busy[s] <= gg));
-              }
-              if (lane == 0) {
-                float* a = gacc + gb + l;
-                a[0] = __fadd_rn(a[0], (float)n_run);
-                a[G] = __fadd_rn(a[G], (float)n_idle);
-                if (n_idle == 0) a[2 * G] = __fadd_rn(a[2 * G], 1.f);
+                for (int s = 0; s < S; ++s) {
+                  const bool lv = ((live >> s) & 1u) && __fadd_rn(busy[s], texp) > gg;
+                  n_run += __popc(__ballot_sync(FULL, lv && busy[s] > gg));
+                  n_idle += __popc(__ballot_sync(FULL, lv && busy[s] <= gg));
+                }
+                if (lane == 0) {
+                  float* a = gacc + gb + l;
+                  a[0] = __fadd_rn(a[0], (float)n_run);
+                  a[G] = __fadd_rn(a[G], (float)n_idle);
+                  if (n_idle == 0) a[2 * G] = __fadd_rn(a[2 * G], 1.f);
+                }
               }
             }
           }
+          if (next_g <= t_new || t_new < t) next_g = next_grid(grow, G, t_new, lane);
         }
-        if (next_g <= t_new || t_new < t) next_g = next_grid(grow, G, t_new, lane);
-      }
-
-      // the window integrals over (lo_e, hi_e] on the pre-expiry pool
-      const float hi_e = fminf(t_new, tend);
-      if (WIN) {
-        const float lo_e = fminf(t, tend);
-        if (t_new < t) {  // the clock went back: rescan from window 0
-          cur.leave(lane);
-          cur.enter(0);
+        if (inert) {
+          // past the horizon: the clocks move (the windows' to t_end), the
+          // exits wait
+          if (WIN) cur.cross(live, busy, texp, fminf(t_new, tend), tend, lane);
+          hie_prev = fminf(t_new, tend);
+          hi_prev = hi;
+          tmax = deferred ? fmaxf(tmax, t_new) : t_new;
+          deferred = true;
+          t = t_new;
+          continue;
         }
-        if (lo_e < hi_e) {
-          while (cur.w < W && cur.hi <= lo_e) cur.next(lane);
-          // the windows overlapping the interval, each in turn the cursor
-          while (cur.w < W && cur.lo < hi_e) {
-            const float wlo = fmaxf(cur.lo, lo_e), whi = fminf(cur.hi, hi_e);
-            if (wlo < whi) {
-              float r_l = 0.f, i_l = 0.f;
+        // where a clipped clock goes back, the live states count the
+        // interval again
+        if (hi < hi_prev) settle<S, FAULT>(live, busy, doom, texp, hi, hi_prev, tend, run_l, idle_l);
+        if (WIN) {
+          if (t_new < hie_prev) cur.back(live, busy, texp, t_new, hie_prev, tend, lane);
+          else cur.cross(live, busy, texp, t_new, tend, lane);
+        }
+        // the exits (expiry, or a crash), once the clock reaches the bound
+        if (t_new >= next_exit)
+          exit_pass<S, FAULT>(live, busy, doom, texp, t_new, sk, tend, n_live, next_exit, crash_l);
+        if (capped) {
+          // capacity churn: evict the newest idle instances above the
+          // ceiling, each choice after an eviction the next newest
+          if (!(t_new >= cap_lo && t_new < cap_hi))
+            cap_seek(cap_e, cap_v, p.E, t_new, lane, cap_now, cap_lo, cap_hi);
+          const float over = __fsub_rn((float)n_live, cap_now);
+          if (over > 0.f) {
+            r = newest_idle<S>(live, ckey, busy, t_new, lane);
+            have_r = true;
+            int nev = 0;
+            while ((float)nev < over && r.found()) {
+              const bool mine = lane == (int)(r.j & 31u);
+              const int cs = (int)(r.j >> 5);
+              float be = busy[0], de = FAULT ? doom[0] : INFINITY;
 #pragma unroll
-              for (int s = 0; s < S; ++s) {
-                const float expire = __fadd_rn(busy[s], texp);
-                const float r = fmaxf(__fsub_rn(fminf(busy[s], whi), wlo), 0.f);
-                const float d =
-                    fmaxf(__fsub_rn(fminf(expire, whi), fmaxf(busy[s], wlo)), 0.f);
-                r_l = __fadd_rn(r_l, __fmul_rn(r, alive[s]));
-                i_l = __fadd_rn(i_l, __fmul_rn(d, alive[s]));
+              for (int s = 1; s < S; ++s) {
+                be = s == cs ? busy[s] : be;
+                de = s == cs ? doom[FAULT ? s : 0] : de;
               }
-              cur.c[3] = __fadd_rn(cur.c[3], warp_sum(r_l));
-              cur.c[4] = __fadd_rn(cur.c[4], warp_sum(i_l));
+              // the state ends: it gives back what it accrued past hi
+              const float2 a = slot_accrue<FAULT>(be, texp, de, hi, tend);
+              run_l = __fsub_rn(run_l, mine ? a.x : 0.f);
+              idle_l = __fsub_rn(idle_l, mine ? a.y : 0.f);
+              if (mine) live &= ~(1u << cs);
+              ++nev;
+              r = newest_idle<S>(live, ckey, busy, t_new, lane);
             }
-            if (cur.hi > hi_e) break;  // the window goes on past the interval
-            cur.next(lane);
+            if (nev) {
+              n_live -= nev;
+              if (counted) a_evict = __fadd_rn(a_evict, (float)nev);
+            }
           }
         }
       }
+      hi_prev = hi;
+      if (WIN) hie_prev = t_new;
 
-      // integrals over (lo, hi] on the pre-expiry pool, then expiry, then
-      // the routing candidates on the post-expiry pool
-      float run_l = 0.f, idle_l = 0.f, alive_l = 0.f;
-      float best = NEG;
-      int best_j = INT_MAX;
-      int crash_l = 0;
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        const float expire = __fadd_rn(busy[s], texp);
-        // a crashed instance accrues nothing past its doom
-        const float stop = FAULT ? fminf(hi, doom[s]) : hi;
-        const float r = fmaxf(__fsub_rn(fminf(busy[s], stop), lo), 0.f);
-        const float d = fmaxf(__fsub_rn(fminf(expire, stop), fmaxf(busy[s], lo)), 0.f);
-        run_l = __fadd_rn(run_l, __fmul_rn(r, alive[s]));
-        idle_l = __fadd_rn(idle_l, __fmul_rn(d, alive[s]));
-        if (FAULT) {
-          // the exit clock that fires first: expiry, or a crash
-          if (alive[s] > 0.f && fminf(expire, doom[s]) <= t_new) {
-            crash_l += doom[s] < expire && doom[s] > sk && doom[s] <= tend;
-            alive[s] = 0.f;
-          }
-        } else if (alive[s] > 0.f && expire <= t_new) {
-          alive[s] = 0.f;
-        }
-        alive_l = __fadd_rn(alive_l, alive[s]);
-        // this lane's slots ascend with s, so '>' keeps the lowest slot on a tie
-        if (alive[s] > 0.f && busy[s] <= t_new && cre[s] > best) {
-          best = cre[s];
-          best_j = s * 32 + lane;
-        }
-      }
-      const float run_sum = warp_sum(run_l);
-      const float idle_sum = warp_sum(idle_l);
-      float n_alive = warp_sum(alive_l);
-      warp_argmax(best, best_j);
-      if (crash) {
-        const int n_crash = (int)__reduce_add_sync(FULL, (unsigned)crash_l);
-        if (n_crash) a_crash = __fadd_rn(a_crash, (float)n_crash);
-      }
-      if (capped) {
-        // capacity churn: evict the newest idle instances above the
-        // ceiling, each pass's arg-max the next newest
-        if (!(t_new >= cap_lo && t_new < cap_hi))
-          cap_seek(cap_e, cap_v, p.E, t_new, lane, cap_now, cap_lo, cap_hi);
-        const float over = __fsub_rn(n_alive, cap_now);
-        if (over > 0.f && t_new <= tend) {
-          int nev = 0;
-          while ((float)nev < over && best > NEG * 0.5f) {
-#pragma unroll
-            for (int s = 0; s < S; ++s)
-              if (s * 32 + lane == best_j) alive[s] = 0.f;
-            ++nev;
-            newest_idle<S>(alive, cre, busy, t_new, lane, best, best_j);
-          }
-          if (nev) {
-            n_alive = __fsub_rn(n_alive, (float)nev);
-            if (t_new > sk) a_evict = __fadd_rn(a_evict, (float)nev);
-          }
-        }
-      }
-      int first_free = -1;
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        const unsigned fm = __ballot_sync(FULL, s * 32 + lane < M && alive[s] <= 0.f);
-        if (first_free < 0 && fm) first_free = s * 32 + __ffs(fm) - 1;
-      }
-
-      bool active = t_new <= tend;
-      float first_i = 1.f, child_i = NO_CHILD_F;
+      bool active = true;
+      float first_i = 1.f;
       if (RETRY) {
         first_i = __shfl_sync(FULL, first_l, i);
-        child_i = __shfl_sync(FULL, child_l, i);
         const bool on = __shfl_sync(FULL, act_l, i) > 0.f || ((pend >> i) & 1u);
-        active = active && (first_i > 0.f || on);
+        active = first_i > 0.f || on;
       }
-      const bool any_idle = best > NEG * 0.5f;
-      const bool any_free = first_free >= 0;
-      const bool counted = t_new > sk;
-      const bool below = n_alive < p.max_c;
-      // with a capacity profile a cold start also needs the live count below
-      // the ceiling
-      const bool can_cold = !any_idle && below && any_free && (!capped || n_alive < cap_now);
-      const bool is_warm = any_idle && active;
-      const bool is_cold = can_cold && active;
-      const bool is_reject = !any_idle && !can_cold && active;
-      const bool assign = is_warm || is_cold;
-      const float service = is_warm ? warm_s : cold_s;
-      // the served attempt's instance dies before the attempt ends
-      bool cut = false;
-      if (assign) {
-        const int chosen = is_warm ? best_j : first_free;
-        const float done = __fadd_rn(t_new, RELY ? fminf(service, tto) : service);
-        float life = INFINITY;
-        if (crash && is_cold) {
-          const float u = __shfl_sync(FULL, u_l, i);
-          if (crate > 0.f) life = __fdiv_rn(-logf(__fsub_rn(1.f, u)), crate);
-        }
-        float dc = INFINITY;
+      // an inactive attempt changes nothing past the exits and evictions
+      if (active) {
+        if (!have_r) r = newest_idle<S>(live, ckey, busy, t_new, lane);
+        const bool any_idle = r.found();
+        bool is_cold = false, below = true, any_free = true, cut = false;
+        float service = w_i;
+        if (any_idle) {
+          // warm: the newest idle instance, busy until done; its lane swaps
+          // the accrual of the state that ends for the one that starts
+          const float occ = RELY ? fminf(service, tto) : service;
+          const float done = __fadd_rn(t_new, occ), expire = __fadd_rn(done, texp);
+          const bool mine = lane == (int)(r.j & 31u);
+          const int cs = (int)(r.j >> 5);
+          float bw = busy[0], dw = FAULT ? doom[0] : INFINITY;
 #pragma unroll
-        for (int s = 0; s < S; ++s) {
-          if (s * 32 + lane == chosen) {
-            busy[s] = done;
-            if (is_cold) {
-              cre[s] = t_new;
-              alive[s] = 1.f;
-              if (crash) doom[s] = __fadd_rn(t_new, life);
+          for (int s = 1; s < S; ++s) {
+            bw = s == cs ? busy[s] : bw;
+            if (FAULT) dw = s == cs ? doom[FAULT ? s : 0] : dw;
+          }
+          const float2 was = slot_accrue<FAULT>(bw, texp, dw, hi, tend);
+          const float2 now = accrue_of<FAULT>(done, expire, dw, hi, tend);
+          run_l = __fadd_rn(run_l, mine ? __fsub_rn(now.x, was.x) : 0.f);
+          idle_l = __fadd_rn(idle_l, mine ? __fsub_rn(now.y, was.y) : 0.f);
+          if (WIN && cur.w < W) {
+            const float2 wn = cur.window_accrue(done, texp, t_new, tend);
+            const float2 ww = cur.window_accrue(bw, texp, t_new, tend);
+            cur.r = __fadd_rn(cur.r, mine ? __fsub_rn(wn.x, ww.x) : 0.f);
+            cur.i = __fadd_rn(cur.i, mine ? __fsub_rn(wn.y, ww.y) : 0.f);
+          }
+#pragma unroll
+          for (int s = 0; s < S; ++s) busy[s] = mine && s == cs ? done : busy[s];
+          // its exit moves to min(expire, doom), at least min(expire, the bound)
+          next_exit = fminf(next_exit, expire);
+          if (crash) cut = __shfl_sync(FULL, dw, r.j & 31u) < done;
+        } else {
+          // the slots are read only when no instance is idle
+          const int first_free = first_free_slot<S>(live, M, lane);
+          any_free = first_free >= 0;
+          const float n_alive = (float)n_live;
+          below = n_alive < p.max_c;
+          // with a capacity profile a cold start also needs the live count
+          // below the ceiling
+          is_cold = below && any_free && (!capped || n_alive < cap_now);
+          if (is_cold) {
+            service = __shfl_sync(FULL, c_l, i);
+            const float occ = RELY ? fminf(service, tto) : service;
+            const float done = __fadd_rn(t_new, occ), expire = __fadd_rn(done, texp);
+            float dn = INFINITY;  // the crash clock stamped at the cold start
+            if (crash) {
+              const float u = __shfl_sync(FULL, u_l, i);
+              const float life =
+                  crate > 0.f ? __fdiv_rn(-logf(__fsub_rn(1.f, u)), crate) : INFINITY;
+              dn = __fadd_rn(t_new, life);
             }
-            if (FAULT) dc = doom[s];
+            const bool mine = lane == (first_free & 31);
+            const int cs = first_free >> 5;
+            const float2 now = accrue_of<FAULT>(done, expire, dn, hi, tend);
+            run_l = __fadd_rn(run_l, mine ? now.x : 0.f);
+            idle_l = __fadd_rn(idle_l, mine ? now.y : 0.f);
+            if (WIN && cur.w < W) {
+              const float2 wn = cur.window_accrue(done, texp, t_new, tend);
+              cur.r = __fadd_rn(cur.r, mine ? wn.x : 0.f);
+              cur.i = __fadd_rn(cur.i, mine ? wn.y : 0.f);
+            }
+            const unsigned ck = order_key(t_new);
+#pragma unroll
+            for (int s = 0; s < S; ++s) {
+              const bool hit = mine && s == cs;
+              busy[s] = hit ? done : busy[s];
+              ckey[s] = hit ? ck : ckey[s];
+              if (FAULT) doom[FAULT ? s : 0] = hit ? dn : doom[FAULT ? s : 0];
+            }
+            if (mine) live |= 1u << cs;
+            ++n_live;
+            next_exit = fminf(next_exit, fminf(expire, dn));
+            cut = crash && dn < done;
           }
         }
-        if (crash) cut = __shfl_sync(FULL, dc, chosen & 31) < done;
-      }
-      if (counted) {
-        if (is_cold) {
-          a_cold = __fadd_rn(a_cold, 1.f);
-          a_cresp = __fadd_rn(a_cresp, RELY ? fminf(cold_s, tto) : cold_s);
-        }
-        if (is_warm) {
-          a_warm = __fadd_rn(a_warm, 1.f);
-          a_wresp = __fadd_rn(a_wresp, RELY ? fminf(warm_s, tto) : warm_s);
-        }
-        if (is_reject) a_rej = __fadd_rn(a_rej, 1.f);
-      }
-      a_run = __fadd_rn(a_run, run_sum);
-      a_idle = __fadd_rn(a_idle, idle_sum);
-      // overflow is counted for active arrivals whether or not past skip
-      if (!any_idle && below && !any_free && active) a_over = __fadd_rn(a_over, 1.f);
+        const bool assign = any_idle || is_cold;
+        const float occ = RELY ? fminf(service, tto) : service;
+        // the counters add 1 or 0 (a response or 0) each event, as the plain
+        // version's rows do
+        const bool cold_c = is_cold && counted, warm_c = any_idle && counted;
+        a_cold = __fadd_rn(a_cold, cold_c ? 1.f : 0.f);
+        a_cresp = __fadd_rn(a_cresp, cold_c ? occ : 0.f);
+        a_warm = __fadd_rn(a_warm, warm_c ? 1.f : 0.f);
+        a_wresp = __fadd_rn(a_wresp, warm_c ? occ : 0.f);
+        a_rej = __fadd_rn(a_rej, !assign && counted ? 1.f : 0.f);
+        // overflow is counted for active arrivals whether or not past skip
+        a_over = __fadd_rn(a_over, !any_idle && below && !any_free ? 1.f : 0.f);
 
-      if (WIN) {
-        // the cursor moves to the first window ending past hi_e; an active
-        // arrival (t_new = hi_e) lies in it when it has begun by t_new
-        while (cur.w < W && cur.hi <= hi_e) cur.next(lane);
-        if (active && cur.w < W && cur.lo <= t_new) {
-          if (is_cold) cur.c[0] = __fadd_rn(cur.c[0], 1.f);
-          if (assign) cur.c[1] = __fadd_rn(cur.c[1], 1.f);
-          cur.c[2] = __fadd_rn(cur.c[2], 1.f);
+        if (WIN) {
+          // the arrival (t_new = the window clock) lies in the cursor's
+          // window when it has begun by t_new
+          if (cur.w < W && cur.lo <= t_new) {
+            if (is_cold) cur.c[0] = __fadd_rn(cur.c[0], 1.f);
+            if (assign) cur.c[1] = __fadd_rn(cur.c[1], 1.f);
+            cur.c[2] = __fadd_rn(cur.c[2], 1.f);
+          }
         }
-      }
 
-      bool interrupted = cut;
-      if (RELY) {
-        const float fail_i = __shfl_sync(FULL, f_l, i);
-        const bool timed_out = assign && service > tto;
-        const bool failed = assign && !timed_out && fail_i < pf;
-        interrupted = cut && !timed_out && !failed;
-        const bool trigger = timed_out || failed || interrupted || is_reject;
-        if (counted) {
-          if (timed_out) a_tout = __fadd_rn(a_tout, 1.f);
-          if (failed) a_fail = __fadd_rn(a_fail, 1.f);
-        }
-        if (RETRY) {
-          if (first_i <= 0.f && active && counted) a_retry = __fadd_rn(a_retry, 1.f);
-          if (trigger && !(child_i < NO_CHILD_F) && counted)
+        bool interrupted = cut;
+        if (RELY) {
+          const bool timed_out = assign && service > tto;
+          const bool failed = assign && !timed_out && __shfl_sync(FULL, f_l, i) < pf;
+          interrupted = cut && !timed_out && !failed;
+          const bool trigger = timed_out || failed || interrupted || !assign;
+          if (counted) {
+            if (timed_out) a_tout = __fadd_rn(a_tout, 1.f);
+            if (failed) a_fail = __fadd_rn(a_fail, 1.f);
+          }
+          if (RETRY) {
+            const float child_i = __shfl_sync(FULL, child_l, i);
+            if (first_i <= 0.f && counted) a_retry = __fadd_rn(a_retry, 1.f);
+            if (trigger && !(child_i < NO_CHILD_F) && counted)
+              a_aband = __fadd_rn(a_aband, 1.f);
+            // switch on the successor: a position of this row's stream
+            if (trigger && child_i >= 0.f && child_i < (float)K) {
+              const int c = (int)child_i;
+              if ((float)c == child_i) {
+                if (lane == 0) act[c] = 1.f;
+                if (c >= base && c < base + 32) pend |= 1u << (c - base);
+              }
+            }
+          } else if (trigger && counted) {
             a_aband = __fadd_rn(a_aband, 1.f);
-          // switch on the successor: a position of this row's stream
-          if (trigger && child_i >= 0.f && child_i < (float)K) {
-            const int c = (int)child_i;
-            if ((float)c == child_i) {
-              if (lane == 0) act[c] = 1.f;
-              if (c >= base && c < base + 32) pend |= 1u << (c - base);
-            }
           }
-        } else if (trigger && counted) {
-          a_aband = __fadd_rn(a_aband, 1.f);
         }
+        if (interrupted && counted) a_int = __fadd_rn(a_int, 1.f);
       }
-      if (interrupted && counted) a_int = __fadd_rn(a_int, 1.f);
       t = t_new;
     }
   }
 
-  if (WIN) cur.leave(lane);
+  // the exits deferred past the horizon; then the live instances give back
+  // what they accrued past the last clock
+  if (deferred)
+    exit_pass<S, FAULT>(live, busy, doom, texp, tmax, sk, tend, n_live, next_exit, crash_l);
+  settle<S, FAULT>(live, busy, doom, texp, tend, hi_prev, tend, run_l, idle_l);
+  if (WIN) {
+    cur.add_live(live, busy, texp, INFINITY, hie_prev, tend);
+    cur.leave(lane);
+  }
+  const float a_run = warp_sum(run_l), a_idle = warp_sum(idle_l);
+  const float a_crash = (float)__reduce_add_sync(FULL, (unsigned)crash_l);
 #pragma unroll
   for (int s = 0; s < S; ++s) {
     const int j = s * 32 + lane;
     if (j < M) {
-      p.alive_out[pool + j] = alive[s];
-      p.creation_out[pool + j] = cre[s];
+      p.alive_out[pool + j] = (live >> s) & 1u ? 1.f : 0.f;
+      p.creation_out[pool + j] = key_value(ckey[s]);
       p.busy_out[pool + j] = busy[s];
-      if (crash) p.doom_out[pool + j] = doom[s];
+      if (crash) p.doom_out[pool + j] = doom[FAULT ? s : 0];
     }
   }
   if (lane == 0) {
@@ -699,8 +992,10 @@ template <int S, bool GRID, bool WIN, bool RELY, bool RETRY, bool FUSED = false,
           bool FAULT = false>
 void launch_one(const Params& p, cudaStream_t stream) {
   const dim3 blocks((p.R + WARPS - 1) / WARPS), threads(WARPS * 32);
+  // the widest pools' creation keys (and crash clocks) in shared memory
+  const size_t smem = S > 16 ? (size_t)WARPS * (FAULT ? 2 : 1) * S * 32 * sizeof(float) : 0;
   faas_sweep_kernel<S, GRID, WIN, RELY, RETRY, FUSED, FAULT>
-      <<<blocks, threads, 0, stream>>>(p);
+      <<<blocks, threads, smem, stream>>>(p);
 }
 
 // the flag sets the front door reaches: GRID alone (the temporal engine);

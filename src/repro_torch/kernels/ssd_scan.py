@@ -4,11 +4,13 @@
 ssd_scan_pallas``: the chunked SSD of ``x [B, L, H, P]`` with step sizes
 ``dt [B, L, H]``, decay rates ``A [H]`` and per-group ``Bm, Cm [B, L, G,
 N]``, returning ``y [B, L, H, P]`` and the final state ``[B, H, P, N]``,
-all f32.  The kernel is ``csrc/ssd_scan.cu`` (one block per (b, head)
-looping over 64-token chunks with the state in shared memory; its header
-says what bounds it and why it is built the way it is).  Unlike the Pallas
-launcher it folds ``x * dt`` and ``dt * A`` itself, reads B and C per group
-instead of broadcast to heads, and takes any L.
+all f32.  The kernel is ``csrc/ssd_scan.cu`` (one block per (b, head, 32
+head-dimension columns) looping over 64-token chunks with the state slice
+in shared memory, the scores C Bᵀ shared by the group's blocks in a thread
+block cluster; its header says what bounds it and why it is built the way
+it is).  Unlike the Pallas launcher it folds ``x * dt`` and ``dt * A``
+itself, reads B and C per group instead of broadcast to heads, and takes
+any L.
 
 For CUDA tensors the wrapper checks device, dtype, shape and contiguity,
 launches the kernel on the current stream and counts the launch in
@@ -81,6 +83,9 @@ def ssd_scan(
                          f"{STATE_DIMS}, got P={P}, N={N}")
     if B > 65535:
         raise ValueError("ssd_scan takes B up to 65535")
+    # the kernel reads x, B and C 16 bytes at a time: a view that starts off
+    # that alignment is copied
+    x, Bm, Cm = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, Bm, Cm))
     y = torch.empty_like(x)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream

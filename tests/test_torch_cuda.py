@@ -229,6 +229,25 @@ def test_par_and_fleet_recount_a_clock_that_goes_back(cuda_device, faults):
     for a, b in zip(out_f[1:], out_r[1:]):  # queue lengths, crash clocks
         np.testing.assert_array_equal(a, b)
     assert np.isfinite(out_f[0]).all()
+    # faas_sweep, whose rows accrue the same way: with metric windows (the
+    # cursor recounts the windows the clock went back over) and with crashes
+    # and a ceiling, on even rows whose times are shuffled
+    args, kw = _inputs(cuda_device, 18, 16, 16, 300, 10.0, True)
+    times = _shuffled(args[5], range(0, 16, 2), 100, 140, 2)
+    assert _clock_goes_back(times, slice(0, 16, 2), kw["skip"][::2], kw["t_end"][::2]).all()
+    args = args[:5] + (times,) + args[6:]
+    kw.update(max_concurrency=100, prestamped=True)
+    horizon = float(kw["t_end"].max())
+    W = 0
+    if faults:
+        kw.update(_fault_kw(cuda_device, 19, 16, 300, True, True, horizon))
+    else:
+        W = 5
+        rng = np.random.default_rng(19)
+        kw["window_bounds"] = torch.tensor(np.sort(rng.uniform(0, horizon, (16, W + 1)), 1),
+                                           dtype=torch.float32, device=cuda_device)
+    out = _held_rely(fes.faas_sweep(*args, **kw), faas_sweep_ref(*args, **kw), W)
+    assert np.isfinite(out[4]).all()
 
 
 @pytest.mark.cuda
@@ -740,6 +759,9 @@ def _ssd_inputs(dev, seed, B, L, H, P, N, G, scale=1.0, bias=0.5):
         (2, 200, 4, 64, 128, 2, 64),  # ragged L
         (2, 50, 4, 32, 16, 1, 16),  # the smoke model's widths
         (1, 77, 8, 128, 32, 4, 64),
+        # one mamba2-2.7b-width head group at its length, and a group a head
+        (1, 2048, 8, 64, 128, 1, 256),
+        (1, 2048, 8, 64, 128, 8, 256),
     ],
 )
 def test_ssd_scan_matches_plain(cuda_device, B, L, H, P, N, G, chunk):
@@ -753,6 +775,23 @@ def test_ssd_scan_matches_plain(cuda_device, B, L, H, P, N, G, chunk):
         assert bool(torch.isfinite(out).all())
         assert bool(((out - ref).abs() <= SSD_TOL * (1 + ref.abs())).all())
         assert ((out - ref).norm() / ref.norm()).item() <= SSD_REL_L2
+
+
+@pytest.mark.cuda
+def test_ssd_scan_takes_views_off_16_byte_alignment(cuda_device):
+    # the kernel reads x, B and C 16 bytes at a time; contiguous views that
+    # start 4 bytes past an allocation's start are copied by the wrapper
+    args = _ssd_inputs(cuda_device, 7, 1, 100, 4, 64, 32, 2)
+    shifted = []
+    for t in args:
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda_device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        shifted.append(view)
+    assert shifted[0].data_ptr() % 16 != 0 and shifted[0].is_contiguous()
+    y, st = ssd_scan(*shifted, chunk=64)
+    yr, sr = ssd_scan(*args, chunk=64)
+    assert torch.equal(y, yr) and torch.equal(st, sr)
 
 
 @pytest.mark.cuda
@@ -1216,6 +1255,100 @@ def test_front_door_runs_faults_on_the_kernel(cuda_device):
         for f in ("n_cold", "n_warm", "n_reject", "n_crash", "n_evict", "n_interrupt"):
             np.testing.assert_array_equal(getattr(sa, f), getattr(sb, f))
     assert sum(s.n_evict.sum() for s in a.summaries) > 0
+
+
+# ---------------------------------------------------------------------------
+# faas_sweep past the horizon: the exits deferred to one pass, batches that
+# only move the clock, attempts never switched on
+# ---------------------------------------------------------------------------
+
+
+def _past_horizon_call(dev, case, M, path):
+    """(args, kw, t_last) of a launch whose rows have a third to three fifths
+    of their events past t_end: an attempt table run as gaps ("gaps"), as
+    sorted times ("sorted"), as times shuffled across t_end, so that the clock
+    leaves the horizon and comes back ("unsorted"), or as sorted times with a
+    60 s hole after the last event inside the horizon, t_end 30 s into it
+    ("late"); on the base path ("base"), with reliability and retries
+    ("retry") or with those, crashes and a ceiling ("fault").  t_last is each
+    row's clock at its last event before t_end."""
+    inp = _rely_inputs(dev, 80 + M, 33, M, 150, 2, 0.5)
+    times = inp["table"][0].cpu().double().numpy()
+    R, K = times.shape
+    rng = np.random.default_rng(81 + M)
+    cut = (rng.uniform(0.4, 0.7, R) * K).astype(int)  # each row's first event past t_end
+    later = np.arange(K)[None, :] >= cut[:, None]
+    rows = np.arange(R)
+    if case == "late":
+        times = times + 60.0 * later
+    t_last = times[rows, cut - 1]
+    t_end = t_last + (30.0 if case == "late" else 0.5 * (times[rows, cut] - t_last))
+    if case == "unsorted":
+        for r in rows:
+            lo = cut[r] - 40
+            times[r, lo:lo + 80] = times[r, lo + rng.permutation(80)]
+    if case == "gaps":
+        times = np.diff(times, axis=1, prepend=0.0)
+    t = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32, device=dev)
+    args = (*inp["state"], inp["t_exp"], t(times), *inp["table"][1:3])
+    kw = dict(t_end=t(t_end), skip=inp["skip"], max_concurrency=3 if M < 64 else 100,
+              prestamped=case != "gaps")
+    if path != "base":
+        kw.update(t_timeout=inp["t_timeout"], p_fail=inp["p_fail"], fail_u=inp["table"][3],
+                  is_first=inp["table"][4], child_pos=inp["table"][5])
+    if path == "fault":
+        kw.update(_fault_kw(dev, 82 + M, R, K, True, True, float(t_end.max())))
+        kw["crash_rate"] = 4.0 * kw["crash_rate"]
+    return args, kw, t_last
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [8, 64, 300])
+@pytest.mark.parametrize("path", ["base", "retry", "fault"])
+@pytest.mark.parametrize("case", ["gaps", "sorted", "unsorted", "late"])
+def test_faas_past_the_horizon_matches_plain(cuda_device, case, path, M):
+    args, kw, t_last = _past_horizon_call(cuda_device, case, M, path)
+    key = fes.launch_key(False, False, path != "base", path != "base", faults=path == "fault")
+    before = fes.LAUNCH_COUNTS[key]
+    out_k = fes.faas_sweep(*args, **kw)
+    assert fes.LAUNCH_COUNTS[key] == before + 1
+    # pools, the final clock, the activation plane and the crash clocks bit
+    # for bit, the counters too; the integrals within INTEGRAL_RTOL
+    out = _held_rely(out_k, faas_sweep_ref(*args, **kw), 0)
+    stream = args[5].cpu().double().numpy()
+    clock = np.cumsum(stream, axis=1) if case == "gaps" else stream
+    t_end = kw["t_end"].cpu().numpy()
+    past = ~(clock <= t_end[:, None])
+    assert past[:, -64:].all()  # whole 32-event batches past the horizon
+    if case == "unsorted":  # an event inside the horizon after one past it
+        assert (np.maximum.accumulate(past, axis=1) & ~past).any()
+    if case == "late":
+        # instances that left between the last clock inside the horizon and
+        # t_end, which only the first event past t_end finds
+        alive, busy = out[0], out[2]
+        expire = busy + args[4].cpu().numpy()[:, None]
+        lo, hi = t_last[:, None], t_end[:, None]
+        assert ((alive == 0) & (busy > -1e29) & (expire > lo) & (expire <= hi)).any()
+        if path == "fault":  # and crashes counted there
+            doom = out.doom
+            assert ((alive == 0) & (doom > lo) & (doom <= hi) & (doom < expire)).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backoff", [0.05, 60.0])
+def test_retry_attempts_left_off_in_and_past_the_batch(cuda_device, backoff):
+    # attempts never switched on take no routing, whether their parent sits
+    # in their own 32-event batch (short backoff) or an earlier one (long)
+    inp = _rely_inputs(cuda_device, 90, 40, 16, 200, 2, backoff)
+    args, kw = _rely_call(inp, False, True, True, 2)
+    out = _held_rely(fes.faas_sweep(*args, **kw), faas_sweep_ref(*args, **kw), 0)
+    child = inp["table"][5].cpu().numpy()
+    r, q = np.nonzero(child < (1 << 30))
+    c = child[r, q].astype(int)
+    off = out.act[r, c] == 0
+    same = c // 32 == q // 32
+    assert (off & same).any() if backoff < 1 else (off & ~same).any()
+    assert (out.act[r, c] > 0).any()
 
 
 # ---------------------------------------------------------------------------
