@@ -64,7 +64,9 @@ Phases (any failure ends the script with a non-zero exit):
    attention kernels at D = 256, G = 16): each scan kernel against its plain
    version at small shapes (``ssd_scan`` at ``tests/test_kernels.py``'s
    shapes with G = 1, 2 and chunks 64-256, a ragged L and the smoke widths;
-   ``rglru_scan`` at W = 64-4,096, a ragged L, with and without h0), and
+   ``rglru_scan`` at W = 64-4,096, a ragged L and L = 1, with and without
+   h0, on both load paths: TMA, and ``cp.async`` for W % 4 != 0 and a view
+   off 16-byte alignment; B = 1 and more warps than one wave), and
    flash/decode attention at recurrentgemma's heads, window and full ring;
    then ``mamba2-2.7b`` and ``recurrentgemma-9b`` in turn at full width
    through ``Replica`` under phase 7's traffic, ``measure`` and
@@ -1057,12 +1059,15 @@ def attention_smem(kernel, D):
 
 def print_scan_ptxas(log):
     """Registers and spills of each scan kernel instance (P and N for
-    ssd_scan)."""
+    ssd_scan, the load path for rglru_scan)."""
     inst = None
     for line in log.splitlines():
-        m = re.search(r"(ssd_scan_kernel|rglru_scan_kernel)(ILi(\d+)ELi(\d+)E)?", line)
+        m = re.search(r"(ssd_scan_kernel|rglru_scan_kernel)(ILi(\d+)ELi(\d+)E|ILb([01])E)?",
+                      line)
         if m:
-            inst = m.group(1) + (f" P={m.group(3)} N={m.group(4)}" if m.group(2) else "")
+            inst = m.group(1) + (f" P={m.group(3)} N={m.group(4)}" if m.group(3) else "")
+            if m.group(5):
+                inst += " TMA" if m.group(5) == "1" else " cp.async"
         elif inst and ("registers" in line or "spill" in line):
             print(f"  ptxas {inst}: {line.split(':', 1)[-1].strip()}")
 
@@ -1490,9 +1495,15 @@ def recurrent_cases():
         (2, 200, 4, 64, 128, 2, 64),
         (2, 50, 4, 32, 16, 1, 16),
     ]
-    rglru = [  # B, L, W, with h0
-        (2, 256, 64, False), (2, 256, 512, True), (2, 300, 1024, False),
-        (3, 77, 4096, True), (4, 2048, 4096, True),
+    rglru = [  # B, L, W, with h0, a and b as views 4 bytes off 16-byte alignment
+        (2, 256, 64, False, False), (2, 256, 512, True, False), (2, 300, 1024, False, False),
+        (3, 77, 4096, True, False), (4, 2048, 4096, True, False),
+        (2, 129, 101, True, False),  # W % 4 != 0: the cp.async path
+        (2, 64, 200, False, False),  # W not a multiple of 32 on the TMA path
+        (1, 1, 101, False, False), (1, 1, 4096, True, False),  # L = 1 on both paths
+        (8, 64, 4096, False, False),  # more warps than one wave
+        (1, 2048, 4096, True, False),  # batch 1 at recurrentgemma-9b's width
+        (2, 100, 256, True, True), (4, 2048, 4096, False, True),
     ]
     flash = [  # B, S, T, Hq, Hkv, D, options: recurrentgemma's heads, its window
         (1, 300, 300, 16, 1, 256, dict(causal=True, window=128)),
@@ -1530,7 +1541,7 @@ def recurrent_phase(torch, dev, card):
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.faas_event_step import LAUNCH_COUNTS
     from repro_torch.kernels.flash_attention import flash_attention, kernel_tiles
-    from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch.kernels.rglru_scan import launch_plan, rglru_scan
     from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.launch import serve
     from repro_torch.models.attention import decode_attention_ref, flash_attention_ref
@@ -1561,16 +1572,25 @@ def recurrent_phase(torch, dev, card):
         errs["ssd_scan"] = max(errs["ssd_scan"], ey, es)
         print(f"kernel==plain {what}: y max|diff| {ey:.3e} relative L2 {ly:.3e}, state "
               f"{es:.3e} / {ls:.3e} (tol {SSD_TOL} x (1 + |plain|), L2 {SSD_REL_L2})", flush=True)
-    for B, L, W, with_h0 in rglru_cases:
+    paths = set()
+    for B, L, W, with_h0, shifted in rglru_cases:
         a = torch.sigmoid(randn(B, L, W)).to(dev)
         b = (0.1 * randn(B, L, W)).to(dev)
         h0 = randn(B, W).to(dev) if with_h0 else None
+        if shifted:  # contiguous views that start 4 bytes into their buffers
+            a, b = (torch.empty(t.numel() + 1, device=dev)[1:].view(t.shape).copy_(t)
+                    for t in (a, b))
+        path = launch_plan(B, W, a.dtype, a.data_ptr(), b.data_ptr()).path
+        paths.add(path)
         y, h_last = rglru_scan(a, b, h0)
         yr, hr = rglru_scan_ref(a, b, h0)
         if not (torch.equal(y, yr) and torch.equal(h_last, hr)):
-            raise AssertionError(f"rglru B={B} L={L} W={W}: kernel != plain, max|diff| "
+            raise AssertionError(f"rglru B={B} L={L} W={W} ({path}): kernel != plain, max|diff| "
                                  f"{(y - yr).abs().max().item():.3e}")
-        print(f"kernel==plain rglru B={B} L={L} W={W} h0={with_h0}: bit-equal", flush=True)
+        print(f"kernel==plain rglru B={B} L={L} W={W} h0={with_h0} view off 16 bytes="
+              f"{shifted}, {path} path: bit-equal", flush=True)
+    if paths != {"tma", "cp.async"}:
+        raise AssertionError(f"the rglru cases took only the {paths} load path(s)")
     for dname, dtype in dtypes.items():
         for B, S, T, Hq, Hkv, D, kw in flash_cases:
             q, k, v = (randn(*s).to(dev, dtype) for s in ((B, S, Hq, D), (B, T, Hkv, D),
@@ -1732,20 +1752,31 @@ def recurrent_phase(torch, dev, card):
 
     r = get_config("recurrentgemma-9b")
     W = r.rglru.lru_width
-    a = torch.rand((B, L, W), generator=gen).to(dev)
-    b = randn(B, L, W).to(dev)
-    ms, out = timed(torch, lambda: rglru_scan(a, b), reps=10)
-    plain_ms, ref = plain_timed(torch, lambda: rglru_scan_ref(a, b))
-    if not torch.equal(out[0], ref[0]):
-        raise AssertionError("rglru_scan at the path's shape differs from its plain version")
-    b_ms, b_by = _bound(3 * 4 * B * L * W, 2 * B * L * W)
-    print(f"timing [{card}]: rglru_scan B={B} L={L} W={W} f32: {ms:.4f} ms (mean of 10); "
-          f"bound {b_ms:.4f} ms ({b_by}: {3 * 4 * B * L * W / 1e6:.1f} MB); kernel "
-          f"{ms / b_ms:.2f}x its bound, {3 * 4 * B * L * W / ms / 1e6:.1f} GB/s; plain "
-          f"{plain_ms:.3f} ms (bit-equal); no single PyTorch call computes this", flush=True)
-    results["rglru_scan"] = dict(launches=results["recurrentgemma-9b"]["launches"]["rglru_scan"],
-                                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-    del a, b, out, ref
+    for Bs in (B, 1):  # the path's batch, and one request
+        a = torch.rand((Bs, L, W), generator=gen).to(dev)
+        b = randn(Bs, L, W).to(dev)
+        ms, out = timed(torch, lambda: rglru_scan(a, b), reps=10)
+        plain_ms, ref = plain_timed(torch, lambda: rglru_scan_ref(a, b))
+        if not torch.equal(out[0], ref[0]):
+            raise AssertionError(f"rglru_scan at B={Bs} L={L} W={W} differs from its plain "
+                                 "version")
+        # the streaming yardstick: the same two reads and one write
+        y = torch.empty_like(a)
+        add_ms, _ = timed(torch, lambda: torch.add(a, b, out=y), reps=10)
+        nbytes = 3 * 4 * Bs * L * W
+        b_ms, b_by = _bound(nbytes, 2 * Bs * L * W)
+        path = launch_plan(Bs, W, a.dtype, a.data_ptr(), b.data_ptr()).path
+        print(f"timing [{card}]: rglru_scan B={Bs} L={L} W={W} f32 ({path} path): {ms:.4f} ms "
+              f"(mean of 10); bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB); kernel "
+              f"{ms / b_ms:.2f}x its bound ({b_ms / ms:.1%} of it), {nbytes / ms / 1e6:.1f} GB/s; "
+              f"torch.add(a, b, out=y) on the same bytes {add_ms:.4f} ms ({nbytes / add_ms / 1e6:.1f}"
+              f" GB/s), kernel {ms / add_ms:.2f}x it; plain {plain_ms:.3f} ms (bit-equal); no "
+              "single PyTorch call computes this", flush=True)
+        if Bs == B:
+            results["rglru_scan"] = dict(
+                launches=results["recurrentgemma-9b"]["launches"]["rglru_scan"], ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        del a, b, y, out, ref
 
     Hq, Hkv, D, bf = r.n_heads, r.n_kv_heads, r.head_dim, torch.bfloat16
     q, k, v = (randn(*s).to(dev, bf) for s in ((B, L, Hq, D), (B, L, Hkv, D), (B, L, Hkv, D)))

@@ -88,6 +88,7 @@
 #include <stdint.h>
 
 #include "attention_common.cuh"
+#include "tma_common.cuh"
 
 namespace {
 
@@ -323,37 +324,6 @@ struct Cfg {
   static_assert(SMEM <= MAX_SMEM, "tile does not fit shared memory");
   static_assert(4 * ST * 8 + 8 <= BAR_BYTES, "barriers do not fit");
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-// spin until the phase of parity `parity` has completed (the loop inside
-// the PTX block, as CUTLASS writes it)
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
 
 // one box of a 4-D tensor map into shared memory, completing on `bar`
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
@@ -905,31 +875,6 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant
       *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)qi * q_stride + col) =
           __floats2bfloat162_rn(o[j] / dn, o[j + 1] / dn);
   }
-}
-
-// cuTensorMapEncodeTiled, fetched by cudaGetDriverEntryPoint on first use
-// (the build links only the CUDA runtime)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // the map of a bf16 [Bn, L, H, D] tensor read in boxes of `rows` positions

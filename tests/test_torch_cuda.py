@@ -728,7 +728,7 @@ def test_decode_attention_bf16_split_edges(cuda_device, B, T, Hq, Hkv, D, window
 # scan kernels (Mamba-2 and Griffin prefill)
 # ---------------------------------------------------------------------------
 
-from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
+from repro_torch.kernels.rglru_scan import launch_plan, rglru_scan  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.models.scans import rglru_scan_ref, ssd_chunked_ref  # noqa: E402
 
@@ -794,21 +794,56 @@ def test_ssd_scan_takes_views_off_16_byte_alignment(cuda_device):
     assert torch.equal(y, yr) and torch.equal(st, sr)
 
 
+def _rglru_inputs(dev, B, L, W, with_h0):
+    g = torch.Generator(device="cpu").manual_seed(L + W)
+    a = torch.sigmoid(torch.randn((B, L, W), generator=g)).to(dev)
+    b = (0.1 * torch.randn((B, L, W), generator=g)).to(dev)
+    h0 = torch.randn((B, W), generator=g).to(dev) if with_h0 else None
+    return a, b, h0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "B,L,W,with_h0",
-    [(2, 256, 64, False), (2, 300, 512, True), (3, 77, 4096, True), (1, 1, 100, True)],
+    [
+        (2, 256, 64, False), (2, 300, 512, True), (3, 77, 4096, True), (1, 1, 100, True),
+        (2, 129, 101, True),  # W % 4 != 0: the cp.async path, L past whole stages
+        (2, 64, 200, False),  # W not a multiple of 32 on the TMA path
+        (1, 1, 101, False),  # L = 1 on the cp.async path
+        (8, 64, 4096, False),  # more warps than one wave
+        (1, 2048, 4096, True),  # batch 1 at recurrentgemma-9b's width
+    ],
 )
 def test_rglru_scan_matches_plain_bitwise(cuda_device, B, L, W, with_h0):
     """One rounded multiply and one rounded add a step on both sides."""
-    g = torch.Generator(device="cpu").manual_seed(L + W)
-    a = torch.sigmoid(torch.randn((B, L, W), generator=g)).to(cuda_device)
-    b = (0.1 * torch.randn((B, L, W), generator=g)).to(cuda_device)
-    h0 = torch.randn((B, W), generator=g).to(cuda_device) if with_h0 else None
+    a, b, h0 = _rglru_inputs(cuda_device, B, L, W, with_h0)
+    assert launch_plan(B, W, a.dtype, a.data_ptr(), b.data_ptr()).path == (
+        "tma" if W % 4 == 0 else "cp.async")
     before = fes.LAUNCH_COUNTS["rglru_scan"]
     y, h_last = rglru_scan(a, b, h0)
     torch.cuda.synchronize()
     assert fes.LAUNCH_COUNTS["rglru_scan"] == before + 1
+    yr, hr = rglru_scan_ref(a, b, h0)
+    assert torch.equal(y, yr) and torch.equal(h_last, hr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift_a", [True, False])
+def test_rglru_scan_takes_views_off_16_byte_alignment(cuda_device, shift_a):
+    # TMA needs 16-byte aligned bases: a contiguous view 4 bytes past an
+    # allocation's start (b, and a or not) takes the kernel's cp.async path
+    a, b, h0 = _rglru_inputs(cuda_device, 2, 100, 256, True)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda_device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    sa, sb = (shifted(a) if shift_a else a), shifted(b)
+    assert sb.data_ptr() % 16 == 4 and sb.is_contiguous()
+    assert launch_plan(2, 256, a.dtype, sa.data_ptr(), sb.data_ptr()).path == "cp.async"
+    y, h_last = rglru_scan(sa, sb, h0)
     yr, hr = rglru_scan_ref(a, b, h0)
     assert torch.equal(y, yr) and torch.equal(h_last, hr)
 

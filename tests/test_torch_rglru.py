@@ -33,7 +33,7 @@ from repro_torch.interop import params_from_reference
 from repro_torch.kernels import ops
 from repro_torch.kernels.faas_event_step import LAUNCH_COUNTS
 from repro_torch.launch import serve
-from repro_torch.kernels.rglru_scan import rglru_scan
+from repro_torch.kernels.rglru_scan import launch_plan, rglru_scan
 from repro_torch.models import rglru, scans
 from repro_torch.models.model import build_model
 from repro_torch.serving.engine import Replica
@@ -105,6 +105,22 @@ def test_scan_dispatch_on_the_cpu():
         rglru_scan(a, b[:, :5])
     with pytest.raises(ValueError, match="h0 must be"):
         rglru_scan(a, b, h0[:, :5])
+
+
+@pytest.mark.parametrize("B,W,a_off,b_off,path,grid", [
+    (4, 4096, 0, 0, "tma", (128, 4)),  # recurrentgemma-9b's prefill
+    (1, 4096, 0, 0, "tma", (128, 1)),
+    (2, 200, 0, 0, "tma", (7, 2)),  # a row of 800 bytes, a ragged last warp
+    (2, 101, 0, 0, "cp.async", (4, 2)),  # a row of 404 bytes
+    (3, 4096, 4, 0, "cp.async", (128, 3)),  # a view one element into its buffer
+    (3, 4096, 0, 36, "cp.async", (128, 3)),
+    (3, 4096, 48, 16, "tma", (128, 3)),
+])
+def test_launch_plan_picks_the_load_path_and_grid(B, W, a_off, b_off, path, grid):
+    """TMA for 16-byte aligned bases and a row stride of whole 16 bytes,
+    4-byte cp.async for anything else; a block per 32 channels of a row."""
+    base = 1 << 30
+    assert launch_plan(B, W, torch.float32, base + a_off, base + b_off) == (path, grid)
 
 
 # ---------------------------------------------------------------------------
