@@ -105,7 +105,8 @@ Phases (any failure ends the script with a non-zero exit):
     every stream, M = 8, 37, 64, 300, 258 rows x 509 events; base, 240
     narrow windows, reliability, both) and against the staged kernel on
     the same draws materialized by ``drawplan.materialize_stream`` (bit for
-    bit); 2^26 draws of each family under two parameter sets, mean and
+    bit); 2^26 draws of each family under two parameter sets, and of the
+    staged Gamma (k = 0.5, 2), empirical and batch samplers, mean and
     variance within 4 standard errors of the closed form; then through the
     entry points, the launch counts set to 0 before each: phase 4's
     Table-1 sweep with ``Execution(draws="fused")`` (one launch, Table 1
@@ -135,9 +136,32 @@ Phases (any failure ends the script with a non-zero exit):
     with crashes and a dip, timed against the launch without faults, and
     with the crashes alone and the dip alone, each against the same base;
     each beside its bound;
-12. the kernels line (JSON), the card line, then the device line (JSON) last.
+12. non-stationary workloads (absolute timestamps thinned and sorted in f64,
+    cast once, through the kernels' ``prestamped`` paths): through the
+    entry points, the launch counts set to 0 before each:
+    ``examples/diurnal.py``'s what-if at the scale of a real day through
+    ``sweep()`` (a ``profile`` axis of 16 ``SinusoidalRate`` profiles x 4
+    thresholds x 64 replicas = 4,096 rows x ~142,229 candidate events, 24
+    hourly windows, one launch): its wall, the share of it that its staging
+    took, the launch again on those inputs by CUDA events beside its bound, peak memory, the ``PAD_TIME`` share and
+    simulated arrivals/s; the launch held to plain on its first 4096 events;
+    each hour's arrivals, pooled over a profile's replicas, within
+    ``HOURLY_SIGMAS`` standard errors of the profile's integral; each cell's
+    whole-day cold-start probability and instance count within
+    ``REF_NHPP_SIGMAS`` standard errors of ``REF_NHPP``
+    (``tools/nhpp_reference.py``); then one ``run()`` of an MMPP workload
+    (scan engine), of a 20,000-timestamp ``batch_arrivals`` recording
+    through ``engine="par"`` at c = 3 (every replica replays it exactly) and
+    of an NHPP profile through ``engine="temporal"``, and a two-function
+    ``fleet_sweep()`` with one NHPP function (merged in f64), each held to
+    its plain version on its first 4096 events; the sampler check (phase 10)
+    covers Gamma, empirical and batch draws on the card;
+13. the kernels line (JSON), the card line, then the device line (JSON) last.
+
+``--seed`` (default 0) seeds phase 12's draws and recording.
 """
 
+import argparse
 import json
 import re
 import subprocess
@@ -269,6 +293,12 @@ KERNELS = {
     ),
     "faas_sweep_retry_fault": dict(
         name="faas_sweep_retry_fault", route="cuda",
+        source="src/repro_torch/kernels/csrc/faas_event_step.cu",
+        replaces="src/repro/kernels/faas_event_step.py:107",
+    ),
+    # timestamp streams (NHPP thinning) through the windowed path
+    "faas_sweep_win_prestamped": dict(
+        name="faas_sweep_win_prestamped", route="cuda",
         source="src/repro_torch/kernels/csrc/faas_event_step.cu",
         replaces="src/repro/kernels/faas_event_step.py:107",
     ),
@@ -2467,6 +2497,54 @@ def sampler_check(torch, dev):
     print(f"sampler check: {sum(len(f) for f in SAMPLER_SETS.values())} family sets, largest "
           f"{worst:.2f} standard "
           f"errors, in {time.perf_counter() - t0:.1f} s", flush=True)
+    staged_sampler_check(torch, dev)
+
+
+def staged_sampler_check(torch, dev):
+    """The staged samplers with no fused transform, 2^26 draws each on the
+    card from a card generator: Gamma at k = 0.5 and 2 (Marsaglia–Tsang
+    rejection, the u^(1/k) boost below 1), empirical resampling, and batch
+    arrivals (exact zeros inside a batch, the heads exponential): mean and
+    variance within SAMPLER_SIGMAS standard errors of the closed form."""
+    from math import sqrt
+
+    from repro_torch.core import processes as rproc
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(11)
+    shape = (SAMPLER_ROWS, SAMPLER_EVENTS)
+    durations = (0.5, 1.5, 2.0, 8.0)
+    d = np.asarray(durations)
+    cases = [(f"gamma(k={k}, scale=1.5)", rproc.GammaSimProcess(shape_k=k, scale=1.5),
+              k * 1.5, k * 1.5 ** 2) for k in (0.5, 2.0)]
+    cases.append((f"empirical{durations}", rproc.EmpiricalSimProcess(durations=durations),
+                  d.mean(), d.var()))
+    batch = rproc.BatchArrivalProcess(base=rproc.ExpSimProcess(rate=0.6), batch_size=3)
+    cases.append(("batch(exp(0.6), 3) heads", batch, 1 / 0.6, 1 / 0.36))
+    worst = 0.0
+    for what, proc, m1, v1 in cases:
+        x = proc.sample(g, shape, dev)
+        if proc is batch:
+            heads = (torch.arange(x.numel(), device=dev) % 3 == 0).view(shape)
+            if not bool((x[~heads] == 0).all()) or not bool((x[heads] > 0).all()):
+                raise AssertionError("batch draws: a gap inside a batch is not 0")
+            x = x[heads]
+        x = x.double()
+        n = x.numel()
+        m = float(x.mean())
+        var = float(x.var(unbiased=False))
+        mu4 = float(((x - m) ** 4).mean())
+        z_m = abs(m - m1) / sqrt(var / n)
+        z_v = abs(var - v1) / sqrt(max(mu4 - var ** 2, 1e-300) / n)
+        worst = max(worst, z_m, z_v)
+        print(f"sampler {what}: mean {m:.6f} (closed form {m1:.6f}, {z_m:.2f} standard "
+              f"errors), variance {var:.6f} ({v1:.6f}, {z_v:.2f}) over {n} draws", flush=True)
+        if max(z_m, z_v) > SAMPLER_SIGMAS:
+            raise AssertionError(f"sampler {what}: more than {SAMPLER_SIGMAS} standard errors "
+                                 "from the closed form")
+        del x
+    print(f"staged sampler check: {len(cases)} families, largest {worst:.2f} standard errors, "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def cell_server_stats(grid):
@@ -3306,8 +3384,479 @@ def faults_phase(torch, rt, dev, card):
     return results, errs
 
 
+# ---- the non-stationary phase (module docstring, item 12)
+# examples/diurnal.py's scenario at the scale of a real day (the what-if of
+# benchmarks/run.py:406-450, bench_nhpp_sweep, at full width): Table 1's
+# services, 64 slots, sim_time one day, skip_time 0, 24 hourly windows;
+# the profile axis SinusoidalRate(base=0.9, amplitude=a, period=P) for
+# a in 0.1 .. 0.8 and P one day or half a day (16 profiles, amplitude-major)
+# x 4 thresholds x 64 replicas = 4,096 rows of ~142,229 candidate events
+# (the largest envelope, 1.62/s, sizes every draw cell's stream)
+DAY = 86400.0
+NHPP_AMPLITUDES = [0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8]
+NHPP_PERIODS = [DAY, DAY / 2]
+NHPP_THRESHOLDS = [60.0, 120.0, 300.0, 600.0]
+NHPP_REPLICAS = 64
+NHPP_WINDOWS = tuple(float(x) for x in np.linspace(0.0, DAY, 25))
+NHPP_PLAIN_EVENTS = 4096  # each launch of the phase is held to plain on these
+# an hour's arrivals, pooled over a profile's 4 x 64 replicas, against the
+# profile's integral over that hour: a Poisson count, within this many of
+# its standard errors (sqrt of the expected count)
+HOURLY_SIGMAS = 4.0
+# the JAX reference per cell, profile-major (tools/nhpp_reference.py
+# --replicas 64: JAX sweep() on its f64 scan backend, on the CPU, seed 0):
+# the whole-day cold-start probability (pooled) and average instance count
+# (the replica mean), each with the standard error of its per-replica
+# values.  The card's values (other draws: torch generators) must agree
+# within REF_NHPP_SIGMAS standard errors of the difference.
+REF_NHPP = dict(
+    cold_start_prob=[
+        0.01606386783790408, 0.007621076553908861, 0.0028814598753698277,
+        0.0013983527521092807, 0.016108890882927905, 0.007674954809202555,
+        0.0028827048751567507, 0.001420826089640113, 0.015964223687106677,
+        0.007615617078157923, 0.002855034096885538, 0.0013902703975470164,
+        0.01601868712792974, 0.007634429839939384, 0.002911666908200083,
+        0.0014181605682281426, 0.016015248942156904, 0.007626198902889946,
+        0.0028852894454198742, 0.0014259703800759513, 0.01600658473932392,
+        0.007615871815265825, 0.0028724526903444554, 0.0014279766057803914,
+        0.015925046982150897, 0.007618594682112276, 0.002881948624106161,
+        0.0014152304103585626, 0.01605905291403641, 0.007571818320614065,
+        0.002871973076458444, 0.0014019044831188425, 0.015887621951868804,
+        0.007568433632970773, 0.0028480407734755324, 0.001410098628554025,
+        0.015885322936418093, 0.007540100483773554, 0.0028944156495065098,
+        0.0014019887865010404, 0.015781906962178262, 0.007458875289799946,
+        0.002862411620455186, 0.0014185811414542699, 0.015734161054379876,
+        0.0075660643579831145, 0.00283897543601782, 0.001415342123740651,
+        0.015694559904450407, 0.0074587087818641104, 0.0028403118051728207,
+        0.0013858701110865592, 0.015661536001889603, 0.007450044539619377,
+        0.0028297197124749185, 0.0014196160263253048, 0.0155443176170475,
+        0.007425105782452755, 0.002783582070058338, 0.0013650762928872678,
+        0.015575569545267428, 0.00739307043513001, 0.0027758126174870774,
+        0.0013928410421416282,
+    ],
+    cold_start_prob_se=[
+        4.7323564256602685e-05, 2.987253290205531e-05, 1.9537067667776086e-05,
+        1.3560956166138148e-05, 4.3412853069533636e-05, 3.358094862473171e-05,
+        1.7636184256392545e-05, 1.2886925049279019e-05, 4.787655069283758e-05,
+        3.385625547284527e-05, 1.9920939560856745e-05, 1.2428172214510583e-05,
+        5.239400541066456e-05, 3.3551063789341496e-05, 1.9090461144059802e-05,
+        1.2258790206299568e-05, 5.177286400308779e-05, 3.204665623754571e-05,
+        1.6646697789358196e-05, 1.1616154426532165e-05, 4.4829058208738604e-05,
+        2.617330842981741e-05, 1.8092275992513723e-05, 1.2553416474210006e-05,
+        4.9389392390021155e-05, 3.246009557014786e-05, 1.7441419576290017e-05,
+        1.1995123108690501e-05, 4.400965204226473e-05, 2.902135950134424e-05,
+        1.6845143779577686e-05, 1.1363599584742193e-05, 4.299913865565879e-05,
+        3.442897513400038e-05, 1.942611430818651e-05, 1.1689227686043763e-05,
+        4.716167354386884e-05, 3.390328170895101e-05, 1.7063884555825755e-05,
+        1.4665844303354406e-05, 4.5983467889112786e-05, 2.735841280117197e-05,
+        1.747357944885776e-05, 1.330101659194685e-05, 4.582239742685868e-05,
+        3.209794273862245e-05, 1.68930737963587e-05, 1.317582317090752e-05,
+        4.116122434618426e-05, 3.183881928821613e-05, 2.027433148441996e-05,
+        1.387810954553651e-05, 4.688105640285239e-05, 3.578603429713235e-05,
+        1.588970114520108e-05, 1.2657677319199312e-05, 4.555026944557569e-05,
+        2.599774751781473e-05, 1.8332150073468335e-05, 1.2216700200990408e-05,
+        4.4783178922901e-05, 3.16229701936465e-05, 2.223530221929722e-05,
+        1.2022709928586168e-05,
+    ],
+    avg_server_count=[
+        5.885941001126371, 6.470274563144702, 7.183965404743115,
+        7.675364044365998, 5.886584191857956, 6.472319687778389,
+        7.19376766147871, 7.689424796622198, 5.880547965207571,
+        6.458674023196302, 7.165716325348173, 7.663442506490416,
+        5.875417731207277, 6.453234666081683, 7.179452970114065,
+        7.680834635543592, 5.861087004504973, 6.445798046612033,
+        7.16047942437873, 7.671151536498223, 5.866915319041189,
+        6.445031468412347, 7.153171380105005, 7.676665834289678,
+        5.849752493034998, 6.4208855388764565, 7.133210562291394,
+        7.624428685263841, 5.853120079196639, 6.42100208010388,
+        7.135987238144807, 7.644857820939398, 5.825864140250969,
+        6.399754972826686, 7.101865163549248, 7.610354141603516,
+        5.8204298783391195, 6.392470878056102, 7.101478626179309,
+        7.609426446873554, 5.790654935203413, 6.355674794006112,
+        7.073586272645982, 7.568703753169375, 5.786960537104454,
+        6.3587040179629195, 7.062265577555883, 7.562726768730117,
+        5.7450995343370375, 6.318730986878095, 7.01208667710098,
+        7.492818388601037, 5.750870882996182, 6.322738647987792,
+        7.020045434081887, 7.510070067983408, 5.692894049468657,
+        6.264367922020519, 6.939038051057938, 7.426558975219127,
+        5.7007692457914825, 6.261117958805417, 6.949349677779602,
+        7.447495118574015,
+    ],
+    avg_server_count_se=[
+        0.0034042505680908592, 0.0038289904942873845, 0.007453279571771071,
+        0.009533942534407707, 0.0036785927143487126, 0.005105292104877793,
+        0.00641948605704078, 0.009575675391251584, 0.003544433817967519,
+        0.004900099664015299, 0.007315178797273172, 0.008112558239069277,
+        0.003482289229339556, 0.00511975175780351, 0.007502281916615327,
+        0.008484917616119986, 0.0037752313433876863, 0.00547687023082281,
+        0.006620030130810287, 0.009125519159461427, 0.0036152602892305517,
+        0.004996231780204766, 0.00711252404215354, 0.009769561764812848,
+        0.0044035007268184625, 0.004794636742753612, 0.00706395029098814,
+        0.011007458780767811, 0.003603064517049097, 0.004325295683311682,
+        0.007550802615546535, 0.008889229773722432, 0.004074010947576717,
+        0.005100228513199778, 0.006035710914113206, 0.008881181421269937,
+        0.0037649195504562464, 0.004651494568133446, 0.006491343341999128,
+        0.010229862081117697, 0.0033324367052157515, 0.004825333047898111,
+        0.006002861827982861, 0.009160915311082726, 0.004117993527116468,
+        0.004904173916183012, 0.006134588126686759, 0.00889963386602534,
+        0.0035052759590786515, 0.0051679174188101785, 0.006820428202075925,
+        0.010123620094828445, 0.0037324538814839333, 0.004834557362802144,
+        0.00621067012698443, 0.008335201028377839, 0.0035681011432832726,
+        0.004480250833982459, 0.0071344888735497426, 0.009189943403405535,
+        0.0035665984967204988, 0.005125421333058568, 0.0066438496874564055,
+        0.008485217729064612,
+    ],
+)
+REF_NHPP_SIGMAS = 4.0
+# one run() of each of the other timestamp workloads
+MMPP_RATES = dict(rate_low=0.3, rate_high=3.0, switch_rate=1 / 600)
+MMPP_REPLICAS = 1024  # ~261,000 candidates a row
+TRACE_EVENTS, TRACE_RATE, TRACE_BATCH = 20_000, 2.0, 4  # batch_arrivals' recording
+TRACE_SIM, TRACE_C = 9000.0, 3
+TEMPORAL_NHPP = dict(base=0.9, amplitude=0.5, period=3600.0)
+FLEET_NHPP_REPLICAS = 512
+FLEET_NHPP_THRESHOLDS = [60.0, 600.0]
+
+
+def nhpp_profiles(rt):
+    return [rt.SinusoidalRate(base=0.9, amplitude=a, period=p)
+            for a in NHPP_AMPLITUDES for p in NHPP_PERIODS]
+
+
+def sinusoid_integral(prof, a, b):
+    """The integral of prof.rate(t) over [a, b] (phase 0)."""
+    w = 2 * np.pi / prof.period
+    return prof.base * ((b - a) + prof.amplitude / w * (np.cos(w * a) - np.cos(w * b)))
+
+
+def nhpp_cell_stats(grid):
+    """Per cell (profile-major): the pooled cold-start probability and the
+    replica mean of the average instance count, each with the standard
+    error of its per-replica values."""
+    out = {k: [] for k in ("cold", "cold_se", "servers", "servers_se")}
+    for s in grid.summaries.ravel():
+        cold = s.n_cold / np.maximum(s.n_cold + s.n_warm, 1)
+        v = (s.time_running + s.time_idle) / s.measured_time
+        out["cold"].append(s.cold_start_prob)
+        out["cold_se"].append(cold.std(ddof=1) / np.sqrt(len(cold)))
+        out["servers"].append(v.mean())
+        out["servers_se"].append(v.std(ddof=1) / np.sqrt(len(v)))
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def timestamp_run_held(torch, rt, dev, card, what, scn, seed, replicas, engine, launch_key,
+                       kernel_kw, res):
+    """A run() of a timestamp workload held to its plain version: its own
+    staged buffers (run_samples, the draws run() made), the full launch
+    timed by CUDA events and reproducing run()'s cold starts, then kernel
+    and plain on the first NHPP_PLAIN_EVENTS events; returns the largest
+    |acc difference|."""
+    from repro_torch.core.simulator import run_samples
+    from repro_torch.core.temporal import _snapshots_to_pool
+    from repro_torch.kernels.faas_event_step import faas_sweep
+    from repro_torch.kernels.par_event_step import par_sweep
+    from repro_torch.kernels.ref import faas_par_sweep_ref, faas_sweep_ref
+
+    cfg = rt.Scenario.of(scn, skip_time=0.0) if engine == "temporal" else scn
+    dts, warms, colds = run_samples(cfg, seed, replicas, None, None, dev)
+    C, K = dts.shape
+    full = lambda v: torch.full((C,), v, dtype=torch.float32, device=dev)
+    kw = dict(t_end=full(cfg.sim_time), skip=full(cfg.skip_time),
+              max_concurrency=cfg.max_concurrency, prestamped=True, **kernel_kw)
+    if engine == "par":
+        head = (full(cfg.expiration_threshold),)
+        kernel, plain, cols = par_sweep, faas_par_sweep_ref, (3, 4, 8)
+    else:
+        pool = (torch.from_numpy(np.asarray(x, np.float32)).to(dev).expand(C, cfg.slots)
+                .contiguous() for x in _snapshots_to_pool([], cfg.slots))
+        head = (*pool, full(0.0), full(cfg.expiration_threshold))
+        kernel, plain, cols = faas_sweep, faas_sweep_ref, (3, 4)
+    ms, out_full = timed(torch, lambda: kernel(*head, dts, warms, colds, **kw), reps=3)
+    if not np.array_equal(out_full[4][:, 0].double().cpu().numpy(), res.summary.n_cold):
+        raise AssertionError(f"{what}: the timed launch does not reproduce run()")
+    pad = float((dts >= 1e29).double().mean())
+    part = [prefix(x, NHPP_PLAIN_EVENTS) for x in (dts, warms, colds)]
+    out_k = kernel(*head, *part, **kw)
+    plain_ms, out_p = plain_timed(torch, lambda: plain(*head, *part, **kw))
+    err = held_against_plain(torch, out_k, out_p, f"{what}, first {NHPP_PLAIN_EVENTS} events",
+                             integral_cols=cols)
+    print(f"timing [{card}]: {launch_key} {what} C={C} M={cfg.slots} K={K} prestamped: "
+          f"{ms:.3f} ms ({100 * pad:.1f}% of events PAD_TIME); plain version {plain_ms:.1f} ms "
+          f"on the first {NHPP_PLAIN_EVENTS} events (counters equal, max|acc diff| "
+          f"{err:.3e})", flush=True)
+    return err
+
+
+def nonstationary_phase(torch, rt, dev, card, seed):
+    """The non-stationary phase (module docstring, item 12); returns the
+    kernels-line entry of the diurnal sweep's launch and the largest
+    differences."""
+    from repro_torch.core import scenario as scenario_mod
+    from repro_torch.core.fleet import fleet_inputs
+    from repro_torch.data.workload import batch_arrivals
+    from repro_torch.kernels.faas_event_step import LAUNCH_COUNTS, faas_sweep
+    from repro_torch.kernels.fleet_event_step import fleet_sweep
+    from repro_torch.kernels.ref import faas_sweep_ref, fleet_sweep_ref
+
+    errs = {}
+    row = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32, device=dev)
+    t1 = lambda s: rt.ExpSimProcess(rate=1 / s)
+    profiles = nhpp_profiles(rt)
+    scn = rt.Scenario(rate_profile=profiles[0], warm_service_process=t1(1.991),
+                      cold_service_process=t1(2.244), expiration_threshold=NHPP_THRESHOLDS[0],
+                      sim_time=DAY, skip_time=0.0, slots=64, window_bounds=NHPP_WINDOWS)
+    over = {"profile": profiles, "expiration_threshold": NHPP_THRESHOLDS}
+    W = len(NHPP_WINDOWS) - 1
+
+    # ---- 1. the diurnal what-if sweep through sweep()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCH_COUNTS.clear()
+    # sweep() stages through the module's sweep_inputs: wrapped for this
+    # one call, it times the staging of the same call and keeps its inputs
+    staged, stage_fn = {}, scenario_mod.sweep_inputs
+
+    def timed_staging(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        staged["inp"] = stage_fn(*a, **k)
+        torch.cuda.synchronize()
+        staged["s"] = time.perf_counter() - t
+        return staged["inp"]
+
+    scenario_mod.sweep_inputs = timed_staging
+    try:
+        t0 = time.perf_counter()
+        grid = rt.sweep(scn, over, seed=seed, replicas=NHPP_REPLICAS)
+        sweep_s = time.perf_counter() - t0
+    finally:
+        scenario_mod.sweep_inputs = stage_fn
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(LAUNCH_COUNTS)
+    if launches != {"faas_sweep_win": 1}:
+        raise AssertionError(f"the diurnal sweep's launches: {launches}")
+    if not grid.ok.all() or not all(np.isfinite(getattr(grid, f)).all()
+                                    for f in grid._WINDOWED_FIELDS):
+        raise AssertionError("the diurnal sweep's cells are not finite")
+    # the launch again, on the inputs sweep() staged, by CUDA events
+    inp, staging_s = staged.pop("inp"), staged["s"]
+    if not inp.prestamped:
+        raise AssertionError("the diurnal sweep's inputs are not prestamped")
+    dts, warms, colds = inp.samples
+    C, K = dts.shape
+    args = (*fresh_pools(torch, C, scn.slots, dev), row(inp.thr_rows), dts, warms, colds)
+    kw = dict(t_end=row(inp.sim_rows), skip=row(inp.skip_rows),
+              max_concurrency=scn.max_concurrency, prestamped=True,
+              window_bounds=row(np.tile(NHPP_WINDOWS, (C, 1))))
+    ms, out_full = timed(torch, lambda: faas_sweep(*args, **kw), reps=3)
+    acc = out_full[4].double()
+    cold_k = acc[:, 0].cpu().numpy().reshape(len(profiles), len(NHPP_THRESHOLDS), -1)
+    for i in range(len(profiles)):
+        for j in range(len(NHPP_THRESHOLDS)):
+            if not np.array_equal(cold_k[i, j], grid.summaries[i, j].n_cold):
+                raise AssertionError("the timed diurnal launch does not reproduce sweep()")
+    pad = int((dts >= 1e29).sum())
+    active = int((dts <= kw["t_end"][:, None]).sum())
+    # the windows [b_w, b_w+1) tile [0, T): they hold every arrival of the
+    # day but those cast onto T itself
+    at_end = int((dts == kw["t_end"][:, None]).sum())
+    if int(acc[:, 8 + 2 * W:8 + 3 * W].sum()) != active - at_end:
+        raise AssertionError("the hourly windows do not hold every arrival of the day")
+    b_ms, b_by = bound_ms(C, scn.slots, K, active, W=W, window_passes=active + C * W)
+    part = [prefix(x, NHPP_PLAIN_EVENTS) for x in (dts, warms, colds)]
+    pargs = (*args[:5], *part)
+    out_k = faas_sweep(*pargs, **kw)
+    plain_ms, out_p = plain_timed(torch, lambda: faas_sweep_ref(*pargs, **kw))
+    errs["faas_sweep_win_prestamped"] = held_against_plain(
+        torch, out_k, out_p, f"diurnal sweep, first {NHPP_PLAIN_EVENTS} events",
+        integral_cols=window_integral_cols(W))
+    print(f"diurnal sweep [{card}]: {len(profiles)} profiles x {len(NHPP_THRESHOLDS)} "
+          f"thresholds x {NHPP_REPLICAS} replicas = {C} rows x K={K} candidates, {W} hourly "
+          f"windows, 1 launch: sweep() {sweep_s:.3f} s wall, its staging {staging_s:.3f} s "
+          f"({100 * staging_s / sweep_s:.1f}% of the wall), peak {peak / 2**30:.3f} GiB on the "
+          f"card; {pad} of {C * K} events PAD_TIME ({100 * pad / (C * K):.1f}%)", flush=True)
+    print(f"timing [{card}]: faas_sweep with {W} windows, prestamped, C={C} M={scn.slots} "
+          f"K={K}: {ms:.3f} ms ({100 * ms / 1e3 / sweep_s:.1f}% of the sweep's wall); {active} "
+          f"arrivals in horizon = {active / ms * 1e3:.4e} arrivals/s; bound {b_ms:.3f} ms "
+          f"({b_by}); plain version {plain_ms:.1f} ms on the first {NHPP_PLAIN_EVENTS} events "
+          f"(counters and window counts equal, max|acc diff| "
+          f"{errs['faas_sweep_win_prestamped']:.3e})", flush=True)
+    print(f"end to end [{card}]: diurnal sweep() {active / sweep_s:.4e} simulated arrivals/s, "
+          f"{C * K / sweep_s:.4e} events stepped/s ({sweep_s:.3f} s incl. thinning, sort, "
+          f"draws and assembly)", flush=True)
+    result = dict(launches=launches["faas_sweep_win"], ms=ms, plain_ms=plain_ms,
+                  bound_ms=b_ms, bound_by=b_by)
+    del inp, args, kw, pargs, part, out_full, out_k, out_p, acc, dts, warms, colds
+    torch.cuda.empty_cache()
+
+    # each hour's arrivals, pooled over a profile's replicas, against the
+    # profile's integral over the hour
+    worst = 0.0
+    for i, prof in enumerate(profiles):
+        n = sum(grid.summaries[i, j].windows.n_arrivals.sum(0)
+                for j in range(len(NHPP_THRESHOLDS)))
+        reps = len(NHPP_THRESHOLDS) * NHPP_REPLICAS
+        expected = reps * np.array([sinusoid_integral(prof, a, b) for a, b in
+                                    zip(NHPP_WINDOWS[:-1], NHPP_WINDOWS[1:])])
+        z = np.abs(n - expected) / np.sqrt(expected)
+        worst = max(worst, float(z.max()))
+        if z.max() > HOURLY_SIGMAS:
+            raise AssertionError(f"profile {prof}: an hour's arrivals are {z.max():.2f} "
+                                 "standard errors from the profile's integral")
+    ex = grid.sel(profile=profiles[-2], expiration_threshold=60.0)
+    print(f"diurnal sweep: every hour's arrivals of every profile within {worst:.2f} standard "
+          f"errors of the profile's integral (limit {HOURLY_SIGMAS}); amplitude 0.8, one day, "
+          f"60 s: arrivals/s by hour "
+          + " ".join(f"{v:.3f}" for v in ex.windowed_arrivals / 3600.0)
+          + "; cold-start % by hour " + " ".join(f"{100 * v:.2f}" for v in ex.windowed_cold_prob),
+          flush=True)
+    st = nhpp_cell_stats(grid)
+    worst = 0.0
+    for m, key in (("cold", "cold_start_prob"), ("servers", "avg_server_count")):
+        ref, ref_se = np.asarray(REF_NHPP[key]), np.asarray(REF_NHPP[key + "_se"])
+        z = np.abs(st[m] - ref) / np.hypot(st[m + "_se"], ref_se)
+        worst = max(worst, float(z.max()))
+        k = int(np.argmax(z))
+        print(f"diurnal sweep vs JAX reference: {key} in all {len(z)} cells within "
+              f"{z.max():.2f} standard errors (limit {REF_NHPP_SIGMAS}); worst cell {k}: "
+              f"{st[m][k]:.6f} against {ref[k]:.6f}", flush=True)
+        if z.max() > REF_NHPP_SIGMAS:
+            raise AssertionError(f"the diurnal sweep's {key} is off the JAX reference")
+    del grid
+
+    # ---- 2. an MMPP run() on the scan engine
+    scn_m = rt.Scenario.of(scn, rate_profile=None, window_bounds=None,
+                           arrival_process=rt.MMPPArrivalProcess(**MMPP_RATES),
+                           expiration_threshold=600.0)
+    LAUNCH_COUNTS.clear()
+    t0 = time.perf_counter()
+    res = rt.run(scn_m, seed + 1, replicas=MMPP_REPLICAS)
+    wall = time.perf_counter() - t0
+    if dict(LAUNCH_COUNTS) != {"faas_sweep": 1}:
+        raise AssertionError(f"the MMPP run()'s launches: {dict(LAUNCH_COUNTS)}")
+    s = res.summary
+    rate = s.n_requests.mean() / DAY
+    print(f"mmpp run [{card}]: {MMPP_RATES}, {MMPP_REPLICAS} replicas x K="
+          f"{scn_m.steps_needed()}, 1 launch, run() {wall:.3f} s wall: arrivals/s {rate:.4f} "
+          f"(the phases' mean {(MMPP_RATES['rate_low'] + MMPP_RATES['rate_high']) / 2:.4f}), "
+          f"avg servers {s.avg_server_count:.4f}, cold start {100 * s.cold_start_prob:.4f}%",
+          flush=True)
+    if not np.isfinite(s.avg_server_count) or abs(rate / 1.65 - 1) > 0.05:
+        raise AssertionError("the MMPP run is not finite or its rate is off the phases' mean")
+    errs["faas_sweep"] = timestamp_run_held(torch, rt, dev, card, "MMPP run()", scn_m,
+                                            seed + 1, MMPP_REPLICAS, "scan", "faas_sweep",
+                                            {}, res)
+    torch.cuda.empty_cache()
+
+    # ---- 3. a trace replay through engine="par"
+    ts = tuple(r.arrival_time for r in batch_arrivals(
+        TRACE_RATE, TRACE_BATCH, 1.2 * TRACE_EVENTS / TRACE_RATE, seed=seed))[:TRACE_EVENTS]
+    if len(ts) != TRACE_EVENTS:
+        raise AssertionError(f"the recording holds {len(ts)} timestamps")
+    scn_p = rt.Scenario.of(scn, rate_profile=None, window_bounds=None,
+                           arrival_process=rt.TraceArrivalProcess(ts),
+                           expiration_threshold=60.0, sim_time=TRACE_SIM,
+                           concurrency_value=TRACE_C)
+    LAUNCH_COUNTS.clear()
+    t0 = time.perf_counter()
+    res = rt.run(scn_p, seed + 2, replicas=FULL_REPLICAS, engine="par")
+    wall = time.perf_counter() - t0
+    if dict(LAUNCH_COUNTS) != {"par_sweep": 1}:
+        raise AssertionError(f"the trace par run()'s launches: {dict(LAUNCH_COUNTS)}")
+    s = res.summary
+    # arrivals inside the horizon on the f32 clock the kernel steps
+    recorded = int(np.sum(np.asarray(ts, np.float32) <= np.float32(TRACE_SIM)))
+    print(f"trace run [{card}]: {TRACE_EVENTS} timestamps (batch_arrivals rate {TRACE_RATE}, "
+          f"batches of {TRACE_BATCH}, seed {seed}) over {TRACE_SIM:.0f} s at c={TRACE_C}, "
+          f"{FULL_REPLICAS} replicas, 1 launch, run() {wall:.3f} s wall: {recorded} recorded "
+          f"arrivals in every replica, avg instances {s.avg_server_count:.4f}, in flight "
+          f"{s.avg_in_flight:.4f}, cold start {100 * s.cold_start_prob:.4f}%", flush=True)
+    if not (s.n_requests == recorded).all() or not np.isfinite(s.avg_in_flight):
+        raise AssertionError("a replica did not replay the recording exactly")
+    errs["par_sweep"] = timestamp_run_held(
+        torch, rt, dev, card, "trace par run()", scn_p, seed + 2, FULL_REPLICAS, "par",
+        "par_sweep", dict(concurrency=TRACE_C, slots=scn_p.slots), res)
+
+    # ---- 4. run(engine="temporal") under an NHPP profile
+    prof_t = rt.SinusoidalRate(**TEMPORAL_NHPP)
+    scn_t = rt.Scenario.of(scn, arrival_process=None, rate_profile=prof_t, window_bounds=None,
+                           expiration_threshold=60.0, sim_time=TEMPORAL_NHPP["period"])
+    tgrid = np.linspace(0.0, scn_t.sim_time, 61)
+    LAUNCH_COUNTS.clear()
+    t0 = time.perf_counter()
+    res = rt.run(scn_t, seed + 3, replicas=FULL_REPLICAS, engine="temporal", grid=tgrid)
+    wall = time.perf_counter() - t0
+    if dict(LAUNCH_COUNTS) != {"faas_sweep_grid": 1}:
+        raise AssertionError(f"the NHPP temporal run()'s launches: {dict(LAUNCH_COUNTS)}")
+    tm = res.temporal
+    # the rate peaks at a quarter period and bottoms out at three quarters
+    P = prof_t.period
+    hi, lo = int(np.argmin(np.abs(tgrid - P / 3))), int(np.argmin(np.abs(tgrid - 5 * P / 6)))
+    print(f"temporal run [{card}]: {prof_t}, {FULL_REPLICAS} replicas, G=61, 1 launch, run() "
+          f"{wall:.3f} s wall: total_at {tgrid[hi]:.0f} s {tm.total_at[hi]:.4f} (after the "
+          f"peak), {tgrid[lo]:.0f} s {tm.total_at[lo]:.4f} (after the trough)", flush=True)
+    if not np.isfinite(tm.total_at).all() or not tm.total_at[hi] > tm.total_at[lo]:
+        raise AssertionError("the NHPP temporal curve does not follow the profile")
+    errs["faas_sweep_grid"] = timestamp_run_held(
+        torch, rt, dev, card, "NHPP temporal run()", scn_t, seed + 3, FULL_REPLICAS,
+        "temporal", "faas_sweep_grid", dict(grid_times=row(np.tile(tgrid, (FULL_REPLICAS, 1)))),
+        res)
+
+    # ---- 5. a two-function fleet_sweep() with one NHPP function
+    fns = (rt.FleetFunction(name="diurnal", rate_profile=rt.SinusoidalRate(0.9, 0.6, DAY / 2),
+                            warm_service_process=t1(1.991), cold_service_process=t1(2.244),
+                            expiration_threshold=60.0),
+           rt.FleetFunction(name="steady", arrival_process=rt.ExpSimProcess(rate=0.5),
+                            warm_service_process=t1(1.0), cold_service_process=t1(1.5),
+                            expiration_threshold=60.0))
+    fleet = rt.FleetScenario(functions=fns, n_cluster=FLEET_CLUSTER, sim_time=DAY,
+                             skip_time=0.0, slots=64)
+    fover = {"expiration_threshold": FLEET_NHPP_THRESHOLDS}
+    LAUNCH_COUNTS.clear()
+    t0 = time.perf_counter()
+    fgrid = rt.fleet_sweep(fleet, fover, seed + 4, replicas=FLEET_NHPP_REPLICAS)
+    wall = time.perf_counter() - t0
+    if dict(LAUNCH_COUNTS) != {"fleet_sweep": 1}:
+        raise AssertionError(f"the NHPP fleet_sweep()'s launches: {dict(LAUNCH_COUNTS)}")
+    peak_c = float(fgrid.peak_cluster.max())
+    print(f"fleet nhpp [{card}]: diurnal (NHPP) + steady, n_cluster {FLEET_CLUSTER}, "
+          f"{FLEET_NHPP_REPLICAS} replicas x {len(FLEET_NHPP_THRESHOLDS)} thresholds, 1 launch, "
+          f"fleet_sweep() {wall:.3f} s wall: cold start % "
+          + ", ".join(f"{n} {100 * p:.4f}" for n, p in zip(fleet.names, fgrid.cold_start_prob[0]))
+          + f" at 60 s; peak {peak_c:.0f}", flush=True)
+    if peak_c > FLEET_CLUSTER or not np.isfinite(fgrid.cold_start_prob).all():
+        raise AssertionError("the NHPP fleet passed its cap or is not finite")
+    finp = fleet_inputs(fleet, fover, seed + 4, replicas=FLEET_NHPP_REPLICAS, device=dev)
+    if not finp.staged["prestamped"]:
+        raise AssertionError("the NHPP fleet's merged stream is not prestamped")
+    fkw = dict(slots=64, queue_depth=0, prestamped=True)
+    Kf = finp.staged["times"].shape[1]
+    ms_f, out_k = timed(torch, lambda: fleet_sweep(*fleet_prefix(finp, Kf), **fkw,
+                                                   live_bound=finp.live_bound), reps=3)
+    cold_f = out_k[0][..., 0].double().cpu().numpy().reshape(len(FLEET_NHPP_THRESHOLDS), -1, 2)
+    for i in range(len(FLEET_NHPP_THRESHOLDS)):
+        for f in range(2):
+            if not np.array_equal(cold_f[i, :, f], fgrid.summaries[i, f].n_cold):
+                raise AssertionError("the timed NHPP fleet launch does not reproduce fleet_sweep()")
+    part = fleet_prefix(finp, NHPP_PLAIN_EVENTS)
+    out_k = fleet_sweep(*part, **fkw, live_bound=finp.live_bound)
+    plain_f, out_p = plain_timed(torch, lambda: fleet_sweep_ref(*part, **fkw))
+    errs["fleet_sweep"] = held_fleet(torch, out_k, out_p, "NHPP fleet prefix")
+    print(f"timing [{card}]: fleet_sweep NHPP fleet N={out_k[0].shape[0]} F=2 M=64 K={Kf} "
+          f"(merged in f64, cast once): {ms_f:.3f} ms; plain version {plain_f:.1f} ms on the "
+          f"first {NHPP_PLAIN_EVENTS} events (counters equal, max|acc diff| "
+          f"{errs['fleet_sweep']:.3e})", flush=True)
+    del finp, part, out_k, out_p
+    torch.cuda.empty_cache()
+    return {"faas_sweep_win_prestamped": result}, errs
+
+
 def main() -> int:
     t_start = time.perf_counter()
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the non-stationary phase's draws and trace")
+    opts = ap.parse_args()
     import torch
 
     # ---- 1. device
@@ -3720,7 +4269,16 @@ def main() -> int:
     print(f"fault phase {time.perf_counter() - t0:.1f} s; script "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # ---- 12. kernels line, card line, device line
+    # ---- 12. non-stationary workloads
+    t0 = time.perf_counter()
+    ns_results, ns_errs = nonstationary_phase(torch, rt, dev, card, opts.seed)
+    results.update(ns_results)
+    for name, e in ns_errs.items():
+        errs[name] = max(errs[name], e)
+    print(f"non-stationary phase {time.perf_counter() - t0:.1f} s; script "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---- 13. kernels line, card line, device line
     print(json.dumps({"kernels": [
         dict(KERNELS[k], **dict(dict(library_ms=None), **results[k]), max_abs_err=errs[k])
         for k in KERNELS

@@ -9,44 +9,57 @@ metric windows, timeouts, failures, client retries and platform faults on
 and ``kernels/csrc/par_event_step.cu`` (engine ``par``), and the fleet
 front door ``fleet_run``/``fleet_sweep`` (function pools under a shared
 cluster capacity, with platform faults) on
-``kernels/csrc/fleet_event_step.cu``.  Entry points
+``kernels/csrc/fleet_event_step.cu``.  Non-stationary workloads (rate
+profiles through NHPP thinning, MMPP, trace replay) feed the kernels
+absolute timestamps (their ``prestamped`` mode).  Entry points
 run on the GPU unless called with ``device="cpu"``, which selects the
 plain PyTorch versions of the kernels.  This package imports torch and
 numpy only.
 """
 
 from repro_torch.core import (  # noqa: F401
+    ArrivalTimeProcess,
+    BatchArrivalProcess,
     BillingModel,
     CapacityProfile,
+    CustomSimProcess,
     DeterministicSimProcess,
+    EmpiricalSimProcess,
     Execution,
     ExpSimProcess,
     FailurePolicy,
     FaultModel,
+    fleet_run,
+    fleet_sweep,
     FleetFunction,
     FleetGridResult,
     FleetResult,
     FleetScenario,
     FleetSummary,
+    GammaSimProcess,
     GaussianSimProcess,
     GridResult,
     InstanceSnapshot,
     LogNormalSimProcess,
-    ParSimulationSummary,
+    MMPPArrivalProcess,
+    NHPPArrivalProcess,
     ParetoSimProcess,
+    ParSimulationSummary,
+    PiecewiseConstantRate,
+    RateProfile,
     Reliability,
     Result,
     RetryPolicy,
+    run,
     Scenario,
     SimProcess,
     SimulationSummary,
+    SinusoidalRate,
+    sweep,
     TemporalSummary,
+    TraceArrivalProcess,
     WeibullSimProcess,
     WindowedMetrics,
-    fleet_run,
-    fleet_sweep,
-    run,
-    sweep,
 )
 
 __all__ = [
@@ -59,6 +72,17 @@ __all__ = [
     "WeibullSimProcess",
     "LogNormalSimProcess",
     "ParetoSimProcess",
+    "GammaSimProcess",
+    "BatchArrivalProcess",
+    "CustomSimProcess",
+    "EmpiricalSimProcess",
+    "ArrivalTimeProcess",
+    "NHPPArrivalProcess",
+    "MMPPArrivalProcess",
+    "TraceArrivalProcess",
+    "RateProfile",
+    "PiecewiseConstantRate",
+    "SinusoidalRate",
     "Scenario",
     "Result",
     "GridResult",

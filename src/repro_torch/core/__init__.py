@@ -9,6 +9,10 @@
 >>> grid = sweep(scn, over={"expiration_threshold": [...],
 ...                         "arrival_rate": [...]}, seed=0)
 >>> grid = sweep(scn, over=..., seed=0, device="cpu")  # plain version
+>>> day = Scenario.of(scn, arrival_process=None,
+...                   rate_profile=SinusoidalRate(base=0.9, amplitude=0.5,
+...                                               period=86400.0))
+>>> grid = sweep(day, over={"profile": [...]}, seed=0)  # NHPP, prestamped
 >>> rel = Reliability(FailurePolicy(p_fail=0.05, t_timeout=8.0),
 ...                   RetryPolicy(max_retries=2, backoff_base=2.0))
 >>> grid = sweep(Scenario.of(scn, reliability=rel),
@@ -37,12 +41,23 @@ from repro_torch.core.fleet import (
     fleet_sweep,
 )
 from repro_torch.core.processes import (
+    ArrivalTimeProcess,
+    BatchArrivalProcess,
+    CustomSimProcess,
     DeterministicSimProcess,
+    EmpiricalSimProcess,
     ExpSimProcess,
+    GammaSimProcess,
     GaussianSimProcess,
     LogNormalSimProcess,
+    MMPPArrivalProcess,
+    NHPPArrivalProcess,
     ParetoSimProcess,
+    PiecewiseConstantRate,
+    RateProfile,
     SimProcess,
+    SinusoidalRate,
+    TraceArrivalProcess,
     WeibullSimProcess,
 )
 from repro_torch.core.par_simulator import ParSimulationSummary
@@ -60,12 +75,23 @@ __all__ = [
     "register_backend",
     "resolve_backend",
     "SimProcess",
+    "ArrivalTimeProcess",
     "ExpSimProcess",
     "DeterministicSimProcess",
     "GaussianSimProcess",
     "WeibullSimProcess",
+    "GammaSimProcess",
     "LogNormalSimProcess",
     "ParetoSimProcess",
+    "BatchArrivalProcess",
+    "CustomSimProcess",
+    "EmpiricalSimProcess",
+    "MMPPArrivalProcess",
+    "NHPPArrivalProcess",
+    "TraceArrivalProcess",
+    "RateProfile",
+    "PiecewiseConstantRate",
+    "SinusoidalRate",
     "Scenario",
     "Result",
     "GridResult",

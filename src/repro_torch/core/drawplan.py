@@ -49,12 +49,15 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.processes import NHPPArrivalProcess
+
 # strictly positive clamp, as SimProcess.sample's _EPS
 _EPS = 1e-9
 
 # distribution ids a process can lower to, in the order the kernel numbers
-# them (the reference's FUSED_DISTS without "nhpp": rate profiles are not
-# ported, ROADMAP Queue A item 3)
+# them (the reference's FUSED_DISTS without "nhpp": fused thinning needs
+# profile.rate(t) inside the event loop, which the block kernels do not
+# evaluate; the reference runs it on its f64 scan engine only)
 FUSED_DISTS = ("exp", "det", "gauss", "weibull", "lognorm", "pareto")
 # the streams of one draw cell, in spawn-key order
 STREAMS = ("arrival", "warm", "cold", "fail")
@@ -237,7 +240,7 @@ def lower_scenario(scn) -> Tuple[DrawPlan, dict]:
     ``"warm"`` and ``"cold"`` to ``(p0, p1)`` floats.  Raises
     ``ValueError`` pointing at ``draws="staged"`` for retry policies (the
     attempt table is a sort over the whole stream) and for processes with
-    no per-event transform."""
+    no per-event transform, the reference's refusal for NHPP arrivals."""
     rel = scn.reliability
     if rel is not None and int(rel.retry.max_retries) > 0:
         raise ValueError(
@@ -253,6 +256,12 @@ def lower_scenario(scn) -> Tuple[DrawPlan, dict]:
 
 
 def _lower_process(p, stream: str) -> Tuple[DrawSpec, Tuple[float, float]]:
+    if isinstance(p, NHPPArrivalProcess):
+        raise ValueError(
+            "fused NHPP thinning is scan-backend only (the block kernels "
+            "have no profile.rate(t) at trace time; the f64 scan engine is "
+            "ROADMAP.md Queue A item 2); use draws='staged'"
+        )
     fn = getattr(p, "draw_spec", None)
     if fn is None:
         raise ValueError(

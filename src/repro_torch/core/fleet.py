@@ -10,11 +10,13 @@ depth ``queue_depth`` for arrivals that cannot start.
 
 Per-function event streams are drawn on the device (function f from the
 f-th generator triple of ``SeedSequence(seed).spawn(F)``), cumulated in
-f64, merged per replica by a stable sort on the f64 times (ties keep
+f64 (a timestamp process, NHPP, MMPP or trace replay, gives its f64 times
+directly), merged per replica by a stable sort on the f64 times (ties keep
 function order) and only then cast to f32: one ``[replicas, K]`` stream
 of times, acting-function ids, warm and cold samples.  A one-function
-fleet passes its stream through as gaps, the draws :func:`~repro_torch.
-core.scenario.run` makes on the same seed.
+fleet passes its stream through as gaps (or as its timestamps,
+prestamped), the draws :func:`~repro_torch.core.scenario.run` makes on
+the same seed.
 
 :func:`fleet_sweep` sweeps ``expiration_threshold`` (a scalar for every
 function, or one value per function), ``n_cluster``, ``sim_time`` and
@@ -34,8 +36,8 @@ one-function fleet draws what :func:`~repro_torch.core.scenario.run`
 draws); each function's summary carries its crashes, evictions and
 interrupted arrivals.
 
-Not ported yet, each raising with its ROADMAP item: the f64 fleet scan
-(backend ``"scan"``, Queue A item 2) and rate profiles (Queue A item 3).
+Not ported yet, raising with its ROADMAP item: the f64 fleet scan
+(backend ``"scan"``, Queue A item 2).
 """
 
 from __future__ import annotations
@@ -58,7 +60,9 @@ from repro_torch.core.simulator import (
     FAULT_STREAMS,
     SimulationSummary,
     cell_generators,
+    draw_arrival_times,
     draw_crash_uniforms,
+    draw_service_samples,
     draw_workload_samples,
 )
 from repro_torch.kernels.ref import FAULT_COLS, FLEET_ACC_COLS, MAX_FUNCTIONS
@@ -110,7 +114,7 @@ class FleetFunction:
         if not self.memory_gb > 0:
             raise ValueError(f"memory_gb must be > 0, got {self.memory_gb}")
         # Scenario validates the workload and folds arrival_rate into the
-        # process (a rate profile raises there, naming its ROADMAP item)
+        # process (a rate profile becomes its NHPP process)
         scn = Scenario(
             arrival_process=self.arrival_process,
             warm_service_process=self.warm_service_process,
@@ -242,13 +246,15 @@ def _stage_fleet(
     each ``[replicas, K]``, and ``prestamped``; with crashes also
     ``crash_u`` (f32 ``[replicas, K]``, one uniform per merged event).
     For F > 1 each function's gaps are cumulated in f64 and must reach
-    ``max_sim``; the streams,
+    ``max_sim`` (a timestamp process gives its f64 times, guarded on its
+    own coverage); the streams,
     concatenated in function order, are merged by a stable sort on the f64
     times (the reference's ``np.lexsort((fids, times))``) and cast to f32
     after the merge: at t ~ 1e5 s f32 spaces times ~0.008 s apart, so
     sorting after the cast would reorder the stream.  For F == 1 the gaps
-    pass through (``prestamped=False``), as :func:`~repro_torch.core.
-    scenario.run` draws them.
+    pass through (``prestamped=False``), or a timestamp process's times
+    (``prestamped=True``), as :func:`~repro_torch.core.scenario.run` draws
+    them.
     """
     F, R = len(fleet.functions), int(replicas)
     flt = fleet.active_faults
@@ -267,22 +273,29 @@ def _stage_fleet(
     for f, (fn, gens) in enumerate(zip(fleet.functions, cells)):
         scn_f = fn.as_scenario(sim_time=max_sim, skip_time=fleet.skip_time, slots=fleet.slots)
         n_f = int(steps) if steps is not None else scn_f.steps_needed()
-        arr, warm, cold = draw_workload_samples(scn_f, gens[:3], R, n_f, device)
-        if F == 1:
-            if bool((arr.sum(1, dtype=torch.float64) < limit).any()):
+        if scn_f.prestamped:
+            # a timestamp process's f64 times, guarded on its own coverage
+            stream = t_f = draw_arrival_times(scn_f, gens[0], R, n_f, device)
+            warm, cold = draw_service_samples(scn_f, gens[1:3], R, n_f, device)
+        else:
+            stream, warm, cold = draw_workload_samples(scn_f, gens[:3], R, n_f, device)
+            # f64 times to merge; one function's gaps pass through, and the
+            # guard reads only their f64 sum
+            t_f = (stream.double().cumsum_(1) if F > 1
+                   else stream.sum(1, keepdim=True, dtype=torch.float64))
+            if bool((t_f[:, -1] < limit).any()):
                 _short(fn.name)
+        if F == 1:
             return with_crashes(dict(
-                times=arr, fids=torch.zeros(arr.shape, dtype=torch.uint8, device=device),
-                warms=warm, colds=cold, prestamped=False,
+                times=stream.float(),
+                fids=torch.zeros((R, n_f), dtype=torch.uint8, device=device),
+                warms=warm, colds=cold, prestamped=scn_f.prestamped,
             ))
-        t_f = arr.double().cumsum_(1)
-        if bool((t_f[:, -1] < limit).any()):
-            _short(fn.name)
         times.append(t_f)
-        fids.append(torch.full(arr.shape, f, dtype=torch.uint8, device=device))
+        fids.append(torch.full((R, n_f), f, dtype=torch.uint8, device=device))
         warms.append(warm)
         colds.append(cold)
-        del arr
+        del stream, t_f
     merged, order = torch.sort(torch.cat(times, 1), dim=1, stable=True)
     del times
     take = lambda parts: torch.cat(parts, 1).gather(1, order)

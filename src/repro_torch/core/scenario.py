@@ -51,11 +51,19 @@ sample, and the coverage guard reads the kernel's final clock.
 ``fused_keys=`` replaces the keys derived from ``seed`` (see
 :func:`repro_torch.interop.fused_keys_from_reference`).
 
+Non-stationary workloads (``Scenario.rate_profile``, lowered to
+:class:`~repro_torch.core.processes.NHPPArrivalProcess`; MMPP and trace
+replay) yield absolute timestamps: the staging layer thins and sorts them
+in f64, guards each draw cell on the process's own coverage, casts once
+into the f32 buffers, and the kernels run ``prestamped``.  ``profile`` is
+a draw axis (one draw cell per profile); a grid must not mix stationary
+and timestamp cells.  Fused draws refuse timestamp processes (the block
+kernels evaluate no ``profile.rate(t)``).
+
 Not ported yet, each raising ``NotImplementedError`` that names its
 ROADMAP item: windowed single runs, histograms, non-newest routing and
 sweeps over the f64 engine's knobs ``scan_unroll``/``hist_bins`` (the f64
-engine, Queue A item 2) and rate profiles / timestamp processes (Queue A
-item 3).
+engine, Queue A item 2).
 """
 
 from __future__ import annotations
@@ -72,7 +80,13 @@ from repro_torch.core import drawplan as dp
 from repro_torch.core.cost import BillingModel, CostEstimate, estimate_cost
 from repro_torch.core.execution import ENGINE_SPECS, Execution, plan_of
 from repro_torch.core.faults import CapacityProfile, FaultModel
-from repro_torch.core.processes import UNPORTED, ExpSimProcess, SimProcess, unported
+from repro_torch.core.processes import (
+    ArrivalTimeProcess,
+    ExpSimProcess,
+    NHPPArrivalProcess,
+    RateProfile,
+    SimProcess,
+)
 from repro_torch.core.par_simulator import run_par
 from repro_torch.core.reliability import Reliability
 from repro_torch.core.simulator import (
@@ -102,6 +116,15 @@ def _later(what: str, item: str):
     raise NotImplementedError(
         f"{what} is not ported to repro_torch yet; see ROADMAP.md {item}"
     )
+
+
+def _check_process(name: str, p) -> None:
+    if not isinstance(p, SimProcess):
+        raise TypeError(
+            f"{name} must be a repro_torch SimProcess, got "
+            f"{type(p).__name__} (convert a reference scenario with "
+            "repro_torch.interop.scenario_from_reference)"
+        )
 
 
 def _rated(process: SimProcess, rate: float) -> SimProcess:
@@ -192,31 +215,49 @@ class Scenario:
             _later("track_histogram=True", "Queue A item 2 (the f64 engine)")
         if self.routing != "newest":
             _later(f"routing={self.routing!r}", "Queue A item 2 (the f64 engine)")
-        if self.rate_profile is not None:
-            _later("Scenario.rate_profile", "Queue A item 3 (RateProfile and NHPP)")
         if self.warm_service_process is None or self.cold_service_process is None:
             raise ValueError(
                 "Scenario needs warm_service_process and cold_service_process"
             )
-        if self.arrival_process is None:
-            raise ValueError("Scenario needs an arrival_process")
-        for name in ("arrival_process", "warm_service_process", "cold_service_process"):
-            p = getattr(self, name)
-            if not isinstance(p, SimProcess):
-                if type(p).__name__ in UNPORTED:
-                    unported(type(p).__name__)
-                raise TypeError(
-                    f"{name} must be a repro_torch SimProcess, got "
-                    f"{type(p).__name__} (convert a reference scenario with "
-                    "repro_torch.interop.scenario_from_reference)"
-                )
+        prof = self.rate_profile
+        if prof is not None and not isinstance(prof, RateProfile):
+            raise TypeError(
+                f"rate_profile must be a repro_torch RateProfile, got "
+                f"{type(prof).__name__} (convert a reference scenario with "
+                "repro_torch.interop.scenario_from_reference)"
+            )
+        ap = self.arrival_process
+        if ap is None:
+            if prof is None:
+                raise ValueError("Scenario needs an arrival_process or a rate_profile")
+            ap = NHPPArrivalProcess(profile=prof)
+        elif prof is not None and not (
+            isinstance(ap, NHPPArrivalProcess) and ap.profile == prof
+        ):
+            # (a resolved profile round-trips through replace/of)
+            raise ValueError("give either arrival_process or rate_profile, not both")
+        for name in ("warm_service_process", "cold_service_process"):
+            _check_process(name, getattr(self, name))
+        _check_process("arrival_process", ap)
         if self.arrival_rate is not None:
+            if isinstance(ap, ArrivalTimeProcess):
+                # NHPP re-levels its profile; MMPP and trace have no rate
+                # handle and must not fall back to exponential (_rated would)
+                try:
+                    ap = ap.with_rate(float(self.arrival_rate))
+                except NotImplementedError:
+                    raise ValueError(
+                        "arrival_rate cannot re-rate a timestamp process "
+                        f"({type(ap).__name__}); sweep over rate profiles instead"
+                    ) from None
+                if prof is not None:
+                    object.__setattr__(self, "rate_profile", ap.profile)
+            else:
+                ap = _rated(ap, self.arrival_rate)
             # fold the rate into the process and clear the field, as the
             # reference does, so a later replace() cannot re-rate it back
-            object.__setattr__(
-                self, "arrival_process", _rated(self.arrival_process, self.arrival_rate)
-            )
             object.__setattr__(self, "arrival_rate", None)
+        object.__setattr__(self, "arrival_process", ap)
 
     @classmethod
     def of(cls, config, **changes) -> "Scenario":
@@ -227,9 +268,8 @@ class Scenario:
 
     @property
     def prestamped(self) -> bool:
-        """True when the arrival process yields absolute timestamps (none
-        of the families this slice ports do)."""
-        return False
+        """True when the arrival process yields absolute timestamps."""
+        return isinstance(self.arrival_process, ArrivalTimeProcess)
 
     @property
     def active_faults(self) -> Optional[FaultModel]:
@@ -621,6 +661,7 @@ _STATIC_FIELDS = (
 _DRAW_FIELDS = (
     "expiration_threshold",
     "arrival_rate",
+    "profile",
     "arrival_process",
     "warm_service_process",
     "cold_service_process",
@@ -640,7 +681,6 @@ _FAULT_AXES = ("crash_rate", "capacity")
 
 # the reference's other sweep axes, and the ROADMAP item that brings each
 _LATER_AXES = {
-    "profile": "Queue A item 3 (RateProfile and NHPP)",
     # knobs of the f64 engine only: the block kernel computes the same
     # thing for every value, so a sweep over them would repeat one launch
     "scan_unroll": "Queue A item 2 (the f64 engine)",
@@ -770,10 +810,15 @@ class GridResult:
 
 def _apply_axis(scn: Scenario, name: str, value) -> Scenario:
     """One scenario-field override, with the workload conveniences."""
+    if name == "profile":
+        if not isinstance(value, RateProfile):
+            raise TypeError(f"expected RateProfile, got {type(value).__name__}")
+        return Scenario.of(scn, arrival_process=NHPPArrivalProcess(profile=value),
+                           rate_profile=None, arrival_rate=None)
     if name == "arrival_process":
         if not isinstance(value, SimProcess):
             raise TypeError(f"expected SimProcess, got {type(value).__name__}")
-        return Scenario.of(scn, arrival_process=value, arrival_rate=None)
+        return Scenario.of(scn, arrival_process=value, rate_profile=None, arrival_rate=None)
     if name == "arrival_rate":
         return Scenario.of(scn, arrival_rate=float(value))
     if name in ("backoff_base", "backoff_mult", "backoff_jitter"):
@@ -895,6 +940,15 @@ def sweep_inputs(
         for n, v in zip(draw_names, combo):
             c = _apply_axis(c, n, v)
         draw_cfgs.append(c)
+    # an arrival_process or profile axis can make the draw cells differ from
+    # the base: the cells decide whether the launch runs prestamped
+    stamped = {c.prestamped for c in draw_cfgs}
+    if len(stamped) > 1:
+        raise ValueError(
+            "cannot mix stationary and timestamp arrival processes in one "
+            "grid; split the sweep"
+        )
+    prestamped = stamped.pop()
 
     sim_vals = vals.get("sim_time", (base.sim_time,))
     skip_vals = vals.get("skip_time", (base.skip_time,))
@@ -929,10 +983,12 @@ def sweep_inputs(
         streams = FAULT_STREAMS if crashes else 3 if rel is None else RELY_STREAMS
         for d, (c, gens) in enumerate(zip(draw_cfgs, cell_generators(seed, D, device, streams))):
             part = tuple(x[d * R:(d + 1) * R] for x in bufs)
+            # each cell's timestamps (and a retry table's gaps) are guarded
+            # against the grid's largest horizon
+            c_sim = Scenario.of(c, sim_time=max_sim)
             if rel is None:
-                draw_workload_samples(c, gens[:3], R, n_steps, device, out=part[:3])
+                draw_workload_samples(c_sim, gens[:3], R, n_steps, device, out=part[:3])
             else:
-                c_sim = Scenario.of(c, sim_time=max_sim)  # its coverage guard
                 draw_reliability_stream(c_sim, gens[:RELY_STREAMS], R, n_steps, device,
                                         out=part[:width - int(crashes)])
             if crashes:
@@ -982,7 +1038,7 @@ def sweep_inputs(
         samples=tuple(_expand(x) for x in bufs),
         t_timeout_rows=None if rel is None else _param_col("t_timeout", rel.failure.timeout_or_inf),
         p_fail_rows=None if rel is None else _param_col("p_fail", rel.failure.p_fail),
-        prestamped=base.prestamped or base.max_retries > 0,
+        prestamped=prestamped or base.max_retries > 0,
         fused=fused,
         fault_rows=fault_rows,
     )
@@ -1060,7 +1116,9 @@ def sweep(
     if base.max_retries > 0:
         if staged is not None:  # drawn tables were guarded on their gaps
             check_table_covered(samples[0], samples[4], inp.sim_rows, dev)
-    elif inp.fused is None:  # fused launches are guarded on their final clock
+    elif inp.fused is None and not inp.prestamped:
+        # fused launches are guarded on their final clock, timestamp
+        # streams on their process's coverage when drawn
         check_covered(samples[0], inp.sim_rows, dev)
 
     all_summaries: list = []

@@ -7,7 +7,10 @@
 :func:`draw_reliability_stream` adds the reliability layer's failure
 uniforms or, with retries, the sorted attempt table, and
 :func:`draw_crash_uniforms` the platform-fault layer's crash stream.
-:class:`WindowedMetrics` holds per-window metrics.
+:class:`WindowedMetrics` holds per-window metrics.  An arrival process
+that yields absolute timestamps (NHPP, MMPP, trace replay) is drawn in
+f64 by :func:`draw_arrival_times`, behind its own coverage guard, and cast
+into the f32 staging once, after its sort.
 The helpers below them are what every engine does around its launch:
 stage a run's samples behind the coverage guard (:func:`run_samples`),
 bring the accumulator to the host behind the overflow guard
@@ -254,24 +257,55 @@ def cell_generators(seed: int, n_cells: int, device, streams: int = BASE_STREAMS
     return out
 
 
+def draw_arrival_times(scn, generator, replicas: int, n: int, device) -> torch.Tensor:
+    """The f64 ``[replicas, n]`` absolute timestamps of ``scn``'s
+    timestamp process (NHPP, MMPP, trace), thinned and sorted in f64,
+    behind the coverage guard: a padded stream ends in ``PAD_TIME``, so the
+    generating process reports how far it is exact, and every row must
+    reach ``scn.sim_time``."""
+    times, coverage = scn.arrival_process.arrival_times(generator, (replicas, n), device)
+    if bool((coverage < scn.sim_time).any()):
+        raise RuntimeError(
+            "arrival-stream coverage ended before sim_time "
+            f"(min coverage {coverage.min().item():.1f} < {scn.sim_time}); "
+            "pass a larger `steps`"
+        )
+    return times
+
+
 def draw_workload_samples(scn, generators, replicas: int, n: int, device, out=None):
     """Draw the (arrivals, warm, cold) f32 ``[replicas, n]`` sample buffers
-    on ``device`` from the three generators of one draw cell.
+    on ``device`` from the three generators of one draw cell: inter-arrival
+    gaps, or with a timestamp process (``scn.prestamped``) the absolute
+    times of :func:`draw_arrival_times`, cast to f32 as they are written.
 
     ``out`` optionally gives three preallocated f32 ``[replicas, n]``
     buffers (views into a sweep's ``[C, K]`` staging) to fill in place.
     """
-    g_arr, g_warm, g_cold = generators
+    if out is None:
+        arr = torch.empty((replicas, n), dtype=torch.float32, device=device)
+    else:
+        arr = out[0]
+    if scn.prestamped:
+        arr.copy_(draw_arrival_times(scn, generators[0], replicas, n, device))
+    else:
+        scn.arrival_process.sample_into(arr, generators[0])
+    return (arr,) + draw_service_samples(scn, generators[1:3], replicas, n, device,
+                                         None if out is None else out[1:])
+
+
+def draw_service_samples(scn, generators, replicas: int, n: int, device, out=None):
+    """Draw the (warm, cold) f32 ``[replicas, n]`` service samples from a
+    draw cell's warm and cold ``generators``, into ``out`` where given."""
     if out is None:
         out = tuple(
             torch.empty((replicas, n), dtype=torch.float32, device=device)
-            for _ in range(3)
+            for _ in range(2)
         )
-    arr, warms, colds = out
-    scn.arrival_process.sample_into(arr, g_arr)
-    scn.warm_service_process.sample_into(warms, g_warm)
-    scn.cold_service_process.sample_into(colds, g_cold)
-    return arr, warms, colds
+    warms, colds = out
+    scn.warm_service_process.sample_into(warms, generators[0])
+    scn.cold_service_process.sample_into(colds, generators[1])
+    return warms, colds
 
 
 def draw_reliability_stream(scn, generators, replicas: int, n: int, device, out=None):
@@ -304,10 +338,17 @@ def draw_reliability_stream(scn, generators, replicas: int, n: int, device, out=
     K = n * (J + 1)
     if out is None:
         out = tuple(torch.empty((replicas, K), **f32) for _ in range(6))
-    gaps, warms, colds = draw_workload_samples(scn, generators[:3], replicas, n, device)
-    # the gap stream becomes absolute times, whose coverage the launch can
-    # no longer check: guard it here, on the f64 sum of the f32 gaps
-    check_covered(gaps, [scn.sim_time] * replicas, device)
+    if scn.prestamped:
+        # the process's f64 timestamps themselves, guarded on its coverage
+        times0 = draw_arrival_times(scn, g_arr, replicas, n, device)
+        warms, colds = draw_service_samples(scn, (g_warm, g_cold), replicas, n, device)
+        first_times = lambda rows: times0[rows]
+    else:
+        gaps, warms, colds = draw_workload_samples(scn, generators[:3], replicas, n, device)
+        # the gap stream becomes absolute times, whose coverage the launch
+        # can no longer check: guard it here, on the f64 sum of the f32 gaps
+        check_covered(gaps, [scn.sim_time] * replicas, device)
+        first_times = lambda rows: torch.cumsum(gaps[rows].double(), dim=1)
     jitter = torch.rand((replicas, n, J), generator=g_jit, dtype=torch.float64, device=device)
     warms_x = scn.warm_service_process.sample(g_wx, (replicas, n * J), device)
     colds_x = scn.cold_service_process.sample(g_cx, (replicas, n * J), device)
@@ -315,7 +356,7 @@ def draw_reliability_stream(scn, generators, replicas: int, n: int, device, out=
     for r in range(0, replicas, ATTEMPT_ROWS):
         rows = slice(r, min(r + ATTEMPT_ROWS, replicas))
         table = build_attempt_table(
-            torch.cumsum(gaps[rows].double(), dim=1),
+            first_times(rows),
             torch.cat([warms[rows, :, None], warms_x[rows].view(-1, n, J)], dim=2),
             torch.cat([colds[rows, :, None], colds_x[rows].view(-1, n, J)], dim=2),
             fail_a[rows],
@@ -422,7 +463,8 @@ def run_samples(scn, seed: int, replicas: int, steps, staged, device) -> tuple:
     base three, then the reliability extras, then the crash uniforms): the
     handed-in ``staged`` buffers, or ``steps`` (default
     ``scn.steps_needed()``) draws of one draw cell seeded by ``seed``;
-    either way behind the coverage guard."""
+    gap streams behind the coverage guard on their sums, drawn timestamp
+    streams behind their process's coverage."""
     crashes = scn.faults is not None and scn.faults.crashes
     width = staged_widths(scn)
     if staged is not None:
@@ -444,7 +486,9 @@ def run_samples(scn, seed: int, replicas: int, steps, staged, device) -> tuple:
     sim_rows = [scn.sim_time] * replicas
     if scn.max_retries > 0:
         check_table_covered(samples[0], samples[4], sim_rows, device)
-    else:
+    elif not scn.prestamped:
+        # drawn timestamps were guarded on their process's coverage; handed-in
+        # ones on the producer's
         check_covered(samples[0], sim_rows, device)
     return samples
 

@@ -26,7 +26,7 @@ import torch
 from repro_torch.core.cost import BillingModel
 from repro_torch.core.faults import CapacityProfile, FaultModel
 from repro_torch.core.fleet import FleetFunction, FleetScenario
-from repro_torch.core.processes import FAMILIES, unported
+from repro_torch.core.processes import FAMILIES, PROFILES
 from repro_torch.core.reliability import FailurePolicy, Reliability, RetryPolicy
 from repro_torch.core.scenario import Scenario
 
@@ -37,14 +37,48 @@ def _fields(obj) -> dict:
     return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
 
 
-def process_from_reference(obj):
-    """The port process of the reference process ``obj`` (same family, same
-    parameters); a family not ported yet raises ``NotImplementedError``."""
-    cls = FAMILIES.get(type(obj).__name__)
+def _value_from_reference(v):
+    """One field value of a reference process or profile in the port's
+    terms: a nested process or profile converted, a sequence (``edges``,
+    ``rates``, ``timestamps``, ``durations``) as a tuple of floats, an int
+    kept (``batch_size``), any other number as a float."""
+    name = type(v).__name__
+    if name in FAMILIES:
+        return process_from_reference(v)
+    if name in PROFILES:
+        return profile_from_reference(v)
+    if isinstance(v, (tuple, list, np.ndarray)):
+        return tuple(float(x) for x in np.asarray(v, np.float64).ravel())
+    if isinstance(v, (int, np.integer)) and not isinstance(v, bool):
+        return int(v)
+    return float(v)
+
+
+def _convert(obj, table: dict, what: str):
+    cls = table.get(type(obj).__name__)
     if cls is None:
-        unported(type(obj).__name__)
+        raise TypeError(f"expected a reference {what}, got {type(obj).__name__}")
     ref = _fields(obj)
-    return cls(**{f.name: float(ref[f.name]) for f in dataclasses.fields(cls)})
+    return cls(**{f.name: _value_from_reference(ref[f.name]) for f in dataclasses.fields(cls)})
+
+
+def process_from_reference(obj):
+    """The port process of the reference process ``obj``: same family, same
+    parameters, nested ones (a batch process's ``base``, an NHPP's
+    ``profile``) converted too.  A reference ``CustomSimProcess`` wraps a
+    JAX callable, which the port cannot call: it raises ``TypeError``."""
+    if type(obj).__name__ == "CustomSimProcess":
+        raise TypeError(
+            "a reference CustomSimProcess wraps a JAX sampler fn(key, shape); "
+            "build the port's own repro_torch CustomSimProcess with "
+            "fn(generator, shape, device) returning a torch tensor"
+        )
+    return _convert(obj, FAMILIES, "SimProcess")
+
+
+def profile_from_reference(obj):
+    """The port rate profile of the reference one (same class, same values)."""
+    return _convert(obj, PROFILES, "RateProfile")
 
 
 def reliability_from_reference(obj) -> Reliability:
@@ -75,8 +109,8 @@ def faults_from_reference(obj) -> FaultModel:
 
 def scenario_from_reference(obj) -> Scenario:
     """A port :class:`Scenario` equal field by field to the reference one
-    (its processes, billing, reliability policies, fault model and window
-    bounds)."""
+    (its processes, rate profile, billing, reliability policies, fault
+    model and window bounds)."""
     if type(obj).__name__ != "Scenario":
         raise TypeError(f"expected a reference Scenario, got {type(obj).__name__}")
     ref = _fields(obj)
@@ -85,6 +119,8 @@ def scenario_from_reference(obj) -> Scenario:
         v = ref.get(f.name, f.default)
         if f.name.endswith("_process") and v is not None:
             v = process_from_reference(v)
+        elif f.name == "rate_profile" and v is not None:
+            v = profile_from_reference(v)
         elif f.name == "billing":
             v = BillingModel(**_fields(v))
         elif f.name == "reliability" and v is not None:
@@ -167,6 +203,8 @@ def fleet_from_reference(obj) -> FleetScenario:
         for name in ("arrival_process", "warm_service_process", "cold_service_process"):
             if kw[name] is not None:
                 kw[name] = process_from_reference(kw[name])
+        if kw.get("rate_profile") is not None:
+            kw["rate_profile"] = profile_from_reference(kw["rate_profile"])
         fns.append(FleetFunction(**kw))
     ref["functions"] = tuple(fns)
     ref["billing"] = BillingModel(**_fields(ref["billing"]))

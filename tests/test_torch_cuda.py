@@ -1526,3 +1526,187 @@ def test_front_door_runs_fused_draws_on_the_kernel(cuda_device):
                  execution=card)
     assert dict(fes.LAUNCH_COUNTS) == {"faas_sweep_rely_fused": 1}
     assert res.summary.n_fail.sum() > 0 and np.isfinite(res.summary.goodput)
+
+
+# ---------------------------------------------------------------------------
+# the prestamped paths on non-stationary streams: NHPP thinning, MMPP,
+# trace replay, batch arrivals, f32 ties and PAD_TIME tails
+# ---------------------------------------------------------------------------
+
+from repro_torch.core import processes as rproc  # noqa: E402
+from repro_torch.data.workload import batch_arrivals  # noqa: E402
+
+STREAM_KINDS = ("thinned", "mmpp", "trace_ties", "f32_ties", "long_pad_tail", "batch_gaps")
+
+
+def _stream(dev, kind, R, K, seed=0):
+    """f32 ``[R, K]`` arrival stream of ``kind`` on ``dev`` and whether it
+    is prestamped: times thinned and sorted in f64 then cast (their tail
+    PAD_TIME), a recorded batch trace (exact ties), times near 1e5 s whose
+    f64 gaps fall under f32's spacing (ties made by the cast), a thinned
+    stream at a tenth of its envelope (a PAD_TIME tail of ~90%), or batch
+    gaps (exact zeros, the gap path)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if kind in ("thinned", "long_pad_tail"):
+        amp = 0.8 if kind == "thinned" else 0.0
+        prof = rproc.SinusoidalRate(base=1.0, amplitude=amp, period=150.0)
+        if kind == "long_pad_tail":
+            prof = rproc.PiecewiseConstantRate(edges=(40.0,), rates=(1.0, 0.1))
+        times, _ = rproc.NHPPArrivalProcess(prof).arrival_times(g, (R, K), dev)
+        return times.float(), True
+    if kind == "mmpp":
+        times, _ = rproc.MMPPArrivalProcess(0.3, 3.0, 1 / 40).arrival_times(g, (R, K), dev)
+        return times.float(), True
+    if kind == "trace_ties":
+        ts = tuple(r.arrival_time for r in batch_arrivals(1.0, 4, 2 * K, seed=seed))
+        times, _ = rproc.TraceArrivalProcess(ts).arrival_times(None, (R, K), dev)
+        return times.float().contiguous(), True
+    if kind == "f32_ties":
+        gaps = torch.empty((R, K), dtype=torch.float64, device=dev).exponential_(
+            1.0, generator=g).mul_(0.004)
+        t64 = 1e5 + gaps.cumsum(1)
+        t32 = t64.float()
+        assert bool((t32[:, 1:] == t32[:, :-1]).any())  # the cast made ties
+        return t32, True
+    proc = rproc.BatchArrivalProcess(rproc.ExpSimProcess(rate=0.6), batch_size=3)
+    return proc.sample(g, (R, K), dev), False
+
+
+def _horizon_rows(dev, rng, times, prestamped, R):
+    """Per-row t_end and skip inside each stream's arrivals."""
+    t = times.double() if prestamped else times.double().cumsum(1)
+    last = torch.where(t < 1e29, t, -1.0).amax(1).cpu().numpy()
+    first = t[:, 0].cpu().numpy()
+    span = np.maximum(last - first, 1.0)
+    f32 = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32, device=dev)
+    t_end = first + span * rng.uniform(0.6, 0.95, R)
+    skip = first + span * rng.uniform(0.0, 0.1, R)
+    return f32(t_end), f32(skip)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", STREAM_KINDS)
+@pytest.mark.parametrize("M", [8, 64])
+@pytest.mark.parametrize("windows", [False, True])
+def test_faas_timestamp_streams_match_plain(cuda_device, kind, M, windows):
+    dev, R, K = cuda_device, 37, 400
+    rng = np.random.default_rng(M + len(kind))
+    dts, prestamped = _stream(dev, kind, R, K)
+    t_end, skip = _horizon_rows(dev, rng, dts, prestamped, R)
+    f32 = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32, device=dev)
+    args = (torch.zeros((R, M), device=dev), torch.full((R, M), -1e30, device=dev),
+            torch.full((R, M), -1e30, device=dev), torch.zeros((R,), device=dev),
+            f32(20.0 * rng.uniform(0.5, 1.5, R)), dts,
+            f32(rng.exponential(2.0, (R, K))), f32(rng.exponential(2.5, (R, K))))
+    kw = dict(t_end=t_end, skip=skip, max_concurrency=6 if M == 8 else 1000,
+              prestamped=prestamped)
+    W = 0
+    if windows:
+        lo, hi = float(skip.min()), float(t_end.max())
+        kw["window_bounds"] = f32(np.tile(np.linspace(lo, hi, 7), (R, 1)))
+        W = 6
+    key = fes.launch_key(False, windows, False, False)
+    before = fes.LAUNCH_COUNTS[key]
+    out_k = fes.faas_sweep(*args, **kw)
+    assert fes.LAUNCH_COUNTS[key] == before + 1
+    acc = _held_rely(out_k, faas_sweep_ref(*args, **kw), W)[4]
+    assert acc[:, 0].sum() > 0 and acc[:, 1].sum() > 0  # cold and warm starts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", STREAM_KINDS)
+@pytest.mark.parametrize("c", [1, 3, 8])
+def test_par_timestamp_streams_match_plain(cuda_device, kind, c):
+    dev, R, K, M = cuda_device, 37, 400, 32
+    rng = np.random.default_rng(c + len(kind))
+    dts, prestamped = _stream(dev, kind, R, K, seed=1)
+    t_end, skip = _horizon_rows(dev, rng, dts, prestamped, R)
+    f32 = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32, device=dev)
+    args = (f32(20.0 * rng.uniform(0.5, 1.5, R)), dts, f32(rng.exponential(2.0, (R, K))),
+            f32(rng.exponential(2.5, (R, K))))
+    kw = dict(t_end=t_end, skip=skip, max_concurrency=100, concurrency=c, slots=M,
+              prestamped=prestamped)
+    before = pes.LAUNCH_COUNTS["par_sweep"]
+    out_k = [o.cpu().numpy() for o in pes.par_sweep(*args, **kw)]
+    assert pes.LAUNCH_COUNTS["par_sweep"] == before + 1
+    out_p = [o.cpu().numpy() for o in faas_par_sweep_ref(*args, **kw)]
+    for a, b in zip(out_k[:4], out_p[:4]):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(out_k[4][:, EXACT_COLS], out_p[4][:, EXACT_COLS])
+    np.testing.assert_allclose(out_k[4][:, PAR_INTEGRAL_COLS], out_p[4][:, PAR_INTEGRAL_COLS],
+                               rtol=INTEGRAL_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", STREAM_KINDS[:5])
+def test_fleet_merged_timestamp_stream_matches_plain(cuda_device, kind):
+    """A timestamp function merged in f64 with a Poisson one (function 1),
+    cast after the merge, as the front door stages it."""
+    dev, S, K, F, M = cuda_device, 9, 300, 2, 32
+    rng = np.random.default_rng(len(kind))
+    own, _ = _stream(dev, kind, S, K, seed=2)
+    # function 1: Poisson over function 0's span, from its first arrival
+    o64 = own.double()
+    first = o64[:, :1]
+    span = torch.where(o64 < 1e29, o64, -1.0).amax(1, keepdim=True) - first
+    other = first + span * torch.tensor(
+        np.cumsum(rng.exponential(1.0 / K, (S, K)), axis=1), device=dev)
+    t64 = torch.cat([own.double(), other], 1)
+    fid = torch.cat([torch.zeros((S, K), dtype=torch.uint8, device=dev),
+                     torch.ones((S, K), dtype=torch.uint8, device=dev)], 1)
+    times, order = torch.sort(t64, dim=1, stable=True)
+    cells = 3
+    N = S * cells
+    t_end, skip = _horizon_rows(dev, rng, times.float(), True, S)
+    f32 = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32, device=dev)
+    args = (f32(rng.uniform(3.0, 25.0, (N, F))), f32(np.full((N, F), 6.0)),
+            f32(np.full(N, 8.0)), t_end.repeat(cells), skip.repeat(cells),
+            torch.arange(S, device=dev).repeat(cells), times.float(), fid.gather(1, order),
+            f32(rng.exponential(2.0, (S, 2 * K))), f32(rng.exponential(2.5, (S, 2 * K))))
+    kw = dict(slots=M, prestamped=True, queue_depth=0)
+    acc_p, q_p = (o.cpu().numpy() for o in fleet_sweep_ref(*args, **kw))
+    before = fles.LAUNCH_COUNTS["fleet_sweep"]
+    acc_k, q_k = (o.cpu().numpy() for o in fles.fleet_sweep(
+        *args, **kw, live_bound=_host_bound(args, M)))
+    assert fles.LAUNCH_COUNTS["fleet_sweep"] == before + 1
+    np.testing.assert_array_equal(acc_k[..., FLEET_EXACT_COLS], acc_p[..., FLEET_EXACT_COLS])
+    np.testing.assert_allclose(acc_k[..., 3:5], acc_p[..., 3:5], rtol=INTEGRAL_RTOL)
+    assert acc_k[:, 0, 0].sum() > 0 and acc_k[:, 1, 0].sum() > 0
+
+
+@pytest.mark.cuda
+def test_front_doors_run_timestamp_workloads_on_the_kernels(cuda_device):
+    import repro_torch as rt
+
+    day = rt.Scenario(
+        rate_profile=rt.SinusoidalRate(base=0.9, amplitude=0.7, period=1200.0),
+        warm_service_process=rt.ExpSimProcess(rate=1 / 1.991),
+        cold_service_process=rt.ExpSimProcess(rate=1 / 2.244),
+        expiration_threshold=60.0, sim_time=2400.0, skip_time=0.0, slots=32,
+        window_bounds=tuple(np.linspace(0.0, 2400.0, 9)),
+    )
+    over = {"profile": [rt.SinusoidalRate(0.9, a, 1200.0) for a in (0.2, 0.7)],
+            "expiration_threshold": [30.0, 120.0]}
+    plain = rt.Execution(backend="ref")  # the plain version, on the card
+    fes.LAUNCH_COUNTS.clear()
+    g = rt.sweep(day, over, 3, replicas=8)
+    assert dict(fes.LAUNCH_COUNTS) == {"faas_sweep_win": 1}
+    p = rt.sweep(day, over, 3, replicas=8, execution=plain)
+    for a, b in zip(g.summaries.ravel(), p.summaries.ravel()):
+        for f in ("n_cold", "n_warm", "n_reject", "sum_cold_resp", "sum_warm_resp"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+        np.testing.assert_array_equal(a.windows.n_arrivals, b.windows.n_arrivals)
+        np.testing.assert_allclose(a.time_running, b.time_running, rtol=INTEGRAL_RTOL)
+    trace = rt.TraceArrivalProcess(tuple(
+        r.arrival_time for r in batch_arrivals(0.6, 3, 2400.0, seed=4)))
+    fes.LAUNCH_COUNTS.clear()
+    runs = [rt.run(rt.Scenario.of(day, window_bounds=None, rate_profile=None,
+                                  arrival_process=trace, concurrency_value=3), 1,
+                   replicas=16, engine="par"),
+            rt.run(rt.Scenario.of(day, window_bounds=None, rate_profile=None,
+                                  arrival_process=rt.MMPPArrivalProcess(0.3, 3.0, 1 / 300)),
+                   1, replicas=16),
+            rt.run(rt.Scenario.of(day, window_bounds=None), 1, replicas=16, engine="temporal")]
+    assert dict(fes.LAUNCH_COUNTS) == {"par_sweep": 1, "faas_sweep": 1, "faas_sweep_grid": 1}
+    for r in runs:
+        assert np.isfinite(r.summary.avg_server_count) and r.summary.n_cold.sum() > 0

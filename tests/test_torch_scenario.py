@@ -10,11 +10,13 @@ import numpy as np
 import pytest
 import torch
 
+import repro.core.processes as jproc
 from repro.core import ExpSimProcess, Scenario as JScenario
 from repro.core import scenario as jscn
 from repro.core.simulator import draw_workload_samples as j_draw
 from repro_torch import interop
 from repro_torch.core import execution as rexec
+from repro_torch.core import processes as rproc
 from repro_torch.core import scenario as rscn
 from repro_torch.kernels.ref import _ref_sweep_rows
 
@@ -236,6 +238,17 @@ def test_scenario_refuses_later_layers(kw, item):
         with pytest.raises(ValueError, match="must be a FaultModel"):
             rscn.Scenario.of(base, **kw)
         return
+    if item == "RateProfile":
+        # rate profiles are ported: a profile beside an arrival process is
+        # the reference's refusal, and a non-RateProfile is refused
+        with pytest.raises(ValueError) as ref:
+            JScenario.of(_jax_base(), rate_profile=jproc.SinusoidalRate(1.0, 0.5, 10.0))
+        with pytest.raises(ValueError, match="not both") as port:
+            rscn.Scenario.of(base, rate_profile=rproc.SinusoidalRate(1.0, 0.5, 10.0))
+        assert str(port.value) == str(ref.value)
+        with pytest.raises(TypeError, match="must be a repro_torch RateProfile"):
+            rscn.Scenario.of(base, arrival_process=None, **kw)
+        return
     with pytest.raises(NotImplementedError, match=item):
         rscn.Scenario.of(base, **kw)
 
@@ -250,6 +263,15 @@ def test_sweep_refuses_later_axes(axis):
         # reference
         with pytest.raises(ValueError, match="needs Scenario.faults="):
             rscn.sweep(_port_base(), {axis: [1.0]}, 0, device="cpu")
+        return
+    if axis == "profile":
+        # the profile axis is ported: a value that is not a RateProfile is
+        # the reference's TypeError
+        with pytest.raises(TypeError) as ref:
+            jscn.sweep(_jax_base(), {axis: [1.0]}, jax.random.key(0), backend="ref")
+        with pytest.raises(TypeError, match="expected RateProfile") as port:
+            rscn.sweep(_port_base(), {axis: [1.0]}, 0, device="cpu")
+        assert str(port.value) == str(ref.value)
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         rscn.sweep(_port_base(), {axis: [1.0]}, 0, device="cpu")

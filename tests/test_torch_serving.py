@@ -82,6 +82,28 @@ def test_poisson_arrivals_match_jax(rate, horizon, seed):
     assert p == j and len(p) > 10
 
 
+# (generator name, arguments before the horizon, horizon, keyword seed or None)
+NON_POISSON = [
+    ("deterministic_arrivals", (0.7,), 300.0, None),
+    ("deterministic_arrivals", (13.0,), 2000.0, None),
+    ("batch_arrivals", (0.2, 3), 2000.0, 0),
+    ("batch_arrivals", (3.0, 5), 500.0, 7),
+    ("mmpp_arrivals", (0.3, 3.0, 1 / 60), 2000.0, 0),
+    ("mmpp_arrivals", (0.05, 1.0, 1 / 200), 5000.0, 7),
+]
+
+
+@pytest.mark.parametrize("name,args,horizon,seed", NON_POISSON)
+def test_non_poisson_arrivals_match_jax(name, args, horizon, seed):
+    kw = {} if seed is None else {"seed": seed}
+    p = [(r.arrival_time, r.request_id)
+         for r in getattr(pwork, name)(*args, horizon, **kw)]
+    j = [(r.arrival_time, r.request_id)
+         for r in getattr(jwork, name)(*args, horizon, **kw)]
+    assert p == j and len(p) > 10
+    assert all(a[0] <= b[0] <= horizon for a, b in zip(p, p[1:]))
+
+
 # rate 0.05/s, warm 2 s, cold 5 s over 2e4 s: the JAX reference predicts
 # cold-start probabilities 0.28, 0.12, 0.057, 0.028, 0.010, 0.005 at the
 # candidates 30 ... 1200 s; each SLO below lies between two of them
