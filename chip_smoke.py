@@ -28,7 +28,9 @@ Phases (any failure ends the script with a non-zero exit):
 5. timing: each kernel at its main path's full width by CUDA events (mean
    of 3 after a warm-up), held once more against its plain version on the
    same inputs (``par_sweep`` at c = 1 and 80 on the first 4096 events of
-   the full-width rows), with the plain version's time and the card's bound
+   the full-width rows; a full-width plain run replays chunks of
+   ``PLAIN_GRAPH_EVENTS`` events from one CUDA graph, bit for bit with one
+   eager call), with the plain version's time and the card's bound
    for the work this data needs; ``faas_sweep``'s events past their
    horizons, and its inert tail's share of the time (the Table-1 launch with
    every horizon before the first event, scaled by that share of events);
@@ -156,7 +158,27 @@ Phases (any failure ends the script with a non-zero exit):
     ``fleet_sweep()`` with one NHPP function (merged in f64), each held to
     its plain version on its first 4096 events; the sampler check (phase 10)
     covers Gamma, empirical and batch draws on the card;
-13. the kernels line (JSON), the card line, then the device line (JSON) last.
+13. the f64 engine (kernels 8 and 9, ``scan_sweep`` and ``par_scan_sweep``:
+    the reference's default ``lax.scan`` substrate, decision for decision),
+    through the entry points with ``backend="scan"``, the launch counts set
+    to 0 before each: Table 1 through ``run()`` (4 replicas x 2e5 s, within
+    5% of the paper) and with 6 windows (its base metrics equal); the
+    Table-1 sweep (4,096 rows x 202,699 events) plain and with the
+    histogram; Fig. 3's histogram (33 bins, 5e4 s: its mass is replicas x
+    measured time); the routing study (newest vs oldest, the lifespan
+    ratio); the retry what-if (1,536 x 547,683 attempts, within
+    ``REF_RETRY_SIGMAS`` standard errors of ``REF_RETRY``); the fault sweep
+    (6,144 x 5,400, ``REF_FAULT``); the diurnal sweep on f64 timestamps
+    (``REF_NHPP``); the temporal engine with retries (4,096 x 3,597 base
+    events, G = 61, from a two-instance pool); Fig. 1 through
+    ``engine="par"`` at c = 1, 3, 80 (4,096 x 41,216; c = 1 makes the pool
+    scan's decisions).  Each path is held to its plain f64 version on its
+    first 4096 events (counters, state, grid columns and the activation
+    plane bit for bit, sums over slots within ``SCAN64_RTOL``); the Table-1
+    launches and each par launch timed beside their bound (the larger of
+    the staged bytes and the f64 work on the live instances the events
+    find);
+14. the kernels line (JSON), the card line, then the device line (JSON) last.
 
 ``--seed`` (default 0) seeds phase 12's draws and recording.
 """
@@ -337,13 +359,27 @@ KERNELS = {
         source="src/repro_torch/kernels/csrc/rglru_scan.cu",
         replaces="src/repro/kernels/rglru_scan.py:20",
     ),
+    # the f64 engine: no Pallas kernel; each replaces a lax.scan step
+    "scan_sweep": dict(
+        name="scan_sweep", route="cuda",
+        source="src/repro_torch/kernels/csrc/scan_event_step.cu",
+        replaces="src/repro/core/simulator.py:489",
+    ),
+    "par_scan_sweep": dict(
+        name="par_scan_sweep", route="cuda",
+        source="src/repro_torch/kernels/csrc/par_scan_event_step.cu",
+        replaces="src/repro/core/par_simulator.py:68",
+    ),
 }
 SOURCES = ("faas_event_step", "par_event_step", "fleet_event_step",
-           "flash_attention", "decode_attention", "ssd_scan", "rglru_scan")
+           "flash_attention", "decode_attention", "ssd_scan", "rglru_scan",
+           "scan_event_step", "par_scan_event_step")
 # ptxas' name for each source's kernel template
 KERNEL_NAMES = {"faas_event_step": "faas_sweep_kernel",
                 "par_event_step": "par_sweep_kernel",
-                "fleet_event_step": "fleet_sweep_kernel"}
+                "fleet_event_step": "fleet_sweep_kernel",
+                "scan_event_step": "scan_sweep_kernel",
+                "par_scan_event_step": "par_scan_kernel"}
 
 
 # the serving phase: llama3.2-1b at full width (src/repro/configs/llama3_2_1b.py)
@@ -443,6 +479,7 @@ SWEEP_REPLICAS = 32
 FULL_REPLICAS = 4096  # rows of the par and temporal main paths
 PAR_CS = (1, 3, 80)  # c = 3: the paper's Fig. 1; c = 80: Cloud Run's default
 PAR_PLAIN_EVENTS = 4096  # c = 80 is held against its plain version on these
+PLAIN_GRAPH_EVENTS = 128  # events per CUDA-graph replay of a full-width plain run
 TEMPORAL_SIM = 3600.0
 TEMPORAL_GRID = np.linspace(0.0, TEMPORAL_SIM, 61)
 
@@ -718,6 +755,41 @@ def plain_timed(torch, fn):
     out = fn()
     torch.cuda.synchronize()
     return 1e3 * (time.perf_counter() - t0), out
+
+
+def plain_in_graph(torch, run, seq, chunk=PLAIN_GRAPH_EVENTS):
+    """A plain version's whole event loop over the ``[R, K]`` tensors ``seq``,
+    fast: a plain loop on the card waits on the host to issue each small op
+    of each event, so the events after the first chunk run in chunks of
+    ``chunk`` replayed from one CUDA graph (the host issues a copy of the
+    chunk's inputs and one replay).  ``run(state, part)`` runs the events of
+    ``part`` from ``state`` (None: the plain version's own start) and
+    returns the next state, a tuple of tensors; chunks so chained continue
+    one run bit for bit (``acc0``/``state0`` of the plain versions), and a
+    replay issues the kernels an eager call would."""
+    K = seq[0].shape[1]
+    first = min(chunk, K)
+    # the first chunk eagerly: it warms up every op before the capture
+    state = run(None, [x[:, :first] for x in seq])
+    n = (K - first) // chunk
+    if n:
+        st = tuple(x.clone() for x in state)
+        part = [x[:, first:first + chunk].clone() for x in seq]
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for a, b in zip(st, run(st, part)):
+                a.copy_(b)
+        for j in range(n):
+            lo = first + j * chunk
+            for p, x in zip(part, seq):
+                p.copy_(x[:, lo:lo + chunk])
+            graph.replay()
+        state = st
+        del graph
+    if first + n * chunk < K:
+        state = run(state, [x[:, first + n * chunk:] for x in seq])
+    return state
 
 
 def graph_timed(torch, fn, reps):
@@ -3851,6 +3923,514 @@ def nonstationary_phase(torch, rt, dev, card, seed):
     return {"faas_sweep_win_prestamped": result}, errs
 
 
+# ---- the f64 engine's phase (module docstring, item 13): kernels 8 and 9
+# (csrc/scan_event_step.cu, csrc/par_scan_event_step.cu) through the front
+# doors with backend="scan", on the reference's default substrate's cells
+SCAN64_PLAIN_EVENTS = 4096  # every launch of the phase is held to plain on these
+# f64 sums over slots (integrals, lifespans, window integrals, histogram
+# bins) associate differently in the kernels and in torch
+SCAN64_RTOL = 1e-10
+# H100 SXM data sheet: f64 outside the tensor cores, at the full 700 W limit
+PEAK_F64_OPS = 34e12
+# f64 operations one event needs, counted as the pool-scan kernel body does
+# them: 16 on each live slot (the interval's integrals 10: expiry, crash stop,
+# running min-sub-max 3, idle min-max-sub-max 4, the two partial sums;
+# the exit test 2, the idle test 1, the routing priority's compare 2, the
+# histogram's in-window tests 1) and 20 on the row's scalars (clock 1,
+# clipped intervals 6, occupancy and finish 2, reliability 5, response sums
+# 2, window lookup 2, the chosen slot's update 2); the histogram adds, per
+# in-window expiry, a compare with each live instance for its order
+# statistic and 4 on the row; each window an event's interval overlaps 13
+# on each live slot and 4 on the row (an empty slot adds nothing to any sum
+# or decision, so the bound charges none of these to it)
+SCAN64_OPS_PER_SLOT_EVENT = 16
+SCAN64_OPS_PER_ROW_EVENT = 20
+SCAN64_OPS_PER_EXPIRY_ROW = 4
+SCAN64_OPS_PER_WINDOW_SLOT = 13
+SCAN64_OPS_PER_WINDOW_ROW = 4
+# the par scan: 12 on each live slot (running and idle integrals 8, exit test 2,
+# capacity test 1, the routing compare 1), 4 on each live instance's
+# request sub-slot (the in-flight overlap: min, sub, max, sum), 20 on the
+# row, and 2 c on an assignment (the row's new max and min)
+PAR64_OPS_PER_SLOT_EVENT = 12
+PAR64_OPS_PER_SUB_SLOT = 4
+PAR64_OPS_PER_ROW_EVENT = 20
+# the paper's Fig. 3 (benchmarks/run.py:96-110) and routing study
+# (benchmarks/run.py:259-278) at their own horizons
+FIG3_SIM, FIG3_BINS, FIG3_REPLICAS = 5e4, 33, 4
+ROUTING_SIM, ROUTING_REPLICAS = 5e4, 64
+TABLE1_RUN_SIM, TABLE1_RUN_REPLICAS = 2e5, 4  # benchmarks/run.py:76-93
+PAPER_RTOL = 0.05  # Table 1's instance count against the paper
+
+
+def scan64_layout(scn, W=0, G=0, faults=False):
+    from repro_torch.kernels.ref64 import ScanLayout
+
+    return ScanLayout(W=W, H=scn.hist_bins if scn.track_histogram else 0, G=G,
+                      rely=scn.reliability is not None, faults=faults)
+
+
+def held64(torch, out_k, out_p, layout, what):
+    """An f64 kernel against its plain version: every output but the
+    accumulator equal (final pool, clock, activation plane, crash clocks,
+    finish planes), every count, response sum and grid column equal, and
+    the sums over slots within SCAN64_RTOL; returns the largest |acc
+    difference|."""
+    for name, a, b in zip(out_k._fields, out_k, out_p):
+        if name != "acc" and ((a is None) != (b is None) or (a is not None and not torch.equal(a, b))):
+            raise AssertionError(f"{what}: {name} differs from the plain version")
+    acc_k, acc_p = out_k.acc, out_p.acc
+    if acc_k.shape != acc_p.shape or acc_k.shape[1] != layout.cols:
+        raise AssertionError(f"{what}: acc shapes {acc_k.shape} vs {acc_p.shape}")
+    fl = layout.float_cols
+    for c in range(layout.cols):
+        if c not in fl and not torch.equal(acc_k[:, c], acc_p[:, c]):
+            n = int((acc_k[:, c] != acc_p[:, c]).sum())
+            raise AssertionError(f"{what}: acc column {c} differs in {n} rows")
+    if fl:
+        err = (acc_k[:, fl] - acc_p[:, fl]).abs()
+        lim = SCAN64_RTOL * acc_p[:, fl].abs().clamp_min(1.0)
+        if bool((err > lim).any()):
+            raise AssertionError(f"{what}: a sum over slots is off by {err.max().item():.3e} "
+                                 f"(rtol {SCAN64_RTOL})")
+    return float((acc_k - acc_p).abs().max())
+
+
+def hold_scan64(torch, dev, scn, samples, layout, what, engine="scan", **kw):
+    """The pool-scan kernel and its plain version on the first
+    SCAN64_PLAIN_EVENTS events of ``samples`` (``kw`` as scan_launch takes
+    them); returns (max |acc diff|, the plain version's ms)."""
+    from repro_torch.core.execution import resolve_backend
+    from repro_torch.core.simulator import scan_launch
+
+    part = tuple(prefix(x, SCAN64_PLAIN_EVENTS) for x in samples)
+    out_k = scan_launch(scn, resolve_backend("scan"), dev, part, engine=engine, **kw)
+    plain_ms, out_p = plain_timed(torch, lambda: scan_launch(
+        scn, resolve_backend("scan_ref"), dev, part, engine=engine, **kw))
+    err = held64(torch, out_k, out_p, layout, f"{what}, first {SCAN64_PLAIN_EVENTS} events")
+    print(f"kernel==plain f64 {what}: first {SCAN64_PLAIN_EVENTS} events of {part[0].shape[0]} "
+          f"rows, counters and state equal, max|acc diff| {err:.3e} (plain {plain_ms:.0f} ms)",
+          flush=True)
+    return err, plain_ms
+
+
+def scan64_sweep_launch(scn, inp, bspec, dev):
+    """A sweep's f64 launch on the inputs sweep_inputs staged."""
+    from repro_torch.core.simulator import scan_launch
+
+    wb = scn.window_bounds
+    return scan_launch(
+        scn, bspec, dev, inp.samples, t_exp=inp.thr_rows, t_end=inp.sim_rows,
+        skip=inp.skip_rows, prestamped=inp.prestamped,
+        window_rows=None if wb is None else np.tile(wb, (len(inp.thr_rows), 1)),
+        t_timeout=inp.t_timeout_rows, p_fail=inp.p_fail_rows, faults=inp.fault_rows,
+    )
+
+
+def in_horizon(torch, arr, t_end, prestamped):
+    """Events at or before each row's horizon, summed over the rows."""
+    if prestamped:
+        return int((arr <= torch.as_tensor(t_end, device=arr.device)[:, None]).sum())
+    return arrivals_in_horizon(arr, torch.as_tensor(t_end, device=arr.device))
+
+
+def scan64_bound_ms(C, M, K, n_active, live, expiries=0, window_passes=0, arr_bytes=4,
+                    cols=10, extra_bytes=0):
+    """Least time for one pool-scan call: the staged bytes (each input read
+    once, each output written once) at HBM rate, or the f64 operations this
+    data needs at the f64 peak: ``n_active`` events inside their horizons,
+    each on the row's scalars and on the live instances it finds (``live``,
+    summed over those events: an empty slot holds nothing to integrate,
+    route or retire), the rest only moving the clock; ``expiries``
+    in-window expiries the histogram orders among the live instances;
+    windows overlapped ``window_passes`` times."""
+    nbytes = (C * K * (arr_bytes + 8) + 8 * 3 * C + extra_bytes
+              + C * M * (1 + 8 + 8) * 2 + 8 * C + 8 * C * cols)
+    per_event = live / max(n_active, 1)
+    ops = (live * SCAN64_OPS_PER_SLOT_EVENT + n_active * SCAN64_OPS_PER_ROW_EVENT
+           + (C * K - n_active) + expiries * (per_event + SCAN64_OPS_PER_EXPIRY_ROW)
+           + window_passes * (per_event * SCAN64_OPS_PER_WINDOW_SLOT
+                              + SCAN64_OPS_PER_WINDOW_ROW))
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F64_OPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+
+
+def par64_bound_ms(C, M, c, K, n_active, live, assigns):
+    """The par scan's bound as :func:`scan64_bound_ms` counts it: the per-slot
+    and per-sub-slot work on the ``live`` instances the in-horizon events
+    find (summed over those events)."""
+    nbytes = C * K * 12 + 8 * 3 * C + C * M * (1 + 8) + C * M * c * 8 + 8 * C * 12
+    ops = (live * (PAR64_OPS_PER_SLOT_EVENT + c * PAR64_OPS_PER_SUB_SLOT)
+           + n_active * PAR64_OPS_PER_ROW_EVENT + assigns * 2 * c + (C * K - n_active))
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F64_OPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+
+
+def expect_launches(LAUNCH_COUNTS, want, what):
+    if dict(LAUNCH_COUNTS) != want:
+        raise AssertionError(f"{what}: launches {dict(LAUNCH_COUNTS)}, want {want}")
+
+
+def z_against(card_v, card_se, ref_v, ref_se):
+    return np.abs(np.asarray(card_v) - np.asarray(ref_v)) / np.hypot(
+        np.asarray(card_se), np.asarray(ref_se))
+
+
+def scan64_phase(torch, rt, dev, card):
+    """The f64 engine's phase (module docstring, item 13); returns the
+    kernels-line entries of kernels 8 and 9 and their largest differences."""
+    from repro_torch.core.execution import resolve_backend
+    from repro_torch.core.scenario import sweep_inputs
+    from repro_torch.core.simulator import run_samples, scan_launch
+    from repro_torch.kernels.faas_event_step import LAUNCH_COUNTS
+
+    errs = {"scan_sweep": 0.0, "par_scan_sweep": 0.0}
+    plain = {}
+    scan = resolve_backend("scan")
+    S64 = dict(backend="scan")
+
+    def hold(name, *a, **k):
+        err, ms = hold_scan64(torch, dev, *a, **k)
+        errs["scan_sweep"] = max(errs["scan_sweep"], err)
+        plain.setdefault(name, ms)
+
+    # ---- 1. Table 1 through run(), 4 replicas x 2e5 s
+    scn1 = table1(rt, sim_time=TABLE1_RUN_SIM)
+    LAUNCH_COUNTS.clear()
+    t0 = time.perf_counter()
+    r1 = rt.run(scn1, seed=1, replicas=TABLE1_RUN_REPLICAS, **S64)
+    wall = time.perf_counter() - t0
+    expect_launches(LAUNCH_COUNTS, {"scan_sweep": 1}, "Table-1 run()")
+    s = r1.summary
+    print(f"f64 run: Table 1, {TABLE1_RUN_REPLICAS} replicas x {TABLE1_RUN_SIM:.0f} s, 1 launch, "
+          f"{wall:.3f} s wall: servers {s.avg_server_count:.4f} (paper {PAPER_SERVERS}), "
+          f"cold {100 * s.cold_start_prob:.3f}% (paper 0.14), running "
+          f"{s.avg_running_count:.4f} (1.7902), idle {s.avg_idle_count:.4f} (5.8893), lifespan "
+          f"{s.avg_lifespan:.1f} s (6307.7)", flush=True)
+    if abs(s.avg_server_count / PAPER_SERVERS - 1) > PAPER_RTOL:
+        raise AssertionError("the f64 Table-1 run() is more than 5% from the paper")
+    # the same run with 6 windows: the same draws, the same base metrics
+    scn1w = rt.Scenario.of(scn1, window_bounds=TABLE1_WINDOWS)
+    LAUNCH_COUNTS.clear()
+    r1w = rt.run(scn1w, seed=1, replicas=TABLE1_RUN_REPLICAS, **S64)
+    expect_launches(LAUNCH_COUNTS, {"scan_sweep": 1}, "windowed Table-1 run()")
+    for f in ("n_cold", "n_warm", "n_reject", "time_running", "time_idle", "lifespan_sum",
+              "lifespan_count", "sum_cold_resp", "sum_warm_resp"):
+        if not np.array_equal(getattr(r1w.summary, f), getattr(s, f)):
+            raise AssertionError(f"the windowed run's {f} differs from the unwindowed run's")
+    w = r1w.summary.windows
+    print(f"f64 windowed run: {len(TABLE1_WINDOWS) - 1} windows, base metrics equal the "
+          f"unwindowed run's; instances by window "
+          + " ".join(f"{v:.3f}" for v in w.avg_instance_count) + "; cold % by window "
+          + " ".join(f"{100 * v:.3f}" for v in w.cold_start_prob), flush=True)
+    samples = run_samples(scn1w, 1, TABLE1_RUN_REPLICAS, None, None, dev, f64=True)
+    hold("windows", scn1w, samples, scan64_layout(scn1w, W=len(TABLE1_WINDOWS) - 1),
+         "Table-1 run() with windows", t_exp=scn1w.expiration_threshold,
+         t_end=scn1w.sim_time, skip=scn1w.skip_time, prestamped=False,
+         window_rows=np.tile(TABLE1_WINDOWS, (TABLE1_RUN_REPLICAS, 1)))
+    del samples
+
+    # ---- 2. the Table-1 sweep, without and with the histogram
+    scn = table1(rt)
+    sweeps = {}
+    for hist in (False, True):
+        scn_s = rt.Scenario.of(scn, track_histogram=hist)
+        torch.cuda.empty_cache()
+        LAUNCH_COUNTS.clear()
+        t0 = time.perf_counter()
+        g = rt.sweep(scn_s, SWEEP_OVER, seed=0, replicas=SWEEP_REPLICAS, **S64)
+        wall = time.perf_counter() - t0
+        expect_launches(LAUNCH_COUNTS, {"scan_sweep": 1}, "the f64 Table-1 sweep")
+        if not hist:
+            sweep_launches = LAUNCH_COUNTS["scan_sweep"]
+        if not g.ok.all():
+            raise AssertionError("f64 sweep cells are not finite")
+        servers = float(g.sel(arrival_rate=0.9, expiration_threshold=600.0).avg_server_count)
+        sweeps[hist] = (g, wall)
+        print(f"f64 sweep{' with histogram' if hist else ''}: {g.shape} cells x "
+              f"{SWEEP_REPLICAS} replicas, 1 launch, {wall:.3f} s wall; (0.9/s, 600 s) "
+              f"servers {servers:.4f} (paper {PAPER_SERVERS})", flush=True)
+        if abs(servers / PAPER_SERVERS - 1) > PAPER_RTOL:
+            raise AssertionError("the f64 Table-1 cell is more than 5% from the paper")
+        if hist:
+            for cell in g.summaries.ravel():
+                if not np.allclose(cell.histogram.sum(1), cell.measured_time, rtol=1e-9):
+                    raise AssertionError("a histogram's mass is not the measured time")
+    g0, g1 = sweeps[False][0], sweeps[True][0]
+    if not (np.array_equal(g0.cold_start_prob, g1.cold_start_prob)
+            and np.array_equal(g0.avg_server_count, g1.avg_server_count)):
+        raise AssertionError("the histogram changed the Table-1 sweep's metrics")
+    for hist in (False, True):
+        scn_s = rt.Scenario.of(scn, track_histogram=hist)
+        inp = sweep_inputs(scn_s, SWEEP_OVER, 0, replicas=SWEEP_REPLICAS, device=dev, f64=True)
+        C, K = inp.samples[0].shape
+        lay = scan64_layout(scn_s)
+        ms, out = timed(torch, lambda: scan64_sweep_launch(scn_s, inp, scan, dev), reps=3)
+        cold = out.acc[:, 0].cpu().numpy().reshape(-1, SWEEP_REPLICAS)
+        want = np.stack([c.n_cold for c in sweeps[hist][0].summaries.ravel()])
+        if not np.array_equal(cold, want):
+            raise AssertionError("the timed f64 launch does not reproduce sweep()")
+        per_row = arrivals_per_row(inp.samples[0], torch.as_tensor(inp.sim_rows, device=dev))
+        active = int(per_row.sum())
+        # the instances each row holds on average over its measured time
+        # (∫running + ∫idle over it), as the events inside the horizon find them
+        held = (out.acc[:, 3] + out.acc[:, 4]) / torch.as_tensor(
+            inp.sim_rows - inp.skip_rows, dtype=torch.float64, device=dev)
+        live = float((per_row * held).sum())
+        expiries = int(out.acc[:, 8].sum()) if hist else 0
+        b_ms, b_by = scan64_bound_ms(C, scn.slots, K, active, live, expiries=expiries,
+                                     cols=lay.cols)
+        name = "histogram" if hist else "base"
+        hold(name, scn_s, inp.samples, lay, f"Table-1 sweep{' + histogram' if hist else ''}",
+             t_exp=inp.thr_rows, t_end=inp.sim_rows, skip=inp.skip_rows, prestamped=False)
+        print(f"timing [{card}]: scan_sweep{' with histogram' if hist else ''} C={C} "
+              f"M={scn.slots} K={K}: {ms:.3f} ms; {active} events in horizon of {C * K} = "
+              f"{active / ms * 1e3:.4e} arrivals/s, {live / max(active, 1):.4f} live "
+              f"instances an event; bound {b_ms:.3f} ms ({b_by}), {ms / b_ms:.1f}x; plain "
+              f"{plain[name]:.0f} ms on the first {SCAN64_PLAIN_EVENTS} events; sweep() "
+              f"{sweeps[hist][1]:.3f} s wall", flush=True)
+        if not hist:
+            result8 = dict(launches=sweep_launches, ms=ms, plain_ms=plain[name], bound_ms=b_ms,
+                           bound_by=b_by)
+        del inp, out
+    del sweeps, g0, g1
+    torch.cuda.empty_cache()
+
+    # ---- 3. Fig. 3 and the routing study
+    scn3 = table1(rt, sim_time=FIG3_SIM, track_histogram=True, hist_bins=FIG3_BINS)
+    LAUNCH_COUNTS.clear()
+    s3 = rt.run(scn3, seed=0, replicas=FIG3_REPLICAS, **S64).summary
+    expect_launches(LAUNCH_COUNTS, {"scan_sweep": 1}, "Fig. 3 run()")
+    mass = s3.histogram.sum()
+    if abs(mass / (FIG3_REPLICAS * s3.measured_time) - 1) > 1e-9:
+        raise AssertionError(f"Fig. 3's histogram mass {mass} is not replicas x measured time")
+    dist = s3.histogram.sum(0) / mass
+    mode = int(np.argmax(dist))
+    print(f"f64 Fig. 3: {FIG3_BINS} bins, {FIG3_REPLICAS} replicas x {FIG3_SIM:.0f} s: mass = "
+          f"replicas x measured time; mode {mode} p(mode) {dist[mode]:.3f}, mean "
+          f"{(np.arange(FIG3_BINS) * dist).sum():.3f} (servers {s3.avg_server_count:.3f})",
+          flush=True)
+    routing = {}
+    for policy in ("newest", "oldest"):
+        scn_r = table1(rt, sim_time=ROUTING_SIM, routing=policy)
+        LAUNCH_COUNTS.clear()
+        routing[policy] = rt.run(scn_r, seed=0, replicas=ROUTING_REPLICAS, **S64).summary
+        expect_launches(LAUNCH_COUNTS, {"scan_sweep": 1}, f"routing={policy} run()")
+    n, o = routing["newest"], routing["oldest"]
+    print(f"f64 routing study, {ROUTING_REPLICAS} replicas x {ROUTING_SIM:.0f} s: lifespan "
+          f"newest {n.avg_lifespan:.0f} s, oldest {o.avg_lifespan:.0f} s, ratio "
+          f"{n.avg_lifespan / o.avg_lifespan:.2f}; cold % {100 * n.cold_start_prob:.3f} vs "
+          f"{100 * o.cold_start_prob:.3f}; servers {n.avg_server_count:.3f} vs "
+          f"{o.avg_server_count:.3f}", flush=True)
+    scn_o = table1(rt, sim_time=ROUTING_SIM, routing="oldest", track_histogram=True,
+                   hist_bins=FIG3_BINS)
+    samples = run_samples(scn_o, 0, ROUTING_REPLICAS, None, None, dev, f64=True)
+    hold("oldest", scn_o, samples, scan64_layout(scn_o), "oldest routing + histogram",
+         t_exp=scn_o.expiration_threshold, t_end=scn_o.sim_time, skip=scn_o.skip_time,
+         prestamped=False)
+    del samples
+
+    # ---- 4. the retry what-if at full width
+    scn_r = table1(rt, sim_time=RETRY_SIM, skip_time=RETRY_SKIP, expiration_threshold=120.0,
+                   reliability=retry_policy(rt))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCH_COUNTS.clear()
+    t0 = time.perf_counter()
+    grid_r = rt.sweep(scn_r, RETRY_OVER, seed=4, replicas=RETRY_REPLICAS, **S64)
+    wall = time.perf_counter() - t0
+    expect_launches(LAUNCH_COUNTS, {"scan_sweep": 1}, "the f64 retry sweep")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    gp, gp_se, cp, cp_se = [], [], [], []
+    for s in grid_r.summaries.ravel():
+        if not (s.n_attempts == s.n_completions + s.n_timeout + s.n_fail + s.n_reject).all():
+            raise AssertionError("an attempt is neither served nor rejected")
+        k = len(s.n_cold)
+        gp.append(s.goodput)
+        gp_se.append(float(np.std(s.n_completions / s.measured_time, ddof=1) / np.sqrt(k)))
+        cp.append(s.cold_start_prob)
+        cp_se.append(float(np.std(s.n_cold / np.maximum(s.n_cold + s.n_warm, 1), ddof=1)
+                           / np.sqrt(k)))
+    for name, v, se in (("goodput", gp, gp_se), ("cold_start_prob", cp, cp_se)):
+        z = z_against(v, se, REF_RETRY[name], REF_RETRY[name + "_se"])
+        print(f"f64 retry sweep {name}: max {z.max():.2f} standard errors from the JAX "
+              f"reference over {len(z)} cells", flush=True)
+        if z.max() > REF_RETRY_SIGMAS:
+            raise AssertionError(f"the f64 retry sweep's {name} is off the reference")
+    inp = sweep_inputs(scn_r, RETRY_OVER, 4, replicas=RETRY_REPLICAS, device=dev, f64=True)
+    Cr, Kr = inp.samples[0].shape
+    print(f"f64 retry sweep: {grid_r.shape} cells x {RETRY_REPLICAS} replicas = {Cr} rows x "
+          f"{Kr} attempts, 1 launch, {wall:.3f} s wall, peak {peak:.2f} GiB", flush=True)
+    hold("retries", scn_r, inp.samples, scan64_layout(scn_r), "retry sweep",
+         t_exp=inp.thr_rows, t_end=inp.sim_rows, skip=inp.skip_rows, prestamped=True,
+         t_timeout=inp.t_timeout_rows, p_fail=inp.p_fail_rows)
+    del inp, grid_r
+    torch.cuda.empty_cache()
+
+    # ---- 5. the fault sweep
+    dip = rt.CapacityProfile(*FAULT_DIP)
+    scn_f = table1(rt, sim_time=FAULT_SIM, skip_time=FAULT_SKIP, expiration_threshold=120.0,
+                   max_concurrency=30,
+                   faults=rt.FaultModel(crash_rate=FAULT_OVER["crash_rate"][0], capacity=dip))
+    LAUNCH_COUNTS.clear()
+    t0 = time.perf_counter()
+    grid_f = rt.sweep(scn_f, FAULT_OVER, seed=11, replicas=FAULT_REPLICAS, steps=FAULT_STEPS,
+                      **S64)
+    wall = time.perf_counter() - t0
+    expect_launches(LAUNCH_COUNTS, {"scan_sweep": 1}, "the f64 fault sweep")
+    worst = 0.0
+    for name, (v, se) in fault_cell_stats(grid_f).items():
+        z = z_against(v, se, REF_FAULT[name], REF_FAULT[name + "_se"])
+        worst = max(worst, float(z.max()))
+        if z.max() > REF_FAULT_SIGMAS:
+            raise AssertionError(f"the f64 fault sweep's {name} is off the reference "
+                                 f"({z.max():.2f} standard errors)")
+    life = sum(float(s.lifespan_sum.sum()) for s in grid_f.summaries.ravel()) / max(
+        sum(float(s.lifespan_count.sum()) for s in grid_f.summaries.ravel()), 1.0)
+    print(f"f64 fault sweep: {grid_f.summaries.size * FAULT_REPLICAS} rows x K={FAULT_STEPS}, "
+          f"1 launch, {wall:.3f} s wall; availability, cold-start probability and instances "
+          f"within {worst:.2f} standard errors of the JAX reference in all cells; mean "
+          f"lifespan {life:.1f} s", flush=True)
+    inp = sweep_inputs(scn_f, FAULT_OVER, 11, replicas=FAULT_REPLICAS, device=dev,
+                       steps=FAULT_STEPS, f64=True)
+    hold("faults", scn_f, inp.samples, scan64_layout(scn_f, faults=True), "fault sweep",
+         t_exp=inp.thr_rows, t_end=inp.sim_rows, skip=inp.skip_rows, prestamped=False,
+         faults=inp.fault_rows)
+    del inp, grid_f
+
+    # ---- 6. the diurnal sweep on f64 timestamps
+    profiles = nhpp_profiles(rt)
+    t1 = lambda x: rt.ExpSimProcess(rate=1 / x)
+    scn_n = rt.Scenario(rate_profile=profiles[0], warm_service_process=t1(1.991),
+                        cold_service_process=t1(2.244), expiration_threshold=NHPP_THRESHOLDS[0],
+                        sim_time=DAY, skip_time=0.0, slots=64, window_bounds=NHPP_WINDOWS)
+    over = {"profile": profiles, "expiration_threshold": NHPP_THRESHOLDS}
+    torch.cuda.empty_cache()
+    LAUNCH_COUNTS.clear()
+    t0 = time.perf_counter()
+    grid_n = rt.sweep(scn_n, over, seed=0, replicas=NHPP_REPLICAS, **S64)
+    wall = time.perf_counter() - t0
+    expect_launches(LAUNCH_COUNTS, {"scan_sweep": 1}, "the f64 diurnal sweep")
+    st = nhpp_cell_stats(grid_n)
+    worst = 0.0
+    for m, key in (("cold", "cold_start_prob"), ("servers", "avg_server_count")):
+        z = z_against(st[m], st[m + "_se"], REF_NHPP[key], REF_NHPP[key + "_se"])
+        worst = max(worst, float(z.max()))
+        if z.max() > REF_NHPP_SIGMAS:
+            raise AssertionError(f"the f64 diurnal sweep's {key} is off the reference "
+                                 f"({z.max():.2f} standard errors)")
+    inp = sweep_inputs(scn_n, over, 0, replicas=NHPP_REPLICAS, device=dev, f64=True)
+    if inp.samples[0].dtype != torch.float64:
+        raise AssertionError("the diurnal sweep's timestamps are not f64")
+    print(f"f64 diurnal sweep: {inp.samples[0].shape[0]} rows x K={inp.samples[0].shape[1]} "
+          f"f64 timestamps, {len(NHPP_WINDOWS) - 1} windows, 1 launch, {wall:.3f} s wall; "
+          f"cold-start probability and instances within {worst:.2f} standard errors of the "
+          f"JAX reference in all cells", flush=True)
+    hold("prestamped", scn_n, inp.samples,
+         scan64_layout(scn_n, W=len(NHPP_WINDOWS) - 1), "diurnal sweep (f64 timestamps)",
+         t_exp=inp.thr_rows, t_end=inp.sim_rows, skip=inp.skip_rows, prestamped=True,
+         window_rows=np.tile(NHPP_WINDOWS, (len(inp.thr_rows), 1)))
+    del inp, grid_n
+    torch.cuda.empty_cache()
+
+    # ---- 7. the temporal engine with reliability and retries
+    snaps = [rt.InstanceSnapshot(age=30.0, remaining=1.5),
+             rt.InstanceSnapshot(age=120.0, idle_for=20.0)]
+    scn_t = table1(rt, sim_time=TEMPORAL_SIM, skip_time=0.0, reliability=retry_policy(rt))
+    LAUNCH_COUNTS.clear()
+    t0 = time.perf_counter()
+    res_t = rt.run(scn_t, seed=3, replicas=FULL_REPLICAS, engine="temporal",
+                   grid=TEMPORAL_GRID, initial_instances=snaps, **S64)
+    wall = time.perf_counter() - t0
+    expect_launches(LAUNCH_COUNTS, {"scan_sweep": 1}, "temporal run()")
+    tm = res_t.temporal
+    for f in ("running_at", "idle_at", "total_at", "cold_prob_at"):
+        if not np.isfinite(getattr(tm, f)).all():
+            raise AssertionError(f"f64 temporal {f} is not finite")
+    at60 = int(np.argmin(np.abs(TEMPORAL_GRID - 60.0)))
+    if not tm.cold_prob_at[at60] > tm.cold_prob_at[-1]:
+        raise AssertionError("f64 temporal cold_prob_at(60 s) is not above its horizon value")
+    print(f"f64 temporal: Table 1 with retries over {TEMPORAL_SIM:.0f} s, {FULL_REPLICAS} "
+          f"replicas x K={3 * scn_t.steps_needed()} attempts, G={TEMPORAL_GRID.size}, 1 launch, "
+          f"{wall:.3f} s wall: total_at 60 s {tm.total_at[at60]:.4f}, {TEMPORAL_SIM:.0f} s "
+          f"{tm.total_at[-1]:.4f}; cold_prob_at {100 * tm.cold_prob_at[at60]:.3f}% and "
+          f"{100 * tm.cold_prob_at[-1]:.3f}%; retries {res_t.summary.n_retry.sum():.0f}",
+          flush=True)
+    from repro_torch.core.temporal import _snapshots_to_pool
+
+    samples = run_samples(scn_t, 3, FULL_REPLICAS, None, None, dev, f64=True)
+    rel = scn_t.reliability
+    hold("grid", scn_t, samples, scan64_layout(scn_t, G=TEMPORAL_GRID.size),
+         "temporal with retries", engine="temporal", t_exp=scn_t.expiration_threshold,
+         t_end=scn_t.sim_time, skip=0.0, prestamped=True, t_timeout=rel.failure.t_timeout,
+         p_fail=rel.failure.p_fail, pool=_snapshots_to_pool(snaps, scn_t.slots),
+         grid=TEMPORAL_GRID)
+    del samples
+
+    # ---- 8. the par engine on Fig. 1
+    par, walls, par_launches = {}, {}, {}
+    for c in PAR_CS:
+        LAUNCH_COUNTS.clear()
+        t0 = time.perf_counter()
+        par[c] = rt.run(fig1(rt, c), seed=2, replicas=FULL_REPLICAS, engine="par",
+                        **S64).summary
+        walls[c] = time.perf_counter() - t0
+        expect_launches(LAUNCH_COUNTS, {"par_scan_sweep": 1}, f"f64 par run() at c={c}")
+        par_launches[c] = LAUNCH_COUNTS["par_scan_sweep"]
+    one = rt.run(fig1(rt, 1), seed=2, replicas=FULL_REPLICAS, **S64).summary
+    for f in ("n_cold", "n_warm", "n_reject", "lifespan_count"):
+        if not np.array_equal(getattr(par[1], f), getattr(one, f)):
+            raise AssertionError(f"f64 par at c = 1 differs from the pool scan in {f}")
+    if not par[3].avg_server_count < par[1].avg_server_count:
+        raise AssertionError("f64 Fig. 1: c = 3 does not need fewer instances than c = 1")
+    sp = fig1(rt, 3)
+    K_par = sp.steps_needed()
+    samples = run_samples(sp, 2, FULL_REPLICAS, None, None, dev, f64=True)
+    active = in_horizon(torch, samples[0], np.full(FULL_REPLICAS, sp.sim_time), False)
+    launch = resolve_backend("scan").launch_for("par")
+    plain_launch = resolve_backend("scan_ref").launch_for("par")
+    rows = lambda v: torch.full((FULL_REPLICAS,), v, dtype=torch.float64, device=dev)
+    par_times = {}
+    for c in PAR_CS:
+        kw = dict(t_exp=rows(sp.expiration_threshold), t_end=rows(sp.sim_time),
+                  skip=rows(sp.skip_time), max_concurrency=sp.max_concurrency, concurrency=c,
+                  slots=sp.slots)
+        ms, out = timed(torch, lambda: launch(*samples, **kw), reps=3)
+        if not np.array_equal(out.acc[:, 0].cpu().numpy(), par[c].n_cold):
+            raise AssertionError(f"the timed f64 par launch at c={c} does not reproduce run()")
+        part = [prefix(x, SCAN64_PLAIN_EVENTS) for x in samples]
+        out_k = launch(*part, **kw)
+        plain_ms, out_p = plain_timed(torch, lambda: plain_launch(*part, **kw))
+        from repro_torch.kernels.ref64 import ScanLayout
+
+        err = held64(torch, out_k, out_p, ScanLayout(par=True), f"f64 par c={c}")
+        errs["par_scan_sweep"] = max(errs["par_scan_sweep"], err)
+        s = par[c]
+        live = active * s.avg_server_count
+        assigns = float((s.n_cold + s.n_warm).sum())
+        b_ms, b_by = par64_bound_ms(FULL_REPLICAS, sp.slots, c, K_par, active, live, assigns)
+        par_times[c] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        ref = f" (JAX reference {REF_FIG1[c]})" if c in REF_FIG1 else ""
+        print(f"f64 par: Fig. 1, c={c}, {FULL_REPLICAS} replicas x K={K_par}: instances "
+              f"{s.avg_server_count:.4f}{ref}, in flight {s.avg_in_flight:.4f} (reference "
+              f"{REF_FIG1_IN_FLIGHT}), per running instance {s.avg_instance_occupancy:.4f}, "
+              f"lifespan {s.avg_lifespan:.1f} s; run() {walls[c]:.3f} s wall", flush=True)
+        print(f"timing [{card}]: par_scan_sweep c={c} C={FULL_REPLICAS} M={sp.slots} "
+              f"K={K_par}: {ms:.3f} ms; {active} arrivals in horizon = "
+              f"{active / ms * 1e3:.4e} arrivals/s, {s.avg_server_count:.4f} live instances "
+              f"an event; bound {b_ms:.3f} ms ({b_by}), {ms / b_ms:.1f}x; plain "
+              f"{plain_ms:.0f} ms on the first {SCAN64_PLAIN_EVENTS} events (held: max|acc "
+              f"diff| {err:.3e})", flush=True)
+        del out, out_k, out_p, part
+    print(f"f64 par: c=1 makes the pool scan's decisions on the same draws; ratio c=1/c=3 "
+          f"{par[1].avg_server_count / par[3].avg_server_count:.3f}", flush=True)
+    del samples
+    torch.cuda.empty_cache()
+    results = {"scan_sweep": result8,
+               "par_scan_sweep": dict(launches=par_launches[3], **par_times[3])}
+    return results, errs
+
+
 def main() -> int:
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3874,7 +4454,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.faas_event_step import LAUNCH_COUNTS, faas_sweep
     from repro_torch.kernels.par_event_step import par_sweep
-    from repro_torch.kernels.ref import faas_par_sweep_ref, faas_sweep_ref
+    from repro_torch.kernels.ref import SweepOut, faas_par_sweep_ref, faas_sweep_ref
 
     dev = torch.device("cuda", 0)
     errs = {k: 0.0 for k in KERNELS}
@@ -4117,7 +4697,10 @@ def main() -> int:
     # first event, so that each 32-event batch only moves the clock
     tail_kw = dict(kw, t_end=torch.full_like(kw["t_end"], -1.0), skip=-2.0)
     tail_ms, _ = timed(torch, lambda: faas_sweep(*args, **tail_kw), reps=3)
-    plain_ms, out_p = plain_timed(torch, lambda: faas_sweep_ref(*args, **kw))
+    plain_ms, out_p = plain_timed(torch, lambda: SweepOut(*plain_in_graph(
+        torch, lambda st, part: faas_sweep_ref(
+            *(args[:4] if st is None else st[:4]), args[4], *part,
+            acc0=None if st is None else st[4], **kw)[:5], args[5:])))
     errs["faas_sweep"] = max(
         errs["faas_sweep"], held_against_plain(torch, out_k, out_p, "full width"))
     # the kernel steps every staged event; only those inside a row's
@@ -4196,8 +4779,10 @@ def main() -> int:
         live = active * par_res[c].summary.avg_server_count
         b_ms, b_by = par_bound_ms(Cp, sp.slots, c, K_par, active, live)
         if c == 3:
-            plain_ms, out_p = plain_timed(torch, lambda: faas_par_sweep_ref(
-                full(sp.expiration_threshold), dts, warms, colds, **kw))
+            plain_ms, out_p = plain_timed(torch, lambda: plain_in_graph(
+                torch, lambda st, part: faas_par_sweep_ref(
+                    full(sp.expiration_threshold), *part, state0=st, **kw),
+                (dts, warms, colds)))
             held = "full width"
         else:
             # the plain version is held to the kernel on the first events only
@@ -4278,7 +4863,15 @@ def main() -> int:
     print(f"non-stationary phase {time.perf_counter() - t0:.1f} s; script "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # ---- 13. kernels line, card line, device line
+    # ---- 13. the f64 engine
+    t0 = time.perf_counter()
+    scan_results, scan_errs = scan64_phase(torch, rt, dev, card)
+    results.update(scan_results)
+    errs.update(scan_errs)
+    print(f"f64 engine phase {time.perf_counter() - t0:.1f} s; script "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---- 14. kernels line, card line, device line
     print(json.dumps({"kernels": [
         dict(KERNELS[k], **dict(dict(library_ms=None), **results[k]), max_abs_err=errs[k])
         for k in KERNELS

@@ -1,8 +1,12 @@
 """SimFaaS in PyTorch and CUDA: the port of the ``repro`` package's
 simulator to an NVIDIA H100.
 
-The front door is the same Scenario API: ``run``/``sweep`` on the f32
-block engines, whose hot loops are the hand-written CUDA kernels
+The front door is the same Scenario API: ``run``/``sweep`` on the f64
+engine (backend ``"scan"``: ``kernels/csrc/scan_event_step.cu`` and
+``par_scan_event_step.cu``, the reference's default substrate, with the
+``ServerlessSimulator``, ``ServerlessTemporalSimulator`` and
+``ParServerlessSimulator`` classes) or on the f32 block engines (the
+default), whose hot loops are the hand-written CUDA kernels
 ``kernels/csrc/faas_event_step.cu`` (engines ``scan`` and ``temporal``;
 metric windows, timeouts, failures, client retries and platform faults on
 ``scan``)
@@ -44,6 +48,7 @@ from repro_torch.core import (  # noqa: F401
     MMPPArrivalProcess,
     NHPPArrivalProcess,
     ParetoSimProcess,
+    ParServerlessSimulator,
     ParSimulationSummary,
     PiecewiseConstantRate,
     RateProfile,
@@ -52,6 +57,8 @@ from repro_torch.core import (  # noqa: F401
     RetryPolicy,
     run,
     Scenario,
+    ServerlessSimulator,
+    ServerlessTemporalSimulator,
     SimProcess,
     SimulationSummary,
     SinusoidalRate,
@@ -89,6 +96,9 @@ __all__ = [
     "SimulationSummary",
     "WindowedMetrics",
     "ParSimulationSummary",
+    "ServerlessSimulator",
+    "ServerlessTemporalSimulator",
+    "ParServerlessSimulator",
     "FailurePolicy",
     "RetryPolicy",
     "Reliability",

@@ -60,11 +60,19 @@ from repro_torch.core.processes import (
     TraceArrivalProcess,
     WeibullSimProcess,
 )
-from repro_torch.core.par_simulator import ParSimulationSummary
+from repro_torch.core.par_simulator import ParServerlessSimulator, ParSimulationSummary
 from repro_torch.core.reliability import FailurePolicy, Reliability, RetryPolicy
 from repro_torch.core.scenario import GridResult, Result, Scenario, run, sweep
-from repro_torch.core.simulator import SimulationSummary, WindowedMetrics
-from repro_torch.core.temporal import InstanceSnapshot, TemporalSummary
+from repro_torch.core.simulator import (
+    ServerlessSimulator,
+    SimulationSummary,
+    WindowedMetrics,
+)
+from repro_torch.core.temporal import (
+    InstanceSnapshot,
+    ServerlessTemporalSimulator,
+    TemporalSummary,
+)
 
 __all__ = [
     "BillingModel",
@@ -98,6 +106,9 @@ __all__ = [
     "SimulationSummary",
     "WindowedMetrics",
     "ParSimulationSummary",
+    "ServerlessSimulator",
+    "ServerlessTemporalSimulator",
+    "ParServerlessSimulator",
     "FailurePolicy",
     "RetryPolicy",
     "Reliability",

@@ -259,8 +259,8 @@ def _lower_process(p, stream: str) -> Tuple[DrawSpec, Tuple[float, float]]:
     if isinstance(p, NHPPArrivalProcess):
         raise ValueError(
             "fused NHPP thinning is scan-backend only (the block kernels "
-            "have no profile.rate(t) at trace time; the f64 scan engine is "
-            "ROADMAP.md Queue A item 2); use draws='staged'"
+            "have no profile.rate(t) at trace time; fused draws on the f64 "
+            "scan engine are ROADMAP.md Queue A item 2b); use draws='staged'"
         )
     fn = getattr(p, "draw_spec", None)
     if fn is None:

@@ -14,6 +14,15 @@ unknown names raise with the registered list.
   :mod:`repro_torch.kernels.fleet_event_step`); needs a CUDA device.
 * ``"ref"`` — the plain PyTorch versions of the same loops
   (:mod:`repro_torch.kernels.ref`); runs on any device.
+* ``"scan"`` — the f64 engine's hand-written kernels, the reference's
+  default ``lax.scan`` substrate decision for decision
+  (:mod:`repro_torch.kernels.scan_event_step`,
+  :mod:`repro_torch.kernels.par_scan_event_step`); needs a CUDA device.
+  It alone (with its plain version) serves the instance-count histogram,
+  oldest-first routing, windowed single runs, lifespans and reliability
+  on the temporal and par engines.
+* ``"scan_ref"`` — the plain f64 PyTorch versions of those kernels
+  (:mod:`repro_torch.kernels.ref64`); runs on any device.
 
 The engines are the reference's (:data:`ENGINE_SPECS`, each with the
 backends that serve its feature layers): ``"scan"`` (steady state) and
@@ -25,7 +34,8 @@ the scan engine through each backend's ``"fleet"`` launcher.
 Entry points run on the card unless the caller asks for the CPU:
 ``device=None`` means ``"cuda"``, and a CUDA request without a visible GPU
 raises instead of falling back.  ``backend=None`` picks ``"cuda"`` on a
-CUDA device and ``"ref"`` on the CPU.
+CUDA device and ``"ref"`` on the CPU.  A backend that needs a CUDA device
+raises on the CPU, naming its plain version; none falls back to another.
 """
 
 from __future__ import annotations
@@ -58,17 +68,21 @@ class EngineSpec:
     faults_backends: tuple = ()
 
 
-# engines this port serves on the f32 block kernels; the reference's f64
-# scan substrate arrives with the f64 engine (ROADMAP Queue A item 2), and
-# with it reliability on the temporal and par engines
+# the engines and the backends serving each layer: the f32 block kernels
+# ("cuda"/"ref") and the f64 engine ("scan"/"scan_ref"), whose fused draws
+# are ROADMAP Queue A item 2b
 ENGINE_SPECS = {
     "scan": EngineSpec(
-        "scan", windowed_backends=("cuda", "ref"), reliability_backends=("cuda", "ref"),
-        fused_backends=("cuda", "ref"), faults_backends=("cuda", "ref"),
+        "scan", windowed_backends=("cuda", "ref", "scan", "scan_ref"),
+        reliability_backends=("cuda", "ref", "scan", "scan_ref"),
+        fused_backends=("cuda", "ref"),
+        faults_backends=("cuda", "ref", "scan", "scan_ref"),
     ),
-    "temporal": EngineSpec("temporal"),
-    "par": EngineSpec("par"),
+    "temporal": EngineSpec("temporal", reliability_backends=("scan", "scan_ref")),
+    "par": EngineSpec("par", reliability_backends=("scan", "scan_ref")),
 }
+# backends that need a CUDA device, each with its plain version
+_CUDA_ONLY = {"cuda": "ref", "scan": "scan_ref"}
 ENGINES = tuple(ENGINE_SPECS)
 
 
@@ -95,6 +109,9 @@ class BackendSpec:
     name: str
     launchers: Any = dataclasses.field(default_factory=dict)  # engine -> fn
     description: str = ""
+    # the f64 engine (the reference's scan, ``kernels/ref64.py``'s layout)
+    # rather than the f32 block kernels
+    f64: bool = False
 
     @property
     def launch(self) -> Optional[Callable[..., Any]]:
@@ -123,17 +140,26 @@ _PROVIDERS = {
         "repro_torch.kernels.par_event_step",
         "repro_torch.kernels.fleet_event_step",
     ),
+    "scan_ref": ("repro_torch.kernels.ref64",),
+    "scan": (
+        "repro_torch.kernels.scan_event_step",
+        "repro_torch.kernels.par_scan_event_step",
+    ),
 }
 
 
 def register_backend(
-    name: str, *, description: str = "", engines: Sequence[str] = ("scan",)
+    name: str, *, description: str = "", engines: Sequence[str] = ("scan",),
+    f64: bool = False,
 ):
     """Decorator: register ``fn`` as backend ``name``'s row launcher for
-    every engine in ``engines``.  A later registration under the same name
-    adds launchers for other engines and keeps the first description."""
+    every engine in ``engines``; ``f64`` marks a backend of the f64 engine.
+    A later registration under the same name adds launchers for other
+    engines and keeps the first description."""
     if name not in _BACKENDS:
-        _BACKENDS[name] = BackendSpec(name=name, description=description)
+        _BACKENDS[name] = BackendSpec(name=name, description=description, f64=f64)
+    if _BACKENDS[name].f64 != f64:
+        raise ValueError(f"backend {name!r} is registered both as f64 and as f32")
 
     def deco(fn):
         spec = _BACKENDS[name]
@@ -211,13 +237,20 @@ class Execution:
         dev = self.resolved_device()
         name = self.backend or ("cuda" if dev.type == "cuda" else "ref")
         bspec = resolve_backend(name)
-        if name == "cuda" and dev.type != "cuda":
+        if name in _CUDA_ONLY and dev.type != "cuda":
             raise ValueError(
-                "backend 'cuda' launches the Hopper kernels and needs a CUDA "
-                "device; use backend='ref' for the plain version on the CPU"
+                f"backend {name!r} launches the Hopper kernels and needs a CUDA "
+                f"device; use backend={_CUDA_ONLY[name]!r} for the plain version "
+                "on the CPU"
             )
         bspec.launch_for(self.engine)
         espec = ENGINE_SPECS[self.engine]
+        if self.resolved_draws == "fused" and bspec.f64:
+            raise NotImplementedError(
+                f"fused draws on the f64 engine (backend {name!r}) are not ported "
+                "to repro_torch yet; see ROADMAP.md Queue A item 2b (use "
+                "draws='staged', or backend='cuda'/'ref' for fused draws)"
+            )
         if self.resolved_draws == "fused" and name not in espec.fused_backends:
             raise ValueError(
                 f"engine {self.engine!r} cannot draw fused samples on backend "

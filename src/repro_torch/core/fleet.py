@@ -37,7 +37,7 @@ draws); each function's summary carries its crashes, evictions and
 interrupted arrivals.
 
 Not ported yet, raising with its ROADMAP item: the f64 fleet scan
-(backend ``"scan"``, Queue A item 2).
+(backends ``"scan"``/``"scan_ref"``, Queue A item 2b).
 """
 
 from __future__ import annotations
@@ -356,10 +356,10 @@ def _fleet_capable_combos() -> List[str]:
 
 def _resolve_fleet(execution, engine, backend, device):
     plan = plan_of(execution, backend, device, engine=engine)
-    if plan.backend == "scan":
+    if plan.backend is not None and resolve_backend(plan.backend).f64:
         raise NotImplementedError(
-            "backend='scan' (the f64 fleet scan engine) is not ported to "
-            "repro_torch yet; see ROADMAP.md Queue A item 2"
+            f"backend={plan.backend!r} (the f64 fleet scan engine) is not ported to "
+            "repro_torch yet; see ROADMAP.md Queue A item 2b"
         )
     if plan.engine != "scan":
         raise ValueError(
@@ -478,7 +478,7 @@ def fleet_inputs(
         raise ValueError(
             f"block backends serve fleets of at most {MAX_FUNCTIONS} functions "
             f"(one warp holds a fleet's pools); got F={F} — use backend='scan' "
-            "(the f64 fleet scan, not ported yet: ROADMAP.md Queue A item 2)"
+            "(the f64 fleet scan, not ported yet: ROADMAP.md Queue A item 2b)"
         )
     names = list(over)
     axis_vals = {n: tuple(over[n]) for n in names}

@@ -1,5 +1,7 @@
 """The Scenario front door of the PyTorch port: :func:`run` and :func:`sweep`
-on the f32 block engines.
+on the f32 block engines (backends ``"cuda"``/``"ref"``) and on the f64
+engine (backends ``"scan"``/``"scan_ref"``, the reference's default
+substrate, decision for decision).
 
 * :class:`Scenario` — one frozen description of a simulation: the arrival
   and service processes, platform limits, horizon/warm-up and billing,
@@ -60,10 +62,13 @@ a draw axis (one draw cell per profile); a grid must not mix stationary
 and timestamp cells.  Fused draws refuse timestamp processes (the block
 kernels evaluate no ``profile.rate(t)``).
 
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP item: windowed single runs, histograms, non-newest routing and
-sweeps over the f64 engine's knobs ``scan_unroll``/``hist_bins`` (the f64
-engine, Queue A item 2).
+The f64 engine alone serves windowed single runs, the instance-count
+histogram (``track_histogram``, ``hist_bins``), oldest-first routing,
+lifespans and reliability on the temporal and par engines; the block
+backends refuse them with the reference's messages.  Its staging keeps
+absolute timestamps in f64 and retry positions as integers.  ``scan_unroll``
+is a static axis whose values share one launch and its cells (it changes
+only the reference's compile).  Fused draws on the f64 engine are ROADMAP Queue A item 2b.
 """
 
 from __future__ import annotations
@@ -87,7 +92,7 @@ from repro_torch.core.processes import (
     RateProfile,
     SimProcess,
 )
-from repro_torch.core.par_simulator import run_par
+from repro_torch.core.par_simulator import run_par, run_par64
 from repro_torch.core.reliability import Reliability
 from repro_torch.core.simulator import (
     CRASH_STREAM,
@@ -103,19 +108,20 @@ from repro_torch.core.simulator import (
     draw_crash_uniforms,
     draw_reliability_stream,
     draw_workload_samples,
+    fault_inputs,
+    fault_rows as fault_rows_of,
     host_acc,
     run_samples,
+    run_scan64,
+    scan_cell_summaries,
+    scan_launch,
+    staged_dtypes,
     staged_widths,
     summary_from_acc,
 )
-from repro_torch.core.temporal import TemporalSummary, run_temporal
+from repro_torch.core.temporal import TemporalSummary, run_temporal, run_temporal64
 from repro_torch.kernels.ref import ACC_COLS, NEG, RELY_COLS, WINDOW_COLS
-
-
-def _later(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to repro_torch yet; see ROADMAP.md {item}"
-    )
+from repro_torch.kernels.ref64 import ScanLayout
 
 
 def _check_process(name: str, p) -> None:
@@ -150,10 +156,10 @@ class Scenario:
     sim_time: float = 1e5
     skip_time: float = 100.0  # warm-up transient excluded from metrics
     slots: int = 64  # instance-pool array size (>= peak live instances)
-    routing: str = "newest"
-    scan_unroll: int = 1  # the f64 engine's unroll knob (semantics-free)
-    track_histogram: bool = False
-    hist_bins: int = 65
+    routing: str = "newest"  # warm routing: "newest" (paper) or "oldest" idle
+    scan_unroll: int = 1  # the reference's lax.scan unroll (semantics-free)
+    track_histogram: bool = False  # time at each instance count (f64 engine)
+    hist_bins: int = 65  # histogram bins [0, hist_bins)
     window_bounds: Optional[tuple] = None
     rate_profile: Optional[Any] = None
     arrival_rate: Optional[float] = None
@@ -211,10 +217,6 @@ class Scenario:
             if wb.ndim != 1 or len(wb) < 2 or (np.diff(wb) <= 0).any():
                 raise ValueError("window_bounds must be >= 2 strictly increasing values")
             object.__setattr__(self, "window_bounds", tuple(float(b) for b in wb))
-        if self.track_histogram:
-            _later("track_histogram=True", "Queue A item 2 (the f64 engine)")
-        if self.routing != "newest":
-            _later(f"routing={self.routing!r}", "Queue A item 2 (the f64 engine)")
         if self.warm_service_process is None or self.cold_service_process is None:
             raise ValueError(
                 "Scenario needs warm_service_process and cold_service_process"
@@ -345,7 +347,7 @@ def _block_launch(
     the backend's row launcher; returns the f64 accumulator on the host
     after the overflow guard.  ``window_rows`` is the ``[C, W+1]``
     window-bound matrix; ``t_timeout``/``p_fail`` the per-row reliability
-    parameters; ``faults`` the per-row fault inputs (:func:`_fault_rows`:
+    parameters; ``faults`` the per-row fault inputs (:func:`~repro_torch.core.simulator.fault_rows`:
     ``crash_rate`` ``[C]`` with crashes, ``cap_edges``/``cap_values``
     ``[C, E]``/``[C, E+1]`` with capacity).  With ``fused``
     (:func:`fused_state`) there are no samples: the kernel draws them, and
@@ -493,21 +495,6 @@ def _cell_summaries(acc, R, measured, bounds=None, reliability=False, faults=Fal
     return out
 
 
-def _fault_rows(crashes: bool, crash_rate, profiles) -> dict:
-    """The launch's per-row fault inputs: ``crash_rate`` (a scalar or
-    ``[C]``) with crashes, ``cap_edges``/``cap_values`` matrices from the
-    per-row :class:`CapacityProfile` list ``profiles`` (None: no
-    capacity)."""
-    out = {}
-    if crashes:
-        out["crash_rate"] = crash_rate
-    if profiles is not None:
-        out["cap_edges"] = np.asarray([p.edges for p in profiles], np.float64).reshape(
-            len(profiles), len(profiles[0].edges))
-        out["cap_values"] = np.asarray([p.values for p in profiles], np.float64)
-    return out
-
-
 def _check_fault_plan(espec, bspec_name: str, fused: bool) -> None:
     """The reference's capability errors of a fault run on this plan."""
     if bspec_name not in espec.faults_backends:
@@ -579,17 +566,24 @@ def run(
     if scn.reliability is not None and bspec.name not in espec.reliability_backends:
         raise ValueError(
             f"the {plan.engine} engine serves reliability on the f64 scan "
-            "backend only (ROADMAP Queue A item 2); reliability-capable "
-            f"backends (EngineSpec.reliability_backends): {espec.reliability_backends}"
-        )
-    if scn.window_bounds is not None:
-        raise NotImplementedError(
-            "windowed single runs need the f64 engine, which is not ported to "
-            "repro_torch yet (see ROADMAP.md Queue A item 2); windowed grids "
-            "run on the block engines through sweep()"
+            "backend only; use backend='scan' (or 'scan_ref', its plain "
+            "version); reliability-capable backends "
+            f"(EngineSpec.reliability_backends): {espec.reliability_backends}"
         )
     kw = dict(replicas=replicas, steps=steps, staged=staged)
     temporal = None
+    if bspec.f64:
+        if plan.engine == "temporal":
+            summary, temporal = run_temporal64(
+                scn, seed, bspec, dev, grid=grid, initial_instances=initial_instances, **kw
+            )
+        elif plan.engine == "par":
+            summary = run_par64(scn, seed, bspec, dev, **kw)
+        else:
+            summary = run_scan64(scn, seed, bspec, dev, **kw)
+        return Result(scenario=scn, summary=summary,
+                      cost=estimate_cost(summary, scn.billing), temporal=temporal)
+    _check_block_single(scn, plan.engine)
     if plan.engine == "temporal":
         summary, temporal = run_temporal(
             scn, seed, bspec, dev, grid=grid, initial_instances=initial_instances, **kw
@@ -604,6 +598,28 @@ def run(
         cost=estimate_cost(summary, scn.billing),
         temporal=temporal,
     )
+
+
+def _check_block_single(scn, engine: str) -> None:
+    """The reference's refusals of a single run on a block backend: what
+    only the f64 engine serves."""
+    if engine == "scan" and scn.window_bounds is not None:
+        raise ValueError(
+            "windowed single runs need backend='scan' (block windowed "
+            "grids are available through sweep())"
+        )
+    if scn.track_histogram:
+        raise ValueError("histograms need the f64 scan backend")
+    if engine != "par":
+        _check_block_routing(scn)
+
+
+def _check_block_routing(scn) -> None:
+    if scn.routing != "newest":
+        raise ValueError(
+            "block backends implement newest-idle routing only; use "
+            f"backend='scan' for routing={scn.routing!r}"
+        )
 
 
 def _check_draw_inputs(fused: bool, staged, fused_keys) -> None:
@@ -632,9 +648,7 @@ def _run_scan(scn, seed, bspec, dev, *, replicas, steps, staged, fused=False,
         prestamped=scn.prestamped or scn.max_retries > 0,
         t_timeout=None if rel is None else rel.failure.timeout_or_inf,
         p_fail=None if rel is None else rel.failure.p_fail, fused=state,
-        faults=None if flt is None else _fault_rows(
-            flt.crashes, flt.crash_rate,
-            None if flt.capacity is None else [flt.capacity] * replicas),
+        faults=fault_inputs(scn, replicas),
     )
     return _cell_summaries(
         acc, replicas, [scn.sim_time - scn.skip_time], reliability=rel is not None,
@@ -647,11 +661,14 @@ def _run_scan(scn, seed, bspec, dev, *, replicas, steps, staged, fused=False,
 # ---------------------------------------------------------------------------
 
 # fields that change the launched program: one launch per combination
+# (scan_unroll, the reference's compile knob, launches nothing of its own)
 _STATIC_FIELDS = (
     "slots",
     "max_concurrency",
     "routing",
+    "scan_unroll",
     "track_histogram",
+    "hist_bins",
     "window_bounds",
 )
 # fields that change the per-cell sample draws (one draw cell each);
@@ -678,14 +695,6 @@ _PARAM_FIELDS = ("sim_time", "skip_time", "t_timeout", "p_fail", "crash_rate", "
 _RELY_AXES = ("t_timeout", "p_fail", "backoff_base", "backoff_mult", "backoff_jitter")
 # axes that need Scenario.faults (its structure and the crash stream)
 _FAULT_AXES = ("crash_rate", "capacity")
-
-# the reference's other sweep axes, and the ROADMAP item that brings each
-_LATER_AXES = {
-    # knobs of the f64 engine only: the block kernel computes the same
-    # thing for every value, so a sweep over them would repeat one launch
-    "scan_unroll": "Queue A item 2 (the f64 engine)",
-    "hist_bins": "Queue A item 2 (the f64 engine)",
-}
 
 
 @dataclasses.dataclass
@@ -858,8 +867,6 @@ def _check_axes(base: Scenario, over: Mapping[str, Sequence]) -> tuple:
         raise ValueError("over must name at least one axis to sweep")
     vals = {}
     for n in names:
-        if n in _LATER_AXES:
-            _later(f"sweeping {n!r}", _LATER_AXES[n])
         if n not in _STATIC_FIELDS + _DRAW_FIELDS + _PARAM_FIELDS:
             raise ValueError(
                 f"unknown sweep axis {n!r}; sweepable fields: "
@@ -926,10 +933,12 @@ def sweep_inputs(
     staged=None,
     draws: str = "staged",
     fused_keys=None,
+    f64: bool = False,
 ) -> SweepInputs:
     """Partition the axes, build the per-row parameters and stage the
     samples (or, with ``draws="fused"``, the keys and parameters) —
-    everything :func:`sweep` does before its launches."""
+    everything :func:`sweep` does before its launches.  ``f64`` stages the
+    f64 engine's buffers (:func:`~repro_torch.core.simulator.staged_dtypes`)."""
     names, vals = _check_axes(base, over)
     draw_names = [n for n in names if n in _DRAW_FIELDS]
     param_names = [n for n in names if n in _PARAM_FIELDS]
@@ -961,6 +970,7 @@ def sweep_inputs(
     rel = base.reliability
     crashes, capped = fault_plan(base, names)
     width = staged_widths(base, crashes)
+    dtypes = staged_dtypes(base, crashes, f64)
     param_cells = int(np.prod([len(vals[n]) for n in param_names]))
     n_steps = (
         int(steps)
@@ -973,13 +983,10 @@ def sweep_inputs(
                             fused_keys=fused_keys)
         bufs = ()
     elif staged is not None:
-        bufs = check_staged(staged, D * R, device, width, crashes)
+        bufs = check_staged(staged, D * R, device, width, crashes, dtypes)
     else:
         K = n_steps * (base.max_retries + 1)
-        bufs = tuple(
-            torch.empty((D * R, K), dtype=torch.float32, device=device)
-            for _ in range(width)
-        )
+        bufs = tuple(torch.empty((D * R, K), dtype=d, device=device) for d in dtypes)
         streams = FAULT_STREAMS if crashes else 3 if rel is None else RELY_STREAMS
         for d, (c, gens) in enumerate(zip(draw_cfgs, cell_generators(seed, D, device, streams))):
             part = tuple(x[d * R:(d + 1) * R] for x in bufs)
@@ -1022,7 +1029,7 @@ def sweep_inputs(
         else:
             profs = [flt.capacity] * Wn
         # [Wn] -> [C] in the (draw, param, replica) row order
-        fault_rows = _fault_rows(
+        fault_rows = fault_rows_of(
             crashes, _param_col("crash_rate", flt.crash_rate),
             [p for _ in range(D) for p in profs for _ in range(R)] if capped else None,
         )
@@ -1104,9 +1111,10 @@ def sweep(
                 "platform faults do not serve the instance-count "
                 "histogram; drop track_histogram or the fault axes"
             )
+    scan64 = bspec.f64
     inp = sweep_inputs(
         base, over, seed, replicas=replicas, device=dev, steps=steps, staged=staged,
-        draws=plan.draws, fused_keys=fused_keys,
+        draws=plan.draws, fused_keys=fused_keys, f64=scan64,
     )
     names, vals, R = inp.names, inp.vals, int(replicas)
     static_names = [n for n in names if n in _STATIC_FIELDS]
@@ -1123,22 +1131,36 @@ def sweep(
 
     all_summaries: list = []
     win_parts = []
-    for combo in itertools.product(*[vals[n] for n in static_names]):
+    launched: dict = {}
+    for idx in itertools.product(*[range(len(vals[n])) for n in static_names]):
         scn_s = base
-        for n, v in zip(static_names, combo):
-            scn_s = _apply_axis(scn_s, n, v)
+        for n, i in zip(static_names, idx):
+            scn_s = _apply_axis(scn_s, n, vals[n][i])
         wb = scn_s.window_bounds
-        acc = _block_launch(
-            scn_s, inp.thr_rows, inp.sim_rows, inp.skip_rows, samples, bspec, dev,
-            prestamped=inp.prestamped,
-            window_rows=None if wb is None else np.tile(wb, (len(inp.thr_rows), 1)),
-            t_timeout=inp.t_timeout_rows, p_fail=inp.p_fail_rows, fused=inp.fused,
-            faults=inp.fault_rows,
-        )
+        window_rows = None if wb is None else np.tile(wb, (len(inp.thr_rows), 1))
         measured = (inp.sim_rows - inp.skip_rows)[::R]
-        cells = _cell_summaries(acc, R, measured, bounds=wb,
-                                reliability=base.reliability is not None,
-                                faults=inp.fault_rows is not None)
+        # scan_unroll changes only the reference's compile: the values of
+        # that axis share one launch's cells
+        key = tuple(i for n, i in zip(static_names, idx) if n != "scan_unroll")
+        if key in launched:
+            cells = launched[key]
+        elif scan64:
+            cells = _scan_sweep_cells(scn_s, inp, samples, bspec, dev, R, window_rows,
+                                      measured)
+        else:
+            if scn_s.track_histogram:
+                raise ValueError("histograms need the f64 scan backend")
+            _check_block_routing(scn_s)
+            acc = _block_launch(
+                scn_s, inp.thr_rows, inp.sim_rows, inp.skip_rows, samples, bspec, dev,
+                prestamped=inp.prestamped, window_rows=window_rows,
+                t_timeout=inp.t_timeout_rows, p_fail=inp.p_fail_rows, fused=inp.fused,
+                faults=inp.fault_rows,
+            )
+            cells = _cell_summaries(acc, R, measured, bounds=wb,
+                                    reliability=base.reliability is not None,
+                                    faults=inp.fault_rows is not None)
+        launched[key] = cells
         all_summaries.extend(cells)
         if wb is not None:
             win_parts.append(np.stack([
@@ -1203,6 +1225,35 @@ def sweep(
         ok=ok,
         **windows,
     )
+
+
+def _scan_sweep_cells(scn_s, inp: SweepInputs, samples, bspec, dev, R: int, window_rows,
+                      measured) -> list:
+    """One f64 engine launch of a sweep's static combination, and its
+    per-cell summaries after the reference's guards."""
+    out = scan_launch(
+        scn_s, bspec, dev, samples, t_exp=inp.thr_rows, t_end=inp.sim_rows,
+        skip=inp.skip_rows, prestamped=inp.prestamped, window_rows=window_rows,
+        t_timeout=inp.t_timeout_rows, p_fail=inp.p_fail_rows, faults=inp.fault_rows,
+    )
+    acc = out.acc.cpu().numpy()
+    t_last = out.t.cpu().numpy()
+    if not inp.prestamped and (t_last < inp.sim_rows).any():
+        raise RuntimeError(
+            "pre-drawn arrivals ended before sim_time "
+            f"(min final t {t_last.min():.1f}); pass a larger `steps`"
+        )
+    if acc[:, 9].sum() > 0:
+        raise RuntimeError("instance-pool overflow during sweep; raise Scenario.slots")
+    faults = inp.fault_rows is not None
+    wb = scn_s.window_bounds
+    layout = ScanLayout(
+        W=0 if wb is None else len(wb) - 1,
+        H=scn_s.hist_bins if scn_s.track_histogram else 0,
+        rely=scn_s.reliability is not None, faults=faults,
+    )
+    return scan_cell_summaries(acc, R, measured, layout, bounds=wb,
+                               histogram=scn_s.track_histogram, faults=faults)
 
 
 def _warn_nonfinite(axes: dict, ok: np.ndarray) -> None:

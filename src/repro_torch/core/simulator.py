@@ -43,10 +43,21 @@ class WindowedMetrics:
     n_arrivals: np.ndarray  # [R, W] (includes rejected arrivals)
     time_running: np.ndarray  # [R, W] exact integral per window
     time_idle: np.ndarray  # [R, W]
+    n_fail: Optional[np.ndarray] = None  # [R, W] timeouts+failures (f64 engine)
 
     @property
     def widths(self) -> np.ndarray:
         return np.diff(self.bounds)
+
+    @property
+    def failure_prob(self) -> np.ndarray:
+        """[W] pooled timeouts+failures per served request (zeros unless
+        the f64 engine ran with reliability: the block kernels keep
+        aggregate reliability columns, not per-window ones)."""
+        if self.n_fail is None:
+            return np.zeros(len(self.bounds) - 1)
+        served = (self.n_cold + self.n_warm).sum(axis=0)
+        return self.n_fail.sum(axis=0) / np.maximum(served, 1)
 
     @property
     def cold_start_prob(self) -> np.ndarray:
@@ -91,6 +102,7 @@ class SimulationSummary:
     lifespan_sum: np.ndarray
     lifespan_count: np.ndarray
     measured_time: float
+    histogram: Optional[np.ndarray] = None  # [R, hist_bins] time at count=k
     overflow: Optional[np.ndarray] = None
     windows: Optional[WindowedMetrics] = None  # set when window_bounds given
     # ---- reliability counters (None unless Scenario.reliability is set) --
@@ -225,6 +237,82 @@ class SimulationSummary:
         }
 
 
+# ---------------------------------------------------------------------------
+# Closed-form interval integration of the f64 engine, on [..., M] slot
+# tensors: the plain f64 versions (kernels/ref64.py) step with these, and
+# the f64 kernels compute the same pieces slot by slot
+# ---------------------------------------------------------------------------
+
+# the f64 engine's dead-slot sentinel (the reference's _NEG_INF)
+NEG_INF = -1e30
+
+
+def interval_integrals(alive, busy_until, exp_threshold, lo, hi):
+    """Exact ∫running and ∫idle instance counts over the window ``(lo, hi]``,
+    summed over the last (slot) axis.
+
+    Per live slot: running on ``(lo, min(busy, hi)]``, idle on ``(max(busy,
+    lo), min(busy + T_exp, hi)]``.  The window may be empty (``lo >= hi``);
+    ``exp_threshold``, ``lo`` and ``hi`` broadcast against the slots."""
+    expire = busy_until + exp_threshold
+    run_t = (torch.minimum(busy_until, hi) - lo).clamp_min(0.0)
+    idle_t = (torch.minimum(expire, hi) - torch.maximum(busy_until, lo)).clamp_min(0.0)
+    run_t = torch.where(alive, run_t, 0.0)
+    idle_t = torch.where(alive, idle_t, 0.0)
+    return run_t.sum(-1), idle_t.sum(-1)
+
+
+def fault_interval_integrals(alive, busy_until, exp_threshold, doom, lo, hi):
+    """:func:`interval_integrals` under a crash hazard: a slot's accrual
+    stops at its crash time ``doom`` (it is removed at the next event, but
+    it stops existing, and billing, at ``doom``)."""
+    expire = busy_until + exp_threshold
+    stop = torch.minimum(hi, doom)
+    run_t = (torch.minimum(busy_until, stop) - lo).clamp_min(0.0)
+    idle_t = (torch.minimum(expire, stop) - torch.maximum(busy_until, lo)).clamp_min(0.0)
+    run_t = torch.where(alive, run_t, 0.0)
+    idle_t = torch.where(alive, idle_t, 0.0)
+    return run_t.sum(-1), idle_t.sum(-1)
+
+
+def histogram_update(hist, alive, busy_until, exp_threshold, lo, hi):
+    """Add to ``hist [R, H]`` the time each row spends at each total
+    instance count within ``(lo, hi]`` (``lo``, ``hi``, ``exp_threshold``:
+    ``[R, 1]``; the pool ``[R, M]``).
+
+    Between arrivals the count only falls, at each slot's expiry: sort the
+    expiries inside the window; segment k (between consecutive order
+    statistics) has count n0 - k, n0 being the slots live at ``lo``.
+    Segments with a negative count (the padding past the last expiry) or
+    no length add nothing, and counts past the last bin add to it."""
+    H = hist.shape[-1]
+    window = (hi - lo).clamp_min(0.0)
+    expire = torch.where(alive, busy_until + exp_threshold, NEG_INF)
+    n0 = (expire > lo).sum(-1, keepdim=True)
+    ev = torch.where((expire > lo) & (expire <= hi), expire, hi)
+    ev = torch.where(window > 0.0, ev, hi)
+    ev_sorted = torch.sort(ev, dim=-1).values
+    bounds = torch.cat([lo, ev_sorted], dim=-1)
+    nxt = torch.cat([ev_sorted, hi], dim=-1)
+    durations = (nxt - bounds).clamp_min(0.0)
+    durations = torch.where(window > 0.0, durations, 0.0)
+    counts = n0 - torch.arange(bounds.shape[-1], device=hist.device)
+    valid = (counts >= 0) & (durations > 0.0)
+    durations = torch.where(valid, durations, 0.0)
+    return hist.scatter_add_(-1, counts.clamp(0, H - 1), durations)
+
+
+def window_integrals(bounds, alive, busy_until, exp_threshold, lo_eff, hi_eff):
+    """Exact per-window ∫running / ∫idle over ``(lo_eff, hi_eff]`` ∩ each
+    window: ``bounds [R, W+1]``, the pool ``[R, M]``, ``exp_threshold``,
+    ``lo_eff``, ``hi_eff`` ``[R]``; returns two ``[R, W]`` tensors.  A
+    window the interval misses adds exactly 0."""
+    wlo = torch.maximum(bounds[:, :-1], lo_eff[:, None])[..., None]
+    whi = torch.minimum(bounds[:, 1:], hi_eff[:, None])[..., None]
+    return interval_integrals(alive[:, None, :], busy_until[:, None, :],
+                              exp_threshold[:, None, None], wlo, whi)
+
+
 # the streams of one draw cell, in SeedSequence word order: the base
 # (arrival, warm, cold) streams, then the reliability layer's (failure
 # uniforms, backoff jitter, retry attempts' warm and cold draws), then the
@@ -273,17 +361,21 @@ def draw_arrival_times(scn, generator, replicas: int, n: int, device) -> torch.T
     return times
 
 
-def draw_workload_samples(scn, generators, replicas: int, n: int, device, out=None):
+def draw_workload_samples(scn, generators, replicas: int, n: int, device, out=None,
+                          f64: bool = False):
     """Draw the (arrivals, warm, cold) f32 ``[replicas, n]`` sample buffers
     on ``device`` from the three generators of one draw cell: inter-arrival
     gaps, or with a timestamp process (``scn.prestamped``) the absolute
-    times of :func:`draw_arrival_times`, cast to f32 as they are written.
+    times of :func:`draw_arrival_times`, cast to f32 as they are written
+    (kept in f64 with ``f64=True``: the f64 engine's staging).
 
-    ``out`` optionally gives three preallocated f32 ``[replicas, n]``
-    buffers (views into a sweep's ``[C, K]`` staging) to fill in place.
+    ``out`` optionally gives three preallocated ``[replicas, n]`` buffers
+    (views into a sweep's ``[C, K]`` staging) to fill in place; the times
+    take the first one's dtype.
     """
     if out is None:
-        arr = torch.empty((replicas, n), dtype=torch.float32, device=device)
+        dtype = torch.float64 if f64 and scn.prestamped else torch.float32
+        arr = torch.empty((replicas, n), dtype=dtype, device=device)
     else:
         arr = out[0]
     if scn.prestamped:
@@ -308,7 +400,8 @@ def draw_service_samples(scn, generators, replicas: int, n: int, device, out=Non
     return warms, colds
 
 
-def draw_reliability_stream(scn, generators, replicas: int, n: int, device, out=None):
+def draw_reliability_stream(scn, generators, replicas: int, n: int, device, out=None,
+                            f64: bool = False):
     """Draw ``(samples, extras)`` for a reliability run from the
     :data:`RELY_STREAMS` generators of one draw cell, as the reference's
     ``draw_reliability_stream`` lays them out.
@@ -321,8 +414,10 @@ def draw_reliability_stream(scn, generators, replicas: int, n: int, device, out=
     build_attempt_table` (K = n·(J+1) attempts; absolute times, so the
     launch runs ``prestamped``), built in f64 on the device in row chunks
     after the coverage guard, and ``extras = (fail_u, is_first,
-    child_pos)``.  Every buffer is f32 ``[replicas, K]``; ``out``
-    optionally gives the six (or four) preallocated buffers to fill.
+    child_pos)``.  Every buffer is f32 ``[replicas, K]`` (with ``f64=True``
+    the f64 engine's dtypes, :func:`staged_dtypes`: f64 times, bool flags
+    and int32 positions); ``out`` optionally gives the six (or four)
+    preallocated buffers to fill, whose dtypes the values take.
     """
     from repro_torch.core.reliability import build_attempt_table
 
@@ -332,12 +427,14 @@ def draw_reliability_stream(scn, generators, replicas: int, n: int, device, out=
     f32 = dict(dtype=torch.float32, device=device)
     if J == 0:
         base = None if out is None else out[:3]
-        samples = draw_workload_samples(scn, generators[:3], replicas, n, device, out=base)
+        samples = draw_workload_samples(scn, generators[:3], replicas, n, device, out=base,
+                                        f64=f64)
         fail = torch.empty((replicas, n), **f32) if out is None else out[3]
         return samples, (torch.rand(fail.shape, generator=g_fail, out=fail),)
     K = n * (J + 1)
     if out is None:
-        out = tuple(torch.empty((replicas, K), **f32) for _ in range(6))
+        dtypes = staged_dtypes(scn, False, f64)
+        out = tuple(torch.empty((replicas, K), dtype=d, device=device) for d in dtypes)
     if scn.prestamped:
         # the process's f64 timestamps themselves, guarded on its coverage
         times0 = draw_arrival_times(scn, g_arr, replicas, n, device)
@@ -396,11 +493,30 @@ def staged_widths(scn, crashes: Optional[bool] = None) -> int:
     return width + int(bool(crashes))
 
 
-def check_staged(staged, rows: int, device, width: int, crashes: bool = False) -> tuple:
+def staged_dtypes(scn, crashes: Optional[bool] = None, f64: bool = False) -> tuple:
+    """The dtype of each staged buffer of a run of ``scn`` (as many as
+    :func:`staged_widths`): all f32 for the block engines; with ``f64``
+    (the f64 engine) the arrival column is f64 when it holds absolute
+    times (a timestamp process or a retry table), ``is_first`` bool and
+    ``child_pos`` int32, so that times and positions stay exact."""
+    f32 = torch.float32
+    width = staged_widths(scn, crashes)
+    if not f64:
+        return (f32,) * width
+    times = torch.float64 if scn.prestamped or scn.max_retries > 0 else f32
+    out = (times, f32, f32) + ((f32,) if scn.reliability is not None else ())
+    if scn.max_retries > 0:
+        out = out + (torch.bool, torch.int32)
+    return out + (f32,) * (width - len(out))
+
+
+def check_staged(staged, rows: int, device, width: int, crashes: bool = False,
+                 dtypes=None) -> tuple:
     """The staged buffers handed in instead of draws — ``(dts, warms,
     colds)``, then ``fail_u`` with reliability, ``is_first``, ``child_pos``
     with retries and ``crash_u`` with crashes (``width`` of them) — as
-    contiguous f32 ``[rows, K]`` tensors on ``device``."""
+    contiguous ``[rows, K]`` tensors on ``device``: f32, or ``dtypes``
+    (:func:`staged_dtypes`)."""
     if len(staged) != width:
         rely = width - int(crashes)
         raise ValueError(
@@ -410,8 +526,10 @@ def check_staged(staged, rows: int, device, width: int, crashes: bool = False) -
             + (", crash_u" if crashes else "")
             + f"), got {len(staged)}"
         )
+    dtypes = dtypes or (torch.float32,) * width
     out = tuple(
-        torch.as_tensor(x, dtype=torch.float32).to(device).contiguous() for x in staged
+        torch.as_tensor(x).to(device=device, dtype=d).contiguous()
+        for x, d in zip(staged, dtypes)
     )
     shape = tuple(out[0].shape)
     if len(shape) != 2 or shape[0] != rows or any(tuple(x.shape) != shape for x in out):
@@ -458,7 +576,8 @@ def check_table_covered(times, is_first, sim_rows, device) -> None:
         )
 
 
-def run_samples(scn, seed: int, replicas: int, steps, staged, device) -> tuple:
+def run_samples(scn, seed: int, replicas: int, steps, staged, device,
+                f64: bool = False) -> tuple:
     """The staged buffers of one run (``staged_widths(scn)`` of them: the
     base three, then the reliability extras, then the crash uniforms): the
     handed-in ``staged`` buffers, or ``steps`` (default
@@ -468,17 +587,18 @@ def run_samples(scn, seed: int, replicas: int, steps, staged, device) -> tuple:
     crashes = scn.faults is not None and scn.faults.crashes
     width = staged_widths(scn)
     if staged is not None:
-        samples = check_staged(staged, replicas, device, width, crashes)
+        samples = check_staged(staged, replicas, device, width, crashes,
+                               staged_dtypes(scn, crashes, f64))
     else:
         n = int(steps or scn.steps_needed())
         streams = FAULT_STREAMS if crashes else BASE_STREAMS if scn.reliability is None \
             else RELY_STREAMS
         gens = cell_generators(seed, 1, device, streams)[0]
         if scn.reliability is None:
-            samples = draw_workload_samples(scn, gens[:3], replicas, n, device)
+            samples = draw_workload_samples(scn, gens[:3], replicas, n, device, f64=f64)
         else:
             base, extras = draw_reliability_stream(scn, gens[:RELY_STREAMS], replicas, n,
-                                                   device)
+                                                   device, f64=f64)
             samples = base + extras
         if crashes:
             samples = samples + (draw_crash_uniforms(
@@ -521,3 +641,247 @@ def summary_from_acc(acc, measured_time: float, cls=SimulationSummary, **extra):
         overflow=acc[:, 7],
         **extra,
     )
+
+
+# ---------------------------------------------------------------------------
+# The f64 engine (backends "scan" and "scan_ref"): launch and summaries
+# ---------------------------------------------------------------------------
+
+def scan_backend(engine: str, backend: Optional[str], device) -> tuple:
+    """``(BackendSpec, torch.device)`` of an f64 engine run: ``backend``
+    (default ``"scan"`` on a CUDA device, ``"scan_ref"`` on the CPU) must
+    be a backend of the f64 engine (``BackendSpec.f64``)."""
+    from repro_torch.core.execution import Execution, resolve_backend
+
+    dev = Execution(device=device).resolved_device()
+    name = backend or ("scan" if dev.type == "cuda" else "scan_ref")
+    if not resolve_backend(name).f64:
+        raise ValueError(
+            f"the f64 engine runs on backends 'scan' and 'scan_ref', got {name!r}"
+        )
+    return Execution(engine=engine, backend=name, device=dev).resolve()
+
+
+def _f64_rows(x, C: int, device) -> torch.Tensor:
+    """An f64 ``[C]`` tensor from a scalar or a length-C sequence."""
+    return torch.as_tensor(
+        np.broadcast_to(np.asarray(x, np.float64), (C,)).copy(), device=device
+    )
+
+
+def scan_launch(
+    scn, bspec, device, samples, *, t_exp, t_end, skip, prestamped, engine="scan",
+    window_rows=None, t_timeout=None, p_fail=None, faults=None, pool=None, grid=None,
+):
+    """One launch of the f64 pool scan (``engine`` ``"scan"`` or
+    ``"temporal"``) on ``samples`` (``staged_dtypes(..., f64=True)``
+    buffers: ``arr, warms, colds``, then ``fail_u`` with reliability,
+    ``is_first, child_pos`` with retries and ``crash_u`` with crashes);
+    ``t_exp``/``t_end``/``skip`` (and ``t_timeout``/``p_fail``) are scalars
+    or per-row values, ``window_rows`` the ``[C, W+1]`` window bounds,
+    ``faults`` the per-row fault inputs (``crash_rate``, ``cap_edges``,
+    ``cap_values``), ``pool`` an initial ``(alive, creation, busy)`` of
+    ``[M]`` host arrays (default: empty) and ``grid`` the ``[G]`` snapshot
+    times.  Routing, the histogram and the pool come from ``scn``.
+    Returns the backend's :class:`~repro_torch.kernels.ref64.ScanOut`."""
+    C, M = samples[0].shape[0], scn.slots
+    rows = lambda x: _f64_rows(x, C, device)
+    if pool is None:
+        alive0 = torch.zeros((C, M), dtype=torch.bool, device=device)
+        creation0 = torch.full((C, M), NEG_INF, dtype=torch.float64, device=device)
+        busy0 = creation0.clone()
+    else:
+        alive0, creation0, busy0 = (
+            torch.as_tensor(np.asarray(x)).to(device).expand(C, M).contiguous() for x in pool
+        )
+    kw = dict(
+        t_exp=rows(t_exp), t_end=rows(t_end), skip=rows(skip),
+        max_concurrency=scn.max_concurrency, prestamped=prestamped, routing=scn.routing,
+        hist_bins=scn.hist_bins if scn.track_histogram else 0,
+    )
+    mat = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=device).contiguous()
+    if window_rows is not None:
+        kw["window_bounds"] = mat(window_rows)
+    if grid is not None:
+        kw["grid_times"] = mat(np.tile(np.asarray(grid, np.float64), (C, 1)))
+    faults = faults or {}
+    if "crash_rate" in faults:
+        kw.update(crash_rate=rows(faults["crash_rate"]), crash_u=samples[-1])
+        samples = samples[:-1]
+    if "cap_values" in faults:
+        kw.update(cap_edges=mat(faults["cap_edges"]), cap_values=mat(faults["cap_values"]))
+    if len(samples) > 3:
+        kw.update(t_timeout=rows(t_timeout), p_fail=rows(p_fail), fail_u=samples[3])
+    if len(samples) > 4:
+        kw.update(is_first=samples[4], child_pos=samples[5])
+    return bspec.launch_for(engine)(alive0, creation0, busy0, *samples[:3], **kw)
+
+
+def scan_cell_summaries(acc, R: int, measured, layout, *, bounds=None, histogram=False,
+                        faults=False, cls=SimulationSummary, **extra) -> list:
+    """Per-cell summaries off an f64 launch's ``[cells * R, cols]`` host
+    accumulator laid out by ``layout`` (a :class:`~repro_torch.kernels.
+    ref64.ScanLayout`); ``measured[c]`` is cell c's measured time, and
+    ``extra`` maps a summary field to its base column (the par engine's
+    ``time_in_flight``).  ``faults`` reports the fault counters, zeros
+    where the launch had no fault columns."""
+    W = layout.W
+    out = []
+    for c in range(acc.shape[0] // R):
+        cell = acc[c * R:(c + 1) * R]
+        kw = {name: cell[:, col] for name, col in extra.items()}
+        if W:
+            w = cell[:, layout.win_at:layout.hist_at].reshape(R, 6, W)
+            kw["windows"] = WindowedMetrics(
+                bounds=np.asarray(bounds, np.float64),
+                n_cold=w[:, 0], n_warm=w[:, 1], n_arrivals=w[:, 2],
+                time_running=w[:, 3], time_idle=w[:, 4],
+                n_fail=w[:, 5] if layout.rely else None,
+            )
+        if histogram:
+            kw["histogram"] = cell[:, layout.hist_at:layout.grid_at]
+        if layout.rely:
+            r = layout.rely_at
+            kw.update(n_timeout=cell[:, r], n_fail=cell[:, r + 1], n_retry=cell[:, r + 2],
+                      n_abandon=cell[:, r + 3])
+        if faults:
+            f = layout.fault_at
+            zeros = np.zeros((R,))
+            kw.update(
+                n_crash=cell[:, f] if layout.faults else zeros,
+                n_evict=cell[:, f + 1] if layout.faults else zeros,
+                n_interrupt=cell[:, f + 2] if layout.faults else zeros,
+            )
+        out.append(cls(
+            n_cold=cell[:, 0], n_warm=cell[:, 1], n_reject=cell[:, 2],
+            time_running=cell[:, 3], time_idle=cell[:, 4],
+            sum_cold_resp=cell[:, 5], sum_warm_resp=cell[:, 6],
+            lifespan_sum=cell[:, 7], lifespan_count=cell[:, 8],
+            measured_time=float(measured[c]), overflow=cell[:, 9], **kw,
+        ))
+    return out
+
+
+def scan_host(out, scn) -> tuple:
+    """A single run's f64 launch output on the host, ``(acc, t_last)``,
+    after the reference's guards: every row's stream reached ``sim_time``,
+    and no arrival needed a slot beyond ``scn.slots``."""
+    acc = out.acc.cpu().numpy()
+    t_last = out.t.cpu().numpy()
+    if (t_last < scn.sim_time).any():
+        raise RuntimeError(
+            "arrival stream ended before sim_time "
+            f"(min final t {t_last.min():.1f} < {scn.sim_time}); "
+            "pass a larger `steps`"
+        )
+    if acc[:, 9].sum() > 0:
+        raise RuntimeError(
+            f"instance-pool overflow ({int(acc[:, 9].sum())} arrivals "
+            f"needed a slot beyond slots={scn.slots} while below "
+            "max_concurrency); raise Scenario.slots"
+        )
+    return acc, t_last
+
+
+def fault_rows(crashes: bool, crash_rate, profiles) -> dict:
+    """A launch's per-row fault inputs: ``crash_rate`` (a scalar or
+    ``[C]``) with crashes, ``cap_edges``/``cap_values`` matrices from the
+    per-row :class:`~repro_torch.core.faults.CapacityProfile` list
+    ``profiles`` (None: no capacity)."""
+    out = {}
+    if crashes:
+        out["crash_rate"] = crash_rate
+    if profiles is not None:
+        out["cap_edges"] = np.asarray([p.edges for p in profiles], np.float64).reshape(
+            len(profiles), len(profiles[0].edges))
+        out["cap_values"] = np.asarray([p.values for p in profiles], np.float64)
+    return out
+
+
+def fault_inputs(scn, replicas: int) -> Optional[dict]:
+    """A single run's per-row fault inputs (:func:`fault_rows`), None
+    without a fault model that injects anything."""
+    flt = scn.faults
+    if flt is None or not flt.enabled:
+        return None
+    return fault_rows(flt.crashes, flt.crash_rate,
+                      None if flt.capacity is None else [flt.capacity] * replicas)
+
+
+def run_scan64(scn, seed: int, bspec, device, *, replicas: int, steps=None,
+               staged=None) -> SimulationSummary:
+    """The steady-state engine on the f64 scan: ``replicas`` rows from
+    empty pools, one launch, with every layer of ``scn`` (reliability and
+    retries, faults, routing, the histogram, metric windows)."""
+    from repro_torch.kernels.ref64 import ScanLayout
+
+    rel = scn.reliability
+    samples = run_samples(scn, seed, replicas, steps, staged, device, f64=True)
+    fi = fault_inputs(scn, replicas)
+    W = 0 if scn.window_bounds is None else len(scn.window_bounds) - 1
+    out = scan_launch(
+        scn, bspec, device, samples, t_exp=scn.expiration_threshold, t_end=scn.sim_time,
+        skip=scn.skip_time, prestamped=scn.prestamped or scn.max_retries > 0,
+        window_rows=None if not W else np.tile(scn.window_bounds, (replicas, 1)),
+        t_timeout=None if rel is None else rel.failure.timeout_or_inf,
+        p_fail=None if rel is None else rel.failure.p_fail, faults=fi,
+    )
+    acc, _ = scan_host(out, scn)
+    layout = ScanLayout(W=W, H=scn.hist_bins if scn.track_histogram else 0,
+                        rely=rel is not None, faults=fi is not None)
+    return scan_cell_summaries(
+        acc, replicas, [scn.sim_time - scn.skip_time], layout, bounds=scn.window_bounds,
+        histogram=scn.track_histogram, faults=scn.faults is not None,
+    )[0]
+
+
+class ServerlessSimulator:
+    """Steady-state scale-per-request simulator on the f64 engine (paper
+    §3, §4.1): the reference's ``ServerlessSimulator``.
+
+    >>> sim = ServerlessSimulator(Scenario(...))
+    >>> summary = sim.run(0, replicas=8)
+    >>> summary.cold_start_prob
+
+    ``backend`` is ``"scan"`` (the kernel; the default on a CUDA device)
+    or ``"scan_ref"`` (its plain f64 version; the default on the CPU).
+    Prefer the front door :func:`repro_torch.core.scenario.run`, which
+    wraps this engine and adds costing.
+    """
+
+    def __init__(self, config, *, device=None, backend: Optional[str] = None):
+        self.config = config
+        self.bspec, self.device = scan_backend("scan", backend, device)
+
+    @classmethod
+    def from_rates(cls, arrival_rate: float, warm_service_time: float,
+                   cold_service_time: float, expiration_threshold: float = 600.0,
+                   sim_time: float = 1e5, *, device=None, backend=None,
+                   **kw) -> "ServerlessSimulator":
+        """Paper-style constructor (exponential processes, Table 1)."""
+        from repro_torch.core.processes import ExpSimProcess
+        from repro_torch.core.scenario import Scenario
+
+        cfg = Scenario(
+            arrival_process=ExpSimProcess(rate=arrival_rate),
+            warm_service_process=ExpSimProcess(rate=1.0 / warm_service_time),
+            cold_service_process=ExpSimProcess(rate=1.0 / cold_service_time),
+            expiration_threshold=expiration_threshold,
+            sim_time=sim_time,
+            **kw,
+        )
+        return cls(cfg, device=device, backend=backend)
+
+    def draw_samples(self, seed: int, replicas: int, steps: Optional[int] = None) -> tuple:
+        """The staged buffers a run of ``seed`` draws (the f64 engine's
+        dtypes), to hand back in as ``staged=``."""
+        return run_samples(self.config, seed, replicas, steps, None, self.device, f64=True)
+
+    def run(self, seed: int, replicas: int = 8, steps: Optional[int] = None,
+            staged=None) -> SimulationSummary:
+        """``replicas`` replicas of ``steps`` events (default
+        ``steps_needed()``) drawn from ``seed``, or the ``staged`` buffers
+        (:func:`repro_torch.interop.staged_from_reference` with
+        ``f64=True`` carries the reference's own)."""
+        return run_scan64(self.config, seed, self.bspec, self.device, replicas=replicas,
+                          steps=steps, staged=staged)

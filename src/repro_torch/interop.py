@@ -131,7 +131,7 @@ def scenario_from_reference(obj) -> Scenario:
     return Scenario(**kw)
 
 
-def staged_from_reference(parts, device=None, crash_u=None) -> tuple:
+def staged_from_reference(parts, device=None, crash_u=None, f64: bool = False) -> tuple:
     """The port's ``staged=`` buffers from the reference's per-draw-cell
     draws, in draw-cell order: each part is ``(dts, warms, colds)``, or the
     ``(samples, extras)`` pair of the reference's
@@ -142,7 +142,10 @@ def staged_from_reference(parts, device=None, crash_u=None) -> tuple:
     which become the last buffer.  Returns the 3, 4 or 6 buffers (one more
     with crashes) as f32 ``[D*R, K]`` tensors (on ``device``, default the
     CPU): times cast after the reference's sort, flags and positions as
-    0/1 and exact f32 values."""
+    0/1 and exact f32 values.  With ``f64=True`` each buffer keeps the
+    reference's own precision for the f64 engine (backends ``"scan"``/
+    ``"scan_ref"``): f64 timestamps stay f64, flags bool and positions
+    int32; f32 draws stay f32."""
     flat = []
     for p in parts:
         if len(p) == 2 and isinstance(p[0], (tuple, list)):
@@ -158,14 +161,23 @@ def staged_from_reference(parts, device=None, crash_u=None) -> tuple:
         if len(crash_u) != len(flat):
             raise ValueError(f"crash_u needs one array per draw cell ({len(flat)})")
         flat = [p + (u,) for p, u in zip(flat, crash_u)]
-    return tuple(
-        torch.from_numpy(
-            np.ascontiguousarray(
-                np.concatenate([np.asarray(p[j]).astype(np.float32) for p in flat])
-            )
-        ).to(device or "cpu")
-        for j in range(len(flat[0]))
-    )
+    def dtype_of(a):
+        if not f64:
+            return np.float32
+        if a.dtype == np.bool_:
+            return np.bool_
+        if np.issubdtype(a.dtype, np.integer):
+            return np.int32
+        return np.float64 if a.dtype == np.float64 else np.float32
+
+    out = []
+    for j in range(len(flat[0])):
+        arrs = [np.asarray(p[j]) for p in flat]
+        dt = dtype_of(arrs[0])
+        out.append(torch.from_numpy(
+            np.ascontiguousarray(np.concatenate([a.astype(dt) for a in arrs]))
+        ).to(device or "cpu"))
+    return tuple(out)
 
 
 def fused_keys_from_reference(parts, device=None) -> dict:

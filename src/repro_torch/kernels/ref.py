@@ -166,6 +166,7 @@ def faas_sweep_ref(
     crash_u=None,  # f32 [R, K] per-event crash-lifetime uniforms (faults)
     cap_edges=None,  # f32 [R, E] capacity-profile step times (faults)
     cap_values=None,  # f32 [R, E+1] per-segment capacity ceilings (faults)
+    acc0=None,  # f32 [R, cols] accumulator to continue (default zeros)
 ):
     """Run K arrivals against each row's ``[M]`` pool.
 
@@ -174,8 +175,11 @@ def faas_sweep_ref(
     tie), then the newest idle instance (warm, lowest slot on a creation
     tie), else a free slot below ``max_concurrency`` (cold), else reject.
     Arrivals past ``t_end`` are inert; request counters engage after
-    ``skip``.  Returns a :class:`SweepOut`: ``(alive, creation, busy, t,
-    acc)``, the activation plane ``act [R, K]`` with retries and the crash
+    ``skip``.  ``acc0`` continues a run: a base-path run split into chunks
+    of events, each chunk started from the last one's pool, clock and
+    accumulator, adds every piece in the order one call would, so it equals
+    that call bit for bit.  Returns a :class:`SweepOut`: ``(alive,
+    creation, busy, t, acc)``, the activation plane ``act [R, K]`` with retries and the crash
     clocks ``doom [R, M]`` with crashes (None otherwise).  ``acc`` holds the reference's
     append-only layout: 8 base columns (cold, warm, reject, ∫running,
     ∫idle, Σcold response, Σwarm response, overflow), then ``5W`` window,
@@ -261,7 +265,7 @@ def faas_sweep_ref(
         crate = _rows(crash_rate, R, dev)
         doom = torch.full((R, M), torch.inf, dtype=torch.float32, device=dev)
     t = t0
-    acc = torch.zeros(
+    acc = acc0 if acc0 is not None else torch.zeros(
         (R, ACC_COLS + WINDOW_COLS * W + GRID_COLS * G + (RELY_COLS if reliability else 0)
          + (FAULT_COLS if faults else 0)),
         dtype=torch.float32, device=dev,
@@ -462,9 +466,12 @@ def faas_par_sweep_ref(
     concurrency: int,
     slots: int,
     prestamped: bool = False,
+    state0=None,  # (alive, creation, finish, t, acc) to continue
 ):
     """Run K arrivals of the concurrency-value platform from an empty pool
-    of ``slots`` instances, each serving up to ``concurrency`` requests.
+    of ``slots`` instances, each serving up to ``concurrency`` requests
+    (or from ``state0``, a chunk's return value: the next chunk of events
+    continues that run bit for bit, as :func:`faas_sweep_ref`'s ``acc0``).
 
     Per arrival: ``busy = max_j finish``; the run/idle integrals over the
     clipped interval and the in-flight integral over every request slot of
@@ -485,11 +492,14 @@ def faas_par_sweep_ref(
     skip = _rows(skip, R, dev)
     slot_iota = torch.arange(M, dtype=torch.float32, device=dev).expand(R, M)
     sub_iota = torch.arange(c, dtype=torch.float32, device=dev).expand(R, c)
-    alive = torch.zeros((R, M), dtype=torch.float32, device=dev)
-    creation = torch.full((R, M), NEG, dtype=torch.float32, device=dev)
-    finish = torch.full((R, c, M), NEG, dtype=torch.float32, device=dev)
-    t = torch.zeros((R,), dtype=torch.float32, device=dev)
-    acc = torch.zeros((R, PAR_ACC_COLS), dtype=torch.float32, device=dev)
+    if state0 is not None:
+        alive, creation, finish, t, acc = state0
+    else:
+        alive = torch.zeros((R, M), dtype=torch.float32, device=dev)
+        creation = torch.full((R, M), NEG, dtype=torch.float32, device=dev)
+        finish = torch.full((R, c, M), NEG, dtype=torch.float32, device=dev)
+        t = torch.zeros((R,), dtype=torch.float32, device=dev)
+        acc = torch.zeros((R, PAR_ACC_COLS), dtype=torch.float32, device=dev)
     for i in range(K):
         dt_i, warm_i, cold_i = dts[:, i], warms[:, i], colds[:, i]
         t_new = dt_i if prestamped else t + dt_i

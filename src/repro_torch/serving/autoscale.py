@@ -6,7 +6,7 @@ candidate expiration thresholds through the port's :func:`~repro_torch.sweep`
 and pick the smallest meeting a cold-start SLO.  The sweep runs on the
 ``faas_sweep`` CUDA kernel on the GPU and on its plain version on the CPU:
 the reference planner's ``execution=Execution(backend="pallas")`` route.  The
-reference's default substrate, the exact f64 scan, is ROADMAP Queue A item 2;
+reference's default substrate, the exact f64 scan, is ``backend="scan"``;
 fleet plans and ``ThresholdGovernor`` are item 7.  ``reliability=`` plans
 under a failure model on the same kernel (its reliability path).
 """

@@ -1710,3 +1710,192 @@ def test_front_doors_run_timestamp_workloads_on_the_kernels(cuda_device):
     assert dict(fes.LAUNCH_COUNTS) == {"par_sweep": 1, "faas_sweep": 1, "faas_sweep_grid": 1}
     for r in runs:
         assert np.isfinite(r.summary.avg_server_count) and r.summary.n_cold.sum() > 0
+
+
+# ---------------------------------------------------------------------------
+# the f64 engine's kernels (csrc/scan_event_step.cu, par_scan_event_step.cu)
+# against their plain f64 versions (kernels/ref64.py): every path
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import par_scan_event_step as pss  # noqa: E402
+from repro_torch.kernels import scan_event_step as ses  # noqa: E402
+from repro_torch.kernels.ref64 import (  # noqa: E402
+    ScanLayout,
+    par_scan_sweep_ref,
+    scan_sweep_ref,
+)
+
+# the f64 sums over slots associate differently in the kernel (per-lane
+# partials, a butterfly) and in torch: they agree to rounding
+SCAN64_RTOL = 1e-10
+
+
+def _held64(out_k, out_p, layout):
+    for name, a, b in zip(out_k._fields, out_k, out_p):
+        if name == "acc" or a is None:
+            assert b is None or name == "acc", name
+            continue
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy(), err_msg=name)
+    ak, ap = out_k.acc.cpu().numpy(), out_p.acc.cpu().numpy()
+    fl = layout.float_cols
+    exact = [c for c in range(layout.cols) if c not in fl]
+    np.testing.assert_array_equal(ak[:, exact], ap[:, exact])
+    np.testing.assert_allclose(ak[:, fl], ap[:, fl], rtol=SCAN64_RTOL, atol=1e-9)
+
+
+def _scan64_inputs(dev, seed, R, M, K, rate, prestamped, pool=False):
+    rng = np.random.default_rng(seed)
+    f64 = lambda x: torch.tensor(np.asarray(x), dtype=torch.float64, device=dev)
+    f32 = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32, device=dev)
+    gaps = rng.exponential(1 / rate, (R, K)).astype(np.float32)
+    arr = f64(np.cumsum(gaps.astype(np.float64), 1)) if prestamped else f32(gaps)
+    if pool:
+        live = rng.uniform(size=(R, M)) < 0.3
+        alive = torch.tensor(live, device=dev)
+        creation = f64(np.where(live, -rng.uniform(0, 600, (R, M)), -1e30))
+        busy = f64(np.where(live, rng.uniform(-30, 5, (R, M)), -1e30))
+    else:
+        alive = torch.zeros((R, M), dtype=torch.bool, device=dev)
+        creation = f64(np.full((R, M), -1e30))
+        busy = creation.clone()
+    horizon = K / rate
+    args = (alive, creation, busy, arr, f32(rng.exponential(2.0, (R, K))),
+            f32(rng.exponential(2.5, (R, K))))
+    kw = dict(t_exp=f64(15.0 * rng.uniform(0.5, 1.5, R)),
+              t_end=f64(horizon * rng.uniform(0.5, 0.9, R)),
+              skip=f64(horizon * rng.uniform(0.0, 0.1, R)), prestamped=prestamped)
+    return rng, args, kw, horizon
+
+
+def _retry_table(rng, dev, R, K, J=2):
+    """A sorted retry table: each base event's J children after it, in
+    sorted positions (some past the end: dropped)."""
+    first = rng.uniform(size=(R, K)) < 1 / (J + 1)
+    child = np.full((R, K), 1 << 30, np.int32)
+    for r in range(R):
+        for k in range(K):
+            if rng.uniform() < 0.8:
+                child[r, k] = k + 1 + rng.integers(0, 40)
+    return (torch.tensor(first, device=dev),
+            torch.tensor(np.minimum(child, 1 << 30).astype(np.int32), device=dev))
+
+
+SCAN64_CASES = {
+    "base": dict(M=40),
+    "one_slot_lane": dict(M=7, max_c=100),
+    "tight": dict(M=40, max_c=4),
+    "prestamped_hist": dict(M=130, prestamped=True, hist=17),
+    "oldest_windows": dict(M=64, oldest=True, windows=(0.0, 30.0, 31.0, 200.0, 1e4)),
+    "rely": dict(M=40, rely=True, windows=(0.0, 100.0, 300.0, 900.0)),
+    "retries": dict(M=40, rely=True, retries=True, max_c=6, hist=5),
+    "crashes_capacity": dict(M=300, crashes=True, capped=True, rely=True),
+    "crashes_retries": dict(M=64, crashes=True, rely=True, retries=True, oldest=True),
+    "grid_pool": dict(M=64, grid=61, pool=True, rely=True, retries=True, hist=9),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SCAN64_CASES))
+def test_scan64_kernel_matches_plain(cuda_device, case):
+    c = SCAN64_CASES[case]
+    R, K, M = 45, 400, c["M"]
+    rng, args, kw, horizon = _scan64_inputs(cuda_device, 11, R, M, K, 0.8,
+                                            c.get("prestamped", False), c.get("pool", False))
+    f64 = lambda x: torch.tensor(np.asarray(x), dtype=torch.float64, device=cuda_device)
+    f32 = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32, device=cuda_device)
+    kw.update(max_concurrency=c.get("max_c", 1000), hist_bins=c.get("hist", 0),
+              routing="oldest" if c.get("oldest") else "newest")
+    if "windows" in c:
+        kw["window_bounds"] = f64(np.tile(c["windows"], (R, 1)))
+    if "grid" in c:
+        kw["grid_times"] = f64(np.tile(np.linspace(0.0, horizon, c["grid"]), (R, 1)))
+    if c.get("rely"):
+        kw.update(t_timeout=f64(rng.uniform(1.0, 6.0, R)), p_fail=f64(rng.uniform(0, 0.3, R)),
+                  fail_u=f32(rng.uniform(size=(R, K))))
+    if c.get("retries"):
+        kw["is_first"], kw["child_pos"] = _retry_table(rng, cuda_device, R, K)
+    if c.get("crashes"):
+        kw.update(crash_rate=f64(np.where(np.arange(R) % 5 == 0, 0.0, 0.02)),
+                  crash_u=f32(rng.uniform(size=(R, K))))
+    if c.get("capped"):
+        kw.update(cap_edges=f64(np.tile([60.0, 200.0], (R, 1))),
+                  cap_values=f64(np.tile([9.0, 2.5, 5.0], (R, 1))))
+    layout = ScanLayout(
+        W=len(c["windows"]) - 1 if "windows" in c else 0, H=kw["hist_bins"],
+        G=c.get("grid", 0), rely=bool(c.get("rely")),
+        faults=bool(c.get("crashes") or c.get("capped")))
+    before = fes.LAUNCH_COUNTS["scan_sweep"]
+    out_k = ses.scan_sweep(*args, **kw)
+    torch.cuda.synchronize()
+    assert fes.LAUNCH_COUNTS["scan_sweep"] == before + 1
+    out_p = scan_sweep_ref(*args, **kw)
+    assert out_k.acc.shape == (R, layout.cols)
+    _held64(out_k, out_p, layout)
+    acc = out_p.acc.cpu().numpy()
+    assert acc[:, 0].sum() > 0 and acc[:, 1].sum() > 0
+    if case == "tight":
+        assert acc[:, 2].sum() > 0
+    if c.get("capped"):
+        assert acc[:, layout.fault_at + 1].sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "M,c,hist,rely,retries,prestamped,max_c",
+    [
+        (40, 1, 0, False, False, False, 1000),
+        (40, 3, 6, False, False, True, 1000),
+        (9, 3, 0, True, True, False, 1),  # rejections and retries
+        (64, 8, 4, True, False, False, 1000),
+        (16, 40, 5, True, True, True, 1000),  # rows split over the lanes
+    ],
+)
+def test_par_scan64_kernel_matches_plain(cuda_device, M, c, hist, rely, retries, prestamped,
+                                         max_c):
+    R, K = 45, 400
+    rng, args, kw, _ = _scan64_inputs(cuda_device, 12, R, M, K, 2.0, prestamped)
+    f64 = lambda x: torch.tensor(np.asarray(x), dtype=torch.float64, device=cuda_device)
+    kw.update(max_concurrency=max_c, concurrency=c, slots=M, hist_bins=hist)
+    if rely:
+        kw.update(t_timeout=f64(rng.uniform(1.0, 6.0, R)), p_fail=f64(rng.uniform(0, 0.3, R)),
+                  fail_u=torch.tensor(rng.uniform(size=(R, K)), dtype=torch.float32,
+                                      device=cuda_device))
+    if retries:
+        kw["is_first"], kw["child_pos"] = _retry_table(rng, cuda_device, R, K)
+    before = fes.LAUNCH_COUNTS["par_scan_sweep"]
+    out_k = pss.par_scan_sweep(*args[3:], **kw)
+    torch.cuda.synchronize()
+    assert fes.LAUNCH_COUNTS["par_scan_sweep"] == before + 1
+    out_p = par_scan_sweep_ref(*args[3:], **kw)
+    _held64(out_k, out_p, ScanLayout(H=hist, rely=rely, par=True))
+    if max_c == 1:
+        assert out_p.acc[:, 2].sum() > 0
+
+
+@pytest.mark.cuda
+def test_scan64_front_doors_launch_the_kernels(cuda_device):
+    import repro_torch as rt
+
+    scn = rt.Scenario(
+        arrival_process=rt.ExpSimProcess(rate=0.9),
+        warm_service_process=rt.ExpSimProcess(rate=1 / 1.991),
+        cold_service_process=rt.ExpSimProcess(rate=1 / 2.244),
+        expiration_threshold=60.0, sim_time=2000.0, skip_time=20.0, slots=32,
+        track_histogram=True, hist_bins=20, routing="oldest",
+    )
+    fes.LAUNCH_COUNTS.clear()
+    res = rt.run(scn, 0, replicas=16, backend="scan")
+    ref = rt.run(scn, 0, replicas=16, backend="scan_ref")
+    assert fes.LAUNCH_COUNTS["scan_sweep"] == 1
+    np.testing.assert_array_equal(res.summary.n_cold, ref.summary.n_cold)
+    np.testing.assert_allclose(res.summary.histogram, ref.summary.histogram, rtol=1e-10,
+                               atol=1e-9)
+    grid = rt.sweep(scn, {"expiration_threshold": [30.0, 90.0], "scan_unroll": [1, 4]}, 0,
+                    replicas=8, backend="scan")
+    # the two scan_unroll values share one launch
+    assert fes.LAUNCH_COUNTS["scan_sweep"] == 2 and grid.ok.all()
+    par = rt.run(rt.Scenario.of(scn, concurrency_value=3), 0, replicas=8, engine="par",
+                 backend="scan")
+    assert fes.LAUNCH_COUNTS["par_scan_sweep"] == 1 and np.isfinite(par.summary.avg_in_flight)
+    with pytest.raises(ValueError, match="scan_ref"):
+        rt.run(scn, 0, replicas=2, backend="scan", device="cpu")

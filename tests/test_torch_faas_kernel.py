@@ -14,7 +14,7 @@ from repro.core.pyref import simulate_pyref
 from repro.kernels import ref as jref
 from repro.kernels.faas_event_step import faas_sweep_pallas
 from repro_torch.kernels import faas_event_step as fes
-from repro_torch.kernels.ref import faas_sweep_ref
+from repro_torch.kernels.ref import faas_par_sweep_ref, faas_sweep_ref
 
 # acc columns that are per-row sequential sums of identically computed
 # values: equal bit for bit across frameworks
@@ -120,6 +120,36 @@ def test_counters_match_event_driven_oracle():
         assert (int(acc[r, 0]), int(acc[r, 1]), int(acc[r, 2])) == (
             ref.n_cold, ref.n_warm, ref.n_reject,
         )
+
+
+@pytest.mark.parametrize("engine", ["pool", "par"])
+@pytest.mark.parametrize("t_exp,max_c,prestamped", CASES[:2] + CASES[3:])
+def test_plain_run_continues_in_chunks_bit_for_bit(engine, t_exp, max_c, prestamped):
+    # a run split into chunks of events, each started from the last one's
+    # pool, clock and accumulator (acc0 / state0), equals one call
+    inp = _inputs(5, t_exp=t_exp, prestamped=prestamped)
+    t = lambda x: torch.from_numpy(np.array(x))
+    samples, t_exp_r = [t(x) for x in inp["samples"]], t(inp["t_exp"])
+    kw = dict(t_end=t(inp["t_end"]), skip=t(inp["skip"]), max_concurrency=max_c,
+              prestamped=prestamped)
+    if engine == "pool":
+        start = tuple(map(t, inp["state"]))
+
+        def run(st, part):
+            return faas_sweep_ref(*(start if st is None else st[:4]), t_exp_r, *part,
+                                  acc0=None if st is None else st[4], **kw)[:5]
+    else:
+        kw.update(concurrency=3, slots=16)
+
+        def run(st, part):
+            return faas_par_sweep_ref(t_exp_r, *part, state0=st, **kw)
+    whole = run(None, samples)
+    st = None
+    for lo in (0, 1, 60, 200):  # chunks of 1, 59, 140 and 56 events
+        hi = {0: 1, 1: 60, 60: 200, 200: None}[lo]
+        st = run(st, [x[:, lo:hi] for x in samples])
+    for a, b in zip(whole, st):
+        assert torch.equal(a, b)
 
 
 def test_wrapper_runs_plain_version_on_cpu_tensors():

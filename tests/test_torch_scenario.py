@@ -249,8 +249,20 @@ def test_scenario_refuses_later_layers(kw, item):
         with pytest.raises(TypeError, match="must be a repro_torch RateProfile"):
             rscn.Scenario.of(base, arrival_process=None, **kw)
         return
-    with pytest.raises(NotImplementedError, match=item):
-        rscn.Scenario.of(base, **kw)
+    # histograms and oldest-first routing are the f64 engine's: the
+    # scenario builds, the block backends refuse it with the reference's
+    # message, and backend="scan_ref" serves it
+    scn = rscn.Scenario.of(base, **kw)
+    with pytest.raises(ValueError) as ref:
+        jscn.run(JScenario.of(_jax_base(), **kw), jax.random.key(0), replicas=1,
+                 backend="ref")
+    with pytest.raises(ValueError) as port:
+        rscn.run(scn, 0, replicas=1, device="cpu")
+    assert str(port.value) == str(ref.value)
+    res = rscn.run(scn, 0, replicas=2, device="cpu", backend="scan_ref")
+    assert np.isfinite(res.avg_server_count)
+    if "track_histogram" in kw:
+        np.testing.assert_allclose(res.summary.histogram.sum(1), res.summary.measured_time)
 
 
 @pytest.mark.parametrize(
@@ -273,8 +285,15 @@ def test_sweep_refuses_later_axes(axis):
             rscn.sweep(_port_base(), {axis: [1.0]}, 0, device="cpu")
         assert str(port.value) == str(ref.value)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rscn.sweep(_port_base(), {axis: [1.0]}, 0, device="cpu")
+    # the f64 engine's knobs are static axes, as in the reference: on the
+    # block backends (which ignore them) and on backend="scan_ref" without
+    # a histogram every value gives the same cells
+    over = {axis: [1, 2], "expiration_threshold": [20.0]}
+    for backend in ("ref", "scan_ref"):
+        grid = rscn.sweep(_port_base(), over, 0, replicas=2, device="cpu", backend=backend)
+        assert grid.shape == (2, 1)
+        np.testing.assert_array_equal(grid.cold_start_prob[0], grid.cold_start_prob[1])
+        np.testing.assert_array_equal(grid.avg_server_count[0], grid.avg_server_count[1])
 
 
 def test_sweep_rejects_unknown_axis():

@@ -258,9 +258,17 @@ def test_window_bounds_is_a_static_axis(monkeypatch):
 
 
 def test_windowed_run_is_not_ported():
+    # windowed single runs are the f64 engine's: the block backends refuse
+    # them with the reference's message, backend="scan_ref" serves them
     scn = interop.scenario_from_reference(_jax_base())
-    with pytest.raises(NotImplementedError, match="Queue A item 2"):
+    with pytest.raises(ValueError) as ref:
+        jscn.run(_jax_base(), jax.random.key(0), replicas=2, backend="ref")
+    with pytest.raises(ValueError, match="windowed single runs need backend='scan'") as port:
         rscn.run(scn, 0, replicas=2, device="cpu")
+    assert str(port.value) == str(ref.value)
+    res = rscn.run(scn, 0, replicas=2, device="cpu", backend="scan_ref")
+    w = res.summary.windows
+    assert w is not None and w.n_arrivals.shape == (2, len(scn.window_bounds) - 1)
 
 
 @pytest.mark.parametrize("bounds", [(0.0,), (0.0, 10.0, 10.0), (5.0, 1.0)])
