@@ -174,10 +174,20 @@ Phases (any failure ends the script with a non-zero exit):
     ``engine="par"`` at c = 1, 3, 80 (4,096 x 41,216; c = 1 makes the pool
     scan's decisions).  Each path is held to its plain f64 version on its
     first 4096 events (counters, state, grid columns and the activation
-    plane bit for bit, sums over slots within ``SCAN64_RTOL``); the Table-1
-    launches and each par launch timed beside their bound (the larger of
-    the staged bytes and the f64 work on the live instances the events
-    find);
+    plane bit for bit, sums over slots within ``SCAN64_RTOL``), the plain
+    version replaying ``PLAIN_GRAPH_EVENTS``-event chunks from one CUDA
+    graph (``plain64_launch``; held bit for bit to one eager call on
+    ``GRAPH_CHECK_EVENTS`` events of the temporal cell with retries and of
+    Fig. 1 at c = 3); the Table-1 sweep with the histogram, the diurnal
+    sweep and Fig. 1 at c = 3 and 80 (as f64 timestamps) held once more on
+    that prefix with each row's horizon on one of its events inside it
+    (``horizon_inside``: the inert tail and the deferred exits at full rows;
+    with timestamps, events past the horizon that come back inside it);
+    the Table-1 launches and each par launch timed beside
+    their bound (the larger of the staged bytes and the f64 work this data
+    needs), with each kernel's events past their horizons and its inert
+    tail's share of the time (the launch with every horizon before the
+    first event, scaled by that share of events);
 14. the kernels line (JSON), the card line, then the device line (JSON) last.
 
 ``--seed`` (default 0) seeds phase 12's draws and recording.
@@ -874,8 +884,8 @@ def small_samples(torch, dev, rng, C, K, rate, prestamped):
 
 def print_ptxas(log, kernel):
     """The registers and spills ptxas reports for each template instance
-    (S slots per lane and, for faas_sweep, the optional paths the instance
-    runs; L live-table entries per lane for fleet_sweep)."""
+    (S slots per lane and, for faas_sweep and scan_sweep, the optional paths
+    the instance runs; L live-table entries per lane for fleet_sweep)."""
     inst = None  # the template instance the next ptxas lines are about
     for line in log.splitlines():
         m = re.search(kernel + r"ILi(\d+)E((?:Lb[01]E)*)", line)
@@ -888,8 +898,10 @@ def print_ptxas(log, kernel):
         elif m:
             per_lane = int(m.group(1))
             flags = re.findall(r"Lb([01])E", m.group(2))
-            paths = [n for n, f in zip(("grid", "windows", "reliability", "retries", "fused",
-                                        "faults"), flags) if f == "1"]
+            names = (("faults", "layers (windows, histogram, grid)")
+                     if kernel == "scan_sweep_kernel" else
+                     ("grid", "windows", "reliability", "retries", "fused", "faults"))
+            paths = [n for n, f in zip(names, flags) if f == "1"]
             inst = f"S={per_lane} (M <= {32 * per_lane})" + "".join(f" {n}" for n in paths)
         elif inst and ("registers" in line or "spill" in line):
             print(f"  ptxas {kernel} {inst}: {line.split(':', 1)[-1].strip()}")
@@ -3932,29 +3944,38 @@ SCAN64_PLAIN_EVENTS = 4096  # every launch of the phase is held to plain on thes
 SCAN64_RTOL = 1e-10
 # H100 SXM data sheet: f64 outside the tensor cores, at the full 700 W limit
 PEAK_F64_OPS = 34e12
-# f64 operations one event needs, counted as the pool-scan kernel body does
-# them: 16 on each live slot (the interval's integrals 10: expiry, crash stop,
-# running min-sub-max 3, idle min-max-sub-max 4, the two partial sums;
-# the exit test 2, the idle test 1, the routing priority's compare 2, the
-# histogram's in-window tests 1) and 20 on the row's scalars (clock 1,
-# clipped intervals 6, occupancy and finish 2, reliability 5, response sums
-# 2, window lookup 2, the chosen slot's update 2); the histogram adds, per
-# in-window expiry, a compare with each live instance for its order
-# statistic and 4 on the row; each window an event's interval overlaps 13
-# on each live slot and 4 on the row (an empty slot adds nothing to any sum
-# or decision, so the bound charges none of these to it)
-SCAN64_OPS_PER_SLOT_EVENT = 16
+# f64 operations the data needs (integrals, lifespans and in-flight time
+# are accrued per state span and per request, so no event integrates every
+# live instance).  Per event inside the horizon: 20 on the row's scalars
+# (clock 1, clipped intervals 6, occupancy and finish 2, reliability 5,
+# response sums 2, window lookup 2, the chosen slot's update 2) and 2 on
+# each live instance it finds (the idle test and the routing key's
+# compare); per assignment 14 (the state that ends and the one that starts,
+# accrue's 7 each); per exit 10 (its test, crash and lifespan); the
+# histogram, per in-window expiry, a compare with each live instance for
+# its order statistic and 4 on the row; each window crossing 13 on each
+# live instance and 4 on the row (an empty slot adds nothing to any sum or
+# decision, so the bound charges none of these to it)
+SCAN64_OPS_PER_SLOT_EVENT = 2
 SCAN64_OPS_PER_ROW_EVENT = 20
+SCAN64_OPS_PER_ASSIGN = 14
+SCAN64_OPS_PER_EXIT = 10
 SCAN64_OPS_PER_EXPIRY_ROW = 4
 SCAN64_OPS_PER_WINDOW_SLOT = 13
 SCAN64_OPS_PER_WINDOW_ROW = 4
-# the par scan: 12 on each live slot (running and idle integrals 8, exit test 2,
-# capacity test 1, the routing compare 1), 4 on each live instance's
-# request sub-slot (the in-flight overlap: min, sub, max, sum), 20 on the
-# row, and 2 c on an assignment (the row's new max and min)
-PAR64_OPS_PER_SLOT_EVENT = 12
-PAR64_OPS_PER_SUB_SLOT = 4
+# the par scan: 2 on each live instance an event finds (the capacity test
+# and the key's compare), 20 on the row; per assignment 2 on the row (the
+# new busy, the larger of the old and the request's finish, and the test
+# whether every sub-slot is taken: until then the row's free-by stays
+# empty), 1 on each request in flight on the instance (the search for its
+# first finished sub-slot passes those: a row fills from sub-slot 0), 4 (the
+# request's time in flight) and 14 (accrual); per exit 10.  No event needs
+# each live instance's c sub-slots (the in-flight overlap) or its integrals,
+# and no assignment the sub-slots its row never used
+PAR64_OPS_PER_SLOT_EVENT = 2
 PAR64_OPS_PER_ROW_EVENT = 20
+PAR64_OPS_PER_ROW_ASSIGN = 2
+PAR64_OPS_PER_REQUEST = 4
 # the paper's Fig. 3 (benchmarks/run.py:96-110) and routing study
 # (benchmarks/run.py:259-278) at their own horizons
 FIG3_SIM, FIG3_BINS, FIG3_REPLICAS = 5e4, 33, 4
@@ -3996,22 +4017,131 @@ def held64(torch, out_k, out_p, layout, what):
     return float((acc_k - acc_p).abs().max())
 
 
+# the [R, K] event inputs of the f64 plain versions beside arr, warms, colds
+SCAN64_SEQ = ("fail_u", "is_first", "child_pos", "crash_u")
+
+
+def plain64_launch(torch, engine, *args, **kw):
+    """The plain f64 version of ``engine`` (``"scan"``, ``"temporal"`` or
+    ``"par"``; the backend launchers' arguments) with its event loop in
+    chunks replayed from one CUDA graph (plain_in_graph): each chunk
+    continues the last one's state (``state0``, ``first_event``) and defers
+    the tail flush, which a last call with no events runs, so the result is
+    one eager call's, bit for bit."""
+    from repro_torch.kernels.ref64 import (ParScanOut, ScanOut, par_scan_sweep_ref,
+                                           scan_sweep_ref)
+
+    par = engine == "par"
+    fn, Out = (par_scan_sweep_ref, ParScanOut) if par else (scan_sweep_ref, ScanOut)
+    pool = () if par else args[:3]
+    arr, warms, colds = args[-3:]
+    names = [n for n in SCAN64_SEQ if kw.get(n) is not None]
+    seq = [arr, warms, colds] + [kw.pop(n) for n in names]
+    K = arr.shape[1]
+    present = []  # the fields of Out a chunk's state carries (no None)
+
+    def call(state, part, flush):
+        st = k0 = None
+        if state is not None:
+            it = iter(state[:-1])
+            st = Out(**{f: (next(it) if f in present else None) for f in Out._fields})
+            k0 = state[-1]
+        head = pool if st is None or par else (st.alive, st.creation, st.busy)
+        a, w, c, *rest = part
+        return fn(*head, a, w, c, **kw, **dict(zip(names, rest)), state0=st,
+                  first_event=0 if k0 is None else k0, events=K, flush=flush), k0
+
+    def run(state, part):
+        out, k0 = call(state, part, False)
+        if not present:
+            present.extend(f for f, x in zip(Out._fields, out) if x is not None)
+        k = (torch.zeros((), dtype=torch.int64, device=part[0].device) if k0 is None
+             else k0) + part[0].shape[1]
+        return tuple(x for x in out if x is not None) + (k,)
+
+    state = plain_in_graph(torch, run, seq)
+    return call(state, [x[:, K:] for x in seq], True)[0]
+
+
+# events of the eager plain runs that the CUDA-graph chunks are held to
+GRAPH_CHECK_EVENTS = 640
+
+
+def graph_equals_eager(torch, what, eager, chunked):
+    """The plain f64 version in CUDA-graph chunks against one eager call on
+    the same inputs: every output equal bit for bit."""
+    a, b = eager(), chunked()
+    for name, x, y in zip(a._fields, a, b):
+        if (x is None) != (y is None) or (x is not None and not torch.equal(x, y)):
+            raise AssertionError(f"{what}: the CUDA-graph chunks' {name} differs from one "
+                                 f"eager call")
+    print(f"plain f64 {what}: {GRAPH_CHECK_EVENTS} events in {PLAIN_GRAPH_EVENTS}-event "
+          f"CUDA-graph chunks equal one eager call bit for bit (every output)", flush=True)
+
+
+class PlainInGraph:
+    """A backend spec (``launch_for``) whose launchers are the plain f64
+    versions replayed in CUDA-graph chunks (:func:`plain64_launch`)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def launch_for(self, engine):
+        return lambda *a, **kw: plain64_launch(self.torch, engine, *a, **kw)
+
+
 def hold_scan64(torch, dev, scn, samples, layout, what, engine="scan", **kw):
-    """The pool-scan kernel and its plain version on the first
-    SCAN64_PLAIN_EVENTS events of ``samples`` (``kw`` as scan_launch takes
-    them); returns (max |acc diff|, the plain version's ms)."""
+    """The pool-scan kernel and its plain version (in CUDA-graph chunks) on
+    the first SCAN64_PLAIN_EVENTS events of ``samples`` (``kw`` as
+    scan_launch takes them); returns (max |acc diff|, the plain version's
+    ms)."""
     from repro_torch.core.execution import resolve_backend
     from repro_torch.core.simulator import scan_launch
 
     part = tuple(prefix(x, SCAN64_PLAIN_EVENTS) for x in samples)
     out_k = scan_launch(scn, resolve_backend("scan"), dev, part, engine=engine, **kw)
     plain_ms, out_p = plain_timed(torch, lambda: scan_launch(
-        scn, resolve_backend("scan_ref"), dev, part, engine=engine, **kw))
+        scn, PlainInGraph(torch), dev, part, engine=engine, **kw))
     err = held64(torch, out_k, out_p, layout, f"{what}, first {SCAN64_PLAIN_EVENTS} events")
     print(f"kernel==plain f64 {what}: first {SCAN64_PLAIN_EVENTS} events of {part[0].shape[0]} "
           f"rows, counters and state equal, max|acc diff| {err:.3e} (plain {plain_ms:.0f} ms)",
           flush=True)
     return err, plain_ms
+
+
+# the held runs whose horizons fall inside the held prefix: each row's
+# t_end on one of its events in the middle half of the prefix, and (for
+# timestamps) this many events past it moved back inside it
+INSIDE_BACK = 6
+
+
+def horizon_inside(torch, part, prestamped, seed):
+    """``part`` (a held prefix) with each row's horizon on one of its own
+    events in the middle half, so that the prefix runs the inert tail and
+    the deferred exits; a gap stream becomes its f64 timestamps when
+    ``prestamped``, and INSIDE_BACK events past each horizon then come back
+    up to 30 s before it.  Returns (part, t_end, skip, events past their
+    horizons, events back inside after one past it)."""
+    rng = np.random.default_rng(seed)
+    arr = part[0]
+    R, P = arr.shape
+    dev = arr.device
+    times = arr.double() if arr.dtype == torch.float64 else torch.cumsum(arr.double(), 1)
+    real = (times < 1e29).sum(1).cpu().numpy()  # timestamp streams pad with PAD_TIME
+    ends = np.minimum(rng.integers(P // 4, 3 * P // 4, R), np.maximum(real - 2, 0))
+    t_end = times[torch.arange(R, device=dev), torch.as_tensor(ends, device=dev)] + 0.5
+    if prestamped:
+        times = times.clone()
+        lo = ends[:, None] + 2
+        idx = lo + (rng.uniform(size=(R, INSIDE_BACK)) * np.maximum(P - lo, 1)).astype(np.int64)
+        back = t_end[:, None] - torch.as_tensor(rng.uniform(0.0, 30.0, (R, INSIDE_BACK)),
+                                                dtype=torch.float64, device=dev)
+        times.scatter_(1, torch.as_tensor(np.minimum(idx, P - 1), device=dev), back)
+        part = (times,) + tuple(part[1:])
+    over = times > t_end[:, None]
+    seen = torch.cummax(over.to(torch.int8), 1).values.bool()
+    t_end = t_end.cpu().numpy()
+    return (part, t_end, 0.1 * t_end, int(over.sum()), int((seen & ~over).sum()))
 
 
 def scan64_sweep_launch(scn, inp, bspec, dev):
@@ -4034,34 +4164,40 @@ def in_horizon(torch, arr, t_end, prestamped):
     return arrivals_in_horizon(arr, torch.as_tensor(t_end, device=arr.device))
 
 
-def scan64_bound_ms(C, M, K, n_active, live, expiries=0, window_passes=0, arr_bytes=4,
-                    cols=10, extra_bytes=0):
+def scan64_bound_ms(C, M, K, n_active, live, assigns, exits, expiries=0, window_passes=0,
+                    arr_bytes=4, cols=10, extra_bytes=0):
     """Least time for one pool-scan call: the staged bytes (each input read
     once, each output written once) at HBM rate, or the f64 operations this
     data needs at the f64 peak: ``n_active`` events inside their horizons,
     each on the row's scalars and on the live instances it finds (``live``,
-    summed over those events: an empty slot holds nothing to integrate,
-    route or retire), the rest only moving the clock; ``expiries``
-    in-window expiries the histogram orders among the live instances;
-    windows overlapped ``window_passes`` times."""
+    summed over those events: an empty slot holds nothing to route or
+    retire), the rest only moving the clock; ``assigns`` state changes and
+    ``exits`` exits, each accrued once; ``expiries`` in-window expiries the
+    histogram orders among the live instances; ``window_passes`` window
+    crossings."""
     nbytes = (C * K * (arr_bytes + 8) + 8 * 3 * C + extra_bytes
               + C * M * (1 + 8 + 8) * 2 + 8 * C + 8 * C * cols)
     per_event = live / max(n_active, 1)
     ops = (live * SCAN64_OPS_PER_SLOT_EVENT + n_active * SCAN64_OPS_PER_ROW_EVENT
-           + (C * K - n_active) + expiries * (per_event + SCAN64_OPS_PER_EXPIRY_ROW)
+           + (C * K - n_active) + assigns * SCAN64_OPS_PER_ASSIGN + exits * SCAN64_OPS_PER_EXIT
+           + expiries * (per_event + SCAN64_OPS_PER_EXPIRY_ROW)
            + window_passes * (per_event * SCAN64_OPS_PER_WINDOW_SLOT
                               + SCAN64_OPS_PER_WINDOW_ROW))
     t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F64_OPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
 
 
-def par64_bound_ms(C, M, c, K, n_active, live, assigns):
-    """The par scan's bound as :func:`scan64_bound_ms` counts it: the per-slot
-    and per-sub-slot work on the ``live`` instances the in-horizon events
-    find (summed over those events)."""
+def par64_bound_ms(C, M, c, K, n_active, live, assigns, exits, occupancy):
+    """The par scan's bound as :func:`scan64_bound_ms` counts it: the work
+    on the ``live`` instances the in-horizon events find (summed over those
+    events) and, per assignment, on the request's row and on the
+    ``occupancy`` requests in flight on its instance (the run's mean per
+    running instance)."""
     nbytes = C * K * 12 + 8 * 3 * C + C * M * (1 + 8) + C * M * c * 8 + 8 * C * 12
-    ops = (live * (PAR64_OPS_PER_SLOT_EVENT + c * PAR64_OPS_PER_SUB_SLOT)
-           + n_active * PAR64_OPS_PER_ROW_EVENT + assigns * 2 * c + (C * K - n_active))
+    ops = (live * PAR64_OPS_PER_SLOT_EVENT + n_active * PAR64_OPS_PER_ROW_EVENT
+           + assigns * (PAR64_OPS_PER_ROW_ASSIGN + occupancy + PAR64_OPS_PER_REQUEST
+                        + SCAN64_OPS_PER_ASSIGN)
+           + exits * SCAN64_OPS_PER_EXIT + (C * K - n_active))
     t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F64_OPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
 
@@ -4177,21 +4313,41 @@ def scan64_phase(torch, rt, dev, card):
         held = (out.acc[:, 3] + out.acc[:, 4]) / torch.as_tensor(
             inp.sim_rows - inp.skip_rows, dtype=torch.float64, device=dev)
         live = float((per_row * held).sum())
-        expiries = int(out.acc[:, 8].sum()) if hist else 0
-        b_ms, b_by = scan64_bound_ms(C, scn.slots, K, active, live, expiries=expiries,
-                                     cols=lay.cols)
+        exits = int(out.acc[:, 8].sum())
+        assigns = int(out.acc[:, :2].sum())
+        b_ms, b_by = scan64_bound_ms(C, scn.slots, K, active, live, assigns, exits,
+                                     expiries=exits if hist else 0, cols=lay.cols)
         name = "histogram" if hist else "base"
         hold(name, scn_s, inp.samples, lay, f"Table-1 sweep{' + histogram' if hist else ''}",
              t_exp=inp.thr_rows, t_end=inp.sim_rows, skip=inp.skip_rows, prestamped=False)
+        if hist:
+            # the inert tail and the deferred exits inside the held prefix
+            part = tuple(prefix(x, SCAN64_PLAIN_EVENTS) for x in inp.samples)
+            part, te, sk, past, _ = horizon_inside(torch, part, False, seed=13)
+            if not past:
+                raise AssertionError("no event of the held prefix is past its horizon")
+            hold("inside", scn_s, part, lay, f"Table-1 sweep + histogram, {past} events past "
+                 f"horizons inside the prefix", t_exp=inp.thr_rows, t_end=te, skip=sk,
+                 prestamped=False)
+            del part
         print(f"timing [{card}]: scan_sweep{' with histogram' if hist else ''} C={C} "
               f"M={scn.slots} K={K}: {ms:.3f} ms; {active} events in horizon of {C * K} = "
               f"{active / ms * 1e3:.4e} arrivals/s, {live / max(active, 1):.4f} live "
               f"instances an event; bound {b_ms:.3f} ms ({b_by}), {ms / b_ms:.1f}x; plain "
-              f"{plain[name]:.0f} ms on the first {SCAN64_PLAIN_EVENTS} events; sweep() "
-              f"{sweeps[hist][1]:.3f} s wall", flush=True)
+              f"{plain[name]:.0f} ms on the first {SCAN64_PLAIN_EVENTS} events (CUDA-graph "
+              f"chunks); sweep() {sweeps[hist][1]:.3f} s wall", flush=True)
         if not hist:
             result8 = dict(launches=sweep_launches, ms=ms, plain_ms=plain[name], bound_ms=b_ms,
                            bound_by=b_by)
+            # the inert tail alone: every horizon before the first event
+            inp.sim_rows = np.full_like(inp.sim_rows, -1.0)
+            inp.skip_rows = np.full_like(inp.skip_rows, -2.0)
+            tail_ms, _ = timed(torch, lambda: scan64_sweep_launch(scn_s, inp, scan, dev), reps=3)
+            past = C * K - active
+            print(f"timing [{card}]: scan_sweep's inert tail: {past} events past their horizons "
+                  f"({100 * past / (C * K):.1f}%); with every event past t_end the launch takes "
+                  f"{tail_ms:.3f} ms, so the tail is ~{100 * tail_ms * past / (C * K) / ms:.1f}% "
+                  f"of the {ms:.3f} ms", flush=True)
         del inp, out
     del sweeps, g0, g1
     torch.cuda.empty_cache()
@@ -4330,6 +4486,16 @@ def scan64_phase(torch, rt, dev, card):
          scan64_layout(scn_n, W=len(NHPP_WINDOWS) - 1), "diurnal sweep (f64 timestamps)",
          t_exp=inp.thr_rows, t_end=inp.sim_rows, skip=inp.skip_rows, prestamped=True,
          window_rows=np.tile(NHPP_WINDOWS, (len(inp.thr_rows), 1)))
+    # horizons inside the held prefix, and events past them that come back
+    part = tuple(prefix(x, SCAN64_PLAIN_EVENTS) for x in inp.samples)
+    part, te, sk, past, back = horizon_inside(torch, part, True, seed=14)
+    if not (past and back):
+        raise AssertionError("the diurnal prefix has no event past its horizon and back")
+    hold("inside_back", scn_n, part, scan64_layout(scn_n, W=len(NHPP_WINDOWS) - 1),
+         f"diurnal sweep, horizons inside the prefix: {past} events past them, {back} back "
+         f"inside", t_exp=inp.thr_rows, t_end=te, skip=sk, prestamped=True,
+         window_rows=np.tile(NHPP_WINDOWS, (len(inp.thr_rows), 1)))
+    del part
     del inp, grid_n
     torch.cuda.empty_cache()
 
@@ -4360,12 +4526,18 @@ def scan64_phase(torch, rt, dev, card):
 
     samples = run_samples(scn_t, 3, FULL_REPLICAS, None, None, dev, f64=True)
     rel = scn_t.reliability
+    tkw = dict(engine="temporal", t_exp=scn_t.expiration_threshold, t_end=scn_t.sim_time,
+               skip=0.0, prestamped=True, t_timeout=rel.failure.t_timeout,
+               p_fail=rel.failure.p_fail, pool=_snapshots_to_pool(snaps, scn_t.slots),
+               grid=TEMPORAL_GRID)
     hold("grid", scn_t, samples, scan64_layout(scn_t, G=TEMPORAL_GRID.size),
-         "temporal with retries", engine="temporal", t_exp=scn_t.expiration_threshold,
-         t_end=scn_t.sim_time, skip=0.0, prestamped=True, t_timeout=rel.failure.t_timeout,
-         p_fail=rel.failure.p_fail, pool=_snapshots_to_pool(snaps, scn_t.slots),
-         grid=TEMPORAL_GRID)
-    del samples
+         "temporal with retries", **tkw)
+    part = tuple(prefix(x, GRAPH_CHECK_EVENTS) for x in samples)
+    graph_equals_eager(
+        torch, "temporal with retries (grid, pool, reliability, retries)",
+        lambda: scan_launch(scn_t, resolve_backend("scan_ref"), dev, part, **tkw),
+        lambda: scan_launch(scn_t, PlainInGraph(torch), dev, part, **tkw))
+    del samples, part
 
     # ---- 8. the par engine on Fig. 1
     par, walls, par_launches = {}, {}, {}
@@ -4388,7 +4560,7 @@ def scan64_phase(torch, rt, dev, card):
     samples = run_samples(sp, 2, FULL_REPLICAS, None, None, dev, f64=True)
     active = in_horizon(torch, samples[0], np.full(FULL_REPLICAS, sp.sim_time), False)
     launch = resolve_backend("scan").launch_for("par")
-    plain_launch = resolve_backend("scan_ref").launch_for("par")
+    plain_launch = PlainInGraph(torch).launch_for("par")
     rows = lambda v: torch.full((FULL_REPLICAS,), v, dtype=torch.float64, device=dev)
     par_times = {}
     for c in PAR_CS:
@@ -4405,10 +4577,25 @@ def scan64_phase(torch, rt, dev, card):
 
         err = held64(torch, out_k, out_p, ScanLayout(par=True), f"f64 par c={c}")
         errs["par_scan_sweep"] = max(errs["par_scan_sweep"], err)
+        if c in (3, 80):
+            # the f64 timestamps of the same draws, horizons inside the held
+            # prefix, and events past them that come back
+            part, te, sk, past, back = horizon_inside(torch, part, True, seed=15 + c)
+            if not (past and back):
+                raise AssertionError("the par prefix has no event past its horizon and back")
+            kw_in = dict(kw, t_end=torch.as_tensor(te, device=dev),
+                         skip=torch.as_tensor(sk, device=dev), prestamped=True)
+            err_in = held64(torch, launch(*part, **kw_in), plain_launch(*part, **kw_in),
+                            ScanLayout(par=True), f"f64 par c={c}, horizons inside the prefix")
+            errs["par_scan_sweep"] = max(errs["par_scan_sweep"], err_in)
+            print(f"kernel==plain f64 par c={c}, f64 timestamps with horizons inside the "
+                  f"first {SCAN64_PLAIN_EVENTS} events: {past} events past them, {back} back "
+                  f"inside; counters and state equal, max|acc diff| {err_in:.3e}", flush=True)
         s = par[c]
         live = active * s.avg_server_count
         assigns = float((s.n_cold + s.n_warm).sum())
-        b_ms, b_by = par64_bound_ms(FULL_REPLICAS, sp.slots, c, K_par, active, live, assigns)
+        b_ms, b_by = par64_bound_ms(FULL_REPLICAS, sp.slots, c, K_par, active, live, assigns,
+                                    float(s.lifespan_count.sum()), s.avg_instance_occupancy)
         par_times[c] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
         ref = f" (JAX reference {REF_FIG1[c]})" if c in REF_FIG1 else ""
         print(f"f64 par: Fig. 1, c={c}, {FULL_REPLICAS} replicas x K={K_par}: instances "
@@ -4419,8 +4606,21 @@ def scan64_phase(torch, rt, dev, card):
               f"K={K_par}: {ms:.3f} ms; {active} arrivals in horizon = "
               f"{active / ms * 1e3:.4e} arrivals/s, {s.avg_server_count:.4f} live instances "
               f"an event; bound {b_ms:.3f} ms ({b_by}), {ms / b_ms:.1f}x; plain "
-              f"{plain_ms:.0f} ms on the first {SCAN64_PLAIN_EVENTS} events (held: max|acc "
-              f"diff| {err:.3e})", flush=True)
+              f"{plain_ms:.0f} ms on the first {SCAN64_PLAIN_EVENTS} events in CUDA-graph "
+              f"chunks (held: max|acc diff| {err:.3e})", flush=True)
+        if c == 3:
+            part = [prefix(x, GRAPH_CHECK_EVENTS) for x in samples]
+            graph_equals_eager(
+                torch, "par c=3", lambda: resolve_backend("scan_ref").launch_for("par")(
+                    *part, **kw), lambda: plain_launch(*part, **kw))
+            kw_tail = dict(kw, t_end=rows(-1.0), skip=rows(-2.0))
+            tail_ms, _ = timed(torch, lambda: launch(*samples, **kw_tail), reps=3)
+            past = FULL_REPLICAS * K_par - active
+            print(f"timing [{card}]: par_scan_sweep's inert tail at c=3: {past} events past "
+                  f"their horizons ({100 * past / (FULL_REPLICAS * K_par):.1f}%); with every "
+                  f"event past t_end the launch takes {tail_ms:.3f} ms, so the tail is "
+                  f"~{100 * tail_ms * past / (FULL_REPLICAS * K_par) / ms:.1f}% of the "
+                  f"{ms:.3f} ms", flush=True)
         del out, out_k, out_p, part
     print(f"f64 par: c=1 makes the pool scan's decisions on the same draws; ratio c=1/c=3 "
           f"{par[1].avg_server_count / par[3].avg_server_count:.3f}", flush=True)

@@ -12,7 +12,7 @@
 //   - exact ∫running and ∫idle over the interval clipped to [skip, t_end]
 //     (cut at each slot's crash time with crashes), per metric window over
 //     the interval clipped to t_end, and the time spent at each total
-//     instance count (the histogram: the in-window expiries in order);
+//     instance count (the histogram);
 //   - exits at or before the clock: expiry at busy + t_exp, or a crash at
 //     doom when it comes strictly first; lifespans of exits in
 //     (skip, t_end];
@@ -29,42 +29,91 @@
 //     such trigger (and a rejection) switches the attempt's retry on;
 // then the tail (t_last, t_end] is flushed as the reference does.
 //
-// Design: one warp per row, a simple kernel that computes what the plain
-// version (kernels/ref64.py scan_sweep_ref) computes, decision for
-// decision, with every path a runtime flag.
-//   - Slot j is lane j % 32's (j / 32)-th slot: its alive flag, creation,
-//     busy and crash clocks live in registers (S slots a lane, S a
-//     template parameter: M <= 32 S).
-//   - The events are read 32 at a time, one per lane (coalesced), and
-//     broadcast by shuffles.
-//   - A row's ∫running, ∫idle, Σlifespan and per-slot counts are per-lane
-//     partials summed once at the end by an xor butterfly; the window
-//     integrals are summed per event (only the windows the interval
-//     overlaps) and, with the histogram and grid columns, kept in shared
-//     memory until the end.
-//   - Warm routing is an argmax over the warp (largest priority, lowest
-//     slot on a tie), the free slot a ballot and __ffs.
-//   - The histogram walks the in-window expiries in order, one warp argmin
-//     each (an event sees few); capacity evictions take the newest idle
-//     instance one at a time, which evicts exactly the slots whose rank
-//     among the newer idle ones is below the excess.
-//   - The activation plane of a retry stream is in global memory: every
-//     lane switches a child on itself and reads its own writes back.
+// What bounds it on this card: each row is a chain of dependent events,
+// and an event's samples are 12 to 30 bytes read once.  The first design
+// (one warp a row, every path a runtime flag) did the reference's work on
+// every slot of every staged event: the interval's integrals on each live
+// slot, a binary search and two warp sums for each window, a walk of the
+// in-window expiries for the histogram, a ballot over the grid points, an
+// exit test and a live count per slot, and an (f64, slot) argmax of five
+// dependent shuffle rounds, on the 58.7% of Table 1's events past their
+// horizons too: 157x its byte bound.  An event changes at most one
+// instance, and one past the horizon changes none.
 //
-// Arithmetic is the plain version's: each clock, finish and expiry is one
-// rounded f64 operation (built with --fmad=false), decisions compare the
-// same values, and the counters and response sums are sequential in event
-// order, so they are equal bit for bit.  The integrals, lifespans, window
-// integrals and histogram bins add the same pieces in another order and
+// What the design does about that: one warp per row, the pool in registers
+// (ceil(M/32) slots a lane: busy, the creation's order key and, with
+// faults, the crash clock; the alive flags a bitmask), and work only where
+// an event changes something (the f32 kernel's design, event_step_common.cuh
+// and faas_event_step.cu, in f64):
+//   - ∫running and ∫idle are accrued per state span (scan64_common.cuh
+//     accrue, cut at the crash clock): the owning lane adds accrue(hi) of
+//     an instance when its state starts (a cold or warm start, or the
+//     initial pool) and subtracts it when the state ends (a warm start, an
+//     eviction; an exit accrues nothing past its exit clock); the tail
+//     flush is what every live state accrued up to t_end.  Each lane keeps
+//     its own part, summed across the warp once at the end.  Where the
+//     clipped clock goes back (unsorted f64 timestamps, negative gaps) a
+//     pass over the live slots adds accrue(hi) - accrue(hi_prev), the
+//     interval the plain version counts again.
+//   - The metric windows: a cursor (the first window ending past the
+//     window clock min(t, t_end)) holds its window's four counts and this
+//     lane's part of its two integrals in registers; states accrue into it
+//     as above, every live state enters a window when the clock crosses
+//     into it (one pass at each crossing), and the columns are stored when
+//     the cursor leaves.  Windows do not stop at a crash (the reference's
+//     window_integrals does not), so a crash exit gives back what the
+//     state accrued in the cursor's window past the removal.
+//   - The histogram is credited where the count changes (hist_credit):
+//     before each exit pass, eviction and cold start, and at the end.
+//   - Grid points: the smallest grid time past the clock (next_g), so an
+//     event with no grid point costs one warp-uniform compare.
+//   - Exits: the row keeps a lower bound of its earliest exit clock
+//     (expiry, or a crash when that comes first), lowered at each start
+//     and exact after each exit pass, and runs the exit pass (a test a
+//     slot, one redux for the live count, two for the new bound) only once
+//     the clock reaches it.  The live count is a warp-uniform counter.
+//   - Routing on order keys: the 64-bit order key of the f64 creation time
+//     (its complement for "oldest"), reduced as its high word, its low word
+//     among the ties, then the lowest slot; equal creations keep equal keys,
+//     so the lowest slot wins as in jnp.argmax, and capacity evictions take
+//     the newest by the same key.  The free-slot ballots run only when no
+//     instance is idle.
+//   - A quiet event (inside the horizon, nothing deferred, the clock not
+//     going back, no exit, grid point, window bound or capacity step due:
+//     one warp-uniform test on the raw clock) goes straight to the routing.
+//     Its gap and warm sample were broadcast during the event before.
+//   - The inert tail: an event past t_end moves the clock and nothing
+//     else.  Exits past t_end are deferred to one pass at the largest clock
+//     reached (expiry is monotone in the clock while nothing is assigned),
+//     run before the next event inside the horizon and at the end.  A
+//     32-event batch wholly past t_end (the clock past it, and gaps >= 0 or
+//     timestamps past it) only adds its gaps to the clock, one at a time so
+//     that t rounds as the plain version's does; its warm, cold and other
+//     samples are not loaded.
+// Samples are loaded 32 events at a time, one per lane (coalesced), and
+// broadcast per event with __shfl_sync.  The window, histogram and grid
+// columns live in the row's accumulator in device memory (lane 0 adds; the
+// windows once per window left), so no shared memory caps their number.
+// The activation plane of a retry stream is in device memory; a batch
+// loads its own entries at its start, and activations made during a batch
+// for that batch's own events ride in a warp-uniform bitmask (pend).
+//
+// Arithmetic is the plain version's (kernels/ref64.py scan_sweep_ref): each
+// clock, finish and expiry is one rounded f64 operation (built with
+// --fmad=false), decisions compare the same values, and the counters and
+// response sums are sequential in event order, so they are equal bit for
+// bit, as are the final pool, crash clocks, grid columns and activation
+// plane.  The integrals, lifespans, window integrals and histogram bins add
+// the same pieces in another order (per state span and per lane), so they
 // agree to rounding.
-
-#include <cstdint>
 
 #include "scan64_common.cuh"
 
 using namespace scan64;
 
 namespace {
+
+constexpr int WARPS = 4;  // rows a block
 
 struct Args {
   // initial pool [R, M]
@@ -106,359 +155,615 @@ struct Args {
   int rely_at, fault_at, win_at, hist_at, grid_at, cols;
 };
 
-template <int S>
-__global__ void __launch_bounds__(128) scan_sweep_kernel(const Args a, int wpb) {
-  extern __shared__ double smem[];
+// Slot cs of this lane's S, read by selects (an index would put the slots
+// in local memory).
+template <int S, typename T>
+__device__ __forceinline__ T pick(const T (&v)[S], int cs) {
+  T x = v[0];
+#pragma unroll
+  for (int s = 1; s < S; ++s) x = s == cs ? v[s] : x;
+  return x;
+}
+
+// The metric-window cursor: the first window ending past the window clock
+// min(t, t_end).  Its counts (cold, warm, arrivals, failures) are the same
+// in every lane; its ∫running and ∫idle are this lane's part (lane 0's
+// starts from what was stored), summed across the warp when it leaves.
+struct Cursor {
+  const double* bnd;  // the row's W + 1 bounds
+  double* cols;       // the row's 6W window columns
+  int W, w;
+  double lo, hi;  // window w's bounds (+inf past the last window)
+  double c[4];
+  double r, i;
+
+  __device__ __forceinline__ void enter(int to, int lane) {
+    __syncwarp();  // lane 0's stores of a window left earlier, before the loads
+    w = to;
+    const bool in = w < W;
+    lo = in ? __ldg(bnd + w) : INFINITY;
+    hi = in ? __ldg(bnd + w + 1) : INFINITY;
+    c[0] = in ? cols[w] : 0.0;
+    c[1] = in ? cols[W + w] : 0.0;
+    c[2] = in ? cols[2 * W + w] : 0.0;
+    c[3] = in ? cols[5 * W + w] : 0.0;
+    r = in && lane == 0 ? cols[3 * W + w] : 0.0;
+    i = in && lane == 0 ? cols[4 * W + w] : 0.0;
+  }
+  __device__ __forceinline__ void leave(int lane) {
+    if (w >= W) return;
+    const double rs = warp_sum(r), is = warp_sum(i);
+    if (lane == 0) {
+      cols[w] = c[0];
+      cols[W + w] = c[1];
+      cols[2 * W + w] = c[2];
+      cols[5 * W + w] = c[3];
+      cols[3 * W + w] = rs;
+      cols[4 * W + w] = is;
+    }
+  }
+  // the first window ending past x, entered with nothing accrued
+  __device__ __forceinline__ void seek(double x, int lane) {
+    enter(count_le(bnd + 1, W, x), lane);
+  }
+  // what a state busy until b accrues in the cursor's window from window
+  // clock x on (windows ignore crashes)
+  __device__ __forceinline__ void accrue_w(double b, double texp, double x, double te,
+                                           double& run, double& idle) const {
+    accrue(b, b + texp, INFINITY, fmax(x, lo), fmin(hi, te), run, idle);
+  }
+  // every live state's accrue_w(x) - accrue_w(y) into this lane's part
+  template <int S>
+  __device__ __forceinline__ void add_live(unsigned live, const double (&busy)[S], double texp,
+                                           double x, double y, double te) {
+    if (w >= W) return;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      if ((live >> s) & 1u) {
+        double ra, ia, rb, ib;
+        accrue_w(busy[s], texp, x, te, ra, ia);
+        accrue_w(busy[s], texp, y, te, rb, ib);
+        r += ra - rb;
+        i += ia - ib;
+      }
+    }
+  }
+  // the window clock moves forward to x: each window entered on the way
+  // takes every live state from its start
+  template <int S>
+  __device__ __forceinline__ void cross(unsigned live, const double (&busy)[S], double texp,
+                                        double x, double te, int lane) {
+    while (w < W && hi <= x) {
+      leave(lane);
+      enter(w + 1, lane);
+      add_live(live, busy, texp, lo, INFINITY, te);
+    }
+  }
+  // the window clock went back from x to y: every live state gives back
+  // what it added past x in the cursor's window and, the cursor moved back
+  // to y's window, adds what it accrues there from y on; the windows in
+  // between take it again when the clock crosses them, as the plain
+  // version's next intervals count (y, x] again
+  template <int S>
+  __device__ __forceinline__ void back(unsigned live, const double (&busy)[S], double texp,
+                                       double y, double x, double te, int lane) {
+    add_live(live, busy, texp, INFINITY, x, te);
+    leave(lane);
+    seek(y, lane);
+    add_live(live, busy, texp, y, INFINITY, te);
+  }
+};
+
+// S: slots a lane (M <= 32 S); FAULT: crash clocks and capacity churn;
+// LAYERS: metric windows, the histogram and grid points (each a runtime
+// choice inside).  Reliability and retries are runtime choices.  LAYERS is
+// a template parameter because the layers' cursor state costs the rows
+// without layers registers and spills when it is a runtime flag (the
+// layers' instance at S = 2: 128 registers and 40 bytes of spills, 103 and
+// none without): as a flag, the Table-1 sweep took 238-241 ms against
+// 195-199, the retry sweep 360 against 294, the fault sweep 13.8-14.2
+// against 11.2-12.4 (in turns on one H100 80GB HBM3 at 700 W).
+template <int S, bool FAULT, bool LAYERS>
+__global__ void __launch_bounds__(WARPS * 32, S <= 4 ? 4 : 1) scan_sweep_kernel(const Args a) {
   const int lane = threadIdx.x & 31;
-  const int wid = threadIdx.x >> 5;
-  const int row = blockIdx.x * wpb + wid;
-  if (row >= a.R) return;  // whole warps only
-  const int extra = 6 * a.W + a.H + 4 * a.G;
-  double* sx = smem + (size_t)wid * extra;  // window, histogram, grid columns
-  double* sw = sx;
-  double* shist = sx + 6 * a.W;
-  double* sgrid = shist + a.H;
-  for (int i = lane; i < extra; i += 32) sx[i] = 0.0;
-  __syncwarp();
+  const int row = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (row >= a.R) return;  // the ragged last block: the whole warp leaves
 
   const bool rely = a.t_timeout != nullptr;
   const bool retries = a.first != nullptr;
-  const bool crashes = a.crash_u != nullptr;
-  const bool capped = a.cap_values != nullptr;
-  const size_t pm = (size_t)row * a.M;
-  const size_t pk = (size_t)row * a.K;
+  const bool crashes = FAULT && a.crash_u != nullptr;
+  const bool capped = FAULT && a.cap_values != nullptr;
+  const int W = LAYERS ? a.W : 0, H = LAYERS ? a.H : 0, G = LAYERS ? a.G : 0;
+  const int M = a.M, K = a.K;
+  const size_t pm = (size_t)row * M;
+  const size_t pk = (size_t)row * K;
   const double te = a.t_exp[row], tend = a.t_end[row], skp = a.skip[row];
   const double tto = rely ? a.t_timeout[row] : 0.0;
   const double pf = rely ? a.p_fail[row] : 0.0;
   const double crate = crashes ? a.crash_rate[row] : 0.0;
-  const double* bnd = a.bounds ? a.bounds + (size_t)row * (a.W + 1) : nullptr;
-  const double* grd = a.grid ? a.grid + (size_t)row * a.G : nullptr;
   const double* ce = capped ? a.cap_edges + (size_t)row * a.E : nullptr;
   const double* cv = capped ? a.cap_values + (size_t)row * (a.E + 1) : nullptr;
+  const double* grd = G ? a.grid + (size_t)row * G : nullptr;
+  double* out = a.acc + (size_t)row * a.cols;
+  double* hist = out + a.hist_at;
+  double* gcol = out + a.grid_at;
+  // the window, histogram and grid columns start at 0; lane 0 adds
+  for (int i = a.win_at + lane; i < a.cols; i += 32) out[i] = 0.0;
+  __syncwarp();
 
-  bool al[S];
-  double cre[S], bsy[S], dm[S];
+  // the pool: slot j = s * 32 + lane; slots past M never live, never free
+  unsigned live = 0u;
+  double bsy[S];
+  u64 ck[S];  // okey of the creation time
+  double dm[FAULT ? S : 1];
 #pragma unroll
   for (int s = 0; s < S; ++s) {
     const int j = s * 32 + lane;
-    const bool ok = j < a.M;
-    al[s] = ok && a.alive0[pm + j] != 0;
-    cre[s] = ok ? a.creation0[pm + j] : NEG;
+    const bool ok = j < M;
+    if (ok && a.alive0[pm + j]) live |= 1u << s;
+    ck[s] = okey(ok ? a.creation0[pm + j] : NEG);
     bsy[s] = ok ? a.busy0[pm + j] : NEG;
-    dm[s] = (ok && a.doom0) ? a.doom0[pm + j] : INFINITY;
+    if (FAULT) dm[FAULT ? s : 0] = (ok && crashes && a.doom0) ? a.doom0[pm + j] : INFINITY;
   }
-  // per-lane partials of the per-slot sums
-  double p_run = 0.0, p_idle = 0.0, p_life = 0.0;
-  long long p_lcnt = 0, p_crash = 0;
-  // the row's decision counters (every lane holds them)
-  long long n_cold = 0, n_warm = 0, n_rej = 0, n_over = 0, n_evict = 0;
-  long long n_to = 0, n_fail = 0, n_retry = 0, n_aband = 0, n_intr = 0;
+  const auto doom = [&](int s) { return FAULT ? dm[FAULT ? s : 0] : INFINITY; };
+
+  // this lane's parts of the sums over slots
+  double run_l = 0.0, idle_l = 0.0, life_l = 0.0;
+  int lcnt_l = 0, crash_l = 0;
+  // the row's decision counters, sequential in event order (every lane)
+  int n_cold = 0, n_warm = 0, n_rej = 0, n_over = 0, n_evict = 0;
+  int n_to = 0, n_fail = 0, n_retry = 0, n_aband = 0, n_intr = 0;
   double s_cold = 0.0, s_warm = 0.0;
-  double t_prev = 0.0;
 
-  // the grid snapshot of the current pool at the points in (lo_g, hi_g]
-  // (tail: also not seen yet)
-  auto grid_step = [&](double lo_g, double hi_g, bool tail) {
-    for (int b = 0; b < a.G; b += 32) {
-      const int gi = b + lane;
-      const double gv = gi < a.G ? __ldg(grd + gi) : 0.0;
-      bool in = gi < a.G && gv > lo_g && gv <= hi_g;
-      if (tail && in) in = sgrid[3 * a.G + gi] == 0.0;
-      unsigned mask = __ballot_sync(FULL, in);
-      while (mask) {
-        const int src = __ffs(mask) - 1;
-        mask &= mask - 1;
-        const double g = __shfl_sync(FULL, gv, src);
-        int run = 0, idle = 0;
-#pragma unroll
-        for (int s = 0; s < S; ++s) {
-          const bool live = al[s] && bsy[s] + te > g;
-          run += __popc(__ballot_sync(FULL, live && bsy[s] > g));
-          idle += __popc(__ballot_sync(FULL, live && bsy[s] <= g));
-        }
-        if (lane == 0) {
-          const int p = b + src;
-          sgrid[p] += run;
-          sgrid[a.G + p] += idle;
-          if (idle == 0) sgrid[2 * a.G + p] = 1.0;
-          sgrid[3 * a.G + p] = 1.0;
-        }
-        __syncwarp();
-      }
-    }
-  };
-
-  // the interval's pieces over (lo, hi] into the partials, the windows
-  // over (lo_e, hi_e] and the histogram over (lo, hi]
-  auto integrate = [&](double lo, double hi, double lo_e, double hi_e) {
+  // the clock and its clipped forms: hi_prev to [skip, t_end], hie_prev to
+  // t_end (the windows' clock); the histogram's credited clock
+  double t = 0.0;
+  double hi_prev = fmin(fmax(t, skp), tend), hie_prev = fmin(t, tend), x_h = hi_prev;
+  int n_live = (int)__reduce_add_sync(FULL, (unsigned)__popc(live));
+  double next_exit;
+  {
+    double nx = INFINITY;
 #pragma unroll
     for (int s = 0; s < S; ++s) {
-      if (al[s]) {
-        double run, idle;
-        slot_integrals(bsy[s], bsy[s] + te, crashes ? dm[s] : INFINITY, lo, hi, run, idle);
-        p_run += run;
-        p_idle += idle;
+      if ((live >> s) & 1u) {
+        const double e = bsy[s] + te;
+        nx = fmin(nx, fmin(e, doom(s)));
+        double r, i;
+        accrue(bsy[s], e, doom(s), hi_prev, tend, r, i);
+        run_l += r;
+        idle_l += i;
       }
     }
-    if (a.W) {
-      // the windows the interval overlaps: b[w+1] > lo_e and b[w] < hi_e
-      for (int w = count_le(bnd + 1, a.W, lo_e); w < a.W && __ldg(bnd + w) < hi_e; ++w) {
-        const double wlo = fmax(__ldg(bnd + w), lo_e), whi = fmin(__ldg(bnd + w + 1), hi_e);
-        double r = 0.0, i = 0.0;
+    next_exit = warp_min(nx);
+  }
+  // exits deferred past the horizon, up to the largest clock reached
+  double tmax = -INFINITY;
+  bool deferred = false;
+  Cursor cur;
+  cur.W = 0;
+  cur.w = 0;
+  cur.hi = INFINITY;
+  if (W) {
+    cur.bnd = a.bounds + (size_t)row * (W + 1);
+    cur.cols = out + a.win_at;
+    cur.W = W;
+    cur.seek(hie_prev, lane);
+    cur.add_live(live, bsy, te, hie_prev, INFINITY, tend);
+  }
+  double next_g = G ? next_grid(grd, G, t, lane) : INFINITY;
+  // the capacity segment [cap_lo, cap_hi) holding the clock, and its ceiling
+  double cap_now = 0.0, cap_lo = INFINITY, cap_hi = -INFINITY;
+
+  // The exit pass at clock T (the event's clipped clocks hi, hie): live
+  // slots whose exit clock is at or before T leave, with their lifespans
+  // and crashes; the histogram is credited up to hi first, and a crash
+  // gives back what it accrued in the cursor's window past hie.
+  const auto exit_pass = [&](double T, double hi, double hie) {
+    if (H) hist_credit<S>(live, bsy, te, x_h, hi, hist, H, lane);
+    unsigned gone = 0u;
+    double nx = INFINITY;
 #pragma unroll
-        for (int s = 0; s < S; ++s) {
-          if (al[s]) {
-            double run, idle;
-            slot_integrals(bsy[s], bsy[s] + te, INFINITY, wlo, whi, run, idle);
-            r += run;
-            i += idle;
+    for (int s = 0; s < S; ++s) {
+      if ((live >> s) & 1u) {
+        const double e = bsy[s] + te, d = doom(s);
+        const double x = FAULT ? fmin(e, d) : e;
+        if (x <= T) {
+          gone |= 1u << s;
+          if (crashes && d < e && d > skp && d <= tend) ++crash_l;
+          if (x > skp && x <= tend) {
+            life_l += x - key_value(ck[s]);
+            ++lcnt_l;
           }
-        }
-        r = warp_sum(r);
-        i = warp_sum(i);
-        if (lane == 0) {
-          sw[3 * a.W + w] += r;
-          sw[4 * a.W + w] += i;
-        }
-      }
-    }
-    if (a.H && hi - lo > 0.0) {
-      int n0 = 0, m = 0;
-      bool inw[S];
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        const double ex = bsy[s] + te;
-        const bool live = al[s] && ex > lo;
-        inw[s] = live && ex <= hi;
-        n0 += __popc(__ballot_sync(FULL, live));
-        m += __popc(__ballot_sync(FULL, inw[s]));
-      }
-      double prev = lo;
-      for (int q = 0; q < m; ++q) {
-        double v = INFINITY;
-        int j = INT_MAX;
-#pragma unroll
-        for (int s = 0; s < S; ++s) {
-          const double ex = bsy[s] + te;
-          if (inw[s] && ex < v) {
-            v = ex;
-            j = s * 32 + lane;
+          if (FAULT && W && d < e) {
+            double r, i;
+            cur.accrue_w(bsy[s], te, hie, tend, r, i);
+            cur.r -= r;
+            cur.i -= i;
           }
+        } else {
+          nx = fmin(nx, x);
         }
-        warp_argmin(v, j);
-#pragma unroll
-        for (int s = 0; s < S; ++s)
-          if (j == s * 32 + lane) inw[s] = false;
-        const double dur = fmax(v - prev, 0.0);
-        const int cnt = n0 - q;
-        if (lane == 0 && cnt >= 0 && dur > 0.0) shist[min(cnt, a.H - 1)] += dur;
-        prev = v;
       }
-      const double dur = fmax(hi - prev, 0.0);
-      const int cnt = n0 - m;
-      if (lane == 0 && cnt >= 0 && dur > 0.0) shist[min(cnt, a.H - 1)] += dur;
     }
-    __syncwarp();
+    live &= ~gone;
+    n_live -= (int)__reduce_add_sync(FULL, (unsigned)__popc(gone));
+    next_exit = warp_min(nx);
   };
 
   const float* arr32 = (const float*)a.arr;
   const double* arr64 = (const double*)a.arr;
-  for (int k0 = 0; k0 < a.K; k0 += 32) {
+  for (int k0 = 0; k0 < K; k0 += 32) {
     const int kl = k0 + lane;
-    const bool in = kl < a.K;
+    const bool in = kl < K;
+    const int n = min(32, K - k0);
     const size_t ek = pk + kl;
-    const double x_arr = in ? (a.arr_f64 ? arr64[ek] : (double)arr32[ek]) : 0.0;
-    const float x_warm = in ? a.warms[ek] : 0.f;
-    const float x_cold = in ? a.colds[ek] : 0.f;
-    const float x_fail = (in && rely) ? a.fail_u[ek] : 0.f;
-    const int x_first = (in && retries) ? (int)a.first[ek] : 1;
-    const int x_child = (in && retries) ? a.child[ek] : NO_CHILD;
-    const float x_crash = (in && crashes) ? a.crash_u[ek] : 0.f;
-    const int n = min(32, a.K - k0);
-    for (int e = 0; e < n; ++e) {
-      const int k = k0 + e;
-      const double x = __shfl_sync(FULL, x_arr, e);
-      const double t = a.prestamped ? x : t_prev + x;
-      if (a.G) grid_step(t_prev, fmin(t, tend), false);
-      const double lo = fmin(fmax(t_prev, skp), tend);
-      const double hi = fmin(fmax(t, skp), tend);
-      integrate(lo, hi, fmin(t_prev, tend), fmin(t, tend));
-
-      // ---- exits at or before the event
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        const double expire = bsy[s] + te;
-        const double ex = crashes ? fmin(expire, dm[s]) : expire;
-        if (al[s] && ex <= t) {
-          if (crashes && dm[s] < expire && dm[s] > skp && dm[s] <= tend) ++p_crash;
-          if (ex > skp && ex <= tend) {
-            p_life += ex - cre[s];
-            ++p_lcnt;
-          }
-          al[s] = false;
+    const double x_l = in ? (a.arr_f64 ? arr64[ek] : (double)arr32[ek]) : 0.0;
+    // a batch wholly past the horizon only moves the clock; its exits wait
+    // for the pass at the largest clock reached
+    if (!(t <= tend)) {
+      const bool inert = !in || (a.prestamped ? !(x_l <= tend) : x_l >= 0.0);
+      if (__all_sync(FULL, inert)) {
+        if (a.prestamped) {
+          t = __shfl_sync(FULL, x_l, n - 1);
+          tmax = fmax(tmax, warp_max(in ? x_l : -INFINITY));
+        } else {
+#pragma unroll 8
+          for (int i = 0; i < n; ++i) t = t + __shfl_sync(FULL, x_l, i);
+          tmax = fmax(tmax, t);
         }
+        deferred = true;
+        continue;
       }
-      int n_alive = 0;
+    }
+    const float w_l = in ? a.warms[ek] : 0.f;
+    const float c_l = in ? a.colds[ek] : 0.f;
+    const float f_l = (in && rely) ? a.fail_u[ek] : 0.f;
+    const float u_l = (in && crashes) ? a.crash_u[ek] : 0.f;
+    const int first_l = (in && retries) ? (int)a.first[ek] : 1;
+    const int child_l = (in && retries) ? a.child[ek] : NO_CHILD;
+    // every lane writes each activation itself, so its own loads see it
+    const int act_l = (in && retries) ? (int)a.act[ek] : 0;
+    unsigned pend = 0u;  // activations of this batch's events made in it
+    // each event's gap (or time) and warm sample are broadcast one event
+    // ahead of their use, off the chain of the routing
+    double x_next = __shfl_sync(FULL, x_l, 0);
+    float w_next = __shfl_sync(FULL, w_l, 0);
+    for (int i = 0; i < n; ++i) {
+      const double x = x_next;
+      const float w_i = w_next;
+      x_next = __shfl_sync(FULL, x_l, (i + 1) & 31);
+      w_next = __shfl_sync(FULL, w_l, (i + 1) & 31);
+      const double tn = a.prestamped ? x : t + x;
+      const double hi = fmin(fmax(tn, skp), tend);
+      const double hie = fmin(tn, tend);
+      // a quiet event moves no clock-driven state; tested on the raw clock
+      // (tn >= t implies that the clipped clocks do not go back), off the
+      // chain of the clipping
+      bool quiet = tn <= tend && !deferred && tn >= t && tn < next_exit;
+      if (G) quiet = quiet && next_g > tn;
+      if (W) quiet = quiet && cur.hi > tn;
+      if (capped) quiet = quiet && tn >= cap_lo && tn < cap_hi && (double)n_live <= cap_now;
+      if (!quiet) {
+        const bool inert = !(tn <= tend);
+        if (!inert && deferred) {
+          // back inside the horizon: first the exits deferred past it
+          exit_pass(tmax, hi_prev, hie_prev);
+          deferred = false;
+        }
+        if (G) {
+          // grid points in (t, hie]: counts on the pre-event pool
+          if (next_g <= hie) {
+            for (int gb = 0; gb < G; gb += 32) {
+              const int gi = gb + lane;
+              const double g = gi < G ? __ldg(grd + gi) : 0.0;
+              unsigned hit = __ballot_sync(FULL, gi < G && g > t && g <= hie);
+              while (hit) {
+                const int l = __ffs(hit) - 1;
+                hit &= hit - 1;
+                const double gg = __shfl_sync(FULL, g, l);
+                int nr = 0, ni = 0;
 #pragma unroll
-      for (int s = 0; s < S; ++s) n_alive += __popc(__ballot_sync(FULL, al[s]));
-
-      // ---- capacity churn
-      double cap_now = 0.0;
-      if (capped) {
-        cap_now = __ldg(cv + count_le(ce, a.E, t));
-        const double over = (double)n_alive - cap_now;
-        if (over > 0.0 && t <= tend) {
-          bool idle_now[S];
-#pragma unroll
-          for (int s = 0; s < S; ++s) idle_now[s] = al[s] && bsy[s] <= t;
-          for (int q = 0; (double)q < over; ++q) {
-            double v = -INFINITY;
-            int j = INT_MAX;
-#pragma unroll
-            for (int s = 0; s < S; ++s) {
-              if (idle_now[s] && (cre[s] > v || j == INT_MAX)) {
-                v = cre[s];
-                j = s * 32 + lane;
-              }
-            }
-            warp_argmax(v, j);
-            if (j == INT_MAX) break;
-#pragma unroll
-            for (int s = 0; s < S; ++s) {
-              if (j == s * 32 + lane) {
-                idle_now[s] = false;
-                al[s] = false;
-                if (t > skp) {
-                  p_life += t - cre[s];
-                  ++p_lcnt;
+                for (int s = 0; s < S; ++s) {
+                  const bool lv = ((live >> s) & 1u) && bsy[s] + te > gg;
+                  nr += __popc(__ballot_sync(FULL, lv && bsy[s] > gg));
+                  ni += __popc(__ballot_sync(FULL, lv && bsy[s] <= gg));
+                }
+                if (lane == 0) {
+                  const int p = gb + l;
+                  gcol[p] += nr;
+                  gcol[G + p] += ni;
+                  if (ni == 0) gcol[2 * G + p] = 1.0;
+                  gcol[3 * G + p] = 1.0;
                 }
               }
             }
-            if (t > skp) ++n_evict;
-            --n_alive;
+          }
+          if (next_g <= tn || tn < t) next_g = next_grid(grd, G, tn, lane);
+        }
+        if (inert) {
+          // past the horizon: the clocks move (the windows' to t_end), the
+          // exits wait
+          if (W) cur.cross(live, bsy, te, hie, tend, lane);
+          hi_prev = hi;
+          hie_prev = hie;
+          tmax = deferred ? fmax(tmax, tn) : tn;
+          deferred = true;
+          t = tn;
+          continue;
+        }
+        if (hi < hi_prev) {
+          // the clipped clock went back: the live states count the interval
+          // (hi, hi_prev] again, and the histogram credits it again
+          if (H) {
+            hist_credit<S>(live, bsy, te, x_h, hi_prev, hist, H, lane);
+            x_h = hi;
+          }
+#pragma unroll
+          for (int s = 0; s < S; ++s) {
+            if ((live >> s) & 1u) {
+              double ra, ia, rb, ib;
+              accrue(bsy[s], bsy[s] + te, doom(s), hi, tend, ra, ia);
+              accrue(bsy[s], bsy[s] + te, doom(s), hi_prev, tend, rb, ib);
+              run_l += ra - rb;
+              idle_l += ia - ib;
+            }
+          }
+        }
+        if (W) {
+          if (hie < hie_prev)
+            cur.back(live, bsy, te, hie, hie_prev, tend, lane);
+          else
+            cur.cross(live, bsy, te, hie, tend, lane);
+        }
+        if (tn >= next_exit) exit_pass(tn, hi, hie);
+        if (capped) {
+          if (!(tn >= cap_lo && tn < cap_hi)) {
+            const int seg = count_le(ce, a.E, tn);
+            cap_now = __ldg(cv + seg);
+            cap_lo = seg > 0 ? __ldg(ce + seg - 1) : -INFINITY;
+            cap_hi = seg < a.E ? __ldg(ce + seg) : INFINITY;
+          }
+          // capacity churn: evict the newest idle instances above the
+          // ceiling, one at a time
+          const double over = (double)n_live - cap_now;
+          if (over > 0.0) {
+            if (H) hist_credit<S>(live, bsy, te, x_h, hi, hist, H, lane);
+            for (int q = 0; (double)q < over; ++q) {
+              u64 kb = 0ull;
+              int sb = 0;
+#pragma unroll
+              for (int s = 0; s < S; ++s) {
+                const u64 kk = ((live >> s) & 1u) && bsy[s] <= tn ? ck[s] : 0ull;
+                if (kk > kb) {
+                  kb = kk;
+                  sb = s;
+                }
+              }
+              const u64 best = warp_max_key(kb);
+              if (!best) break;
+              const unsigned j =
+                  __reduce_min_sync(FULL, kb == best ? (unsigned)(sb * 32 + lane) : UINT_MAX);
+              if (lane == (int)(j & 31u)) {
+                const int cs = (int)(j >> 5);
+                const double b = pick<S>(bsy, cs);
+                double r, idl;
+                // the state ends at hi: it gives back what it accrued past it
+                accrue(b, b + te, FAULT ? pick<FAULT ? S : 1>(dm, FAULT ? cs : 0) : INFINITY,
+                       hi, tend, r, idl);
+                run_l -= r;
+                idle_l -= idl;
+                if (W) {
+                  cur.accrue_w(b, te, hie, tend, r, idl);
+                  cur.r -= r;
+                  cur.i -= idl;
+                }
+                if (tn > skp) {
+                  life_l += tn - key_value(pick<S>(ck, cs));
+                  ++lcnt_l;
+                }
+                live &= ~(1u << cs);
+              }
+              if (tn > skp) ++n_evict;
+              --n_live;
+            }
           }
         }
       }
+      hi_prev = hi;
+      hie_prev = hie;
 
-      // ---- routing
-      bool active = t <= tend;
-      const int first = __shfl_sync(FULL, x_first, e);
-      if (retries && active && !first) active = a.act[pk + k] != 0;
-      double v = -INFINITY;
-      int warm_j = INT_MAX;
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        const double pr = a.oldest ? -cre[s] : cre[s];
-        if (al[s] && bsy[s] <= t && (pr > v || warm_j == INT_MAX)) {
-          v = pr;
-          warm_j = s * 32 + lane;
-        }
+      bool active = true;
+      int first = 1;
+      if (retries) {
+        first = __shfl_sync(FULL, first_l, i);
+        active = first || __shfl_sync(FULL, act_l, i) || ((pend >> i) & 1u);
       }
-      warp_argmax(v, warm_j);
-      const bool any_idle = warm_j != INT_MAX;
-      int free_j = INT_MAX;
+      if (active) {
+        // the newest (oldest) idle instance, by order key
+        u64 kb = 0ull;
+        int sb = 0;
 #pragma unroll
-      for (int s = 0; s < S; ++s) {
-        const unsigned fm = __ballot_sync(FULL, !al[s] && s * 32 + lane < a.M);
-        if (fm && free_j == INT_MAX) free_j = s * 32 + __ffs(fm) - 1;
-      }
-      const bool any_free = free_j != INT_MAX;
-      const bool below = n_alive < a.max_c;
-      bool can_cold = !any_idle && below && any_free;
-      if (capped) can_cold = can_cold && (double)n_alive < cap_now;
-      const bool is_warm = any_idle && active;
-      const bool is_cold = can_cold && active;
-      const bool is_rej = !any_idle && !can_cold && active;
-      const bool assign = is_warm || is_cold;
-      const int chosen = is_warm ? warm_j : (any_free ? free_j : 0);
-      const double w_s = (double)__shfl_sync(FULL, x_warm, e);
-      const double c_s = (double)__shfl_sync(FULL, x_cold, e);
-      const double service = is_warm ? w_s : c_s;
-      const double occ = rely ? fmin(service, tto) : service;
-      const double fin = t + occ;
-      double doom_c = INFINITY;
-      if (crashes) {
-        const double u = (double)__shfl_sync(FULL, x_crash, e);
-        const double life = crate > 0.0 ? -log(1.0 - u) / crate : INFINITY;
-        double mine = INFINITY;
-#pragma unroll
-        for (int s = 0; s < S; ++s)
-          if (chosen == s * 32 + lane) mine = is_cold ? t + life : dm[s];
-        doom_c = __shfl_sync(FULL, mine, chosen & 31);
-      }
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        if (chosen == s * 32 + lane) {
-          if (assign) bsy[s] = fin;
-          if (is_cold) {
-            cre[s] = t;
-            al[s] = true;
-            if (crashes) dm[s] = doom_c;
+        for (int s = 0; s < S; ++s) {
+          const u64 kk = ((live >> s) & 1u) && bsy[s] <= tn ? (a.oldest ? ~ck[s] : ck[s]) : 0ull;
+          // this lane's slots ascend with s, so '>' keeps the lowest on a tie
+          if (kk > kb) {
+            kb = kk;
+            sb = s;
           }
         }
-      }
-
-      const bool counted = t > skp;
-      n_cold += is_cold && counted;
-      n_warm += is_warm && counted;
-      n_rej += is_rej && counted;
-      n_over += !any_idle && below && !any_free && active;
-      bool timed_out = false, failed = false, trigger = false;
-      double cold_r = c_s, warm_r = w_s;
-      if (rely) {
-        const double fu = (double)__shfl_sync(FULL, x_fail, e);
-        timed_out = assign && service > tto;
-        failed = assign && !timed_out && fu < pf;
-        trigger = timed_out || failed || is_rej;
-        if (crashes) {
-          const bool intr = assign && !timed_out && !failed && doom_c < fin;
-          trigger = trigger || intr;
-          n_intr += intr && counted;
-        }
-        cold_r = fmin(c_s, tto);
-        warm_r = fmin(w_s, tto);
-      } else if (crashes) {
-        n_intr += (assign && doom_c < fin) && counted;
-      }
-      if (is_cold && counted) s_cold += cold_r;
-      if (is_warm && counted) s_warm += warm_r;
-      if (rely) {
-        n_to += timed_out && counted;
-        n_fail += failed && counted;
-        if (retries) {
-          const int child = __shfl_sync(FULL, x_child, e);
-          n_retry += !first && active && counted;
-          n_aband += trigger && child >= NO_CHILD && counted;
-          if (trigger && child >= 0 && child < a.K) a.act[pk + child] = 1;
+        const u64 best = warp_max_key(kb);
+        const bool any_idle = best != 0ull;
+        bool is_cold = false, below = true, any_free = true;
+        const double w_s = (double)w_i;
+        double service = w_s, fin = 0.0, doom_c = INFINITY;
+        if (any_idle) {
+          // warm: its lane swaps the accrual of the state that ends for the
+          // one that starts
+          const unsigned j =
+              __reduce_min_sync(FULL, kb == best ? (unsigned)(sb * 32 + lane) : UINT_MAX);
+          const double occ = rely ? fmin(service, tto) : service;
+          fin = tn + occ;
+          const int owner = (int)(j & 31u), cs = (int)(j >> 5);
+          if (lane == owner) {
+            const double b = pick<S>(bsy, cs);
+            const double d = FAULT ? pick<FAULT ? S : 1>(dm, FAULT ? cs : 0) : INFINITY;
+            double ra, ia, rb, ib;
+            accrue(fin, fin + te, d, hi, tend, ra, ia);
+            accrue(b, b + te, d, hi, tend, rb, ib);
+            run_l += ra - rb;
+            idle_l += ia - ib;
+            if (W) {
+              cur.accrue_w(fin, te, hie, tend, ra, ia);
+              cur.accrue_w(b, te, hie, tend, rb, ib);
+              cur.r += ra - rb;
+              cur.i += ia - ib;
+            }
+#pragma unroll
+            for (int s = 0; s < S; ++s) bsy[s] = s == cs ? fin : bsy[s];
+            doom_c = d;
+          }
+          if (crashes) doom_c = __shfl_sync(FULL, doom_c, owner);
+          // its exit moves to min(expiry, doom), which the bound already
+          // lies below except for the expiry
+          next_exit = fmin(next_exit, fin + te);
         } else {
-          n_aband += trigger && counted;
+          // the slots are read only when no instance is idle
+          int free_j = -1;
+#pragma unroll
+          for (int s = 0; s < S; ++s) {
+            const unsigned fm = __ballot_sync(FULL, s * 32 + lane < M && !((live >> s) & 1u));
+            if (free_j < 0 && fm) free_j = s * 32 + __ffs(fm) - 1;
+          }
+          any_free = free_j >= 0;
+          below = n_live < a.max_c;
+          is_cold = below && any_free && (!capped || (double)n_live < cap_now);
+          if (is_cold) {
+            if (H) hist_credit<S>(live, bsy, te, x_h, hi, hist, H, lane);
+            service = (double)__shfl_sync(FULL, c_l, i);
+            const double occ = rely ? fmin(service, tto) : service;
+            fin = tn + occ;
+            if (crashes) {
+              const double u = (double)__shfl_sync(FULL, u_l, i);
+              const double life = crate > 0.0 ? -log(1.0 - u) / crate : INFINITY;
+              doom_c = tn + life;
+            }
+            const int cs = free_j >> 5;
+            if (lane == (free_j & 31)) {
+              double r, idl;
+              accrue(fin, fin + te, doom_c, hi, tend, r, idl);
+              run_l += r;
+              idle_l += idl;
+              if (W) {
+                cur.accrue_w(fin, te, hie, tend, r, idl);
+                cur.r += r;
+                cur.i += idl;
+              }
+              const u64 kc = okey(tn);
+#pragma unroll
+              for (int s = 0; s < S; ++s) {
+                bsy[s] = s == cs ? fin : bsy[s];
+                ck[s] = s == cs ? kc : ck[s];
+                if (FAULT) dm[FAULT ? s : 0] = s == cs ? doom_c : dm[FAULT ? s : 0];
+              }
+              live |= 1u << cs;
+            }
+            ++n_live;
+            next_exit = fmin(next_exit, fmin(fin + te, doom_c));
+          }
+        }
+        const bool assign = any_idle || is_cold;
+        const bool is_rej = !assign;
+        const bool counted = tn > skp;
+        n_cold += is_cold && counted;
+        n_warm += any_idle && counted;
+        n_rej += is_rej && counted;
+        n_over += !any_idle && below && !any_free;
+        bool timed_out = false, failed = false;
+        double cold_r = service, warm_r = service;
+        if (rely) {
+          timed_out = assign && service > tto;
+          failed = assign && !timed_out && (double)__shfl_sync(FULL, f_l, i) < pf;
+          bool trigger = timed_out || failed || is_rej;
+          if (crashes) {
+            const bool intr = assign && !timed_out && !failed && doom_c < fin;
+            trigger = trigger || intr;
+            n_intr += intr && counted;
+          }
+          cold_r = warm_r = fmin(service, tto);
+          n_to += timed_out && counted;
+          n_fail += failed && counted;
+          if (retries) {
+            const int child = __shfl_sync(FULL, child_l, i);
+            n_retry += !first && counted;
+            n_aband += trigger && child >= NO_CHILD && counted;
+            if (trigger && child >= 0 && child < K) {
+              a.act[pk + child] = 1;
+              if (child >= k0 && child < k0 + 32) pend |= 1u << (child - k0);
+            }
+          } else {
+            n_aband += trigger && counted;
+          }
+        } else if (crashes) {
+          n_intr += (assign && doom_c < fin) && counted;
+        }
+        if (is_cold && counted) s_cold += cold_r;
+        if (any_idle && counted) s_warm += warm_r;
+        // the arrival lies in the cursor's window once that has begun
+        if (W && cur.w < W && cur.lo <= tn) {
+          cur.c[0] += is_cold;
+          cur.c[1] += any_idle;
+          cur.c[2] += 1.0;
+          if (rely) cur.c[3] += timed_out || failed;
         }
       }
-      if (a.W && active && lane == 0) {
-        const int w = count_le(bnd, a.W + 1, t) - 1;
-        if (w >= 0 && w < a.W) {
-          sw[w] += is_cold;
-          sw[a.W + w] += is_warm;
-          sw[2 * a.W + w] += 1.0;
-          if (rely) sw[5 * a.W + w] += timed_out || failed;
-        }
-      }
-      t_prev = t;
+      t = tn;
     }
   }
 
-  // ---- grid points after the last event, then the tail flush
-  if (a.G) grid_step(t_prev, tend, true);
-  const double lo = fmin(fmax(t_prev, skp), tend);
-  integrate(lo, tend, fmin(t_prev, tend), tend);
+  // the exits deferred past the horizon; then the grid points after the
+  // last event, the histogram and windows up to t_end, and the lifespans of
+  // exits in the tail (the live states accrued up to t_end already)
+  if (deferred) exit_pass(tmax, hi_prev, hie_prev);
+  if (G) {
+    for (int gb = 0; gb < G; gb += 32) {
+      const int gi = gb + lane;
+      __syncwarp();
+      const double g = gi < G ? __ldg(grd + gi) : 0.0;
+      unsigned hit = __ballot_sync(FULL, gi < G && g > t && g <= tend && gcol[3 * G + gi] == 0.0);
+      while (hit) {
+        const int l = __ffs(hit) - 1;
+        hit &= hit - 1;
+        const double gg = __shfl_sync(FULL, g, l);
+        int nr = 0, ni = 0;
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          const bool lv = ((live >> s) & 1u) && bsy[s] + te > gg;
+          nr += __popc(__ballot_sync(FULL, lv && bsy[s] > gg));
+          ni += __popc(__ballot_sync(FULL, lv && bsy[s] <= gg));
+        }
+        if (lane == 0) {
+          const int p = gb + l;
+          gcol[p] += nr;
+          gcol[G + p] += ni;
+          if (ni == 0) gcol[2 * G + p] = 1.0;
+          gcol[3 * G + p] = 1.0;
+        }
+      }
+    }
+  }
+  if (H) hist_credit<S>(live, bsy, te, x_h, tend, hist, H, lane);
+  if (W) {
+    cur.cross(live, bsy, te, tend, tend, lane);
+    cur.leave(lane);
+  }
 #pragma unroll
   for (int s = 0; s < S; ++s) {
-    const double expire = bsy[s] + te;
-    const double ex = crashes ? fmin(expire, dm[s]) : expire;
-    if (al[s] && ex <= tend && ex > skp) {
-      p_life += ex - cre[s];
-      ++p_lcnt;
-      if (crashes && dm[s] < expire) ++p_crash;
+    const double e = bsy[s] + te, d = doom(s);
+    const double x = FAULT ? fmin(e, d) : e;
+    if (((live >> s) & 1u) && x <= tend && x > skp) {
+      life_l += x - key_value(ck[s]);
+      ++lcnt_l;
+      if (crashes && d < e) ++crash_l;
     }
   }
 
@@ -466,19 +771,18 @@ __global__ void __launch_bounds__(128) scan_sweep_kernel(const Args a, int wpb) 
 #pragma unroll
   for (int s = 0; s < S; ++s) {
     const int j = s * 32 + lane;
-    if (j < a.M) {
-      a.alive_out[pm + j] = al[s];
-      a.creation_out[pm + j] = cre[s];
+    if (j < M) {
+      a.alive_out[pm + j] = (live >> s) & 1u;
+      a.creation_out[pm + j] = key_value(ck[s]);
       a.busy_out[pm + j] = bsy[s];
-      if (crashes) a.doom_out[pm + j] = dm[s];
+      if (crashes) a.doom_out[pm + j] = doom(s);
     }
   }
-  const double run = warp_sum(p_run), idle = warp_sum(p_idle), life = warp_sum(p_life);
-  const long long lcnt = warp_sum(p_lcnt), ncrash = warp_sum(p_crash);
-  double* out = a.acc + (size_t)row * a.cols;
-  for (int i = lane; i < extra; i += 32) out[a.win_at + i] = sx[i];
+  const double run = warp_sum(run_l), idle = warp_sum(idle_l), life = warp_sum(life_l);
+  const int lcnt = (int)__reduce_add_sync(FULL, (unsigned)lcnt_l);
+  const int ncrash = (int)__reduce_add_sync(FULL, (unsigned)crash_l);
   if (lane == 0) {
-    a.t_out[row] = t_prev;
+    a.t_out[row] = t;
     out[0] = (double)n_cold;
     out[1] = (double)n_warm;
     out[2] = (double)n_rej;
@@ -503,21 +807,19 @@ __global__ void __launch_bounds__(128) scan_sweep_kernel(const Args a, int wpb) 
   }
 }
 
-template <int S>
-int launch(const Args& a, int device, cudaStream_t stream) {
-  const size_t row_bytes = (size_t)(6 * a.W + a.H + 4 * a.G) * sizeof(double);
-  int wpb = 4;
-  while (wpb > 1 && wpb * row_bytes > (size_t)96 * 1024) wpb /= 2;
-  const size_t smem = wpb * row_bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      scan_sweep_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  if (a.act) {
-    err = cudaMemsetAsync(a.act, 0, (size_t)a.R * a.K, stream);
-    if (err != cudaSuccess) return (int)err;
-  }
-  scan_sweep_kernel<S><<<(a.R + wpb - 1) / wpb, 32 * wpb, smem, stream>>>(a, wpb);
+template <int S, bool FAULT, bool LAYERS>
+int launch_one(const Args& a, cudaStream_t stream) {
+  scan_sweep_kernel<S, FAULT, LAYERS><<<(a.R + WARPS - 1) / WARPS, WARPS * 32, 0, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <int S>
+int launch(const Args& a, cudaStream_t stream) {
+  const bool fault = a.crash_u != nullptr || a.cap_values != nullptr;
+  const bool layers = a.W > 0 || a.H > 0 || a.G > 0;
+  if (fault)
+    return layers ? launch_one<S, true, true>(a, stream) : launch_one<S, true, false>(a, stream);
+  return layers ? launch_one<S, false, true>(a, stream) : launch_one<S, false, false>(a, stream);
 }
 
 }  // namespace
@@ -588,10 +890,14 @@ extern "C" int scan_sweep_f64(void* const* ptrs, const int* ints, void* stream) 
     return (int)cudaErrorInvalidValue;
   if (a.t_timeout == nullptr) a.fail_u = nullptr;
   cudaStream_t st = (cudaStream_t)stream;
+  if (a.act) {
+    err = cudaMemsetAsync(a.act, 0, (size_t)a.R * a.K, st);
+    if (err != cudaSuccess) return (int)err;
+  }
   const int s = (a.M + 31) / 32;
-  if (s <= 1) return launch<1>(a, device, st);
-  if (s <= 2) return launch<2>(a, device, st);
-  if (s <= 4) return launch<4>(a, device, st);
-  if (s <= 8) return launch<8>(a, device, st);
-  return launch<16>(a, device, st);
+  if (s <= 1) return launch<1>(a, st);
+  if (s <= 2) return launch<2>(a, st);
+  if (s <= 4) return launch<4>(a, st);
+  if (s <= 8) return launch<8>(a, st);
+  return launch<16>(a, st);
 }

@@ -4,8 +4,9 @@ launcher (backend ``"scan"``, engine ``"par"``).
 :func:`par_scan_sweep` runs the reference's f64 ``_par_scan_fn``
 (``repro/core/par_simulator.py``, under ``lax.scan``; no Pallas kernel)
 on the card: the kernel ``csrc/par_scan_event_step.cu`` (one warp per row,
-``finish[M, c]`` in shared memory; its header says how it is built), with
-the histogram, reliability and retries as runtime flags.  For CUDA tensors
+the rows of ``finish[M, c]`` touched only on an assignment; its header says
+how it is built), with the histogram, reliability and retries as runtime
+flags.  For CUDA tensors
 the wrapper checks its inputs, launches the kernel on the current stream
 and counts the launch in ``LAUNCH_COUNTS["par_scan_sweep"]``; a failed
 build or launch raises.  For CPU tensors it runs the plain version
@@ -29,7 +30,7 @@ from repro_torch.kernels.ref64 import (
     check_scan_inputs,
     par_scan_sweep_ref,
 )
-from repro_torch.kernels.scan_event_step import MAX_EXTRA, MAX_SLOTS
+from repro_torch.kernels.scan_event_step import MAX_SLOTS
 
 
 @functools.lru_cache(maxsize=None)
@@ -82,11 +83,6 @@ def par_scan_sweep(
         raise ValueError(
             f"par_scan_sweep needs R >= 1 rows, 1 <= M <= {MAX_SLOTS} slots and c >= 1, "
             f"got R={R}, M={M}, c={c}"
-        )
-    if M * c + H > MAX_EXTRA:
-        raise ValueError(
-            f"par_scan_sweep keeps a row's finish[M, c] and histogram in shared memory: "
-            f"M*c + H must be <= {MAX_EXTRA}, got {M * c + H}"
         )
     if not 1 <= int(max_concurrency) < 1 << 31 or K >= 1 << 31:
         raise ValueError("max_concurrency and K must fit the kernel's int")

@@ -158,6 +158,13 @@ def _grid_counts(alive, busy, te, grid):
     return run, idle
 
 
+def _switch_on(act, on, child):
+    """``act[r, child[r]] = True`` where ``on[r]``, as a scatter of one
+    position a row (no host read-back, so it can sit in a CUDA graph)."""
+    idx = torch.where(on, child, 0)[:, None]
+    act.scatter_(1, idx, act.gather(1, idx) | on[:, None])
+
+
 def check_scan_inputs(layout_kw: dict) -> None:
     """The optional inputs' structure, as both f64 wrappers check it on
     any device: pairs that come together, and a known routing."""
@@ -207,17 +214,35 @@ def scan_sweep_ref(
     crash_u=None,  # f32 [R, K] (crashes)
     cap_edges=None,  # f64 [R, E] capacity step times (capacity churn)
     cap_values=None,  # f64 [R, E+1] ceilings (capacity churn)
+    state0: Optional[ScanOut] = None,  # a chunk's return value to continue
+    first_event=0,  # position of arr[:, 0] in the run (int or int64 tensor)
+    events: Optional[int] = None,  # events in the whole run (default K)
+    flush: bool = True,  # False: stop after the last event, no tail flush
 ) -> ScanOut:
     """Run K events against each row's ``[M]`` pool from clock 0, then
     flush the tail ``(t_last, t_end]``: the reference's f64 scan step, row
     by row (module docstring).  Returns a :class:`ScanOut` whose ``acc`` is
     laid out by ``ScanLayout(W, hist_bins, G, reliability, faults)``.
     ``cap_values[searchsorted(cap_edges, t, "right")]`` is the ceiling in
-    effect at ``t``."""
-    check_scan_inputs(dict(routing=routing, t_timeout=t_timeout, p_fail=p_fail,
-                           fail_u=fail_u, is_first=is_first, child_pos=child_pos,
-                           crash_rate=crash_rate, crash_u=crash_u, cap_edges=cap_edges,
-                           cap_values=cap_values, window_bounds=window_bounds))
+    effect at ``t``.
+
+    A run may be split into chunks of events: each chunk but the last
+    passes ``flush=False``, the next continues from its return value
+    (``state0``: the pool, crash clocks, clock, accumulator and activation
+    plane; the positional pool and ``doom`` are then not read) with
+    ``first_event`` the position of its first event in the run, which the
+    activation plane's ``child_pos`` refer to (the first chunk sizes that
+    plane by ``events``).  Every piece is added in the order one call adds
+    it, so the chunks equal one call bit for bit.  A continuation reads no
+    value back to the host (no input checks, no data-dependent indexing),
+    so a chunk can be captured in a CUDA graph and replayed."""
+    if state0 is None:
+        check_scan_inputs(dict(routing=routing, t_timeout=t_timeout, p_fail=p_fail,
+                               fail_u=fail_u, is_first=is_first, child_pos=child_pos,
+                               crash_rate=crash_rate, crash_u=crash_u, cap_edges=cap_edges,
+                               cap_values=cap_values, window_bounds=window_bounds))
+    else:
+        alive, creation, busy, doom = state0.alive, state0.creation, state0.busy, state0.doom
     R, M = alive.shape
     K = arr.shape[1]
     dev = alive.device
@@ -240,24 +265,33 @@ def scan_sweep_ref(
         t_to, p_f = _col(t_timeout, R, dev), _col(p_fail, R, dev)
     if capped:
         cap_e, cap_v = cap_edges.to(F64), cap_values.to(F64)
-    acc = torch.zeros((R, lay.cols), dtype=F64, device=dev)
+    if state0 is None:
+        acc = torch.zeros((R, lay.cols), dtype=F64, device=dev)
+        act = (torch.zeros((R, K if events is None else int(events)), dtype=torch.bool,
+                           device=dev) if retries else None)
+        t_prev = torch.zeros((R,), dtype=F64, device=dev)
+    else:
+        acc = state0.acc.clone()
+        act = state0.act.clone() if retries else None
+        t_prev = state0.t
     base = acc[:, :SCAN_COLS]
     hist = acc[:, lay.hist_at:lay.grid_at]
-    act = torch.zeros((R, K), dtype=torch.bool, device=dev) if retries else None
+    if retries:
+        k0 = torch.as_tensor(first_event, dtype=torch.int64, device=dev).reshape(1, 1)
+        K_all = act.shape[1]
     if G:
         grid = grid_times.to(F64)
         g_run = acc[:, lay.grid_at:lay.grid_at + G]
         g_idle = acc[:, lay.grid_at + G:lay.grid_at + 2 * G]
-        no_idle = torch.zeros((R, G), dtype=torch.bool, device=dev)
-        seen = torch.zeros((R, G), dtype=torch.bool, device=dev)
+        # 0/1 columns: no idle instance at a point, and an interval held it
+        no_idle = acc[:, lay.grid_at + 2 * G:lay.grid_at + 3 * G]
+        seen = acc[:, lay.grid_at + 3 * G:]
     if W:
         wb = window_bounds.to(F64)
         wcols = acc[:, lay.win_at:lay.hist_at].view(R, WINDOW64_COLS, W)
         w_ids = torch.arange(W, device=dev)
     slot_ids = torch.arange(M, device=dev)
-    rows = torch.arange(R, device=dev)
     newest = routing == "newest"
-    t_prev = torch.zeros((R,), dtype=F64, device=dev)
     for k in range(K):
         t = arr[:, k].to(F64) if prestamped else t_prev + arr[:, k].to(F64)
         t1 = t[:, None]
@@ -268,8 +302,8 @@ def scan_sweep_ref(
             run_g, idle_g = _grid_counts(alive, busy, te1, grid)
             g_run += torch.where(in_win, run_g, 0)
             g_idle += torch.where(in_win, idle_g, 0)
-            no_idle |= in_win & (idle_g == 0)
-            seen |= in_win
+            no_idle.masked_fill_(in_win & (idle_g == 0), 1.0)
+            seen.masked_fill_(in_win, 1.0)
         lo = torch.minimum(torch.maximum(t_prev, skp), tend)[:, None]
         hi = torch.minimum(torch.maximum(t, skp), tend)[:, None]
         if crashes:
@@ -320,7 +354,7 @@ def scan_sweep_ref(
         # ---- routing
         active = t <= tend
         if retries:
-            active &= is_first[:, k] | act[:, k]
+            active &= is_first[:, k] | act.gather(1, (k0 + k).expand(R, 1))[:, 0]
         idle_mask = alive & (busy <= t1)
         any_idle = idle_mask.any(-1)
         prio = creation if newest else -creation
@@ -379,8 +413,7 @@ def scan_sweep_ref(
                 child = child_pos[:, k].to(torch.int64)
                 acc[:, r + 2] += ~is_first[:, k] & active & counted
                 acc[:, r + 3] += trigger & (child >= NO_CHILD) & counted
-                on = trigger & (child >= 0) & (child < K)
-                act[rows[on], child[on]] = True
+                _switch_on(act, trigger & (child >= 0) & (child < K_all), child)
             else:
                 acc[:, r + 3] += trigger & counted
         if W:
@@ -393,16 +426,16 @@ def scan_sweep_ref(
                 wcols[:, 5] += onehot & (timed_out | failed)[:, None]
         t_prev = t
 
+    if not flush:
+        return ScanOut(alive, creation, busy, t_prev, acc, act, doom if crashes else None)
     # ---- grid points after the last event
     if G:
-        tail = (grid > t_prev[:, None]) & (grid <= tend1) & ~seen
+        tail = (grid > t_prev[:, None]) & (grid <= tend1) & (seen == 0)
         run_g, idle_g = _grid_counts(alive, busy, te1, grid)
         g_run += torch.where(tail, run_g, 0)
         g_idle += torch.where(tail, idle_g, 0)
-        no_idle |= tail & (idle_g == 0)
-        seen |= tail
-        acc[:, lay.grid_at + 2 * G:lay.grid_at + 3 * G] = no_idle.to(F64)
-        acc[:, lay.grid_at + 3 * G:] = seen.to(F64)
+        no_idle.masked_fill_(tail & (idle_g == 0), 1.0)
+        seen.masked_fill_(tail, 1.0)
     # ---- the tail flush (t_last, t_end]
     lo = torch.minimum(torch.maximum(t_prev, skp), tend)[:, None]
     if crashes:
@@ -445,6 +478,10 @@ def par_scan_sweep_ref(
     fail_u=None,
     is_first=None,
     child_pos=None,
+    state0: Optional[ParScanOut] = None,  # a chunk's return value to continue
+    first_event=0,  # position of arr[:, 0] in the run (int or int64 tensor)
+    events: Optional[int] = None,  # events in the whole run (default K)
+    flush: bool = True,  # False: stop after the last event, no tail flush
 ) -> ParScanOut:
     """The concurrency-value platform's f64 scan (``_par_scan_fn``) over K
     events from an empty pool of ``slots`` instances with ``concurrency``
@@ -452,9 +489,12 @@ def par_scan_sweep_ref(
     instance with a finished sub-slot (lowest slot on a tie), the request
     the instance's first finished sub-slot; a cold start wipes the reused
     row first.  ``acc`` is laid out by ``ScanLayout(H=hist_bins,
-    rely=reliability, par=True)``."""
-    check_scan_inputs(dict(t_timeout=t_timeout, p_fail=p_fail, fail_u=fail_u,
-                           is_first=is_first, child_pos=child_pos))
+    rely=reliability, par=True)``.  ``state0``, ``first_event``,
+    ``events`` and ``flush`` split a run into chunks that equal one call
+    bit for bit, as :func:`scan_sweep_ref`'s do."""
+    if state0 is None:
+        check_scan_inputs(dict(t_timeout=t_timeout, p_fail=p_fail, fail_u=fail_u,
+                               is_first=is_first, child_pos=child_pos))
     R, K = arr.shape
     M, c = int(slots), int(concurrency)
     dev = arr.device
@@ -465,20 +505,28 @@ def par_scan_sweep_ref(
     te1, tend1, skp1 = te[:, None], tend[:, None], skp[:, None]
     if rely:
         t_to, p_f = _col(t_timeout, R, dev), _col(p_fail, R, dev)
-    alive = torch.zeros((R, M), dtype=torch.bool, device=dev)
-    creation = torch.full((R, M), NEG_INF, dtype=F64, device=dev)
-    finish = torch.full((R, M, c), NEG_INF, dtype=F64, device=dev)
-    acc = torch.zeros((R, lay.cols), dtype=F64, device=dev)
+    if state0 is None:
+        alive = torch.zeros((R, M), dtype=torch.bool, device=dev)
+        creation = torch.full((R, M), NEG_INF, dtype=F64, device=dev)
+        finish = torch.full((R, M, c), NEG_INF, dtype=F64, device=dev)
+        acc = torch.zeros((R, lay.cols), dtype=F64, device=dev)
+        act = (torch.zeros((R, K if events is None else int(events)), dtype=torch.bool,
+                           device=dev) if retries else None)
+        t_prev = torch.zeros((R,), dtype=F64, device=dev)
+    else:
+        alive, creation, finish, t_prev, acc = (x.clone() for x in state0[:5])
+        act = state0.act.clone() if retries else None
     base = acc[:, :PAR_SCAN_COLS]
     hist = acc[:, lay.hist_at:lay.grid_at]
-    act = torch.zeros((R, K), dtype=torch.bool, device=dev) if retries else None
+    if retries:
+        k0 = torch.as_tensor(first_event, dtype=torch.int64, device=dev).reshape(1, 1)
+        K_all = act.shape[1]
     rows = torch.arange(R, device=dev)
 
     def in_flight(lo, hi):
         part = (torch.minimum(finish, hi[:, :, None]) - lo[:, :, None]).clamp_min(0.0)
         return torch.where(alive[:, :, None], part, 0.0).sum((-1, -2))
 
-    t_prev = torch.zeros((R,), dtype=F64, device=dev)
     for k in range(K):
         t = arr[:, k].to(F64) if prestamped else t_prev + arr[:, k].to(F64)
         t1 = t[:, None]
@@ -500,7 +548,7 @@ def par_scan_sweep_ref(
 
         active = t <= tend
         if retries:
-            active &= is_first[:, k] | act[:, k]
+            active &= is_first[:, k] | act.gather(1, (k0 + k).expand(R, 1))[:, 0]
         has_cap = alive & ((finish > t1[:, :, None]).sum(-1) < c)
         any_cap = has_cap.any(-1)
         warm_idx = torch.argmax(torch.where(has_cap, creation, NEG_INF), dim=-1)
@@ -547,12 +595,13 @@ def par_scan_sweep_ref(
                 child = child_pos[:, k].to(torch.int64)
                 acc[:, r + 2] += ~is_first[:, k] & active & counted
                 acc[:, r + 3] += trigger & (child >= NO_CHILD) & counted
-                on = trigger & (child >= 0) & (child < K)
-                act[rows[on], child[on]] = True
+                _switch_on(act, trigger & (child >= 0) & (child < K_all), child)
             else:
                 acc[:, r + 3] += trigger & counted
         t_prev = t
 
+    if not flush:
+        return ParScanOut(alive, creation, finish, t_prev, acc, act)
     busy = finish.amax(-1)
     lo = torch.minimum(torch.maximum(t_prev, skp), tend)[:, None]
     run_t, idle_t = interval_integrals(alive, busy, te1, lo, tend1)

@@ -4,9 +4,10 @@ launcher (backend ``"scan"``, engines ``"scan"`` and ``"temporal"``).
 :func:`scan_sweep` runs the reference's f64 ``lax.scan`` step
 (``repro/core/simulator.py::_make_scan_fn`` with ``_flush``; no Pallas
 kernel) on the card: the kernel ``csrc/scan_event_step.cu`` (one warp per
-row, the pool in registers; its header says how it is built), with every
-path of the plain version :func:`repro_torch.kernels.ref64.scan_sweep_ref`
-as a runtime flag.  For CUDA tensors the wrapper checks device, dtype,
+row, the pool in registers, integrals accrued per state span, an exit
+bound and an inert tail past the horizon; its header says how it is
+built), with every path of the plain version
+:func:`repro_torch.kernels.ref64.scan_sweep_ref`.  For CUDA tensors the wrapper checks device, dtype,
 shape and contiguity, launches the kernel on the current stream and counts
 the launch in ``LAUNCH_COUNTS["scan_sweep"]``; a failed build or launch
 raises.  For CPU tensors it runs the plain version.
@@ -32,9 +33,6 @@ from repro_torch.kernels.ref64 import (
 
 # slots a row: 16 a lane in registers (csrc/scan_event_step.cu)
 MAX_SLOTS = 512
-# f64 values of a row's window, histogram and grid columns, kept in shared
-# memory: one row within a block's 227 KB
-MAX_EXTRA = 232448 // 8
 
 
 @functools.lru_cache(maxsize=None)
@@ -116,12 +114,6 @@ def scan_sweep(
         )
     if window_bounds is not None and W < 1:
         raise ValueError("window_bounds needs at least 2 bounds a row")
-    if 6 * W + H + 4 * G > MAX_EXTRA:
-        raise ValueError(
-            f"scan_sweep keeps a row's window, histogram and grid columns in "
-            f"shared memory: 6W + H + 4G must be <= {MAX_EXTRA}, got "
-            f"{6 * W + H + 4 * G}"
-        )
     if not 1 <= int(max_concurrency) < 1 << 31 or K >= 1 << 31:
         raise ValueError("max_concurrency and K must fit the kernel's int")
     lay = ScanLayout(W=W, H=H, G=G, rely=rely, faults=crashes or capped)

@@ -1899,3 +1899,189 @@ def test_scan64_front_doors_launch_the_kernels(cuda_device):
     assert fes.LAUNCH_COUNTS["par_scan_sweep"] == 1 and np.isfinite(par.summary.avg_in_flight)
     with pytest.raises(ValueError, match="scan_ref"):
         rt.run(scn, 0, replicas=2, backend="scan", device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the redesigned f64 kernels (per-span accrual, an exit bound, order-key
+# routing, the inert tail, the histogram credited where the count changes)
+# against their plain versions on the hazards of that design
+# ---------------------------------------------------------------------------
+
+SCAN64_HAZARDS = (
+    "back_timestamps",  # unsorted f64 timestamps: the clock goes back
+    "negative_gaps",  # gaps below 0: the clock goes back
+    "all_past",  # every event past its row's horizon
+    "none_past",  # no event past it
+    "past_and_back",  # timestamps past t_end inside a batch, then back inside
+    "batch_arrivals",  # groups of equal timestamps
+    "pool_ties",  # an initial pool of equal creations, routing "oldest"
+    "capacity_ties",  # capacity evictions among equal creations
+    "hist_windows",  # histogram mass, window bounds on event clocks
+    "grid_on_events",  # grid points on event clocks, from a pool
+    "retries",  # children inside and past their 32-event batch
+    "crashes_windows",  # crash exits under windows and the histogram
+    # unsorted f64 timestamps under crashes, a capacity profile, windows
+    # and the histogram: the recount's crash cut, a crash exit's window
+    # give-back after the clock went back, the capacity segment's cursor
+    "back_crashes_capacity",
+    "back_grid",  # unsorted f64 timestamps from a pool, grid points on event clocks
+)
+# the hazards whose clock goes back
+BACK_HAZARDS = ("back_timestamps", "negative_gaps", "past_and_back", "back_crashes_capacity",
+                "back_grid")
+
+
+def _hazard_inputs(dev, hazard, M, R=40, K=300, seed=21):
+    """Pool, samples and keyword inputs of the f64 kernels for a hazard."""
+    rng = np.random.default_rng(seed)
+    f64 = lambda x: torch.tensor(np.asarray(x), dtype=torch.float64, device=dev)
+    f32 = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32, device=dev)
+    rate = 0.8
+    gaps = rng.exponential(1 / rate, (R, K)).astype(np.float32)
+    times = np.cumsum(gaps.astype(np.float64), 1)
+    horizon = K / rate
+    t_end = horizon * rng.uniform(0.5, 0.9, R)
+    skip = horizon * rng.uniform(0.0, 0.1, R)
+    prestamped = hazard not in ("negative_gaps", "all_past", "none_past", "pool_ties",
+                                "capacity_ties", "crashes_windows")
+    if hazard in ("back_timestamps", "back_crashes_capacity", "back_grid"):
+        for r in range(R):
+            for k in rng.choice(K - 1, K // 10, replace=False):
+                times[r, k], times[r, k + 1] = times[r, k + 1], times[r, k]
+            k = rng.integers(K // 4, K // 2)
+            times[r, k] -= rng.uniform(5.0, 40.0)  # a jump back across events
+    elif hazard == "negative_gaps":
+        neg = rng.uniform(size=(R, K)) < 0.1
+        gaps = np.where(neg, -rng.uniform(0.0, 3.0, (R, K)), gaps).astype(np.float32)
+    elif hazard == "all_past":
+        t_end, skip = np.full(R, -1.0), np.full(R, -2.0)
+    elif hazard == "none_past":
+        t_end = np.full(R, 1e9)
+    elif hazard == "past_and_back":
+        # each row's horizon inside a batch; a few events past it come back
+        ends = rng.integers(40, K - 40, R)
+        t_end = times[np.arange(R), ends] + 0.5
+        for r in range(R):
+            for k in rng.choice(np.arange(ends[r] + 2, K), 6, replace=False):
+                times[r, k] = t_end[r] - rng.uniform(0.0, 30.0)
+    elif hazard == "batch_arrivals":
+        times = np.repeat(times[:, ::4], 4, axis=1)[:, :K]
+    arr = f64(times) if prestamped else f32(gaps)
+    live = rng.uniform(size=(R, M)) < (0.5 if hazard in ("pool_ties", "capacity_ties") else 0.0)
+    if hazard in ("grid_on_events", "back_grid", "back_crashes_capacity"):
+        live = rng.uniform(size=(R, M)) < 0.3
+    creation = np.where(live, -rng.uniform(0, 300, (R, M)), -1e30)
+    if hazard in ("pool_ties", "capacity_ties"):
+        creation = np.where(live, -100.0 * rng.integers(1, 3, (R, M)), -1e30)
+    busy = np.where(live, rng.uniform(-10, 3, (R, M)), -1e30)
+    pool = (torch.tensor(live, device=dev), f64(creation), f64(busy))
+    kw = dict(t_exp=f64(15.0 * rng.uniform(0.5, 1.5, R)), t_end=f64(t_end), skip=f64(skip),
+              prestamped=prestamped, max_concurrency=1000, hist_bins=0)
+    seq = dict(warms=f32(rng.exponential(2.0, (R, K))), colds=f32(rng.exponential(2.5, (R, K))))
+    if hazard in ("back_timestamps", "negative_gaps", "past_and_back", "batch_arrivals",
+                  "hist_windows", "crashes_windows", "all_past", "back_crashes_capacity"):
+        kw["hist_bins"] = 12
+    if hazard in ("pool_ties", "batch_arrivals"):
+        kw["routing"] = "oldest"
+    if hazard == "hist_windows":
+        # each row's bounds on its own event clocks
+        picks = np.sort(rng.choice(np.arange(1, K), 7, replace=False))
+        wb = np.concatenate([np.zeros((R, 1)), times[:, picks], np.full((R, 1), 2 * horizon)], 1)
+        kw["window_bounds"] = f64(np.ascontiguousarray(wb))
+    elif hazard in ("crashes_windows", "back_timestamps", "negative_gaps",
+                    "back_crashes_capacity"):
+        kw["window_bounds"] = f64(np.tile([0.0, 20.0, 21.0, 100.0, 150.0, 1e4], (R, 1)))
+    if hazard in ("grid_on_events", "back_grid"):
+        picks = rng.choice(K, 20, replace=False)
+        g = np.concatenate([times[:, picks], np.tile(np.linspace(0.0, horizon, 21), (R, 1))], 1)
+        kw["grid_times"] = f64(np.ascontiguousarray(np.sort(g, 1)))
+    if hazard == "retries":
+        kw.update(t_timeout=f64(rng.uniform(1.0, 6.0, R)), p_fail=f64(rng.uniform(0.1, 0.4, R)))
+        seq["fail_u"] = f32(rng.uniform(size=(R, K)))
+        first = rng.uniform(size=(R, K)) < 0.4
+        near = np.arange(K)[None, :] + rng.integers(1, 6, (R, K))  # inside the batch
+        far = np.arange(K)[None, :] + rng.integers(30, 100, (R, K))  # past it (or K)
+        child = np.where(rng.uniform(size=(R, K)) < 0.5, near, far)
+        child = np.where(rng.uniform(size=(R, K)) < 0.85, child, 1 << 30)
+        seq["is_first"] = torch.tensor(first, device=dev)
+        seq["child_pos"] = torch.tensor(child.astype(np.int32), device=dev)
+        kw["max_concurrency"] = 6
+    if hazard in ("capacity_ties", "crashes_windows", "back_crashes_capacity"):
+        kw.update(crash_rate=f64(np.where(np.arange(R) % 4 == 0, 0.0, 0.03)))
+        seq["crash_u"] = f32(rng.uniform(size=(R, K)))
+    if hazard in ("capacity_ties", "back_crashes_capacity"):
+        kw.update(cap_edges=f64(np.tile([30.0, 90.0, 200.0], (R, 1))),
+                  cap_values=f64(np.tile([40.0, 2.0, 7.0, 1.0], (R, 1))))
+    return pool, arr, seq, kw
+
+
+def _layout64(kw, par=False):
+    return ScanLayout(
+        W=kw["window_bounds"].shape[1] - 1 if "window_bounds" in kw else 0,
+        H=kw.get("hist_bins", 0), G=kw["grid_times"].shape[1] if "grid_times" in kw else 0,
+        rely="t_timeout" in kw, faults="crash_rate" in kw or "cap_values" in kw, par=par)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [8, 64, 300, 512])
+@pytest.mark.parametrize("hazard", SCAN64_HAZARDS)
+def test_scan64_redesign_hazards(cuda_device, hazard, M):
+    pool, arr, seq, kw = _hazard_inputs(cuda_device, hazard, M)
+    args = (*pool, arr, seq.pop("warms"), seq.pop("colds"))
+    kw.update(seq)
+    out_k = ses.scan_sweep(*args, **kw)
+    torch.cuda.synchronize()
+    out_p = scan_sweep_ref(*args, **kw)
+    lay = _layout64(kw)
+    _held64(out_k, out_p, lay)
+    acc = out_p.acc.cpu().numpy()
+    if hazard == "all_past":
+        assert acc[:, :3].sum() == 0
+    else:
+        assert acc[:, 0].sum() > 0 and acc[:, 1].sum() > 0
+    if hazard in ("capacity_ties", "back_crashes_capacity"):
+        assert acc[:, lay.fault_at + 1].sum() > 0  # evictions
+    if hazard in ("crashes_windows", "back_crashes_capacity"):
+        assert acc[:, lay.fault_at].sum() > 0  # crashes
+    if hazard == "retries":
+        assert out_p.act.any() and acc[:, lay.rely_at + 2].sum() > 0
+    if lay.H and hazard not in BACK_HAZARDS:
+        # a monotone clock: a histogram's mass is the measured time
+        t_end, skip = kw["t_end"].cpu().numpy(), kw["skip"].cpu().numpy()
+        mass = out_k.acc[:, lay.hist_at:lay.grid_at].sum(1).cpu().numpy()
+        np.testing.assert_allclose(mass, np.maximum(t_end - np.maximum(skip, 0.0), 0.0),
+                                   rtol=1e-10, atol=1e-9)
+
+
+PAR64_HAZARDS = ("back_timestamps", "negative_gaps", "all_past", "none_past",
+                 "past_and_back", "batch_arrivals", "retries")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 3, 4, 33, 80])
+@pytest.mark.parametrize("hazard", PAR64_HAZARDS)
+def test_par_scan64_redesign_hazards(cuda_device, hazard, c):
+    _, arr, seq, kw = _hazard_inputs(cuda_device, hazard, 8)
+    kw = {k: v for k, v in kw.items() if k not in ("routing", "window_bounds")}
+    args = (arr, seq.pop("warms"), seq.pop("colds"))
+    kw.update(seq, concurrency=c, slots=64)
+    out_k = pss.par_scan_sweep(*args, **kw)
+    torch.cuda.synchronize()
+    out_p = par_scan_sweep_ref(*args, **kw)
+    _held64(out_k, out_p, _layout64(kw, par=True))
+    if hazard != "all_past":
+        assert out_p.acc[:, 1].sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [8, 300, 512])
+@pytest.mark.parametrize("c", [1, 4, 80])
+def test_par_scan64_redesign_widths(cuda_device, M, c):
+    _, arr, seq, kw = _hazard_inputs(cuda_device, "back_timestamps", 8, seed=5)
+    kw = {k: v for k, v in kw.items() if k not in ("routing", "window_bounds")}
+    args = (arr, seq.pop("warms"), seq.pop("colds"))
+    kw.update(concurrency=c, slots=M, max_concurrency=M - 3)
+    out_k = pss.par_scan_sweep(*args, **kw)
+    torch.cuda.synchronize()
+    out_p = par_scan_sweep_ref(*args, **kw)
+    _held64(out_k, out_p, _layout64(kw, par=True))

@@ -156,3 +156,49 @@ def test_par_block_backends_refuse_histograms_and_reliability():
         rscn.run(rely, 0, replicas=1, engine="par", device="cpu")
     s = rscn.run(rely, 0, replicas=2, engine="par", device="cpu", backend="scan_ref").summary
     assert s.n_fail.sum() > 0
+
+
+@pytest.mark.parametrize("c,hist,rely,retries,prestamped,max_c", [
+    (1, 0, False, False, False, 1000),
+    (3, 6, False, False, True, 1000),
+    (3, 0, True, True, True, 2),  # rejections and retries
+    (40, 5, True, False, False, 1000),  # rows split over the lanes on the card
+])
+def test_par_scan_ref_chunks_continue_one_call(c, hist, rely, retries, prestamped, max_c):
+    rng = np.random.default_rng(9)
+    R, K, M = 4, 260, 10
+    f32 = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32)
+    f64 = lambda x: torch.tensor(np.asarray(x), dtype=torch.float64)
+    gaps = rng.exponential(0.5, (R, K)).astype(np.float32)
+    seq = {"arr": f64(np.cumsum(gaps.astype(np.float64), 1)) if prestamped else f32(gaps),
+           "warms": f32(rng.exponential(2.0, (R, K))), "colds": f32(rng.exponential(2.5, (R, K)))}
+    kw = dict(t_exp=f64(rng.uniform(3.0, 9.0, R)), t_end=f64(rng.uniform(60.0, 110.0, R)),
+              skip=f64(rng.uniform(0.0, 10.0, R)), max_concurrency=max_c, concurrency=c,
+              slots=M, prestamped=prestamped, hist_bins=hist)
+    if rely:
+        kw.update(t_timeout=f64(rng.uniform(1.0, 4.0, R)), p_fail=f64(rng.uniform(0, 0.3, R)))
+        seq["fail_u"] = f32(rng.uniform(size=(R, K)))
+    if retries:
+        seq["is_first"] = torch.tensor(rng.uniform(size=(R, K)) < 0.5)
+        child = np.where(rng.uniform(size=(R, K)) < 0.8,
+                         np.arange(K)[None, :] + 1 + rng.integers(0, 40, (R, K)), 1 << 30)
+        seq["child_pos"] = torch.tensor(child.astype(np.int32))
+    named = lambda d: {n: v for n, v in d.items() if n not in ("arr", "warms", "colds")}
+    whole = par_scan_sweep_ref(seq["arr"], seq["warms"], seq["colds"], **kw, **named(seq))
+    assert whole.acc[:, 1].sum() > 0
+    floats = [3, 4, 7, 10] + list(range(11 + (4 if rely else 0), whole.acc.shape[1]))
+    for cuts in ([37, 101, 101, 200], [1, 32, 64, K]):
+        state, lo = None, 0
+        for hi in cuts + [K]:
+            part = {n: v[:, lo:hi] for n, v in seq.items()}
+            state = par_scan_sweep_ref(part["arr"], part["warms"], part["colds"], **kw,
+                                       **named(part), state0=state, first_event=lo, events=K,
+                                       flush=hi == K)
+            lo = hi
+        for name, a, b in zip(whole._fields, whole, state):
+            if name == "acc":
+                exact = [j for j in range(a.shape[1]) if j not in floats]
+                torch.testing.assert_close(a[:, exact], b[:, exact], rtol=0, atol=0)
+                torch.testing.assert_close(a[:, floats], b[:, floats], rtol=1e-12, atol=1e-12)
+            elif a is not None:
+                torch.testing.assert_close(a, b, rtol=0, atol=0, msg=name)

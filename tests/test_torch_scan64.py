@@ -471,3 +471,101 @@ def test_staged_dtypes_keep_times_and_positions_exact():
     drawn = rsim.ServerlessSimulator(pscn, device="cpu").draw_samples(3, 2, steps=n)
     assert [x.dtype for x in drawn] == [x.dtype for x in s64]
     assert rsim.staged_dtypes(pscn, f64=False) == (torch.float32,) * 6
+
+
+# ---------------------------------------------------------------------------
+# a run split into chunks (state0 / first_event / flush=False) equals one
+# call: the plain versions replay CUDA-graph chunks on the card
+# ---------------------------------------------------------------------------
+
+CHUNK_CASES = {
+    "base": dict(M=12),
+    "prestamped_hist": dict(M=12, prestamped=True, hist=9),
+    "oldest_windows": dict(M=40, oldest=True, windows=(0.0, 30.0, 31.0, 120.0, 1e4)),
+    "rely_windows": dict(M=12, rely=True, windows=(0.0, 60.0, 200.0)),
+    "retries_hist": dict(M=12, rely=True, retries=True, max_c=4, hist=5),
+    "crashes_capacity": dict(M=40, crashes=True, capped=True, rely=True),
+    "crashes_retries": dict(M=12, crashes=True, rely=True, retries=True, oldest=True),
+    "grid_pool": dict(M=12, grid=11, pool=True, rely=True, retries=True, hist=6),
+}
+
+
+def chunk_inputs(case, R=5, K=240, seed=3):
+    """Scan inputs exercising ``case``'s layers (numpy-seeded, CPU)."""
+    c = CHUNK_CASES[case]
+    rng = np.random.default_rng(seed)
+    M = c["M"]
+    f64 = lambda x: torch.tensor(np.asarray(x), dtype=torch.float64)
+    f32 = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32)
+    gaps = rng.exponential(1.0, (R, K)).astype(np.float32)
+    prestamped = c.get("prestamped", False) or c.get("retries", False)
+    arr = f64(np.cumsum(gaps.astype(np.float64), 1)) if prestamped else f32(gaps)
+    if c.get("pool"):
+        live = rng.uniform(size=(R, M)) < 0.4
+        pool = (torch.tensor(live), f64(np.where(live, -rng.uniform(0, 60, (R, M)), -1e30)),
+                f64(np.where(live, rng.uniform(-10, 3, (R, M)), -1e30)))
+    else:
+        pool = (torch.zeros((R, M), dtype=torch.bool), f64(np.full((R, M), -1e30)),
+                f64(np.full((R, M), -1e30)))
+    kw = dict(t_exp=f64(8.0 * rng.uniform(0.5, 1.5, R)), t_end=f64(K * rng.uniform(0.5, 0.9, R)),
+              skip=f64(K * rng.uniform(0.0, 0.1, R)), prestamped=prestamped,
+              max_concurrency=c.get("max_c", 1000), hist_bins=c.get("hist", 0),
+              routing="oldest" if c.get("oldest") else "newest")
+    if "windows" in c:
+        kw["window_bounds"] = f64(np.tile(c["windows"], (R, 1)))
+    if "grid" in c:
+        kw["grid_times"] = f64(np.tile(np.linspace(0.0, K, c["grid"]), (R, 1)))
+    seq = {"arr": arr, "warms": f32(rng.exponential(2.0, (R, K))),
+           "colds": f32(rng.exponential(2.5, (R, K)))}
+    if c.get("rely"):
+        kw.update(t_timeout=f64(rng.uniform(1.0, 4.0, R)), p_fail=f64(rng.uniform(0, 0.3, R)))
+        seq["fail_u"] = f32(rng.uniform(size=(R, K)))
+    if c.get("retries"):
+        seq["is_first"] = torch.tensor(rng.uniform(size=(R, K)) < 0.5)
+        child = np.where(rng.uniform(size=(R, K)) < 0.8,
+                         np.arange(K)[None, :] + 1 + rng.integers(0, 40, (R, K)), 1 << 30)
+        seq["child_pos"] = torch.tensor(child.astype(np.int32))
+    if c.get("crashes"):
+        kw["crash_rate"] = f64(np.where(np.arange(R) % 3 == 0, 0.0, 0.03))
+        seq["crash_u"] = f32(rng.uniform(size=(R, K)))
+    if c.get("capped"):
+        kw.update(cap_edges=f64(np.tile([40.0, 120.0], (R, 1))),
+                  cap_values=f64(np.tile([6.0, 1.5, 4.0], (R, 1))))
+    return pool, seq, kw
+
+
+def assert_chunks_equal_one_call(whole, parts, float_cols):
+    """Counters, state and planes equal; sums over slots within 1e-12."""
+    for name, a, b in zip(whole._fields, whole, parts):
+        if name == "acc":
+            exact = [j for j in range(a.shape[1]) if j not in float_cols]
+            torch.testing.assert_close(a[:, exact], b[:, exact], rtol=0, atol=0)
+            torch.testing.assert_close(a[:, float_cols], b[:, float_cols], rtol=1e-12,
+                                       atol=1e-12)
+        elif a is None:
+            assert b is None, name
+        else:
+            torch.testing.assert_close(a, b, rtol=0, atol=0, msg=name)
+
+
+@pytest.mark.parametrize("case", list(CHUNK_CASES))
+def test_scan_ref_chunks_continue_one_call(case):
+    pool, seq, kw = chunk_inputs(case)
+    K = seq["arr"].shape[1]
+    whole = scan_sweep_ref(*pool, *(seq[n] for n in ("arr", "warms", "colds")), **kw,
+                           **{n: v for n, v in seq.items() if n not in ("arr", "warms", "colds")})
+    lay = ScanLayout(W=kw["window_bounds"].shape[1] - 1 if "window_bounds" in kw else 0,
+                     H=kw["hist_bins"], G=kw["grid_times"].shape[1] if "grid_times" in kw else 0,
+                     rely="t_timeout" in kw, faults="crash_rate" in kw or "cap_values" in kw)
+    assert whole.acc[:, 0].sum() > 0 and whole.acc[:, 1].sum() > 0
+    # cuts inside a 32-event batch, at batch edges, an empty chunk; every
+    # chunk defers the tail, which a last call with no events flushes
+    for cuts in ([37, 101, 101, 200], [1, 32, 64], []):
+        state, bounds = None, [0, *cuts, K, K]
+        for j, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:])):
+            part = {n: v[:, lo:hi] for n, v in seq.items()}
+            state = scan_sweep_ref(
+                *(pool if state is None else (state.alive, state.creation, state.busy)),
+                part.pop("arr"), part.pop("warms"), part.pop("colds"), **kw, **part,
+                state0=state, first_event=lo, events=K, flush=j == len(bounds) - 2)
+        assert_chunks_equal_one_call(whole, state, lay.float_cols)
