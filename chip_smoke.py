@@ -188,7 +188,30 @@ Phases (any failure ends the script with a non-zero exit):
     needs), with each kernel's events past their horizons and its inert
     tail's share of the time (the launch with every horizon before the
     first event, scaled by that share of events);
-14. the kernels line (JSON), the card line, then the device line (JSON) last.
+14. the f64 fleet scan (kernel 10, ``fleet_scan_sweep``, any number of
+    functions) and the f64 engine's fused draws (kernel 8's fused path,
+    ``scan_sweep_fused``), through the entry points with ``backend="scan"``,
+    the launch counts set to 0 before each: phase 6's catalog sweep (3,072
+    fleets x 401,579 events, one launch, the 60 s cell within
+    ``REF_FLEET_SIGMAS`` standard errors of ``REF_FLEET_SCAN``, the JAX f64
+    fleet scan's; peak within ``n_cluster``), timed in turns with the f32
+    ``fleet_sweep``; the queued fleet; a 16-function fleet (the catalog
+    twice, ``n_cluster`` 48), which the f32 kernel refuses; phase 12's
+    two-function NHPP fleet on f64 merged times; the catalog with faults
+    and ``examples/chaos.py``'s dip fleet (``REF_FLEET_FAULT``); the
+    Table-1 sweep with ``Execution(backend="scan", draws="fused")`` (Table
+    1 within 5%, each cell within 4 standard errors of phase 13's staged
+    f64 sweep, peak memory beside its), the same at 256 replicas (32,768
+    rows), a fused fail-only ``run()`` and windowed sweep, and the diurnal
+    what-if of one profile (``SinusoidalRate(0.9, 0.8, DAY)`` x 4
+    thresholds x 1,024 replicas, 24 hourly windows) thinned inline (each
+    hour within ``HOURLY_SIGMAS`` of the profile's integral, each threshold
+    within ``REF_NHPP_SIGMAS`` of ``REF_NHPP``; its wall beside phase 12's
+    staged sweep and its staging).  Each launch is held to its plain f64
+    version on its first 4096 events (the plain fleet scan and the plain
+    fused scan replaying CUDA-graph chunks) and timed by CUDA events beside
+    its bound (f64 work, the draws' int32 work);
+15. the kernels line (JSON), the card line, then the device line (JSON) last.
 
 ``--seed`` (default 0) seeds phase 12's draws and recording.
 """
@@ -380,16 +403,35 @@ KERNELS = {
         source="src/repro_torch/kernels/csrc/par_scan_event_step.cu",
         replaces="src/repro/core/par_simulator.py:68",
     ),
+    # kernel 8's fused draws (the reference's thin= scan, simulator.py:1039)
+    "scan_sweep_fused": dict(
+        name="scan_sweep_fused", route="cuda",
+        source="src/repro_torch/kernels/csrc/scan_event_step.cu",
+        replaces="src/repro/core/simulator.py:1039",
+    ),
+    # kernel 10, the f64 fleet scan (fleet.py:358 _make_fleet_step, :619
+    # _fleet_flush), and its fault instances
+    "fleet_scan_sweep": dict(
+        name="fleet_scan_sweep", route="cuda",
+        source="src/repro_torch/kernels/csrc/fleet_scan_event_step.cu",
+        replaces="src/repro/core/fleet.py:358",
+    ),
+    "fleet_scan_sweep_fault": dict(
+        name="fleet_scan_sweep_fault", route="cuda",
+        source="src/repro_torch/kernels/csrc/fleet_scan_event_step.cu",
+        replaces="src/repro/core/fleet.py:358",
+    ),
 }
 SOURCES = ("faas_event_step", "par_event_step", "fleet_event_step",
            "flash_attention", "decode_attention", "ssd_scan", "rglru_scan",
-           "scan_event_step", "par_scan_event_step")
+           "scan_event_step", "par_scan_event_step", "fleet_scan_event_step")
 # ptxas' name for each source's kernel template
 KERNEL_NAMES = {"faas_event_step": "faas_sweep_kernel",
                 "par_event_step": "par_sweep_kernel",
                 "fleet_event_step": "fleet_sweep_kernel",
                 "scan_event_step": "scan_sweep_kernel",
-                "par_scan_event_step": "par_scan_kernel"}
+                "par_scan_event_step": "par_scan_kernel",
+                "fleet_scan_event_step": "fleet_scan_kernel"}
 
 
 # the serving phase: llama3.2-1b at full width (src/repro/configs/llama3_2_1b.py)
@@ -518,6 +560,21 @@ REF_FLEET = dict(
     avg_cluster_occupancy_se=0.007633272826279069,
 )
 REF_FLEET_SIGMAS = 4.0
+# the same cell on the JAX f64 fleet scan (tools/fleet_reference.py
+# --replicas 32 --backend scan, on the CPU, seed 0), which phase 14's f64
+# fleet scan is held to: the f32 block engine's clocks (a step of ~8 ms at
+# 1e5 s) move dynamic-html's 80 ms warm services, so its cold starts sit 3%
+# (4 standard errors) below the f64 scan's in REF_FLEET
+REF_FLEET_SCAN = dict(
+    cold_start_prob=[0.0076604890695188945, 0.0032182859799589165, 0.03925099163848414,
+                     0.012911388705040328, 0.27973171928676593, 0.13212638974829838,
+                     0.018854962883734096, 0.061628019669727245],
+    cold_start_prob_se=[4.028368678660978e-05, 1.8858421673705876e-05, 0.00017572701095463705,
+                        6.194587967809452e-05, 0.001124667583050419, 0.0004471876548453889,
+                        8.96428045650718e-05, 0.00025718496802789356],
+    avg_cluster_occupancy=21.678376885262495,
+    avg_cluster_occupancy_se=0.007634308891222423,
+)
 
 # the reliability and metric-window phase: the retry what-if of
 # benchmarks/run.py:746-770 (bench_retry_sweep) at paper_cfg's horizon
@@ -889,7 +946,7 @@ def print_ptxas(log, kernel):
     inst = None  # the template instance the next ptxas lines are about
     for line in log.splitlines():
         m = re.search(kernel + r"ILi(\d+)E((?:Lb[01]E)*)", line)
-        if m and kernel == "fleet_sweep_kernel":
+        if m and kernel in ("fleet_sweep_kernel", "fleet_scan_kernel"):
             per_lane = int(m.group(1))
             flags = re.findall(r"Lb([01])E", m.group(2))
             paths = [n for n, f in zip(("faults", "queues"), flags) if f == "1"]
@@ -898,7 +955,7 @@ def print_ptxas(log, kernel):
         elif m:
             per_lane = int(m.group(1))
             flags = re.findall(r"Lb([01])E", m.group(2))
-            names = (("faults", "layers (windows, histogram, grid)")
+            names = (("faults", "layers (windows, histogram, grid)", "fused")
                      if kernel == "scan_sweep_kernel" else
                      ("grid", "windows", "reliability", "retries", "fused", "faults"))
             paths = [n for n, f in zip(names, flags) if f == "1"]
@@ -993,7 +1050,7 @@ def fleet_phase(torch, rt, dev, card):
     LAUNCH_COUNTS.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    grid = rt.fleet_sweep(fleet, over, 5, replicas=FLEET_REPLICAS)
+    grid = rt.fleet_sweep(fleet, over, 5, replicas=FLEET_REPLICAS, backend="cuda")
     sweep_s = time.perf_counter() - t0
     launches = {"sweep": LAUNCH_COUNTS["fleet_sweep"]}
     if launches["sweep"] != 1 or LAUNCH_COUNTS["faas_sweep"]:
@@ -1039,7 +1096,7 @@ def fleet_phase(torch, rt, dev, card):
     fleet_q = fleet_of(names, skip_time=20.0, slots=64, **FLEET_QUEUED)
     LAUNCH_COUNTS.clear()
     t0 = time.perf_counter()
-    res_q = rt.fleet_run(fleet_q, 6, replicas=FLEET_REPLICAS)
+    res_q = rt.fleet_run(fleet_q, 6, replicas=FLEET_REPLICAS, backend="cuda")
     queued_s = time.perf_counter() - t0
     launches["queued"] = LAUNCH_COUNTS["fleet_sweep"]
     if launches["queued"] != 1:
@@ -1078,9 +1135,9 @@ def fleet_phase(torch, rt, dev, card):
     fleet1 = rt.FleetScenario(functions=(solo,), sim_time=scn1.sim_time,
                               skip_time=scn1.skip_time, slots=scn1.slots)
     LAUNCH_COUNTS.clear()
-    one = rt.fleet_run(fleet1, 7, replicas=FULL_REPLICAS).summary
+    one = rt.fleet_run(fleet1, 7, replicas=FULL_REPLICAS, backend="cuda").summary
     launches["one"] = LAUNCH_COUNTS["fleet_sweep"]
-    base = rt.run(scn1, 7, replicas=FULL_REPLICAS).summary
+    base = rt.run(scn1, 7, replicas=FULL_REPLICAS, backend="cuda").summary
     if launches["one"] != 1 or LAUNCH_COUNTS["faas_sweep"] != 1:
         raise AssertionError(f"one-function fleet launches: {dict(LAUNCH_COUNTS)}")
     for f in ("n_cold", "n_warm", "n_reject"):
@@ -2104,7 +2161,7 @@ def reliability_phase(torch, rt, dev, card, table1_grid):
     torch.cuda.reset_peak_memory_stats()
     LAUNCH_COUNTS.clear()
     t0 = time.perf_counter()
-    grid_r = rt.sweep(scn_r, RETRY_OVER, seed=4, replicas=RETRY_REPLICAS)
+    grid_r = rt.sweep(scn_r, RETRY_OVER, seed=4, replicas=RETRY_REPLICAS, backend="cuda")
     retry_wall = time.perf_counter() - t0
     retry_launches = LAUNCH_COUNTS["faas_sweep_retry"]
     if dict(LAUNCH_COUNTS) != {"faas_sweep_retry": 1}:
@@ -2194,7 +2251,7 @@ def reliability_phase(torch, rt, dev, card, table1_grid):
     W = len(TABLE1_WINDOWS) - 1
     LAUNCH_COUNTS.clear()
     t0 = time.perf_counter()
-    grid_w = rt.sweep(scn_w, SWEEP_OVER, seed=0, replicas=SWEEP_REPLICAS)
+    grid_w = rt.sweep(scn_w, SWEEP_OVER, seed=0, replicas=SWEEP_REPLICAS, backend="cuda")
     win_wall = time.perf_counter() - t0
     win_launches = LAUNCH_COUNTS["faas_sweep_win"]
     if dict(LAUNCH_COUNTS) != {"faas_sweep_win": 1}:
@@ -2261,7 +2318,7 @@ def reliability_phase(torch, rt, dev, card, table1_grid):
     scn_f = table1(rt, reliability=fail)
     LAUNCH_COUNTS.clear()
     t0 = time.perf_counter()
-    res_f = rt.run(scn_f, seed=5, replicas=FAIL_REPLICAS)
+    res_f = rt.run(scn_f, seed=5, replicas=FAIL_REPLICAS, backend="cuda")
     fail_wall = time.perf_counter() - t0
     rely_launches = LAUNCH_COUNTS["faas_sweep_rely"]
     if dict(LAUNCH_COUNTS) != {"faas_sweep_rely": 1}:
@@ -2318,7 +2375,7 @@ def reliability_phase(torch, rt, dev, card, table1_grid):
     # ---- 4. the planner under the retry policy
     LAUNCH_COUNTS.clear()
     plan = plan_expiration_threshold(0.9, 1.991, 2.244, 0.01, reliability=retry_policy(rt),
-                                     replicas=32)
+                                     replicas=32, execution=rt.Execution(backend="cuda"))
     plan_launches = LAUNCH_COUNTS["faas_sweep_retry"]
     if dict(LAUNCH_COUNTS) != {"faas_sweep_retry": 1} or not np.isfinite(plan.predicted_goodput):
         raise AssertionError(f"the planner: {dict(LAUNCH_COUNTS)}, goodput "
@@ -2719,7 +2776,7 @@ def fused_phase(torch, rt, dev, card, staged_grid, staged_peak):
     results = {}
     errs = fused_small_cases(torch, dev)
     sampler_check(torch, dev)
-    fused = rt.Execution(draws="fused")
+    fused = rt.Execution(backend="cuda", draws="fused")
 
     # ---- 1. the Table-1 sweep with fused draws
     scn = table1(rt)
@@ -3204,7 +3261,8 @@ def faults_phase(torch, rt, dev, card):
     torch.cuda.reset_peak_memory_stats()
     LAUNCH_COUNTS.clear()
     t0 = time.perf_counter()
-    grid_f = rt.sweep(scn_f, FAULT_OVER, seed=11, replicas=FAULT_REPLICAS, steps=FAULT_STEPS)
+    grid_f = rt.sweep(scn_f, FAULT_OVER, seed=11, replicas=FAULT_REPLICAS, steps=FAULT_STEPS,
+                      backend="cuda")
     wall = time.perf_counter() - t0
     if dict(LAUNCH_COUNTS) != {"faas_sweep_fault": 1}:
         raise AssertionError(f"the fault sweep's launches: {dict(LAUNCH_COUNTS)}")
@@ -3255,7 +3313,7 @@ def faults_phase(torch, rt, dev, card):
         scn_r = rt.Scenario.of(scn_f, reliability=rel, faults=flt_r)
         LAUNCH_COUNTS.clear()
         t0 = time.perf_counter()
-        res = rt.run(scn_r, 13, replicas=FAULT_RUN_REPLICAS, steps=FAULT_STEPS)
+        res = rt.run(scn_r, 13, replicas=FAULT_RUN_REPLICAS, steps=FAULT_STEPS, backend="cuda")
         wall = time.perf_counter() - t0
         if dict(LAUNCH_COUNTS) != {key: 1}:
             raise AssertionError(f"the fault run's launches: {dict(LAUNCH_COUNTS)}")
@@ -3285,7 +3343,7 @@ def faults_phase(torch, rt, dev, card):
     torch.cuda.reset_peak_memory_stats()
     LAUNCH_COUNTS.clear()
     t0 = time.perf_counter()
-    grid_c = rt.sweep(scn_c, SWEEP_OVER, seed=0, replicas=SWEEP_REPLICAS)
+    grid_c = rt.sweep(scn_c, SWEEP_OVER, seed=0, replicas=SWEEP_REPLICAS, backend="cuda")
     wall = time.perf_counter() - t0
     if dict(LAUNCH_COUNTS) != {"faas_sweep_fault": 1}:
         raise AssertionError(f"the Table-1 crash sweep's launches: {dict(LAUNCH_COUNTS)}")
@@ -3349,7 +3407,7 @@ def faults_phase(torch, rt, dev, card):
             (0.4 * DIP_T, 0.7 * DIP_T), (40.0, 10.0, 40.0))))
     LAUNCH_COUNTS.clear()
     t0 = time.perf_counter()
-    res_d = rt.fleet_run(fleet_d, 12, replicas=DIP_FLEETS)
+    res_d = rt.fleet_run(fleet_d, 12, replicas=DIP_FLEETS, backend="cuda")
     wall_d = time.perf_counter() - t0
     if dict(LAUNCH_COUNTS) != {"fleet_sweep_fault": 1}:
         raise AssertionError(f"the dip fleet's launches: {dict(LAUNCH_COUNTS)}")
@@ -3396,7 +3454,7 @@ def faults_phase(torch, rt, dev, card):
     over = {"expiration_threshold": FLEET_THRESHOLDS}
     LAUNCH_COUNTS.clear()
     t0 = time.perf_counter()
-    grid = rt.fleet_sweep(fleet_c, over, 5, replicas=FLEET_REPLICAS)
+    grid = rt.fleet_sweep(fleet_c, over, 5, replicas=FLEET_REPLICAS, backend="cuda")
     wall = time.perf_counter() - t0
     if dict(LAUNCH_COUNTS) != {"fleet_sweep_fault": 1}:
         raise AssertionError(f"the faulty catalog sweep's launches: {dict(LAUNCH_COUNTS)}")
@@ -3602,6 +3660,11 @@ FLEET_NHPP_REPLICAS = 512
 FLEET_NHPP_THRESHOLDS = [60.0, 600.0]
 
 
+# phase 12's diurnal sweep() wall and its staging, which phase 14's fused
+# diurnal what-if is read beside
+DIURNAL_STAGED = {}
+
+
 def nhpp_profiles(rt):
     return [rt.SinusoidalRate(base=0.9, amplitude=a, period=p)
             for a in NHPP_AMPLITUDES for p in NHPP_PERIODS]
@@ -3711,7 +3774,7 @@ def nonstationary_phase(torch, rt, dev, card, seed):
     scenario_mod.sweep_inputs = timed_staging
     try:
         t0 = time.perf_counter()
-        grid = rt.sweep(scn, over, seed=seed, replicas=NHPP_REPLICAS)
+        grid = rt.sweep(scn, over, seed=seed, replicas=NHPP_REPLICAS, backend="cuda")
         sweep_s = time.perf_counter() - t0
     finally:
         scenario_mod.sweep_inputs = stage_fn
@@ -3754,6 +3817,7 @@ def nonstationary_phase(torch, rt, dev, card, seed):
     errs["faas_sweep_win_prestamped"] = held_against_plain(
         torch, out_k, out_p, f"diurnal sweep, first {NHPP_PLAIN_EVENTS} events",
         integral_cols=window_integral_cols(W))
+    DIURNAL_STAGED.update(sweep_s=sweep_s, staging_s=staging_s)
     print(f"diurnal sweep [{card}]: {len(profiles)} profiles x {len(NHPP_THRESHOLDS)} "
           f"thresholds x {NHPP_REPLICAS} replicas = {C} rows x K={K} candidates, {W} hourly "
           f"windows, 1 launch: sweep() {sweep_s:.3f} s wall, its staging {staging_s:.3f} s "
@@ -3814,7 +3878,7 @@ def nonstationary_phase(torch, rt, dev, card, seed):
                            expiration_threshold=600.0)
     LAUNCH_COUNTS.clear()
     t0 = time.perf_counter()
-    res = rt.run(scn_m, seed + 1, replicas=MMPP_REPLICAS)
+    res = rt.run(scn_m, seed + 1, replicas=MMPP_REPLICAS, backend="cuda")
     wall = time.perf_counter() - t0
     if dict(LAUNCH_COUNTS) != {"faas_sweep": 1}:
         raise AssertionError(f"the MMPP run()'s launches: {dict(LAUNCH_COUNTS)}")
@@ -3843,7 +3907,7 @@ def nonstationary_phase(torch, rt, dev, card, seed):
                            concurrency_value=TRACE_C)
     LAUNCH_COUNTS.clear()
     t0 = time.perf_counter()
-    res = rt.run(scn_p, seed + 2, replicas=FULL_REPLICAS, engine="par")
+    res = rt.run(scn_p, seed + 2, replicas=FULL_REPLICAS, engine="par", backend="cuda")
     wall = time.perf_counter() - t0
     if dict(LAUNCH_COUNTS) != {"par_sweep": 1}:
         raise AssertionError(f"the trace par run()'s launches: {dict(LAUNCH_COUNTS)}")
@@ -3868,7 +3932,8 @@ def nonstationary_phase(torch, rt, dev, card, seed):
     tgrid = np.linspace(0.0, scn_t.sim_time, 61)
     LAUNCH_COUNTS.clear()
     t0 = time.perf_counter()
-    res = rt.run(scn_t, seed + 3, replicas=FULL_REPLICAS, engine="temporal", grid=tgrid)
+    res = rt.run(scn_t, seed + 3, replicas=FULL_REPLICAS, engine="temporal", grid=tgrid,
+                 backend="cuda")
     wall = time.perf_counter() - t0
     if dict(LAUNCH_COUNTS) != {"faas_sweep_grid": 1}:
         raise AssertionError(f"the NHPP temporal run()'s launches: {dict(LAUNCH_COUNTS)}")
@@ -3898,7 +3963,7 @@ def nonstationary_phase(torch, rt, dev, card, seed):
     fover = {"expiration_threshold": FLEET_NHPP_THRESHOLDS}
     LAUNCH_COUNTS.clear()
     t0 = time.perf_counter()
-    fgrid = rt.fleet_sweep(fleet, fover, seed + 4, replicas=FLEET_NHPP_REPLICAS)
+    fgrid = rt.fleet_sweep(fleet, fover, seed + 4, replicas=FLEET_NHPP_REPLICAS, backend="cuda")
     wall = time.perf_counter() - t0
     if dict(LAUNCH_COUNTS) != {"fleet_sweep": 1}:
         raise AssertionError(f"the NHPP fleet_sweep()'s launches: {dict(LAUNCH_COUNTS)}")
@@ -4035,9 +4100,16 @@ def plain64_launch(torch, engine, *args, **kw):
     fn, Out = (par_scan_sweep_ref, ParScanOut) if par else (scan_sweep_ref, ScanOut)
     pool = () if par else args[:3]
     arr, warms, colds = args[-3:]
-    names = [n for n in SCAN64_SEQ if kw.get(n) is not None]
-    seq = [arr, warms, colds] + [kw.pop(n) for n in names]
-    K = arr.shape[1]
+    fused = kw.get("fused_keys") is not None
+    if fused:
+        # fused draws: the chunks read no samples, only their event count
+        # (the counter continues from first_event)
+        K = kw.pop("fused_k")
+        names, seq = [], [torch.empty((1, K), dtype=torch.uint8, device=pool[0].device)]
+    else:
+        names = [n for n in SCAN64_SEQ if kw.get(n) is not None]
+        seq = [arr, warms, colds] + [kw.pop(n) for n in names]
+        K = arr.shape[1]
     present = []  # the fields of Out a chunk's state carries (no None)
 
     def call(state, part, flush):
@@ -4047,9 +4119,13 @@ def plain64_launch(torch, engine, *args, **kw):
             st = Out(**{f: (next(it) if f in present else None) for f in Out._fields})
             k0 = state[-1]
         head = pool if st is None or par else (st.alive, st.creation, st.busy)
+        first = 0 if k0 is None else k0
+        if fused:
+            return fn(*head, None, None, None, **kw, fused_k=part[0].shape[1], state0=st,
+                      first_event=first, events=K, flush=flush), k0
         a, w, c, *rest = part
         return fn(*head, a, w, c, **kw, **dict(zip(names, rest)), state0=st,
-                  first_event=0 if k0 is None else k0, events=K, flush=flush), k0
+                  first_event=first, events=K, flush=flush), k0
 
     def run(state, part):
         out, k0 = call(state, part, False)
@@ -4272,10 +4348,13 @@ def scan64_phase(torch, rt, dev, card):
     for hist in (False, True):
         scn_s = rt.Scenario.of(scn, track_histogram=hist)
         torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
         LAUNCH_COUNTS.clear()
         t0 = time.perf_counter()
         g = rt.sweep(scn_s, SWEEP_OVER, seed=0, replicas=SWEEP_REPLICAS, **S64)
         wall = time.perf_counter() - t0
+        if not hist:
+            staged64 = dict(grid=g, peak=torch.cuda.max_memory_allocated(), wall=wall)
         expect_launches(LAUNCH_COUNTS, {"scan_sweep": 1}, "the f64 Table-1 sweep")
         if not hist:
             sweep_launches = LAUNCH_COUNTS["scan_sweep"]
@@ -4628,6 +4707,644 @@ def scan64_phase(torch, rt, dev, card):
     torch.cuda.empty_cache()
     results = {"scan_sweep": result8,
                "par_scan_sweep": dict(launches=par_launches[3], **par_times[3])}
+    return results, errs, staged64
+
+
+# ---- the f64 fleet scan and the f64 engine's fused draws (module docstring, item 14)
+FLEET64_PLAIN_EVENTS = 4096  # every launch of the phase is held to plain on these
+FLEET16_CLUSTER = 48  # the catalog twice, renamed: 16 functions under one cluster
+NHPP_FUSED_PROFILE = 14  # nhpp_profiles(rt)[14]: SinusoidalRate(0.9, 0.8, DAY)
+NHPP_FUSED_REPLICAS = 1024
+# f64 operations of each fused transform (drawplan.sample_dist in f64): the
+# arithmetic of FUSED_F32_OPS and each libm call (log, sqrt, cos, exp, pow)
+# counted as one operation, a floor: each is a polynomial of tens
+FUSED64_OPS = {d: FUSED_F32_OPS[d] + FUSED_SFU_CALLS[d] for d in FUSED_F32_OPS}
+
+
+def plain_fleet64(torch, args, kw):
+    """The plain f64 fleet scan on ``args`` (the launch's ten inputs) with
+    its event loop in CUDA-graph chunks (plain_in_graph): each chunk
+    continues the last one's state (``state0``, no flush), a last call with
+    no events flushes the tail, so the result is one eager call's."""
+    from repro_torch.kernels.ref64 import FleetScanOut, fleet_scan_sweep_ref
+
+    kw = dict(kw)
+    kw.pop("live_bound", None)
+    head, seq = args[:6], list(args[6:])
+    names = [n for n in ("crash_u",) if kw.get(n) is not None]
+    seq += [kw.pop(n) for n in names]
+    K = seq[0].shape[1]
+    present = []
+
+    def call(state, part, flush):
+        st = None
+        if state is not None:
+            it = iter(state)
+            st = FleetScanOut(**{f: (next(it) if f in present else None)
+                                 for f in FleetScanOut._fields})
+        t, fids, w, c, *rest = part
+        return fleet_scan_sweep_ref(*head, t, fids, w, c, **kw, **dict(zip(names, rest)),
+                                    state0=st, flush=flush)
+
+    def run(state, part):
+        out = call(state, part, False)
+        if not present:
+            present.extend(f for f, x in zip(FleetScanOut._fields, out) if x is not None)
+        return tuple(x for x in out if x is not None)
+
+    state = plain_in_graph(torch, run, seq)
+    return call(state, [x[:, K:] for x in seq], True)
+
+
+def held_fleet64(torch, out_k, out_p, what):
+    """Kernel 10 against its plain version: pools, clocks, crash clocks and
+    queues equal, every accumulator column but the sums over slots equal,
+    those within SCAN64_RTOL; returns the largest |acc difference|."""
+    from repro_torch.kernels.ref64 import FLEET64_FLOAT_COLS
+
+    for name, a, b in zip(out_k._fields, out_k, out_p):
+        if name != "acc" and ((a is None) != (b is None) or (a is not None and not torch.equal(a, b))):
+            raise AssertionError(f"{what}: {name} differs from the plain version")
+    acc_k, acc_p = out_k.acc, out_p.acc
+    fl = list(FLEET64_FLOAT_COLS)
+    for c in range(acc_k.shape[-1]):
+        if c not in fl and not torch.equal(acc_k[..., c], acc_p[..., c]):
+            n = int((acc_k[..., c] != acc_p[..., c]).sum())
+            raise AssertionError(f"{what}: acc column {c} differs in {n} (fleet, function) rows")
+    err = (acc_k[..., fl] - acc_p[..., fl]).abs()
+    if bool((err > SCAN64_RTOL * acc_p[..., fl].abs().clamp_min(1.0)).any()):
+        raise AssertionError(f"{what}: a sum over slots is off by {err.max().item():.3e}")
+    return float((acc_k - acc_p).abs().max())
+
+
+def hold_fleet64(torch, inp, kw, what):
+    """The f64 fleet launch on the first FLEET64_PLAIN_EVENTS events of
+    ``inp``'s stream against its plain version in CUDA-graph chunks;
+    returns (max |acc diff|, the plain version's ms)."""
+    from repro_torch.kernels.fleet_scan_event_step import fleet_scan_sweep
+
+    n = FLEET64_PLAIN_EVENTS
+    part = fleet_prefix(inp, n)
+    pkw = dict(kw)
+    if pkw.get("crash_u") is not None:
+        pkw["crash_u"] = prefix(pkw["crash_u"], n)
+    out_k = fleet_scan_sweep(*part, **pkw, live_bound=inp.live_bound)
+    plain_ms, out_p = plain_timed(torch, lambda: plain_fleet64(torch, part, pkw))
+    err = held_fleet64(torch, out_k, out_p, f"{what}, first {n} events")
+    print(f"kernel==plain f64 fleet {what}: first {n} events of "
+          f"{inp.staged['times'].shape[1]}, {inp.t_exp.shape[0]} fleets: pools, clocks, "
+          f"queues and counters equal, max|acc diff| {err:.3e} (plain {plain_ms:.0f} ms in "
+          f"{PLAIN_GRAPH_EVENTS}-event CUDA-graph chunks)", flush=True)
+    return err, plain_ms
+
+
+def fleet64_launch(inp, fleet):
+    """The launch fleet_sweep()/fleet_run() makes on the f64 fleet scan."""
+    from repro_torch.kernels.fleet_scan_event_step import fleet_scan_sweep
+
+    kw = dict(slots=fleet.slots, queue_depth=fleet.queue_depth,
+              prestamped=inp.staged["prestamped"], **inp.faults)
+    args = fleet_prefix(inp, inp.staged["times"].shape[1])
+    return (lambda: fleet_scan_sweep(*args, **kw, live_bound=inp.live_bound)), kw
+
+
+def fleet_pasta(inp, grid, cells):
+    """Fleet-events in the horizons, and the live and acting-function live
+    instances those events find, by PASTA from the grid's occupancies (as
+    phase 6 counts them)."""
+    F = grid.summaries.shape[-1]
+    in_h = inp.staged["times"] <= inp.t_end[:1].item()
+    per_row = in_h.sum(1).double().cpu().numpy()
+    per_fn = np.stack([(in_h & (inp.staged["fids"] == f)).sum(1).double().cpu().numpy()
+                       for f in range(F)])
+    del in_h
+    occ = np.array([[(s.time_running + s.time_idle) / s.measured_time for s in row]
+                    for row in grid.summaries.reshape(cells, F)])
+    return (int(per_row.sum()) * cells, float((occ * per_row).sum()),
+            float((occ * per_fn).sum()))
+
+
+# the f64 fleet scan (kernel 10) counted as scan64_bound_ms counts kernel
+# 8: no event integrates or tests the fleet's live instances (integrals are
+# accrued per state span, exits wait for the fleet's exit bound).  Per
+# event inside the horizon, 2 on each live instance of the acting function
+# (its idle test and the routing key's compare) and 16 on the fleet's
+# scalars (kernel 8's 20 without reliability's 5 and the window lookup's 2,
+# plus the function's limit, the cluster's capacity and the peak); 14 per
+# assignment and 10 per exit (crashes and evictions included) as in kernel
+# 8; 1 per request queued and 2 per request a drain serves (its wait and the
+# wait's sum).  Faults add 4 on the fleet per event with a capacity profile
+# (the segment test 2, the live count against the ceiling, the admission
+# gate), 6 per cold start with crashes (the lifetime's 1 - u, log, division
+# and clock, the exit bound's min, the interruption test) and, per
+# eviction, the fleet's newest idle instance: 2 on each live instance
+FLEET64_OPS_PER_FLEET_EVENT = 16
+FLEET64_OPS_PER_ENQUEUE = 1
+FLEET64_OPS_PER_QUEUE_SERVE = 2
+FLEET64_CAP_OPS_PER_EVENT = 4
+FLEET64_CRASH_OPS_PER_COLD = 6
+
+
+def fleet64_bound_ms(N, F, S, K, n_active, live_events, acting_live_events, assigns, exits,
+                     queued=0, served=0, fault=None, M=64):
+    """Least time for one f64 fleet-scan call: N fleets of F functions
+    reading a [S, K] stream (f64 times, warm, cold, fid; held once), the
+    pools [N, F, M] and clocks written back, 18 f64 columns a function; the
+    f64 operations this data needs at the f64 peak: ``n_active``
+    fleet-events inside their horizons (the rest only move the clock), the
+    ``acting_live_events`` live instances of the acting function those
+    events find, ``assigns`` assignments, ``exits`` exits and the queue's
+    ``queued`` and ``served`` requests.  ``fault`` (the profile's edge count
+    E, -1 without capacity, whether crashes run, the cold starts, the
+    evictions) adds the fault path's bytes and work; an eviction searches
+    the fleet's live instances (``live_events / n_active`` an event)."""
+    nbytes = (FLEET_STREAM_BYTES * S * K + 4 * S * K + 8 * N * (2 * F + 3) + 8 * N
+              + 8 * N * F * 18 + 17 * N * F * M + 8 * N)
+    ops = (acting_live_events * SCAN64_OPS_PER_SLOT_EVENT
+           + n_active * FLEET64_OPS_PER_FLEET_EVENT + (N * K - n_active)
+           + assigns * SCAN64_OPS_PER_ASSIGN + exits * SCAN64_OPS_PER_EXIT
+           + queued * FLEET64_OPS_PER_ENQUEUE + served * FLEET64_OPS_PER_QUEUE_SERVE)
+    if fault is not None:
+        E, crashes, cold_starts, evictions = fault
+        nbytes += 8 * N * F * 3 + (8 * N * (2 * E + 1) if E >= 0 else 0)
+        if crashes:
+            nbytes += 8 * N + 4 * S * K + 8 * N * F * M
+            ops += cold_starts * FLEET64_CRASH_OPS_PER_COLD
+        if E >= 0:
+            ops += n_active * FLEET64_CAP_OPS_PER_EVENT
+        ops += evictions * SCAN64_OPS_PER_SLOT_EVENT * live_events / max(n_active, 1)
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F64_OPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+
+
+def fused64_bound_ms(C, M, K, n_active, live, assigns, exits, dists, rely=False,
+                     window_passes=0, cols=10):
+    """Least time for one fused kernel-8 launch: scan64_bound_ms's f64 work
+    on what the data needs, without the sample bytes, plus the keys and f64
+    parameters (8 and 16 bytes a row and stream) and the draws of every
+    event in a horizon and one more a row: each stream's int32 threefry at
+    the int32 peak, the transforms' f64 operations at the f64 peak."""
+    streams = 3 + int(rely)
+    nbytes = (8 * 3 * C + C * (8 * streams + 16 * 3) + C * M * (1 + 8 + 8) * 2 + 8 * C
+              + 8 * C * cols)
+    per_event = live / max(n_active, 1)
+    drawn = n_active + C
+    f64 = (live * SCAN64_OPS_PER_SLOT_EVENT + n_active * SCAN64_OPS_PER_ROW_EVENT
+           + (C * K - n_active) + assigns * SCAN64_OPS_PER_ASSIGN + exits * SCAN64_OPS_PER_EXIT
+           + window_passes * (per_event * SCAN64_OPS_PER_WINDOW_SLOT
+                              + SCAN64_OPS_PER_WINDOW_ROW)
+           + drawn * (sum(FUSED64_OPS["exp" if d == "nhpp" else d] for d in dists) + int(rely)))
+    ints = drawn * streams * INT_OPS_PER_DRAW
+    times = {"bytes": nbytes / PEAK_BYTES,
+             "operations": max(f64 / PEAK_F64_OPS, ints / PEAK_INT32_OPS)}
+    by = max(times, key=times.get)
+    return 1e3 * times[by], by
+
+
+def fused64_inputs(torch, rt, dev, scn, over, seed, replicas):
+    """The fused launch sweep() (``over``) or run() (``over`` None) makes on
+    the f64 engine: its keys and f64 parameters, and per-row values."""
+    from repro_torch.core.scenario import fused_state, sweep_inputs
+
+    if over is None:
+        st = fused_state([scn], seed, replicas, scn.steps_needed(), dev, f64=True)
+        vals = [np.full(replicas, v) for v in (scn.expiration_threshold, scn.sim_time,
+                                               scn.skip_time)]
+        rel = scn.reliability
+        rows = (None, None) if rel is None else (np.full(replicas, rel.failure.timeout_or_inf),
+                                                 np.full(replicas, rel.failure.p_fail))
+        return st, (*vals, *rows)
+    inp = sweep_inputs(scn, over, seed, replicas=replicas, device=dev, draws="fused", f64=True)
+    return inp.fused, (inp.thr_rows, inp.sim_rows, inp.skip_rows, inp.t_timeout_rows,
+                       inp.p_fail_rows)
+
+
+def fused64_timed(torch, rt, dev, card, scn, over, seed, replicas, what, cells_of=None):
+    """One fused kernel-8 launch at an entry point's width, timed by CUDA
+    events (mean of 3), reproducing the entry point's cold starts
+    (``cells_of``: its per-row n_cold), and held to the plain version on
+    its first FLEET64_PLAIN_EVENTS events in CUDA-graph chunks; returns
+    (ms, plain_ms, bound_ms, bound_by, err, acc)."""
+    from repro_torch.core.execution import resolve_backend
+    from repro_torch.core.simulator import scan_launch
+    from repro_torch.core.drawplan import materialize_stream
+
+    st, (thr, sim, skip, t_to, p_f) = fused64_inputs(torch, rt, dev, scn, over, seed, replicas)
+    C, K = len(thr), st["n_steps"]
+    W = 0 if scn.window_bounds is None else len(scn.window_bounds) - 1
+    wrows = None if not W else np.tile(scn.window_bounds, (C, 1))
+    kw = dict(t_exp=thr, t_end=sim, skip=skip, prestamped=False, window_rows=wrows,
+              t_timeout=t_to, p_fail=p_f)
+    scan = resolve_backend("scan")
+    ms, out = timed(torch, lambda: scan_launch(scn, scan, dev, (), fused=st, **kw), reps=3)
+    acc = out.acc
+    if cells_of is not None and not np.array_equal(acc[:, 0].cpu().numpy(), cells_of):
+        raise AssertionError(f"{what}: the timed fused launch does not reproduce the entry point")
+    part = dict(st, n_steps=FLEET64_PLAIN_EVENTS)
+    out_k = scan_launch(scn, scan, dev, (), fused=part, **kw)
+    plain_ms, out_p = plain_timed(torch, lambda: scan_launch(
+        scn, PlainInGraph(torch), dev, (), fused=part, **kw))
+    lay = scan64_layout(scn, W=W)
+    err = held64(torch, out_k, out_p, lay, f"fused {what}, first {FLEET64_PLAIN_EVENTS} events")
+    # the events in the horizons: the counted arrivals (accepted candidates
+    # past skip) and, off a materialized f64 prefix of each row's stream,
+    # the candidates before skip
+    p = st["params"][0]
+    gaps = materialize_stream("exp" if st["dists"][0] == "nhpp" else st["dists"][0],
+                              st["keys"][0], p, SKIP_PREFIX_EVENTS, dev,
+                              dtype=torch.float64).cumsum(1)
+    skip_t = torch.as_tensor(np.asarray(skip, np.float64), device=dev)
+    before = int((gaps <= skip_t[:, None]).sum())
+    active = int(acc[:, :3].sum()) + before
+    held = (acc[:, 3] + acc[:, 4]) / torch.as_tensor(np.asarray(sim) - np.asarray(skip),
+                                                     device=dev)
+    live = float((held * acc[:, :3].sum(1)).sum())
+    b_ms, b_by = fused64_bound_ms(C, scn.slots, K, active, live, int(acc[:, :2].sum()),
+                                  int(acc[:, 8].sum()), st["dists"], rely=t_to is not None,
+                                  window_passes=active + C * W if W else 0, cols=lay.cols)
+    print(f"timing [{card}]: scan_sweep fused {what} C={C} M={scn.slots} K={K} "
+          f"{'/'.join(st['dists'])}: {ms:.3f} ms; {active} arrivals in horizon = "
+          f"{active / ms * 1e3:.4e} arrivals/s; bound {b_ms:.3f} ms ({b_by}; the draws' int32 "
+          f"and f64 work included), {ms / b_ms:.1f}x; plain {plain_ms:.0f} ms on the first "
+          f"{FLEET64_PLAIN_EVENTS} events in CUDA-graph chunks (held: max|acc diff| "
+          f"{err:.3e})", flush=True)
+    return ms, plain_ms, b_ms, b_by, err, acc
+
+
+def fleet64_fused_phase(torch, rt, dev, card, staged64):
+    """Phase 14 (module docstring, item 14): kernel 10 through fleet_sweep()
+    and fleet_run() on backend "scan", kernel 8's fused path through run()
+    and sweep() with Execution(backend="scan", draws="fused"); returns the
+    kernels-line entries of fleet_scan_sweep, fleet_scan_sweep_fault and
+    scan_sweep_fused and their largest differences."""
+    import dataclasses
+
+    from repro_torch.core.fleet import fleet_inputs
+    from repro_torch.data.catalog import catalog_names, fleet_of
+    from repro_torch.kernels.faas_event_step import LAUNCH_COUNTS
+    from repro_torch.kernels.fleet_event_step import fleet_sweep
+
+    errs = {"fleet_scan_sweep": 0.0, "fleet_scan_sweep_fault": 0.0, "scan_sweep_fused": 0.0}
+    launches = dict.fromkeys(errs, 0)
+    results = {}
+    S64 = dict(backend="scan")
+
+    def count(key, what):
+        if dict(LAUNCH_COUNTS) != {key: 1}:
+            raise AssertionError(f"{what}: launches {dict(LAUNCH_COUNTS)}, want {{{key}: 1}}")
+        launches[key] += 1
+
+    def hold(key, inp, kw, what):
+        e, ms = hold_fleet64(torch, inp, kw, what)
+        errs[key] = max(errs[key], e)
+        return ms
+
+    # ---- 14.1 the catalog sweep (phase 6) on the f64 fleet scan
+    names = list(catalog_names())
+    fleet = fleet_of(names, n_cluster=FLEET_CLUSTER, skip_time=20.0, slots=64)
+    over = {"expiration_threshold": FLEET_THRESHOLDS}
+    torch.cuda.empty_cache()
+    LAUNCH_COUNTS.clear()
+    t0 = time.perf_counter()
+    grid = rt.fleet_sweep(fleet, over, 5, replicas=FLEET_REPLICAS, **S64)
+    sweep_s = time.perf_counter() - t0
+    count("fleet_scan_sweep", "the f64 catalog sweep")
+    peak = float(grid.peak_cluster.max())
+    if not grid.ok.all() or peak > FLEET_CLUSTER or grid.backend != "scan":
+        raise AssertionError("the f64 catalog sweep is not finite or passed its cap")
+    cell = grid.summaries[0]
+    occ_r = sum((s.time_running + s.time_idle) / s.measured_time for s in cell)
+    checks = [(f"{n} cold start", cell[f].cold_start_prob,
+               float((cell[f].n_cold / np.maximum(cell[f].n_cold + cell[f].n_warm, 1)).std(ddof=1)),
+               REF_FLEET_SCAN["cold_start_prob"][f], REF_FLEET_SCAN["cold_start_prob_se"][f])
+              for f, n in enumerate(names)]
+    checks.append(("avg cluster occupancy", float(occ_r.mean()), float(occ_r.std(ddof=1)),
+                   REF_FLEET_SCAN["avg_cluster_occupancy"],
+                   REF_FLEET_SCAN["avg_cluster_occupancy_se"]))
+    worst = 0.0
+    for what, got, sd, ref, ref_se in checks:
+        z = abs(got - ref) / float(np.hypot(sd / np.sqrt(FLEET_REPLICAS), ref_se))
+        worst = max(worst, z)
+        if z > REF_FLEET_SIGMAS:
+            raise AssertionError(f"f64 fleet 60 s cell: {what} {got:.6f} is {z:.2f} standard "
+                                 f"errors off the JAX f64 fleet scan's {ref:.6f}")
+    inp = fleet_inputs(fleet, over, 5, replicas=FLEET_REPLICAS, device=dev, f64=True)
+    N, (S, K) = inp.t_exp.shape[0], inp.staged["times"].shape
+    launch, kw = fleet64_launch(inp, fleet)
+    # in turns with the f32 kernel on its own staging of the same seed:
+    # f32, f64, f64, f32
+    inp32 = fleet_inputs(fleet, over, 5, replicas=FLEET_REPLICAS, device=dev)
+    args32 = fleet_prefix(inp32, inp32.staged["times"].shape[1])
+    kw32 = dict(slots=64, queue_depth=0, prestamped=True, live_bound=inp32.live_bound)
+    f32_ms, f64_ms = [], []
+    for which in (0, 1, 1, 0):
+        if which:
+            ms_i, out = timed(torch, launch, reps=2)
+            f64_ms.append(ms_i)
+        else:
+            ms_i, _ = timed(torch, lambda: fleet_sweep(*args32, **kw32), reps=2)
+            f32_ms.append(ms_i)
+    del inp32, args32
+    ms = sum(f64_ms) / len(f64_ms)
+    cold = out.acc[..., 0].cpu().numpy().reshape(len(FLEET_THRESHOLDS), -1, len(names))
+    for i in range(len(FLEET_THRESHOLDS)):
+        for f in range(len(names)):
+            if not np.array_equal(cold[i, :, f], grid.summaries[i, f].n_cold):
+                raise AssertionError("the timed f64 fleet launch does not reproduce fleet_sweep()")
+    plain_ms = hold("fleet_scan_sweep", inp, kw, "catalog sweep")
+    active, live, acting = fleet_pasta(inp, grid, len(FLEET_THRESHOLDS))
+    F = len(names)
+    tot = out.acc.sum((0, 1)).tolist()
+    b_ms, b_by = fleet64_bound_ms(N, F, S, K, active, live, acting, tot[0] + tot[1], tot[8])
+    print(f"f64 fleet sweep [{card}]: {F} functions x {len(FLEET_THRESHOLDS)} thresholds x "
+          f"{FLEET_REPLICAS} replicas = {N} fleets x K={K} merged events, 1 launch: "
+          f"fleet_sweep(backend='scan') {sweep_s:.3f} s wall; the 60 s cell within "
+          f"{worst:.2f} standard errors of REF_FLEET_SCAN (limit {REF_FLEET_SIGMAS}); peak "
+          f"{peak:.0f} <= {FLEET_CLUSTER}", flush=True)
+    print(f"timing [{card}]: fleet_scan_sweep N={N} F={F} M=64 K={K} (live bound "
+          f"{inp.live_bound}): {ms:.3f} ms ({', '.join(f'{x:.3f}' for x in f64_ms)}) against "
+          f"the f32 fleet_sweep's {sum(f32_ms) / 2:.3f} ms "
+          f"({', '.join(f'{x:.3f}' for x in f32_ms)}) in turns, "
+          f"{ms / (sum(f32_ms) / 2):.2f}x; {active} fleet-events in horizon = "
+          f"{active / ms * 1e3:.4e}/s; bound {b_ms:.3f} ms ({b_by}, f64), {ms / b_ms:.1f}x; "
+          f"plain {plain_ms:.0f} ms on the first {FLEET64_PLAIN_EVENTS} events", flush=True)
+    results["fleet_scan_sweep"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    del inp, launch, out, grid
+    torch.cuda.empty_cache()
+
+    # ---- 14.2 the queued fleet, through fleet_run()
+    fleet_q = fleet_of(names, skip_time=20.0, slots=64, **FLEET_QUEUED)
+    LAUNCH_COUNTS.clear()
+    t0 = time.perf_counter()
+    sq = rt.fleet_run(fleet_q, 6, replicas=FLEET_REPLICAS, **S64).summary
+    wall = time.perf_counter() - t0
+    count("fleet_scan_sweep", "the f64 queued fleet")
+    if sq.enqueued.sum() <= 0 or sq.max_peak_cluster > FLEET_QUEUED["n_cluster"]:
+        raise AssertionError("the f64 queued fleet queued nothing or passed its cap")
+    inp = fleet_inputs(fleet_q, {}, 6, replicas=FLEET_REPLICAS, device=dev, f64=True)
+    _, kw = fleet64_launch(inp, fleet_q)
+    hold("fleet_scan_sweep", inp, kw, "queued")
+    print(f"f64 fleet queued: n_cluster={FLEET_QUEUED['n_cluster']} queue_depth="
+          f"{FLEET_QUEUED['queue_depth']}, {FLEET_REPLICAS} replicas, 1 launch, {wall:.3f} s "
+          f"wall: enqueued {100 * sq.enqueued.sum() / sq.arrivals.sum():.3f}% of arrivals, "
+          f"mean queue wait {float(sq.queue_wait_sum.sum() / max(sq.queue_served.sum(), 1)):.4f}"
+          f" s, peak {sq.max_peak_cluster:.0f}", flush=True)
+    del inp
+
+    # ---- 14.3 a 16-function fleet (the catalog twice, renamed), which the
+    # f32 kernel cannot run
+    fns16 = tuple(dataclasses.replace(f, name=f"{f.name}-{i}") for i in (1, 2)
+                  for f in fleet.functions)
+    fleet16 = dataclasses.replace(fleet, functions=fns16, n_cluster=FLEET16_CLUSTER)
+    try:
+        rt.fleet_run(fleet16, 8, replicas=2, backend="cuda")
+    except ValueError as e:
+        if "at most 8 functions" not in str(e):
+            raise
+    else:
+        raise AssertionError("the f32 fleet kernel took 16 functions")
+    LAUNCH_COUNTS.clear()
+    t0 = time.perf_counter()
+    s16 = rt.fleet_run(fleet16, 8, replicas=FLEET_REPLICAS, **S64).summary
+    wall = time.perf_counter() - t0
+    count("fleet_scan_sweep", "the 16-function fleet")
+    if s16.max_peak_cluster > FLEET16_CLUSTER or not np.isfinite(s16.cold_start_prob).all():
+        raise AssertionError("the 16-function fleet passed its cap or is not finite")
+    inp = fleet_inputs(fleet16, {}, 8, replicas=FLEET_REPLICAS, device=dev, f64=True)
+    launch, kw = fleet64_launch(inp, fleet16)
+    ms16, _ = timed(torch, launch, reps=2)
+    hold("fleet_scan_sweep", inp, kw, "16 functions")
+    print(f"f64 fleet 16 functions [{card}]: n_cluster {FLEET16_CLUSTER}, {FLEET_REPLICAS} "
+          f"replicas x K={inp.staged['times'].shape[1]}, 1 launch ({ms16:.3f} ms), "
+          f"fleet_run() {wall:.3f} s wall: occupancy {s16.avg_cluster_occupancy:.3f}, peak "
+          f"{s16.max_peak_cluster:.0f}, cold start % "
+          + " ".join(f"{100 * p:.2f}" for p in s16.cold_start_prob), flush=True)
+    del inp, launch
+
+    # ---- 14.4 a two-function fleet with one NHPP function (phase 12's)
+    prof = nhpp_profiles(rt)[NHPP_FUSED_PROFILE]
+    t1 = lambda s: rt.ExpSimProcess(rate=1 / s)
+    fleet_n = rt.FleetScenario(
+        functions=(rt.FleetFunction(name="diurnal", rate_profile=prof,
+                                    warm_service_process=t1(1.991),
+                                    cold_service_process=t1(2.244)),
+                   rt.FleetFunction(name="steady", arrival_process=rt.ExpSimProcess(rate=0.5),
+                                    warm_service_process=t1(1.991),
+                                    cold_service_process=t1(2.244))),
+        n_cluster=FLEET_CLUSTER, sim_time=DAY, skip_time=0.0, slots=64)
+    fover = {"expiration_threshold": FLEET_NHPP_THRESHOLDS}
+    LAUNCH_COUNTS.clear()
+    gn = rt.fleet_sweep(fleet_n, fover, 9, replicas=FLEET_NHPP_REPLICAS, **S64)
+    count("fleet_scan_sweep", "the NHPP fleet")
+    if not gn.ok.all() or float(gn.peak_cluster.max()) > FLEET_CLUSTER:
+        raise AssertionError("the f64 NHPP fleet is not finite or passed its cap")
+    inp = fleet_inputs(fleet_n, fover, 9, replicas=FLEET_NHPP_REPLICAS, device=dev, f64=True)
+    if inp.staged["times"].dtype != torch.float64:
+        raise AssertionError("the f64 fleet's merged times are not f64")
+    _, kw = fleet64_launch(inp, fleet_n)
+    hold("fleet_scan_sweep", inp, kw, "NHPP")
+    print(f"f64 fleet NHPP: {FLEET_NHPP_REPLICAS} replicas x K={inp.staged['times'].shape[1]} "
+          f"f64 merged times, 1 launch: cold start % (60 s) "
+          + " ".join(f"{100 * p:.3f}" for p in gn.cold_start_prob[0]), flush=True)
+    del inp
+    results["fleet_scan_sweep"]["launches"] = launches["fleet_scan_sweep"]
+
+    # ---- 14.5 the catalog with faults (phase 11's), and chaos.py's dip fleet
+    fleet_c = dataclasses.replace(fleet, faults=rt.FaultModel(
+        crash_rate=CATALOG_CRASH_RATE, capacity=rt.CapacityProfile((0.4e5, 0.7e5), CATALOG_DIP)))
+    LAUNCH_COUNTS.clear()
+    t0 = time.perf_counter()
+    gc = rt.fleet_sweep(fleet_c, over, 5, replicas=FLEET_REPLICAS, **S64)
+    wall = time.perf_counter() - t0
+    count("fleet_scan_sweep_fault", "the f64 catalog with faults")
+    if not gc.ok.all() or float(gc.peak_cluster.max()) > FLEET_CLUSTER:
+        raise AssertionError("the f64 catalog with faults is not finite or passed its cap")
+    inp = fleet_inputs(fleet_c, over, 5, replicas=FLEET_REPLICAS, device=dev, f64=True)
+    launch, kw = fleet64_launch(inp, fleet_c)
+    ms_f, out = timed(torch, launch, reps=2)
+    cold = out.acc[..., 0].cpu().numpy().reshape(len(FLEET_THRESHOLDS), -1, F)
+    if not all(np.array_equal(cold[i, :, f], gc.summaries[i, f].n_cold)
+               for i in range(len(FLEET_THRESHOLDS)) for f in range(F)):
+        raise AssertionError("the timed f64 fault launch does not reproduce fleet_sweep()")
+    tot = out.acc.sum((0, 1)).tolist()
+    plain_f = hold("fleet_scan_sweep_fault", inp, kw, "catalog with faults")
+    active, live, acting = fleet_pasta(inp, gc, len(FLEET_THRESHOLDS))
+    bf_ms, bf_by = fleet64_bound_ms(N, F, S, K, active, live, acting, tot[0] + tot[1], tot[8],
+                                    fault=(2, True, tot[0], tot[16]))
+    print(f"timing [{card}]: fleet_scan_sweep with faults N={N} F={F} K={K}: {ms_f:.3f} ms "
+          f"(+{100 * (ms_f / ms - 1):.1f}% over 14.1's launch without faults); bound "
+          f"{bf_ms:.3f} ms ({bf_by}, f64), {ms_f / bf_ms:.1f}x; crashes {tot[15]:.0f}, "
+          f"evictions {tot[16]:.0f}, interrupted {tot[17]:.0f}; plain {plain_f:.0f} ms on the "
+          f"first {FLEET64_PLAIN_EVENTS} events; fleet_sweep() {wall:.3f} s wall", flush=True)
+    results["fleet_scan_sweep_fault"] = dict(ms=ms_f, plain_ms=plain_f, bound_ms=bf_ms,
+                                             bound_by=bf_by)
+    del inp, launch, out, gc
+    torch.cuda.empty_cache()
+    fn = lambda name, rate, warm, cold, thr, limit: rt.FleetFunction(
+        name=name, arrival_process=rt.ExpSimProcess(rate=rate),
+        warm_service_process=rt.ExpSimProcess(rate=warm),
+        cold_service_process=rt.ExpSimProcess(rate=cold),
+        expiration_threshold=thr, max_concurrency=limit)
+    fleet_d = rt.FleetScenario(
+        functions=(fn("api", 0.8, 0.5, 0.25, 60.0, 25), fn("batch", 0.3, 0.2, 0.1, 120.0, 20)),
+        n_cluster=40, sim_time=DIP_T, skip_time=0.0,
+        faults=rt.FaultModel(crash_rate=DIP_CRASH_RATE, capacity=rt.CapacityProfile(
+            (0.4 * DIP_T, 0.7 * DIP_T), (40.0, 10.0, 40.0))))
+    LAUNCH_COUNTS.clear()
+    sd = rt.fleet_run(fleet_d, 12, replicas=DIP_FLEETS, **S64).summary
+    count("fleet_scan_sweep_fault", "the f64 dip fleet")
+    line = []
+    for f, (name, s) in enumerate(zip(sd.functions, sd.summaries)):
+        per = 1 - s.n_interrupt / np.maximum(s.n_cold + s.n_warm, 1)
+        se = float(np.std(per, ddof=1) / np.sqrt(len(per)))
+        ref, ref_se = REF_FLEET_FAULT["availability"][f], REF_FLEET_FAULT["availability_se"][f]
+        z = abs(s.availability - ref) / float(np.hypot(se, ref_se))
+        line.append(f"{name} {s.availability:.5f} (reference {ref:.5f}, {z:.2f} standard errors)")
+        if z > REF_FAULT_SIGMAS:
+            raise AssertionError(f"the f64 dip fleet's {name} availability is off the reference")
+    if sd.max_peak_cluster > 40 or sum(s.n_evict.sum() for s in sd.summaries) <= 0:
+        raise AssertionError("the f64 dip fleet passed its ceiling or evicted nothing")
+    inp = fleet_inputs(fleet_d, {}, 12, replicas=DIP_FLEETS, device=dev, f64=True)
+    _, kw = fleet64_launch(inp, fleet_d)
+    hold("fleet_scan_sweep_fault", inp, kw, "dip")
+    print(f"f64 fleet dip: {DIP_FLEETS} fleets, availability " + "; ".join(line)
+          + f"; peak {sd.max_peak_cluster:.0f} <= 40", flush=True)
+    del inp
+    results["fleet_scan_sweep_fault"]["launches"] = launches["fleet_scan_sweep_fault"]
+
+    # ---- 14.6 the Table-1 sweep with fused draws on the f64 engine
+    fused = rt.Execution(backend="scan", draws="fused")
+    scn = table1(rt)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCH_COUNTS.clear()
+    t0 = time.perf_counter()
+    g = rt.sweep(scn, SWEEP_OVER, seed=10, replicas=SWEEP_REPLICAS, execution=fused)
+    wall = time.perf_counter() - t0
+    fpeak = torch.cuda.max_memory_allocated()
+    count("scan_sweep_fused", "the fused f64 Table-1 sweep")
+    servers = float(g.sel(arrival_rate=0.9, expiration_threshold=600.0).avg_server_count)
+    if not g.ok.all() or abs(servers / PAPER_SERVERS - 1) > PAPER_RTOL:
+        raise AssertionError("the fused f64 Table-1 cell is not finite or 5% from the paper")
+    m_f, se_f = cell_server_stats(g)
+    m_s, se_s = cell_server_stats(staged64["grid"])
+    z = np.abs(m_f - m_s) / np.sqrt(se_f ** 2 + se_s ** 2)
+    if z.max() > REF_RETRY_SIGMAS:
+        raise AssertionError("a fused f64 cell is more than 4 standard errors from the staged one")
+    want = np.concatenate([s.n_cold for s in g.summaries.ravel()])
+    ms8, plain8, b8, b8_by, e8, _ = fused64_timed(torch, rt, dev, card, scn, SWEEP_OVER, 10,
+                                                  SWEEP_REPLICAS, "Table-1 sweep", cells_of=want)
+    errs["scan_sweep_fused"] = max(errs["scan_sweep_fused"], e8)
+    print(f"fused f64 sweep [{card}]: {g.shape} cells x {SWEEP_REPLICAS} replicas, 1 launch, "
+          f"{wall:.3f} s wall (staged f64 sweep: {staged64['wall']:.3f} s), peak "
+          f"{fpeak / 2**30:.3f} GiB on the card (staged f64: {staged64['peak'] / 2**30:.3f} "
+          f"GiB); (0.9/s, 600 s) servers {servers:.4f} (paper {PAPER_SERVERS}); per-cell "
+          f"instances against the staged f64 sweep within {z.max():.2f} standard errors over "
+          f"{z.size} cells; kernel {ms8:.3f} ms", flush=True)
+    results["scan_sweep_fused"] = dict(ms=ms8, plain_ms=plain8, bound_ms=b8, bound_by=b8_by)
+    del g
+    torch.cuda.empty_cache()
+
+    # ---- 14.7 the same sweep over 32,768 rows
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCH_COUNTS.clear()
+    t0 = time.perf_counter()
+    wide = rt.sweep(scn, SWEEP_OVER, seed=11, replicas=FUSED_WIDE_REPLICAS, execution=fused)
+    wall = time.perf_counter() - t0
+    wpeak = torch.cuda.max_memory_allocated()
+    count("scan_sweep_fused", "the fused f64 sweep at 32,768 rows")
+    w_servers = float(wide.sel(arrival_rate=0.9, expiration_threshold=600.0).avg_server_count)
+    if not wide.ok.all() or abs(w_servers / PAPER_SERVERS - 1) > PAPER_RTOL:
+        raise AssertionError("the 32,768-row fused f64 cell is not finite or 5% from the paper")
+    rows = wide.summaries.size * FUSED_WIDE_REPLICAS
+    want = np.concatenate([s.n_cold for s in wide.summaries.ravel()])
+    del wide
+    ms_w, _, b_w, _, e, _ = fused64_timed(torch, rt, dev, card, scn, SWEEP_OVER, 11,
+                                          FUSED_WIDE_REPLICAS, f"Table-1 sweep at {rows} rows",
+                                          cells_of=want)
+    errs["scan_sweep_fused"] = max(errs["scan_sweep_fused"], e)
+    print(f"fused f64 sweep at {FUSED_WIDE_REPLICAS} replicas: {rows} rows, 1 launch "
+          f"({ms_w:.3f} ms, {ms_w / b_w:.1f}x its bound), {wall:.3f} s wall, peak "
+          f"{wpeak / 2**30:.3f} GiB; (0.9/s, 600 s) servers {w_servers:.4f}", flush=True)
+    torch.cuda.empty_cache()
+
+    # ---- 14.8 a fused fail-only run() and a fused windowed sweep
+    scn_f = table1(rt, reliability=rt.Reliability(rt.FailurePolicy(p_fail=0.05, t_timeout=8.0)))
+    LAUNCH_COUNTS.clear()
+    s = rt.run(scn_f, seed=12, replicas=FAIL_REPLICAS, execution=fused).summary
+    count("scan_sweep_fused", "the fused f64 fail-only run")
+    served = float((s.n_cold + s.n_warm).sum())
+    want_to = float((s.n_warm.sum() * np.exp(-8 / 1.991) + s.n_cold.sum() * np.exp(-8 / 2.244))
+                    / served)
+    for name, got, want in (("failure", s.failure_prob, 0.05 * (1 - want_to)),
+                            ("timeout", s.timeout_prob, want_to)):
+        zz = abs(got - want) / np.sqrt(want * (1 - want) / served)
+        if zz > REF_RETRY_SIGMAS:
+            raise AssertionError(f"the fused f64 fail-only run's {name} probability is off")
+    _, _, _, _, e, _ = fused64_timed(torch, rt, dev, card, scn_f, None, 12, FAIL_REPLICAS,
+                                     "fail-only run", cells_of=s.n_cold)
+    errs["scan_sweep_fused"] = max(errs["scan_sweep_fused"], e)
+    scn_w = table1(rt, window_bounds=TABLE1_WINDOWS)
+    LAUNCH_COUNTS.clear()
+    gw = rt.sweep(scn_w, SWEEP_OVER, seed=10, replicas=SWEEP_REPLICAS, execution=fused)
+    count("scan_sweep_fused", "the fused f64 windowed sweep")
+    want = np.concatenate([c.n_cold for c in gw.summaries.ravel()])
+    _, _, _, _, e, _ = fused64_timed(torch, rt, dev, card, scn_w, SWEEP_OVER, 10,
+                                     SWEEP_REPLICAS, "windowed sweep", cells_of=want)
+    errs["scan_sweep_fused"] = max(errs["scan_sweep_fused"], e)
+    print(f"fused f64 fail-only run: {FAIL_REPLICAS} replicas, failures "
+          f"{100 * s.failure_prob:.3f}%, timeouts {100 * s.timeout_prob:.3f}%; windowed sweep: "
+          f"{len(TABLE1_WINDOWS) - 1} windows, instances by window (0.9/s, 600 s) "
+          + " ".join(f"{v:.3f}" for v in gw.sel(arrival_rate=0.9, expiration_threshold=600.0)
+                     .windowed_instance_count), flush=True)
+    del gw
+
+    # ---- 14.9 fused NHPP thinning: phase 12's diurnal what-if of one profile
+    prof = nhpp_profiles(rt)[NHPP_FUSED_PROFILE]
+    scn_n = rt.Scenario(rate_profile=prof, warm_service_process=t1(1.991),
+                        cold_service_process=t1(2.244), expiration_threshold=NHPP_THRESHOLDS[0],
+                        sim_time=DAY, skip_time=0.0, slots=64, window_bounds=NHPP_WINDOWS)
+    nover = {"expiration_threshold": NHPP_THRESHOLDS}
+    torch.cuda.empty_cache()
+    LAUNCH_COUNTS.clear()
+    t0 = time.perf_counter()
+    gn = rt.sweep(scn_n, nover, 14, replicas=NHPP_FUSED_REPLICAS, execution=fused)
+    nwall = time.perf_counter() - t0
+    count("scan_sweep_fused", "the fused NHPP sweep")
+    worst = 0.0
+    n = sum(gn.summaries[j].windows.n_arrivals.sum(0) for j in range(len(NHPP_THRESHOLDS)))
+    expected = len(NHPP_THRESHOLDS) * NHPP_FUSED_REPLICAS * np.array(
+        [sinusoid_integral(prof, a, b) for a, b in zip(NHPP_WINDOWS[:-1], NHPP_WINDOWS[1:])])
+    zh = np.abs(n - expected) / np.sqrt(expected)
+    if zh.max() > HOURLY_SIGMAS:
+        raise AssertionError(f"fused NHPP: an hour's arrivals are {zh.max():.2f} standard "
+                             "errors from the profile's integral")
+    st = nhpp_cell_stats(gn)
+    cells = slice(NHPP_FUSED_PROFILE * len(NHPP_THRESHOLDS),
+                  (NHPP_FUSED_PROFILE + 1) * len(NHPP_THRESHOLDS))
+    for m, key in (("cold", "cold_start_prob"), ("servers", "avg_server_count")):
+        ref = np.asarray(REF_NHPP[key])[cells]
+        ref_se = np.asarray(REF_NHPP[key + "_se"])[cells]
+        zz = np.abs(st[m] - ref) / np.hypot(st[m + "_se"], ref_se)
+        worst = max(worst, float(zz.max()))
+        if zz.max() > REF_NHPP_SIGMAS:
+            raise AssertionError(f"the fused NHPP sweep's {key} is off REF_NHPP")
+    want = np.concatenate([c.n_cold for c in gn.summaries.ravel()])
+    ms_n, _, _, _, e, _ = fused64_timed(torch, rt, dev, card, scn_n, nover, 14,
+                                        NHPP_FUSED_REPLICAS, "NHPP sweep", cells_of=want)
+    errs["scan_sweep_fused"] = max(errs["scan_sweep_fused"], e)
+    ph12 = DIURNAL_STAGED
+    print(f"fused f64 NHPP [{card}]: SinusoidalRate(0.9, 0.8, {DAY:.0f}) x "
+          f"{len(NHPP_THRESHOLDS)} thresholds x {NHPP_FUSED_REPLICAS} replicas, 24 hourly "
+          f"windows, 1 launch ({ms_n:.3f} ms): sweep() {nwall:.3f} s wall, against phase 12's "
+          f"staged diurnal sweep() {ph12.get('sweep_s', float('nan')):.3f} s of which staging "
+          f"{ph12.get('staging_s', float('nan')):.3f} s (16 profiles x 64 replicas, the same "
+          f"4,096 rows); every hour within {zh.max():.2f} standard errors of the profile's "
+          f"integral; cold starts and instances within {worst:.2f} standard errors of REF_NHPP "
+          f"(limit {REF_NHPP_SIGMAS})", flush=True)
+    results["scan_sweep_fused"]["launches"] = launches["scan_sweep_fused"]
+    del gn
+    torch.cuda.empty_cache()
     return results, errs
 
 
@@ -4795,7 +5512,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     LAUNCH_COUNTS.clear()
     t0 = time.perf_counter()
-    grid = rt.sweep(scn, SWEEP_OVER, seed=0, replicas=SWEEP_REPLICAS)
+    grid = rt.sweep(scn, SWEEP_OVER, seed=0, replicas=SWEEP_REPLICAS, backend="cuda")
     sweep_s = time.perf_counter() - t0
     staged_peak = torch.cuda.max_memory_allocated()
     sweep_launches = LAUNCH_COUNTS["faas_sweep"]
@@ -4812,7 +5529,7 @@ def main() -> int:
         raise AssertionError("the Table-1 cell is more than 5% from the paper")
 
     LAUNCH_COUNTS.clear()
-    res = rt.run(table1(rt, sim_time=2e5), seed=1, replicas=64)
+    res = rt.run(table1(rt, sim_time=2e5), seed=1, replicas=64, backend="cuda")
     run_launches = LAUNCH_COUNTS["faas_sweep"]
     if run_launches < 1:
         raise AssertionError("run() did not launch the faas_sweep kernel")
@@ -4827,12 +5544,13 @@ def main() -> int:
     LAUNCH_COUNTS.clear()
     for c in PAR_CS:
         t0 = time.perf_counter()
-        par_res[c] = rt.run(fig1(rt, c), seed=2, replicas=FULL_REPLICAS, engine="par")
+        par_res[c] = rt.run(fig1(rt, c), seed=2, replicas=FULL_REPLICAS, engine="par",
+                            backend="cuda")
         par_wall[c] = time.perf_counter() - t0
     par_launches = LAUNCH_COUNTS["par_sweep"]
     if par_launches != len(PAR_CS) or LAUNCH_COUNTS["faas_sweep"]:
         raise AssertionError(f"run(engine='par') launches: {dict(LAUNCH_COUNTS)}")
-    base_c1 = rt.run(fig1(rt, 1), seed=2, replicas=FULL_REPLICAS)
+    base_c1 = rt.run(fig1(rt, 1), seed=2, replicas=FULL_REPLICAS, backend="cuda")
     K_par = fig1(rt, 1).steps_needed()
     for c in PAR_CS:
         s = par_res[c].summary
@@ -4862,7 +5580,7 @@ def main() -> int:
     LAUNCH_COUNTS.clear()
     t0 = time.perf_counter()
     res_t = rt.run(scn_t, seed=3, replicas=FULL_REPLICAS, engine="temporal",
-                   grid=TEMPORAL_GRID, initial_instances=snaps)
+                   grid=TEMPORAL_GRID, initial_instances=snaps, backend="cuda")
     temporal_wall = time.perf_counter() - t0
     temporal_launches = LAUNCH_COUNTS["faas_sweep_grid"]
     if temporal_launches < 1 or LAUNCH_COUNTS["faas_sweep"]:
@@ -5065,13 +5783,22 @@ def main() -> int:
 
     # ---- 13. the f64 engine
     t0 = time.perf_counter()
-    scan_results, scan_errs = scan64_phase(torch, rt, dev, card)
+    scan_results, scan_errs, staged64 = scan64_phase(torch, rt, dev, card)
     results.update(scan_results)
     errs.update(scan_errs)
     print(f"f64 engine phase {time.perf_counter() - t0:.1f} s; script "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # ---- 14. kernels line, card line, device line
+    # ---- 14. the f64 fleet scan and the f64 engine's fused draws
+    t0 = time.perf_counter()
+    f14_results, f14_errs = fleet64_fused_phase(torch, rt, dev, card, staged64)
+    results.update(f14_results)
+    errs.update(f14_errs)
+    del staged64
+    print(f"f64 fleet and fused phase {time.perf_counter() - t0:.1f} s; script "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---- 15. kernels line, card line, device line
     print(json.dumps({"kernels": [
         dict(KERNELS[k], **dict(dict(library_ms=None), **results[k]), max_abs_err=errs[k])
         for k in KERNELS

@@ -2,23 +2,24 @@
 simulator to an NVIDIA H100.
 
 The front door is the same Scenario API: ``run``/``sweep`` on the f64
-engine (backend ``"scan"``: ``kernels/csrc/scan_event_step.cu`` and
-``par_scan_event_step.cu``, the reference's default substrate, with the
+engine, the reference's default substrate and the port's default too
+(backend ``"scan"``: ``kernels/csrc/scan_event_step.cu``, with fused draws
+and inline NHPP thinning, and ``par_scan_event_step.cu``, with the
 ``ServerlessSimulator``, ``ServerlessTemporalSimulator`` and
-``ParServerlessSimulator`` classes) or on the f32 block engines (the
-default), whose hot loops are the hand-written CUDA kernels
+``ParServerlessSimulator`` classes) or, when named (backend ``"cuda"``), on
+the f32 block engines, whose hot loops are the hand-written CUDA kernels
 ``kernels/csrc/faas_event_step.cu`` (engines ``scan`` and ``temporal``;
 metric windows, timeouts, failures, client retries and platform faults on
-``scan``)
-and ``kernels/csrc/par_event_step.cu`` (engine ``par``), and the fleet
-front door ``fleet_run``/``fleet_sweep`` (function pools under a shared
-cluster capacity, with platform faults) on
-``kernels/csrc/fleet_event_step.cu``.  Non-stationary workloads (rate
-profiles through NHPP thinning, MMPP, trace replay) feed the kernels
-absolute timestamps (their ``prestamped`` mode).  Entry points
-run on the GPU unless called with ``device="cpu"``, which selects the
-plain PyTorch versions of the kernels.  This package imports torch and
-numpy only.
+``scan``) and ``kernels/csrc/par_event_step.cu`` (engine ``par``).  The
+fleet front door ``fleet_run``/``fleet_sweep`` (function pools under a
+shared cluster capacity, with queues and platform faults) runs on the f64
+fleet scan ``kernels/csrc/fleet_scan_event_step.cu`` (any number of
+functions) or on the f32 ``kernels/csrc/fleet_event_step.cu`` (up to 8).
+Non-stationary workloads (rate profiles through NHPP thinning, MMPP,
+trace replay) feed the kernels absolute timestamps (their ``prestamped``
+mode).  Entry points run on the GPU unless called with ``device="cpu"``,
+which selects the plain PyTorch versions of the kernels.  This package
+imports torch and numpy only.
 """
 
 from repro_torch.core import (  # noqa: F401

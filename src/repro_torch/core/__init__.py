@@ -1,8 +1,10 @@
-"""SimFaaS core in PyTorch: the Scenario front door on the f32 block engines.
+"""SimFaaS core in PyTorch: the Scenario front door on the f64 engine (the
+default, as in the reference) and the f32 block engines.
 
 >>> from repro_torch.core import Scenario, ExpSimProcess, run, sweep
 >>> scn = Scenario(arrival_process=ExpSimProcess(rate=0.9), ...)
->>> res = run(scn, seed=0, replicas=8)                # on the GPU
+>>> res = run(scn, seed=0, replicas=8)                # on the GPU, f64
+>>> res = run(scn, seed=0, backend="cuda")            # the f32 block kernel
 >>> res = run(scn, seed=0, engine="par")              # concurrency value
 >>> res = run(scn, seed=0, engine="temporal", grid=[...],
 ...           initial_instances=[InstanceSnapshot(age=30.0, remaining=1.5)])
@@ -19,7 +21,9 @@
 ...              over={"t_timeout": [2.0, 8.0]}, seed=0)    # goodput grid
 >>> from repro_torch.data.catalog import fleet_of
 >>> fleet = fleet_of(["thumbnail", "ml-inference"], n_cluster=8)
->>> res = fleet_run(fleet, seed=0, replicas=16)       # shared capacity
+>>> res = fleet_run(fleet, seed=0, replicas=16)       # shared capacity, any F
+>>> grid = sweep(scn, over={...}, seed=0,
+...              execution=Execution(draws="fused"))  # draws in the f64 kernel
 >>> grid = fleet_sweep(fleet, {"expiration_threshold": [60.0, 600.0]}, seed=0)
 """
 

@@ -4,9 +4,13 @@ port of ``repro/core/drawplan.py``).
 The staged pipeline fills ``[C, K]`` sample buffers on the device before a
 launch; for large grids those buffers, not the kernel, set the memory a
 sweep needs.  With ``Execution(draws="fused")`` every process lowers to a
-:class:`DrawSpec` (a distribution id) and two per-row f32 parameters, and
-the kernel draws each event's samples itself: the whole sample state of a
-row is one uint32 key pair per stream.
+:class:`DrawSpec` (a distribution id) and two per-row parameters (f32 on
+the block engine, f64 on the f64 engine, which samples in the parameters'
+dtype from the same f32 uniforms), and the kernel draws each event's
+samples itself: the whole sample state of a row is one uint32 key pair per
+stream.  An NHPP arrival process lowers to ``"nhpp"`` with its profile
+(the f64 engine only): candidates come from the exponential envelope at
+``max_rate`` and word 1 of the arrival draw is the acceptance uniform.
 
 The bitstream is the reference's (pinned by the hex goldens of
 ``tests/test_drawplan.py``): draw ``i`` of a row with key ``(k0, k1)`` is
@@ -44,21 +48,20 @@ reference's, through :func:`repro_torch.interop.fused_keys_from_reference`).
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.processes import NHPPArrivalProcess
 
 # strictly positive clamp, as SimProcess.sample's _EPS
 _EPS = 1e-9
 
-# distribution ids a process can lower to, in the order the kernel numbers
-# them (the reference's FUSED_DISTS without "nhpp": fused thinning needs
-# profile.rate(t) inside the event loop, which the block kernels do not
-# evaluate; the reference runs it on its f64 scan engine only)
+# distribution ids a process can lower to, in the order the kernels number
+# them; "nhpp" (thinning needs profile.rate(t) inside the event loop) is the
+# f64 engine's only, as in the reference, and draws its candidates as "exp"
 FUSED_DISTS = ("exp", "det", "gauss", "weibull", "lognorm", "pareto")
+NHPP = "nhpp"
 # the streams of one draw cell, in spawn-key order
 STREAMS = ("arrival", "warm", "cold", "fail")
 
@@ -125,11 +128,13 @@ def block_uniforms(keys, start: int, n: int):
 
 
 def sample_dist(kind: str, u0, u1, p0, p1):
-    """One inverse-CDF (or Box–Muller) sample per element, in f32, with the
+    """One inverse-CDF (or Box–Muller) sample per element in the dtype of
+    ``p0`` (the f32 uniforms cast up for f64 parameters), with the
     reference's operations in its order, clamped at ``1e-9``.  ``p0`` and
-    ``p1`` are f32 tensors on the uniforms' device (a Python scalar could
-    take another rounding path: division by a scalar may become a multiply
-    by its reciprocal)."""
+    ``p1`` are f32 or f64 tensors on the uniforms' device (a Python scalar
+    could take another rounding path: division by a scalar may become a
+    multiply by its reciprocal)."""
+    u0, u1 = u0.to(p0.dtype), u1.to(p0.dtype)
     if kind == "exp":
         out = -torch.log(1.0 - u0) / p0
     elif kind == "det":
@@ -149,13 +154,14 @@ def sample_dist(kind: str, u0, u1, p0, p1):
 
 def _box_muller(u0, u1):
     r = torch.sqrt(-2.0 * torch.log(1.0 - u0))
-    return r * torch.cos(_TWO_PI_F32 * u1)
+    return r * torch.cos((_TWO_PI_F32 if u0.dtype == torch.float32 else 2.0 * np.pi) * u1)
 
 
 class StreamDraws:
     """The per-event draws of one stream for every row, in event order:
-    :meth:`take` returns event ``i``'s f32 ``[R]`` samples (``kind``
-    ``"uniform"``: word 0's uniform).  Uniforms are drawn ``DRAW_BLOCK``
+    :meth:`take` returns event ``i``'s ``[R]`` samples in the parameters'
+    dtype (``kind`` ``"uniform"``: word 0's f32 uniform; :meth:`take2`
+    both words' uniforms).  Uniforms are drawn ``DRAW_BLOCK``
     events at a time; the float transform runs on one contiguous ``[R]``
     column per event, so every caller rounds the same way (torch's CPU
     ``pow`` rounds by memory layout)."""
@@ -167,41 +173,49 @@ class StreamDraws:
         self.p0, self.p1 = p0, p1
         self._start, self._u = None, None
 
-    def take(self, i: int) -> torch.Tensor:
+    def take2(self, i: int) -> tuple:
         start = i - i % DRAW_BLOCK
         if start != self._start:
             self._start, self._u = start, block_uniforms(self.keys, start, DRAW_BLOCK)
         j = i - start
-        u0 = self._u[0][:, j].contiguous()
+        return self._u[0][:, j].contiguous(), self._u[1][:, j].contiguous()
+
+    def take(self, i: int) -> torch.Tensor:
+        u0, u1 = self.take2(i)
         if self.kind == "uniform":
             return u0
-        return sample_dist(self.kind, u0, self._u[1][:, j].contiguous(), self.p0, self.p1)
+        return sample_dist(self.kind, u0, u1, self.p0, self.p1)
 
 
-def param_rows(params, rows: int, device) -> tuple:
-    """``(p0, p1)`` as contiguous f32 ``[rows]`` tensors on ``device``, from
-    scalars, ``[rows]`` vectors or an ``[rows, 2]`` matrix."""
+def param_rows(params, rows: int, device, dtype=torch.float32) -> tuple:
+    """``(p0, p1)`` as contiguous ``[rows]`` tensors of ``dtype`` on
+    ``device``, from scalars, ``[rows]`` vectors or an ``[rows, 2]``
+    matrix."""
     if isinstance(params, torch.Tensor) and params.dim() == 2:
         params = (params[:, 0], params[:, 1])
     return tuple(
-        torch.as_tensor(p, dtype=torch.float32, device=device).expand(rows).contiguous()
+        torch.as_tensor(p, dtype=dtype, device=device).expand(rows).contiguous()
         for p in params
     )
 
 
-def materialize_stream(kind: str, keys, params, n: int, device=None) -> torch.Tensor:
-    """The ``[R, n]`` f32 values of a fused stream: the numbers the fused
-    paths draw inline, as staged buffers (the tests and the card's check
-    hand them to the staged path).  ``keys`` is uint32 ``[R, 2]``;
-    ``params`` is ``(p0, p1)`` (scalars or ``[R]``), ignored for
-    ``kind="uniform"`` (word 0's uniforms, the failure stream)."""
+def materialize_stream(kind: str, keys, params, n: int, device=None,
+                       dtype=torch.float32) -> torch.Tensor:
+    """The ``[R, n]`` values of a fused stream in ``dtype`` (f32: the block
+    engine's, f64: the f64 engine's): the numbers the fused paths draw
+    inline, as staged buffers (the tests and the card's check hand them to
+    the staged path).  ``keys`` is uint32 ``[R, 2]``; ``params`` is ``(p0,
+    p1)`` (scalars or ``[R]``), ignored for ``kind="uniform"`` (word 0's
+    f32 uniforms, the failure stream)."""
     kw = words(keys, device)
     R = kw.shape[0]
     p0 = p1 = None
     if kind != "uniform":
-        p0, p1 = param_rows(params, R, kw.device)
+        p0, p1 = param_rows(params, R, kw.device, dtype)
+    else:
+        dtype = torch.float32
     draws = StreamDraws(kind, kw, p0, p1)
-    out = torch.empty((R, n), dtype=torch.float32, device=kw.device)
+    out = torch.empty((R, n), dtype=dtype, device=kw.device)
     for i in range(n):
         out[:, i] = draws.take(i)
     return out
@@ -215,9 +229,11 @@ def materialize_stream(kind: str, keys, params, n: int, device=None) -> torch.Te
 @dataclasses.dataclass(frozen=True)
 class DrawSpec:
     """One stream's distribution id; its two parameters are per-row values
-    that ride beside it (a threshold × rate grid is one launch)."""
+    that ride beside it (a threshold × rate grid is one launch).
+    ``profile`` is the NHPP arrival's rate profile (``kind == "nhpp"``)."""
 
     kind: str
+    profile: Optional[object] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -240,7 +256,7 @@ def lower_scenario(scn) -> Tuple[DrawPlan, dict]:
     ``"warm"`` and ``"cold"`` to ``(p0, p1)`` floats.  Raises
     ``ValueError`` pointing at ``draws="staged"`` for retry policies (the
     attempt table is a sort over the whole stream) and for processes with
-    no per-event transform, the reference's refusal for NHPP arrivals."""
+    no per-event transform."""
     rel = scn.reliability
     if rel is not None and int(rel.retry.max_retries) > 0:
         raise ValueError(
@@ -252,16 +268,13 @@ def lower_scenario(scn) -> Tuple[DrawPlan, dict]:
                       ("cold", scn.cold_service_process)):
         spec, params[stream] = _lower_process(p, stream)
         specs.append(spec)
+    for name, spec in (("warm", specs[1]), ("cold", specs[2])):
+        if spec.kind == NHPP:
+            raise ValueError(f"{name} service process cannot be an arrival-time process")
     return DrawPlan(*specs, fail=rel is not None), params
 
 
 def _lower_process(p, stream: str) -> Tuple[DrawSpec, Tuple[float, float]]:
-    if isinstance(p, NHPPArrivalProcess):
-        raise ValueError(
-            "fused NHPP thinning is scan-backend only (the block kernels "
-            "have no profile.rate(t) at trace time; fused draws on the f64 "
-            "scan engine are ROADMAP.md Queue A item 2b); use draws='staged'"
-        )
     fn = getattr(p, "draw_spec", None)
     if fn is None:
         raise ValueError(
@@ -269,8 +282,11 @@ def _lower_process(p, stream: str) -> Tuple[DrawSpec, Tuple[float, float]]:
             "fused DrawSpec; use draws='staged'"
         )
     kind, params = fn()
+    profile = p.profile if kind == NHPP else None
+    if profile is not None:
+        profile.block()  # a profile with no block raises here
     p0, p1 = (tuple(params) + (0.0, 0.0))[:2]
-    return DrawSpec(kind=kind), (float(p0), float(p1))
+    return DrawSpec(kind=kind, profile=profile), (float(p0), float(p1))
 
 
 # ---------------------------------------------------------------------------

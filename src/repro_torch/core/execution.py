@@ -8,21 +8,23 @@ Backends register one row launcher per engine at import; the registry
 imports the providing modules on first resolution (``_PROVIDERS``), and
 unknown names raise with the registered list.
 
-* ``"cuda"`` — the hand-written Hopper kernels
+* ``"scan"`` — the f64 engine's hand-written kernels, the reference's
+  default ``lax.scan`` substrate decision for decision
+  (:mod:`repro_torch.kernels.scan_event_step`,
+  :mod:`repro_torch.kernels.par_scan_event_step`,
+  :mod:`repro_torch.kernels.fleet_scan_event_step`); needs a CUDA device.
+  It alone (with its plain version) serves the instance-count histogram,
+  oldest-first routing, windowed single runs, lifespans, reliability on
+  the temporal and par engines, fleets of more than 8 functions and fused
+  NHPP thinning.
+* ``"scan_ref"`` — the plain f64 PyTorch versions of those kernels
+  (:mod:`repro_torch.kernels.ref64`); runs on any device.
+* ``"cuda"`` — the f32 block engine's hand-written Hopper kernels
   (:mod:`repro_torch.kernels.faas_event_step`,
   :mod:`repro_torch.kernels.par_event_step`,
   :mod:`repro_torch.kernels.fleet_event_step`); needs a CUDA device.
 * ``"ref"`` — the plain PyTorch versions of the same loops
   (:mod:`repro_torch.kernels.ref`); runs on any device.
-* ``"scan"`` — the f64 engine's hand-written kernels, the reference's
-  default ``lax.scan`` substrate decision for decision
-  (:mod:`repro_torch.kernels.scan_event_step`,
-  :mod:`repro_torch.kernels.par_scan_event_step`); needs a CUDA device.
-  It alone (with its plain version) serves the instance-count histogram,
-  oldest-first routing, windowed single runs, lifespans and reliability
-  on the temporal and par engines.
-* ``"scan_ref"`` — the plain f64 PyTorch versions of those kernels
-  (:mod:`repro_torch.kernels.ref64`); runs on any device.
 
 The engines are the reference's (:data:`ENGINE_SPECS`, each with the
 backends that serve its feature layers): ``"scan"`` (steady state) and
@@ -33,8 +35,10 @@ the scan engine through each backend's ``"fleet"`` launcher.
 
 Entry points run on the card unless the caller asks for the CPU:
 ``device=None`` means ``"cuda"``, and a CUDA request without a visible GPU
-raises instead of falling back.  ``backend=None`` picks ``"cuda"`` on a
-CUDA device and ``"ref"`` on the CPU.  A backend that needs a CUDA device
+raises instead of falling back.  ``backend=None`` picks the reference's
+default, the f64 scan: ``"scan"`` on a CUDA device and ``"scan_ref"`` on
+the CPU, for every engine and for fleets; the f32 block engine runs when
+it is named (``"cuda"``, or ``"ref"`` on the CPU).  A backend that needs a CUDA device
 raises on the CPU, naming its plain version; none falls back to another.
 """
 
@@ -69,13 +73,13 @@ class EngineSpec:
 
 
 # the engines and the backends serving each layer: the f32 block kernels
-# ("cuda"/"ref") and the f64 engine ("scan"/"scan_ref"), whose fused draws
-# are ROADMAP Queue A item 2b
+# ("cuda"/"ref") and the f64 engine ("scan"/"scan_ref"); the par and
+# temporal engines draw no fused samples, as in the reference
 ENGINE_SPECS = {
     "scan": EngineSpec(
         "scan", windowed_backends=("cuda", "ref", "scan", "scan_ref"),
         reliability_backends=("cuda", "ref", "scan", "scan_ref"),
-        fused_backends=("cuda", "ref"),
+        fused_backends=("cuda", "ref", "scan", "scan_ref"),
         faults_backends=("cuda", "ref", "scan", "scan_ref"),
     ),
     "temporal": EngineSpec("temporal", reliability_backends=("scan", "scan_ref")),
@@ -102,8 +106,10 @@ class BackendSpec:
     max_concurrency, concurrency, slots, prestamped)`` and returns
     ``[C, PAR_ACC_COLS]``.  The fleet launcher is ``launch(t_exp, limit,
     ncl, t_end, skip, stream, times, fids, warms, colds, *, slots,
-    queue_depth, prestamped)`` on ``[N, F]`` / ``[N]`` fleet tensors and a
-    ``[S, K]`` stream, and returns ``(acc[N, F, 13], qleft[N, F])``.
+    queue_depth, prestamped, live_bound)`` on ``[N, F]`` / ``[N]`` fleet
+    tensors and a ``[S, K]`` stream, and returns ``(acc[N, F, 13],
+    qleft[N, F])`` on the block engine, a :class:`~repro_torch.kernels.
+    ref64.FleetScanOut` on the f64 engine.
     """
 
     name: str
@@ -144,6 +150,7 @@ _PROVIDERS = {
     "scan": (
         "repro_torch.kernels.scan_event_step",
         "repro_torch.kernels.par_scan_event_step",
+        "repro_torch.kernels.fleet_scan_event_step",
     ),
 }
 
@@ -219,7 +226,7 @@ class Execution:
             raise RuntimeError(
                 "no CUDA device is visible; the port runs on the GPU unless "
                 "asked for the CPU — pass device='cpu' to run the plain "
-                "backend 'ref' there"
+                "backends ('scan_ref', 'ref') there"
             )
         if dev.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
@@ -235,7 +242,7 @@ class Execution:
                 f"{list(ENGINES)}"
             )
         dev = self.resolved_device()
-        name = self.backend or ("cuda" if dev.type == "cuda" else "ref")
+        name = self.backend or ("scan" if dev.type == "cuda" else "scan_ref")
         bspec = resolve_backend(name)
         if name in _CUDA_ONLY and dev.type != "cuda":
             raise ValueError(
@@ -245,12 +252,6 @@ class Execution:
             )
         bspec.launch_for(self.engine)
         espec = ENGINE_SPECS[self.engine]
-        if self.resolved_draws == "fused" and bspec.f64:
-            raise NotImplementedError(
-                f"fused draws on the f64 engine (backend {name!r}) are not ported "
-                "to repro_torch yet; see ROADMAP.md Queue A item 2b (use "
-                "draws='staged', or backend='cuda'/'ref' for fused draws)"
-            )
         if self.resolved_draws == "fused" and name not in espec.fused_backends:
             raise ValueError(
                 f"engine {self.engine!r} cannot draw fused samples on backend "

@@ -21,11 +21,18 @@ the same seed.
 :func:`fleet_sweep` sweeps ``expiration_threshold`` (a scalar for every
 function, or one value per function), ``n_cluster``, ``sim_time`` and
 ``skip_time``.  All four are per-fleet values, so every cell reads the one
-stream and a whole sweep is ONE launch of the fleet kernel
-(``LAUNCH_COUNTS["fleet_sweep"]``); the result has a trailing
-``function`` axis.  The engine is the f32 block engine: backend
-``"cuda"`` (the kernel ``kernels/csrc/fleet_event_step.cu``, F <= 8) or
-``"ref"`` (its plain version).
+stream and a whole sweep is ONE launch of the fleet kernel; the result has
+a trailing ``function`` axis.  Two engines serve fleets:
+
+* the f64 fleet scan, the reference's default (``_make_fleet_step``):
+  backend ``"scan"`` (the kernel ``kernels/csrc/
+  fleet_scan_event_step.cu``, ``LAUNCH_COUNTS["fleet_scan_sweep"]``, any
+  F) or ``"scan_ref"`` (its plain version,
+  :func:`repro_torch.kernels.ref64.fleet_scan_sweep_ref`); its staging
+  keeps the merged times in f64, and its summaries carry lifespans;
+* the f32 block engine: backend ``"cuda"`` (the kernel
+  ``kernels/csrc/fleet_event_step.cu``, ``LAUNCH_COUNTS["fleet_sweep"]``,
+  F <= 8) or ``"ref"`` (its plain version).
 
 Platform faults (``FleetScenario(faults=FaultModel(...))``, not with
 queues) run the fault path of the fleet kernel: each function pool under
@@ -35,9 +42,6 @@ events, drawn from the crash generator of function 0's draw cell (so a
 one-function fleet draws what :func:`~repro_torch.core.scenario.run`
 draws); each function's summary carries its crashes, evictions and
 interrupted arrivals.
-
-Not ported yet, raising with its ROADMAP item: the f64 fleet scan
-(backends ``"scan"``/``"scan_ref"``, Queue A item 2b).
 """
 
 from __future__ import annotations
@@ -66,6 +70,7 @@ from repro_torch.core.simulator import (
     draw_workload_samples,
 )
 from repro_torch.kernels.ref import FAULT_COLS, FLEET_ACC_COLS, MAX_FUNCTIONS
+from repro_torch.kernels.ref64 import FLEET64_COLS, FLEET64_PEAK
 
 __all__ = [
     "FleetFunction",
@@ -238,7 +243,7 @@ def _short(name: str):
 
 def _stage_fleet(
     fleet: FleetScenario, seed: int, replicas: int, steps: Optional[int],
-    max_sim: float, device,
+    max_sim: float, device, f64: bool = False,
 ) -> Dict[str, Any]:
     """Draw every function's stream on ``device`` and merge them per replica.
 
@@ -254,8 +259,9 @@ def _stage_fleet(
     sorting after the cast would reorder the stream.  For F == 1 the gaps
     pass through (``prestamped=False``), or a timestamp process's times
     (``prestamped=True``), as :func:`~repro_torch.core.scenario.run` draws
-    them.
+    them.  With ``f64`` (the f64 fleet scan) absolute times stay f64.
     """
+    stamp = (lambda x: x.double()) if f64 else (lambda x: x.float())
     F, R = len(fleet.functions), int(replicas)
     flt = fleet.active_faults
     crashes = flt is not None and flt.crashes
@@ -287,7 +293,7 @@ def _stage_fleet(
                 _short(fn.name)
         if F == 1:
             return with_crashes(dict(
-                times=stream.float(),
+                times=stamp(stream) if scn_f.prestamped else stream.float(),
                 fids=torch.zeros((R, n_f), dtype=torch.uint8, device=device),
                 warms=warm, colds=cold, prestamped=scn_f.prestamped,
             ))
@@ -300,16 +306,18 @@ def _stage_fleet(
     del times
     take = lambda parts: torch.cat(parts, 1).gather(1, order)
     return with_crashes(dict(
-        times=merged.float(), fids=take(fids), warms=take(warms), colds=take(colds),
+        times=stamp(merged), fids=take(fids), warms=take(warms), colds=take(colds),
         prestamped=True,
     ))
 
 
-def _check_staged(staged, fleet: FleetScenario, replicas: int, max_sim: float, device) -> dict:
+def _check_staged(staged, fleet: FleetScenario, replicas: int, max_sim: float, device,
+                  f64: bool = False) -> dict:
     """A handed-in stream (see :func:`repro_torch.interop.
     fleet_staged_from_reference`) on ``device``, behind the coverage
     guard: every function's last arrival must reach ``max_sim``.  With
-    crashes it also holds ``crash_u``."""
+    crashes it also holds ``crash_u``; with ``f64`` prestamped times stay
+    f64."""
     crashes = fleet.active_faults is not None and fleet.faults.crashes
     keys = ("times", "fids", "warms", "colds", "prestamped") + (("crash_u",) if crashes else ())
     if not isinstance(staged, Mapping) or any(k not in staged for k in keys):
@@ -319,10 +327,11 @@ def _check_staged(staged, fleet: FleetScenario, replicas: int, max_sim: float, d
             + " (see repro_torch.interop.fleet_staged_from_reference)"
         )
     floats = ("times", "warms", "colds") + (("crash_u",) if crashes else ())
-    out = {k: torch.as_tensor(staged[k], dtype=torch.float32).to(device).contiguous()
-           for k in floats}
+    stamped = bool(staged["prestamped"])
+    wide = lambda k: torch.float64 if f64 and stamped and k == "times" else torch.float32
+    out = {k: torch.as_tensor(staged[k], dtype=wide(k)).to(device).contiguous() for k in floats}
     out["fids"] = torch.as_tensor(staged["fids"]).to(device, torch.uint8).contiguous()
-    out["prestamped"] = bool(staged["prestamped"])
+    out["prestamped"] = stamped
     shape = tuple(out["times"].shape)
     if len(shape) != 2 or shape[0] != replicas or any(
         tuple(out[k].shape) != shape for k in ("fids",) + floats[1:]
@@ -333,8 +342,9 @@ def _check_staged(staged, fleet: FleetScenario, replicas: int, max_sim: float, d
         )
     times, fids = out["times"], out["fids"]
     if out["prestamped"]:
-        # f32 rounding is monotone, so compare against the f32 horizon
-        need = torch.tensor(max_sim, dtype=torch.float32, device=device)
+        # f32 rounding is monotone, so compare against the horizon in the
+        # times' own dtype
+        need = torch.tensor(max_sim, dtype=times.dtype, device=device)
         for f, fn in enumerate(fleet.functions):
             last = torch.where(fids == f, times, -math.inf).amax(1)
             if bool((last < need).any()):
@@ -356,11 +366,6 @@ def _fleet_capable_combos() -> List[str]:
 
 def _resolve_fleet(execution, engine, backend, device):
     plan = plan_of(execution, backend, device, engine=engine)
-    if plan.backend is not None and resolve_backend(plan.backend).f64:
-        raise NotImplementedError(
-            f"backend={plan.backend!r} (the f64 fleet scan engine) is not ported to "
-            "repro_torch yet; see ROADMAP.md Queue A item 2b"
-        )
     if plan.engine != "scan":
         raise ValueError(
             f"engine '{plan.engine}' does not serve the fleet coupling (shared "
@@ -372,6 +377,12 @@ def _resolve_fleet(execution, engine, backend, device):
         raise ValueError(
             f"backend '{bspec.name}' has no fleet launcher; fleet-capable "
             f"combinations: {'; '.join(_fleet_capable_combos())}"
+        )
+    if plan.resolved_draws == "fused":
+        raise ValueError(
+            "fleet simulations stage their merged per-function event streams "
+            "on the host; draws='fused' is not served — use draws='staged' "
+            "(the default), which works with backend='scan', 'cuda' and 'ref'"
         )
     return dataclasses.replace(plan, backend=bspec.name, device=str(dev)), bspec, dev
 
@@ -455,11 +466,12 @@ def live_bound(n_cluster, limits, slots: int) -> int:
     function's below its limit and a free slot of ``slots``, so each fleet
     holds at most min(ceil(n_cluster), sum_f min(ceil(limit_f), slots),
     F * slots).  ``n_cluster`` is ``[N]`` (inf or 1e30: unbounded) and
-    ``limits`` ``[N, F]``, compared in f32 as the kernel compares them;
-    the result is the largest over the fleets, at least 1.
+    ``limits`` ``[N, F]``, each in the dtype the launch's kernel compares
+    them in (f32 for the block engine, f64 for the scan); the result is the
+    largest over the fleets, at least 1.
     """
-    lim = np.atleast_2d(np.asarray(limits, np.float32)).astype(np.float64)
-    ncl = np.asarray(n_cluster, np.float32).astype(np.float64)
+    lim = np.atleast_2d(np.asarray(limits)).astype(np.float64)
+    ncl = np.asarray(n_cluster).astype(np.float64)
     M = int(slots)
     by_fn = np.clip(np.nan_to_num(np.ceil(lim), nan=0.0), 0, M).sum(1)
     by_cluster = np.nan_to_num(np.ceil(ncl), nan=0.0)
@@ -469,16 +481,18 @@ def live_bound(n_cluster, limits, slots: int) -> int:
 
 def fleet_inputs(
     fleet: FleetScenario, over: Mapping[str, Sequence], seed: int, *,
-    replicas: int, device, steps: Optional[int] = None, staged=None,
+    replicas: int, device, steps: Optional[int] = None, staged=None, f64: bool = False,
 ) -> FleetInputs:
     """The cells of ``over``'s product grid and the staged stream:
-    everything :func:`fleet_sweep` does before its launch."""
+    everything :func:`fleet_sweep` does before its launch.  ``f64`` stages
+    for the f64 fleet scan: f64 per-fleet values (an unbounded cluster as
+    inf) and f64 absolute times."""
     F = len(fleet.functions)
-    if F > MAX_FUNCTIONS:
+    if F > MAX_FUNCTIONS and not f64:
         raise ValueError(
             f"block backends serve fleets of at most {MAX_FUNCTIONS} functions "
-            f"(one warp holds a fleet's pools); got F={F} — use backend='scan' "
-            "(the f64 fleet scan, not ported yet: ROADMAP.md Queue A item 2b)"
+            f"(functions ride one warp of the f32 kernels); got F={F} — use "
+            "backend='scan'"
         )
     names = list(over)
     axis_vals = {n: tuple(over[n]) for n in names}
@@ -487,9 +501,9 @@ def fleet_inputs(
     max_sim = max(p[2] for p in per_cell)
     R = int(replicas)
     if staged is None:
-        staged = _stage_fleet(fleet, seed, R, steps, max_sim, device)
+        staged = _stage_fleet(fleet, seed, R, steps, max_sim, device, f64)
     else:
-        staged = _check_staged(staged, fleet, R, max_sim, device)
+        staged = _check_staged(staged, fleet, R, max_sim, device, f64)
     C = len(per_cell)
     cells = dict(
         expiration_threshold=np.array([p[0] for p in per_cell], np.float64),
@@ -500,12 +514,15 @@ def fleet_inputs(
         sim_time=np.array([p[2] for p in per_cell], np.float64),
         skip_time=np.array([p[3] for p in per_cell], np.float64),
     )
-    # f32 per-fleet values; an unbounded cluster travels as 1e30
+    # per-fleet values, f32 for the block engine (an unbounded cluster
+    # travels as 1e30) or f64
     rows = lambda a: torch.tensor(
-        np.repeat(np.asarray(a, np.float64), R, axis=0), dtype=torch.float32,
-        device=device,
+        np.repeat(np.asarray(a, np.float64), R, axis=0),
+        dtype=torch.float64 if f64 else torch.float32, device=device,
     ).contiguous()
-    ncl = np.where(np.isfinite(cells["n_cluster"]), cells["n_cluster"], 1e30)
+    ncl = (cells["n_cluster"] if f64 else
+           np.where(np.isfinite(cells["n_cluster"]), cells["n_cluster"], 1e30))
+    vdt = np.float64 if f64 else np.float32  # the kernel's comparisons
     flt = fleet.active_faults
     faults = {}
     if flt is not None and flt.crashes:
@@ -524,7 +541,7 @@ def fleet_inputs(
         stream=torch.arange(R, dtype=torch.int64, device=device).repeat(C),
         staged=staged,
         faults=faults,
-        live_bound=live_bound(ncl, cells["limit"], fleet.slots),
+        live_bound=live_bound(ncl.astype(vdt), cells["limit"].astype(vdt), fleet.slots),
     )
 
 
@@ -532,6 +549,8 @@ def _launch_fleet(fleet: FleetScenario, inp: FleetInputs, bspec, replicas: int) 
     """ONE launch of the backend's fleet launcher over every (cell,
     replica) fleet; returns one dict per cell: per-function ``summaries``
     plus ``[F, R]`` fleet arrays and the ``[R]`` peak."""
+    if bspec.f64:
+        return _launch_fleet64(fleet, inp, bspec, replicas)
     F, R = len(fleet.functions), int(replicas)
     st = inp.staged
     acc, qleft = bspec.launch_for("fleet")(
@@ -574,6 +593,58 @@ def _launch_fleet(fleet: FleetScenario, inp: FleetInputs, bspec, replicas: int) 
             peak=a[:, 0, 12],
         ))
     return out
+
+
+def _launch_fleet64(fleet: FleetScenario, inp: FleetInputs, bspec, replicas: int) -> list:
+    """:func:`_launch_fleet` on the f64 fleet scan (the reference's
+    ``_scan_fleet_cells``): the short-stream and overflow guards, and
+    per-function summaries with lifespans and the fault columns."""
+    F, R = len(fleet.functions), int(replicas)
+    st = inp.staged
+    out = bspec.launch_for("fleet")(
+        inp.t_exp, inp.limit, inp.ncl, inp.t_end, inp.skip, inp.stream,
+        st["times"], st["fids"], st["warms"], st["colds"],
+        slots=fleet.slots, queue_depth=fleet.queue_depth, prestamped=st["prestamped"],
+        live_bound=inp.live_bound, **inp.faults,
+    )
+    C = len(inp.cells["n_cluster"])
+    faults = bool(inp.faults)
+    acc = out.acc.cpu().numpy().reshape(C, R, F, -1)
+    qleft = out.qleft.cpu().numpy().reshape(C, R, F)
+    if not st["prestamped"]:
+        short = out.t.cpu().numpy() < np.repeat(inp.cells["sim_time"], R)
+        if short.any():
+            raise RuntimeError("pre-drawn arrivals ended before sim_time; pass a larger steps=")
+    if acc[..., 9].sum() > 0:
+        raise RuntimeError("instance-pool overflow during fleet run; raise FleetScenario.slots")
+    if not (np.isfinite(acc).all() and np.isfinite(qleft).all()):
+        raise RuntimeError(
+            "the f64 fleet scan returned non-finite outputs: a fleet held more live "
+            f"instances than the launch's live bound {inp.live_bound}"
+        )
+    res = []
+    FC = FLEET64_COLS
+    for c in range(C):
+        measured = float(inp.cells["sim_time"][c] - inp.cells["skip_time"][c])
+        a = acc[c]  # [R, F, cols]
+        summaries = [
+            SimulationSummary(
+                n_cold=a[:, f, 0], n_warm=a[:, f, 1], n_reject=a[:, f, 2],
+                time_running=a[:, f, 3], time_idle=a[:, f, 4],
+                sum_cold_resp=a[:, f, 5], sum_warm_resp=a[:, f, 6],
+                lifespan_sum=a[:, f, 7], lifespan_count=a[:, f, 8],
+                measured_time=measured, overflow=a[:, f, 9],
+                **(dict(n_crash=a[:, f, FC], n_evict=a[:, f, FC + 1],
+                        n_interrupt=a[:, f, FC + 2]) if faults else {}),
+            )
+            for f in range(F)
+        ]
+        res.append(dict(
+            summaries=summaries, arrivals=a[:, :, FC - 5].T, enq=a[:, :, FC - 4].T,
+            qserved=a[:, :, FC - 3].T, qwait=a[:, :, FC - 2].T, qleft=qleft[c].T,
+            peak=a[:, 0, FLEET64_PEAK],
+        ))
+    return res
 
 
 # --------------------------------------------------------------------------
@@ -748,7 +819,8 @@ def fleet_run(
     staged=None,
 ) -> FleetResult:
     """Run one fleet cell (``replicas`` fleets, one launch; default: the
-    CUDA kernel on the card); returns per-function and fleet metrics.
+    f64 fleet scan, its kernel on the card); returns per-function and fleet
+    metrics.
 
     ``seed`` seeds the per-function generators; ``staged`` (a dict of
     ``[replicas, K]`` ``times``/``fids``/``warms``/``colds`` and
@@ -757,7 +829,7 @@ def fleet_run(
     """
     _, bspec, dev = _resolve_fleet(execution, engine, backend, device)
     inp = fleet_inputs(fleet, {}, seed, replicas=replicas, device=dev, steps=steps,
-                       staged=staged)
+                       staged=staged, f64=bspec.f64)
     outs = _launch_fleet(fleet, inp, bspec, replicas)
     summary = _fleet_summary(fleet, inp.cells, outs[0], 0)
     return FleetResult(fleet=fleet, summary=summary,
@@ -787,7 +859,7 @@ def fleet_sweep(
     plan, bspec, dev = _resolve_fleet(execution, engine, backend, device)
     _validate_axes(fleet, over)
     inp = fleet_inputs(fleet, over, seed, replicas=replicas, device=dev, steps=steps,
-                       staged=staged)
+                       staged=staged, f64=bspec.f64)
     outs = _launch_fleet(fleet, inp, bspec, replicas)
     F = len(fleet.functions)
     names = list(inp.axis_vals)

@@ -387,6 +387,44 @@ class RateProfile:
             f"{type(self).__name__} does not support rate rescaling"
         )
 
+    def block(self) -> tuple:
+        """The profile as the f64 parameter block the fused f64 engine
+        evaluates (:func:`block_rate`; ``csrc/scan_event_step.cu``'s
+        ``profile_rate``): its kind id, then its parameters."""
+        raise ValueError(
+            f"{type(self).__name__} does not lower to a fused profile block; "
+            "use draws='staged'"
+        )
+
+
+# profile block kinds (RateProfile.block): a sinusoid [1, base, amplitude,
+# period, phase]; piecewise constant [2, E, edges[E], rates[E+1]]
+PROFILE_SINUSOID = 1
+PROFILE_PIECEWISE = 2
+
+
+def block_rate(block, t) -> torch.Tensor:
+    """``rate(t)`` of the profile lowered to ``block`` (a tuple of floats,
+    :meth:`RateProfile.block`) on the f64 tensor ``t``: the profile's own
+    ``rate``, the same f64 value, with no copy to the device and no read
+    back (so it can run inside a CUDA graph).  A piecewise profile takes
+    ``rates[#(edges <= t)]``, one select per edge."""
+    b = [float(x) for x in block]
+    kind = int(b[0])
+    if kind == PROFILE_SINUSOID:
+        base, amp, period, phase = b[1:5]
+        # a true division (torch's CUDA division by a host scalar multiplies
+        # by its reciprocal instead)
+        period = torch.full_like(t, period)
+        return base * (1.0 + amp * torch.sin(2.0 * math.pi * t / period + phase))
+    if kind == PROFILE_PIECEWISE:
+        E = int(b[1])
+        rate = torch.full_like(t, b[2 + E])
+        for k, edge in enumerate(b[2:2 + E]):  # ascending: the last edge <= t wins
+            rate = torch.where(t >= edge, b[3 + E + k], rate)
+        return rate
+    raise ValueError(f"unknown profile block kind {kind}")
+
 
 def _f64(t) -> torch.Tensor:
     return torch.as_tensor(t, dtype=torch.float64)
@@ -422,6 +460,10 @@ class PiecewiseConstantRate(RateProfile):
 
     def max_rate(self):
         return float(max(self.rates))
+
+    def block(self):
+        return ((float(PROFILE_PIECEWISE), float(len(self.edges)))
+                + tuple(float(e) for e in self.edges) + tuple(float(r) for r in self.rates))
 
     def mean_rate(self) -> float:
         """Time-averaged rate over the covered span: bins weighted by their
@@ -532,13 +574,14 @@ class SinusoidalRate(RateProfile):
             raise ValueError("base rate and period must be positive")
 
     def rate(self, t):
-        t = _f64(t)
-        return self.base * (
-            1.0 + self.amplitude * torch.sin(2.0 * math.pi * t / self.period + self.phase)
-        )
+        return block_rate(self.block(), _f64(t))
 
     def max_rate(self):
         return self.base * (1.0 + self.amplitude)
+
+    def block(self):
+        return (float(PROFILE_SINUSOID), float(self.base), float(self.amplitude),
+                float(self.period), float(self.phase))
 
     def with_rate(self, rate):
         # the time-averaged rate over a full period is exactly ``base``
@@ -587,6 +630,11 @@ class NHPPArrivalProcess(SimProcess, ArrivalTimeProcess):
 
     def _fill(self, out, generator):
         _no_gaps(self)
+
+    def draw_spec(self):
+        # fused NHPP: candidate gaps at the envelope rate, thinned inline at
+        # each candidate's clock (the f64 engine only)
+        return "nhpp", (self.profile.max_rate(),)
 
     def arrival_times(self, generator, shape, device=None):
         lam = self.profile.max_rate()

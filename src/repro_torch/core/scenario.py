@@ -47,9 +47,10 @@ interop`) replaces the draws with the reference's own buffers.
 
 With ``Execution(draws="fused")`` (scan engine, no retries) no sample
 buffer exists: the grid lowers to one :class:`~repro_torch.core.drawplan.
-DrawPlan`, each row carries a uint32 key pair per stream and f32 parameter
-pairs (48 bytes a row, 56 with the failure stream), the kernel draws every
-sample, and the coverage guard reads the kernel's final clock.
+DrawPlan`, each row carries a uint32 key pair per stream and parameter
+pairs (f32 on the block engine, 48 bytes a row, 56 with the failure
+stream; f64 on the f64 engine), the kernel draws every sample, and the
+coverage guard reads the kernel's final clock.  One launch serves a sweep.
 ``fused_keys=`` replaces the keys derived from ``seed`` (see
 :func:`repro_torch.interop.fused_keys_from_reference`).
 
@@ -59,8 +60,10 @@ replay) yield absolute timestamps: the staging layer thins and sorts them
 in f64, guards each draw cell on the process's own coverage, casts once
 into the f32 buffers, and the kernels run ``prestamped``.  ``profile`` is
 a draw axis (one draw cell per profile); a grid must not mix stationary
-and timestamp cells.  Fused draws refuse timestamp processes (the block
-kernels evaluate no ``profile.rate(t)``).
+and timestamp cells.  Fused draws thin an NHPP arrival process inline on
+the f64 engine (backends ``"scan"``/``"scan_ref"``: candidates at the
+envelope rate, a rejected one an inert arrival); the block kernels evaluate
+no ``profile.rate(t)`` and refuse it, and every other timestamp process.
 
 The f64 engine alone serves windowed single runs, the instance-count
 histogram (``track_histogram``, ``hist_bins``), oldest-first routing,
@@ -68,7 +71,7 @@ lifespans and reliability on the temporal and par engines; the block
 backends refuse them with the reference's messages.  Its staging keeps
 absolute timestamps in f64 and retry positions as integers.  ``scan_unroll``
 is a static axis whose values share one launch and its cells (it changes
-only the reference's compile).  Fused draws on the f64 engine are ROADMAP Queue A item 2b.
+only the reference's compile).
 """
 
 from __future__ import annotations
@@ -398,24 +401,34 @@ def _block_launch(
 
 
 def fused_state(cfgs, seed, replicas: int, n_steps: int, device, *, param_cells=1,
-                fused_keys=None) -> dict:
+                fused_keys=None, f64: bool = False) -> dict:
     """The fused launch's whole sample state for the draw cells ``cfgs``
     (rows in ``(draw, param, replica)`` order, each draw cell's rows
     repeated over ``param_cells``): ``dists``, uint32 ``[C, 2]`` ``keys``
     (arrival, warm, cold) and ``fail_keys`` (with reliability, else None),
-    f32 ``[C, 2]`` ``params`` and ``n_steps``, on ``device``.  The keys are
+    ``[C, 2]`` ``params`` (f32, or f64 for the f64 engine), ``n_steps``
+    and, for an NHPP arrival (the f64 engine only), the ``profile`` block
+    (a tuple of floats), on ``device``.  The keys are
     :func:`~repro_torch.core.drawplan.stream_row_keys` of ``seed``, or
     ``fused_keys`` (a dict of ``[D*replicas, 2]`` uint32 arrays per
     stream) when given.  One plan serves the grid, so every draw cell must
-    lower to the same distribution families."""
+    lower to the same distribution families and rate profile."""
     lowered = [dp.lower_scenario(c) for c in cfgs]
     plans = {plan for plan, _ in lowered}
     if len(plans) > 1:
         raise ValueError(
             "fused draws run one DrawPlan for the whole grid; sweeping "
-            "distribution families across draw cells needs draws='staged'"
+            "distribution families or rate profiles across draw cells needs "
+            "draws='staged'"
         )
     plan = plans.pop()
+    nhpp = plan.arrival.kind == dp.NHPP
+    if nhpp and not f64:
+        raise ValueError(
+            "fused NHPP thinning is scan-backend only (the block kernels have "
+            "no profile.rate(t) at trace time); use backend='scan' or "
+            "draws='staged'"
+        )
     D, R = len(cfgs), int(replicas)
     streams = dp.STREAMS[:4 if plan.fail else 3]
     if fused_keys is None:
@@ -425,8 +438,9 @@ def fused_state(cfgs, seed, replicas: int, n_steps: int, device, *, param_cells=
         keys = _handed_keys(fused_keys, streams, D * R)
     rep = lambda a: np.repeat(a.reshape(D, 1, R, 2), param_cells, axis=1).reshape(-1, 2)
     dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    ptype = np.float64 if f64 else np.float32
     params = [
-        np.repeat(np.asarray([pv[s] for _, pv in lowered], np.float32), param_cells * R, axis=0)
+        np.repeat(np.asarray([pv[s] for _, pv in lowered], ptype), param_cells * R, axis=0)
         for s in streams[:3]
     ]
     return dict(
@@ -435,6 +449,7 @@ def fused_state(cfgs, seed, replicas: int, n_steps: int, device, *, param_cells=
         fail_keys=dev(rep(keys["fail"])) if plan.fail else None,
         params=tuple(dev(p) for p in params),
         n_steps=int(n_steps),
+        profile=plan.arrival.profile.block() if nhpp else None,
     )
 
 
@@ -580,7 +595,8 @@ def run(
         elif plan.engine == "par":
             summary = run_par64(scn, seed, bspec, dev, **kw)
         else:
-            summary = run_scan64(scn, seed, bspec, dev, **kw)
+            summary = run_scan64(scn, seed, bspec, dev, fused=fused, fused_keys=fused_keys,
+                                 **kw)
         return Result(scenario=scn, summary=summary,
                       cost=estimate_cost(summary, scn.billing), temporal=temporal)
     _check_block_single(scn, plan.engine)
@@ -980,7 +996,9 @@ def sweep_inputs(
     fused = None
     if draws == "fused":
         fused = fused_state(draw_cfgs, seed, R, n_steps, device, param_cells=param_cells,
-                            fused_keys=fused_keys)
+                            fused_keys=fused_keys, f64=f64)
+        # fused streams are gaps (NHPP thinning is inline)
+        prestamped = False
         bufs = ()
     elif staged is not None:
         bufs = check_staged(staged, D * R, device, width, crashes, dtypes)
@@ -1235,6 +1253,7 @@ def _scan_sweep_cells(scn_s, inp: SweepInputs, samples, bspec, dev, R: int, wind
         scn_s, bspec, dev, samples, t_exp=inp.thr_rows, t_end=inp.sim_rows,
         skip=inp.skip_rows, prestamped=inp.prestamped, window_rows=window_rows,
         t_timeout=inp.t_timeout_rows, p_fail=inp.p_fail_rows, faults=inp.fault_rows,
+        fused=inp.fused,
     )
     acc = out.acc.cpu().numpy()
     t_last = out.t.cpu().numpy()

@@ -672,6 +672,7 @@ def _f64_rows(x, C: int, device) -> torch.Tensor:
 def scan_launch(
     scn, bspec, device, samples, *, t_exp, t_end, skip, prestamped, engine="scan",
     window_rows=None, t_timeout=None, p_fail=None, faults=None, pool=None, grid=None,
+    fused=None,
 ):
     """One launch of the f64 pool scan (``engine`` ``"scan"`` or
     ``"temporal"``) on ``samples`` (``staged_dtypes(..., f64=True)``
@@ -682,9 +683,12 @@ def scan_launch(
     ``faults`` the per-row fault inputs (``crash_rate``, ``cap_edges``,
     ``cap_values``), ``pool`` an initial ``(alive, creation, busy)`` of
     ``[M]`` host arrays (default: empty) and ``grid`` the ``[G]`` snapshot
-    times.  Routing, the histogram and the pool come from ``scn``.
+    times.  Routing, the histogram and the pool come from ``scn``.  With
+    ``fused`` (:func:`~repro_torch.core.scenario.fused_state` with
+    ``f64=True``) ``samples`` is empty and the kernel draws every sample.
     Returns the backend's :class:`~repro_torch.kernels.ref64.ScanOut`."""
-    C, M = samples[0].shape[0], scn.slots
+    C = fused["keys"][0].shape[0] if fused is not None else samples[0].shape[0]
+    M = scn.slots
     rows = lambda x: _f64_rows(x, C, device)
     if pool is None:
         alive0 = torch.zeros((C, M), dtype=torch.bool, device=device)
@@ -710,6 +714,13 @@ def scan_launch(
         samples = samples[:-1]
     if "cap_values" in faults:
         kw.update(cap_edges=mat(faults["cap_edges"]), cap_values=mat(faults["cap_values"]))
+    if fused is not None:
+        kw.update(fused_keys=fused["keys"], fused_params=fused["params"],
+                  fused_dists=fused["dists"], fused_k=fused["n_steps"],
+                  fused_fail_keys=fused["fail_keys"], fused_profile=fused["profile"])
+        if t_timeout is not None:
+            kw.update(t_timeout=rows(t_timeout), p_fail=rows(p_fail))
+        return bspec.launch_for(engine)(alive0, creation0, busy0, None, None, None, **kw)
     if len(samples) > 3:
         kw.update(t_timeout=rows(t_timeout), p_fail=rows(p_fail), fail_u=samples[3])
     if len(samples) > 4:
@@ -809,19 +820,36 @@ def fault_inputs(scn, replicas: int) -> Optional[dict]:
 
 
 def run_scan64(scn, seed: int, bspec, device, *, replicas: int, steps=None,
-               staged=None) -> SimulationSummary:
+               staged=None, fused: bool = False, fused_keys=None) -> SimulationSummary:
     """The steady-state engine on the f64 scan: ``replicas`` rows from
     empty pools, one launch, with every layer of ``scn`` (reliability and
-    retries, faults, routing, the histogram, metric windows)."""
+    retries, faults, routing, the histogram, metric windows).  With
+    ``fused`` (the reference's ``_run_scan_fused``) the kernel draws
+    ``steps`` (default ``steps_needed()``) events of gaps from the keys of
+    ``seed`` (or ``fused_keys``), NHPP thinned inline, and the guards read
+    its final clock."""
+    from repro_torch.core.scenario import fused_state
     from repro_torch.kernels.ref64 import ScanLayout
 
     rel = scn.reliability
-    samples = run_samples(scn, seed, replicas, steps, staged, device, f64=True)
+    state = None
+    if fused:
+        if scn.faults is not None and scn.faults.enabled:
+            raise ValueError(
+                "draws='fused' does not serve platform faults (the crash stream is "
+                "host-staged); use draws='staged'"
+            )
+        n = int(steps or scn.steps_needed())
+        state = fused_state([scn], seed, replicas, n, device, fused_keys=fused_keys, f64=True)
+        samples = ()
+    else:
+        samples = run_samples(scn, seed, replicas, steps, staged, device, f64=True)
     fi = fault_inputs(scn, replicas)
     W = 0 if scn.window_bounds is None else len(scn.window_bounds) - 1
     out = scan_launch(
         scn, bspec, device, samples, t_exp=scn.expiration_threshold, t_end=scn.sim_time,
-        skip=scn.skip_time, prestamped=scn.prestamped or scn.max_retries > 0,
+        skip=scn.skip_time, fused=state,
+        prestamped=not fused and (scn.prestamped or scn.max_retries > 0),
         window_rows=None if not W else np.tile(scn.window_bounds, (replicas, 1)),
         t_timeout=None if rel is None else rel.failure.timeout_or_inf,
         p_fail=None if rel is None else rel.failure.p_fail, faults=fi,

@@ -186,7 +186,9 @@ def fused_keys_from_reference(parts, device=None) -> dict:
     ``"warm"``, ``"cold"`` and, with reliability, ``"fail"``), in draw-cell
     order: one uint32 ``[D*R, 2]`` tensor per stream (on ``device``,
     default the CPU).  The fused bitstream is the contract between the
-    packages, so with the same keys both draw the same uniforms."""
+    packages, so with the same keys both draw the same uniforms: on the
+    block engine (backends ``"cuda"``/``"ref"``) and on the f64 engine
+    (``"scan"``/``"scan_ref"``, against the reference's fused scan)."""
     parts = [dict(p) for p in parts]
     names = {frozenset(p) for p in parts}
     if not parts or len(names) != 1:
@@ -229,20 +231,24 @@ def fleet_staged_from_reference(staged, device=None) -> dict:
     """The port's fleet ``staged=`` input from the reference's
     ``_stage_fleet`` dict (``times``, ``fids``, ``warms``, ``colds``, each
     ``[R, K]``, and ``prestamped``; with crashes the ``crash_u`` its fleet
-    launcher adds): times cast to f32 after the merge (the reference's f64
-    absolute times, or f32 gaps for one function), fids as uint8, on
-    ``device`` (default the CPU)."""
+    launcher adds): the reference's f64 absolute times kept exactly (the
+    front door casts them to the engine's dtype: f32 after the merge for
+    the block engine, as the reference's Pallas launcher does, f64 for the
+    scan), or its f32 gaps for one function; fids as uint8, on ``device``
+    (default the CPU)."""
     dev = device or "cpu"
     f32 = lambda k: torch.from_numpy(np.array(staged[k], dtype=np.float32)).to(dev)
+    stamped = bool(staged["prestamped"])
     fids = np.asarray(staged["fids"])
     if fids.size and (fids.min() < 0 or fids.max() > 255):
         raise ValueError("fids must be function indices in [0, 255]")
     out = dict(
-        times=f32("times"),
+        times=(torch.from_numpy(np.array(staged["times"], dtype=np.float64)).to(dev)
+               if stamped else f32("times")),
         fids=torch.from_numpy(np.ascontiguousarray(fids, dtype=np.uint8)).to(dev),
         warms=f32("warms"),
         colds=f32("colds"),
-        prestamped=bool(staged["prestamped"]),
+        prestamped=stamped,
     )
     if staged.get("crash_u") is not None:
         out["crash_u"] = f32("crash_u")

@@ -29,6 +29,24 @@
 //     such trigger (and a rejection) switches the attempt's retry on;
 // then the tail (t_last, t_end] is flushed as the reference does.
 //
+// Fused draws (FUSED; the reference's _scan_one_fused, simulator.py:1144,
+// with _make_scan_fn's thin=): no staged sample is read.  Event k's gap,
+// warm and cold samples (and, with reliability, its failure uniform) are
+// threefry-2x32 of the counter (k, 0) under the row's per-stream keys,
+// the f32 uniforms cast to f64 and transformed in f64 (threefry.cuh
+// sample_dist64).  With NHPP thinning the gap is the envelope's
+// exponential at lam = max_rate, and a candidate whose acceptance uniform
+// (word 1 of its arrival draw) has u * lam > rate(t) (profile_rate) is an
+// inert arrival: it moves the clock, integrates and expires, and routes
+// nothing.  Draws do not depend on the pool, so lane l draws event k0 + l
+// of each batch and the event's samples are broadcast by shuffle as staged
+// ones are; the clock is still accumulated t_prev + gap one event at a
+// time, in the reference's order (a warp prefix sum of the gaps would round
+// differently).  A batch wholly past the horizon draws only its gaps.
+// Instances: base, windows, the histogram, fail-only reliability and both
+// routings; no grid points, retries, faults or prestamped streams, as the
+// reference's fused backend serves.
+//
 // What bounds it on this card: each row is a chain of dependent events,
 // and an event's samples are 12 to 30 bytes read once.  The first design
 // (one warp a row, every path a runtime flag) did the reference's work on
@@ -107,7 +125,10 @@
 // the same pieces in another order (per state span and per lane), so they
 // agree to rounding.
 
+#include <type_traits>
+
 #include "scan64_common.cuh"
+#include "threefry.cuh"
 
 using namespace scan64;
 
@@ -149,6 +170,13 @@ struct Args {
   double* t_out;
   double* acc;  // [R, cols]
   uint8_t* act;  // [R, K], zeroed (retries)
+  // fused draws: uint32 key pairs [R, 2] (arrival, warm, cold, fail), f64
+  // (p0, p1) pairs [R, 2] (arrival, warm, cold), their distribution ids,
+  // and the NHPP profile block (null: no thinning)
+  const unsigned* keys[4];
+  const double* fparams[3];
+  int dists[3];
+  const double* profile;
   int R, M, K, W, H, G, E;
   long long max_c;
   int prestamped, arr_f64, oldest;
@@ -254,17 +282,62 @@ struct Cursor {
   }
 };
 
+// A row's fused stream: its key pair and f64 parameters, loaded once.
+struct Stream64 {
+  unsigned k0, k1;
+  double p0, p1;
+  int kind;
+
+  __device__ __forceinline__ void load(const unsigned* keys, const double* params, int d,
+                                       int row) {
+    k0 = keys[2 * row];
+    k1 = keys[2 * row + 1];
+    p0 = params ? params[2 * row] : 0.0;
+    p1 = params ? params[2 * row + 1] : 0.0;
+    kind = d;
+  }
+  // both uniforms of event k
+  __device__ __forceinline__ void uniforms(unsigned k, float& u0, float& u1) const {
+    unsigned b0, b1;
+    threefry::threefry2x32(k0, k1, k, b0, b1);
+    u0 = threefry::uniform_from_bits(b0);
+    u1 = threefry::uniform_from_bits(b1);
+  }
+  __device__ __forceinline__ double draw(unsigned k) const {
+    float u0, u1;
+    uniforms(k, u0, u1);
+    return threefry::sample_dist64(kind, u0, u1, p0, p1);
+  }
+};
+
+// rate(t) of the profile block (repro_torch/core/processes.py block_rate):
+// a sinusoid [1, base, amplitude, period, phase] or piecewise constant
+// rates [2, E, edges[E], rates[E+1]], in block_rate's operations and order
+__device__ __forceinline__ double profile_rate(const double* prof, double t) {
+  if (__ldg(prof) == 1.0) {
+    const double base = __ldg(prof + 1), amp = __ldg(prof + 2), period = __ldg(prof + 3),
+                 phase = __ldg(prof + 4);
+    return base * (1.0 + amp * sin(6.283185307179586 * t / period + phase));
+  }
+  const int E = (int)__ldg(prof + 1);
+  return __ldg(prof + 2 + E + count_le(prof + 2, E, t));
+}
+
 // S: slots a lane (M <= 32 S); FAULT: crash clocks and capacity churn;
 // LAYERS: metric windows, the histogram and grid points (each a runtime
-// choice inside).  Reliability and retries are runtime choices.  LAYERS is
+// choice inside); FUSED: fused draws (not with FAULT, grid points, retries
+// or prestamped streams).  Reliability and retries are runtime choices.  LAYERS is
 // a template parameter because the layers' cursor state costs the rows
 // without layers registers and spills when it is a runtime flag (the
 // layers' instance at S = 2: 128 registers and 40 bytes of spills, 103 and
 // none without): as a flag, the Table-1 sweep took 238-241 ms against
 // 195-199, the retry sweep 360 against 294, the fault sweep 13.8-14.2
 // against 11.2-12.4 (in turns on one H100 80GB HBM3 at 700 W).
-template <int S, bool FAULT, bool LAYERS>
+template <int S, bool FAULT, bool LAYERS, bool FUSED>
 __global__ void __launch_bounds__(WARPS * 32, S <= 4 ? 4 : 1) scan_sweep_kernel(const Args a) {
+  static_assert(!(FUSED && FAULT), "fused draws serve no faults");
+  // a sample's type: the staged f32 samples, or the fused f64 draws
+  using Samp = typename std::conditional<FUSED, double, float>::type;
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (row >= a.R) return;  // the ragged last block: the whole warp leaves
@@ -285,6 +358,16 @@ __global__ void __launch_bounds__(WARPS * 32, S <= 4 ? 4 : 1) scan_sweep_kernel(
   const double* cv = capped ? a.cap_values + (size_t)row * (a.E + 1) : nullptr;
   const double* grd = G ? a.grid + (size_t)row * G : nullptr;
   double* out = a.acc + (size_t)row * a.cols;
+  // fused draws: the row's streams; an NHPP arrival draws its candidates
+  // from the envelope's exponential and thins at each candidate's clock
+  Stream64 fa, fw, fc, ff;
+  const bool nhpp = FUSED && a.profile != nullptr;
+  if (FUSED) {
+    fa.load(a.keys[0], a.fparams[0], nhpp ? threefry::D_EXP : a.dists[0], row);
+    fw.load(a.keys[1], a.fparams[1], a.dists[1], row);
+    fc.load(a.keys[2], a.fparams[2], a.dists[2], row);
+    if (rely) ff.load(a.keys[3], nullptr, 0, row);
+  }
   double* hist = out + a.hist_at;
   double* gcol = out + a.grid_at;
   // the window, histogram and grid columns start at 0; lane 0 adds
@@ -397,7 +480,20 @@ __global__ void __launch_bounds__(WARPS * 32, S <= 4 ? 4 : 1) scan_sweep_kernel(
     const bool in = kl < K;
     const int n = min(32, K - k0);
     const size_t ek = pk + kl;
-    const double x_l = in ? (a.arr_f64 ? arr64[ek] : (double)arr32[ek]) : 0.0;
+    // lane l loads (or, fused, draws) event k0 + l of the batch; an NHPP
+    // candidate keeps its acceptance uniform
+    double x_l = 0.0;
+    float acc_l = 0.f;
+    if (FUSED) {
+      if (in) {
+        float u0, u1;
+        fa.uniforms((unsigned)kl, u0, u1);
+        x_l = threefry::sample_dist64(fa.kind, u0, u1, fa.p0, fa.p1);
+        acc_l = u1;
+      }
+    } else {
+      x_l = in ? (a.arr_f64 ? arr64[ek] : (double)arr32[ek]) : 0.0;
+    }
     // a batch wholly past the horizon only moves the clock; its exits wait
     // for the pass at the largest clock reached
     if (!(t <= tend)) {
@@ -415,9 +511,22 @@ __global__ void __launch_bounds__(WARPS * 32, S <= 4 ? 4 : 1) scan_sweep_kernel(
         continue;
       }
     }
-    const float w_l = in ? a.warms[ek] : 0.f;
-    const float c_l = in ? a.colds[ek] : 0.f;
-    const float f_l = (in && rely) ? a.fail_u[ek] : 0.f;
+    Samp w_l = 0, c_l = 0;
+    float f_l = 0.f;
+    if (FUSED) {
+      if (in) {
+        w_l = fw.draw((unsigned)kl);
+        c_l = fc.draw((unsigned)kl);
+        if (rely) {
+          float u1;
+          ff.uniforms((unsigned)kl, f_l, u1);
+        }
+      }
+    } else {
+      w_l = in ? a.warms[ek] : 0.f;
+      c_l = in ? a.colds[ek] : 0.f;
+      f_l = (in && rely) ? a.fail_u[ek] : 0.f;
+    }
     const float u_l = (in && crashes) ? a.crash_u[ek] : 0.f;
     const int first_l = (in && retries) ? (int)a.first[ek] : 1;
     const int child_l = (in && retries) ? a.child[ek] : NO_CHILD;
@@ -427,10 +536,10 @@ __global__ void __launch_bounds__(WARPS * 32, S <= 4 ? 4 : 1) scan_sweep_kernel(
     // each event's gap (or time) and warm sample are broadcast one event
     // ahead of their use, off the chain of the routing
     double x_next = __shfl_sync(FULL, x_l, 0);
-    float w_next = __shfl_sync(FULL, w_l, 0);
+    Samp w_next = __shfl_sync(FULL, w_l, 0);
     for (int i = 0; i < n; ++i) {
       const double x = x_next;
-      const float w_i = w_next;
+      const Samp w_i = w_next;
       x_next = __shfl_sync(FULL, x_l, (i + 1) & 31);
       w_next = __shfl_sync(FULL, w_l, (i + 1) & 31);
       const double tn = a.prestamped ? x : t + x;
@@ -574,6 +683,12 @@ __global__ void __launch_bounds__(WARPS * 32, S <= 4 ? 4 : 1) scan_sweep_kernel(
 
       bool active = true;
       int first = 1;
+      if (nhpp) {
+        // thinning: a rejected candidate is an inert arrival (it moved the
+        // clock, integrated and expired above, and routes nothing)
+        const double u = (double)__shfl_sync(FULL, acc_l, i);
+        active = u * fa.p0 <= profile_rate(a.profile, tn);
+      }
       if (retries) {
         first = __shfl_sync(FULL, first_l, i);
         active = first || __shfl_sync(FULL, act_l, i) || ((pend >> i) & 1u);
@@ -807,9 +922,10 @@ __global__ void __launch_bounds__(WARPS * 32, S <= 4 ? 4 : 1) scan_sweep_kernel(
   }
 }
 
-template <int S, bool FAULT, bool LAYERS>
+template <int S, bool FAULT, bool LAYERS, bool FUSED = false>
 int launch_one(const Args& a, cudaStream_t stream) {
-  scan_sweep_kernel<S, FAULT, LAYERS><<<(a.R + WARPS - 1) / WARPS, WARPS * 32, 0, stream>>>(a);
+  scan_sweep_kernel<S, FAULT, LAYERS, FUSED>
+      <<<(a.R + WARPS - 1) / WARPS, WARPS * 32, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -817,6 +933,9 @@ template <int S>
 int launch(const Args& a, cudaStream_t stream) {
   const bool fault = a.crash_u != nullptr || a.cap_values != nullptr;
   const bool layers = a.W > 0 || a.H > 0 || a.G > 0;
+  if (a.keys[0] != nullptr)
+    return layers ? launch_one<S, false, true, true>(a, stream)
+                  : launch_one<S, false, false, true>(a, stream);
   if (fault)
     return layers ? launch_one<S, true, true>(a, stream) : launch_one<S, true, false>(a, stream);
   return layers ? launch_one<S, false, true>(a, stream) : launch_one<S, false, false>(a, stream);
@@ -830,11 +949,15 @@ int launch(const Args& a, cudaStream_t stream) {
 // child_pos (int32), crash_u ([R, K]); t_exp, t_end, skip, t_timeout,
 // p_fail, crash_rate (f64 [R]); bounds [R, W+1], grid [R, G], cap_edges
 // [R, E], cap_values [R, E+1] (f64); outputs alive (uint8), creation, busy,
-// doom ([R, M]), t [R], acc [R, cols] (f64) and act (uint8 [R, K]).  A
-// null optional input turns its path off.  ints (18): R, M, K, W, H, G, E,
+// doom ([R, M]), t [R], acc [R, cols] (f64) and act (uint8 [R, K]); then
+// the fused draws' keys (uint32 [R, 2]: arrival, warm, cold, fail), f64
+// parameters ([R, 2]: arrival, warm, cold) and profile block (f64; null
+// without NHPP thinning), all null for staged samples (arr, warms and colds
+// are then null, and K is the number of events drawn).  A null optional
+// input turns its path off.  ints (21): R, M, K, W, H, G, E,
 // max_concurrency, prestamped, arr_f64, oldest, rely_at, fault_at, win_at,
-// hist_at, grid_at, cols, device, then the stream.  Returns the CUDA error
-// code (0 = ok).
+// hist_at, grid_at, cols, device and the three distribution ids (threefry.cuh
+// Dist), then the stream.  Returns the CUDA error code (0 = ok).
 extern "C" int scan_sweep_f64(void* const* ptrs, const int* ints, void* stream) {
   Args a;
   a.alive0 = (const uint8_t*)ptrs[0];
@@ -865,6 +988,10 @@ extern "C" int scan_sweep_f64(void* const* ptrs, const int* ints, void* stream) 
   a.t_out = (double*)ptrs[25];
   a.acc = (double*)ptrs[26];
   a.act = (uint8_t*)ptrs[27];
+  for (int i = 0; i < 4; ++i) a.keys[i] = (const unsigned*)ptrs[28 + i];
+  for (int i = 0; i < 3; ++i) a.fparams[i] = (const double*)ptrs[32 + i];
+  a.profile = (const double*)ptrs[35];
+  for (int i = 0; i < 3; ++i) a.dists[i] = ints[18 + i];
   a.R = ints[0];
   a.M = ints[1];
   a.K = ints[2];
@@ -888,6 +1015,15 @@ extern "C" int scan_sweep_f64(void* const* ptrs, const int* ints, void* stream) 
   if (a.R < 1 || a.M < 1 || a.M > 512 || a.K < 0 || a.W < 0 || a.H < 0 || a.G < 0 ||
       (a.cap_values && a.E < 0))
     return (int)cudaErrorInvalidValue;
+  if (a.keys[0] != nullptr) {
+    // fused draws: base, windows, the histogram, fail-only reliability and
+    // routing, on gap streams
+    bool ok = a.keys[1] && a.keys[2] && a.fparams[0] && a.fparams[1] && a.fparams[2] &&
+              !a.first && !a.crash_u && !a.cap_values && a.G == 0 && !a.prestamped &&
+              (a.t_timeout == nullptr || a.keys[3] != nullptr);
+    for (int i = 0; i < 3; ++i) ok = ok && a.dists[i] >= 0 && a.dists[i] < threefry::N_DISTS;
+    if (!ok) return (int)cudaErrorInvalidValue;
+  }
   if (a.t_timeout == nullptr) a.fail_u = nullptr;
   cudaStream_t st = (cudaStream_t)stream;
   if (a.act) {

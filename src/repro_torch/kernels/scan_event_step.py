@@ -9,8 +9,9 @@ bound and an inert tail past the horizon; its header says how it is
 built), with every path of the plain version
 :func:`repro_torch.kernels.ref64.scan_sweep_ref`.  For CUDA tensors the wrapper checks device, dtype,
 shape and contiguity, launches the kernel on the current stream and counts
-the launch in ``LAUNCH_COUNTS["scan_sweep"]``; a failed build or launch
-raises.  For CPU tensors it runs the plain version.
+the launch in ``LAUNCH_COUNTS["scan_sweep"]`` (``["scan_sweep_fused"]``
+with fused draws); a failed build or launch raises.  For CPU tensors it
+runs the plain version.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import functools
 
 import torch
 
+from repro_torch.core import drawplan as dp
 from repro_torch.core.execution import register_backend
 from repro_torch.kernels import _build
 from repro_torch.kernels.faas_event_step import LAUNCH_COUNTS, _check_tensor
@@ -50,7 +52,8 @@ def scan_sweep(
     prestamped: bool = False, routing: str = "newest", doom=None, hist_bins: int = 0,
     window_bounds=None, grid_times=None, t_timeout=None, p_fail=None, fail_u=None,
     is_first=None, child_pos=None, crash_rate=None, crash_u=None, cap_edges=None,
-    cap_values=None,
+    cap_values=None, fused_keys=None, fused_params=None, fused_dists=None, fused_k=None,
+    fused_fail_keys=None, fused_profile=None,
 ) -> ScanOut:
     """Run K events against each row's ``[M]`` pool and flush the tail, as
     :func:`~repro_torch.kernels.ref64.scan_sweep_ref` defines it (the
@@ -59,21 +62,29 @@ def scan_sweep(
     ``colds``, ``fail_u``, ``crash_u`` f32, ``is_first`` bool and
     ``child_pos`` int32 ``[R, K]``; per-row values f64 (scalars
     broadcast); ``window_bounds``, ``grid_times``, ``cap_edges``,
-    ``cap_values`` f64 matrices.  Returns a :class:`ScanOut`."""
+    ``cap_values`` f64 matrices.  With fused draws ``arr``, ``warms`` and
+    ``colds`` are None and ``fused_keys`` (3 uint32 ``[R, 2]``),
+    ``fused_params`` (3 f64 ``[R, 2]``), ``fused_dists``, ``fused_k``,
+    ``fused_fail_keys`` (reliability) and ``fused_profile`` (a profile block,
+    a tuple of floats, NHPP: :meth:`~repro_torch.core.processes.RateProfile.
+    block`) stand for them.  Returns a :class:`ScanOut`."""
     opt = dict(
         routing=routing, doom=doom, hist_bins=hist_bins, window_bounds=window_bounds,
         grid_times=grid_times, t_timeout=t_timeout, p_fail=p_fail, fail_u=fail_u,
         is_first=is_first, child_pos=child_pos, crash_rate=crash_rate, crash_u=crash_u,
-        cap_edges=cap_edges, cap_values=cap_values,
+        cap_edges=cap_edges, cap_values=cap_values, fused_keys=fused_keys,
+        fused_params=fused_params, fused_dists=fused_dists, fused_k=fused_k,
+        fused_fail_keys=fused_fail_keys, fused_profile=fused_profile,
     )
-    check_scan_inputs(opt)
-    if alive.dim() != 2 or arr.dim() != 2:
+    check_scan_inputs(dict(opt, arr=arr, prestamped=prestamped))
+    fused = fused_keys is not None
+    if alive.dim() != 2 or (not fused and arr.dim() != 2):
         raise ValueError(
             f"alive must be [R, M] and arr [R, K], got {tuple(alive.shape)}, "
-            f"{tuple(arr.shape)}"
+            f"{None if arr is None else tuple(arr.shape)}"
         )
     R, M = alive.shape
-    K = arr.shape[1]
+    K = int(fused_k) if fused else arr.shape[1]
     dev = alive.device
     if dev.type == "cpu":
         return scan_sweep_ref(alive, creation, busy, arr, warms, colds, t_exp=t_exp,
@@ -93,9 +104,21 @@ def scan_sweep(
                  crash_rate=crash_rate).items() if x is not None}
     checks = dict(
         alive=(alive, torch.bool, (R, M)), creation=(creation, f64, (R, M)),
-        busy=(busy, f64, (R, M)), warms=(warms, f32, (R, K)), colds=(colds, f32, (R, K)),
-        arr=(arr, arr.dtype if arr.dtype in (f32, f64) else f64, (R, K)),
+        busy=(busy, f64, (R, M)),
     )
+    if fused:
+        names = ("arrival", "warm", "cold")
+        for i, n in enumerate(names):
+            checks[f"fused_keys[{n}]"] = (fused_keys[i], torch.uint32, (R, 2))
+            checks[f"fused_params[{n}]"] = (fused_params[i], f64, (R, 2))
+        if fused_fail_keys is not None:
+            checks["fused_fail_keys"] = (fused_fail_keys, torch.uint32, (R, 2))
+
+    else:
+        checks.update(
+            warms=(warms, f32, (R, K)), colds=(colds, f32, (R, K)),
+            arr=(arr, arr.dtype if arr.dtype in (f32, f64) else f64, (R, K)),
+        )
     checks.update({n: (x, f64, (R,)) for n, x in rows.items()})
     optional = dict(
         doom=(doom, f64, (R, M)), fail_u=(fail_u, f32, (R, K)),
@@ -127,26 +150,32 @@ def scan_sweep(
         doom=torch.empty((R, M), dtype=f64, device=dev) if crashes else None,
     )
     ptr = lambda x: None if x is None else x.data_ptr()
-    ptrs = (ctypes.c_void_p * 28)(
-        alive.data_ptr(), creation.data_ptr(), busy.data_ptr(), ptr(doom), arr.data_ptr(),
-        warms.data_ptr(), colds.data_ptr(), ptr(fail_u), ptr(is_first), ptr(child_pos),
+    keys = tuple(fused_keys) + (fused_fail_keys,) if fused else (None,) * 4
+    if fused_profile is not None:
+        fused_profile = torch.tensor([float(x) for x in fused_profile], dtype=f64, device=dev)
+    params = tuple(fused_params) if fused else (None,) * 3
+    dists = ([dp.FUSED_DISTS.index("exp" if d == dp.NHPP else d) for d in fused_dists]
+             if fused else [0, 0, 0])
+    ptrs = (ctypes.c_void_p * 36)(
+        alive.data_ptr(), creation.data_ptr(), busy.data_ptr(), ptr(doom), ptr(arr),
+        ptr(warms), ptr(colds), ptr(fail_u), ptr(is_first), ptr(child_pos),
         ptr(crash_u), rows["t_exp"].data_ptr(), rows["t_end"].data_ptr(),
         rows["skip"].data_ptr(), ptr(rows.get("t_timeout")), ptr(rows.get("p_fail")),
         ptr(rows.get("crash_rate")), ptr(window_bounds), ptr(grid_times), ptr(cap_edges),
         ptr(cap_values), out.alive.data_ptr(), out.creation.data_ptr(),
         out.busy.data_ptr(), ptr(out.doom), out.t.data_ptr(), out.acc.data_ptr(),
-        ptr(out.act),
+        ptr(out.act), *(ptr(k) for k in keys), *(ptr(p) for p in params), ptr(fused_profile),
     )
-    ints = (ctypes.c_int * 18)(
+    ints = (ctypes.c_int * 21)(
         R, M, K, W, H, G, E, int(max_concurrency), int(bool(prestamped)),
-        int(arr.dtype == f64), int(routing == "oldest"), lay.rely_at, lay.fault_at,
-        lay.win_at, lay.hist_at, lay.grid_at, lay.cols,
-        dev.index if dev.index is not None else torch.cuda.current_device(),
+        int(not fused and arr.dtype == f64), int(routing == "oldest"), lay.rely_at,
+        lay.fault_at, lay.win_at, lay.hist_at, lay.grid_at, lay.cols,
+        dev.index if dev.index is not None else torch.cuda.current_device(), *dists,
     )
     err = _kernel()(ptrs, ints, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"scan_sweep kernel launch failed: CUDA error {err}")
-    LAUNCH_COUNTS["scan_sweep"] += 1
+    LAUNCH_COUNTS["scan_sweep_fused" if fused else "scan_sweep"] += 1
     return out
 
 

@@ -39,12 +39,16 @@ def plan_and_replay(cold_s: float, warm_s: float, rate: float, horizon: float,
     """Plan the threshold on the simulator, then replay a Poisson workload
     with exponential service times of those means through the platform.
     Returns ``(plan, observed PlatformMetrics)``."""
+    from repro_torch.core.execution import Execution
     from repro_torch.data.workload import poisson_arrivals
     from repro_torch.serving.autoscale import plan_expiration_threshold
     from repro_torch.serving.platform import ServerlessPlatform
 
+    # the f32 block engine's sweep: faas_sweep on the card, its plain version
+    # on the CPU
+    block = Execution(backend="ref" if str(device) == "cpu" else "cuda")
     plan = plan_expiration_threshold(rate, warm_s, cold_s, cold_slo, sim_time=horizon,
-                                     device=device)
+                                     device=device, execution=block)
     rng = np.random.default_rng(0)
     platform = ServerlessPlatform(
         cold_time_fn=lambda r: float(rng.exponential(cold_s)),

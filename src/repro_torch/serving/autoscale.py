@@ -3,12 +3,12 @@
 The port of ``repro/serving/autoscale.py``'s single-function planner: given a
 measured workload (arrival rate, warm and cold service times), sweep the
 candidate expiration thresholds through the port's :func:`~repro_torch.sweep`
-and pick the smallest meeting a cold-start SLO.  The sweep runs on the
-``faas_sweep`` CUDA kernel on the GPU and on its plain version on the CPU:
-the reference planner's ``execution=Execution(backend="pallas")`` route.  The
-reference's default substrate, the exact f64 scan, is ``backend="scan"``;
-fleet plans and ``ThresholdGovernor`` are item 7.  ``reliability=`` plans
-under a failure model on the same kernel (its reliability path).
+and pick the smallest meeting a cold-start SLO.  ``execution=`` picks the
+sweep's backend; the default is the reference's, the exact f64 scan (the
+``scan_sweep`` CUDA kernel on the GPU, its plain version on the CPU), and
+``Execution(backend="cuda")`` (``"ref"`` on the CPU) plans on the f32 block
+engine.  Fleet plans and ``ThresholdGovernor`` are ROADMAP item 7.
+``reliability=`` plans under a failure model (the reliability path).
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from typing import Optional
 
 import numpy as np
 
+from repro_torch.core.execution import Execution
 from repro_torch.core.processes import ExpSimProcess
 from repro_torch.core.scenario import Scenario
 from repro_torch.core.scenario import sweep as scenario_sweep
@@ -62,12 +63,14 @@ def plan_expiration_threshold(
     sim_time: float = 2e4,
     seed: int = 0,
     replicas: int = 4,
-    device=None,
+    execution: Optional[Execution] = None,
     reliability=None,
+    device=None,
 ) -> PlanResult:
     """Plan the keep-alive threshold for exponential arrivals and service
-    times; ``device=None`` sweeps on the GPU, ``device="cpu"`` on the
-    plain version.
+    times.  ``execution`` picks the sweep's backend (default: the f64
+    scan); ``device`` is the port's shorthand for the plan's device
+    (``None``: the GPU, ``"cpu"``: the plain versions).
 
     ``reliability=`` (a :class:`repro_torch.core.reliability.Reliability`)
     plans under a failure model: the candidate sweep carries the timeout,
@@ -85,7 +88,7 @@ def plan_expiration_threshold(
     thresholds = [float(t) for t in candidate_thresholds]
     result = scenario_sweep(
         base, over={"expiration_threshold": thresholds}, seed=seed,
-        replicas=replicas, device=device,
+        replicas=replicas, device=device, execution=execution,
     )
     plan = select_threshold(result, cold_slo)
     if reliability is None:  # goodput is a failure-model metric here

@@ -17,7 +17,7 @@ from repro_torch.core.scenario import Scenario, run
 
 
 def _run(cfg, seed=0, replicas=4):
-    return run(cfg, seed, replicas=replicas, device="cpu").summary
+    return run(cfg, seed, replicas=replicas, device="cpu", backend="ref").summary
 
 
 def base_cfg(**kw):

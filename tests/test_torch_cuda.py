@@ -301,9 +301,9 @@ def test_run_engines_launch_the_kernels(cuda_device):
         concurrency_value=3,
     )
     fes.LAUNCH_COUNTS.clear()
-    par = rt.run(scn, 0, replicas=16, engine="par")
+    par = rt.run(scn, 0, replicas=16, engine="par", backend="cuda")
     tmp = rt.run(scn, 0, replicas=16, engine="temporal", grid=[0.0, 300.0, 600.0],
-                 initial_instances=[rt.InstanceSnapshot(age=30.0, remaining=1.5)])
+                 initial_instances=[rt.InstanceSnapshot(age=30.0, remaining=1.5)], backend="cuda")
     assert fes.LAUNCH_COUNTS["par_sweep"] == 1
     assert fes.LAUNCH_COUNTS["faas_sweep_grid"] == 1
     assert np.isfinite(par.summary.avg_in_flight) and par.summary.avg_in_flight > 0
@@ -467,14 +467,15 @@ def test_fleet_front_door_launches_the_kernel(cuda_device):
     fleet = fleet_of(["thumbnail", "compression", "ml-inference"], n_cluster=4,
                      queue_depth=2, sim_time=600.0, skip_time=20.0, slots=16)
     fles.LAUNCH_COUNTS.clear()
-    res = rt.fleet_run(fleet, 0, replicas=16)
+    res = rt.fleet_run(fleet, 0, replicas=16, backend="cuda")
     grid = rt.fleet_sweep(fleet, {"expiration_threshold": [30.0, 300.0],
-                                  "n_cluster": [4.0, 8.0]}, 0, replicas=16)
+                                  "n_cluster": [4.0, 8.0]}, 0, replicas=16, backend="cuda")
     assert fles.LAUNCH_COUNTS["fleet_sweep"] == 2
     assert res.summary.max_peak_cluster <= 4.0 and res.summary.enqueued.sum() > 0
     assert grid.shape == (2, 2, 3) and grid.ok.all()
     cpu = rt.fleet_sweep(fleet, {"expiration_threshold": [30.0, 300.0],
-                                 "n_cluster": [4.0, 8.0]}, 0, replicas=16, device="cpu")
+                                 "n_cluster": [4.0, 8.0]}, 0, replicas=16, device="cpu",
+                         backend="ref")
     # the draws differ by device (torch generators), so compare statistics
     assert abs(float(grid.cold_start_prob.mean()) - float(cpu.cold_start_prob.mean())) < 0.1
 
@@ -1099,9 +1100,10 @@ def test_front_door_runs_reliability_on_the_kernel(cuda_device):
     D = 2 * 8
     staged = tuple(x.reshape(2, 2, 8, -1)[:, 0].reshape(D, -1) for x in inp.samples)
     fes.LAUNCH_COUNTS.clear()
-    card = rt.sweep(scn, over, 0, replicas=8, staged=tuple(x.to(cuda_device) for x in staged))
+    card = rt.sweep(scn, over, 0, replicas=8, staged=tuple(x.to(cuda_device) for x in staged),
+                    backend="cuda")
     assert dict(fes.LAUNCH_COUNTS) == {"faas_sweep_win_retry": 1}
-    cpu = rt.sweep(scn, over, 0, replicas=8, staged=staged, device="cpu")
+    cpu = rt.sweep(scn, over, 0, replicas=8, staged=staged, device="cpu", backend="ref")
     for a, b in zip(card.summaries.ravel(), cpu.summaries.ravel()):
         for f in ("n_cold", "n_warm", "n_reject", "n_timeout", "n_fail", "n_retry",
                   "n_abandon", "sum_cold_resp", "sum_warm_resp"):
@@ -1111,7 +1113,8 @@ def test_front_door_runs_reliability_on_the_kernel(cuda_device):
     np.testing.assert_array_equal(card.windowed_arrivals, cpu.windowed_arrivals)
     fes.LAUNCH_COUNTS.clear()
     res = rt.run(rt.Scenario.of(scn, window_bounds=None,
-                                reliability=rt.Reliability(rel.failure)), 1, replicas=64)
+                                reliability=rt.Reliability(rel.failure)), 1, replicas=64,
+                 backend="cuda")
     assert dict(fes.LAUNCH_COUNTS) == {"faas_sweep_rely": 1}
     assert res.summary.n_fail.sum() > 0 and np.isfinite(res.summary.goodput)
 
@@ -1261,9 +1264,10 @@ def test_front_door_runs_faults_on_the_kernel(cuda_device):
     inp = rt.core.scenario.sweep_inputs(scn, over, 3, replicas=8, device="cpu")
     staged = tuple(x.reshape(2, 2, 2, 8, -1)[:, 0, 0].reshape(16, -1) for x in inp.samples)
     fes.LAUNCH_COUNTS.clear()
-    card = rt.sweep(scn, over, 0, replicas=8, staged=tuple(x.to(cuda_device) for x in staged))
+    card = rt.sweep(scn, over, 0, replicas=8, staged=tuple(x.to(cuda_device) for x in staged),
+                    backend="cuda")
     assert dict(fes.LAUNCH_COUNTS) == {"faas_sweep_rely_fault": 1}
-    cpu = rt.sweep(scn, over, 0, replicas=8, staged=staged, device="cpu")
+    cpu = rt.sweep(scn, over, 0, replicas=8, staged=staged, device="cpu", backend="ref")
     for a, b in zip(card.summaries.ravel(), cpu.summaries.ravel()):
         for f in ("n_cold", "n_warm", "n_reject", "n_timeout", "n_fail", "n_crash",
                   "n_evict", "n_interrupt", "sum_cold_resp", "sum_warm_resp"):
@@ -1283,9 +1287,10 @@ def test_front_door_runs_faults_on_the_kernel(cuda_device):
     st = rt.core.fleet.fleet_inputs(fleet, {}, 1, replicas=64, device="cpu").staged
     fes.LAUNCH_COUNTS.clear()
     a = rt.fleet_run(fleet, 1, replicas=64, staged={
-        k: v.to(cuda_device) if torch.is_tensor(v) else v for k, v in st.items()}).summary
+        k: v.to(cuda_device) if torch.is_tensor(v) else v for k, v in st.items()},
+        backend="cuda").summary
     assert dict(fes.LAUNCH_COUNTS) == {"fleet_sweep_fault": 1}
-    b = rt.fleet_run(fleet, 1, replicas=64, device="cpu", staged=st).summary
+    b = rt.fleet_run(fleet, 1, replicas=64, device="cpu", staged=st, backend="ref").summary
     for sa, sb in zip(a.summaries, b.summaries):
         for f in ("n_cold", "n_warm", "n_reject", "n_crash", "n_evict", "n_interrupt"):
             np.testing.assert_array_equal(getattr(sa, f), getattr(sb, f))
@@ -1689,7 +1694,7 @@ def test_front_doors_run_timestamp_workloads_on_the_kernels(cuda_device):
             "expiration_threshold": [30.0, 120.0]}
     plain = rt.Execution(backend="ref")  # the plain version, on the card
     fes.LAUNCH_COUNTS.clear()
-    g = rt.sweep(day, over, 3, replicas=8)
+    g = rt.sweep(day, over, 3, replicas=8, backend="cuda")
     assert dict(fes.LAUNCH_COUNTS) == {"faas_sweep_win": 1}
     p = rt.sweep(day, over, 3, replicas=8, execution=plain)
     for a, b in zip(g.summaries.ravel(), p.summaries.ravel()):
@@ -1702,11 +1707,12 @@ def test_front_doors_run_timestamp_workloads_on_the_kernels(cuda_device):
     fes.LAUNCH_COUNTS.clear()
     runs = [rt.run(rt.Scenario.of(day, window_bounds=None, rate_profile=None,
                                   arrival_process=trace, concurrency_value=3), 1,
-                   replicas=16, engine="par"),
+                   replicas=16, engine="par", backend="cuda"),
             rt.run(rt.Scenario.of(day, window_bounds=None, rate_profile=None,
                                   arrival_process=rt.MMPPArrivalProcess(0.3, 3.0, 1 / 300)),
-                   1, replicas=16),
-            rt.run(rt.Scenario.of(day, window_bounds=None), 1, replicas=16, engine="temporal")]
+                   1, replicas=16, backend="cuda"),
+            rt.run(rt.Scenario.of(day, window_bounds=None), 1, replicas=16, engine="temporal",
+                   backend="cuda")]
     assert dict(fes.LAUNCH_COUNTS) == {"par_sweep": 1, "faas_sweep": 1, "faas_sweep_grid": 1}
     for r in runs:
         assert np.isfinite(r.summary.avg_server_count) and r.summary.n_cold.sum() > 0
@@ -2085,3 +2091,276 @@ def test_par_scan64_redesign_widths(cuda_device, M, c):
     torch.cuda.synchronize()
     out_p = par_scan_sweep_ref(*args, **kw)
     _held64(out_k, out_p, _layout64(kw, par=True))
+
+
+# ---------------------------------------------------------------------------
+# the f64 engine's fused draws (scan_event_step.cu's FUSED path) and the f64
+# fleet scan (csrc/fleet_scan_event_step.cu) against their plain versions
+# ---------------------------------------------------------------------------
+
+from repro_torch.core.processes import PiecewiseConstantRate, SinusoidalRate  # noqa: E402
+from repro_torch.kernels import fleet_scan_event_step as fss  # noqa: E402
+from repro_torch.kernels.ref64 import (  # noqa: E402
+    FLEET64_COLS,
+    FLEET64_FLOAT_COLS,
+    fleet_scan_sweep_ref,
+)
+
+FUSED64_CASES = {
+    "exp": dict(dists=("exp", "exp", "exp")),
+    "gauss_lognorm": dict(dists=("weibull", "gauss", "lognorm")),
+    "pareto_det": dict(dists=("pareto", "det", "exp")),
+    "windows_hist": dict(dists=("exp", "exp", "exp"), windows=True, hist=9),
+    "oldest_rely": dict(dists=("exp", "exp", "exp"), oldest=True, rely=True),
+    "nhpp_sinusoid": dict(dists=("nhpp", "exp", "exp"),
+                          profile=SinusoidalRate(0.8, 0.7, 150.0, 0.4)),
+    "nhpp_piecewise_layers": dict(
+        dists=("nhpp", "exp", "lognorm"), windows=True, hist=7, rely=True,
+        profile=PiecewiseConstantRate((40.0, 90.0, 200.0), (1.2, 0.2, 0.9, 0.4))),
+}
+FUSED64_PARAMS = {"exp": (0.8, 0.0), "gauss": (2.0, 0.5), "lognorm": (0.3, 0.6),
+                  "weibull": (1.5, 1.3), "pareto": (2.5, 0.6), "det": (1.1, 0.0)}
+
+
+def _fused64_call(dev, case, M, R=40, K=400, seed=31):
+    """The kernel's and the plain version's arguments for a fused case."""
+    c = FUSED64_CASES[case]
+    rng = np.random.default_rng(seed)
+    f64 = lambda x: torch.tensor(np.asarray(x), dtype=torch.float64, device=dev)
+    keys = lambda: torch.tensor(rng.integers(0, 2**32, (R, 2), dtype=np.uint64).astype(
+        np.uint32), device=dev)
+    prof = c.get("profile")
+    params = []
+    for i, d in enumerate(c["dists"]):
+        p = (prof.max_rate(), 0.0) if d == "nhpp" else FUSED64_PARAMS[d]
+        if i and d == "exp":
+            p = (0.4 + 0.2 * i, 0.0)
+        params.append(f64(np.tile(np.asarray(p) * rng.uniform(0.9, 1.1, (R, 1)), 1)))
+    horizon = K / 0.8
+    kw = dict(t_exp=f64(15.0 * rng.uniform(0.5, 1.5, R)),
+              t_end=f64(horizon * rng.uniform(0.5, 0.9, R)),
+              skip=f64(horizon * rng.uniform(0.0, 0.1, R)), max_concurrency=M - 2,
+              routing="oldest" if c.get("oldest") else "newest", hist_bins=c.get("hist", 0),
+              fused_keys=tuple(keys() for _ in range(3)), fused_params=tuple(params),
+              fused_dists=c["dists"], fused_k=K)
+    if prof is not None:
+        kw["fused_profile"] = prof.block()
+    if c.get("windows"):
+        kw["window_bounds"] = f64(np.tile([0.0, 20.0, 21.0, 100.0, 150.0, 1e4], (R, 1)))
+    if c.get("rely"):
+        kw.update(t_timeout=f64(rng.uniform(1.0, 6.0, R)), p_fail=f64(rng.uniform(0.1, 0.4, R)),
+                  fused_fail_keys=keys())
+    pool = (torch.zeros((R, M), dtype=torch.bool, device=dev), f64(np.full((R, M), -1e30)),
+            f64(np.full((R, M), -1e30)))
+    return pool, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [8, 64, 300])
+@pytest.mark.parametrize("case", list(FUSED64_CASES))
+def test_fused_scan64_kernel_matches_plain(cuda_device, case, M):
+    pool, kw = _fused64_call(cuda_device, case, M)
+    ses.LAUNCH_COUNTS.clear()
+    out_k = ses.scan_sweep(*pool, None, None, None, **kw)
+    torch.cuda.synchronize()
+    assert dict(ses.LAUNCH_COUNTS) == {"scan_sweep_fused": 1}
+    out_p = scan_sweep_ref(*pool, None, None, None, **kw)
+    lay = ScanLayout(W=5 if "window_bounds" in kw else 0, H=kw["hist_bins"],
+                     rely="t_timeout" in kw)
+    _held64(out_k, out_p, lay)
+    acc = out_p.acc.cpu().numpy()
+    assert acc[:, 0].sum() > 0 and acc[:, 1].sum() > 0
+
+
+@pytest.mark.cuda
+def test_fused_scan64_thinning_rejects_candidates(cuda_device):
+    """An NHPP run routes fewer arrivals than its candidates inside the
+    horizon, and the rejected ones still move the clock."""
+    pool, kw = _fused64_call(cuda_device, "nhpp_sinusoid", 64)
+    out = ses.scan_sweep(*pool, None, None, None, **kw)
+    stamped = dict(kw, fused_profile=None, fused_dists=("exp",) + kw["fused_dists"][1:])
+    every = ses.scan_sweep(*pool, None, None, None, **stamped)
+    torch.cuda.synchronize()
+    assert torch.equal(out.t, every.t)
+    routed = out.acc[:, :3].sum()
+    assert 0 < routed < every.acc[:, :3].sum()
+
+
+def _fleet64_inputs(dev, seed, F, ncl, limits, prestamped, M, Q=0, streams=7, cells=3, K=400,
+                    rate=1.2, back=None):
+    rng = np.random.default_rng(seed)
+    N = cells * streams
+    f64 = lambda x: torch.tensor(np.asarray(x), dtype=torch.float64, device=dev)
+    f32 = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32, device=dev)
+    gaps = rng.exponential(1 / rate, (streams, K)).astype(np.float32)
+    times = np.cumsum(gaps.astype(np.float64), 1)
+    if back == "timestamps":
+        for s in range(streams):
+            for k in rng.choice(K - 1, K // 10, replace=False):
+                times[s, k], times[s, k + 1] = times[s, k + 1], times[s, k]
+            times[s, rng.integers(K // 4, K // 2)] -= rng.uniform(5.0, 40.0)
+    elif back == "negative_gaps":
+        neg = rng.uniform(size=(streams, K)) < 0.1
+        gaps = np.where(neg, -rng.uniform(0.0, 3.0, (streams, K)), gaps).astype(np.float32)
+    horizon = K / rate
+    t_end = horizon * rng.uniform(0.6, 0.9, N)
+    if back == "past_and_back":
+        ends = rng.integers(40, K - 40, streams)
+        for s in range(streams):
+            end = times[s, ends[s]]
+            for k in rng.choice(np.arange(ends[s] + 2, K), 6, replace=False):
+                times[s, k] = end - rng.uniform(0.0, 30.0)
+        t_end = np.tile(times[np.arange(streams), ends] + 0.5, cells)
+    args = (
+        f64(rng.uniform(3.0, 25.0, (N, F))),
+        f64(np.broadcast_to(np.asarray(limits, np.float64), (N, F)).copy()),
+        f64(np.full(N, ncl)), f64(t_end), f64(horizon * rng.uniform(0.0, 0.1, N)),
+        torch.tensor(np.tile(np.arange(streams), cells), device=dev),
+        f64(times) if prestamped else f32(gaps),
+        torch.tensor(rng.integers(0, F, (streams, K)).astype(np.uint8), device=dev),
+        f32(rng.exponential(2.0, (streams, K))), f32(rng.exponential(2.5, (streams, K))),
+    )
+    kw = dict(slots=M, queue_depth=Q, prestamped=prestamped)
+    return rng, args, kw
+
+
+def _held_fleet64(out_k, out_p, faults):
+    for name, a, b in zip(out_k._fields, out_k, out_p):
+        if name == "acc" or a is None:
+            assert (a is None) == (b is None), name
+            continue
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy(), err_msg=name)
+    ak, ap = out_k.acc.cpu().numpy(), out_p.acc.cpu().numpy()
+    fl = list(FLEET64_FLOAT_COLS)
+    exact = [c for c in range(ak.shape[-1]) if c not in fl]
+    np.testing.assert_array_equal(ak[..., exact], ap[..., exact])
+    np.testing.assert_allclose(ak[..., fl], ap[..., fl], rtol=SCAN64_RTOL, atol=1e-9)
+
+
+FLEET64_CASES = {
+    "one": dict(F=1, Q=0, prestamped=False, ncl=np.inf, limits=1000, M=16),
+    "queue_binding": dict(F=3, Q=2, prestamped=True, ncl=4.0, limits=(3, 2, 5), M=16),
+    "gaps_queue": dict(F=3, Q=2, prestamped=False, ncl=3.0, limits=1000, M=40),
+    "eight_limits": dict(F=8, Q=0, prestamped=True, ncl=np.inf, limits=2, M=16),
+    "eight_queue": dict(F=8, Q=4, prestamped=True, ncl=6.0, limits=1000, M=64),
+    "nine": dict(F=9, Q=2, prestamped=True, ncl=8.0, limits=1000, M=16),
+    "sixteen": dict(F=16, Q=0, prestamped=True, ncl=48.0, limits=1000, M=64),
+    "wide_table": dict(F=5, Q=0, prestamped=True, ncl=np.inf, limits=1000, M=300, rate=6.0),
+    "crashes": dict(F=4, Q=0, prestamped=True, ncl=12.0, limits=1000, M=16, crashes=True),
+    "capacity": dict(F=4, Q=0, prestamped=True, ncl=np.inf, limits=1000, M=16,
+                     capacity=(6.0, 1.5, 8.0)),
+    "crashes_capacity_ties": dict(F=9, Q=0, prestamped=True, ncl=np.inf, limits=1000, M=16,
+                                  crashes=True, capacity=(40.0, 2.0, 7.0), batch=4),
+    "back_timestamps": dict(F=4, Q=2, prestamped=True, ncl=5.0, limits=1000, M=16,
+                            back="timestamps"),
+    "negative_gaps": dict(F=4, Q=0, prestamped=False, ncl=5.0, limits=1000, M=16,
+                          back="negative_gaps"),
+    "past_and_back": dict(F=3, Q=2, prestamped=True, ncl=5.0, limits=1000, M=16,
+                          back="past_and_back"),
+    "back_crashes_capacity": dict(F=4, Q=0, prestamped=True, ncl=np.inf, limits=1000, M=16,
+                                  crashes=True, capacity=(6.0, 1.5, 8.0), back="timestamps"),
+}
+
+
+def _fleet64_case(dev, case, seed=41):
+    c = dict(FLEET64_CASES[case])
+    rng, args, kw = _fleet64_inputs(dev, seed, c["F"], c["ncl"], c["limits"], c["prestamped"],
+                                    c["M"], Q=c["Q"], rate=c.get("rate", 1.2),
+                                    back=c.get("back"))
+    N, (S, K) = args[0].shape[0], args[6].shape
+    if c.get("batch"):
+        # groups of equal timestamps: creation ties under the ceiling
+        times = args[6].cpu().numpy()
+        args = args[:6] + (torch.tensor(np.repeat(times[:, ::c["batch"]], c["batch"], 1)[:, :K],
+                                        device=dev),) + args[7:]
+    if c.get("crashes"):
+        kw.update(crash_rate=torch.tensor(np.where(np.arange(N) % 3 == 0, 0.0, 0.04),
+                                          device=dev),
+                  crash_u=torch.tensor(rng.uniform(size=(S, K)).astype(np.float32), device=dev))
+    if c.get("capacity"):
+        # a fractional ceiling: the capacity's step below it still evicts
+        kw.update(cap_edges=torch.tensor(np.tile([30.0, 90.0], (N, 1)), device=dev),
+                  cap_values=torch.tensor(np.tile(c["capacity"], (N, 1)), device=dev))
+    return args, kw, c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FLEET64_CASES))
+def test_fleet_scan_kernel_matches_plain(cuda_device, case):
+    args, kw, c = _fleet64_case(cuda_device, case)
+    lb = live_bound(args[2].cpu().numpy(), args[1].cpu().numpy(), kw["slots"])
+    fss.LAUNCH_COUNTS.clear()
+    out_k = fss.fleet_scan_sweep(*args, **kw, live_bound=lb)
+    torch.cuda.synchronize()
+    faults = "crash_u" in kw or "cap_values" in kw
+    key = "fleet_scan_sweep_fault" if faults else "fleet_scan_sweep"
+    assert dict(fss.LAUNCH_COUNTS) == {key: 1}
+    out_p = fleet_scan_sweep_ref(*args, **kw)
+    _held_fleet64(out_k, out_p, faults)
+    acc = out_p.acc.cpu().numpy()
+    assert acc[..., 0].sum() > 0 and acc[..., 1].sum() > 0
+    if c["Q"]:
+        assert acc[..., FLEET64_COLS - 4].sum() > 0  # enqueued
+    if c.get("capacity"):
+        assert acc[..., FLEET64_COLS + 1].sum() > 0  # evictions
+    if c.get("crashes"):
+        assert acc[..., FLEET64_COLS].sum() > 0  # crashes
+
+
+@pytest.mark.cuda
+def test_fleet_scan_table_past_its_bound_and_bad_rows_give_nan(cuda_device):
+    # ~100 live instances a fleet outgrow a table of 32 entries
+    args, kw, _ = _fleet64_case(cuda_device, "wide_table")
+    out = fss.fleet_scan_sweep(*args, **kw, live_bound=1)
+    torch.cuda.synchronize()
+    assert torch.isnan(out.acc).all(-1).any()
+    bad = args[:5] + (torch.full_like(args[5], 99),) + args[6:]
+    out = fss.fleet_scan_sweep(*bad, **kw)
+    torch.cuda.synchronize()
+    assert torch.isnan(out.acc).all() and torch.isnan(out.t).all()
+
+
+@pytest.mark.cuda
+def test_fleet_scan_wrapper_checks_inputs(cuda_device):
+    args, kw, _ = _fleet64_case(cuda_device, "queue_binding")
+    with pytest.raises(ValueError, match="float64"):
+        fss.fleet_scan_sweep(args[0].float(), *args[1:], **kw)
+    with pytest.raises(ValueError, match="shared memory"):
+        fss.fleet_scan_sweep(*args, **dict(kw, queue_depth=4000))
+    with pytest.raises(ValueError, match="come together"):
+        fss.fleet_scan_sweep(*args, **dict(kw, queue_depth=0), crash_rate=0.1)
+
+
+@pytest.mark.cuda
+def test_front_doors_run_the_f64_fleet_and_fused_kernels(cuda_device):
+    import repro_torch as rt
+    from repro_torch.data.catalog import fleet_of
+
+    names = ["thumbnail", "compression", "ml-inference"]
+    fleet = fleet_of(names, n_cluster=4, queue_depth=2,
+                     sim_time=600.0, skip_time=20.0, slots=16)
+    fes.LAUNCH_COUNTS.clear()
+    res = rt.fleet_run(fleet, 0, replicas=16)  # the default: the f64 fleet scan
+    grid = rt.fleet_sweep(fleet, {"expiration_threshold": [30.0, 300.0],
+                                  "n_cluster": [4.0, 8.0]}, 0, replicas=16)
+    assert dict(fes.LAUNCH_COUNTS) == {"fleet_scan_sweep": 2}
+    assert res.summary.max_peak_cluster <= 4.0 and grid.ok.all() and grid.backend == "scan"
+    cpu = rt.fleet_sweep(fleet, {"expiration_threshold": [30.0, 300.0],
+                                 "n_cluster": [4.0, 8.0]}, 0, replicas=16, device="cpu")
+    assert cpu.backend == "scan_ref"
+    assert abs(float(grid.cold_start_prob.mean()) - float(cpu.cold_start_prob.mean())) < 0.1
+    scn = rt.Scenario(arrival_process=rt.NHPPArrivalProcess(SinusoidalRate(0.9, 0.5, 600.0)),
+                      warm_service_process=rt.ExpSimProcess(rate=0.5),
+                      cold_service_process=rt.ExpSimProcess(rate=0.4),
+                      expiration_threshold=30.0, sim_time=1200.0, skip_time=20.0, slots=32,
+                      window_bounds=(0.0, 300.0, 600.0, 1200.0))
+    fes.LAUNCH_COUNTS.clear()
+    fused = rt.Execution(draws="fused")
+    r = rt.run(scn, 2, replicas=32, execution=fused)
+    g = rt.sweep(scn, {"expiration_threshold": [10.0, 60.0]}, 2, replicas=32, execution=fused)
+    assert dict(fes.LAUNCH_COUNTS) == {"scan_sweep_fused": 2}
+    p = rt.run(scn, 2, replicas=32, execution=rt.Execution(draws="fused", backend="scan_ref"))
+    for f in ("n_cold", "n_warm", "n_reject", "sum_cold_resp", "sum_warm_resp",
+              "lifespan_count"):
+        np.testing.assert_array_equal(getattr(r.summary, f), getattr(p.summary, f), err_msg=f)
+    assert g.ok.all() and r.summary.windows is not None

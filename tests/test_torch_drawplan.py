@@ -272,7 +272,7 @@ def test_fused_sweep_with_windows_matches_the_reference():
     j = jscenario.sweep(s, over=over, key=key, replicas=1, steps=250,
                         execution=JExecution(backend="ref", draws="fused", block_k=128))
     p = rt.sweep(interop.scenario_from_reference(s), over, 0, replicas=1, steps=250,
-                 device="cpu", execution=rt.Execution(draws="fused"),
+                 device="cpu", execution=rt.Execution(draws="fused", backend="ref"),
                  fused_keys=_ref_keys(key, 6, 1, False))
     _held(j, p)
     np.testing.assert_array_equal(p.windowed_arrivals, np.asarray(j.windowed_arrivals))
@@ -288,7 +288,7 @@ def test_fused_reliability_sweep_matches_the_reference():
     j = jscenario.sweep(s, over=over, key=key, replicas=2, steps=300,
                         execution=JExecution(backend="ref", draws="fused"))
     p = rt.sweep(interop.scenario_from_reference(s), over, 0, replicas=2, steps=300,
-                 device="cpu", execution=rt.Execution(draws="fused"),
+                 device="cpu", execution=rt.Execution(draws="fused", backend="ref"),
                  fused_keys=_ref_keys(key, 4, 2, True))
     _held(j, p, ("n_cold", "n_warm", "n_reject", "n_fail", "n_timeout", "n_abandon"))
     assert sum(int(x.n_fail.sum()) for x in p.summaries.ravel()) > 0
@@ -303,7 +303,7 @@ def test_fused_run_matches_the_reference():
     fk = interop.fused_keys_from_reference(
         [{k: np.asarray(v) for k, v in jdp.stream_row_keys(key, 3).items()}])
     p = rt.run(interop.scenario_from_reference(s), 0, replicas=3, steps=700, device="cpu",
-               execution=rt.Execution(draws="fused"), fused_keys=fk)
+               execution=rt.Execution(draws="fused", backend="ref"), fused_keys=fk)
     for f in ("n_cold", "n_warm", "n_reject"):
         np.testing.assert_array_equal(getattr(j.summary, f), getattr(p.summary, f))
     np.testing.assert_allclose(p.summary.time_running, j.summary.time_running,
@@ -312,15 +312,19 @@ def test_fused_run_matches_the_reference():
 
 def test_fused_run_draws_its_own_keys():
     scn = _scn(reliability=rt.Reliability(rt.FailurePolicy(p_fail=0.1, t_timeout=3.0)))
-    a = rt.run(scn, 4, replicas=3, device="cpu", execution=rt.Execution(draws="fused"))
-    b = rt.run(scn, 4, replicas=3, device="cpu", execution=rt.Execution(draws="fused"))
-    c = rt.run(scn, 5, replicas=3, device="cpu", execution=rt.Execution(draws="fused"))
+    a = rt.run(scn, 4, replicas=3, device="cpu", execution=rt.Execution(draws="fused",
+                                                                        backend="ref"))
+    b = rt.run(scn, 4, replicas=3, device="cpu", execution=rt.Execution(draws="fused",
+                                                                        backend="ref"))
+    c = rt.run(scn, 5, replicas=3, device="cpu", execution=rt.Execution(draws="fused",
+                                                                        backend="ref"))
     np.testing.assert_array_equal(a.summary.n_cold, b.summary.n_cold)
     assert not np.array_equal(a.summary.time_running, c.summary.time_running)
     assert a.summary.n_fail.sum() > 0 and a.summary.n_timeout.sum() > 0
     # the keys seed gives are the handed keys' contract
     keys = {k: torch.from_numpy(v) for k, v in dp.stream_row_keys(4, 0, 3, fail=True).items()}
-    d = rt.run(scn, 99, replicas=3, device="cpu", execution=rt.Execution(draws="fused"),
+    d = rt.run(scn, 99, replicas=3, device="cpu", execution=rt.Execution(draws="fused",
+                                                                         backend="ref"),
                fused_keys=keys)
     np.testing.assert_array_equal(d.summary.time_running, a.summary.time_running)
 
@@ -328,26 +332,26 @@ def test_fused_run_draws_its_own_keys():
 def test_fused_coverage_guard_reads_the_final_clock():
     with pytest.raises(RuntimeError, match="before sim_time"):
         rt.run(_scn(), 0, replicas=2, steps=50, device="cpu",
-               execution=rt.Execution(draws="fused"))
+               execution=rt.Execution(draws="fused", backend="ref"))
 
 
 # ---------------------------------------------------------------------------
 # (g): refusals
 # ---------------------------------------------------------------------------
 
-FUSED = rt.Execution(draws="fused")
+FUSED = rt.Execution(draws="fused", backend="ref")
 
 
 def test_unknown_draws_mode_is_refused():
     with pytest.raises(ValueError, match="draws mode"):
-        rt.Execution(draws="bogus")
+        rt.Execution(draws="bogus", backend="ref")
 
 
 @pytest.mark.parametrize("engine", ["temporal", "par"])
 def test_other_engines_refuse_fused_draws(engine):
     with pytest.raises(ValueError, match="fused"):
         rt.run(_scn(), 0, replicas=2, device="cpu",
-               execution=rt.Execution(engine=engine, draws="fused"))
+               execution=rt.Execution(engine=engine, draws="fused", backend="ref"))
 
 
 def test_retries_do_not_lower():
@@ -407,7 +411,7 @@ def test_draw_inputs_are_checked():
                execution=FUSED, staged=(torch.ones(2, 50),) * 3)
     with pytest.raises(ValueError, match="draws='fused'"):
         rt.sweep(_scn(), {"expiration_threshold": [5.0]}, 0, replicas=2, device="cpu",
-                 fused_keys={})
+                 fused_keys={}, backend="ref")
     keys = {k: torch.from_numpy(v) for k, v in dp.stream_row_keys(0, 0, 2).items()}
     with pytest.raises(ValueError, match="missing"):
         rt.run(_scn(reliability=rt.Reliability(rt.FailurePolicy(p_fail=0.1))), 0,
@@ -454,7 +458,7 @@ def test_launch_keys_of_the_fused_paths():
 
 def test_staged_sweep_reports_its_draws():
     g = rt.sweep(_scn(sim_time=100.0, skip_time=5.0), {"expiration_threshold": [5.0]}, 0,
-                 replicas=1, device="cpu")
+                 replicas=1, device="cpu", backend="ref")
     assert g.to_dict()["draws"] == "staged"
 
 

@@ -394,7 +394,7 @@ def test_run_matches_reference(kind):
     staged = interop.staged_from_reference(
         [part], crash_u=None if crash is None else [crash])
     port = rscn.run(interop.scenario_from_reference(base), 0, replicas=3,
-                    device="cpu", staged=staged)
+                    device="cpu", staged=staged, backend="ref")
     assert_summary(port.summary, ref.summary)
     assert port.to_dict().keys() <= ref.to_dict().keys()
     s = port.summary
@@ -434,7 +434,7 @@ def test_sweep_matches_reference_in_one_launch(monkeypatch):
     port_over = dict(over, capacity=[interop.faults_from_reference(
         jfaults.FaultModel(capacity=c)).capacity for c in over["capacity"]])
     port = rscn.sweep(interop.scenario_from_reference(base), port_over, 0, replicas=R,
-                      device="cpu", staged=staged)
+                      device="cpu", staged=staged, backend="ref")
     assert calls == [3 * 2 * 2 * R]  # one launch for the whole grid
     assert port.shape == ref.shape == (3, 2, 2)
     for idx in np.ndindex(port.shape):
@@ -463,14 +463,14 @@ def test_inert_fault_model_is_a_noop(reliability):
     rel = None if reliability is None else RELY[reliability]
     plain = _port_scn(reliability=rel)
     inert = rscn.Scenario.of(plain, faults=rfaults.FaultModel())
-    a = rscn.run(plain, 4, replicas=3, device="cpu").summary
-    b = rscn.run(inert, 4, replicas=3, device="cpu").summary
+    a = rscn.run(plain, 4, replicas=3, device="cpu", backend="ref").summary
+    b = rscn.run(inert, 4, replicas=3, device="cpu", backend="ref").summary
     for f in COUNTERS[:6] + INTEGRALS:
         np.testing.assert_array_equal(getattr(a, f), getattr(b, f), err_msg=f)
     assert b.n_crash is None and b.availability == 1.0
     over = {"expiration_threshold": [20.0, 90.0]}
-    ga = rscn.sweep(plain, over, 4, replicas=2, device="cpu")
-    gb = rscn.sweep(inert, over, 4, replicas=2, device="cpu")
+    ga = rscn.sweep(plain, over, 4, replicas=2, device="cpu", backend="ref")
+    gb = rscn.sweep(inert, over, 4, replicas=2, device="cpu", backend="ref")
     for f in ("cold_start_prob", "avg_server_count", "availability", "goodput"):
         np.testing.assert_array_equal(getattr(ga, f), getattr(gb, f), err_msg=f)
 
@@ -499,7 +499,7 @@ def test_mass_conservation(reliability):
     # rejection (and with reliability timeout or failure)
     rel = None if reliability is None else RELY[reliability]
     s = rscn.run(_port_scn(faults=ACTIVE, reliability=rel, sim_time=400.0), 21,
-                 replicas=3, device="cpu").summary
+                 replicas=3, device="cpu", backend="ref").summary
     total = s.n_completions + s.n_interrupt + s.n_reject
     if rel is not None:
         total = total + s.n_timeout + s.n_fail
@@ -520,7 +520,7 @@ def test_capacity_step_evicts_the_warm_pool_surplus():
         faults=rfaults.FaultModel(capacity=rfaults.CapacityProfile(edges=(50.0,),
                                                                    values=(30.0, 1.0))),
     )
-    s = rscn.run(scn, 0, replicas=1, device="cpu", staged=(gaps, ten, ten)).summary
+    s = rscn.run(scn, 0, replicas=1, device="cpu", staged=(gaps, ten, ten), backend="ref").summary
     assert (s.n_cold[0], s.n_evict[0], s.n_warm[0], s.n_reject[0], s.n_crash[0]) == (
         4, 3, 1, 0, 0)
 
@@ -533,14 +533,15 @@ def test_capacity_step_evicts_the_warm_pool_surplus():
 def test_capability_errors_match_reference():
     port = _port_scn(faults=ACTIVE)
     with pytest.raises(ValueError, match="faults_backends"):
-        rscn.run(port, 0, replicas=1, device="cpu", engine="temporal")
+        rscn.run(port, 0, replicas=1, device="cpu", engine="temporal", backend="ref")
     with pytest.raises(ValueError, match="faults_backends"):
-        rscn.run(port, 0, replicas=1, device="cpu", engine="par")
+        rscn.run(port, 0, replicas=1, device="cpu", engine="par", backend="ref")
     with pytest.raises(ValueError, match="draws='fused' does not serve platform faults"):
-        rscn.run(port, 0, replicas=1, device="cpu", execution=Execution(draws="fused"))
+        rscn.run(port, 0, replicas=1, device="cpu", execution=Execution(draws="fused",
+                                                                        backend="ref"))
     with pytest.raises(ValueError, match="draws='fused' does not serve platform faults"):
         rscn.sweep(port, {"crash_rate": [0.1]}, 0, device="cpu",
-                   execution=Execution(draws="fused"))
+                   execution=Execution(draws="fused", backend="ref"))
     flt = interop.faults_from_reference(ACTIVE)
     for kw, ref_kw in ((dict(window_bounds=(0.0, 100.0, 200.0)),
                         dict(window_bounds=(0.0, 100.0, 200.0))),
@@ -553,28 +554,30 @@ def test_capability_errors_match_reference():
     with pytest.raises(ValueError, match="must be a FaultModel"):
         rscn.Scenario.of(port, faults=ACTIVE)  # a reference model is converted first
     with pytest.raises(ValueError, match="needs Scenario.faults="):
-        rscn.sweep(_port_scn(), {"crash_rate": [0.1]}, 0, device="cpu")
+        rscn.sweep(_port_scn(), {"crash_rate": [0.1]}, 0, device="cpu", backend="ref")
     with pytest.raises(ValueError, match="finite and >= 0"):
-        rscn.sweep(port, {"crash_rate": [-1.0]}, 0, device="cpu")
+        rscn.sweep(port, {"crash_rate": [-1.0]}, 0, device="cpu", backend="ref")
     with pytest.raises(TypeError, match="CapacityProfile"):
-        rscn.sweep(port, {"capacity": [3.0]}, 0, device="cpu")
+        rscn.sweep(port, {"capacity": [3.0]}, 0, device="cpu", backend="ref")
     with pytest.raises(ValueError, match="share a step count"):
         rscn.sweep(port, {"capacity": [rfaults.CapacityProfile((5.0,), (1.0, 2.0)),
-                                       rfaults.CapacityProfile((), (1.0,))]}, 0, device="cpu")
+                                       rfaults.CapacityProfile((), (1.0,))]}, 0, device="cpu",
+                   backend="ref")
     with pytest.raises(ValueError, match="windowed metrics"):
-        rscn.sweep(port, {"window_bounds": [(0.0, 100.0)]}, 0, device="cpu")
+        rscn.sweep(port, {"window_bounds": [(0.0, 100.0)]}, 0, device="cpu", backend="ref")
 
 
 def test_reliability_report_fault_block():
     # a fault run without reliability has a report; a plain run has none
-    s = rscn.run(_port_scn(faults=ACTIVE), 2, replicas=2, device="cpu").summary
+    s = rscn.run(_port_scn(faults=ACTIVE), 2, replicas=2, device="cpu", backend="ref").summary
     rep = reliability_report(s)
     assert rep["crashes"] == s.n_crash.sum() and rep["evictions"] == s.n_evict.sum()
     assert rep["interrupted"] == s.n_interrupt.sum() and rep["availability"] == s.availability
     assert rep["timeouts"] == rep["failures"] == rep["retries"] == 0.0
     assert rep["completions"] == (s.n_cold + s.n_warm - s.n_interrupt).sum()
     with pytest.raises(ValueError, match="reliability or fault"):
-        reliability_report(rscn.run(_port_scn(), 2, replicas=2, device="cpu").summary)
+        reliability_report(rscn.run(_port_scn(), 2, replicas=2, device="cpu",
+                                    backend="ref").summary)
     # the same keys and values as the reference on the same counters
     zeros = np.zeros(2)
     for rely in (False, True):

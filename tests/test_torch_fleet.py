@@ -256,6 +256,7 @@ def test_fleet_run_matches_reference(queue_depth):
     port = rfleet.fleet_run(
         interop.fleet_from_reference(jf), 0, replicas=2, device="cpu",
         staged=_reference_staged(jf, key, 2, jf.sim_time),
+        backend="ref",
     )
     _assert_fleet_summary(port.summary, ref.summary)
     np.testing.assert_allclose(port.developer_cost, ref.developer_cost, rtol=1e-5)
@@ -275,6 +276,7 @@ def test_catalog_sweep_matches_reference():
     port = rfleet.fleet_sweep(
         interop.fleet_from_reference(jf), over, 0, replicas=2, device="cpu",
         staged=_reference_staged(jf, key, 2, jf.sim_time),
+        backend="ref",
     )
     assert port.axes == ref.axes and port.shape == (2, 2, 3)
     assert port.backend == "ref"
@@ -323,8 +325,8 @@ def test_one_function_fleet_makes_run_decisions():
     )
     fleet = rfleet.FleetScenario(functions=(fn,), sim_time=300.0, skip_time=20.0, slots=16)
     scn = fn.as_scenario(sim_time=300.0, skip_time=20.0, slots=16)
-    one = rfleet.fleet_run(fleet, 5, replicas=3, device="cpu").summary["solo"]
-    single = rscn.run(scn, 5, replicas=3, device="cpu").summary
+    one = rfleet.fleet_run(fleet, 5, replicas=3, device="cpu", backend="ref").summary["solo"]
+    single = rscn.run(scn, 5, replicas=3, device="cpu", backend="ref").summary
     for f in COUNTERS:
         np.testing.assert_array_equal(getattr(one, f), getattr(single, f), err_msg=f)
     for f in INTEGRALS:
@@ -335,7 +337,7 @@ def test_one_function_fleet_makes_run_decisions():
 @pytest.mark.parametrize("queue_depth", [0, 3])
 def test_conservation_and_capacity(queue_depth):
     fleet = _port_fleet(n_cluster=5.0, queue_depth=queue_depth, sim_time=300.0)
-    s = rfleet.fleet_run(fleet, 4, replicas=3, device="cpu").summary
+    s = rfleet.fleet_run(fleet, 4, replicas=3, device="cpu", backend="ref").summary
     cold = np.stack([x.n_cold for x in s.summaries])
     warm = np.stack([x.n_warm for x in s.summaries])
     rej = np.stack([x.n_reject for x in s.summaries])
@@ -370,7 +372,7 @@ def test_staging_merges_in_f64_then_casts():
     )
     np.testing.assert_array_equal(st["warms"][1][mine[1]].numpy(), warms[1].numpy())
     with pytest.raises(RuntimeError, match="ended before sim_time"):
-        rfleet.fleet_run(fleet, 7, replicas=2, device="cpu", steps=20)
+        rfleet.fleet_run(fleet, 7, replicas=2, device="cpu", steps=20, backend="ref")
 
 
 def test_sweep_is_one_launch_and_seeded():
@@ -386,8 +388,8 @@ def test_sweep_is_one_launch_and_seeded():
     a = rfleet.fleet_sweep(fleet, over, 3, replicas=2, backend="counting_ref", device="cpu")
     assert calls == [(3 * 2 * 2, 4)]  # one launch: cells x replicas fleets
     assert a.shape == (3, 2, 4) and a.backend == "counting_ref"
-    b = rfleet.fleet_sweep(fleet, over, 3, replicas=2, device="cpu")
-    c = rfleet.fleet_sweep(fleet, over, 4, replicas=2, device="cpu")
+    b = rfleet.fleet_sweep(fleet, over, 3, replicas=2, device="cpu", backend="ref")
+    c = rfleet.fleet_sweep(fleet, over, 4, replicas=2, device="cpu", backend="ref")
     np.testing.assert_array_equal(a.avg_server_count, b.avg_server_count)
     assert not np.array_equal(a.avg_server_count, c.avg_server_count)
 
@@ -404,6 +406,7 @@ def test_sweep_is_one_launch_and_seeded():
         ([2.0, 40.0], [[10.0, 10.0], [10.0, 10.0]], 64, 20),  # the widest fleet
         ([32.0], [[1000.0] * 8], 64, 32),  # a table exactly full at one entry a lane
         ([33.0], [[1000.0] * 8], 64, 33),  # one past: two entries a lane
+        ([32.0000001], [[1000.0] * 8], 64, 33),  # above 32 in f64, the f64 kernel's dtype
     ],
 )
 def test_live_bound_from_cluster_limits_and_slots(n_cluster, limits, slots, bound):
@@ -428,7 +431,7 @@ def test_fleet_inputs_pass_the_live_bound_down():
     assert rfleet.fleet_inputs(unbounded, {}, 0, replicas=2, device="cpu").live_bound == sum(
         min(f.max_concurrency, 64) for f in fleet.functions)
     a = rfleet.fleet_sweep(fleet, over, 1, replicas=2, backend="bound_ref", device="cpu")
-    b = rfleet.fleet_sweep(fleet, over, 1, replicas=2, device="cpu")
+    b = rfleet.fleet_sweep(fleet, over, 1, replicas=2, device="cpu", backend="ref")
     assert seen == [30]
     np.testing.assert_array_equal(a.avg_server_count, b.avg_server_count)
 
@@ -456,16 +459,20 @@ def test_pointed_errors():
     nine = dataclasses.replace(
         fleet, functions=tuple(dataclasses.replace(fn, name=f"f{i}") for i in range(9))
     )
-    with pytest.raises(ValueError, match="at most 8 functions.*Queue A item 2"):
-        rfleet.fleet_run(nine, 0, **kw)
+    with pytest.raises(ValueError, match="at most 8 functions.*use backend='scan'"):
+        rfleet.fleet_run(nine, 0, **kw, backend="ref")
     with pytest.raises(ValueError, match="must be a FaultModel"):
         dataclasses.replace(fleet, faults=object())
     with pytest.raises(ValueError, match="fleet-capable combinations: engine='scan'"):
         rfleet.fleet_run(fleet, 0, engine="par", **kw)
     with pytest.raises(ValueError, match="fleet-capable"):
         rfleet.fleet_sweep(fleet, {"n_cluster": [2.0]}, 0, engine="temporal", **kw)
-    with pytest.raises(NotImplementedError, match="Queue A item 2"):
+    # the f64 fleet scan serves the same fleet: its kernel needs the card,
+    # its plain version runs here
+    with pytest.raises(ValueError, match="needs a CUDA device.*'scan_ref'"):
         rfleet.fleet_run(fleet, 0, backend="scan", **kw)
+    ok = rfleet.fleet_run(fleet, 0, backend="scan_ref", **kw).summary
+    assert ok.arrivals.sum() > 0 and np.isfinite(ok.avg_cluster_occupancy)
     with pytest.raises(ValueError, match="compile-time"):
         rfleet.fleet_sweep(fleet, {"queue_depth": [1, 2]}, 0, **kw)
     with pytest.raises(ValueError, match="unknown fleet sweep axis"):
@@ -480,7 +487,7 @@ def test_pointed_errors():
         rfleet.fleet_run(dataclasses.replace(fleet, slots=1), 0, **kw)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
-            rfleet.fleet_run(fleet, 0, replicas=1)
+            rfleet.fleet_run(fleet, 0, replicas=1, backend="ref")
 
 
 def test_new_modules_import_no_jax():

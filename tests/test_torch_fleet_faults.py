@@ -223,7 +223,7 @@ def test_fleet_run_matches_reference(faults):
     key = jax.random.key(2)
     ref = jfleet.fleet_run(jf, key, replicas=2, backend="ref")
     port = rfleet.fleet_run(interop.fleet_from_reference(jf), 0, replicas=2, device="cpu",
-                            staged=_reference_staged(jf, key, 2))
+                            staged=_reference_staged(jf, key, 2), backend="ref")
     p, r = port.summary, ref.summary
     for sp, sr in zip(p.summaries, r.summaries):
         for f in COUNTERS:
@@ -251,7 +251,7 @@ def test_fleet_sweep_runs_the_fault_path_in_one_launch(monkeypatch):
         return real(*a, **kw)
 
     monkeypatch.setattr(rref, "fleet_sweep_ref", counting)
-    grid = rfleet.fleet_sweep(fleet, over, 3, replicas=2, device="cpu")
+    grid = rfleet.fleet_sweep(fleet, over, 3, replicas=2, device="cpu", backend="ref")
     monkeypatch.undo()
     faults = ["cap_edges", "cap_values", "crash_rate", "crash_u"]
     assert calls == [((2 * 2 * 2, 4), faults + ["prestamped", "queue_depth", "slots"])]
@@ -262,7 +262,7 @@ def test_fleet_sweep_runs_the_fault_path_in_one_launch(monkeypatch):
             fleet, n_cluster=over["n_cluster"][c[1]],
             functions=tuple(dataclasses.replace(f, expiration_threshold=over[
                 "expiration_threshold"][c[0]]) for f in fleet.functions)),
-            3, replicas=2, device="cpu")
+            3, replicas=2, device="cpu", backend="ref")
         for f, s in enumerate(run.summary.summaries):
             for name in COUNTERS:
                 np.testing.assert_array_equal(getattr(grid.summaries[c + (f,)], name),
@@ -277,8 +277,8 @@ def test_fleet_sweep_runs_the_fault_path_in_one_launch(monkeypatch):
 def test_inert_fault_model_is_a_noop():
     fleet = interop.fleet_from_reference(hetero_fleet(queue_depth=2))
     inert = dataclasses.replace(fleet, faults=rfaults.FaultModel())  # queues allowed
-    a = rfleet.fleet_run(fleet, 5, replicas=2, device="cpu").summary
-    b = rfleet.fleet_run(inert, 5, replicas=2, device="cpu").summary
+    a = rfleet.fleet_run(fleet, 5, replicas=2, device="cpu", backend="ref").summary
+    b = rfleet.fleet_run(inert, 5, replicas=2, device="cpu", backend="ref").summary
     for sa, sb in zip(a.summaries, b.summaries):
         for f in COUNTERS[:6] + ("time_running", "time_idle"):
             np.testing.assert_array_equal(getattr(sa, f), getattr(sb, f), err_msg=f)
@@ -295,8 +295,8 @@ def test_one_function_fleet_is_run_under_faults():
     fn = fleet.functions[0]
     scn = rscn.Scenario.of(fn.as_scenario(sim_time=300.0, skip_time=10.0, slots=16),
                            faults=fleet.faults)
-    a = rfleet.fleet_run(fleet, 8, replicas=3, device="cpu").summary.summaries[0]
-    b = rscn.run(scn, 8, replicas=3, device="cpu").summary
+    a = rfleet.fleet_run(fleet, 8, replicas=3, device="cpu", backend="ref").summary.summaries[0]
+    b = rscn.run(scn, 8, replicas=3, device="cpu", backend="ref").summary
     for f in COUNTERS:
         np.testing.assert_array_equal(getattr(a, f), getattr(b, f), err_msg=f)
     assert a.n_crash.sum() > 0 and a.n_evict.sum() > 0
@@ -305,7 +305,7 @@ def test_one_function_fleet_is_run_under_faults():
 def test_conservation_and_the_ceiling():
     jf = dataclasses.replace(hetero_fleet(queue_depth=0, n_cluster=8.0), faults=ACTIVE)
     s = rfleet.fleet_run(interop.fleet_from_reference(jf), 4, replicas=3,
-                         device="cpu").summary
+                         device="cpu", backend="ref").summary
     for f, fs in enumerate(s.summaries):
         # every arrival lands in one bucket, and a served one either
         # completes or is interrupted
@@ -330,4 +330,4 @@ def test_fleet_scenario_checks_faults():
     with pytest.raises(ValueError, match="crash_u"):
         rfleet.fleet_run(interop.fleet_from_reference(jf), 0, replicas=2, device="cpu",
                          staged=_reference_staged(dataclasses.replace(jf, faults=None),
-                                                  jax.random.key(0), 2))
+                                                  jax.random.key(0), 2), backend="ref")

@@ -163,6 +163,7 @@ def test_run_matches_reference(c, max_c):
     port = rscn.run(
         interop.scenario_from_reference(base), 0, replicas=4, engine="par",
         device="cpu", staged=staged,
+        backend="ref",
     )
     p, r = port.summary, ref.summary
     assert type(p).__name__ == "ParSimulationSummary"
@@ -188,8 +189,8 @@ def test_c1_makes_the_base_engine_decisions():
     base = _jax_base(sim_time=400.0)
     ref, staged = _reference_run(base, 7, 3)
     scn = interop.scenario_from_reference(base)
-    one = rscn.run(scn, 0, replicas=3, device="cpu", staged=staged)
-    par = rscn.run(scn, 0, replicas=3, engine="par", device="cpu", staged=staged)
+    one = rscn.run(scn, 0, replicas=3, device="cpu", staged=staged, backend="ref")
+    par = rscn.run(scn, 0, replicas=3, engine="par", device="cpu", staged=staged, backend="ref")
     for f in ("n_cold", "n_warm", "n_reject"):
         np.testing.assert_array_equal(getattr(par.summary, f), getattr(one.summary, f))
         np.testing.assert_array_equal(
@@ -217,6 +218,6 @@ def test_par_engine_has_no_sweep():
     scn = interop.scenario_from_reference(_jax_base(concurrency_value=3))
     with pytest.raises(ValueError, match="does not support sweep"):
         rscn.sweep(scn, {"arrival_rate": [0.5]}, 0, device="cpu",
-                   execution=rscn.Execution(engine="par"))
+                   execution=rscn.Execution(engine="par", backend="ref"))
     with pytest.raises(ValueError, match="engine='temporal'"):
-        rscn.run(scn, 0, engine="par", device="cpu", grid=[0.0, 1.0])
+        rscn.run(scn, 0, engine="par", device="cpu", grid=[0.0, 1.0], backend="ref")

@@ -148,12 +148,12 @@ def test_par_block_backends_refuse_histograms_and_reliability():
         jscn.run(jbase, jax.random.key(0), replicas=1, engine="par", backend="ref")
     pscn = interop.scenario_from_reference(jbase)
     with pytest.raises(ValueError) as port:
-        rscn.run(pscn, 0, replicas=1, engine="par", device="cpu")
+        rscn.run(pscn, 0, replicas=1, engine="par", device="cpu", backend="ref")
     assert str(port.value) == str(ref.value)
     rely = interop.scenario_from_reference(_jax_base(
         concurrency_value=3, reliability=JRely(failure=JFail(p_fail=0.1))))
     with pytest.raises(ValueError, match="scan backend"):
-        rscn.run(rely, 0, replicas=1, engine="par", device="cpu")
+        rscn.run(rely, 0, replicas=1, engine="par", device="cpu", backend="ref")
     s = rscn.run(rely, 0, replicas=2, engine="par", device="cpu", backend="scan_ref").summary
     assert s.n_fail.sum() > 0
 

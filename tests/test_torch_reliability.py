@@ -385,7 +385,7 @@ def test_sweep_matches_reference_grid(kind, max_c):
     staged = interop.staged_from_reference(reference_parts(base, over, key, R, n))
     assert len(staged) == (6 if kind == "retry" else 4)
     port = rscn.sweep(interop.scenario_from_reference(base), over, 0, replicas=R,
-                      device="cpu", staged=staged)
+                      device="cpu", staged=staged, backend="ref")
     assert port.axes == ref.axes and port.shape == ref.shape
     for idx in np.ndindex(port.shape):
         assert_summary(port.summaries[idx], ref.summaries[idx])
@@ -409,7 +409,7 @@ def test_run_matches_reference(kind):
     staged = interop.staged_from_reference(
         [(tuple(map(np.asarray, smp)), tuple(map(np.asarray, ext)))])
     port = rscn.run(interop.scenario_from_reference(base), 0, replicas=3,
-                    device="cpu", staged=staged)
+                    device="cpu", staged=staged, backend="ref")
     assert_summary(port.summary, ref.summary)
     assert port.to_dict().keys() <= ref.to_dict().keys()
     assert port.summary.n_retry.sum() > 0 if kind == "retry" else port.summary.n_retry.sum() == 0
@@ -429,7 +429,7 @@ def _port_scn(kind=None, **kw):
 @pytest.mark.parametrize("max_c", [1000, 2])
 def test_every_attempt_is_served_or_rejected(max_c):
     grid = rscn.sweep(_port_scn("retry", max_concurrency=max_c, skip_time=0.0),
-                      {"t_timeout": [1.0, 8.0]}, 5, replicas=4, device="cpu")
+                      {"t_timeout": [1.0, 8.0]}, 5, replicas=4, device="cpu", backend="ref")
     for s in grid.summaries.ravel():
         first = s.n_attempts - s.n_retry
         # every first attempt within the horizon is processed (skip = 0)
@@ -472,10 +472,10 @@ def test_base_draws_unchanged_by_reliability():
 
 def test_trivial_reliability_keeps_the_base_metrics():
     over = {"expiration_threshold": [20.0, 120.0]}
-    plain = rscn.sweep(_port_scn(None), over, 2, replicas=3, device="cpu")
+    plain = rscn.sweep(_port_scn(None), over, 2, replicas=3, device="cpu", backend="ref")
     trivial = rscn.sweep(
         rscn.Scenario.of(_port_scn(None), reliability=rrel.Reliability()),
-        over, 2, replicas=3, device="cpu")
+        over, 2, replicas=3, device="cpu", backend="ref")
     for a, b in zip(plain.summaries.ravel(), trivial.summaries.ravel()):
         for f in ("n_cold", "n_warm", "n_reject", "time_running", "time_idle",
                   "sum_cold_resp", "sum_warm_resp"):
@@ -484,7 +484,8 @@ def test_trivial_reliability_keeps_the_base_metrics():
 
 
 def test_run_draws_reliability_on_the_port():
-    res = rscn.run(_port_scn("retry", max_concurrency=3), 4, replicas=3, device="cpu")
+    res = rscn.run(_port_scn("retry", max_concurrency=3), 4, replicas=3, device="cpu",
+                   backend="ref")
     s = res.summary
     assert (s.n_retry > 0).all() and (s.n_timeout > 0).any()
     assert res.to_dict()["n_retries"] == int(s.n_retry.sum())
@@ -499,19 +500,19 @@ def test_run_draws_reliability_on_the_port():
 @pytest.mark.parametrize("engine", ["temporal", "par"])
 def test_other_engines_refuse_reliability(engine):
     with pytest.raises(ValueError, match="scan backend"):
-        rscn.run(_port_scn("fail"), 0, replicas=2, device="cpu", engine=engine)
+        rscn.run(_port_scn("fail"), 0, replicas=2, device="cpu", engine=engine, backend="ref")
 
 
 @pytest.mark.parametrize("axis", ["t_timeout", "p_fail", "backoff_base"])
 def test_reliability_axes_need_a_policy(axis):
     with pytest.raises(ValueError, match="Scenario.reliability="):
-        rscn.sweep(_port_scn(None), {axis: [1.0]}, 0, device="cpu")
+        rscn.sweep(_port_scn(None), {axis: [1.0]}, 0, device="cpu", backend="ref")
 
 
 @pytest.mark.parametrize("axis,value", [("t_timeout", 0.0), ("p_fail", 1.0)])
 def test_reliability_axis_values_are_checked(axis, value):
     with pytest.raises(ValueError, match=axis):
-        rscn.sweep(_port_scn("fail"), {axis: [value]}, 0, device="cpu")
+        rscn.sweep(_port_scn("fail"), {axis: [value]}, 0, device="cpu", backend="ref")
 
 
 def test_scenario_checks_the_policy_type():
@@ -537,10 +538,10 @@ def test_staged_reliability_buffers_are_checked():
     scn = _port_scn("retry", sim_time=100.0)
     with pytest.raises(ValueError, match="6 buffers"):
         rscn.run(scn, 0, replicas=2, device="cpu",
-                 staged=(torch.ones(2, 5),) * 4)
+                 staged=(torch.ones(2, 5),) * 4, backend="ref")
     short = tuple(torch.ones(2, 6) for _ in range(6))
     with pytest.raises(RuntimeError, match="before sim_time"):
-        rscn.run(scn, 0, replicas=2, device="cpu", staged=short)
+        rscn.run(scn, 0, replicas=2, device="cpu", staged=short, backend="ref")
 
 
 def test_planner_under_a_failure_model():

@@ -400,25 +400,51 @@ def test_scan_backend_needs_cuda_and_names_its_plain_version():
         rscn.run(pscn, 0, replicas=2, device="cpu", backend="scan")
     with pytest.raises(ValueError, match="needs a CUDA device.*'scan_ref'"):
         rsim.ServerlessSimulator(pscn, device="cpu", backend="scan")
-    # the default backend on the CPU is still the block engine's plain version
-    _, dev = Execution(device="cpu").resolve()
-    assert Execution(device="cpu").resolve()[0].name == "ref" and dev.type == "cpu"
+    # the default backend is the reference's, the f64 scan: its plain
+    # version on the CPU, for every engine
+    for engine in rexec.ENGINES:
+        bspec, dev = Execution(engine=engine, device="cpu").resolve()
+        assert bspec.name == "scan_ref" and bspec.f64 and dev.type == "cpu"
     assert rexec.resolve_backend("scan_ref").launch_for("par") is not None
+    assert rexec.resolve_backend("scan_ref").launch_for("fleet") is not None
+
+
+def test_default_backend_serves_the_histogram_as_the_reference():
+    """Queue C's input: a histogram run with no backend named returns the
+    summary of backend='scan_ref', as the reference's default does."""
+    jbase = jscn.Scenario(
+        arrival_process=jproc.ExpSimProcess(rate=0.9),
+        warm_service_process=jproc.ExpSimProcess(rate=1 / 1.991),
+        cold_service_process=jproc.ExpSimProcess(rate=1 / 2.244), sim_time=2000.0, skip_time=10.0,
+        track_histogram=True,
+    )
+    pscn = interop.scenario_from_reference(jbase)
+    default = rscn.run(pscn, 0, replicas=2, device="cpu").summary
+    named = rscn.run(pscn, 0, replicas=2, device="cpu", backend="scan_ref").summary
+    for f in ("n_cold", "n_warm", "n_reject", "time_running", "time_idle", "lifespan_sum",
+              "lifespan_count", "histogram"):
+        np.testing.assert_array_equal(getattr(default, f), getattr(named, f), err_msg=f)
+    assert default.histogram.shape == (2, pscn.hist_bins)
+    ref = jscn.run(jbase, jax.random.key(0), replicas=2).summary
+    assert ref.histogram.shape == default.histogram.shape
 
 
 def test_fused_draws_and_fleets_on_the_f64_engine_name_item_2b():
+    """The inputs that the f64 engine refused until ROADMAP Queue A item 2b
+    (fused draws, fleets) run on its plain version."""
     pscn = interop.scenario_from_reference(_jax_base())
     fused = Execution(draws="fused", device="cpu", backend="scan_ref")
-    with pytest.raises(NotImplementedError, match="Queue A item 2b"):
-        rscn.run(pscn, 0, replicas=2, execution=fused)
-    with pytest.raises(NotImplementedError, match="Queue A item 2b"):
-        rscn.sweep(pscn, {"expiration_threshold": [5.0]}, 0, replicas=2, execution=fused)
+    r = rscn.run(pscn, 0, replicas=2, execution=fused)
+    assert r.summary.n_cold.sum() > 0 and r.summary.lifespan_count.sum() > 0
+    g = rscn.sweep(pscn, {"expiration_threshold": [5.0]}, 0, replicas=2,
+                   execution=fused)
+    assert g.execution.draws == "fused" and g.ok.all()
     fleet = rfleet.FleetScenario(functions=(rfleet.FleetFunction(
         name="f", arrival_process=pscn.arrival_process,
         warm_service_process=pscn.warm_service_process,
         cold_service_process=pscn.cold_service_process),), sim_time=100.0, skip_time=10.0)
-    with pytest.raises(NotImplementedError, match="Queue A item 2b"):
-        rfleet.fleet_run(fleet, 0, replicas=1, device="cpu", backend="scan_ref")
+    s = rfleet.fleet_run(fleet, 0, replicas=1, device="cpu", backend="scan_ref").summary
+    assert s.arrivals.sum() > 0 and s.summaries[0].lifespan_count.sum() >= 0
 
 
 @pytest.mark.parametrize("what", ["histogram", "oldest", "windows"])
@@ -432,14 +458,14 @@ def test_block_backends_refuse_with_the_reference_messages(what, engine):
     pscn = interop.scenario_from_reference(jbase)
     if what == "windows" and engine == "temporal":
         # the temporal engine reports no windows: neither engine refuses them
-        rscn.run(pscn, 0, replicas=1, device="cpu", engine=engine, steps=500)
+        rscn.run(pscn, 0, replicas=1, device="cpu", engine=engine, steps=500, backend="ref")
         rscn.run(pscn, 0, replicas=1, device="cpu", engine=engine, steps=500,
                  backend="scan_ref")
         return
     with pytest.raises(ValueError) as ref:
         jscn.run(jbase, jax.random.key(0), replicas=1, engine=engine, backend="ref")
     with pytest.raises(ValueError) as port:
-        rscn.run(pscn, 0, replicas=1, device="cpu", engine=engine)
+        rscn.run(pscn, 0, replicas=1, device="cpu", engine=engine, backend="ref")
     assert str(port.value) == str(ref.value)
     # and the f64 engine serves it
     res = rscn.run(pscn, 0, replicas=1, device="cpu", engine=engine, backend="scan_ref")
@@ -449,9 +475,10 @@ def test_block_backends_refuse_with_the_reference_messages(what, engine):
 def test_block_sweeps_refuse_histograms_and_routing():
     pscn = interop.scenario_from_reference(_jax_base())
     with pytest.raises(ValueError, match="histograms need the f64 scan backend"):
-        rscn.sweep(pscn, {"track_histogram": [False, True]}, 0, replicas=1, device="cpu")
+        rscn.sweep(pscn, {"track_histogram": [False, True]}, 0, replicas=1, device="cpu",
+                   backend="ref")
     with pytest.raises(ValueError, match="newest-idle routing only"):
-        rscn.sweep(pscn, {"routing": ["oldest"]}, 0, replicas=1, device="cpu")
+        rscn.sweep(pscn, {"routing": ["oldest"]}, 0, replicas=1, device="cpu", backend="ref")
     grid = rscn.sweep(pscn, {"routing": ["newest", "oldest"], "hist_bins": [4, 9]}, 0,
                       replicas=1, device="cpu", backend="scan_ref")
     assert grid.shape == (2, 2) and grid.ok.all()

@@ -88,6 +88,7 @@ def test_sweep_matches_reference_grid(max_c):
     port = rscn.sweep(
         interop.scenario_from_reference(base), over, 0,
         replicas=R, device="cpu", staged=staged,
+        backend="ref",
     )
     assert port.axes == ref.axes and port.shape == ref.shape == (2, 2, 2)
     assert port.backend == "ref" and port.ok.all()
@@ -119,6 +120,7 @@ def test_run_matches_reference():
     port = rscn.run(
         interop.scenario_from_reference(base), 0, replicas=4, device="cpu",
         staged=interop.staged_from_reference(parts),
+        backend="ref",
     )
     _assert_summary(port.summary, ref.summary)
     assert port.to_dict().keys() <= ref.to_dict().keys()
@@ -157,9 +159,9 @@ def test_sweep_is_one_launch_per_static_combo():
 def test_sweep_is_seeded():
     over = {"arrival_rate": [0.5, 1.0], "sim_time": [80.0, 120.0]}
     scn = _port_base(sim_time=120.0)
-    a = rscn.sweep(scn, over, 7, replicas=2, device="cpu")
-    b = rscn.sweep(scn, over, 7, replicas=2, device="cpu")
-    c = rscn.sweep(scn, over, 8, replicas=2, device="cpu")
+    a = rscn.sweep(scn, over, 7, replicas=2, device="cpu", backend="ref")
+    b = rscn.sweep(scn, over, 7, replicas=2, device="cpu", backend="ref")
+    c = rscn.sweep(scn, over, 8, replicas=2, device="cpu", backend="ref")
     np.testing.assert_array_equal(a.avg_server_count, b.avg_server_count)
     assert not np.array_equal(a.avg_server_count, c.avg_server_count)
     # param cells share their draw cell's buffers (common random numbers)
@@ -175,13 +177,13 @@ def test_default_device_is_the_gpu():
         pytest.skip("a GPU is visible; the default device resolves to it")
     scn = _port_base()
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        rscn.sweep(scn, {"arrival_rate": [0.5]}, 0)
+        rscn.sweep(scn, {"arrival_rate": [0.5]}, 0, backend="ref")
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        rscn.run(scn, 0)
+        rscn.run(scn, 0, backend="ref")
 
 
 def test_plan_resolution_and_registry_errors():
-    assert rexec.Execution(device="cpu").resolve()[0].name == "ref"
+    assert rexec.Execution(device="cpu", backend="ref").resolve()[0].name == "ref"
     with pytest.raises(ValueError, match="needs a CUDA device"):
         rexec.Execution(backend="cuda", device="cpu").resolve()
     with pytest.raises(ValueError, match=r"registered backends: \[.*'cuda'.*'ref'"):
@@ -189,7 +191,7 @@ def test_plan_resolution_and_registry_errors():
     with pytest.raises(
         ValueError, match=r"registered engines: \['scan', 'temporal', 'par'\]"
     ):
-        rexec.Execution(engine="bogus", device="cpu").resolve()
+        rexec.Execution(engine="bogus", device="cpu", backend="ref").resolve()
     with pytest.raises(TypeError):
         rexec.plan_of("ref")
 
@@ -197,18 +199,18 @@ def test_plan_resolution_and_registry_errors():
 def test_guards():
     scn = _port_base(sim_time=200.0)
     with pytest.raises(RuntimeError, match="ended before sim_time"):
-        rscn.run(scn, 0, replicas=2, device="cpu", steps=20)
+        rscn.run(scn, 0, replicas=2, device="cpu", steps=20, backend="ref")
     tight = _port_base(slots=2, max_concurrency=100, sim_time=200.0)
     with pytest.raises(RuntimeError, match="overflow"):
-        rscn.sweep(tight, {"arrival_rate": [2.0]}, 0, replicas=2, device="cpu")
+        rscn.sweep(tight, {"arrival_rate": [2.0]}, 0, replicas=2, device="cpu", backend="ref")
     with pytest.raises(ValueError, match="staged buffers"):
         rscn.run(scn, 0, replicas=3, device="cpu",
-                 staged=(torch.ones(2, 5), torch.ones(2, 5), torch.ones(2, 5)))
+                 staged=(torch.ones(2, 5), torch.ones(2, 5), torch.ones(2, 5)), backend="ref")
 
 
 def test_grid_selection_and_export():
     over = {"expiration_threshold": [20.0, 200.0], "arrival_rate": [0.5, 1.0]}
-    grid = rscn.sweep(_port_base(sim_time=120.0), over, 1, replicas=2, device="cpu")
+    grid = rscn.sweep(_port_base(sim_time=120.0), over, 1, replicas=2, device="cpu", backend="ref")
     one = grid.sel(arrival_rate=1.0)
     assert list(one.axes) == ["expiration_threshold"] and one.shape == (2,)
     assert one.avg_server_count[1] == grid.avg_server_count[1, 1]
@@ -257,7 +259,7 @@ def test_scenario_refuses_later_layers(kw, item):
         jscn.run(JScenario.of(_jax_base(), **kw), jax.random.key(0), replicas=1,
                  backend="ref")
     with pytest.raises(ValueError) as port:
-        rscn.run(scn, 0, replicas=1, device="cpu")
+        rscn.run(scn, 0, replicas=1, device="cpu", backend="ref")
     assert str(port.value) == str(ref.value)
     res = rscn.run(scn, 0, replicas=2, device="cpu", backend="scan_ref")
     assert np.isfinite(res.avg_server_count)
@@ -274,7 +276,7 @@ def test_sweep_refuses_later_axes(axis):
         # the fault axes are ported: they need Scenario.faults, as in the
         # reference
         with pytest.raises(ValueError, match="needs Scenario.faults="):
-            rscn.sweep(_port_base(), {axis: [1.0]}, 0, device="cpu")
+            rscn.sweep(_port_base(), {axis: [1.0]}, 0, device="cpu", backend="ref")
         return
     if axis == "profile":
         # the profile axis is ported: a value that is not a RateProfile is
@@ -282,7 +284,7 @@ def test_sweep_refuses_later_axes(axis):
         with pytest.raises(TypeError) as ref:
             jscn.sweep(_jax_base(), {axis: [1.0]}, jax.random.key(0), backend="ref")
         with pytest.raises(TypeError, match="expected RateProfile") as port:
-            rscn.sweep(_port_base(), {axis: [1.0]}, 0, device="cpu")
+            rscn.sweep(_port_base(), {axis: [1.0]}, 0, device="cpu", backend="ref")
         assert str(port.value) == str(ref.value)
         return
     # the f64 engine's knobs are static axes, as in the reference: on the
@@ -298,4 +300,4 @@ def test_sweep_refuses_later_axes(axis):
 
 def test_sweep_rejects_unknown_axis():
     with pytest.raises(ValueError, match="sweepable fields"):
-        rscn.sweep(_port_base(), {"bogus": [1.0]}, 0, device="cpu")
+        rscn.sweep(_port_base(), {"bogus": [1.0]}, 0, device="cpu", backend="ref")

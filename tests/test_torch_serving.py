@@ -23,6 +23,7 @@ from repro.core.execution import Execution
 from repro.data import workload as jwork
 from repro.serving import platform as jplat
 from repro.serving.autoscale import plan_expiration_threshold as jplan
+from repro_torch.core.execution import Execution as PortExecution
 from repro_torch.data import workload as pwork
 from repro_torch.launch import serve
 from repro_torch.serving import platform as pplat
@@ -112,7 +113,8 @@ PLAN = dict(arrival_rate=0.05, warm_time=2.0, cold_time=5.0, sim_time=2e4, repli
 
 @pytest.mark.parametrize("slo,expected", [(0.2, 60.0), (0.08, 120.0), (0.04, 300.0)])
 def test_planner_matches_jax(slo, expected):
-    plan = plan_expiration_threshold(cold_slo=slo, device="cpu", **PLAN)
+    plan = plan_expiration_threshold(cold_slo=slo, device="cpu",
+                                     execution=PortExecution(backend="ref"), **PLAN)
     ref = jplan(cold_slo=slo, execution=Execution(backend="ref"), **PLAN)
     assert isinstance(plan, PlanResult)
     assert plan.expiration_threshold == ref.expiration_threshold == expected

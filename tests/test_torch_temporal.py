@@ -169,6 +169,7 @@ def test_run_matches_reference(with_grid):
         device="cpu", staged=interop.staged_from_reference(parts), grid=grid,
         initial_instances=[InstanceSnapshot(age=a, remaining=r, idle_for=i)
                            for a, r, i in SNAPSHOTS],
+        backend="ref",
     )
     p, r = port.temporal, ref.temporal
     assert p.grid.shape == (17 if with_grid else 33,)
@@ -192,19 +193,19 @@ def test_run_matches_reference(with_grid):
 def test_truncated_stream_raises():
     scn = interop.scenario_from_reference(_jax_base(sim_time=800.0, skip_time=0.0))
     with pytest.raises(RuntimeError, match="ended before sim_time"):
-        rscn.run(scn, 0, replicas=2, engine="temporal", device="cpu", steps=50)
+        rscn.run(scn, 0, replicas=2, engine="temporal", device="cpu", steps=50, backend="ref")
 
 
 def test_temporal_engine_has_no_sweep_and_checks_its_inputs():
     scn = interop.scenario_from_reference(_jax_base())
     with pytest.raises(ValueError, match="does not support sweep"):
         rscn.sweep(scn, {"arrival_rate": [0.5]}, 0, device="cpu",
-                   execution=rscn.Execution(engine="temporal"))
+                   execution=rscn.Execution(engine="temporal", backend="ref"))
     with pytest.raises(ValueError, match="engine='temporal'"):
         rscn.run(scn, 0, device="cpu",
-                 initial_instances=[InstanceSnapshot(age=1.0, remaining=1.0)])
+                 initial_instances=[InstanceSnapshot(age=1.0, remaining=1.0)], backend="ref")
     with pytest.raises(ValueError, match="exactly one"):
         InstanceSnapshot(age=1.0, remaining=1.0, idle_for=2.0)
     with pytest.raises(ValueError, match="slots"):
         rscn.run(scn, 0, replicas=2, engine="temporal", device="cpu",
-                 initial_instances=[InstanceSnapshot(age=1.0, idle_for=1.0)] * 17)
+                 initial_instances=[InstanceSnapshot(age=1.0, idle_for=1.0)] * 17, backend="ref")

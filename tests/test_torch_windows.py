@@ -185,7 +185,7 @@ def test_sweep_matches_reference_grid(max_c):
     ref = jscn.sweep(base, over, key, replicas=R, backend="ref", steps=n)
     staged = interop.staged_from_reference(reference_parts(base, over, key, R, n))
     port = rscn.sweep(interop.scenario_from_reference(base), over, 0, replicas=R,
-                      device="cpu", staged=staged)
+                      device="cpu", staged=staged, backend="ref")
     assert port.shape == ref.shape == (2, 2)
     for idx in np.ndindex(port.shape):
         _assert_windows(port.summaries[idx].windows, ref.summaries[idx].windows)
@@ -222,7 +222,7 @@ def test_windows_with_retries_match_reference():
     staged = interop.staged_from_reference(
         [(tuple(map(np.asarray, smp)), tuple(map(np.asarray, ext)))])
     port = rscn.sweep(interop.scenario_from_reference(base), over, 0, replicas=R,
-                      device="cpu", staged=staged)
+                      device="cpu", staged=staged, backend="ref")
     for idx in np.ndindex(port.shape):
         p, r = port.summaries[idx], ref.summaries[idx]
         _assert_windows(p.windows, r.windows)
@@ -243,7 +243,7 @@ def test_window_bounds_is_a_static_axis(monkeypatch):
     base = interop.scenario_from_reference(_jax_base(sim_time=200.0, window_bounds=None))
     over = {"window_bounds": [(0.0, 100.0, 200.0), (0.0, 50.0, 120.0, 200.0)],
             "expiration_threshold": [10.0, 30.0]}
-    grid = rscn.sweep(base, over, 3, replicas=2, device="cpu")
+    grid = rscn.sweep(base, over, 3, replicas=2, device="cpu", backend="ref")
     assert calls == [(4, 3), (4, 4)]  # one launch per window grid, every row in it
     assert grid.windowed_cold_prob is None and grid.window_bounds is None
     for i, wb in enumerate(over["window_bounds"]):
@@ -264,7 +264,7 @@ def test_windowed_run_is_not_ported():
     with pytest.raises(ValueError) as ref:
         jscn.run(_jax_base(), jax.random.key(0), replicas=2, backend="ref")
     with pytest.raises(ValueError, match="windowed single runs need backend='scan'") as port:
-        rscn.run(scn, 0, replicas=2, device="cpu")
+        rscn.run(scn, 0, replicas=2, device="cpu", backend="ref")
     assert str(port.value) == str(ref.value)
     res = rscn.run(scn, 0, replicas=2, device="cpu", backend="scan_ref")
     w = res.summary.windows
