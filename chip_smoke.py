@@ -210,7 +210,10 @@ Phases (any failure ends the script with a non-zero exit):
     staged sweep and its staging).  Each launch is held to its plain f64
     version on its first 4096 events (the plain fleet scan and the plain
     fused scan replaying CUDA-graph chunks) and timed by CUDA events beside
-    its bound (f64 work, the draws' int32 work);
+    its bound (f64 work, the draws' int32 work); kernel 10's instance
+    (pinned or not), registers, local memory and blocks an SM at the
+    catalog, the queued fleet and the catalog with faults
+    (``fleet_scan_event_step.resources``);
 15. the kernels line (JSON), the card line, then the device line (JSON) last.
 
 ``--seed`` (default 0) seeds phase 12's draws and recording.
@@ -942,14 +945,17 @@ def small_samples(torch, dev, rng, C, K, rate, prestamped):
 def print_ptxas(log, kernel):
     """The registers and spills ptxas reports for each template instance
     (S slots per lane and, for faas_sweep and scan_sweep, the optional paths
-    the instance runs; L live-table entries per lane for fleet_sweep)."""
+    the instance runs; L live-table entries per lane for fleet_sweep and
+    fleet_scan, with kernel 10's columns in shared memory or registers and
+    its L = 1 instances pinned or not)."""
     inst = None  # the template instance the next ptxas lines are about
     for line in log.splitlines():
         m = re.search(kernel + r"ILi(\d+)E((?:Lb[01]E)*)", line)
         if m and kernel in ("fleet_sweep_kernel", "fleet_scan_kernel"):
             per_lane = int(m.group(1))
             flags = re.findall(r"Lb([01])E", m.group(2))
-            paths = [n for n, f in zip(("faults", "queues"), flags) if f == "1"]
+            paths = [n for n, f in zip(("faults", "queues", "shared-memory columns",
+                                        "pinned at 6 blocks an SM"), flags) if f == "1"]
             inst = (f"L={per_lane} (a table of {32 * per_lane} live instances)"
                     + "".join(f" {n}" for n in paths))
         elif m:
@@ -4798,6 +4804,25 @@ def hold_fleet64(torch, inp, kw, what):
     return err, plain_ms
 
 
+def print_fleet64_resources(torch, card, what, F, live, N, M=64, Q=0, faults=False):
+    """Kernel 10's instance at a launch's sizes: its registers and local
+    memory a thread, the fleets a block the launch takes and the blocks an
+    SM the card allows, so whether the launch's blocks fit the SMs in one
+    wave."""
+    from repro_torch.kernels.fleet_scan_event_step import resources
+
+    r = resources(N, F, M, live, queue_depth=Q, faults=faults)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = -(-N // r["fleets_per_block"])
+    waves = -(-blocks // max(r["blocks_per_sm"] * sms, 1))
+    print(f"kernel 10 resources [{card}] at {what}: L={r['entries']} table entries a lane, "
+          f"columns in {'shared memory' if r['shared_columns'] else 'registers'}; "
+          f"{r['registers']} registers and {r['local_bytes']} bytes of local memory (spills) "
+          f"a thread ({'pinned' if r['pinned'] else 'unpinned'} instance), "
+          f"{r['blocks_per_sm']} blocks of {r['fleets_per_block']} fleets an SM: "
+          f"{blocks} blocks on {sms} SMs in {waves} wave(s)", flush=True)
+
+
 def fleet64_launch(inp, fleet):
     """The launch fleet_sweep()/fleet_run() makes on the f64 fleet scan."""
     from repro_torch.kernels.fleet_scan_event_step import fleet_scan_sweep
@@ -5069,6 +5094,7 @@ def fleet64_fused_phase(torch, rt, dev, card, staged64):
           f"{active / ms * 1e3:.4e}/s; bound {b_ms:.3f} ms ({b_by}, f64), {ms / b_ms:.1f}x; "
           f"plain {plain_ms:.0f} ms on the first {FLEET64_PLAIN_EVENTS} events", flush=True)
     results["fleet_scan_sweep"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    print_fleet64_resources(torch, card, "the catalog", F, inp.live_bound, N)
     del inp, launch, out, grid
     torch.cuda.empty_cache()
 
@@ -5082,14 +5108,18 @@ def fleet64_fused_phase(torch, rt, dev, card, staged64):
     if sq.enqueued.sum() <= 0 or sq.max_peak_cluster > FLEET_QUEUED["n_cluster"]:
         raise AssertionError("the f64 queued fleet queued nothing or passed its cap")
     inp = fleet_inputs(fleet_q, {}, 6, replicas=FLEET_REPLICAS, device=dev, f64=True)
-    _, kw = fleet64_launch(inp, fleet_q)
+    launch, kw = fleet64_launch(inp, fleet_q)
+    ms_q, _ = timed(torch, launch, reps=2)
     hold("fleet_scan_sweep", inp, kw, "queued")
-    print(f"f64 fleet queued: n_cluster={FLEET_QUEUED['n_cluster']} queue_depth="
-          f"{FLEET_QUEUED['queue_depth']}, {FLEET_REPLICAS} replicas, 1 launch, {wall:.3f} s "
-          f"wall: enqueued {100 * sq.enqueued.sum() / sq.arrivals.sum():.3f}% of arrivals, "
+    print(f"f64 fleet queued [{card}]: n_cluster={FLEET_QUEUED['n_cluster']} queue_depth="
+          f"{FLEET_QUEUED['queue_depth']}, {FLEET_REPLICAS} replicas, 1 launch of "
+          f"{ms_q:.3f} ms, {wall:.3f} s wall: enqueued "
+          f"{100 * sq.enqueued.sum() / sq.arrivals.sum():.3f}% of arrivals, "
           f"mean queue wait {float(sq.queue_wait_sum.sum() / max(sq.queue_served.sum(), 1)):.4f}"
           f" s, peak {sq.max_peak_cluster:.0f}", flush=True)
-    del inp
+    print_fleet64_resources(torch, card, "the queued fleet", F, inp.live_bound, FLEET_REPLICAS,
+                            Q=FLEET_QUEUED["queue_depth"])
+    del inp, launch
 
     # ---- 14.3 a 16-function fleet (the catalog twice, renamed), which the
     # f32 kernel cannot run
@@ -5178,6 +5208,8 @@ def fleet64_fused_phase(torch, rt, dev, card, staged64):
           f"first {FLEET64_PLAIN_EVENTS} events; fleet_sweep() {wall:.3f} s wall", flush=True)
     results["fleet_scan_sweep_fault"] = dict(ms=ms_f, plain_ms=plain_f, bound_ms=bf_ms,
                                              bound_by=bf_by)
+    print_fleet64_resources(torch, card, "the catalog with faults", F, inp.live_bound, N,
+                            faults=True)
     del inp, launch, out, gc
     torch.cuda.empty_cache()
     fn = lambda name, rate, warm, cold, thr, limit: rt.FleetFunction(

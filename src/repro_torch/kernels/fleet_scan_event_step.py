@@ -5,8 +5,10 @@ launcher (backend ``"scan"``, fleets).
 (``repro/core/fleet.py::_make_fleet_step`` with ``_fleet_flush``; a
 ``lax.scan``, no Pallas kernel) on the card for any number of functions:
 the kernel ``csrc/fleet_scan_event_step.cu`` (one warp per fleet, a compact
-table of the live instances in registers, the alive bitmap, accumulators
-and queues in shared memory; its header says how it is built), with every
+table of the live instances in registers with each entry's integrals, each
+function's columns in its owning lane's registers up to 32 functions, the
+alive bitmap and queues in shared memory; its header says how it is built),
+with every
 path of the plain version :func:`repro_torch.kernels.ref64.
 fleet_scan_sweep_ref`: gap and prestamped streams, FIFO queues, crashes
 and capacity churn.  Each fleet reads its replica's row of one ``[S, K]``
@@ -16,7 +18,8 @@ For CUDA tensors the wrapper checks device, dtype, shape and contiguity,
 launches the kernel on the current stream and counts the launch in
 ``LAUNCH_COUNTS["fleet_scan_sweep"]`` (``"fleet_scan_sweep_fault"`` with
 faults); a failed build or launch raises.  For CPU tensors it runs the
-plain version.
+plain version.  :func:`resources` reports the instance a launch of given
+sizes runs (registers, local memory, blocks an SM).
 """
 
 from __future__ import annotations
@@ -49,9 +52,48 @@ def _lib():
     lib.fleet_scan_f64.argtypes = [ctypes.POINTER(ctypes.c_void_p),
                                    ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
     lib.fleet_scan_f64.restype = ctypes.c_int
-    lib.fleet_scan_warp_smem.argtypes = [ctypes.c_int] * 4
+    lib.fleet_scan_warp_smem.argtypes = [ctypes.c_int] * 5
     lib.fleet_scan_warp_smem.restype = ctypes.c_longlong
+    lib.fleet_scan_resources.argtypes = [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_int)]
+    lib.fleet_scan_resources.restype = ctypes.c_int
     return lib
+
+
+def _fleets_per_block(F: int, Q: int, M: int, faults: bool, live: int) -> int:
+    """The fleets a block a launch of F functions, queue depth Q, M slots
+    and a live bound ``live`` (at most F*M) runs with, as many as its
+    warps' shared memory lets up to ``FLEETS_PER_BLOCK``; raises where one
+    fleet does not fit a block."""
+    per_warp = int(_lib().fleet_scan_warp_smem(F, Q, M, int(faults), live))
+    warps = min(FLEETS_PER_BLOCK, MAX_BLOCK_SMEM // per_warp)
+    if warps < 1:
+        raise ValueError(
+            f"a fleet of F={F} functions with queue_depth={Q} and M={M} slots needs "
+            f"{per_warp} bytes of shared memory (its bitmap, queues and, past 32 functions or "
+            f"a live bound of 256, its accumulators and integrals), "
+            f"more than a block has ({MAX_BLOCK_SMEM}); split the fleet or shorten the queues")
+    return warps
+
+
+def resources(N: int, F: int, M: int, live: int, *, queue_depth: int = 0,
+              faults: bool = False) -> dict:
+    """The kernel instance a launch of N fleets of F functions, M slots, a
+    live bound ``live``, the queue depth and faults runs on the current
+    card, and what the card gives it: ``registers`` and ``local_bytes`` a
+    thread, ``fleets_per_block``, ``blocks_per_sm``, its table's
+    ``entries`` a lane, whether the per-function columns are in shared
+    memory and whether it is the instance ``pinned`` at 6 blocks an SM."""
+    F, M, Q = int(F), int(M), int(queue_depth)
+    live = min(int(live), F * M)
+    warps = _fleets_per_block(F, Q, M, bool(faults), live)
+    out = (ctypes.c_int * 6)()
+    err = _lib().fleet_scan_resources(int(N), F, Q, M, int(bool(faults)), live, warps,
+                                      torch.cuda.current_device(), out)
+    if err != 0:
+        raise RuntimeError(f"fleet_scan_resources failed: CUDA error {err}")
+    return dict(registers=out[0], local_bytes=out[1], fleets_per_block=warps,
+                blocks_per_sm=out[2], entries=out[3], shared_columns=bool(out[4]),
+                pinned=bool(out[5]))
 
 
 def fleet_scan_sweep(
@@ -118,13 +160,7 @@ def fleet_scan_sweep(
     live = F * M if live_bound is None else int(live_bound)
     if live < 1:
         raise ValueError(f"live_bound must be >= 1, got {live_bound}")
-    per_warp = int(_lib().fleet_scan_warp_smem(F, Q, M, int(crashes or capped)))
-    warps = min(FLEETS_PER_BLOCK, MAX_BLOCK_SMEM // per_warp)
-    if warps < 1:
-        raise ValueError(
-            f"a fleet of F={F} functions with queue_depth={Q} and M={M} slots needs "
-            f"{per_warp} bytes of shared memory (its bitmap, accumulators and queues), "
-            f"more than a block has ({MAX_BLOCK_SMEM}); split the fleet or shorten the queues")
+    warps = _fleets_per_block(F, Q, M, crashes or capped, min(live, F * M))
     cols = FLEET64_COLS + (FAULT64_COLS if crashes or capped else 0)
     out = FleetScanOut(
         alive=torch.empty((N, F, M), dtype=torch.bool, device=dev),

@@ -2259,14 +2259,48 @@ FLEET64_CASES = {
                           back="past_and_back"),
     "back_crashes_capacity": dict(F=4, Q=0, prestamped=True, ncl=np.inf, limits=1000, M=16,
                                   crashes=True, capacity=(6.0, 1.5, 8.0), back="timestamps"),
+    # every lane of the warp owns a function's columns
+    "thirty_two": dict(F=32, Q=2, prestamped=False, ncl=20.0, limits=1000, M=16, rate=6.0),
+    # past 32 functions the columns stay in shared memory
+    "thirty_three": dict(F=33, Q=2, prestamped=True, ncl=24.0, limits=1000, M=16, rate=6.0),
+    "thirty_three_faults": dict(F=33, Q=0, prestamped=True, ncl=np.inf, limits=3, M=16,
+                                rate=6.0, crashes=True, capacity=(40.0, 12.0, 30.0)),
+    # a table of 4 entries a lane (live bound 65-128): entries past the
+    # first leave by exits, crashes and evictions
+    "table_of_four": dict(F=4, Q=0, prestamped=True, ncl=100.0, limits=1000, M=64, rate=30.0,
+                          K=3000, crashes=True, capacity=(100.0, 40.0, 100.0)),
+    # tables of 16 and 32 entries a lane keep the entries' integrals and
+    # expiries in shared memory: crash exits, evictions, queues (function 0
+    # at a limit of 1) and the tail fold and store from there
+    "wide_faults": dict(F=5, Q=0, prestamped=True, ncl=np.inf, limits=1000, M=300, rate=30.0,
+                        K=2000, crashes=True, capacity=(100.0, 40.0, 100.0)),
+    "wide_queue": dict(F=5, Q=2, prestamped=False, ncl=np.inf, limits=(1, 1000, 1000, 1000, 1000),
+                       M=300, rate=30.0, K=2000),
+    "table_of_sixteen": dict(F=5, Q=2, prestamped=True, ncl=400.0,
+                             limits=(1, 1000, 1000, 1000, 1000), M=300, rate=30.0, K=2000),
+    "table_of_sixteen_faults": dict(F=5, Q=0, prestamped=True, ncl=400.0, limits=1000, M=300,
+                                    rate=30.0, K=2000, crashes=True,
+                                    capacity=(100.0, 40.0, 100.0)),
+    # 3,080 fleets at L = 1: more blocks than one wave of ptxas' own register
+    # choice holds on an H100, so the launch takes the instance pinned at 6
+    # blocks an SM, as the catalog sweep does
+    "pinned": dict(F=8, Q=0, prestamped=True, ncl=24.0, limits=1000, M=64, cells=440,
+                   pinned=True),
+    "pinned_queue": dict(F=8, Q=4, prestamped=True, ncl=16.0, limits=1000, M=64, rate=6.0,
+                         cells=440, pinned=True),
+    "pinned_faults": dict(F=8, Q=0, prestamped=True, ncl=24.0, limits=1000, M=64, cells=440,
+                          crashes=True, capacity=(24.0, 6.0, 24.0), pinned=True),
 }
+# the table entries a lane the cases' live bounds give the kernel
+FLEET64_TABLES = {"table_of_four": 4, "wide_table": 32, "wide_faults": 32, "wide_queue": 32,
+                  "table_of_sixteen": 16, "table_of_sixteen_faults": 16}
 
 
 def _fleet64_case(dev, case, seed=41):
     c = dict(FLEET64_CASES[case])
     rng, args, kw = _fleet64_inputs(dev, seed, c["F"], c["ncl"], c["limits"], c["prestamped"],
-                                    c["M"], Q=c["Q"], rate=c.get("rate", 1.2),
-                                    back=c.get("back"))
+                                    c["M"], Q=c["Q"], K=c.get("K", 400), cells=c.get("cells", 3),
+                                    rate=c.get("rate", 1.2), back=c.get("back"))
     N, (S, K) = args[0].shape[0], args[6].shape
     if c.get("batch"):
         # groups of equal timestamps: creation ties under the ceiling
@@ -2295,6 +2329,11 @@ def test_fleet_scan_kernel_matches_plain(cuda_device, case):
     faults = "crash_u" in kw or "cap_values" in kw
     key = "fleet_scan_sweep_fault" if faults else "fleet_scan_sweep"
     assert dict(fss.LAUNCH_COUNTS) == {key: 1}
+    res = fss.resources(args[0].shape[0], c["F"], c["M"], lb, queue_depth=c["Q"], faults=faults)
+    if case in FLEET64_TABLES:
+        assert res["entries"] == FLEET64_TABLES[case], res
+        assert res["shared_columns"] == (FLEET64_TABLES[case] >= 16), res
+    assert res["pinned"] == c.get("pinned", False), res
     out_p = fleet_scan_sweep_ref(*args, **kw)
     _held_fleet64(out_k, out_p, faults)
     acc = out_p.acc.cpu().numpy()
@@ -2305,6 +2344,26 @@ def test_fleet_scan_kernel_matches_plain(cuda_device, case):
         assert acc[..., FLEET64_COLS + 1].sum() > 0  # evictions
     if c.get("crashes"):
         assert acc[..., FLEET64_COLS].sum() > 0  # crashes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["eight_queue", "crashes_capacity_ties", "thirty_two",
+                                  "thirty_three", "table_of_four", "wide_table", "wide_faults",
+                                  "wide_queue", "table_of_sixteen", "table_of_sixteen_faults",
+                                  "pinned_queue"])
+def test_fleet_scan_reruns_bit_for_bit(cuda_device, case):
+    # every column is added in a fixed order (event, then entry and lane at
+    # an exit), the sums over slots too: two launches give the same bits
+    args, kw, _ = _fleet64_case(cuda_device, case)
+    lb = live_bound(args[2].cpu().numpy(), args[1].cpu().numpy(), kw["slots"])
+    first = fss.fleet_scan_sweep(*args, **kw, live_bound=lb)
+    again = fss.fleet_scan_sweep(*args, **kw, live_bound=lb)
+    torch.cuda.synchronize()
+    bits = lambda x: x.view(torch.int64) if x.dtype == torch.float64 else x
+    for name, a, b in zip(first._fields, first, again):
+        assert (a is None) == (b is None), name
+        if a is not None:
+            assert torch.equal(bits(a), bits(b)), name
 
 
 @pytest.mark.cuda
