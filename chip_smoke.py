@@ -27,10 +27,11 @@ Phases (any failure ends the script with a non-zero exit):
    columns).  Every result finite, and each held to the paper;
 5. timing: each kernel at its main path's full width by CUDA events (mean
    of 3 after a warm-up), held once more against its plain version on the
-   same inputs (``par_sweep`` at c = 1 and 80 on the first 4096 events of
-   the full-width rows; a full-width plain run replays chunks of
-   ``PLAIN_GRAPH_EVENTS`` events from one CUDA graph, bit for bit with one
-   eager call), with the plain version's time and the card's bound
+   full-width rows (the Table-1 sweep and ``par_sweep`` at c = 1, 3, 80 on
+   their first 4096 events, the temporal launch on all its events; the
+   plain versions replay chunks of ``PLAIN_GRAPH_EVENTS`` events from one
+   CUDA graph, bit for bit with one eager call, as phases 9, 11 and 12's
+   do but for retries), with the plain version's time and the card's bound
    for the work this data needs; ``faas_sweep``'s events past their
    horizons, and its inert tail's share of the time (the Table-1 launch with
    every horizon before the first event, scaled by that share of events);
@@ -214,9 +215,33 @@ Phases (any failure ends the script with a non-zero exit):
     (pinned or not), registers, local memory and blocks an SM at the
     catalog, the queued fleet and the catalog with faults
     (``fleet_scan_event_step.resources``);
-15. the kernels line (JSON), the card line, then the device line (JSON) last.
+15. the online what-if service (kernels 8, 10 and 1 under ``serving/online.py``),
+    each tick with the launch counts set to 0 before it: 15a the single-
+    function service on Table 1's base (``OnlineConfig`` of the reference
+    benchmark's full size at 512 replicas, 12 ticks of a numpy
+    ``SinusoidalRate(1.2, 0.6, 800)`` stream from ``--seed``), overlapped
+    (``sweep(deferred=True)``) beside a synchronous twin: per tick the host
+    wall, ``scan_sweep``'s ms by CUDA events, the ``online_tick`` delta and
+    the new allocator segments (0 after warm-up), one launch a tick, the
+    raw and applied thresholds; the twins equal, the last tick's grid equal
+    to ``offline_equivalent`` bit for bit, its launch held to the plain f64
+    version on every event, and its cold-start probabilities within
+    ``REF_ONLINE_SIGMAS`` of ``REF_ONLINE`` (``tools/online_reference.py``);
+    15b the same ticks on ``Execution(backend="cuda")`` (one prestamped
+    ``faas_sweep`` a tick; the last tick's launch held to the plain version
+    on every event, its cold-start probabilities within
+    ``REF_ONLINE_SIGMAS`` combined standard errors of 15a's); 15c the fleet service on the 8-function catalog
+    (one ``fleet_scan_sweep`` a tick, its ms; each tick's total and
+    headroom off its plans; the last tick relaunched and held to the plain
+    fleet scan on its first 4096 events); 15d ``plan_fleet_thresholds`` on
+    the catalog (8 launches; feasible means within ``n_cluster``), and the
+    same plan small on the kernel and on scan_ref's plain loop; 15e
+    ``sweep_legacy`` on Fig. 5's grid (16 launches) bit for bit with one
+    ``sweep()``;
+16. the kernels line (JSON), the card line, then the device line (JSON) last.
 
-``--seed`` (default 0) seeds phase 12's draws and recording.
+Every phase prints its wall time at its end.  ``--seed`` (default 0) seeds
+phase 12's draws and recording and phase 15's streams.
 """
 
 import argparse
@@ -533,8 +558,9 @@ SWEEP_OVER = {
 SWEEP_REPLICAS = 32
 FULL_REPLICAS = 4096  # rows of the par and temporal main paths
 PAR_CS = (1, 3, 80)  # c = 3: the paper's Fig. 1; c = 80: Cloud Run's default
-PAR_PLAIN_EVENTS = 4096  # c = 80 is held against its plain version on these
+PAR_PLAIN_EVENTS = 4096  # each c is held against its plain version on these
 PLAIN_GRAPH_EVENTS = 128  # events per CUDA-graph replay of a full-width plain run
+F32_PLAIN_EVENTS = 4096  # phase 5's Table-1 sweep is held to plain on these
 TEMPORAL_SIM = 3600.0
 TEMPORAL_GRID = np.linspace(0.0, TEMPORAL_SIM, 61)
 
@@ -860,6 +886,32 @@ def plain_in_graph(torch, run, seq, chunk=PLAIN_GRAPH_EVENTS):
     if first + n * chunk < K:
         state = run(state, [x[:, first + n * chunk:] for x in seq])
     return state
+
+
+def faas_ref_in_graph(torch, args, kw):
+    """``faas_sweep_ref(*args, **kw)`` fast, bit for bit the one call: the
+    event inputs (the three sample buffers, ``fail_u``, ``crash_u``) in
+    chunks replayed from a CUDA graph (:func:`plain_in_graph`), the pool,
+    clock, accumulator and crash clocks chained through ``acc0``/``doom0``.
+    A retry launch, whose activation plane spans every event, runs as one
+    eager call."""
+    from repro_torch.kernels.ref import SweepOut, faas_sweep_ref
+
+    if kw.get("is_first") is not None:
+        return faas_sweep_ref(*args, **kw)
+    ev = [k for k in ("fail_u", "crash_u") if kw.get(k) is not None]
+    fixed = {k: v for k, v in kw.items() if k not in ev}
+    crash = "crash_u" in ev
+
+    def run(st, part):
+        out = faas_sweep_ref(*(args[:4] if st is None else st[:4]), args[4], *part[:3],
+                             acc0=None if st is None else st[4],
+                             doom0=st[5] if crash and st is not None else None,
+                             **fixed, **dict(zip(ev, part[3:])))
+        return tuple(out[:5]) + ((out.doom,) if crash else ())
+
+    st = plain_in_graph(torch, run, [*args[5:8], *(kw[k] for k in ev)])
+    return SweepOut(*st[:5], None, st[5] if crash else None)
 
 
 def graph_timed(torch, fn, reps):
@@ -2300,7 +2352,7 @@ def reliability_phase(torch, rt, dev, card, table1_grid):
     part = [prefix(x, RELY_PLAIN_EVENTS) for x in (dts, warms, colds)]
     pargs = (*args[:5], *part)
     out_k = faas_sweep(*pargs, **kw)
-    plain_ms, out_p = plain_timed(torch, lambda: faas_sweep_ref(*pargs, **kw))
+    plain_ms, out_p = plain_timed(torch, lambda: faas_ref_in_graph(torch, pargs, kw))
     errs["faas_sweep_win"] = max(errs["faas_sweep_win"], held_against_plain(
         torch, out_k, out_p, f"windowed sweep, first {RELY_PLAIN_EVENTS} events",
         integral_cols=window_integral_cols(W)))
@@ -2365,7 +2417,7 @@ def reliability_phase(torch, rt, dev, card, table1_grid):
     pargs = (*args[:5], *part[:3])
     pkw = dict(kw, fail_u=part[3])
     out_k = faas_sweep(*pargs, **pkw)
-    plain_ms, out_p = plain_timed(torch, lambda: faas_sweep_ref(*pargs, **pkw))
+    plain_ms, out_p = plain_timed(torch, lambda: faas_ref_in_graph(torch, pargs, pkw))
     errs["faas_sweep_rely"] = max(errs["faas_sweep_rely"], held_against_plain(
         torch, out_k, out_p, f"fail-only run, first {RELY_PLAIN_EVENTS} events"))
     print(f"timing [{card}]: faas_sweep with reliability C={Cf} M={scn_f.slots} K={Kf}: "
@@ -3177,7 +3229,6 @@ def fault_launch(torch, dev, card, what, scn, inp, plain_events, reps=3):
     ``plain_events`` events (None: all of them); returns (ms, plain_ms,
     bound_ms, bound_by, err, acc, out)."""
     from repro_torch.kernels.faas_event_step import faas_sweep
-    from repro_torch.kernels.ref import faas_sweep_ref
 
     row = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32, device=dev)
     C = len(inp.thr_rows)
@@ -3204,7 +3255,7 @@ def fault_launch(torch, dev, card, what, scn, inp, plain_events, reps=3):
                and v.shape[1] == K else v for k, v in kw.items()}
         held = f"the first {plain_events} of {K} events"
     out_k = faas_sweep(*pargs, **pkw)
-    plain_ms, out_p = plain_timed(torch, lambda: faas_sweep_ref(*pargs, **pkw))
+    plain_ms, out_p = plain_timed(torch, lambda: faas_ref_in_graph(torch, pargs, pkw))
     err = held_against_plain(torch, out_k, out_p, f"{what}, {held}")
     # the work this data needs: the events in their rows' horizons (gaps
     # summed in f64; an attempt table's times compared), the cold starts and
@@ -3251,7 +3302,7 @@ def faults_phase(torch, rt, dev, card):
     from repro_torch.data.catalog import catalog_names, fleet_of
     from repro_torch.kernels.faas_event_step import LAUNCH_COUNTS, faas_sweep
     from repro_torch.kernels.fleet_event_step import fleet_sweep
-    from repro_torch.kernels.ref import faas_sweep_ref, fleet_sweep_ref
+    from repro_torch.kernels.ref import fleet_sweep_ref
 
     errs = fault_small_cases(torch, dev)
     results = {}
@@ -3379,7 +3430,7 @@ def faults_phase(torch, rt, dev, card):
     pargs = (*base_args[:5], *(prefix(x, FAULT_PLAIN_EVENTS) for x in base_args[5:]))
     pkw = dict(crash_kw, crash_u=prefix(crash_kw["crash_u"], FAULT_PLAIN_EVENTS))
     out_k = faas_sweep(*pargs, **pkw)
-    plain_c, out_p = plain_timed(torch, lambda: faas_sweep_ref(*pargs, **pkw))
+    plain_c, out_p = plain_timed(torch, lambda: faas_ref_in_graph(torch, pargs, pkw))
     e = held_against_plain(torch, out_k, out_p,
                            f"Table-1 crash sweep, first {FAULT_PLAIN_EVENTS} events")
     errs["faas_sweep_fault"] = max(errs["faas_sweep_fault"], e)
@@ -3730,7 +3781,12 @@ def timestamp_run_held(torch, rt, dev, card, what, scn, seed, replicas, engine, 
     pad = float((dts >= 1e29).double().mean())
     part = [prefix(x, NHPP_PLAIN_EVENTS) for x in (dts, warms, colds)]
     out_k = kernel(*head, *part, **kw)
-    plain_ms, out_p = plain_timed(torch, lambda: plain(*head, *part, **kw))
+    if engine == "par":
+        plain_ms, out_p = plain_timed(torch, lambda: plain_in_graph(
+            torch, lambda st, p: plain(*head, *p, state0=st, **kw), part))
+    else:
+        plain_ms, out_p = plain_timed(torch, lambda: faas_ref_in_graph(
+            torch, (*head, *part), kw))
     err = held_against_plain(torch, out_k, out_p, f"{what}, first {NHPP_PLAIN_EVENTS} events",
                              integral_cols=cols)
     print(f"timing [{card}]: {launch_key} {what} C={C} M={cfg.slots} K={K} prestamped: "
@@ -3749,7 +3805,7 @@ def nonstationary_phase(torch, rt, dev, card, seed):
     from repro_torch.data.workload import batch_arrivals
     from repro_torch.kernels.faas_event_step import LAUNCH_COUNTS, faas_sweep
     from repro_torch.kernels.fleet_event_step import fleet_sweep
-    from repro_torch.kernels.ref import faas_sweep_ref, fleet_sweep_ref
+    from repro_torch.kernels.ref import fleet_sweep_ref
 
     errs = {}
     row = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32, device=dev)
@@ -3819,7 +3875,7 @@ def nonstationary_phase(torch, rt, dev, card, seed):
     part = [prefix(x, NHPP_PLAIN_EVENTS) for x in (dts, warms, colds)]
     pargs = (*args[:5], *part)
     out_k = faas_sweep(*pargs, **kw)
-    plain_ms, out_p = plain_timed(torch, lambda: faas_sweep_ref(*pargs, **kw))
+    plain_ms, out_p = plain_timed(torch, lambda: faas_ref_in_graph(torch, pargs, kw))
     errs["faas_sweep_win_prestamped"] = held_against_plain(
         torch, out_k, out_p, f"diurnal sweep, first {NHPP_PLAIN_EVENTS} events",
         integral_cols=window_integral_cols(W))
@@ -5380,11 +5436,461 @@ def fleet64_fused_phase(torch, rt, dev, card, staged64):
     return results, errs
 
 
+# ---- the online what-if phase (module docstring, item 15)
+
+# benchmarks/run.py's online benchmark at its full size (not --quick): the
+# service's knobs and its stream, a SinusoidalRate(1.2, 0.6, 800)
+# realisation fed in 12 batches of 120 s; 512 replicas, the catalog and
+# fault cells' count (3,072 rows a tick), where its 4 would leave the card idle
+ONLINE_TRUTH = dict(base=1.2, amplitude=0.6, period=800.0)
+ONLINE_CONFIG = dict(rate_ceiling=4.0, n_bins=16, bin_width=60.0,
+                     thresholds=(30.0, 60.0, 120.0, 300.0, 600.0, 1200.0), replicas=512)
+ONLINE_TICKS, ONLINE_BATCH = 12, 120.0
+FLEET_ONLINE_TICKS = 8
+ONLINE_SLO = 0.1
+PLAN_SIM, PLAN_CHECK_SIM, PLAN_CHECK_REPLICAS = 2e4, 2e3, 32
+# Fig. 5's grid (benchmarks/run.py:131-150)
+FIG5_RATES, FIG5_THRESHOLDS = [0.2, 0.5, 1.0, 2.0], [60.0, 300.0, 600.0, 1200.0]
+FIG5_SIM, FIG5_REPLICAS = 2e4, 2
+# the ticks that may build, load or reserve: the first one
+ONLINE_WARMUP_TICKS = 1
+# the JAX reference's per-threshold cold-start probability at the last
+# tick's profile of --seed 0's stream (its rates, which both packages fit
+# bit for bit from the numpy trace), 512 replicas:
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python tools/online_reference.py --replicas 512
+REF_ONLINE = dict(
+    seed=0,
+    replicas=512,
+    steps=4227,
+    thresholds=[
+        30.0, 60.0, 120.0, 300.0, 600.0, 1200.0
+    ],
+    rates=[
+        1.2308583333333332, 1.245543333333333, 1.084785791902773, 1.073779240740773,
+        0.9452020789632474, 1.0415982176582474, 0.9617019257903534, 1.1638420978403534,
+        1.1917431260576479, 1.232972728057648, 1.260085135082354, 1.2336869900823542,
+        1.2464824001176489, 1.0139447001176487, 0.9643140001680699, 0.78111650016807
+    ],
+    cold_start_prob=[
+        0.03389614914526842, 0.01902807076862013, 0.012621165774335549, 0.009578974096658215,
+        0.0086908277206991, 0.008646396752499421
+    ],
+    cold_start_prob_se=[
+        0.00019061672565947368, 0.00013554319330272, 9.854315755175227e-05, 6.087111781809885e-05,
+        4.291526903197812e-05, 3.9226924695728246e-05
+    ],
+)
+REF_ONLINE_SIGMAS = 4.0
+
+
+def online_trace(seed: int) -> np.ndarray:
+    """Phase 15's arrival stream: ONLINE_TICKS * ONLINE_BATCH seconds of a
+    SinusoidalRate(ONLINE_TRUTH) realisation by numpy thinning (a
+    homogeneous Poisson stream at the peak rate, each arrival kept with
+    probability rate(t) / peak), from ``seed``."""
+    rng = np.random.default_rng(seed)
+    t_end = ONLINE_TICKS * ONLINE_BATCH
+    peak = ONLINE_TRUTH["base"] * (1.0 + ONLINE_TRUTH["amplitude"])
+    cand = np.sort(rng.uniform(0.0, t_end, rng.poisson(peak * t_end)))
+    rate = ONLINE_TRUTH["base"] * (
+        1.0 + ONLINE_TRUTH["amplitude"] * np.sin(2.0 * np.pi * cand / ONLINE_TRUTH["period"]))
+    return cand[rng.uniform(size=cand.size) * peak <= rate]
+
+
+def online_batches(seed: int) -> list:
+    """The stream cut into the ticks' batches."""
+    ts = online_trace(seed)
+    return [ts[(ts >= i * ONLINE_BATCH) & (ts < (i + 1) * ONLINE_BATCH)]
+            for i in range(ONLINE_TICKS)]
+
+
+class launch_events:
+    """Within the context each call of ``module.name`` is bracketed by a
+    pair of CUDA events on the current stream (the kernel's wrapper: its
+    output zeroing and the kernel); :meth:`ms` reads them."""
+
+    def __init__(self, torch, module, name):
+        self.torch, self.module, self.name = torch, module, name
+        self.pairs = []
+
+    def __enter__(self):
+        fn = self.fn = getattr(self.module, self.name)
+        event = lambda: self.torch.cuda.Event(enable_timing=True)
+
+        def call(*a, **kw):
+            start, end = event(), event()
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            self.pairs.append((start, end))
+            return out
+
+        setattr(self.module, self.name, call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+    def ms(self):
+        self.torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.pairs]
+
+
+def tick_costs(torch, LAUNCH_COUNTS, TRACE_COUNTS, tick):
+    """One ``tick()``: its result, and its host wall, launches, what it
+    made the process pay again (``online_tick``) and the allocator segments
+    it reserved."""
+    LAUNCH_COUNTS.clear()
+    paid = TRACE_COUNTS["online_tick"]
+    seg = torch.cuda.memory_stats().get("segment.all.allocated", 0)
+    t0 = time.perf_counter()
+    rec = tick()
+    wall = time.perf_counter() - t0
+    return rec, dict(wall=wall, launches=dict(LAUNCH_COUNTS),
+                     paid=TRACE_COUNTS["online_tick"] - paid,
+                     segments=torch.cuda.memory_stats().get("segment.all.allocated", 0) - seg)
+
+
+def check_steady(rows, key, warmup, what):
+    """Every tick launched ``key`` once; after ``warmup`` ticks none paid
+    anything again or reserved a segment."""
+    for i, r in enumerate(rows):
+        if r["launches"] != {key: 1}:
+            raise AssertionError(f"{what} tick {i}: launches {r['launches']}, want {{{key}: 1}}")
+        if i >= warmup and (r["paid"] or r["segments"]):
+            raise AssertionError(f"{what} tick {i}: online_tick +{r['paid']}, "
+                                 f"{r['segments']} new allocator segments after warm-up")
+
+
+def grids_equal(a, b, what):
+    """Two GridResults bit for bit: every metric grid and every array of
+    every per-cell summary."""
+    for f in a._METRIC_FIELDS:
+        x, y = getattr(a, f), getattr(b, f)
+        if (x is None) != (y is None) or (x is not None and not np.array_equal(x, y)):
+            raise AssertionError(f"{what}: {f} differs")
+    for idx in np.ndindex(a.shape):
+        for f, x in vars(a.summaries[idx]).items():
+            if isinstance(x, np.ndarray) and not np.array_equal(x, getattr(b.summaries[idx], f)):
+                raise AssertionError(f"{what}: cell {idx} {f} differs")
+
+
+def cold_se(summary):
+    """The standard error of a cell's cold-start probability over its
+    replicas."""
+    per = summary.n_cold / np.maximum(summary.n_cold + summary.n_warm, 1)
+    return float(per.std(ddof=1) / np.sqrt(len(per)))
+
+
+def online_phase(torch, rt, dev, card, seed):
+    """The online what-if phase (module docstring, item 15); returns the
+    phase's launches of scan_sweep, faas_sweep and fleet_scan_sweep and the
+    largest |acc difference| of kernels 8, 1 and 10 held to plain."""
+    from repro_torch.core import scenario as scn_mod
+    from repro_torch.core.execution import register_backend
+    from repro_torch.core.fleet import fleet_inputs
+    from repro_torch.core.scenario import TRACE_COUNTS
+    from repro_torch.core.whatif import sweep_legacy
+    from repro_torch.data.catalog import catalog_names, fleet_of
+    from repro_torch.kernels import faas_event_step as fes
+    from repro_torch.kernels import fleet_scan_event_step as k10
+    from repro_torch.kernels import scan_event_step as k8
+    from repro_torch.kernels.faas_event_step import LAUNCH_COUNTS
+    from repro_torch.serving import (OnlineConfig, OnlineFleetWhatIfService,
+                                     OnlineWhatIfService, plan_fleet_thresholds)
+
+    t_phase = time.perf_counter()
+    launches = {"scan_sweep": 0, "faas_sweep": 0, "fleet_scan_sweep": 0}
+    errs = {"scan_sweep": 0.0, "faas_sweep": 0.0, "fleet_scan_sweep": 0.0}
+    base = table1(rt)
+    batches = online_batches(seed)
+    thresholds = ONLINE_CONFIG["thresholds"]
+    R = ONLINE_CONFIG["replicas"]
+    C = len(thresholds) * R
+
+    # ---- 15a. the single-function service, overlapped, then a synchronous twin
+    def drive(svc):
+        rows, recs = [], []
+        with launch_events(torch, k8, "scan_sweep") as ev:
+            for b in batches:
+                svc.observe(b)
+                rec, row = tick_costs(torch, LAUNCH_COUNTS, TRACE_COUNTS, svc.tick)
+                rows.append(row)
+                if rec is not None:
+                    recs.append(rec)
+            t0 = time.perf_counter()
+            rec = svc.flush()
+            flush_s = time.perf_counter() - t0
+        if rec is not None:
+            recs.append(rec)
+        return rows, recs, ev.ms(), flush_s
+
+    svc = OnlineWhatIfService(base, OnlineConfig(**ONLINE_CONFIG))
+    rows, recs, k8_ms, flush_s = drive(svc)
+    twin = OnlineWhatIfService(base, OnlineConfig(**ONLINE_CONFIG, overlap=False))
+    rows_s, recs_s, k8_ms_s, _ = drive(twin)
+    check_steady(rows, "scan_sweep", ONLINE_WARMUP_TICKS, "15a overlapped")
+    check_steady(rows_s, "scan_sweep", ONLINE_WARMUP_TICKS, "15a synchronous")
+    launches["scan_sweep"] += len(rows) + len(rows_s)
+    if [r.tick for r in recs] != list(range(ONLINE_TICKS)) or len(recs_s) != ONLINE_TICKS:
+        raise AssertionError("15a: a tick's recommendation is missing")
+    for a, b in zip(recs, recs_s):
+        if (a.seed, a.profile, a.threshold, a.applied_threshold) != (
+                b.seed, b.profile, b.threshold, b.applied_threshold):
+            raise AssertionError(f"15a tick {a.tick}: overlapped and synchronous ticks differ")
+        grids_equal(a.grid, b.grid, f"15a tick {a.tick}, overlapped against synchronous")
+    print(f"online service [{card}]: Table 1's base under a {sum(len(b) for b in batches)}-"
+          f"arrival SinusoidalRate(1.2, 0.6, 800) stream (--seed {seed}), {ONLINE_TICKS} "
+          f"ticks of {ONLINE_BATCH:.0f} s batches, {C} rows x K={svc._steps} candidates a "
+          f"tick (rate ceiling {ONLINE_CONFIG['rate_ceiling']}, {ONLINE_CONFIG['n_bins']} bins "
+          f"of {ONLINE_CONFIG['bin_width']:.0f} s); overlapped / synchronous twin:", flush=True)
+    for i, (r, s) in enumerate(zip(rows, rows_s)):
+        rec = recs[i - 1] if i else None
+        print(f"  tick {i:2d}: tick() {1e3 * r['wall']:.3f} / {1e3 * s['wall']:.3f} ms wall; "
+              f"scan_sweep {k8_ms[i]:.3f} / {k8_ms_s[i]:.3f} ms; online_tick +{r['paid']} / "
+              f"+{s['paid']}; new allocator segments {r['segments']} / {s['segments']}; "
+              f"launches {r['launches']}; "
+              + (f"returned tick {rec.tick}: raw {rec.threshold:.0f} s, applied "
+                 f"{rec.applied_threshold:.0f} s" if rec else "returned None (warm-up)"),
+              flush=True)
+    steady = slice(ONLINE_WARMUP_TICKS, None)
+    # the walls from the tick after the overlapped service's first drain
+    walls = slice(ONLINE_WARMUP_TICKS + 1, None)
+    w_o = 1e3 * np.array([r["wall"] for r in rows[walls]])
+    w_s = 1e3 * np.array([r["wall"] for r in rows_s[walls]])
+    print(f"online service [{card}]: tick() over ticks {walls.start}-{len(rows) - 1}: "
+          f"{w_o.mean():.3f} ms overlapped ({w_o.min():.3f}-{w_o.max():.3f}), "
+          f"{w_s.mean():.3f} ms synchronous ({w_s.min():.3f}-{w_s.max():.3f}), a ratio of "
+          f"{w_o.mean() / w_s.mean():.3f}; flush() {1e3 * flush_s:.3f} ms; scan_sweep "
+          f"{np.mean(k8_ms[steady]):.3f} ms a steady tick; online_tick at warm-up "
+          f"{[r['paid'] for r in rows[:ONLINE_WARMUP_TICKS]]}, then 0", flush=True)
+
+    # the last tick: offline equivalence, and its launch held to plain
+    last = recs[-1]
+    caught = {}
+    real_launch = scn_mod.scan_launch
+
+    def capture(scn_s, bspec, dev_, samples, **kw):
+        out = real_launch(scn_s, bspec, dev_, samples, **kw)
+        caught.update(scn=scn_s, samples=samples, kw=kw, out=out)
+        return out
+
+    scn_mod.scan_launch = capture
+    LAUNCH_COUNTS.clear()
+    try:
+        off = svc.offline_equivalent(last)
+    finally:
+        scn_mod.scan_launch = real_launch
+    expect_launches(LAUNCH_COUNTS, {"scan_sweep": 1}, "15a offline_equivalent(last)")
+    launches["scan_sweep"] += LAUNCH_COUNTS["scan_sweep"]
+    grids_equal(off, last.grid, "15a offline_equivalent(last)")
+    plain_ms, out_p = plain_timed(torch, lambda: real_launch(
+        caught["scn"], PlainInGraph(torch), dev, caught["samples"], **caught["kw"]))
+    err = held64(torch, caught["out"], out_p, scan64_layout(caught["scn"]),
+                 "15a last tick, every event")
+    errs["scan_sweep"] = max(errs["scan_sweep"], err)
+    print(f"online service [{card}]: offline_equivalent(last tick) bit for bit (every metric "
+          f"grid and per-cell array); its launch held to the plain f64 version (scan_ref's "
+          f"scan_sweep_ref, {PLAIN_GRAPH_EVENTS}-event CUDA-graph chunks) on all {C} rows x "
+          f"{caught['samples'][0].shape[1]} events: counters and state equal, max|acc diff| "
+          f"{err:.3e} (plain {plain_ms:.0f} ms)", flush=True)
+    del caught, out_p
+    cold = [float(last.grid.cold_start_prob[i]) for i in range(len(thresholds))]
+    se = [cold_se(last.grid.summaries[i]) for i in range(len(thresholds))]
+    if seed == REF_ONLINE["seed"]:
+        if tuple(REF_ONLINE["rates"]) != last.profile.rates:
+            raise AssertionError("15a: the last tick's profile is not the JAX reference's")
+        z = z_against(cold, se, REF_ONLINE["cold_start_prob"], REF_ONLINE["cold_start_prob_se"])
+        if float(z.max()) > REF_ONLINE_SIGMAS:
+            raise AssertionError(f"15a: a cold-start probability is {z.max():.2f} standard "
+                                 "errors off REF_ONLINE")
+        held = (f"within {z.max():.2f} standard errors of REF_ONLINE (limit "
+                f"{REF_ONLINE_SIGMAS}; the same profile, bit for bit)")
+    else:
+        held = "REF_ONLINE holds for --seed 0 only: not compared"
+    print(f"online service [{card}]: the last tick's cold-start % by threshold "
+          + ", ".join(f"{t:.0f} s {100 * c:.4f} (se {100 * e:.4f})"
+                      for t, c, e in zip(thresholds, cold, se)) + f"; {held}", flush=True)
+
+    # ---- 15b. the same ticks on the f32 block engine (synchronous)
+    blk = OnlineWhatIfService(base, OnlineConfig(**ONLINE_CONFIG,
+                                                 execution=rt.Execution(backend="cuda")))
+    rows_b = []
+    caught_b = {}
+    real_faas = fes.faas_sweep
+
+    def capture_faas(*a, **kw):
+        out = real_faas(*a, **kw)
+        if len(rows_b) == len(batches) - 1:  # the last tick's launch only
+            caught_b.update(args=a, kw=kw, out=out)
+        return out
+
+    fes.faas_sweep = capture_faas  # the backend's row launcher calls it by name
+    try:
+        for b in batches:
+            blk.observe(b)
+            rec, row = tick_costs(torch, LAUNCH_COUNTS, TRACE_COUNTS, blk.tick)
+            rows_b.append(row)
+            if rec is None or rec.grid.backend != "cuda" or not rec.grid.ok.all():
+                raise AssertionError("15b: a block-engine tick gave no finite advice")
+    finally:
+        fes.faas_sweep = real_faas
+    check_steady(rows_b, "faas_sweep", ONLINE_WARMUP_TICKS, "15b")
+    launches["faas_sweep"] += len(rows_b)
+    if not caught_b["kw"].get("prestamped"):
+        raise AssertionError("15b: the block-engine tick did not launch prestamped")
+    # the last tick's own launch held to the plain version on every event
+    plain_b_ms, out_p = plain_timed(torch, lambda: faas_ref_in_graph(
+        torch, caught_b["args"], caught_b["kw"]))
+    K_b = caught_b["args"][5].shape[1]
+    errs["faas_sweep"] = held_against_plain(torch, caught_b["out"], out_p,
+                                            f"15b last tick, all {K_b} events")
+    del caught_b, out_p
+    last_b = blk.history[-1]
+    if last_b.profile != last.profile or last_b.seed != last.seed:
+        raise AssertionError("15b: the last tick's profile or seed is not 15a's")
+    cold_b = [float(last_b.grid.cold_start_prob[i]) for i in range(len(thresholds))]
+    se_b = [cold_se(last_b.grid.summaries[i]) for i in range(len(thresholds))]
+    z_b = z_against(cold_b, se_b, cold, se)
+    if float(z_b.max()) > REF_ONLINE_SIGMAS:
+        raise AssertionError(f"15b: a cold-start probability is {z_b.max():.2f} combined "
+                             "standard errors off 15a's f64 tick")
+    print(f"online service on backend='cuda' [{card}]: {len(rows_b)} synchronous ticks, one "
+          f"faas_sweep launch (prestamped) each; tick() "
+          f"{1e3 * np.mean([r['wall'] for r in rows_b[steady]]):.3f} ms a steady tick; "
+          f"online_tick +{rows_b[0]['paid']} at warm-up, then 0; new allocator segments "
+          f"{[r['segments'] for r in rows_b]}; the last tick's launch held to the plain "
+          f"version on all {C} rows x {K_b} events in CUDA-graph chunks (counters and state "
+          f"equal, max|acc diff| {errs['faas_sweep']:.3e}; plain {plain_b_ms:.0f} ms); its "
+          f"cold-start % by threshold "
+          + ", ".join(f"{t:.0f} s {100 * c:.4f}" for t, c in zip(thresholds, cold_b))
+          + f", within {z_b.max():.2f} combined standard errors of 15a's f64 tick (limit "
+          f"{REF_ONLINE_SIGMAS}); last raw threshold {last_b.threshold:.0f} s (f64 engine "
+          f"{last.threshold:.0f} s)", flush=True)
+
+    # ---- 15c. the fleet service on the catalog
+    names = list(catalog_names())
+    fleet = fleet_of(names, n_cluster=FLEET_CLUSTER, slots=64)
+    fsvc = OnlineFleetWhatIfService(fleet, OnlineConfig(**ONLINE_CONFIG))
+    rng = np.random.default_rng(seed + 1)
+    span = FLEET_ONLINE_TICKS * ONLINE_BATCH
+    streams = {f.name: np.sort(rng.uniform(0.0, span,
+                                           rng.poisson(span / f.arrival_process.mean())))
+               for f in fleet.functions}
+    rows_f, recs_f = [], []
+    with launch_events(torch, k10, "fleet_scan_sweep") as ev:
+        for i in range(FLEET_ONLINE_TICKS):
+            for n, ts in streams.items():
+                fsvc.observe(n, ts[(ts >= i * ONLINE_BATCH) & (ts < (i + 1) * ONLINE_BATCH)])
+            rec, row = tick_costs(torch, LAUNCH_COUNTS, TRACE_COUNTS, fsvc.tick)
+            rows_f.append(row)
+            recs_f.append(rec)
+    k10_ms = ev.ms()
+    check_steady(rows_f, "fleet_scan_sweep", ONLINE_WARMUP_TICKS, "15c")
+    launches["fleet_scan_sweep"] += len(rows_f)
+    for rec in recs_f:
+        total = 0.0  # in the service's order (sum() compensates since Python 3.12)
+        for p in rec.plans.values():
+            total += p.predicted_avg_replicas
+        if total != rec.predicted_total_replicas or rec.headroom != FLEET_CLUSTER - total:
+            raise AssertionError(
+                f"15c tick {rec.tick}: the total {rec.predicted_total_replicas!r} or the "
+                f"headroom {rec.headroom!r} is off its plans' {total!r}: "
+                + ", ".join(f"{n} {p.predicted_avg_replicas!r}" for n, p in rec.plans.items()))
+    print(f"online fleet service [{card}]: the {len(names)}-function catalog, n_cluster "
+          f"{FLEET_CLUSTER}, {FLEET_ONLINE_TICKS} ticks of {len(thresholds)} thresholds x {R} "
+          f"replicas = {C} fleets x {fsvc._steps} candidates a function, one fleet_scan_sweep "
+          "a tick:", flush=True)
+    for i, (r, rec) in enumerate(zip(rows_f, recs_f)):
+        print(f"  tick {i}: tick() {1e3 * r['wall']:.3f} ms wall, fleet_scan_sweep "
+              f"{k10_ms[i]:.3f} ms; online_tick +{r['paid']}, new allocator segments "
+              f"{r['segments']}; predicted {rec.predicted_total_replicas:.3f} replicas, headroom "
+              f"{rec.headroom:.3f}; thresholds {[int(t) for t in rec.thresholds.values()]}",
+              flush=True)
+    lf = recs_f[-1]
+    fleet_t = fsvc._fleet.with_rates(lf.rates)
+    inp = fleet_inputs(fleet_t, {"expiration_threshold": list(thresholds)}, lf.seed,
+                       replicas=R, device=dev, steps=fsvc._steps, f64=True)
+    launch, kw = fleet64_launch(inp, fleet_t)
+    cold_k = launch().acc[..., 0].cpu().numpy()
+    for c, f in np.ndindex(lf.grid.summaries.shape):
+        if not np.array_equal(cold_k[c * R:(c + 1) * R, f], lf.grid.summaries[c, f].n_cold):
+            raise AssertionError("15c: the relaunched last tick does not reproduce its grid")
+    e, _ = hold_fleet64(torch, inp, kw, "15c last tick")
+    errs["fleet_scan_sweep"] = max(errs["fleet_scan_sweep"], e)
+    del inp, cold_k
+
+    # ---- 15d. plan_fleet_thresholds over the catalog fleet
+    LAUNCH_COUNTS.clear()
+    t0 = time.perf_counter()
+    plan = plan_fleet_thresholds(fleet, ONLINE_SLO, candidate_thresholds=thresholds,
+                                 sim_time=PLAN_SIM, replicas=R)
+    plan_s = time.perf_counter() - t0
+    expect_launches(LAUNCH_COUNTS, {"scan_sweep": len(names)}, "15d plan_fleet_thresholds")
+    launches["scan_sweep"] += len(names)
+    if plan.feasible and plan.predicted_total_replicas > FLEET_CLUSTER:
+        raise AssertionError("15d: a feasible plan is over the cluster")
+    print(f"fleet plan [{card}]: {len(names)} scan_sweep launches of {C} rows at sim_time "
+          f"{PLAN_SIM:.0f} s, {plan_s:.3f} s wall; feasible {plan.feasible}, predicted "
+          f"{plan.predicted_total_replicas:.3f} of {FLEET_CLUSTER} (headroom "
+          f"{plan.cluster_headroom:.3f}); thresholds {plan.thresholds}", flush=True)
+
+    # the same plan, small, on the kernel and on scan_ref's plain f64 loop (in
+    # CUDA-graph chunks, bit for bit one eager call: phase 13)
+    @register_backend("scan_ref_graph", f64=True,
+                      description="scan_ref's plain f64 loop in CUDA-graph chunks")
+    def _plain_rows(*a, **kw):
+        return plain64_launch(torch, "scan", *a, **kw)
+
+    small = dict(candidate_thresholds=thresholds, sim_time=PLAN_CHECK_SIM,
+                 replicas=PLAN_CHECK_REPLICAS, seed=3)
+    LAUNCH_COUNTS.clear()
+    p_k = plan_fleet_thresholds(fleet, ONLINE_SLO, **small)
+    launches["scan_sweep"] += LAUNCH_COUNTS["scan_sweep"]
+    t0 = time.perf_counter()
+    p_p = plan_fleet_thresholds(fleet, ONLINE_SLO, **small,
+                                execution=rt.Execution(backend="scan_ref_graph"))
+    plain_plan_s = time.perf_counter() - t0
+    if p_k.thresholds != p_p.thresholds or p_k.feasible != p_p.feasible:
+        raise AssertionError(f"15d: the kernel's plan {p_k.thresholds} is not the plain "
+                             f"version's {p_p.thresholds}")
+    print(f"fleet plan [{card}]: at {PLAN_CHECK_REPLICAS} replicas and {PLAN_CHECK_SIM:.0f} s "
+          f"the kernel and scan_ref's plain loop ({plain_plan_s:.1f} s) plan the same "
+          f"thresholds {p_k.thresholds}", flush=True)
+
+    # ---- 15e. sweep_legacy on Fig. 5's grid against one sweep()
+    scn5 = table1(rt, sim_time=FIG5_SIM)
+    cells = len(FIG5_RATES) * len(FIG5_THRESHOLDS)
+    LAUNCH_COUNTS.clear()
+    t0 = time.perf_counter()
+    legacy = sweep_legacy(scn5, FIG5_RATES, FIG5_THRESHOLDS, 1, replicas=FIG5_REPLICAS)
+    legacy_s = time.perf_counter() - t0
+    expect_launches(LAUNCH_COUNTS, {"scan_sweep": cells}, "15e sweep_legacy")
+    LAUNCH_COUNTS.clear()
+    t0 = time.perf_counter()
+    grid5 = rt.sweep(scn5, {"expiration_threshold": FIG5_THRESHOLDS,
+                            "arrival_rate": FIG5_RATES}, 1, replicas=FIG5_REPLICAS)
+    grid5_s = time.perf_counter() - t0
+    expect_launches(LAUNCH_COUNTS, {"scan_sweep": 1}, "15e sweep")
+    launches["scan_sweep"] += cells + 1
+    for m in ("cold_start_prob", "avg_server_count", "avg_running_count", "wasted_ratio",
+              "developer_cost", "provider_cost"):
+        if not np.array_equal(getattr(legacy, m), getattr(grid5, m)):
+            raise AssertionError(f"15e: sweep_legacy's {m} is not sweep()'s")
+    print(f"sweep_legacy [{card}]: Fig. 5's {len(FIG5_THRESHOLDS)} x {len(FIG5_RATES)} grid "
+          f"at {FIG5_SIM:.0f} s, {FIG5_REPLICAS} replicas: {cells} launches in "
+          f"{legacy_s:.3f} s wall, one sweep() launch in {grid5_s:.3f} s, equal cell by cell "
+          f"bit for bit; cold start % at (600 s, 1/s) {100 * grid5.cold_start_prob[2, 2]:.3f}",
+          flush=True)
+    print(f"online phase: {time.perf_counter() - t_phase:.1f} s wall", flush=True)
+    return launches, errs
+
+
 def main() -> int:
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the non-stationary phase's draws and trace")
+                    help="seed of the non-stationary and online phases' draws and streams")
     opts = ap.parse_args()
     import torch
 
@@ -5403,7 +5909,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.faas_event_step import LAUNCH_COUNTS, faas_sweep
     from repro_torch.kernels.par_event_step import par_sweep
-    from repro_torch.kernels.ref import SweepOut, faas_par_sweep_ref, faas_sweep_ref
+    from repro_torch.kernels.ref import faas_par_sweep_ref, faas_sweep_ref
 
     dev = torch.device("cuda", 0)
     errs = {k: 0.0 for k in KERNELS}
@@ -5539,7 +6045,11 @@ def main() -> int:
         raise AssertionError("the grid case counted no running or no idle instance")
     del grid_args, grid_kw, grid_out_p
 
+    print(f"build and small-shape phase {time.perf_counter() - t_start:.1f} s; script "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
     # ---- 4. the main paths through the entry points a user calls
+    t_main = time.perf_counter()
     scn = table1(rt)
     torch.cuda.reset_peak_memory_stats()
     LAUNCH_COUNTS.clear()
@@ -5634,7 +6144,11 @@ def main() -> int:
     if not tm.cold_prob_at[at60] > tm.cold_prob_at[-1]:
         raise AssertionError("temporal cold_prob_at(60 s) is not above its value at the horizon")
 
+    print(f"main-path phase {time.perf_counter() - t_main:.1f} s; script "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
     # ---- 5. timing at the main paths' full widths, and the plain versions there
+    t_main = time.perf_counter()
     inp = sweep_inputs(scn, SWEEP_OVER, 0, replicas=SWEEP_REPLICAS, device=dev)
     dts, warms, colds = inp.samples
     Cw, Kw = dts.shape
@@ -5647,12 +6161,10 @@ def main() -> int:
     # first event, so that each 32-event batch only moves the clock
     tail_kw = dict(kw, t_end=torch.full_like(kw["t_end"], -1.0), skip=-2.0)
     tail_ms, _ = timed(torch, lambda: faas_sweep(*args, **tail_kw), reps=3)
-    plain_ms, out_p = plain_timed(torch, lambda: SweepOut(*plain_in_graph(
-        torch, lambda st, part: faas_sweep_ref(
-            *(args[:4] if st is None else st[:4]), args[4], *part,
-            acc0=None if st is None else st[4], **kw)[:5], args[5:])))
-    errs["faas_sweep"] = max(
-        errs["faas_sweep"], held_against_plain(torch, out_k, out_p, "full width"))
+    pargs = (*args[:5], *(prefix(x, F32_PLAIN_EVENTS) for x in args[5:]))
+    plain_ms, out_p = plain_timed(torch, lambda: faas_ref_in_graph(torch, pargs, kw))
+    errs["faas_sweep"] = max(errs["faas_sweep"], held_against_plain(
+        torch, faas_sweep(*pargs, **kw), out_p, f"first {F32_PLAIN_EVENTS} events"))
     # the kernel steps every staged event; only those inside a row's
     # horizon are arrivals the sweep asked for
     events = Cw * Kw
@@ -5666,8 +6178,9 @@ def main() -> int:
           f"{events} staged events; {counted} past skip) = "
           f"{active / ms * 1e3:.4e} arrivals/s, {events / ms * 1e3:.4e} events "
           f"stepped/s; bound {b_ms:.3f} ms ({b_by}), {b_all_ms:.3f} ms if "
-          f"every staged event were stepped; plain version {plain_ms:.1f} ms "
-          f"(max|acc diff| {errs['faas_sweep']:.3e}); plain at C={C} M={M} K={K}: "
+          f"every staged event were stepped; plain version {plain_ms:.1f} ms on the first "
+          f"{F32_PLAIN_EVENTS} events in CUDA-graph chunks (max|acc diff| "
+          f"{errs['faas_sweep']:.3e}); plain at C={C} M={M} K={K}: "
           f"{plain_small_ms:.1f} ms", flush=True)
     print(f"timing [{card}]: faas_sweep's inert tail: {past} events past their horizons "
           f"({100 * past / events:.1f}%); with every event past t_end the launch takes "
@@ -5692,7 +6205,7 @@ def main() -> int:
     kw = dict(t_end=full(TEMPORAL_SIM), skip=full(0.0), max_concurrency=scn_t.max_concurrency,
               grid_times=row(np.tile(TEMPORAL_GRID, (Ct, 1))))
     ms, out_k = timed(torch, lambda: faas_sweep(*args, **kw), reps=3)
-    plain_ms, out_p = plain_timed(torch, lambda: faas_sweep_ref(*args, **kw))
+    plain_ms, out_p = plain_timed(torch, lambda: faas_ref_in_graph(torch, args, kw))
     errs["faas_sweep_grid"] = max(errs["faas_sweep_grid"], held_against_plain(
         torch, out_k, out_p, "temporal full width"))
     if not np.array_equal(out_k[4][:, 8:].double().mean(0).cpu().numpy()[:G], tm.running_at):
@@ -5703,7 +6216,7 @@ def main() -> int:
     print(f"timing [{card}]: faas_sweep with grid C={Ct} M={scn_t.slots} K={n_t} G={G}: "
           f"{ms:.3f} ms; {active} arrivals in horizon = {active / ms * 1e3:.4e} "
           f"arrivals/s; bound {b_ms:.3f} ms ({b_by}); plain version {plain_ms:.1f} ms "
-          f"(grid columns and counters equal, max|acc diff| "
+          f"in CUDA-graph chunks (grid columns and counters equal, max|acc diff| "
           f"{errs['faas_sweep_grid']:.3e}); run() {temporal_wall:.2f} s wall = "
           f"{active / temporal_wall:.4e} arrivals in horizon/s", flush=True)
     results["faas_sweep_grid"] = dict(launches=temporal_launches, ms=ms, plain_ms=plain_ms,
@@ -5728,20 +6241,14 @@ def main() -> int:
         # live instances at arrivals: by PASTA, the time average of the run
         live = active * par_res[c].summary.avg_server_count
         b_ms, b_by = par_bound_ms(Cp, sp.slots, c, K_par, active, live)
-        if c == 3:
-            plain_ms, out_p = plain_timed(torch, lambda: plain_in_graph(
-                torch, lambda st, part: faas_par_sweep_ref(
-                    full(sp.expiration_threshold), *part, state0=st, **kw),
-                (dts, warms, colds)))
-            held = "full width"
-        else:
-            # the plain version is held to the kernel on the first events only
-            part = [x[:, :PAR_PLAIN_EVENTS].contiguous() for x in (dts, warms, colds)]
-            out_k = par_sweep(full(sp.expiration_threshold), *part, **kw)
-            plain_ms, out_p = plain_timed(torch, lambda: faas_par_sweep_ref(
-                full(sp.expiration_threshold), *part, **kw))
-            held = f"first {PAR_PLAIN_EVENTS} of {K_par} events"
-            del part
+        # the plain version is held to the kernel on the first events
+        part = [x[:, :PAR_PLAIN_EVENTS].contiguous() for x in (dts, warms, colds)]
+        out_k = par_sweep(full(sp.expiration_threshold), *part, **kw)
+        plain_ms, out_p = plain_timed(torch, lambda: plain_in_graph(
+            torch, lambda st, part: faas_par_sweep_ref(
+                full(sp.expiration_threshold), *part, state0=st, **kw), part))
+        held = f"first {PAR_PLAIN_EVENTS} of {K_par} events in CUDA-graph chunks"
+        del part
         err = held_against_plain(torch, out_k, out_p, f"par c={c} {held}",
                                  integral_cols=(3, 4, 8))
         errs["par_sweep"] = max(errs["par_sweep"], err)
@@ -5756,6 +6263,9 @@ def main() -> int:
     results["par_sweep"] = dict(launches=par_launches, **par_times[3])
     del dts, warms, colds
     torch.cuda.empty_cache()
+
+    print(f"full-width timing phase {time.perf_counter() - t_main:.1f} s; script "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     # ---- 6. fleets
     t0 = time.perf_counter()
@@ -5830,7 +6340,17 @@ def main() -> int:
     print(f"f64 fleet and fused phase {time.perf_counter() - t0:.1f} s; script "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # ---- 15. kernels line, card line, device line
+    # ---- 15. the online what-if service, the fleet planner, sweep_legacy
+    t0 = time.perf_counter()
+    online_launches, online_errs = online_phase(torch, rt, dev, card, opts.seed)
+    for name, n in online_launches.items():
+        results[name]["launches"] += n
+    for name, e in online_errs.items():
+        errs[name] = max(errs[name], e)
+    print(f"online phase {time.perf_counter() - t0:.1f} s; script "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---- 16. kernels line, card line, device line
     print(json.dumps({"kernels": [
         dict(KERNELS[k], **dict(dict(library_ms=None), **results[k]), max_abs_err=errs[k])
         for k in KERNELS

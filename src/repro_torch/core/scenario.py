@@ -77,6 +77,7 @@ only the reference's compile).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import warnings
 from typing import Any, Mapping, Optional, Sequence
@@ -108,6 +109,7 @@ from repro_torch.core.simulator import (
     check_covered,
     check_staged,
     check_table_covered,
+    deferred_guards,
     draw_crash_uniforms,
     draw_reliability_stream,
     draw_workload_samples,
@@ -125,6 +127,13 @@ from repro_torch.core.simulator import (
 from repro_torch.core.temporal import TemporalSummary, run_temporal, run_temporal64
 from repro_torch.kernels.ref import ACC_COLS, NEG, RELY_COLS, WINDOW_COLS
 from repro_torch.kernels.ref64 import ScanLayout
+
+
+# what makes a call pay again after warm-up, counted by the online
+# what-if service around each tick's dispatch (``"online_tick"``: kernel
+# libraries built or loaded and CUDA allocator segments newly reserved;
+# :func:`repro_torch.serving.online.trace_total`)
+TRACE_COUNTS: dict = {"online_tick": 0}
 
 
 def _check_process(name: str, p) -> None:
@@ -1081,7 +1090,8 @@ def sweep(
     steps: Optional[int] = None,
     staged=None,
     fused_keys=None,
-) -> GridResult:
+    deferred: bool = False,
+):
     """Product-grid what-if sweep over scenario fields (module docstring
     has the partitioning rules): one launch per static combination.
 
@@ -1093,6 +1103,14 @@ def sweep(
     the kernel draws every sample from per-row keys (``fused_keys``, uint32
     ``[D*replicas, 2]`` per stream, replaces the keys of ``seed``); the
     result's ``execution.draws`` says which mode ran.
+
+    ``deferred=True`` (the f64 scan backends only) stages and launches
+    every static combination and returns a :class:`PendingSweep` without
+    reading the device: the coverage guards' reads, the copies to the host,
+    the pool-overflow guard and the grid's assembly wait for its
+    ``result()``, which is bit for bit the ``deferred=False`` grid (the
+    same kernel on the same operands).  The online what-if service uses it
+    to overlap a tick's launch with the ingestion of the next batch.
     """
     plan = plan_of(execution, backend, device)
     if plan.engine != "scan":
@@ -1101,6 +1119,12 @@ def sweep(
             "single scenarios only (use run(), or engine='scan' for grids)"
         )
     bspec, dev = plan.resolve()
+    if deferred and not bspec.f64:
+        raise ValueError(
+            "deferred=True needs an f64 scan backend ('scan', or 'scan_ref' on "
+            "the CPU): the block backends read their results back inside the "
+            f"launcher; got backend={bspec.name!r}"
+        )
     plan = dataclasses.replace(plan, backend=bspec.name, device=str(dev),
                                draws=plan.resolved_draws)
     _check_draw_inputs(plan.draws == "fused", staged, fused_keys)
@@ -1130,25 +1154,29 @@ def sweep(
                 "histogram; drop track_histogram or the fault axes"
             )
     scan64 = bspec.f64
-    inp = sweep_inputs(
-        base, over, seed, replicas=replicas, device=dev, steps=steps, staged=staged,
-        draws=plan.draws, fused_keys=fused_keys, f64=scan64,
-    )
+    with deferred_guards() as guards:
+        inp = sweep_inputs(
+            base, over, seed, replicas=replicas, device=dev, steps=steps, staged=staged,
+            draws=plan.draws, fused_keys=fused_keys, f64=scan64,
+        )
+        samples = inp.samples
+        if base.max_retries > 0:
+            if staged is not None:  # drawn tables were guarded on their gaps
+                check_table_covered(samples[0], samples[4], inp.sim_rows, dev)
+        elif inp.fused is None and not inp.prestamped:
+            # fused launches are guarded on their final clock, timestamp
+            # streams on their process's coverage when drawn
+            check_covered(samples[0], inp.sim_rows, dev)
     names, vals, R = inp.names, inp.vals, int(replicas)
     static_names = [n for n in names if n in _STATIC_FIELDS]
-    draw_names = [n for n in names if n in _DRAW_FIELDS]
-    param_names = [n for n in names if n in _PARAM_FIELDS]
-    samples = inp.samples
-    if base.max_retries > 0:
-        if staged is not None:  # drawn tables were guarded on their gaps
-            check_table_covered(samples[0], samples[4], inp.sim_rows, dev)
-    elif inp.fused is None and not inp.prestamped:
-        # fused launches are guarded on their final clock, timestamp
-        # streams on their process's coverage when drawn
-        check_covered(samples[0], inp.sim_rows, dev)
+    if not deferred:
+        for read in guards:
+            read()
 
-    all_summaries: list = []
-    win_parts = []
+    # ---- one launch per static combination; each gives a collector of
+    # its cells, which the f64 engine reads back only when the grid is
+    # assembled (a block launch has read its cells already)
+    combos: list = []
     launched: dict = {}
     for idx in itertools.product(*[range(len(vals[n])) for n in static_names]):
         scn_s = base
@@ -1160,25 +1188,79 @@ def sweep(
         # scan_unroll changes only the reference's compile: the values of
         # that axis share one launch's cells
         key = tuple(i for n, i in zip(static_names, idx) if n != "scan_unroll")
-        if key in launched:
-            cells = launched[key]
-        elif scan64:
-            cells = _scan_sweep_cells(scn_s, inp, samples, bspec, dev, R, window_rows,
-                                      measured)
-        else:
-            if scn_s.track_histogram:
-                raise ValueError("histograms need the f64 scan backend")
-            _check_block_routing(scn_s)
-            acc = _block_launch(
-                scn_s, inp.thr_rows, inp.sim_rows, inp.skip_rows, samples, bspec, dev,
-                prestamped=inp.prestamped, window_rows=window_rows,
-                t_timeout=inp.t_timeout_rows, p_fail=inp.p_fail_rows, fused=inp.fused,
-                faults=inp.fault_rows,
-            )
-            cells = _cell_summaries(acc, R, measured, bounds=wb,
-                                    reliability=base.reliability is not None,
-                                    faults=inp.fault_rows is not None)
-        launched[key] = cells
+        if key not in launched:
+            if scan64:
+                launched[key] = _scan_sweep_cells(scn_s, inp, samples, bspec, dev, R,
+                                                  window_rows, measured)
+            else:
+                if scn_s.track_histogram:
+                    raise ValueError("histograms need the f64 scan backend")
+                _check_block_routing(scn_s)
+                acc = _block_launch(
+                    scn_s, inp.thr_rows, inp.sim_rows, inp.skip_rows, samples, bspec, dev,
+                    prestamped=inp.prestamped, window_rows=window_rows,
+                    t_timeout=inp.t_timeout_rows, p_fail=inp.p_fail_rows, fused=inp.fused,
+                    faults=inp.fault_rows,
+                )
+                cells = _cell_summaries(acc, R, measured, bounds=wb,
+                                        reliability=base.reliability is not None,
+                                        faults=inp.fault_rows is not None)
+                launched[key] = lambda cells=cells: cells
+        combos.append((wb, launched[key]))
+    # the grid's assembly keeps the axes, not the staged buffers
+    del samples
+    inp = dataclasses.replace(inp, samples=(), fused=None)
+    finish = functools.partial(_assemble_grid, base, inp, combos, guards if deferred else (),
+                               plan, bspec.name, R)
+    if deferred:
+        return PendingSweep(finish, dev)
+    return finish()
+
+
+class PendingSweep:
+    """A launched, not yet read :func:`sweep` (``deferred=True``).
+
+    :meth:`result` runs the staging's coverage guards, copies the
+    launches' outputs to the host (on the CUDA stream that launched them),
+    runs the reference's guards (short stream, pool overflow) and
+    assembles the :class:`GridResult`, bit for bit the synchronous sweep's.
+    It memoises: a second call returns the same grid, and the device
+    tensors are dropped after the first.
+    """
+
+    def __init__(self, finish, device):
+        self._finish = finish
+        self._result: Optional[GridResult] = None
+        dev = torch.device(device)
+        self._stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+
+    def result(self) -> GridResult:
+        if self._result is None:
+            if self._stream is None:
+                self._result = self._finish()
+            else:
+                with torch.cuda.stream(self._stream):
+                    self._result = self._finish()
+            self._finish = None  # drop the captured device tensors
+        return self._result
+
+
+def _assemble_grid(base, inp: SweepInputs, combos, guards, plan, backend: str,
+                   R: int) -> GridResult:
+    """The named-axis :class:`GridResult` of a sweep's launches: ``combos``
+    holds each static combination's window bounds and cell collector, in
+    the static axes' product order; ``guards`` are the coverage guards'
+    deferred reads, run first."""
+    for read in guards:
+        read()
+    names, vals = inp.names, inp.vals
+    static_names = [n for n in names if n in _STATIC_FIELDS]
+    draw_names = [n for n in names if n in _DRAW_FIELDS]
+    param_names = [n for n in names if n in _PARAM_FIELDS]
+    all_summaries: list = []
+    win_parts = []
+    for wb, collect in combos:
+        cells = collect()
         all_summaries.extend(cells)
         if wb is not None:
             win_parts.append(np.stack([
@@ -1236,7 +1318,7 @@ def sweep(
     return GridResult(
         axes={n: vals[n] for n in names},
         replicas=R,
-        backend=bspec.name,
+        backend=backend,
         execution=plan,
         summaries=_grid(summaries_grid),
         **metrics,
@@ -1246,33 +1328,42 @@ def sweep(
 
 
 def _scan_sweep_cells(scn_s, inp: SweepInputs, samples, bspec, dev, R: int, window_rows,
-                      measured) -> list:
-    """One f64 engine launch of a sweep's static combination, and its
-    per-cell summaries after the reference's guards."""
+                      measured):
+    """One f64 engine launch of a sweep's static combination; returns the
+    collector that reads it back and gives its per-cell summaries after the
+    reference's guards."""
     out = scan_launch(
         scn_s, bspec, dev, samples, t_exp=inp.thr_rows, t_end=inp.sim_rows,
         skip=inp.skip_rows, prestamped=inp.prestamped, window_rows=window_rows,
         t_timeout=inp.t_timeout_rows, p_fail=inp.p_fail_rows, faults=inp.fault_rows,
         fused=inp.fused,
     )
-    acc = out.acc.cpu().numpy()
-    t_last = out.t.cpu().numpy()
-    if not inp.prestamped and (t_last < inp.sim_rows).any():
-        raise RuntimeError(
-            "pre-drawn arrivals ended before sim_time "
-            f"(min final t {t_last.min():.1f}); pass a larger `steps`"
-        )
-    if acc[:, 9].sum() > 0:
-        raise RuntimeError("instance-pool overflow during sweep; raise Scenario.slots")
+    # the collector holds the accumulator and the clocks, not the staging
+    acc_dev, t_dev = out.acc, out.t
+    prestamped, sim_rows = inp.prestamped, inp.sim_rows
     faults = inp.fault_rows is not None
-    wb = scn_s.window_bounds
-    layout = ScanLayout(
-        W=0 if wb is None else len(wb) - 1,
-        H=scn_s.hist_bins if scn_s.track_histogram else 0,
-        rely=scn_s.reliability is not None, faults=faults,
-    )
-    return scan_cell_summaries(acc, R, measured, layout, bounds=wb,
-                               histogram=scn_s.track_histogram, faults=faults)
+    del out
+
+    def collect() -> list:
+        acc = acc_dev.cpu().numpy()
+        t_last = t_dev.cpu().numpy()
+        if not prestamped and (t_last < sim_rows).any():
+            raise RuntimeError(
+                "pre-drawn arrivals ended before sim_time "
+                f"(min final t {t_last.min():.1f}); pass a larger `steps`"
+            )
+        if acc[:, 9].sum() > 0:
+            raise RuntimeError("instance-pool overflow during sweep; raise Scenario.slots")
+        wb = scn_s.window_bounds
+        layout = ScanLayout(
+            W=0 if wb is None else len(wb) - 1,
+            H=scn_s.hist_bins if scn_s.track_histogram else 0,
+            rely=scn_s.reliability is not None, faults=faults,
+        )
+        return scan_cell_summaries(acc, R, measured, layout, bounds=wb,
+                                   histogram=scn_s.track_histogram, faults=faults)
+
+    return collect
 
 
 def _warn_nonfinite(axes: dict, ok: np.ndarray) -> None:

@@ -20,6 +20,8 @@ bring the accumulator to the host behind the overflow guard
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 from typing import Optional
 
@@ -345,6 +347,35 @@ def cell_generators(seed: int, n_cells: int, device, streams: int = BASE_STREAMS
     return out
 
 
+# the list of the innermost open deferred_guards(), None outside one
+_DEFERRED: contextvars.ContextVar = contextvars.ContextVar("deferred_guards", default=None)
+
+
+@contextlib.contextmanager
+def deferred_guards():
+    """Within this context the staging's coverage guards compute their
+    flags on the device but do not read them: each read, a closure that
+    raises the guard's error, is appended to the yielded list for the
+    caller to run before it returns a result (a deferred sweep's
+    ``result()``).  A read synchronises the host with the device, so a
+    deferred sweep reads nothing before its launch."""
+    checks: list = []
+    token = _DEFERRED.set(checks)
+    try:
+        yield checks
+    finally:
+        _DEFERRED.reset(token)
+
+
+def _guard(read) -> None:
+    """Run the guard ``read`` now, or defer it (:func:`deferred_guards`)."""
+    checks = _DEFERRED.get()
+    if checks is None:
+        read()
+    else:
+        checks.append(read)
+
+
 def draw_arrival_times(scn, generator, replicas: int, n: int, device) -> torch.Tensor:
     """The f64 ``[replicas, n]`` absolute timestamps of ``scn``'s
     timestamp process (NHPP, MMPP, trace), thinned and sorted in f64,
@@ -352,12 +383,17 @@ def draw_arrival_times(scn, generator, replicas: int, n: int, device) -> torch.T
     generating process reports how far it is exact, and every row must
     reach ``scn.sim_time``."""
     times, coverage = scn.arrival_process.arrival_times(generator, (replicas, n), device)
-    if bool((coverage < scn.sim_time).any()):
-        raise RuntimeError(
-            "arrival-stream coverage ended before sim_time "
-            f"(min coverage {coverage.min().item():.1f} < {scn.sim_time}); "
-            "pass a larger `steps`"
-        )
+    short = (coverage < scn.sim_time).any()
+
+    def read():
+        if bool(short):
+            raise RuntimeError(
+                "arrival-stream coverage ended before sim_time "
+                f"(min coverage {coverage.min().item():.1f} < {scn.sim_time}); "
+                "pass a larger `steps`"
+            )
+
+    _guard(read)
     return times
 
 
@@ -546,11 +582,16 @@ def check_covered(dts, sim_rows, device) -> None:
     past it closes the books, and the grid curves need it)."""
     covered = dts.sum(1, dtype=torch.float64)
     need = torch.as_tensor(np.asarray(sim_rows, np.float64), device=device)
-    if bool((covered < need).any()):
-        raise RuntimeError(
-            "pre-drawn arrivals ended before sim_time "
-            f"(min final t {covered.min().item():.1f}); pass a larger `steps`"
-        )
+    short = (covered < need).any()
+
+    def read():
+        if bool(short):
+            raise RuntimeError(
+                "pre-drawn arrivals ended before sim_time "
+                f"(min final t {covered.min().item():.1f}); pass a larger `steps`"
+            )
+
+    _guard(read)
 
 
 def check_clock_covered(t_last, sim_rows) -> None:

@@ -12,6 +12,7 @@ Only the sources in the repository are compiled; ``nvcc`` is taken from
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -21,6 +22,11 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+
+# libraries built or loaded, by source name: each kernel module loads its
+# library once (an lru_cache), so a count that moves after warm-up means a
+# call paid a build or a load again (the online service's ``online_tick``)
+LOAD_COUNTS: collections.Counter = collections.Counter()
 
 # sm_90a keeps Hopper-only instructions available; --fmad=false keeps every
 # clock update a single rounded f32 operation, as in the plain version;
@@ -105,5 +111,7 @@ def build_all(names) -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Load the library ``name``, built first if it is stale."""
+    """Load the library ``name``, built first if it is stale; counted in
+    :data:`LOAD_COUNTS`."""
+    LOAD_COUNTS[name] += 1
     return ctypes.CDLL(str(build_all([name])[name]["path"]))

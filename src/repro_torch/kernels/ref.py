@@ -167,6 +167,7 @@ def faas_sweep_ref(
     cap_edges=None,  # f32 [R, E] capacity-profile step times (faults)
     cap_values=None,  # f32 [R, E+1] per-segment capacity ceilings (faults)
     acc0=None,  # f32 [R, cols] accumulator to continue (default zeros)
+    doom0=None,  # f32 [R, M] crash clocks to continue (crashes; default +inf)
 ):
     """Run K arrivals against each row's ``[M]`` pool.
 
@@ -175,10 +176,12 @@ def faas_sweep_ref(
     tie), then the newest idle instance (warm, lowest slot on a creation
     tie), else a free slot below ``max_concurrency`` (cold), else reject.
     Arrivals past ``t_end`` are inert; request counters engage after
-    ``skip``.  ``acc0`` continues a run: a base-path run split into chunks
-    of events, each chunk started from the last one's pool, clock and
-    accumulator, adds every piece in the order one call would, so it equals
-    that call bit for bit.  Returns a :class:`SweepOut`: ``(alive,
+    ``skip``.  ``acc0`` (and ``doom0`` with crashes) continues a run: a
+    run without retries or fused draws split into chunks of events, each
+    chunk started from the last one's pool, clock, accumulator and crash
+    clocks, adds every piece in the order one call would, so it equals that
+    call bit for bit.  Nothing in the loop reads the device on the host, so
+    a chunk can be captured in a CUDA graph.  Returns a :class:`SweepOut`: ``(alive,
     creation, busy, t, acc)``, the activation plane ``act [R, K]`` with retries and the crash
     clocks ``doom [R, M]`` with crashes (None otherwise).  ``acc`` holds the reference's
     append-only layout: 8 base columns (cold, warm, reject, ∫running,
@@ -263,7 +266,8 @@ def faas_sweep_ref(
     zero = torch.zeros((R,), dtype=torch.float32, device=dev)
     if crashes:
         crate = _rows(crash_rate, R, dev)
-        doom = torch.full((R, M), torch.inf, dtype=torch.float32, device=dev)
+        doom = (doom0.clone() if doom0 is not None
+                else torch.full((R, M), torch.inf, dtype=torch.float32, device=dev))
     t = t0
     acc = acc0 if acc0 is not None else torch.zeros(
         (R, ACC_COLS + WINDOW_COLS * W + GRID_COLS * G + (RELY_COLS if reliability else 0)
@@ -326,15 +330,12 @@ def faas_sweep_ref(
             # ceiling in effect at this arrival
             cap_now = cap.at(t_new)
             over = alive.sum(1) - cap_now
-            n_evict = zero
-            # (ranks are needed only above a ceiling: rank >= 0 >= over
-            # evicts nothing)
-            if bool((over > 0).any()):
-                idle_now = (alive > 0) & (busy <= t_new[:, None])
-                rank = newer_rank(idle_now, creation, slot_iota)
-                evict = idle_now & (rank < over[:, None]) & (t_new <= t_end)[:, None]
-                n_evict = (evict & (t_new > skip)[:, None]).float().sum(1)
-                alive = torch.where(evict, 0.0, alive)
+            # (a row at or below its ceiling evicts nothing: rank >= 0 >= over)
+            idle_now = (alive > 0) & (busy <= t_new[:, None])
+            rank = newer_rank(idle_now, creation, slot_iota)
+            evict = idle_now & (rank < over[:, None]) & (t_new <= t_end)[:, None]
+            n_evict = (evict & (t_new > skip)[:, None]).float().sum(1)
+            alive = torch.where(evict, 0.0, alive)
 
         idle = (alive > 0) & (busy <= t_new[:, None])
         best = torch.where(idle, creation, NEG).amax(1)

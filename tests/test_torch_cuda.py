@@ -2423,3 +2423,90 @@ def test_front_doors_run_the_f64_fleet_and_fused_kernels(cuda_device):
               "lifespan_count"):
         np.testing.assert_array_equal(getattr(r.summary, f), getattr(p.summary, f), err_msg=f)
     assert g.ok.all() and r.summary.windows is not None
+
+
+# ---------------------------------------------------------------------------
+# the online what-if service: deferred sweeps and live ticks on kernels 8, 10
+# ---------------------------------------------------------------------------
+
+
+def _online_base(rt, **kw):
+    return rt.Scenario(arrival_process=rt.ExpSimProcess(rate=0.9),
+                       warm_service_process=rt.ExpSimProcess(rate=1 / 1.991),
+                       cold_service_process=rt.ExpSimProcess(rate=1 / 2.244), **kw)
+
+
+@pytest.mark.cuda
+def test_deferred_sweep_is_the_sync_sweep_and_returns_before_the_kernel(cuda_device):
+    import repro_torch as rt
+    from repro_torch.core.scenario import PendingSweep
+
+    scn = _online_base(rt, sim_time=1e5, skip_time=100.0)
+    over = {"expiration_threshold": [60.0, 300.0, 600.0, 1200.0]}
+    ref = rt.sweep(scn, over, 4, replicas=512)
+    torch.cuda.synchronize()
+    fes.LAUNCH_COUNTS.clear()
+    pend = rt.sweep(scn, over, 4, replicas=512, deferred=True)
+    done = torch.cuda.Event()
+    done.record()
+    running = not done.query()  # the launch is still on the card
+    assert isinstance(pend, PendingSweep) and dict(fes.LAUNCH_COUNTS) == {"scan_sweep": 1}
+    got = pend.result()
+    assert running
+    assert pend.result() is got
+    for f in ("cold_start_prob", "avg_server_count", "developer_cost", "ok"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(ref, f), err_msg=f)
+    for idx in np.ndindex(got.shape):
+        for f in ("n_cold", "n_warm", "time_running", "time_idle", "lifespan_sum"):
+            np.testing.assert_array_equal(getattr(got.summaries[idx], f),
+                                          getattr(ref.summaries[idx], f), err_msg=f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("overlap", [True, False])
+def test_steady_online_ticks_launch_once_and_reserve_nothing(cuda_device, overlap):
+    import repro_torch as rt
+    from repro_torch.core.scenario import TRACE_COUNTS
+    from repro_torch.serving import OnlineConfig, OnlineWhatIfService
+
+    cfg = OnlineConfig(rate_ceiling=4.0, n_bins=8, bin_width=30.0, replicas=64,
+                       thresholds=(30.0, 120.0, 600.0), overlap=overlap)
+    svc = OnlineWhatIfService(_online_base(rt), cfg)
+    rng = np.random.default_rng(0)
+    t, recs, rows = 0.0, [], []
+    for i in range(6):
+        svc.observe(np.sort(t + rng.uniform(0.0, 60.0, rng.poisson(60.0 * (1 + 0.5 * np.sin(i))))))
+        t += 60.0
+        fes.LAUNCH_COUNTS.clear()
+        snap = TRACE_COUNTS["online_tick"]
+        seg = torch.cuda.memory_stats()["segment.all.allocated"]
+        rec = svc.tick()
+        rows.append((dict(fes.LAUNCH_COUNTS), TRACE_COUNTS["online_tick"] - snap,
+                     torch.cuda.memory_stats()["segment.all.allocated"] - seg))
+        if rec is not None:
+            recs.append(rec)
+    if svc.flush() is not None:
+        recs.append(svc.history[-1])
+    assert all(r[0] == {"scan_sweep": 1} for r in rows)
+    assert [r[1:] for r in rows[1:]] == [(0, 0)] * 5  # steady: nothing paid again
+    assert len(recs) == 6
+    off = svc.offline_equivalent(recs[-1])
+    np.testing.assert_array_equal(off.cold_start_prob, recs[-1].grid.cold_start_prob)
+
+
+@pytest.mark.cuda
+def test_fleet_online_tick_launches_one_fleet_scan(cuda_device):
+    from repro_torch.data.catalog import fleet_of
+    from repro_torch.serving import OnlineConfig, OnlineFleetWhatIfService
+
+    fleet = fleet_of(["thumbnail", "crypto-sign", "ml-inference"], n_cluster=12, slots=32)
+    svc = OnlineFleetWhatIfService(fleet, OnlineConfig(rate_ceiling=3.0, n_bins=4,
+                                                       bin_width=30.0, replicas=32))
+    rng = np.random.default_rng(1)
+    for i in range(3):
+        for name in fleet.names:
+            svc.observe(name, np.sort(i * 30.0 + rng.uniform(0.0, 30.0, rng.poisson(20))))
+        fes.LAUNCH_COUNTS.clear()
+        rec = svc.tick()
+        assert dict(fes.LAUNCH_COUNTS) == {"fleet_scan_sweep": 1}
+        assert rec.grid.backend == "scan" and rec.headroom == 12 - rec.predicted_total_replicas

@@ -152,6 +152,50 @@ def test_plain_run_continues_in_chunks_bit_for_bit(engine, t_exp, max_c, prestam
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("path", ["windows", "reliability", "crashes", "crashes_capacity",
+                                  "capacity_grid"])
+def test_plain_paths_continue_in_chunks_bit_for_bit(path):
+    # the optional paths without retries or fused draws also continue from
+    # the last chunk's pool, clock, accumulator and crash clocks (doom0)
+    rng = np.random.default_rng(9)
+    R, M, K = 12, 8, 150
+    t = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32)
+    samples = [t(rng.exponential(1 / 0.6, (R, K))), t(rng.exponential(2.0, (R, K))),
+               t(rng.exponential(2.5, (R, K)))]
+    start = (torch.zeros(R, M), torch.full((R, M), -1e30), torch.full((R, M), -1e30),
+             torch.zeros(R))
+    t_exp = t(30.0 * rng.uniform(0.5, 1.5, R))
+    kw = dict(t_end=t(200.0 * rng.uniform(0.5, 0.9, R)), skip=t(rng.uniform(0, 10, R)),
+              max_concurrency=5)
+    events = {}
+    if path == "windows":
+        kw["window_bounds"] = t(np.tile(np.linspace(0.0, 240.0, 5), (R, 1)))
+    if path == "reliability":
+        kw.update(t_timeout=t(np.full(R, 3.0)), p_fail=t(np.full(R, 0.2)))
+        events["fail_u"] = t(rng.uniform(size=(R, K)))
+    if path.startswith("crashes"):
+        kw["crash_rate"] = t(np.full(R, 0.03))
+        events["crash_u"] = t(rng.uniform(size=(R, K)))
+    if path.endswith(("capacity", "capacity_grid")):
+        kw.update(cap_edges=t(np.tile([60.0, 120.0], (R, 1))),
+                  cap_values=t(np.tile([5.0, 1.0, 4.0], (R, 1))))
+    if path == "capacity_grid":
+        del kw["cap_edges"], kw["cap_values"]
+        kw["grid_times"] = t(np.tile(np.linspace(0.0, 180.0, 7), (R, 1)))
+    whole = faas_sweep_ref(*start, t_exp, *samples, **kw, **events)
+    st = None
+    for lo, hi in ((0, 1), (1, 60), (60, 149), (149, K)):
+        part = dict(kw, **{k: v[:, lo:hi] for k, v in events.items()})
+        st = faas_sweep_ref(*(start if st is None else st[:4]), t_exp,
+                            *(x[:, lo:hi] for x in samples),
+                            acc0=None if st is None else st.acc,
+                            doom0=None if st is None else st.doom, **part)
+    for name, a, b in zip(whole._fields, whole, st):
+        assert (a is None and b is None) or torch.equal(a, b), name
+    if path.endswith("capacity"):
+        assert whole.acc[:, -2].sum() > 0  # evictions happened
+
+
 def test_wrapper_runs_plain_version_on_cpu_tensors():
     inp = _inputs(3, t_exp=3.0)
     before = dict(fes.LAUNCH_COUNTS)

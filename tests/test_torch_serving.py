@@ -22,14 +22,19 @@ import pytest
 from repro.core.execution import Execution
 from repro.data import workload as jwork
 from repro.serving import platform as jplat
+from repro.serving import autoscale as jauto
 from repro.serving.autoscale import plan_expiration_threshold as jplan
 from repro_torch.core.execution import Execution as PortExecution
 from repro_torch.data import workload as pwork
 from repro_torch.launch import serve
+from repro_torch.serving import autoscale as pauto
 from repro_torch.serving import platform as pplat
 from repro_torch.serving.autoscale import (
+    FleetPlan,
     PlanResult,
+    ThresholdGovernor,
     plan_expiration_threshold,
+    plan_fleet_thresholds,
     select_threshold,
 )
 
@@ -165,7 +170,8 @@ def test_serving_modules_import_no_jax():
         "repro_torch.kernels.ssd_scan, repro_torch.kernels.rglru_scan, "
         "repro_torch.models.ssm, repro_torch.models.rglru, repro_torch.models.scans, "
         "repro_torch.models.model, repro_torch.configs, repro_torch.interop, "
-        "repro_torch.core.reliability, repro_torch.core.metrics\n"
+        "repro_torch.core.reliability, repro_torch.core.metrics, repro_torch.serving, "
+        "repro_torch.serving.online, repro_torch.core.whatif\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )
@@ -173,3 +179,117 @@ def test_serving_modules_import_no_jax():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+# ---------------------------------------------------------------------------
+# the threshold governor and the fleet planner
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("patience, deadband", [(1, 0.0), (2, 0.0), (3, 0.0), (2, 0.5),
+                                                (1, 0.3), (4, 1.0)])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_governor_matches_reference(patience, deadband, seed):
+    """numpy-seeded proposal streams with runs and flips: the same applied
+    sequence and the same hysteresis state after every update."""
+    rng = np.random.default_rng(seed)
+    values = np.array([30.0, 60.0, 120.0, 300.0, 600.0, 1200.0])
+    runs = rng.integers(1, 5, 40)
+    proposals = np.repeat(rng.choice(values, len(runs)), runs)
+    port, ref = ThresholdGovernor(patience, deadband), jauto.ThresholdGovernor(patience, deadband)
+    for x in proposals:
+        assert port.update(x) == ref.update(x)
+        assert (port.applied, port._candidate, port._streak) == (
+            ref.applied, ref._candidate, ref._streak)
+
+
+@pytest.mark.parametrize("kw", [dict(patience=0), dict(deadband=-0.1)])
+def test_governor_validation_matches_reference(kw):
+    with pytest.raises(ValueError) as port:
+        ThresholdGovernor(**kw)
+    with pytest.raises(ValueError) as ref:
+        jauto.ThresholdGovernor(**kw)
+    assert str(port.value) == str(ref.value)
+
+
+def test_governor_patience_and_deadband():
+    g = ThresholdGovernor(patience=2)
+    assert [g.update(x) for x in (60.0, 120.0, 60.0, 120.0, 120.0)] == [60.0] * 4 + [120.0]
+    g = ThresholdGovernor(patience=1, deadband=0.5)
+    assert [g.update(x) for x in (100.0, 120.0, 200.0)] == [100.0, 100.0, 200.0]
+
+
+GREEDY_NAMES = ["thumbnail", "crypto-sign", "ml-inference"]
+GREEDY_THRESHOLDS = (30.0, 60.0, 120.0, 300.0)
+# per function (cold-start probability, average replicas, wasted ratio) on
+# GREEDY_THRESHOLDS; the SLO 0.03 picks indices 3, 3, 2 at stage 1 (total 12.5)
+GREEDY_TABLES = [
+    ([0.2, 0.1, 0.05, 0.01], [1.0, 2.0, 3.0, 5.0], [0.1, 0.2, 0.3, 0.4]),
+    ([0.3, 0.2, 0.04, 0.02], [2.0, 2.5, 4.0, 6.0], [0.2, 0.3, 0.4, 0.5]),
+    ([0.1, 0.05, 0.03, 0.01], [1.0, 1.5, 1.5, 1.5], [0.3, 0.4, 0.5, 0.6]),
+]
+
+
+def _stub_sweep(calls):
+    import types
+
+    def stub(*args, **kw):
+        cold, avg, wasted = GREEDY_TABLES[len(calls)]
+        calls.append(kw)
+        return types.SimpleNamespace(cold_start_prob=np.array(cold),
+                                     avg_server_count=np.array(avg),
+                                     wasted_ratio=np.array(wasted))
+
+    return stub
+
+
+@pytest.mark.parametrize("n_cluster, feasible, lateral", [
+    (20.0, True, False),  # fits at stage 1
+    (9.0, True, False),  # greedy steps down
+    (4.2, True, True),  # a lateral step before the last saving one
+    (2.0, False, True),  # every function at the floor: infeasible
+])
+def test_fleet_greedy_matches_reference(monkeypatch, n_cluster, feasible, lateral):
+    """Both planners on the same per-function tables (each module's sweep
+    replaced by a stub grid): the same thresholds, feasibility, total and
+    headroom."""
+    from repro.data.catalog import fleet_of as j_fleet_of
+    from repro_torch.data.catalog import fleet_of
+
+    port_calls, ref_calls = [], []
+    monkeypatch.setattr(pauto, "scenario_sweep", _stub_sweep(port_calls))
+    monkeypatch.setattr(jauto, "scenario_sweep", _stub_sweep(ref_calls))
+    port = plan_fleet_thresholds(fleet_of(GREEDY_NAMES, n_cluster=n_cluster), 0.03,
+                                 candidate_thresholds=GREEDY_THRESHOLDS, device="cpu")
+    ref = jauto.plan_fleet_thresholds(j_fleet_of(GREEDY_NAMES, n_cluster=n_cluster), 0.03,
+                                      candidate_thresholds=GREEDY_THRESHOLDS)
+    assert len(port_calls) == len(ref_calls) == 3
+    assert isinstance(port, FleetPlan)
+    assert port.thresholds == ref.thresholds
+    assert port.feasible == ref.feasible == feasible
+    assert port.predicted_total_replicas == ref.predicted_total_replicas
+    assert port.cluster_headroom == ref.cluster_headroom == n_cluster - port.predicted_total_replicas
+    assert port.n_cluster == ref.n_cluster
+    for name in GREEDY_NAMES:
+        assert dataclasses.asdict(port.plans[name]) == dataclasses.asdict(ref.plans[name])
+    # the lateral branch ran where the third function left index 2 for a
+    # step that freed nothing
+    assert (port.thresholds["ml-inference"] < 120.0) == lateral
+    seeds = [c["seed"] for c in port_calls]
+    kids = np.random.SeedSequence(0).spawn(3)
+    assert seeds == [pauto.child_seed(k) for k in kids] and len(set(seeds)) == 3
+
+
+def test_fleet_plan_on_the_cpu():
+    from repro_torch.data.catalog import fleet_of
+
+    fleet = fleet_of(["thumbnail", "crypto-sign"], n_cluster=3.0, slots=16)
+    plan = plan_fleet_thresholds(fleet, 0.01, candidate_thresholds=(30.0, 300.0),
+                                 sim_time=400.0, replicas=2, device="cpu")
+    assert set(plan.thresholds) == {"thumbnail", "crypto-sign"}
+    assert plan.predicted_total_replicas == pytest.approx(
+        sum(p.predicted_avg_replicas for p in plan.plans.values()))
+    assert plan.feasible == (plan.predicted_total_replicas <= 3.0)
+    again = plan_fleet_thresholds(fleet, 0.01, candidate_thresholds=(300.0, 30.0),
+                                  sim_time=400.0, replicas=2, device="cpu")
+    assert again == plan  # the candidates are sorted first
