@@ -238,13 +238,23 @@ Phases (any failure ends the script with a non-zero exit):
     same plan small on the kernel and on scan_ref's plain loop; 15e
     ``sweep_legacy`` on Fig. 5's grid (16 launches) bit for bit with one
     ``sweep()``;
-16. the kernels line (JSON), the card line, then the device line (JSON) last.
+16. grid sharding (``Execution(devices=..., shard="grid")``) through the
+    entry points, each call with the launch counts set to 0 before it and
+    read after (one launch a shard): the Table-1 sweep on ``backend="scan"``
+    (16a) and ``"cuda"`` (16b), the same sweep deferred (16c) and the
+    catalog ``fleet_sweep`` on ``"scan"`` (16d), each unsharded and in
+    ``SHARD_TWINS`` shards on cuda:0 in turns (unsharded, sharded, sharded,
+    unsharded) and, where more than one GPU is visible, over every GPU:
+    every cell bit for bit the unsharded grid's; each launch's device and
+    CUDA-event ms (``shard_timer``) and each call's wall;
+17. the kernels line (JSON), the card line, then the device line (JSON) last.
 
 Every phase prints its wall time at its end.  ``--seed`` (default 0) seeds
 phase 12's draws and recording and phase 15's streams.
 """
 
 import argparse
+import contextlib
 import json
 import re
 import subprocess
@@ -5886,6 +5896,103 @@ def online_phase(torch, rt, dev, card, seed):
     return launches, errs
 
 
+# ---- the grid-sharding phase (module docstring, item 16)
+SHARD_TWINS = 2  # the one-card plan: the grid in this many shards on cuda:0
+
+
+@contextlib.contextmanager
+def shard_timer(torch, backend, engine):
+    """CUDA events around every row launch of ``backend``'s ``engine``
+    launcher, on the current stream of the launch's device; yields the
+    list of ``(device, start, end)`` the launches add, in launch order."""
+    from repro_torch.core.execution import resolve_backend
+
+    launchers = resolve_backend(backend).launchers
+    real = launchers[engine]
+    marks = []
+
+    def timed_launch(*args, **kw):
+        dev = args[0].device
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record(torch.cuda.current_stream(dev))
+        out = real(*args, **kw)
+        end.record(torch.cuda.current_stream(dev))
+        marks.append((dev, start, end))
+        return out
+
+    launchers[engine] = timed_launch
+    try:
+        yield marks
+    finally:
+        launchers[engine] = real
+
+
+def sharding_phase(torch, rt, card):
+    """The grid-sharding phase (module docstring, item 16); returns the
+    phase's launches by kernel, counted by ``LAUNCH_COUNTS``."""
+    import dataclasses
+
+    from repro_torch.data.catalog import catalog_names, fleet_of
+    from repro_torch.kernels.faas_event_step import LAUNCH_COUNTS
+
+    t_phase = time.perf_counter()
+    n_gpus = torch.cuda.device_count()
+    twice = rt.Execution(devices=("cuda:0",) * SHARD_TWINS, shard="grid")
+    # in turns on the one card: unsharded, sharded, sharded, unsharded; then
+    # every visible card where there are more
+    turns = [("unsharded", None), (f"{SHARD_TWINS} shards on cuda:0", twice),
+             (f"{SHARD_TWINS} shards on cuda:0", twice), ("unsharded", None)]
+    if n_gpus > 1:
+        turns.append((f"{n_gpus} GPUs", rt.Execution(devices=n_gpus, shard="grid")))
+    else:
+        print(f"sharding [{card}]: 1 GPU visible: each grid runs unsharded and in "
+              f"{SHARD_TWINS} shards on cuda:0 (the cost of splitting, not a speed-up); "
+              "no multi-GPU run", flush=True)
+    scn = table1(rt)
+    fleet = fleet_of(list(catalog_names()), n_cluster=FLEET_CLUSTER, skip_time=20.0, slots=64)
+    fover = {"expiration_threshold": FLEET_THRESHOLDS}
+    cells = [
+        ("16a Table-1 sweep()", "scan_sweep", "scan", "scan",
+         lambda ex: rt.sweep(scn, SWEEP_OVER, seed=0, replicas=SWEEP_REPLICAS, execution=ex)),
+        ("16b Table-1 sweep()", "faas_sweep", "cuda", "scan",
+         lambda ex: rt.sweep(scn, SWEEP_OVER, seed=0, replicas=SWEEP_REPLICAS, execution=ex)),
+        ("16c Table-1 sweep(deferred=True)", "scan_sweep", "scan", "scan",
+         lambda ex: rt.sweep(scn, SWEEP_OVER, seed=0, replicas=SWEEP_REPLICAS, execution=ex,
+                             deferred=True).result()),
+        ("16d catalog fleet_sweep()", "fleet_scan_sweep", "scan", "fleet",
+         lambda ex: rt.fleet_sweep(fleet, fover, 5, replicas=FLEET_REPLICAS, execution=ex)),
+    ]
+    launches = {}
+    for what, key, backend, engine, call in cells:
+        ref = None
+        for label, plan in turns:
+            ex = rt.Execution(backend=backend) if plan is None else dataclasses.replace(
+                plan, backend=backend)
+            want = {key: ex.n_devices if plan is not None else 1}
+            torch.cuda.synchronize()
+            LAUNCH_COUNTS.clear()
+            with shard_timer(torch, backend, engine) as marks:
+                t0 = time.perf_counter()
+                grid = call(ex)
+                wall = time.perf_counter() - t0
+            expect_launches(LAUNCH_COUNTS, want, f"{what} on {backend}, {label}")
+            launches[key] = launches.get(key, 0) + LAUNCH_COUNTS[key]
+            torch.cuda.synchronize()
+            if ref is None:
+                ref = grid
+                if not grid.ok.all():
+                    raise AssertionError(f"{what} on {backend}: cells not finite")
+            else:
+                grids_equal(grid, ref, f"{what} on {backend}, {label}")
+            shards = "; ".join(f"{d} {s.elapsed_time(e):.3f} ms" for d, s, e in marks)
+            print(f"sharding [{card}]: {what} on {backend}, {label}: {len(marks)} launch(es) "
+                  f"[{shards}], {wall:.3f} s wall"
+                  + ("" if plan is None else "; every cell equal to the unsharded grid bit "
+                     "for bit"), flush=True)
+    print(f"sharding phase: {time.perf_counter() - t_phase:.1f} s wall", flush=True)
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -6350,7 +6457,14 @@ def main() -> int:
     print(f"online phase {time.perf_counter() - t0:.1f} s; script "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # ---- 16. kernels line, card line, device line
+    # ---- 16. grid sharding through sweep() and fleet_sweep()
+    t0 = time.perf_counter()
+    for name, n in sharding_phase(torch, rt, card).items():
+        results[name]["launches"] += n
+    print(f"sharding phase {time.perf_counter() - t0:.1f} s; script "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---- 17. kernels line, card line, device line
     print(json.dumps({"kernels": [
         dict(KERNELS[k], **dict(dict(library_ms=None), **results[k]), max_abs_err=errs[k])
         for k in KERNELS

@@ -55,7 +55,14 @@ import numpy as np
 import torch
 
 from repro_torch.core.cost import BillingModel, CostEstimate, estimate_cost
-from repro_torch.core.execution import _PROVIDERS, Execution, plan_of, resolve_backend
+from repro_torch.core.execution import (
+    _PROVIDERS,
+    Execution,
+    launching_on,
+    plan_of,
+    resolve_backend,
+    shard_spans,
+)
 from repro_torch.core.faults import FaultModel
 from repro_torch.core.processes import SimProcess
 from repro_torch.core.scenario import GridResult, Scenario
@@ -384,7 +391,16 @@ def _resolve_fleet(execution, engine, backend, device):
             "on the host; draws='fused' is not served — use draws='staged' "
             "(the default), which works with backend='scan', 'cuda' and 'ref'"
         )
-    return dataclasses.replace(plan, backend=bspec.name, device=str(dev)), bspec, dev
+    if plan.shard == "grid" and not bspec.f64:
+        raise ValueError(
+            "fleet shard='grid' is served by the f64 scan backend only (the "
+            "block fleet launch is single-device); use "
+            "Execution(devices=..., shard='grid', backend='scan'), or drop "
+            "shard= to keep backend='cuda'/'ref'"
+        )
+    devices = plan.resolved_devices() if plan.shard else None
+    plan = dataclasses.replace(plan, backend=bspec.name, device=str(dev), devices=devices)
+    return plan, bspec, dev
 
 
 # --------------------------------------------------------------------------
@@ -458,6 +474,7 @@ class FleetInputs:
     staged: dict
     faults: dict  # the launch's fault inputs (empty without faults)
     live_bound: int  # no fleet of the launch holds more live instances
+    stream_rows: np.ndarray  # ``stream`` on the host
 
 
 def live_bound(n_cluster, limits, slots: int) -> int:
@@ -542,15 +559,18 @@ def fleet_inputs(
         staged=staged,
         faults=faults,
         live_bound=live_bound(ncl.astype(vdt), cells["limit"].astype(vdt), fleet.slots),
+        stream_rows=np.tile(np.arange(R, dtype=np.int64), C),
     )
 
 
-def _launch_fleet(fleet: FleetScenario, inp: FleetInputs, bspec, replicas: int) -> list:
+def _launch_fleet(fleet: FleetScenario, inp: FleetInputs, bspec, replicas: int,
+                  devices=None) -> list:
     """ONE launch of the backend's fleet launcher over every (cell,
-    replica) fleet; returns one dict per cell: per-function ``summaries``
-    plus ``[F, R]`` fleet arrays and the ``[R]`` peak."""
+    replica) fleet, or on the f64 fleet scan with ``devices`` one a device
+    (:func:`_launch_fleet64`); returns one dict per cell: per-function
+    ``summaries`` plus ``[F, R]`` fleet arrays and the ``[R]`` peak."""
     if bspec.f64:
-        return _launch_fleet64(fleet, inp, bspec, replicas)
+        return _launch_fleet64(fleet, inp, bspec, replicas, devices)
     F, R = len(fleet.functions), int(replicas)
     st = inp.staged
     acc, qleft = bspec.launch_for("fleet")(
@@ -595,24 +615,60 @@ def _launch_fleet(fleet: FleetScenario, inp: FleetInputs, bspec, replicas: int) 
     return out
 
 
-def _launch_fleet64(fleet: FleetScenario, inp: FleetInputs, bspec, replicas: int) -> list:
+def _fleet_shard(inp: FleetInputs, lo: int, hi: int, device) -> tuple:
+    """Fleets ``[lo, hi)`` of a launch on ``device``: their rows of the
+    per-fleet inputs and of the fault rows, and the stream-table rows they
+    read (a contiguous run of rows sliced, else gathered on the first
+    device), with ``stream`` rebased to that table."""
+    rows = inp.stream_rows[lo:hi]
+    used = np.unique(rows)
+    if used[-1] - used[0] + 1 == len(used):
+        table = lambda x: x[used[0]:used[-1] + 1]
+        stream = rows - used[0]
+    else:
+        idx = torch.as_tensor(used, device=inp.stream.device)
+        table = lambda x: x.index_select(0, idx)
+        stream = np.searchsorted(used, rows)
+    move = lambda x: x.to(device, non_blocking=True)
+    st = inp.staged
+    args = tuple(move(x[lo:hi]) for x in (inp.t_exp, inp.limit, inp.ncl, inp.t_end, inp.skip))
+    args += (torch.as_tensor(stream, dtype=torch.int64).to(device),)
+    args += tuple(move(table(st[k])) for k in ("times", "fids", "warms", "colds"))
+    faults = {k: move(table(v) if k == "crash_u" else v[lo:hi]) for k, v in inp.faults.items()}
+    return args, faults
+
+
+def _launch_fleet64(fleet: FleetScenario, inp: FleetInputs, bspec, replicas: int,
+                    devices=None) -> list:
     """:func:`_launch_fleet` on the f64 fleet scan (the reference's
     ``_scan_fleet_cells``): the short-stream and overflow guards, and
-    per-function summaries with lifespans and the fault columns."""
+    per-function summaries with lifespans and the fault columns.
+    ``devices`` (default: the staging device alone; a sharded
+    ``fleet_sweep`` names more) splits the fleets into one contiguous span
+    a device (:func:`~repro_torch.core.execution.shard_spans`): every
+    span's inputs are placed first, then every span is launched, with the
+    whole launch's ``live_bound``, and only then is any read back, the
+    spans joined in fleet order."""
     F, R = len(fleet.functions), int(replicas)
     st = inp.staged
-    out = bspec.launch_for("fleet")(
-        inp.t_exp, inp.limit, inp.ncl, inp.t_end, inp.skip, inp.stream,
-        st["times"], st["fids"], st["warms"], st["colds"],
-        slots=fleet.slots, queue_depth=fleet.queue_depth, prestamped=st["prestamped"],
-        live_bound=inp.live_bound, **inp.faults,
-    )
+    kw = dict(slots=fleet.slots, queue_depth=fleet.queue_depth, prestamped=st["prestamped"],
+              live_bound=inp.live_bound)
+    devices = devices or (inp.t_exp.device,)
+    spans = shard_spans(inp.t_exp.shape[0], len(devices))
+    shards = [(d, *_fleet_shard(inp, lo, hi, d)) for (lo, hi), d in zip(spans, devices)]
+    launch = bspec.launch_for("fleet")
+    outs = []
+    for d, args, faults in shards:
+        with launching_on(d):
+            outs.append(launch(*args, **kw, **faults))
+    del shards
+    read = lambda name: np.concatenate([getattr(o, name).cpu().numpy() for o in outs])
     C = len(inp.cells["n_cluster"])
     faults = bool(inp.faults)
-    acc = out.acc.cpu().numpy().reshape(C, R, F, -1)
-    qleft = out.qleft.cpu().numpy().reshape(C, R, F)
+    acc = read("acc").reshape(C, R, F, -1)
+    qleft = read("qleft").reshape(C, R, F)
     if not st["prestamped"]:
-        short = out.t.cpu().numpy() < np.repeat(inp.cells["sim_time"], R)
+        short = read("t") < np.repeat(inp.cells["sim_time"], R)
         if short.any():
             raise RuntimeError("pre-drawn arrivals ended before sim_time; pass a larger steps=")
     if acc[..., 9].sum() > 0:
@@ -827,7 +883,9 @@ def fleet_run(
     ``prestamped``, and ``crash_u`` with crashes) replaces the draws, and
     ``steps`` sets each function's draw count.
     """
-    _, bspec, dev = _resolve_fleet(execution, engine, backend, device)
+    plan, bspec, dev = _resolve_fleet(execution, engine, backend, device)
+    if plan.shard is not None:
+        raise ValueError("shard= applies to fleet_sweep(); fleet_run executes one cell")
     inp = fleet_inputs(fleet, {}, seed, replicas=replicas, device=dev, steps=steps,
                        staged=staged, f64=bspec.f64)
     outs = _launch_fleet(fleet, inp, bspec, replicas)
@@ -855,12 +913,17 @@ def fleet_sweep(
     (a scalar broadcast to every function, or a length-F sequence),
     ``n_cluster``, ``sim_time``, ``skip_time``.  The result grid gains a
     trailing ``function`` axis (selectable by name or by position).
+
+    On the f64 fleet scan ``execution=Execution(devices=...,
+    shard="grid")`` splits the (cell, replica) fleets into one contiguous
+    span a device, each launched on its rows of the stream (one launch a
+    device, every launch before any read): bit for bit the unsharded grid.
     """
     plan, bspec, dev = _resolve_fleet(execution, engine, backend, device)
     _validate_axes(fleet, over)
     inp = fleet_inputs(fleet, over, seed, replicas=replicas, device=dev, steps=steps,
                        staged=staged, f64=bspec.f64)
-    outs = _launch_fleet(fleet, inp, bspec, replicas)
+    outs = _launch_fleet(fleet, inp, bspec, replicas, plan.devices)
     F = len(fleet.functions)
     names = list(inp.axis_vals)
     dims = tuple(len(inp.axis_vals[n]) for n in names)

@@ -76,6 +76,7 @@ only the reference's compile).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import itertools
@@ -87,7 +88,13 @@ import torch
 
 from repro_torch.core import drawplan as dp
 from repro_torch.core.cost import BillingModel, CostEstimate, estimate_cost
-from repro_torch.core.execution import ENGINE_SPECS, Execution, plan_of
+from repro_torch.core.execution import (
+    ENGINE_SPECS,
+    Execution,
+    launching_on,
+    plan_of,
+    shard_spans,
+)
 from repro_torch.core.faults import CapacityProfile, FaultModel
 from repro_torch.core.processes import (
     ArrivalTimeProcess,
@@ -348,10 +355,24 @@ class Result:
 # ---------------------------------------------------------------------------
 
 
+def _rows_on(x, lo: int, hi: int, device, dtype=torch.float64):
+    """Rows ``[lo, hi)`` of a per-row launch input on ``device``: None stays
+    None; a scalar is broadcast and a host array sliced, both copied in
+    ``dtype``; a device tensor is sliced (a view on its own device) and
+    copied to another device without blocking the host."""
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return x[lo:hi].to(device, non_blocking=True)
+    a = np.asarray(x, np.float64)
+    a = np.broadcast_to(a, (hi - lo,)) if a.ndim == 0 else a[lo:hi]
+    return torch.tensor(a, dtype=dtype, device=device)
+
+
 def _block_launch(
     scn, t_exp, t_end, skip, samples, bspec, device, *,
     prestamped=False, window_rows=None, t_timeout=None, p_fail=None, fused=None,
-    faults=None,
+    faults=None, devices=None,
 ):
     """Fresh pools, per-row f32 parameters and the staged buffers
     (``samples``: ``dts, warms, colds``, then ``fail_u`` with reliability,
@@ -363,50 +384,64 @@ def _block_launch(
     ``crash_rate`` ``[C]`` with crashes, ``cap_edges``/``cap_values``
     ``[C, E]``/``[C, E+1]`` with capacity).  With ``fused``
     (:func:`fused_state`) there are no samples: the kernel draws them, and
-    its final clock goes through the coverage guard."""
+    its final clock goes through the coverage guard.
+
+    ``devices`` (default: ``device`` alone) splits the rows into one
+    contiguous span a device (:func:`~repro_torch.core.execution.
+    shard_spans`): every span's inputs are placed on its device, then
+    every span is launched, and only then is any read back, the
+    accumulators joined in row order."""
     C = fused["keys"][0].shape[0] if fused is not None else samples[0].shape[0]
-    rows = lambda x: torch.tensor(
-        np.broadcast_to(np.asarray(x, np.float64), (C,)),
-        dtype=torch.float32,
-        device=device,
-    )
     M = scn.slots
-    alive0 = torch.zeros((C, M), dtype=torch.float32, device=device)
-    frozen = torch.full((C, M), NEG, dtype=torch.float32, device=device)
-    t0 = torch.zeros((C,), dtype=torch.float32, device=device)
-    kw = {}
-    if window_rows is not None:
-        kw["window_bounds"] = torch.tensor(
-            np.asarray(window_rows, np.float64), dtype=torch.float32, device=device
-        )
+    faults = faults or {}
+    devices = devices or (device,)
+    shards = []
+    # every shard's inputs before any launch: a copy from the first device
+    # queued behind a launch there would hold the next shard back
+    for (lo, hi), dev in zip(shard_spans(C, len(devices)), devices):
+        on = functools.partial(_rows_on, lo=lo, hi=hi, device=dev, dtype=torch.float32)
+        n = hi - lo
+        kw = dict(max_concurrency=scn.max_concurrency)
+        if window_rows is not None:
+            kw["window_bounds"] = on(window_rows)
+        part = tuple(on(x) for x in samples)
+        if fused is not None:
+            kw.update(fused_keys=tuple(on(k) for k in fused["keys"]),
+                      fused_params=tuple(on(p) for p in fused["params"]),
+                      fused_dists=fused["dists"], fused_k=fused["n_steps"])
+            if t_timeout is not None:
+                kw.update(t_timeout=on(t_timeout), p_fail=on(p_fail),
+                          fused_fail_keys=on(fused["fail_keys"]))
+            part = (None, None, None)
+        else:
+            kw["prestamped"] = prestamped
+            if "crash_rate" in faults:
+                kw.update(crash_rate=on(faults["crash_rate"]), crash_u=part[-1])
+                part = part[:-1]
+            if "cap_values" in faults:
+                kw.update(cap_edges=on(faults["cap_edges"]), cap_values=on(faults["cap_values"]))
+            if len(part) > 3:
+                kw.update(t_timeout=on(t_timeout), p_fail=on(p_fail), fail_u=part[3])
+            if len(part) > 4:
+                kw.update(is_first=part[4], child_pos=part[5])
+        alive0 = torch.zeros((n, M), dtype=torch.float32, device=dev)
+        frozen = torch.full((n, M), NEG, dtype=torch.float32, device=dev)
+        t0 = torch.zeros((n,), dtype=torch.float32, device=dev)
+        args = (alive0, frozen, frozen, t0, on(t_exp), on(t_end), on(skip), *part[:3])
+        shards.append((dev, args, kw))
+    with deferred_guards() as checks:
+        outs = []
+        for dev, args, kw in shards:
+            with launching_on(dev):
+                outs.append(bspec.launch(*args, **kw))
+    del shards
+    for read in checks:
+        read()
     if fused is not None:
-        kw.update(fused_keys=fused["keys"], fused_params=fused["params"],
-                  fused_dists=fused["dists"], fused_k=fused["n_steps"])
-        if t_timeout is not None:
-            kw.update(t_timeout=rows(t_timeout), p_fail=rows(p_fail),
-                      fused_fail_keys=fused["fail_keys"])
-        acc, t_last = bspec.launch(
-            alive0, frozen, frozen, t0, rows(t_exp), rows(t_end), rows(skip),
-            None, None, None, max_concurrency=scn.max_concurrency, **kw,
-        )
+        (acc, t_last), = outs
         check_clock_covered(t_last, np.broadcast_to(np.asarray(t_end, np.float64), (C,)))
         return host_acc(acc)
-    faults = faults or {}
-    if "crash_rate" in faults:
-        kw.update(crash_rate=rows(faults["crash_rate"]), crash_u=samples[-1])
-        samples = samples[:-1]
-    if "cap_values" in faults:
-        mat = lambda a: torch.tensor(np.asarray(a, np.float64), dtype=torch.float32,
-                                     device=device)
-        kw.update(cap_edges=mat(faults["cap_edges"]), cap_values=mat(faults["cap_values"]))
-    if len(samples) > 3:
-        kw.update(t_timeout=rows(t_timeout), p_fail=rows(p_fail), fail_u=samples[3])
-    if len(samples) > 4:
-        kw.update(is_first=samples[4], child_pos=samples[5])
-    return host_acc(bspec.launch(
-        alive0, frozen, frozen, t0, rows(t_exp), rows(t_end), rows(skip),
-        *samples[:3], max_concurrency=scn.max_concurrency, prestamped=prestamped, **kw,
-    ))
+    return host_acc(torch.cat([acc.cpu() for acc in outs]))
 
 
 def fused_state(cfgs, seed, replicas: int, n_steps: int, device, *, param_cells=1,
@@ -579,6 +614,11 @@ def run(
     """
     plan = plan_of(execution, backend, device, engine=engine)
     bspec, dev = plan.resolve()
+    if plan.shard is not None:
+        raise ValueError(
+            "shard= applies to sweep() (there is no grid axis to split in a "
+            "single run)"
+        )
     fused = plan.resolved_draws == "fused"
     _check_draw_inputs(fused, staged, fused_keys)
     if plan.engine != "temporal" and (grid is not None or len(initial_instances)):
@@ -823,7 +863,8 @@ class GridResult:
     def to_dict(self) -> dict:
         """JSON-able export: axes (non-scalar values stringified), every
         metric grid including ``ok`` and the windowed grids when present,
-        and the resolved device and draw mode."""
+        and the resolved device and draw mode (with the shard spec and
+        devices of a sharded sweep)."""
         jsonable = lambda x: x if isinstance(x, (int, float, str, bool)) else repr(x)
         out = {
             "axes": {n: [jsonable(x) for x in v] for n, v in self.axes.items()},
@@ -833,6 +874,9 @@ class GridResult:
         if self.execution is not None:
             out["device"] = str(self.execution.device)
             out["draws"] = self.execution.resolved_draws
+            if self.execution.shard is not None:
+                out["shard"] = self.execution.shard
+                out["devices"] = [str(d) for d in self.execution.devices]
         for f in self._METRIC_FIELDS + self._WINDOWED_FIELDS:
             a = getattr(self, f)
             if a is not None:
@@ -1111,6 +1155,15 @@ def sweep(
     ``result()``, which is bit for bit the ``deferred=False`` grid (the
     same kernel on the same operands).  The online what-if service uses it
     to overlap a tick's launch with the ingestion of the next batch.
+
+    ``execution=Execution(devices=..., shard="grid")`` splits each launch's
+    rows into one contiguous span per device (a device named twice takes
+    two): the first device stages every draw, as an unsharded sweep does,
+    each span's rows are placed on its device, every span is launched
+    before any is read, and the spans' accumulators are joined in row
+    order, so each cell is bit for bit the unsharded grid's.  On the block
+    backends a sharded sweep refuses reliability and faults, as the
+    reference's does.
     """
     plan = plan_of(execution, backend, device)
     if plan.engine != "scan":
@@ -1125,11 +1178,23 @@ def sweep(
             "the CPU): the block backends read their results back inside the "
             f"launcher; got backend={bspec.name!r}"
         )
+    devices = plan.resolved_devices() if plan.shard else None
     plan = dataclasses.replace(plan, backend=bspec.name, device=str(dev),
-                               draws=plan.resolved_draws)
+                               draws=plan.resolved_draws, devices=devices)
     _check_draw_inputs(plan.draws == "fused", staged, fused_keys)
     base = Scenario.of(scenario)
     espec = ENGINE_SPECS[plan.engine]
+    if devices and not bspec.f64:
+        if base.reliability is not None:
+            raise ValueError(
+                "reliability sweeps on block backends are single-device; drop "
+                "shard='grid' or use backend='scan'"
+            )
+        if any(fault_plan(base, over)):
+            raise ValueError(
+                "fault sweeps on block backends are single-device; drop "
+                "shard='grid' or use backend='scan'"
+            )
     if base.reliability is not None and bspec.name not in espec.reliability_backends:
         raise ValueError(
             f"backend {bspec.name!r} does not serve reliability on engine "
@@ -1191,7 +1256,7 @@ def sweep(
         if key not in launched:
             if scan64:
                 launched[key] = _scan_sweep_cells(scn_s, inp, samples, bspec, dev, R,
-                                                  window_rows, measured)
+                                                  window_rows, measured, devices)
             else:
                 if scn_s.track_histogram:
                     raise ValueError("histograms need the f64 scan backend")
@@ -1200,7 +1265,7 @@ def sweep(
                     scn_s, inp.thr_rows, inp.sim_rows, inp.skip_rows, samples, bspec, dev,
                     prestamped=inp.prestamped, window_rows=window_rows,
                     t_timeout=inp.t_timeout_rows, p_fail=inp.p_fail_rows, fused=inp.fused,
-                    faults=inp.fault_rows,
+                    faults=inp.fault_rows, devices=devices,
                 )
                 cells = _cell_summaries(acc, R, measured, bounds=wb,
                                         reliability=base.reliability is not None,
@@ -1213,7 +1278,7 @@ def sweep(
     finish = functools.partial(_assemble_grid, base, inp, combos, guards if deferred else (),
                                plan, bspec.name, R)
     if deferred:
-        return PendingSweep(finish, dev)
+        return PendingSweep(finish, devices or (dev,))
     return finish()
 
 
@@ -1221,26 +1286,27 @@ class PendingSweep:
     """A launched, not yet read :func:`sweep` (``deferred=True``).
 
     :meth:`result` runs the staging's coverage guards, copies the
-    launches' outputs to the host (on the CUDA stream that launched them),
-    runs the reference's guards (short stream, pool overflow) and
-    assembles the :class:`GridResult`, bit for bit the synchronous sweep's.
-    It memoises: a second call returns the same grid, and the device
-    tensors are dropped after the first.
+    launches' outputs to the host (each shard's on the CUDA stream of its
+    device that launched it), runs the reference's guards (short stream,
+    pool overflow) and assembles the :class:`GridResult`, bit for bit the
+    synchronous sweep's.  It memoises: a second call returns the same grid,
+    and the device tensors are dropped after the first.
     """
 
-    def __init__(self, finish, device):
+    def __init__(self, finish, devices):
         self._finish = finish
         self._result: Optional[GridResult] = None
-        dev = torch.device(device)
-        self._stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+        # the current stream of each CUDA device the launches went to
+        cuda = [torch.device(d) for d in devices if torch.device(d).type == "cuda"]
+        self._streams = tuple({torch.cuda.current_stream(d).cuda_stream:
+                               torch.cuda.current_stream(d) for d in cuda}.values())
 
     def result(self) -> GridResult:
         if self._result is None:
-            if self._stream is None:
+            with contextlib.ExitStack() as on_streams:
+                for stream in self._streams:
+                    on_streams.enter_context(torch.cuda.stream(stream))
                 self._result = self._finish()
-            else:
-                with torch.cuda.stream(self._stream):
-                    self._result = self._finish()
             self._finish = None  # drop the captured device tensors
         return self._result
 
@@ -1328,25 +1394,41 @@ def _assemble_grid(base, inp: SweepInputs, combos, guards, plan, backend: str,
 
 
 def _scan_sweep_cells(scn_s, inp: SweepInputs, samples, bspec, dev, R: int, window_rows,
-                      measured):
-    """One f64 engine launch of a sweep's static combination; returns the
-    collector that reads it back and gives its per-cell summaries after the
-    reference's guards."""
-    out = scan_launch(
-        scn_s, bspec, dev, samples, t_exp=inp.thr_rows, t_end=inp.sim_rows,
-        skip=inp.skip_rows, prestamped=inp.prestamped, window_rows=window_rows,
-        t_timeout=inp.t_timeout_rows, p_fail=inp.p_fail_rows, faults=inp.fault_rows,
-        fused=inp.fused,
-    )
-    # the collector holds the accumulator and the clocks, not the staging
-    acc_dev, t_dev = out.acc, out.t
+                      measured, devices=None):
+    """One f64 engine launch of a sweep's static combination, or with
+    ``devices`` one launch a device on its span of the rows (as
+    :func:`_block_launch` splits them: every span's inputs placed, then
+    every span launched); returns the collector that reads the launches
+    back, joins them in row order and gives the per-cell summaries after
+    the reference's guards."""
+    devices = devices or (dev,)
+    shards = []
+    for (lo, hi), d in zip(shard_spans(len(inp.thr_rows), len(devices)), devices):
+        on = functools.partial(_rows_on, lo=lo, hi=hi, device=d)
+        faults = inp.fault_rows and {k: on(v) for k, v in inp.fault_rows.items()}
+        shards.append((d, tuple(on(x) for x in samples), dict(
+            t_exp=on(inp.thr_rows), t_end=on(inp.sim_rows), skip=on(inp.skip_rows),
+            prestamped=inp.prestamped, window_rows=on(window_rows),
+            t_timeout=on(inp.t_timeout_rows), p_fail=on(inp.p_fail_rows), faults=faults,
+            fused=inp.fused,
+        )))
+    # the window-bound checks read the device: deferred to the collector
+    with deferred_guards() as checks:
+        outs = []
+        for d, part, kw in shards:
+            with launching_on(d):
+                outs.append(scan_launch(scn_s, bspec, d, part, **kw))
+    # the collector holds the accumulators and the clocks, not the staging
+    parts = [(out.acc, out.t) for out in outs]
     prestamped, sim_rows = inp.prestamped, inp.sim_rows
     faults = inp.fault_rows is not None
-    del out
+    del shards, outs
 
     def collect() -> list:
-        acc = acc_dev.cpu().numpy()
-        t_last = t_dev.cpu().numpy()
+        for read in checks:
+            read()
+        acc = np.concatenate([a.cpu().numpy() for a, _ in parts])
+        t_last = np.concatenate([t.cpu().numpy() for _, t in parts])
         if not prestamped and (t_last < sim_rows).any():
             raise RuntimeError(
                 "pre-drawn arrivals ended before sim_time "

@@ -353,12 +353,14 @@ _DEFERRED: contextvars.ContextVar = contextvars.ContextVar("deferred_guards", de
 
 @contextlib.contextmanager
 def deferred_guards():
-    """Within this context the staging's coverage guards compute their
-    flags on the device but do not read them: each read, a closure that
-    raises the guard's error, is appended to the yielded list for the
-    caller to run before it returns a result (a deferred sweep's
-    ``result()``).  A read synchronises the host with the device, so a
-    deferred sweep reads nothing before its launch."""
+    """Within this context the staging's coverage guards and the kernel
+    wrappers' checks on device values (window bounds) compute their flags
+    on the device but do not read them: each read, a closure that raises
+    the guard's error, is appended to the yielded list for the caller to
+    run before it returns a result (a deferred sweep's ``result()``, a
+    sharded sweep's reads).  A read synchronises the host with the device,
+    so a deferred sweep reads nothing before its launch, and a sharded one
+    nothing between its shards' launches."""
     checks: list = []
     token = _DEFERRED.set(checks)
     try:
@@ -367,7 +369,7 @@ def deferred_guards():
         _DEFERRED.reset(token)
 
 
-def _guard(read) -> None:
+def guard(read) -> None:
     """Run the guard ``read`` now, or defer it (:func:`deferred_guards`)."""
     checks = _DEFERRED.get()
     if checks is None:
@@ -393,7 +395,7 @@ def draw_arrival_times(scn, generator, replicas: int, n: int, device) -> torch.T
                 "pass a larger `steps`"
             )
 
-    _guard(read)
+    guard(read)
     return times
 
 
@@ -591,7 +593,7 @@ def check_covered(dts, sim_rows, device) -> None:
                 f"(min final t {covered.min().item():.1f}); pass a larger `steps`"
             )
 
-    _guard(read)
+    guard(read)
 
 
 def check_clock_covered(t_last, sim_rows) -> None:
@@ -704,7 +706,10 @@ def scan_backend(engine: str, backend: Optional[str], device) -> tuple:
 
 
 def _f64_rows(x, C: int, device) -> torch.Tensor:
-    """An f64 ``[C]`` tensor from a scalar or a length-C sequence."""
+    """An f64 ``[C]`` tensor from a scalar or a length-C sequence (a tensor
+    passes through: the caller placed it on the device)."""
+    if isinstance(x, torch.Tensor):
+        return x
     return torch.as_tensor(
         np.broadcast_to(np.asarray(x, np.float64), (C,)).copy(), device=device
     )
@@ -720,7 +725,8 @@ def scan_launch(
     buffers: ``arr, warms, colds``, then ``fail_u`` with reliability,
     ``is_first, child_pos`` with retries and ``crash_u`` with crashes);
     ``t_exp``/``t_end``/``skip`` (and ``t_timeout``/``p_fail``) are scalars
-    or per-row values, ``window_rows`` the ``[C, W+1]`` window bounds,
+    or per-row values, ``window_rows`` the ``[C, W+1]`` window bounds (a
+    per-row input given as a tensor is taken as placed on ``device``),
     ``faults`` the per-row fault inputs (``crash_rate``, ``cap_edges``,
     ``cap_values``), ``pool`` an initial ``(alive, creation, busy)`` of
     ``[M]`` host arrays (default: empty) and ``grid`` the ``[G]`` snapshot
@@ -744,7 +750,8 @@ def scan_launch(
         max_concurrency=scn.max_concurrency, prestamped=prestamped, routing=scn.routing,
         hist_bins=scn.hist_bins if scn.track_histogram else 0,
     )
-    mat = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=device).contiguous()
+    mat = lambda a: a if isinstance(a, torch.Tensor) else torch.as_tensor(
+        np.asarray(a, np.float64), device=device).contiguous()
     if window_rows is not None:
         kw["window_bounds"] = mat(window_rows)
     if grid is not None:

@@ -32,6 +32,7 @@ import torch
 from repro_torch.core.drawplan import FUSED_DISTS
 from repro_torch.core.execution import register_backend
 from repro_torch.kernels import _build
+from repro_torch.kernels.ref64 import check_increasing
 # NEG (the dead-slot sentinel) and the acc layout are shared with the plain
 # version
 from repro_torch.kernels.ref import (  # noqa: F401
@@ -246,8 +247,7 @@ def faas_sweep(
             raise ValueError(
                 f"faas_sweep takes 1 to {MAX_WINDOWS} windows per row, got {W}"
             )
-        if not bool((window_bounds[:, 1:] > window_bounds[:, :-1]).all()):
-            raise ValueError("window_bounds must be strictly increasing in every row")
+        check_increasing(window_bounds)
     if G and (W or reliability):
         raise ValueError(
             "faas_sweep runs grid columns alone (the temporal engine); "
@@ -353,6 +353,7 @@ def _check_fused(dts, warms, colds, fail_u, keys, params, dists, k, retries, gri
     "cuda",
     description="hand-written Hopper kernels, one warp per row (sm_90a)",
     engines=("scan", "temporal"),
+    shardable=True,
 )
 def _cuda_sweep_rows(
     alive0, creation0, busy0, t0, t_exp, t_end, skip, dts, warms, colds, **kw,

@@ -832,6 +832,7 @@ def fleet_sweep_ref(
     "ref",
     description="plain PyTorch loops over arrivals (the kernels' mirrors)",
     engines=("scan", "temporal"),
+    shardable=True,
 )
 def _ref_sweep_rows(
     alive0, creation0, busy0, t0, t_exp, t_end, skip, dts, warms, colds, **kw,

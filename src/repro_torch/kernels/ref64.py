@@ -48,6 +48,7 @@ from repro_torch.core.reliability import NO_CHILD
 from repro_torch.core.simulator import (
     NEG_INF,
     fault_interval_integrals,
+    guard,
     histogram_update,
     interval_integrals,
     window_integrals,
@@ -230,6 +231,19 @@ def check_fused_inputs(fused_keys, fused_params, fused_dists, fused_profile) -> 
         raise ValueError("an nhpp arrival stream and fused_profile come together")
 
 
+def check_increasing(window_bounds) -> None:
+    """Every row of the window bounds strictly increasing: read at once,
+    or where the open :func:`~repro_torch.core.simulator.deferred_guards`
+    reads its guards."""
+    ok = (window_bounds[:, 1:] > window_bounds[:, :-1]).all()
+
+    def read():
+        if not bool(ok):
+            raise ValueError("window_bounds must be strictly increasing in every row")
+
+    guard(read)
+
+
 def check_scan_inputs(layout_kw: dict) -> None:
     """The optional inputs' structure, as both f64 wrappers check it on
     any device: pairs that come together, and a known routing."""
@@ -249,8 +263,8 @@ def check_scan_inputs(layout_kw: dict) -> None:
     if (kw.get("cap_edges") is None) != (kw.get("cap_values") is None):
         raise ValueError("cap_edges and cap_values come together (capacity)")
     wb = kw.get("window_bounds")
-    if wb is not None and wb.shape[-1] > 1 and not bool((wb[:, 1:] > wb[:, :-1]).all()):
-        raise ValueError("window_bounds must be strictly increasing in every row")
+    if wb is not None and wb.shape[-1] > 1:
+        check_increasing(wb)
     if kw.get("fused_keys") is not None:
         check_fused_inputs(kw["fused_keys"], kw.get("fused_params"), kw.get("fused_dists"),
                            kw.get("fused_profile"))
@@ -1003,6 +1017,7 @@ def fleet_scan_sweep_ref(
     description="plain f64 PyTorch loops over events (the f64 kernels' mirrors)",
     engines=("scan", "temporal"),
     f64=True,
+    shardable=True,
 )
 def _scan_ref_rows(alive0, creation0, busy0, arr, warms, colds, **kw) -> ScanOut:
     """Backend ``"scan_ref"``'s pool-state launcher (``kw`` as

@@ -184,6 +184,7 @@ def scan_sweep(
     description="hand-written f64 Hopper kernels of the reference's scan (sm_90a)",
     engines=("scan", "temporal"),
     f64=True,
+    shardable=True,
 )
 def _scan_rows(alive0, creation0, busy0, arr, warms, colds, **kw) -> ScanOut:
     """Backend ``"scan"``'s pool-state launcher (``kw`` as

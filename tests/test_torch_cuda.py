@@ -2510,3 +2510,126 @@ def test_fleet_online_tick_launches_one_fleet_scan(cuda_device):
         rec = svc.tick()
         assert dict(fes.LAUNCH_COUNTS) == {"fleet_scan_sweep": 1}
         assert rec.grid.backend == "scan" and rec.headroom == 12 - rec.predicted_total_replicas
+
+
+# ---------------------------------------------------------------------------
+# grid sharding: kernels 1, 8 and 10 launched once a shard, bit for bit with
+# the unsharded launch
+# ---------------------------------------------------------------------------
+
+SHARD_PLANS = ("twice", "one", "every")
+
+
+def _shard_plan(how):
+    """Two shards on cuda:0, ``devices=1``, or every visible GPU (skipped
+    on a host with one)."""
+    from repro_torch.core.execution import Execution
+
+    if how == "every":
+        if torch.cuda.device_count() < 2:
+            pytest.skip("needs more than one visible GPU")
+        return Execution(devices=torch.cuda.device_count(), shard="grid")
+    return Execution(devices=("cuda:0",) * 2 if how == "twice" else 1, shard="grid")
+
+
+def _grids_equal(got, want):
+    assert got.axes == want.axes
+    for f in ("cold_start_prob", "rejection_prob", "avg_server_count", "wasted_ratio",
+              "avg_response_time", "developer_cost", "ok"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f)
+    for idx in np.ndindex(got.shape):
+        g, w = got.summaries[idx], want.summaries[idx]
+        for f in ("n_cold", "n_warm", "n_reject", "time_running", "time_idle",
+                  "sum_cold_resp", "sum_warm_resp", "lifespan_sum", "lifespan_count",
+                  "overflow"):
+            np.testing.assert_array_equal(getattr(g, f), getattr(w, f), err_msg=f"{f} {idx}")
+        if w.windows is not None:
+            for f in ("n_cold", "n_warm", "n_arrivals", "time_running", "time_idle"):
+                np.testing.assert_array_equal(getattr(g.windows, f), getattr(w.windows, f),
+                                              err_msg=f"windows.{f} {idx}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("windows", [False, True])
+@pytest.mark.parametrize("backend", ["scan", "cuda"])
+@pytest.mark.parametrize("how", SHARD_PLANS)
+def test_sharded_sweep_is_the_unsharded_sweep(cuda_device, how, backend, windows):
+    import dataclasses
+
+    import repro_torch as rt
+
+    plan = dataclasses.replace(_shard_plan(how), backend=backend)
+    wb = (0.0, 500.0, 2500.0, 5000.0) if windows else None
+    scn = _online_base(rt, sim_time=5000.0, skip_time=100.0, window_bounds=wb)
+    # 3 x 2 cells x 37 replicas = 222 rows: shards split cells apart
+    over = {"expiration_threshold": [60.0, 300.0, 600.0], "arrival_rate": [0.5, 0.9]}
+    key = ("scan_sweep" if backend == "scan" else
+           "faas_sweep_win" if windows else "faas_sweep")
+    ref = rt.sweep(scn, over, 4, replicas=37, backend=backend)
+    fes.LAUNCH_COUNTS.clear()
+    current = torch.cuda.current_device()
+    got = rt.sweep(scn, over, 4, replicas=37, execution=plan)
+    assert torch.cuda.current_device() == current  # the launches restore it
+    assert dict(fes.LAUNCH_COUNTS) == {key: plan.n_devices}
+    assert got.execution.devices == plan.resolved_devices()
+    _grids_equal(got, ref)
+    if backend == "scan":
+        fes.LAUNCH_COUNTS.clear()
+        pend = rt.sweep(scn, over, 4, replicas=37, execution=plan, deferred=True)
+        assert dict(fes.LAUNCH_COUNTS) == {key: plan.n_devices}
+        _grids_equal(pend.result(), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["catalog", "queued", "faults"])
+@pytest.mark.parametrize("how", SHARD_PLANS)
+def test_sharded_fleet_sweep_is_the_unsharded_sweep(cuda_device, how, case):
+    """The catalog's 3,072 fleets take kernel 10's pinned L = 1 instance in
+    one launch and the unpinned one in each half: the pin moves only the
+    timing."""
+    import dataclasses
+
+    import repro_torch as rt
+    from repro_torch.core.faults import CapacityProfile, FaultModel
+    from repro_torch.data.catalog import catalog_names, fleet_of
+    from repro_torch.kernels import fleet_scan_event_step as fss
+
+    plan = dataclasses.replace(_shard_plan(how), backend="scan")
+    queued = case == "queued"
+    fleet = fleet_of(list(catalog_names()), n_cluster=16 if queued else 24,
+                     queue_depth=4 if queued else 0, sim_time=1500.0, skip_time=20.0, slots=64)
+    if case == "faults":
+        fleet = dataclasses.replace(fleet, faults=FaultModel(
+            crash_rate=2e-3, capacity=CapacityProfile(edges=(500.0, 1000.0),
+                                                      values=(24.0, 6.0, 24.0))))
+    over = {"expiration_threshold": [float(x) for x in np.linspace(60.0, 1200.0, 6)]}
+    ref = rt.fleet_sweep(fleet, over, 5, replicas=512, backend="scan")
+    fes.LAUNCH_COUNTS.clear()
+    current = torch.cuda.current_device()
+    got = rt.fleet_sweep(fleet, over, 5, replicas=512, execution=plan)
+    assert torch.cuda.current_device() == current
+    launch_key = "fleet_scan_sweep_fault" if case == "faults" else "fleet_scan_sweep"
+    assert dict(fes.LAUNCH_COUNTS) == {launch_key: plan.n_devices}
+    if case == "catalog" and how == "twice":
+        pins = [fss.resources(n, 8, 64, 24)["pinned"] for n in (3072, 1536)]
+        assert pins == [True, False]
+    _grids_equal(got, ref)
+    for f in ("queue_wait_avg", "cluster_utilization", "peak_cluster"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(ref, f), err_msg=f)
+
+
+@pytest.mark.cuda
+def test_sharded_plan_resolves_on_the_card(cuda_device):
+    from repro_torch.core.execution import Execution
+
+    n = torch.cuda.device_count()
+    assert Execution(shard="grid").resolved_devices() == tuple(
+        torch.device("cuda", i) for i in range(n))
+    assert Execution(devices=("cuda",) * 2, shard="grid").resolve()[1] == torch.device("cuda", 0)
+    with pytest.raises(ValueError, match="CUDA devices are visible"):
+        Execution(devices=n + 1, shard="grid").resolved_devices()
+    with pytest.raises(ValueError, match="only"):
+        Execution(devices=(f"cuda:{n}",), shard="grid").resolve()
+    if n > 1:
+        with pytest.raises(ValueError, match="must be the first of devices"):
+            Execution(device="cuda:1", devices=("cuda:0", "cuda:1"), shard="grid").resolve()
